@@ -1,0 +1,19 @@
+"""tpukern_torch — the PyTorch / CUDA port of tpukern for NVIDIA Hopper.
+
+The JAX package `tpukern` stays the reference. This package mirrors its
+layout (core/ ops/ models/ harness/) and its module and function names,
+so every piece has one counterpart there. Plain tensor code is PyTorch;
+every Pallas kernel on the ported path is a kernel written by hand for
+sm_90a under `csrc/`, built at first use by `tpukern_torch._build`.
+
+Each kernel wrapper in `ops/` dispatches on the device of its input: a
+CPU tensor takes the plain PyTorch version beside it, a CUDA tensor
+launches the kernel (or raises). Each wrapper counts its launches in a
+`launches` attribute.
+
+Ported so far: the paged serving path (`models.serving`,
+`models.batcher`) with its four kernels: rms_norm, rope_cached,
+flash_attention (forward) and paged_attention (decode).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,155 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The counterpart of tpukern/core/config.py's dispatch: where the JAX
+package picks compiled Mosaic or interpret mode, this package compiles
+`csrc/*.cu` with nvcc for sm_90a into one shared library with a plain C
+interface and loads it with ctypes. Nothing here runs at import: the
+library is built on the first launch, so hosts without nvcc (the CPU
+test lane) import every module freely.
+
+- The build directory is `build/<hash>/` beside this file, keyed by a
+  hash of the sources and the flags, so a stale library is never
+  loaded. The library is written to a temporary name and renamed, so
+  concurrent first launches cannot load a half-written file.
+- A failed build raises with nvcc's output.
+- Every C entry point returns cudaGetLastError() after its launch, and
+  `launch` raises if that is not 0.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD = Path(__file__).parent / "build"
+LIB_NAME = "libtpukern_torch.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# dtype codes shared with csrc/common.cuh (enum tk::Dtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
+# argtypes of every C entry point (csrc/capi.cu); ctypes would otherwise
+# pass each pointer as a 32-bit int
+SIGNATURES = {
+    # x, g, y, rows, cols, eps, x_dtype, g_dtype, stream
+    "tk_rms_norm": [_P, _P, _P, _I64, _I64, _F, _I, _I, _P],
+    # x, cos, sin, y, rows, head_dim, dtype, stream
+    "tk_rope_cached": [_P, _P, _P, _P, _I64, _I, _I, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, sm_scale, causal, dtype, stream
+    "tk_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _I, _I, _P],
+    # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
+    # page_size, pages_per_seq, D, sm_scale, dtype, stream
+    "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _P],
+}
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a host with the CUDA toolkit")
+    return nvcc
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    """build/<hash of sources and flags>/ for the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD / h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if this source hash has none yet. Returns its
+    path and the seconds spent compiling (0.0 when it was already
+    built)."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tk_error_string.argtypes = [ctypes.c_int]
+    lib.tk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name, *args):
+    """Call one C entry point; raise if its launch reported an error."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.tk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_cuda(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernel needs CUDA tensors, got {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        # the kernels launch on the current device's stream
+        raise ValueError(f"tensors on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")

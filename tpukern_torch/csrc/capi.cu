@@ -1,0 +1,53 @@
+// The C interface that tpukern_torch/_build.py loads with ctypes.
+//
+// One entry point per kernel. Each validates through its launcher, then
+// returns cudaGetLastError(), so a launch the driver refuses (too many
+// threads, too much shared memory, no image for this card) reaches the
+// Python wrapper as an error instead of a silent no-op.
+#include "common.cuh"
+
+namespace {
+int checked(cudaError_t e) {
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+extern "C" {
+
+const char* tk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int tk_rms_norm(const void* x, const void* g, void* y, int64_t rows,
+                int64_t cols, float eps, int x_dtype, int g_dtype,
+                void* stream) {
+  return checked(tk::rms_norm_launch(x, g, y, rows, cols, eps, x_dtype, g_dtype,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+int tk_rope_cached(const void* x, const void* cos, const void* sin, void* y,
+                   int64_t rows, int head_dim, int dtype, void* stream) {
+  return checked(tk::rope_cached_launch(x, cos, sin, y, rows, head_dim, dtype,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+int tk_flash_attention(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                       float sm_scale, int causal, int dtype, void* stream) {
+  return checked(tk::flash_attention_launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                            sm_scale, causal, dtype,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                       const int* lengths, const int* page_table, void* o,
+                       int B, int Hq, int Hkv, int P, int page_size,
+                       int pages_per_seq, int D, float sm_scale, int dtype,
+                       void* stream) {
+  return checked(tk::paged_attention_launch(
+      q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P, page_size,
+      pages_per_seq, D, sm_scale, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"

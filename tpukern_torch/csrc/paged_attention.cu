@@ -1,0 +1,256 @@
+// Paged decode attention: one query token per sequence against its KV
+// pages. Sequence b's logical page i lives at physical page
+// page_table[b][i] of the (Hkv, P, page_size, D) pools; positions at or
+// past lengths[b] are masked, and a sequence of length 0 outputs 0.
+//
+// Replaces tpukern/ops/paged_attention.py:77 `_decode_kernel` for float
+// pools. There, scalar prefetch hands the page table to the grid and async
+// DMAs copy whole pages into VMEM. Here one block owns one (sequence, KV
+// head) and reads the page table itself: each 64-token tile first turns
+// positions into pool rows, then issues all of the tile's K and V loads at
+// once (16 bytes per load, several per thread, so many are in flight), and
+//   1. scores: PA_TPR threads share a K row and, for every query head of
+//      the GQA group, dot it with q (shuffle-reduced across those threads),
+//   2. one warp per query head folds the tile into the running max and sum
+//      (natural exp in f32, as the TPU kernel does),
+//   3. each thread owns one 16-byte column chunk of V and a strided subset
+//      of the tile's tokens, and accumulates p * V for every head of the
+//      group; the token subsets are summed once, at the end.
+// All `group` query heads share one pass over the KV head's pages, as the
+// TPU kernel batches them (paged_attention.py:324-325).
+//
+// What bounds it: decode reads every live K/V byte once and does 4 flops
+// per group and per byte pair, so it is bound by memory bandwidth, and at
+// small batch by too few blocks: B * Hkv blocks (32 at B = 4, Hkv = 8) on
+// 132 SMs, each waiting out a few memory latencies per tile. Splitting the
+// KV range over more blocks (flash-decoding) is the obvious next step and
+// is left to a later PR.
+#include "common.cuh"
+
+namespace tk {
+namespace {
+
+constexpr int PA_THREADS = 128;
+constexpr int PA_WARPS = PA_THREADS / 32;
+constexpr int PA_TILE = 64;  // tokens per tile: 2 per lane in the softmax
+constexpr int PA_GMAX = 8;   // largest GQA group
+constexpr int PA_TPR = 8;    // threads per K row in the score pass (at most)
+
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(PA_THREADS)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages, const int* __restrict__ lengths,
+                    const int* __restrict__ page_table, T* __restrict__ o, int Hq,
+                    int Hkv, int P, int page_size, int pages_per_seq,
+                    float sm_scale) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int CH = D / VEC;          // 16-byte chunks per row
+  // score pass: TPR threads per K row, CPT chunks each, PA_THREADS / TPR
+  // rows at once, K_PASSES times per tile
+  constexpr int TPR = CH < PA_TPR ? CH : PA_TPR;
+  constexpr int CPT = CH / TPR;
+  constexpr int K_PASSES = PA_TILE / (PA_THREADS / TPR);
+  // P V pass: one chunk per thread, TG token groups, V_PASSES tokens each
+  constexpr int TG = PA_THREADS / CH;
+  constexpr int V_PASSES = PA_TILE / TG;
+  static_assert(D % VEC == 0 && PA_THREADS % CH == 0 && CH % TPR == 0 &&
+                    K_PASSES >= 1 && V_PASSES >= 1,
+                "unsupported head dim");
+
+  __shared__ float q_s[PA_GMAX][D];
+  __shared__ float p_s[PA_GMAX][PA_TILE];
+  __shared__ int64_t row_s[PA_TILE];
+  __shared__ float m_s[PA_GMAX], l_s[PA_GMAX], alpha_s[PA_GMAX];
+  __shared__ __align__(16) float red_s[PA_THREADS * VEC];
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int group = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = tid % TPR, krow = tid / TPR;  // score pass
+  const int ch = tid % CH, tg = tid / CH;       // P V pass
+  const T* q_b = q + ((int64_t)b * Hq + (int64_t)hk * group) * D;
+  const T* k_h = k_pages + (int64_t)hk * P * page_size * D;
+  const T* v_h = v_pages + (int64_t)hk * P * page_size * D;
+  const int* table = page_table + (int64_t)b * pages_per_seq;
+  // a caller may pass length + 1 for a slot already at the pool's end
+  // (an inactive slot's dead decode); nothing past the pool exists
+  const int len = max(0, min(lengths[b], pages_per_seq * page_size));
+
+  for (int i = tid; i < group * D; i += PA_THREADS)
+    q_s[i / D][i % D] = to_f32(q_b[i]) * sm_scale;
+  if (tid < PA_GMAX) {
+    m_s[tid] = NEG_BIG;
+    l_s[tid] = 0.f;
+  }
+  float acc[PA_GMAX][VEC];
+#pragma unroll
+  for (int gi = 0; gi < PA_GMAX; ++gi)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
+
+  for (int t0 = 0; t0 < len; t0 += PA_TILE) {
+    const int n = min(PA_TILE, len - t0);
+    __syncthreads();  // q_s/m_s written, or the previous tile consumed
+    if (tid < n) {
+      const int pos = t0 + tid;
+      const int64_t page = table[pos / page_size];
+      row_s[tid] = (page * page_size + pos % page_size) * D;
+    }
+    __syncthreads();
+
+    // every K and V load of the tile, issued before any is used
+    uint4 kr[K_PASSES][CPT], vr[V_PASSES];
+#pragma unroll
+    for (int ps = 0; ps < K_PASSES; ++ps) {
+      const int j = ps * (PA_THREADS / TPR) + krow;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        kr[ps][c] = load16(k_h + (j < n ? row_s[j] : 0) + (sub + c * TPR) * VEC, j < n);
+    }
+#pragma unroll
+    for (int ps = 0; ps < V_PASSES; ++ps) {
+      const int j = ps * TG + tg;
+      vr[ps] = load16(v_h + (j < n ? row_s[j] : 0) + ch * VEC, j < n);
+    }
+
+    // 1. scores
+#pragma unroll
+    for (int ps = 0; ps < K_PASSES; ++ps) {
+      const int j = ps * (PA_THREADS / TPR) + krow;
+      float part[PA_GMAX];
+#pragma unroll
+      for (int gi = 0; gi < PA_GMAX; ++gi) part[gi] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const T* e = reinterpret_cast<const T*>(&kr[ps][c]);
+        const int col = (sub + c * TPR) * VEC;
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) {
+          const float kv = to_f32(e[x]);
+#pragma unroll
+          for (int gi = 0; gi < PA_GMAX; ++gi)
+            if (gi < group) part[gi] = fmaf(q_s[gi][col + x], kv, part[gi]);
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < PA_GMAX; ++gi) {
+        if (gi < group) {
+          float s = part[gi];
+#pragma unroll
+          for (int off = TPR / 2; off > 0; off >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+          if (sub == 0) p_s[gi][j] = j < n ? s : NEG_BIG;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. online softmax, one warp per query head
+    for (int gi = warp; gi < group; gi += PA_WARPS) {
+      const float s0 = p_s[gi][lane], s1 = p_s[gi][lane + 32];
+      const float m_old = m_s[gi];
+      const float mn = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - mn), p1 = expf(s1 - mn);
+      const float sum = warp_sum(p0 + p1);
+      p_s[gi][lane] = p0;
+      p_s[gi][lane + 32] = p1;
+      if (lane == 0) {
+        const float alpha = expf(m_old - mn);
+        alpha_s[gi] = alpha;
+        l_s[gi] = l_s[gi] * alpha + sum;
+        m_s[gi] = mn;
+      }
+    }
+    __syncthreads();
+
+    // 3. acc = acc * alpha + p V over this thread's tokens and columns
+    //    (masked tokens have p = 0 and zero V)
+#pragma unroll
+    for (int gi = 0; gi < PA_GMAX; ++gi) {
+      if (gi < group) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[gi][e] *= alpha_s[gi];
+      }
+    }
+#pragma unroll
+    for (int ps = 0; ps < V_PASSES; ++ps) {
+      const int j = ps * TG + tg;
+      const T* e = reinterpret_cast<const T*>(&vr[ps]);
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) {
+        const float vv = to_f32(e[x]);
+#pragma unroll
+        for (int gi = 0; gi < PA_GMAX; ++gi)
+          if (gi < group) acc[gi][x] = fmaf(p_s[gi][j], vv, acc[gi][x]);
+      }
+    }
+  }
+
+  // sum the TG token groups' partial outputs, one query head at a time
+  T* o_b = o + ((int64_t)b * Hq + (int64_t)hk * group) * D;
+#pragma unroll
+  for (int gi = 0; gi < PA_GMAX; ++gi) {
+    if (gi < group) {
+      __syncthreads();  // the tile loop or the previous head is done with red_s
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red_s[tid * VEC + e] = acc[gi][e];
+      __syncthreads();
+      const float l = l_s[gi];
+      for (int d = tid; d < D; d += PA_THREADS) {
+        float s = 0.f;
+        for (int t = 0; t < TG; ++t) s += red_s[(t * CH + d / VEC) * VEC + d % VEC];
+        o_b[(int64_t)gi * D + d] = from_f32<T>(l == 0.f ? 0.f : s / l);
+      }
+    }
+  }
+}
+
+template <int D>
+void launch_d(dim3 grid, cudaStream_t stream, const void* q, const void* k_pages,
+              const void* v_pages, const int* lengths, const int* page_table,
+              void* o, int Hq, int Hkv, int P, int page_size, int pages_per_seq,
+              float sm_scale, int dtype) {
+  if (dtype == kBF16)
+    paged_decode_kernel<bf16, D><<<grid, PA_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+        static_cast<const bf16*>(v_pages), lengths, page_table,
+        static_cast<bf16*>(o), Hq, Hkv, P, page_size, pages_per_seq, sm_scale);
+  else
+    paged_decode_kernel<float, D><<<grid, PA_THREADS, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pages),
+        static_cast<const float*>(v_pages), lengths, page_table,
+        static_cast<float*>(o), Hq, Hkv, P, page_size, pages_per_seq, sm_scale);
+}
+
+}  // namespace
+
+cudaError_t paged_attention_launch(const void* q, const void* k_pages,
+                                   const void* v_pages, const int* lengths,
+                                   const int* page_table, void* o, int B, int Hq,
+                                   int Hkv, int P, int page_size,
+                                   int pages_per_seq, int D, float sm_scale,
+                                   int dtype, cudaStream_t stream) {
+  if (B < 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > PA_GMAX || page_size <= 0 ||
+      pages_per_seq < 0 || P < 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
+  // the 16-byte loads need 16-byte aligned pools (rows are, given the D)
+  if ((reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(v_pages)) % 16)
+    return cudaErrorMisalignedAddress;
+  if (B == 0) return cudaSuccess;
+  dim3 grid(Hkv, B);
+  switch (D) {
+    case 32: launch_d<32>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
+    case 64: launch_d<64>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
+    case 128: launch_d<128>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tk

@@ -1,0 +1,58 @@
+"""RoPE: rotary position embedding, half-split (NeoX) pairs, theta=10000.
+
+The port of tpukern/ops/rope.py's cached-table path. Kernel:
+csrc/rope.cu, which replaces the Pallas `kernel` of rope_cached
+(rope.py:118).
+"""
+
+import math
+
+import torch
+
+from tpukern_torch import _build
+
+_LOG_THETA = math.log(10000.0)
+
+
+def make_cos_sin(S, D, device=None):
+    """f32 (S, D/2) tables: angle = pos * exp(j * (-2 ln theta / D))."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    j = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos * torch.exp(j * (-2.0 * _LOG_THETA / D))
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_cached(x, cos, sin):
+    """Rotate (R, D) rows: (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos),
+    x1 = x[:, :D/2], x2 = x[:, D/2:], with the f32 (R, D/2) cos/sin rows
+    gathered at each row's position. Output in x.dtype.
+
+    A CPU tensor takes rope_cached_ref; a CUDA tensor launches the kernel
+    (bf16 or f32 x)."""
+    if x.device.type == "cpu":
+        return rope_cached_ref(x, cos, sin)
+    _build.check_cuda(x, cos, sin)
+    R, D = x.shape
+    if D % 2 or cos.shape != (R, D // 2) or sin.shape != (R, D // 2):
+        raise ValueError(f"x {tuple(x.shape)} needs (R, D/2) tables, got "
+                         f"{tuple(cos.shape)}, {tuple(sin.shape)}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError("cos/sin tables must be float32")
+    x, cos, sin = x.contiguous(), cos.contiguous(), sin.contiguous()
+    y = torch.empty_like(x)
+    _build.launch("tk_rope_cached", x.data_ptr(), cos.data_ptr(),
+                  sin.data_ptr(), y.data_ptr(), R, D, _build.dtype_code(x),
+                  _build.stream(x))
+    rope_cached.launches += 1
+    return y
+
+
+rope_cached.launches = 0
+
+
+def rope_cached_ref(x, cos, sin):
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[:, :half], xf[:, half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
