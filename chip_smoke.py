@@ -4,23 +4,36 @@
     python3 chip_smoke.py
 
 1. prints the device, torch/CUDA/nvcc versions and whether triton imports;
-2. builds the kernels from tpukern_torch/csrc (or loads this source
-   hash's build) and prints the build seconds;
+2. builds the kernels from tpukern_torch/csrc (one nvcc per source, in
+   parallel, or loads this source hash's build) and prints the seconds;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape;
-4. serves the 7bish preset (random weights from a seeded generator)
+4. checks the training slice's kernels (matmul in its three epilogues,
+   rope_batched, the flash_attention lse, flash_attention_bwd) against
+   their plain versions, and times them at the 7bish training shapes;
+   the GEMM's plain version is cuBLAS;
+5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; the kernels' launch counts are reset
    just before and read just after;
-5. profiles one admission and a few decode steps (device time by kernel);
-6. checks one prefill's logits against the plain functions in f32.
+6. profiles one admission and a few decode steps (device time by kernel);
+7. checks one prefill's logits against the plain functions in f32;
+8. trains the 7bish preset in f32 at full depth: 5 Adam steps (lr
+   TRAIN_LR) on one seeded batch (B=2, S=1024), launch counts reset just
+   before and read just after, then profiles one more step by kernel
+   category;
+9. checks one loss-and-grad at the 7bish widths with 2 layers (B=1,
+   S=1024, f32) against a loss built from the plain functions only,
+   differentiated by torch.autograd.
 
 Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +55,18 @@ TOLS = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 # plain logit is within that path's own max error of the plain maximum.
 E2E_F32_ATOL = 2e-3
 E2E_BF16_REL = 5e-2
+# train-parity bounds: the kernel path's loss against the plain path's
+# (relative error), and each parameter's gradient (relative RMS error).
+# Both paths are f32 and differ in summation order only: measured on an
+# H100, loss error 0 (1e-6 is about 11 f32 ulps at a loss of 10.8) and
+# gradient errors 2.8e-6 to 5.6e-6 (1e-4 is 18x the largest).
+TRAIN_LOSS_REL = 1e-6
+TRAIN_GRAD_REL = 1e-4
+# Adam's step size in the train phase. At 1e-3 the loss of this batch
+# jumps at step 5 (10.80, 9.62, 7.60, 7.29, 11.96) on the kernel path and
+# on the plain path alike, equal to 4 decimals; at 3e-4 it falls at every
+# step of the first 7 on both.
+TRAIN_LR = 3e-4
 
 
 def require(cond, msg):
@@ -78,10 +103,24 @@ def phase_build():
     path, seconds = _build.build()
     _build.library()
     log = (path.parent / "nvcc.log")
-    lines = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    for ln in lines:
-        print(f"[build] ptxas {ln}")
+    text = log.read_text() if log.exists() else ""
+    # one line per kernel: ptxas -v's entry name (demangled), registers,
+    # shared memory and spills
+    entries = []  # [mangled name, spills, "N registers, ..."]
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entries.append([m.group(1), "", ""])
+        elif entries and "spill" in ln:
+            entries[-1][1] = ln.strip()
+        elif entries and "Used" in ln:
+            entries[-1][2] = ln.split("Used", 1)[1].strip()
+    names = sh("c++filt", *[e[0] for e in entries]).splitlines()
+    if len(names) != len(entries):
+        names = [e[0] for e in entries]
+    for name, (_, spills, used) in zip(names, entries):
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        print(f"[build] ptxas {name}: {used}; {spills}")
     print(f"[build] {path} compiled in {seconds:.1f} s "
           f"({'fresh' if seconds else 'already built'})")
 
@@ -113,8 +152,11 @@ def _device_events(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    # user annotations (the optimizer's "Optimizer.step#Adam.step") span
+    # the kernels they enclose: kernels only
     return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
 
 
 def _device_ms(fn, n=20):
@@ -124,25 +166,53 @@ def _device_ms(fn, n=20):
     return sum(e - s for s, e, _ in ev) / n / 1e3 if ev else None
 
 
+class _Checks:
+    """Kernel-vs-plain outcomes: {kernel: dict(max_abs_err, ...)}, all ok."""
+
+    def __init__(self):
+        self.results, self.ok = {}, True
+
+    def record(self, name, ok, err):
+        self.ok &= ok
+        r = self.results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+def _time_kernels(timed, results):
+    """CUDA events around back-to-back calls (host issue time included
+    where it exceeds the device's), and device-only time (profiler), of
+    each {key: (kernel name, shape, kernel call, plain call)}; the first
+    entry of a kernel name is the one its result row keeps."""
+    from tpukern_torch.harness import run_benchmark
+
+    for key, (name, shape, kernel, plain) in timed.items():
+        r = dict(shape=shape, ms=run_benchmark(kernel),
+                 plain_ms=run_benchmark(plain), device_ms=_device_ms(kernel),
+                 plain_device_ms=_device_ms(plain))
+        for k, v in r.items():
+            results[name].setdefault(k, v)
+        dev = ("device-only not measured" if None in (
+            r["device_ms"], r["plain_device_ms"]) else
+            f"device-only: kernel {r['device_ms']:.4f} ms plain "
+            f"{r['plain_device_ms']:.4f} ms")
+        print(f"[time] {key:24s} at {shape}: kernel {r['ms']:.4f} ms "
+              f"plain {r['plain_ms']:.4f} ms (events); {dev}")
+
+
 def phase_kernels(cfg):
-    """Every kernel against its plain version; times at the serving shape.
-    Returns {kernel: dict(max_abs_err, ms, plain_ms, ...)} and all-ok."""
+    """Every serving kernel against its plain version; times at the
+    serving shape. Returns {kernel: dict(max_abs_err, ms, plain_ms, ...)}
+    and all-ok."""
     from functools import partial
 
-    from tpukern_torch.harness import run_benchmark
     from tpukern_torch.ops import attention, paged_attention, rmsnorm, rope
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
     d, D = cfg.d_model, cfg.head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-    results, all_ok, timed = {}, True, {}
-
-    def record(name, ok, err):
-        nonlocal all_ok
-        all_ok &= ok
-        r = results.setdefault(name, dict(max_abs_err=0.0))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+    checks, timed = _Checks(), {}
+    record = checks.record
 
     # rms_norm: decode rows (4), the largest prefill bucket (512), f32
     for T, dt in ((4, bf), (512, bf), (8, f32)):
@@ -153,7 +223,8 @@ def phase_kernels(cfg):
                                      rmsnorm.rms_norm_ref(x, g)))
     x = _randn(gen, 512, d, dtype=bf)
     g = torch.ones(d, dtype=bf, device="cuda")
-    timed["rms_norm"] = ([512, d], partial(rmsnorm.rms_norm, x, g),
+    timed["rms_norm"] = ("rms_norm", [512, d],
+                         partial(rmsnorm.rms_norm, x, g),
                          partial(rmsnorm.rms_norm_ref, x, g))
 
     # rope_cached: q rows of one decode step and of a 512 prefill, f32
@@ -171,7 +242,8 @@ def phase_kernels(cfg):
     pos = torch.arange(512, device="cuda").repeat(Hq)
     x = _randn(gen, Hq * 512, D, dtype=bf)
     args = (x, cos_t[pos], sin_t[pos])
-    timed["rope_cached"] = ([Hq * 512, D], partial(rope.rope_cached, *args),
+    timed["rope_cached"] = ("rope_cached", [Hq * 512, D],
+                            partial(rope.rope_cached, *args),
                             partial(rope.rope_cached_ref, *args))
 
     # flash_attention: the 7bish prefill heads at S in {128, 300, 512},
@@ -192,7 +264,7 @@ def phase_kernels(cfg):
     k = _randn(gen, 1, Hkv, 512, D, dtype=bf)
     v = _randn(gen, 1, Hkv, 512, D, dtype=bf)
     timed["flash_attention"] = (
-        [1, Hq, 512, D],
+        "flash_attention", [1, Hq, 512, D],
         partial(attention.flash_attention, q, k, v, causal=True),
         partial(attention.attention_ref, q, k, v, causal=True))
 
@@ -217,23 +289,121 @@ def phase_kernels(cfg):
             paged_attention.paged_attention(*args),
             paged_attention.paged_attention_ref(*args)))
     timed["paged_attention"] = (
-        [4, Hq, D], partial(paged_attention.paged_attention, *serve_case),
+        "paged_attention", [4, Hq, D],
+        partial(paged_attention.paged_attention, *serve_case),
         partial(paged_attention.paged_attention_ref, *serve_case))
 
-    # CUDA events around back-to-back calls (host issue time included
-    # where it exceeds the device's), and device-only time (profiler)
-    for name, (shape, kernel, plain) in timed.items():
-        r = results[name]
-        r.update(shape=shape, ms=run_benchmark(kernel),
-                 plain_ms=run_benchmark(plain), device_ms=_device_ms(kernel),
-                 plain_device_ms=_device_ms(plain))
-        dev = ("device-only not measured" if None in (
-            r["device_ms"], r["plain_device_ms"]) else
-            f"device-only: kernel {r['device_ms']:.4f} ms plain "
-            f"{r['plain_device_ms']:.4f} ms")
-        print(f"[time] {name:16s} at {shape}: kernel {r['ms']:.4f} ms "
-              f"plain {r['plain_ms']:.4f} ms (events); {dev}")
-    return results, all_ok
+    _time_kernels(timed, checks.results)
+    return checks.results, checks.ok
+
+
+def phase_train_kernels(cfg, B, S):
+    """The training slice's kernels against their plain versions (odd
+    shapes and the training shapes); times at the 7bish training shapes.
+    Returns {kernel: dict(max_abs_err, ms, plain_ms, ...)} and all-ok."""
+    from functools import partial
+
+    from tpukern_torch.ops import (attention, attention_bwd, matmul, rmsnorm,
+                                   rope)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf, f32 = torch.bfloat16, torch.float32
+    d, D, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    checks, timed = _Checks(), {}
+
+    # matmul: NN and TN, f32 and bf16, the three epilogues, odd M, N, K
+    # and the (B*S, d) x (d, d_ff) projection; A scaled by 1/sqrt(K) so
+    # every output is of unit scale
+    modes = dict(out=dict(), accio=dict(acc_in_out=True),
+                 dual=dict(acc_in_out=True, out_dtype=bf))
+    for (M, N, K), dt in (((333, 517, 1000), f32), ((333, 517, 1000), bf),
+                          ((B * S, ff, d), f32), ((B * S, ff, d), bf)):
+        a = _randn(gen, M, K, dtype=f32).div(K ** 0.5).to(dt)
+        for trans_b in (False, True):
+            b = _randn(gen, *((N, K) if trans_b else (K, N)), dtype=dt)
+            ref = matmul.matmul_ref(a, b, trans_b=trans_b)
+            for mode, kw in modes.items():
+                out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+                checks.record("matmul", *_compare(
+                    "matmul", f"({M},{K})x({K},{N}) {'TN' if trans_b else 'NN'}"
+                    f" {dt} {mode}->{out.dtype}", out, ref.to(out.dtype)))
+    # timed against cuBLAS in the input dtype (bf16 cuBLAS writes bf16,
+    # the kernel the f32 accumulator, as matmul_t asks)
+    def cublas(a, b, trans_b):
+        return torch.matmul(a, b.T if trans_b else b)
+
+    for dt, tag in ((f32, "f32"), (bf, "bf16")):
+        a = _randn(gen, d, d, dtype=dt)
+        for trans_b in (False, True):
+            b = _randn(gen, *((ff, d) if trans_b else (d, ff)), dtype=dt)
+            timed[f"matmul {tag} {'TN' if trans_b else 'NN'}"] = (
+                "matmul", [d, d, ff],
+                partial(matmul.matmul, a, b, trans_b=trans_b,
+                        acc_in_out=True), partial(cublas, a, b, trans_b))
+
+    # rope_batched: q rows of the training batch, sign +-1, f32 and bf16
+    R = B * Hq * S
+    for dt in (f32, bf):
+        x = _randn(gen, R, D, dtype=dt)
+        for sign in (1.0, -1.0):
+            checks.record("rope_batched", *_compare(
+                "rope_batched", f"({R}, {D}) S{S} {dt} sign {sign:+g}",
+                rope.rope_batched(x, S, sign),
+                rope.rope_batched_ref(x, S, sign)))
+    x = _randn(gen, R, D, dtype=f32)
+    timed["rope_batched"] = ("rope_batched", [R, D],
+                             partial(rope.rope_batched, x, S),
+                             partial(rope.rope_batched_ref, x, S))
+
+    # rms_norm at the training shape: f32 (B*S, d), non-unit gain
+    x = _randn(gen, B * S, d, dtype=f32)
+    g = 1 + 0.1 * _randn(gen, d, dtype=f32)
+    checks.record("rms_norm", *_compare(
+        "rms_norm", f"({B * S}, {d}) {f32}", rmsnorm.rms_norm(x, g),
+        rmsnorm.rms_norm_ref(x, g)))
+
+    # flash_attention o and lse (return_stats) at the training shape, GQA 2
+    for dt in (f32, bf):
+        q = _randn(gen, B, Hq, S, D, dtype=dt)
+        k, v = (_randn(gen, B, Hkv, S, D, dtype=dt) for _ in range(2))
+        outs = attention.flash_attention(q, k, v, causal=True,
+                                         return_stats=True)
+        refs = attention.attention_ref(q, k, v, causal=True,
+                                       return_stats=True)
+        for what, out, ref in zip(("o", "lse"), outs, refs):
+            checks.record("flash_attention", *_compare(
+                "flash_attention", f"{what} B{B} H{Hq}/{Hkv} S{S} D{D} {dt}",
+                out, ref))
+
+    # flash_attention_bwd: dq/dk/dv, f32 and bf16, causal and not, D 64
+    # and 128, tail lengths; the training shape first
+    for Bb, H, Sb, dd, dt, causal in (
+            (B, Hq, S, D, f32, True), (1, 4, 300, 64, bf, True),
+            (1, 4, 300, 128, f32, False), (2, 2, 77, 64, f32, True),
+            (1, 4, 200, 128, bf, False), (1, 2, 130, 64, f32, False)):
+        q, k, v, do = (_randn(gen, Bb, H, Sb, dd, dtype=dt) for _ in range(4))
+        o, lse = attention.attention_ref(q, k, v, causal=causal,
+                                         return_stats=True)
+        outs = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal)
+        refs = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                     causal=causal)
+        for grad, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+            checks.record("flash_attention_bwd", *_compare(
+                "flash_attention_bwd", f"{grad} B{Bb} H{H} S{Sb} D{dd} {dt} "
+                f"causal={causal}", out, ref))
+    q, k, v, do = (_randn(gen, B, Hq, S, D, dtype=f32) for _ in range(4))
+    o, lse = attention.flash_attention(q, k, v, causal=True,
+                                       return_stats=True)
+    args = (q, k, v, o, lse, do)
+    timed["flash_attention_bwd"] = (
+        "flash_attention_bwd", [B, Hq, S, D],
+        partial(attention_bwd.flash_attention_bwd, *args, causal=True),
+        partial(attention_bwd.flash_attention_bwd_ref, *args, causal=True))
+
+    _time_kernels(timed, checks.results)
+    return checks.results, checks.ok
 
 
 def _timed(fn, *args):
@@ -303,8 +473,9 @@ def phase_serve(cfg, params, ops):
 
 
 _CATEGORIES = (("rms_norm", "rms_norm_kernel"),
-               ("rope_cached", "rope_cached_kernel"),
-               ("flash_attention", "fa_fwd_"),
+               ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
+               ("fa_fwd", "fa_fwd_"),
+               ("fa_bwd", "fa_bwd_kernel"),
                ("paged_attention", "paged_decode_kernel"),
                ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
@@ -429,6 +600,131 @@ def phase_logits(cfg, params, prompt):
     return ok
 
 
+def _batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to("cuda")
+            for _ in range(2))
+
+
+def phase_train(cfg, B, S, steps=5):
+    """The training main path: `steps` Adam steps of make_train_step on
+    one seeded batch; launch counts reset just before and read just
+    after; then one more step under the profiler."""
+    from tpukern_torch.models import init_params, make_train_step, param_leaves
+    from tpukern_torch.ops import (attention, attention_bwd, matmul, rmsnorm,
+                                   rope)
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         device="cuda")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    n_params = sum(t.numel() for t in leaves)
+    opt = torch.optim.Adam(leaves, lr=TRAIN_LR, eps=1e-8)
+    step = make_train_step(cfg, opt)
+    tokens, targets = _batch(cfg, B, S, SEED)
+    ops = [matmul.matmul, rope.rope_batched, attention.flash_attention,
+           attention_bwd.flash_attention_bwd, rmsnorm.rms_norm]
+    for op in ops:
+        op.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(params, tokens, targets)
+        losses.append(loss.item())  # synchronises
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {op.__name__: op.launches for op in ops}
+    med = float(np.median(ms[1:]))
+    print(f"[train] 7bish f32, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, Adam lr {TRAIN_LR:g}, B={B} S={S}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[train] losses {[round(x, 6) for x in losses]}")
+    print(f"[train] step ms {[round(x, 3) for x in ms]}; median of steps "
+          f"2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
+    print(f"[train] launches {launches}")
+    require(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the training path never launched: {launches}")
+    _profile("train step", lambda: step(params, tokens, targets).item(), 1)
+    return launches
+
+
+def _plain_loss(params, tokens, targets, cfg):
+    """loss_fn with the plain functions only, for torch.autograd."""
+    from tpukern_torch.ops.attention import attention_ref
+    from tpukern_torch.ops.matmul import matmul_ref
+    from tpukern_torch.ops.rmsnorm import rms_norm_ref
+    from tpukern_torch.ops.rope import rope_batched_ref
+
+    B, S = tokens.shape
+    d, D, Hq, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def heads(x, n, rotate=True):
+        x = x.reshape(B, S, n, D).transpose(1, 2)
+        if rotate:
+            x = rope_batched_ref(x.reshape(B * n * S, D), S)
+        return x.reshape(B, n, S, D)
+
+    h = params["embed"][tokens]
+    for lp in params["layers"]:
+        hn = rms_norm_ref(h, lp["ln1"]).reshape(B * S, d)
+        q = heads(matmul_ref(hn, lp["wq"]), Hq)
+        k = heads(matmul_ref(hn, lp["wk"]), Hkv)
+        v = heads(matmul_ref(hn, lp["wv"]), Hkv, rotate=False)
+        o = attention_ref(q, k, v, causal=True).transpose(1, 2)
+        h = h + matmul_ref(o.reshape(B * S, d), lp["wo"]).reshape(B, S, d)
+        hn = rms_norm_ref(h, lp["ln2"]).reshape(B * S, d)
+        u = torch.nn.functional.gelu(matmul_ref(hn, lp["w1"]),
+                                     approximate="tanh")
+        h = h + matmul_ref(u, lp["w2"]).reshape(B, S, d)
+    logits = matmul_ref(rms_norm_ref(h, params["lnf"]).reshape(B * S, d),
+                        params["head"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.reshape(-1, 1)).mean()
+
+
+def phase_train_parity(cfg, S):
+    """One loss-and-grad through the kernels against _plain_loss, at the
+    7bish widths with 2 layers, B=1, f32, on the same card."""
+    import dataclasses
+    from tpukern_torch.models import init_params, loss_fn, param_leaves
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 2), device="cuda")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    tokens, targets = _batch(cfg, 1, S, SEED + 2)
+    out = {}
+    for name, fn in (("kernels", loss_fn), ("plain", _plain_loss)):
+        loss = fn(params, tokens, targets, cfg)
+        out[name] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    loss_rel = ((lk - lp).abs() / lp.abs()).item()
+    ok = bool(torch.isfinite(lk)) and loss_rel <= TRAIN_LOSS_REL
+    print(f"[parity] 7bish widths, 2 layers, B=1 S={S} f32: loss kernels "
+          f"{lk.item():.7f} plain {lp.item():.7f} rel {loss_rel:.3e} "
+          f"(<= {TRAIN_LOSS_REL:g}) {'ok' if ok else 'MISS'}")
+    names = ["embed"] + [f"layers.{i}.{k}" for i, lp_ in
+                         enumerate(params["layers"]) for k in lp_] + [
+                             "lnf", "head"]
+    worst = 0.0
+    for name, a, b in zip(names, gk, gp):
+        rel = ((a - b).norm() / b.norm()).item()
+        worst = max(worst, rel)
+        good = bool(torch.isfinite(a).all()) and rel <= TRAIN_GRAD_REL
+        ok &= good
+        print(f"[parity]   grad {name:16s} rel_rms {rel:.3e} "
+              f"{'ok' if good else 'MISS'}")
+    print(f"[parity] worst gradient rel_rms {worst:.3e} "
+          f"(<= {TRAIN_GRAD_REL:g}) {'ok' if ok else 'MISS'}")
+    return ok
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -446,10 +742,15 @@ def main():
     ops = [rmsnorm.rms_norm, rope.rope_cached, attention.flash_attention,
            paged_attention.paged_attention]
 
+    # the same widths in f32 for training (the JAX training default)
+    tcfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    TB, TS = 2, 1024
+
     phase_device()
     phase_build()
     timing, kernels_ok = phase_kernels(cfg)
-    if not kernels_ok:
+    train_timing, train_ok = phase_train_kernels(tcfg, TB, TS)
+    if not (kernels_ok and train_ok):
         print("chip_smoke: a kernel disagrees with its plain version",
               file=sys.stderr)
         return 1
@@ -463,6 +764,22 @@ def main():
     if not phase_logits(cfg, params, requests[0][1]):
         print("chip_smoke: end-to-end logits disagree", file=sys.stderr)
         return 1
+    del params
+    torch.cuda.empty_cache()
+
+    train_launches = phase_train(tcfg, TB, TS)
+    if not phase_train_parity(tcfg, TS):
+        print("chip_smoke: the training loss or a gradient disagrees",
+              file=sys.stderr)
+        return 1
+    for name, r in train_timing.items():  # rms_norm, flash_attention: checks
+        # at the training shapes
+        if name in timing:
+            timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"],
+                                              r["max_abs_err"])
+        else:
+            timing[name] = r
+    launches = {**train_launches, **launches}  # serving counts for its four
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -471,7 +788,13 @@ def main():
            "flash_attention": ("tpukern_torch/csrc/flash_attention.cu",
                                "tpukern/ops/attention.py:62"),
            "paged_attention": ("tpukern_torch/csrc/paged_attention.cu",
-                               "tpukern/ops/paged_attention.py:77")}
+                               "tpukern/ops/paged_attention.py:77"),
+           "matmul": ("tpukern_torch/csrc/matmul.cu",
+                      "tpukern/ops/matmul.py:140"),
+           "rope_batched": ("tpukern_torch/csrc/rope.cu",
+                            "tpukern/ops/rope.py:81"),
+           "flash_attention_bwd": ("tpukern_torch/csrc/flash_attention_bwd.cu",
+                                   "tpukern/ops/attention_bwd.py:339")}
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
              launches=launches[n], max_abs_err=timing[n]["max_abs_err"],

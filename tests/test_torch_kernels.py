@@ -16,8 +16,9 @@ import torch
 
 from tpukern_torch.core.tolerances import check_all_close
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
-                                  params_to)
-from tpukern_torch.ops import attention, paged_attention, rmsnorm, rope
+                                  loss_fn, param_leaves, params_to)
+from tpukern_torch.ops import (attention, attention_bwd, matmul,
+                               paged_attention, rmsnorm, rope)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -164,3 +165,155 @@ def test_batcher_on_kernels_equals_plain(cuda):
         list(enumerate(prompts)))
     assert out == ref
     assert all(w.launches > counts[n] for n, w in WRAPPERS.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mode", ["out", "accio", "dual"])
+@pytest.mark.parametrize("M,N,K", [(77, 130, 45), (130, 257, 300),
+                                   (256, 128, 64)])
+def test_matmul_modes_and_tails(cuda, M, N, K, mode, trans_b, dt):
+    """The three epilogues (out dtype, f32 accumulator, f32 + bf16 copy),
+    NN and TN, with M, N and K on and off the 128/128/8-32 tiles."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g,
+                    device=cuda).to(DTYPES[dt])
+    kw = dict(out=dict(), accio=dict(acc_in_out=True),
+              dual=dict(acc_in_out=True, out_dtype=torch.bfloat16))[mode]
+    before = matmul.matmul.launches
+    out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 1
+    want = {"out": DTYPES[dt], "accio": torch.float32,
+            "dual": torch.bfloat16}[mode]
+    assert out.dtype == want and out.shape == (M, N)
+    ref = matmul.matmul_ref(a, b, trans_b=trans_b)
+    check_all_close(out.float(), ref, dtype=want, name=f"matmul {mode}",
+                    **(F32 if want == torch.float32 else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("N,S,D", [(3, 100, 64), (2, 1024, 128)])
+def test_rope_batched(cuda, N, S, D, sign, dt):
+    """Angles computed in the kernel up to pos 1023 (about 1e3 rad)."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    x = torch.randn((N * S, D), generator=g, device=cuda).to(DTYPES[dt])
+    before = rope.rope_batched.launches
+    out = rope.rope_batched(x, S, sign)
+    torch.cuda.synchronize()
+    assert rope.rope_batched.launches == before + 1
+    check_all_close(out.float(), rope.rope_batched_ref(x, S, sign).float(),
+                    dtype=DTYPES[dt], **(F32 if dt == "f32" else {}))
+    back = rope.rope_batched(out.float(), S, -sign)
+    check_all_close(back, x.float(), dtype=DTYPES[dt],
+                    **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(64, 64), (100, 128), (130, 32)])
+def test_flash_attention_lse(cuda, S, D, causal, dt):
+    """return_stats: the f32 natural-log lse of both tiers, GQA 2."""
+    g = torch.Generator(device=cuda).manual_seed(S * D)
+    q, k, v = (torch.randn((2, h, S, D), generator=g, device=cuda)
+               .to(DTYPES[dt]) for h in (4, 2, 2))
+    o, lse = attention.flash_attention(q, k, v, causal=causal,
+                                       return_stats=True)
+    ro, rlse = attention.attention_ref(q, k, v, causal=causal,
+                                       return_stats=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, S)
+    check_all_close(lse, rlse, rtol=1e-4, atol=1e-4, name="lse")
+    check_all_close(o.float(), ro.float(), dtype=DTYPES[dt],
+                    **(F32 if dt == "f32" else {}))
+
+
+def _bwd_inputs(dev, B, H, S, D, dt, causal, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device=dev)
+                   .to(dt) for _ in range(4))
+    o, lse = attention.attention_ref(q, k, v, causal=causal,
+                                     return_stats=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(64, 64), (100, 128), (130, 64),
+                                 (77, 32)])
+def test_flash_attention_bwd(cuda, S, D, causal, dt):
+    """dq, dk, dv against the recompute-from-lse einsums, tails included
+    (a missed mask shows as a wrong dK on the last tile only)."""
+    args = _bwd_inputs(cuda, 2, 3, S, D, DTYPES[dt], causal, S + D)
+    before = attention_bwd.flash_attention_bwd.launches
+    out = attention_bwd.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert attention_bwd.flash_attention_bwd.launches == before + 1
+    ref = attention_bwd.flash_attention_bwd_ref(*args, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == DTYPES[dt]
+        check_all_close(a.float(), b.float(), dtype=DTYPES[dt], name=name,
+                        **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_bwd_cross_lengths(cuda, dt):
+    """Non-causal with Sq != Skv (130 queries over 77 keys and 77 over
+    130): tails on both axes at once."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for Sq, Skv in ((130, 77), (77, 130)):
+        q, do = (torch.randn((1, 2, Sq, 64), generator=g, device=cuda)
+                 .to(DTYPES[dt]) for _ in range(2))
+        k, v = (torch.randn((1, 2, Skv, 64), generator=g, device=cuda)
+                .to(DTYPES[dt]) for _ in range(2))
+        o, lse = attention.attention_ref(q, k, v, return_stats=True)
+        out = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do)
+        ref = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+            check_all_close(a.float(), b.float(), dtype=DTYPES[dt],
+                            name=f"{name} Sq{Sq} Skv{Skv}",
+                            **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_train_loss_and_grads_on_kernels_equal_plain(cuda, dt):
+    """loss_fn and every gradient through the kernels against the same
+    function on the CPU, where every wrapper takes its plain version. f32
+    params at the f32 tolerance. bf16 params (the GEMMs still write f32,
+    and both sides round the grads to bf16): the loss to 1e-4 and each
+    gradient to a relative RMS error of 1e-2, one bf16 rounding being
+    2**-9 of a value."""
+    cfg = Config(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=256, max_seq=64, param_dtype=DTYPES[dt])
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+                for _ in range(2))
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = params_to(params, dev, copy=True)
+        leaves = param_leaves(p)
+        for t in leaves:
+            t.requires_grad_()
+        loss = loss_fn(p, tok.to(dev), tgt.to(dev), cfg)
+        grads[str(dev)] = [loss] + list(torch.autograd.grad(loss, leaves))
+    counts = [matmul.matmul.launches, rope.rope_batched.launches,
+              attention_bwd.flash_attention_bwd.launches]
+    assert all(n > 0 for n in counts)
+    pairs = list(zip(grads["cuda"], grads["cpu"]))
+    if dt == "f32":
+        for i, (a, b) in enumerate(pairs):
+            check_all_close(a, b, name=f"leaf {i - 1}", **F32)
+        return
+    check_all_close(pairs[0][0], pairs[0][1], rtol=1e-4, atol=1e-4)
+    for i, (a, b) in enumerate(pairs[1:]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        rel = ((a.cpu().float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-2, f"leaf {i}: relative RMS error {rel:.3e}"

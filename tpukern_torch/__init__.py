@@ -13,7 +13,10 @@ launches the kernel (or raises). Each wrapper counts its launches in a
 
 Ported so far: the paged serving path (`models.serving`,
 `models.batcher`) with its four kernels: rms_norm, rope_cached,
-flash_attention (forward) and paged_attention (decode).
+flash_attention (forward) and paged_attention (decode); and the
+single-device training step (`models.transformer` forward, loss_fn,
+make_train_step, through `ops.trainable`), which adds matmul,
+rope_batched, the flash_attention lse and flash_attention_bwd.
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,9 @@ test lane) import every module freely.
   hash of the sources and the flags, so a stale library is never
   loaded. The library is written to a temporary name and renamed, so
   concurrent first launches cannot load a half-written file.
+- Each source compiles to an object in its own nvcc process, all started
+  together, and one more nvcc links them: the build takes about as long
+  as its slowest source.
 - A failed build raises with nvcc's output.
 - Every C entry point returns cudaGetLastError() after its launch, and
   `launch` raises if that is not 0.
@@ -32,7 +35,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
 LIB_NAME = "libtpukern_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # dtype codes shared with csrc/common.cuh (enum tk::Dtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,9 +49,18 @@ SIGNATURES = {
     "tk_rms_norm": [_P, _P, _P, _I64, _I64, _F, _I, _I, _P],
     # x, cos, sin, y, rows, head_dim, dtype, stream
     "tk_rope_cached": [_P, _P, _P, _P, _I64, _I, _I, _P],
-    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, sm_scale, causal, dtype, stream
-    "tk_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+    # x, y, rows, head_dim, seq_len, sign, dtype, stream
+    "tk_rope_batched": [_P, _P, _I64, _I, _I, _F, _I, _P],
+    # q, k, v, o, lse (or None), B, Hq, Hkv, Sq, Skv, D, sm_scale, causal,
+    # dtype, stream
+    "tk_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _P],
+    # q, k, v, do, lse, di, dq (f32), dk, dv, B, H, Sq, Skv, D, sm_scale,
+    # causal, dtype, stream
+    "tk_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _P],
+    # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, stream
+    "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
     # page_size, pages_per_seq, D, sm_scale, dtype, stream
     "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -88,19 +100,30 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, lib)
-    return lib, seconds
+    try:
+        objs = [work / (src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+        if all(rc == 0 for _, _, rc in logs):
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / LIB_NAME),
+                    *map(str, objs)]
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append((link, proc.stdout, proc.returncode))
+        text = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out, _ in logs)
+        (out_dir / "nvcc.log").write_text(text)
+        if any(rc != 0 for _, _, rc in logs):
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        os.replace(work / LIB_NAME, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache

@@ -32,12 +32,36 @@ int tk_rope_cached(const void* x, const void* cos, const void* sin, void* y,
                                         static_cast<cudaStream_t>(stream)));
 }
 
+int tk_rope_batched(const void* x, void* y, int64_t rows, int head_dim,
+                    int seq_len, float sign, int dtype, void* stream) {
+  return checked(tk::rope_batched_launch(x, y, rows, head_dim, seq_len, sign,
+                                         dtype,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
 int tk_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                       float sm_scale, int causal, int dtype, void* stream) {
-  return checked(tk::flash_attention_launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                            sm_scale, causal, dtype,
+                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                       int D, float sm_scale, int causal, int dtype,
+                       void* stream) {
+  return checked(tk::flash_attention_launch(q, k, v, o, lse, B, Hq, Hkv, Sq,
+                                            Skv, D, sm_scale, causal, dtype,
                                             static_cast<cudaStream_t>(stream)));
+}
+
+int tk_flash_attention_bwd(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse, const float* di,
+                           float* dq, void* dk, void* dv, int B, int H, int Sq,
+                           int Skv, int D, float sm_scale, int causal,
+                           int dtype, void* stream) {
+  return checked(tk::flash_attention_bwd_launch(
+      q, k, v, dout, lse, di, dq, dk, dv, B, H, Sq, Skv, D, sm_scale, causal,
+      dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,
+              int N, int K, int trans_b, int dtype, void* stream) {
+  return checked(tk::matmul_launch(a, b, c32, c16, M, N, K, trans_b, dtype,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,

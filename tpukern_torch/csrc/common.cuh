@@ -47,10 +47,23 @@ cudaError_t rms_norm_launch(const void* x, const void* g, void* y, int64_t rows,
 cudaError_t rope_cached_launch(const void* x, const void* cos, const void* sin,
                                void* y, int64_t rows, int head_dim, int dtype,
                                cudaStream_t stream);
+cudaError_t rope_batched_launch(const void* x, void* y, int64_t rows,
+                                int head_dim, int seq_len, float sign,
+                                int dtype, cudaStream_t stream);
 cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Hq, int Hkv, int Sq,
-                                   int Skv, int D, float sm_scale, int causal,
-                                   int dtype, cudaStream_t stream);
+                                   void* o, float* lse, int B, int Hq, int Hkv,
+                                   int Sq, int Skv, int D, float sm_scale,
+                                   int causal, int dtype, cudaStream_t stream);
+cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const float* lse, const float* di,
+                                       float* dq, void* dk, void* dv, int B,
+                                       int H, int Sq, int Skv, int D,
+                                       float sm_scale, int causal, int dtype,
+                                       cudaStream_t stream);
+cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
+                          int M, int N, int K, int trans_b, int dtype,
+                          cudaStream_t stream);
 cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const int* lengths,
                                    const int* page_table, void* o, int B, int Hq,

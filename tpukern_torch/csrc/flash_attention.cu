@@ -6,7 +6,12 @@
 //
 // Replaces tpukern/ops/attention.py:62 `_fa_kernel` and its transposed-
 // layout twin `_fa_tpv_kernel` (:656, chosen there at D <= 64 for the
-// TPU's MXU width; one kernel covers both here).
+// TPU's MXU width; one kernel covers both here). The LSE instance of
+// either tier also writes each row's f32 log-sum-exp of the scaled scores
+// in natural log (m + ln l), as the JAX kernel's return_stats does
+// (attention.py:346-350): the training backward recomputes P from it.
+// It is a template flag, so the serving path's instance compiles as it
+// did without the output.
 //
 // What bounds it: prefill attention at D = 128 does 4*D flops for every
 // (query, key) pair it reads 4*D bytes of K/V for once per 64 queries, so
@@ -31,6 +36,7 @@ namespace tk {
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- bf16 mma
 constexpr int MMA_BQ = 64;   // query rows per block: 4 warps x 16
@@ -68,11 +74,12 @@ __device__ __forceinline__ uint32_t load_pair(const bf16* base, int row, int row
 //                   a3 = A[g+8][2t+8..]
 //   B (16x8, col):  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
 //   C (16x8):       c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-                  int Hkv, int Sq, int Skv, float scale_log2, int causal) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+                  float scale_log2, int causal) {
   constexpr int LDS = D + 8;  // padded smem row: conflict-free B loads of K
   constexpr int KS = D / 16;  // k-steps of Q K^T
   constexpr int NT = MMA_BK / 8;  // n-tiles of S
@@ -203,6 +210,11 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  if (LSE && t == 0) {  // m is in log2 units here
+    float* lb = lse + (int64_t)(b * Hq + h) * Sq;
+    if (r0 < Sq) lb[r0] = LN2 * m0 + logf(fmaxf(l0, 1e-37f));
+    if (r1 < Sq) lb[r1] = LN2 * m1 + logf(fmaxf(l1, 1e-37f));
+  }
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int c = dt * 8 + 2 * t;
@@ -221,11 +233,12 @@ constexpr int FMA_BK = 32;  // keys per tile: one per lane
 constexpr int FMA_THREADS = 128;
 constexpr int FMA_RPW = FMA_BQ / (FMA_THREADS / 32);
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(FMA_THREADS)
 fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-                  int Sq, int Skv, float sm_scale, int causal) {
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+                  float sm_scale, int causal) {
   constexpr int DPL = D / 32;  // output columns per lane
   __shared__ float q_s[FMA_BQ][D];
   __shared__ float k_s[FMA_BK][D + 1];  // +1: lanes read distinct rows
@@ -293,37 +306,51 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + warp * FMA_RPW + rr;
     if (qi >= Sq) continue;
     const float inv = l[rr] == 0.f ? 0.f : 1.f / l[rr];
+    if (LSE && lane == 0)
+      lse[(int64_t)(b * Hq + h) * Sq + qi] = m[rr] + logf(fmaxf(l[rr], 1e-37f));
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
       ob[(int64_t)qi * D + lane + 32 * i] = from_f32<T>(acc[rr][i] * inv);
   }
 }
 
-template <int D>
-void launch_d(const void* q, const void* k, const void* v, void* o, int B,
-              int Hq, int Hkv, int Sq, int Skv, float sm_scale, int causal,
-              int dtype, cudaStream_t stream) {
+template <int D, bool LSE>
+void launch_dl(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+               float sm_scale, int causal, int dtype, cudaStream_t stream) {
   if (dtype == kBF16) {
     dim3 grid((Sq + MMA_BQ - 1) / MMA_BQ, Hq, B);
-    fa_fwd_mma_kernel<D><<<grid, MMA_THREADS, 0, stream>>>(
+    fa_fwd_mma_kernel<D, LSE><<<grid, MMA_THREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
-        sm_scale * LOG2E, causal);
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
+        Skv, sm_scale * LOG2E, causal);
   } else {
     dim3 grid((Sq + FMA_BQ - 1) / FMA_BQ, Hq, B);
-    fa_fwd_fma_kernel<float, D><<<grid, FMA_THREADS, 0, stream>>>(
+    fa_fwd_fma_kernel<float, D, LSE><<<grid, FMA_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-        sm_scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv,
+        Sq, Skv, sm_scale, causal);
   }
+}
+
+template <int D>
+void launch_d(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+              float sm_scale, int causal, int dtype, cudaStream_t stream) {
+  if (lse)
+    launch_dl<D, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal,
+                       dtype, stream);
+  else
+    launch_dl<D, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal,
+                        dtype, stream);
 }
 
 }  // namespace
 
 cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Hq, int Hkv, int Sq,
-                                   int Skv, int D, float sm_scale, int causal,
-                                   int dtype, cudaStream_t stream) {
+                                   void* o, float* lse, int B, int Hq, int Hkv,
+                                   int Sq, int Skv, int D, float sm_scale,
+                                   int causal, int dtype, cudaStream_t stream) {
   if (B < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq < 0 || Skv < 0)
     return cudaErrorInvalidValue;
   if (causal && Sq != Skv) return cudaErrorInvalidValue;
@@ -331,9 +358,9 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (Hq > 65535 || B > 65535) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: launch_d<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
-    case 64: launch_d<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
-    case 128: launch_d<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
+    case 32: launch_d<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
+    case 64: launch_d<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
+    case 128: launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

@@ -1,10 +1,13 @@
-"""The decoder's configuration and parameters (tpukern/models/transformer.py).
+"""The decoder (tpukern/models/transformer.py): its configuration and
+parameters, and the single-device training path `forward` -> `loss_fn`
+-> `make_train_step`, which runs the kernels through ops/trainable.py.
 
 Parameters are a plain dict with the JAX package's tree: embed (V, d),
 layers (a list of dicts with ln1, wq, wk, wv, wo, ln2, w1, w2), lnf (d,)
 and head (d, V). Projections keep the (d_in, d_out) layout, so `h @ w`
-means the same on both sides. The training forward, loss and step are
-not ported yet (ROADMAP.md queue 1 item 7).
+means the same on both sides. Not ported here: the fused loss, sliding
+window and softcap in training, sinks, MoE and the tp/sp/ep mesh axes
+(each raises NotImplementedError naming its ROADMAP.md item).
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from tpukern_torch.ops.trainable import (flash_attention_trainable, matmul_t,
+                                         rms_norm_t, rope_t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +33,9 @@ class Config:
     d_ff: int = 1024
     max_seq: int = 256
     param_dtype: Any = torch.float32
-    # the fields below keep the JAX Config's shape; the serving port
-    # raises NotImplementedError when any of them is set
+    # the fields below keep the JAX Config's shape; the serving and
+    # training paths raise NotImplementedError for those they lack (remat
+    # is ported)
     n_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 2.0
@@ -95,3 +103,144 @@ def params_to(params, *args, **kwargs):
                         for lp in params["layers"]],
                 lnf=params["lnf"].to(*args, **kwargs),
                 head=params["head"].to(*args, **kwargs))
+
+
+def param_leaves(params) -> list[torch.Tensor]:
+    """The parameter tensors in a fixed order (embed, each layer's in
+    insertion order, lnf, head): what an optimizer is built over."""
+    return ([params["embed"]]
+            + [w for lp in params["layers"] for w in lp.values()]
+            + [params["lnf"], params["head"]])
+
+
+def _check_forward(cfg: Config, tp_size=1, tp_axis=None, sp_axis=None,
+                   ep_axis=None):
+    todo = [(cfg.window is not None or cfg.softcap is not None,
+             "window/softcap in training: ROADMAP.md queue 1 item 6 (the "
+             "featured backward kernels #9/#10)"),
+            (cfg.sinks is not None, "sinks: ROADMAP.md queue 1 item 5"),
+            (cfg.n_experts, "MoE layers: ROADMAP.md queue 1 item 11"),
+            (tp_size != 1 or any(a is not None
+                                 for a in (tp_axis, sp_axis, ep_axis)),
+             "tp/sp/ep mesh axes: ROADMAP.md queue 1 item 13")]
+    for unported, what in todo:
+        if unported:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def _attn_block(h, lp, cfg: Config):
+    B, S, d = h.shape
+    Dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h2 = h.reshape(B * S, d)
+
+    def to_heads(x, nh):
+        # (B*S, nh*Dh) -> (B*nh*S, Dh) rows for one batched RoPE call
+        x = x.reshape(B, S, nh, Dh).transpose(1, 2).reshape(B * nh * S, Dh)
+        return rope_t(x, S).reshape(B, nh, S, Dh)
+
+    q = to_heads(matmul_t(h2, lp["wq"]), hq)
+    k = to_heads(matmul_t(h2, lp["wk"]), hkv)
+    v = matmul_t(h2, lp["wv"]).reshape(B, S, hkv, Dh).transpose(1, 2)
+    o = flash_attention_trainable(q, k, v, True, None)
+    o = o.transpose(1, 2).reshape(B * S, hq * Dh)
+    return matmul_t(o, lp["wo"]).reshape(B, S, d)
+
+
+def _mlp_block(h, lp):
+    B, S, d = h.shape
+    u = matmul_t(h.reshape(B * S, d), lp["w1"])
+    u = torch.nn.functional.gelu(u, approximate="tanh")  # jax.nn.gelu
+    return matmul_t(u, lp["w2"]).reshape(B, S, d)
+
+
+def _layer(h, lp, cfg: Config):
+    B, S, d = h.shape
+    hn = rms_norm_t(h.reshape(B * S, d), lp["ln1"]).reshape(h.shape)
+    h = h + _attn_block(hn, lp, cfg)
+    hn = rms_norm_t(h.reshape(B * S, d), lp["ln2"]).reshape(h.shape)
+    return h + _mlp_block(hn, lp)
+
+
+def forward(params, tokens, cfg: Config, tp_size: int = 1, tp_axis=None,
+            sp_axis=None, ep_axis=None, return_hidden=False):
+    """tokens (B, S) int -> logits (B, S, vocab) f32; with return_hidden
+    the final-norm hidden states (B*S, d) instead.
+
+    cfg.remat recomputes each layer in the backward pass
+    (torch.utils.checkpoint) instead of keeping its activations. The
+    mesh arguments keep the JAX signature; anything but their defaults
+    raises NotImplementedError."""
+    _check_forward(cfg, tp_size, tp_axis, sp_axis, ep_axis)
+    B, S = tokens.shape
+    h = params["embed"][tokens]
+    for lp in params["layers"]:
+        if cfg.remat:
+            h = checkpoint(_layer, h, lp, cfg, use_reentrant=False)
+        else:
+            h = _layer(h, lp, cfg)
+    hn = rms_norm_t(h.reshape(B * S, -1), params["lnf"])
+    if return_hidden:
+        return hn
+    logits = matmul_t(hn, params["head"]).reshape(B, S, cfg.vocab)
+    return logits.float()
+
+
+def loss_fn(params, tokens, targets, cfg: Config):
+    """Mean next-token NLL of the unfused log-softmax (transformer.py:270)."""
+    if cfg.fused_loss:
+        raise NotImplementedError(
+            "not ported yet: Config.fused_loss: ROADMAP.md queue 1 item 8 "
+            "(ops/cross_entropy.py, kernels #13-#15)")
+    logp = torch.log_softmax(forward(params, tokens, cfg), dim=-1)
+    return -logp.gather(-1, targets[..., None].long()).mean()
+
+
+def _accum_grads(grad_of_batch, tokens, targets, accum_steps):
+    """Split the batch into accum_steps microbatches, run grad_of_batch on
+    each and average: the grad of the full-batch mean loss (equal
+    microbatch sizes) at 1/accum_steps of the activation memory."""
+    B = tokens.shape[0]
+    if B % accum_steps:
+        raise ValueError(f"batch {B} does not split into {accum_steps} "
+                         "microbatches")
+    loss, grads = grad_of_batch(tokens[:B // accum_steps],
+                                targets[:B // accum_steps])
+    grads = list(grads)
+    for i in range(1, accum_steps):
+        mb = slice(i * B // accum_steps, (i + 1) * B // accum_steps)
+        l_i, g_i = grad_of_batch(tokens[mb], targets[mb])
+        loss = loss + l_i
+        for acc, g in zip(grads, g_i):
+            acc.add_(g)
+    inv = 1.0 / accum_steps
+    return loss * inv, [g * inv for g in grads]
+
+
+def make_train_step(cfg: Config, optimizer, accum_steps=1):
+    """Single-device train step(params, tokens, targets) -> loss.
+
+    `optimizer` is a torch.optim.Optimizer over param_leaves(params),
+    whose tensors require grad. The step computes the loss and its grads
+    (averaged over accum_steps microbatches), stores the grads in each
+    leaf's .grad, applies the optimizer in place and returns the loss."""
+
+    def step(params, tokens, targets):
+        leaves = param_leaves(params)
+        if not all(p.requires_grad for p in leaves):
+            raise ValueError("every parameter must require grad "
+                             "(p.requires_grad_() on param_leaves(params))")
+
+        def gb(tok, tgt):
+            loss = loss_fn(params, tok, tgt, cfg)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        if accum_steps > 1:
+            loss, grads = _accum_grads(gb, tokens, targets, accum_steps)
+        else:
+            loss, grads = gb(tokens, targets)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        optimizer.step()
+        return loss
+
+    return step

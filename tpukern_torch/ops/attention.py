@@ -1,11 +1,12 @@
 """FlashAttention-2 forward: split-Q tiling with a fused online softmax.
 
 The port of tpukern/ops/attention.py's forward for the features the
-serving prefill uses: causal masking, GQA (query head h reads KV head
-h // (Hq // Hkv)), any Sq == Skv including lengths that are not a tile
-multiple, and head dims 32, 64 and 128. Kernel: csrc/flash_attention.cu,
-which replaces `_fa_kernel` (attention.py:62) and its transposed-layout
-twin `_fa_tpv_kernel` (:656).
+serving prefill and the training step use: causal masking, GQA (query
+head h reads KV head h // (Hq // Hkv)), any Sq == Skv including lengths
+that are not a tile multiple, head dims 32, 64 and 128, and the lse
+output (return_stats) that the backward recomputes P from. Kernel:
+csrc/flash_attention.cu, which replaces `_fa_kernel` (attention.py:62)
+and its transposed-layout twin `_fa_tpv_kernel` (:656).
 """
 
 import math
@@ -31,7 +32,9 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
                     sinks=None, softcap=None, alibi_slopes=None,
                     segment_ids=None, causal_offset=0, carry=None,
                     return_carry=False, return_stats=False):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hkv | Hq -> o like q.
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hkv | Hq -> o like q,
+    and with return_stats also the f32 (B, Hq, Sq) log-sum-exp of the
+    scaled scores, in natural log.
 
     causal=True needs Sq == Skv. sm_scale defaults to 1/sqrt(D). A CPU
     tensor takes attention_ref; a CUDA tensor launches the kernel (bf16
@@ -40,7 +43,7 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
     _reject(window=window, sinks=sinks, softcap=softcap,
             alibi_slopes=alibi_slopes, segment_ids=segment_ids,
             causal_offset=causal_offset, carry=carry,
-            return_carry=return_carry, return_stats=return_stats)
+            return_carry=return_carry)
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -51,7 +54,8 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                             return_stats=return_stats)
     _build.check_cuda(q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
@@ -60,19 +64,24 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
                         f"{v.dtype}")
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
+    lse = (torch.empty(B, Hq, Sq, device=q.device) if return_stats
+           else None)
     _build.launch("tk_flash_attention", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), o.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
-                  sm_scale, int(causal), _build.dtype_code(q),
+                  v.data_ptr(), o.data_ptr(),
+                  None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq,
+                  Skv, D, sm_scale, int(causal), _build.dtype_code(q),
                   _build.stream(q))
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_stats else o
 
 
 flash_attention.launches = 0
 
 
-def attention_ref(q, k, v, *, causal=False, sm_scale=None):
-    """Unfused f32 reference with GQA broadcast; fully masked rows give 0."""
+def attention_ref(q, k, v, *, causal=False, sm_scale=None,
+                  return_stats=False):
+    """Unfused f32 reference with GQA broadcast; fully masked rows give 0.
+    return_stats also returns the f32 natural-log lse of each row."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -86,4 +95,5 @@ def attention_ref(q, k, v, *, causal=False, sm_scale=None):
     all_masked = torch.isneginf(s).all(dim=-1, keepdim=True)
     p = torch.softmax(s.masked_fill(all_masked, 0.0), dim=-1)
     p = p.masked_fill(all_masked, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_stats else o

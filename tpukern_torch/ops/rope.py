@@ -1,8 +1,8 @@
 """RoPE: rotary position embedding, half-split (NeoX) pairs, theta=10000.
 
-The port of tpukern/ops/rope.py's cached-table path. Kernel:
-csrc/rope.cu, which replaces the Pallas `kernel` of rope_cached
-(rope.py:118).
+The port of tpukern/ops/rope.py's cached-table path (serving) and
+`rope_batched` (training). Kernels: csrc/rope.cu, which replaces the
+Pallas `kernel`s of rope_cached (rope.py:118) and rope_batched (:81).
 """
 
 import math
@@ -17,9 +17,46 @@ _LOG_THETA = math.log(10000.0)
 def make_cos_sin(S, D, device=None):
     """f32 (S, D/2) tables: angle = pos * exp(j * (-2 ln theta / D))."""
     pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
-    j = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    return _cos_sin(pos, D)
+
+
+def _cos_sin(pos, D):
+    j = torch.arange(D // 2, dtype=torch.float32, device=pos.device)[None, :]
     ang = pos * torch.exp(j * (-2.0 * _LOG_THETA / D))
     return torch.cos(ang), torch.sin(ang)
+
+
+def rope_batched(x, seq_len, sign=1.0):
+    """Rotate (N*seq_len, D) rows at position row % seq_len, computing the
+    angles as make_cos_sin does; sign=-1 is the inverse rotation (the
+    backward). Output in x.dtype.
+
+    A CPU tensor takes rope_batched_ref; a CUDA tensor launches the kernel
+    (bf16 or f32 x)."""
+    R, D = x.shape
+    if D % 2 or seq_len <= 0 or R % seq_len:
+        raise ValueError(f"rope_batched: x {tuple(x.shape)} needs an even D "
+                         f"and rows a multiple of seq_len={seq_len}")
+    if x.device.type == "cpu":
+        return rope_batched_ref(x, seq_len, sign)
+    _build.check_cuda(x)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    _build.launch("tk_rope_batched", x.data_ptr(), y.data_ptr(), R, D,
+                  seq_len, float(sign), _build.dtype_code(x),
+                  _build.stream(x))
+    rope_batched.launches += 1
+    return y
+
+
+rope_batched.launches = 0
+
+
+def rope_batched_ref(x, seq_len, sign=1.0):
+    pos = (torch.arange(x.shape[0], device=x.device) % seq_len).to(
+        torch.float32)[:, None]
+    cos, sin = _cos_sin(pos, x.shape[1])
+    return rope_cached_ref(x, cos, sign * sin)
 
 
 def rope_cached(x, cos, sin):
