@@ -9,10 +9,13 @@
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape;
-4. checks the training slice's kernels (matmul in its three epilogues,
-   rope_batched, the flash_attention lse, flash_attention_bwd) against
-   their plain versions, and times them at the 7bish training shapes;
-   the GEMM's plain version is cuBLAS;
+4. checks the training slices' kernels (matmul in its three epilogues,
+   rope_batched, the flash_attention lse, flash_attention_bwd, and the
+   fused cross-entropy's forward and backward) against their plain
+   versions, and times them at the 7bish training shapes; every timed
+   kernel also gets its bound (bytes or operations over the H100's peak)
+   and, where one PyTorch call computes the same function, that call's
+   time;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; the kernels' launch counts are reset
@@ -22,10 +25,11 @@
 8. trains the 7bish preset in f32 at full depth: 5 Adam steps (lr
    TRAIN_LR) on one seeded batch (B=2, S=1024), launch counts reset just
    before and read just after, then profiles one more step by kernel
-   category;
+   category; once with the unfused log-softmax loss and once with
+   Config.fused_loss (the fused cross-entropy kernels);
 9. checks one loss-and-grad at the 7bish widths with 2 layers (B=1,
    S=1024, f32) against a loss built from the plain functions only,
-   differentiated by torch.autograd.
+   differentiated by torch.autograd, unfused and fused.
 
 Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
@@ -40,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 # tolerances of the kernel-vs-plain checks (max |kernel - plain| <= atol +
@@ -67,6 +72,12 @@ TRAIN_GRAD_REL = 1e-4
 # on the plain path alike, equal to 4 decimals; at 3e-4 it falls at every
 # step of the first 7 on both.
 TRAIN_LR = 3e-4
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense): HBM bytes/s, and FLOP/s of the unit a kernel's dtype runs on
+# (f32 on CUDA cores, bf16 on tensor cores). A kernel's bound is the
+# larger of its bytes and its operations over these.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def require(cond, msg):
@@ -129,15 +140,33 @@ def _randn(gen, *shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _compare(name, case, out, ref):
-    rtol, atol = TOLS[out.dtype]
+def _compare(name, case, out, ref, scale=1.0, dtype=None):
+    """max |out - ref| <= atol * scale + rtol * |ref| elementwise, at the
+    tolerance of `dtype` (default: out's); scale (the largest |ref|) holds
+    gradients of small magnitude to the tolerance relative to their own
+    size."""
+    rtol, atol = TOLS[dtype or out.dtype]
     d = (out.float() - ref.float()).abs()
-    bound = atol + rtol * ref.float().abs()
+    bound = atol * scale + rtol * ref.float().abs()
     ok = bool(torch.isfinite(out.float()).all() and (d <= bound).all())
+    tol = f"{rtol:g}/{atol:g}" + (f"x{scale:.3g}" if scale != 1.0 else "")
     print(f"[check] {name:16s} {case:44s} max_abs {d.max().item():.3e} "
-          f"mean_abs {d.mean().item():.3e} tol {rtol:g}/{atol:g} "
+          f"mean_abs {d.mean().item():.3e} tol {tol} "
           f"{'ok' if ok else 'MISS'}")
     return ok, d.max().item()
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _timed_entry(name, shape, kernel, plain, library, flops, nbytes, dtype):
+    """One kernel to time: its call, its plain version's, the one
+    PyTorch call of the same function (or None), and the work the
+    function needs on these inputs (operations, and bytes with each input
+    read once and each output written once)."""
+    return dict(name=name, shape=shape, kernel=kernel, plain=plain,
+                library=library, flops=flops, nbytes=nbytes, dtype=dtype)
 
 
 def _device_events(fn, n):
@@ -178,25 +207,44 @@ class _Checks:
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
+def _bound(flops, nbytes, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_ops = flops / PEAK_FLOP_S[dtype]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def _time_kernels(timed, results):
     """CUDA events around back-to-back calls (host issue time included
     where it exceeds the device's), and device-only time (profiler), of
-    each {key: (kernel name, shape, kernel call, plain call)}; the first
-    entry of a kernel name is the one its result row keeps."""
+    each {key: _timed_entry} (kernel, plain and library calls), with the
+    kernel's bound; the first entry of a kernel name is the one its
+    result row keeps."""
     from tpukern_torch.harness import run_benchmark
 
-    for key, (name, shape, kernel, plain) in timed.items():
-        r = dict(shape=shape, ms=run_benchmark(kernel),
-                 plain_ms=run_benchmark(plain), device_ms=_device_ms(kernel),
-                 plain_device_ms=_device_ms(plain))
+    def dev(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    for key, t in timed.items():
+        lib = t["library"]
+        bound_ms, bound_by = _bound(t["flops"], t["nbytes"], t["dtype"])
+        r = dict(shape=t["shape"], ms=run_benchmark(t["kernel"]),
+                 plain_ms=run_benchmark(t["plain"]),
+                 library_ms=None if lib is None else run_benchmark(lib),
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 device_ms=_device_ms(t["kernel"]),
+                 plain_device_ms=_device_ms(t["plain"]),
+                 library_device_ms=None if lib is None else _device_ms(lib))
         for k, v in r.items():
-            results[name].setdefault(k, v)
-        dev = ("device-only not measured" if None in (
-            r["device_ms"], r["plain_device_ms"]) else
-            f"device-only: kernel {r['device_ms']:.4f} ms plain "
-            f"{r['plain_device_ms']:.4f} ms")
-        print(f"[time] {key:24s} at {shape}: kernel {r['ms']:.4f} ms "
-              f"plain {r['plain_ms']:.4f} ms (events); {dev}")
+            results[t["name"]].setdefault(k, v)
+        libs = ("none" if lib is None else
+                f"{r['library_ms']:.4f} ms events, "
+                f"{dev(r['library_device_ms'])} ms device")
+        print(f"[time] {key:24s} at {t['shape']}: kernel {r['ms']:.4f} ms "
+              f"plain {r['plain_ms']:.4f} ms (events); device-only: kernel "
+              f"{dev(r['device_ms'])} ms plain {dev(r['plain_device_ms'])} "
+              f"ms; library {libs}; bound {bound_ms:.4f} ms by {bound_by}")
 
 
 def phase_kernels(cfg):
@@ -223,9 +271,11 @@ def phase_kernels(cfg):
                                      rmsnorm.rms_norm_ref(x, g)))
     x = _randn(gen, 512, d, dtype=bf)
     g = torch.ones(d, dtype=bf, device="cuda")
-    timed["rms_norm"] = ("rms_norm", [512, d],
-                         partial(rmsnorm.rms_norm, x, g),
-                         partial(rmsnorm.rms_norm_ref, x, g))
+    timed["rms_norm"] = _timed_entry(
+        "rms_norm", [512, d], partial(rmsnorm.rms_norm, x, g),
+        partial(rmsnorm.rms_norm_ref, x, g),
+        partial(F.rms_norm, x, (d,), g, 1e-5), 4 * x.numel(),
+        _nbytes(x, g, x), bf)
 
     # rope_cached: q rows of one decode step and of a 512 prefill, f32
     cos_t, sin_t = rope.make_cos_sin(cfg.max_seq, D, device="cuda")
@@ -242,9 +292,10 @@ def phase_kernels(cfg):
     pos = torch.arange(512, device="cuda").repeat(Hq)
     x = _randn(gen, Hq * 512, D, dtype=bf)
     args = (x, cos_t[pos], sin_t[pos])
-    timed["rope_cached"] = ("rope_cached", [Hq * 512, D],
-                            partial(rope.rope_cached, *args),
-                            partial(rope.rope_cached_ref, *args))
+    timed["rope_cached"] = _timed_entry(
+        "rope_cached", [Hq * 512, D], partial(rope.rope_cached, *args),
+        partial(rope.rope_cached_ref, *args), None, 3 * x.numel(),
+        _nbytes(*args, x), bf)
 
     # flash_attention: the 7bish prefill heads at S in {128, 300, 512},
     # D = 64, and f32 (causal and not)
@@ -263,10 +314,13 @@ def phase_kernels(cfg):
     q = _randn(gen, 1, Hq, 512, D, dtype=bf)
     k = _randn(gen, 1, Hkv, 512, D, dtype=bf)
     v = _randn(gen, 1, Hkv, 512, D, dtype=bf)
-    timed["flash_attention"] = (
+    timed["flash_attention"] = _timed_entry(
         "flash_attention", [1, Hq, 512, D],
         partial(attention.flash_attention, q, k, v, causal=True),
-        partial(attention.attention_ref, q, k, v, causal=True))
+        partial(attention.attention_ref, q, k, v, causal=True),
+        partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                enable_gqa=True),
+        4 * D * Hq * 512 * 513 // 2, _nbytes(q, k, v, q), bf)
 
     # paged decode: 4 sequences x 8 pages of 128 from a shuffled pool
     def paged_case(B, hq, hkv, dd, page, pps, lengths, dt):
@@ -288,10 +342,15 @@ def phase_kernels(cfg):
             "paged_attention", case,
             paged_attention.paged_attention(*args),
             paged_attention.paged_attention_ref(*args)))
-    timed["paged_attention"] = (
+    # the work of this data: the K/V rows of each sequence's live tokens
+    live = int(serve_case[3].sum())
+    timed["paged_attention"] = _timed_entry(
         "paged_attention", [4, Hq, D],
         partial(paged_attention.paged_attention, *serve_case),
-        partial(paged_attention.paged_attention_ref, *serve_case))
+        partial(paged_attention.paged_attention_ref, *serve_case), None,
+        4 * Hq * D * live,
+        2 * _nbytes(serve_case[0]) + 2 * live * Hkv * D * 2
+        + _nbytes(*serve_case[3:]), bf)
 
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
@@ -328,8 +387,9 @@ def phase_train_kernels(cfg, B, S):
                 checks.record("matmul", *_compare(
                     "matmul", f"({M},{K})x({K},{N}) {'TN' if trans_b else 'NN'}"
                     f" {dt} {mode}->{out.dtype}", out, ref.to(out.dtype)))
-    # timed against cuBLAS in the input dtype (bf16 cuBLAS writes bf16,
-    # the kernel the f32 accumulator, as matmul_t asks)
+    # the library call is cuBLAS in the input dtype (bf16 cuBLAS writes
+    # bf16, the kernel the f32 accumulator, as matmul_t asks); the plain
+    # version is cuBLAS in f32
     def cublas(a, b, trans_b):
         return torch.matmul(a, b.T if trans_b else b)
 
@@ -337,10 +397,13 @@ def phase_train_kernels(cfg, B, S):
         a = _randn(gen, d, d, dtype=dt)
         for trans_b in (False, True):
             b = _randn(gen, *((ff, d) if trans_b else (d, ff)), dtype=dt)
-            timed[f"matmul {tag} {'TN' if trans_b else 'NN'}"] = (
+            timed[f"matmul {tag} {'TN' if trans_b else 'NN'}"] = _timed_entry(
                 "matmul", [d, d, ff],
                 partial(matmul.matmul, a, b, trans_b=trans_b,
-                        acc_in_out=True), partial(cublas, a, b, trans_b))
+                        acc_in_out=True),
+                partial(matmul.matmul_ref, a, b, trans_b=trans_b),
+                partial(cublas, a, b, trans_b), 2 * d * d * ff,
+                _nbytes(a, b) + 4 * d * ff, dt)
 
     # rope_batched: q rows of the training batch, sign +-1, f32 and bf16
     R = B * Hq * S
@@ -352,9 +415,10 @@ def phase_train_kernels(cfg, B, S):
                 rope.rope_batched(x, S, sign),
                 rope.rope_batched_ref(x, S, sign)))
     x = _randn(gen, R, D, dtype=f32)
-    timed["rope_batched"] = ("rope_batched", [R, D],
-                             partial(rope.rope_batched, x, S),
-                             partial(rope.rope_batched_ref, x, S))
+    timed["rope_batched"] = _timed_entry(
+        "rope_batched", [R, D], partial(rope.rope_batched, x, S),
+        partial(rope.rope_batched_ref, x, S), None, 3 * x.numel(),
+        _nbytes(x, x), f32)
 
     # rms_norm at the training shape: f32 (B*S, d), non-unit gain
     x = _randn(gen, B * S, d, dtype=f32)
@@ -397,13 +461,96 @@ def phase_train_kernels(cfg, B, S):
     o, lse = attention.flash_attention(q, k, v, causal=True,
                                        return_stats=True)
     args = (q, k, v, o, lse, do)
-    timed["flash_attention_bwd"] = (
+    # the library call: autograd's backward of SDPA on the same q, k, v
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    timed["flash_attention_bwd"] = _timed_entry(
         "flash_attention_bwd", [B, Hq, S, D],
         partial(attention_bwd.flash_attention_bwd, *args, causal=True),
-        partial(attention_bwd.flash_attention_bwd_ref, *args, causal=True))
+        partial(attention_bwd.flash_attention_bwd_ref, *args, causal=True),
+        partial(torch.autograd.grad, ol, (ql, kl, vl), do, retain_graph=True),
+        10 * D * B * Hq * S * (S + 1) // 2, _nbytes(*args, q, k, v), f32)
 
+    _ce_kernels(checks, timed, gen, cfg, B * S)
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
+
+
+def _ce_kernels(checks, timed, gen, cfg, N):
+    """The fused cross-entropy's forward (loss, lse) and backward (dx, dW)
+    against their plain versions: odd shapes first, then the head of the
+    7bish training step, x (N, d) by w (d, vocab), in f32 and bf16, about
+    5% of the targets ignored. x ~ N(0, 1) and w ~ N(0, 1/d) give logits
+    of unit scale. The gradients are held relative to their largest value
+    (scale), since their size depends on the cotangent, at the tolerance
+    of the inputs' dtype: with bf16 inputs both sides round dlog to bf16,
+    and a dlog near a rounding boundary may round the other way on one
+    side. Times at the
+    training shape; the library call is torch.matmul then F.cross_entropy
+    (two calls, JAX's dense_xla baseline), and autograd's backward of the
+    two for the backward kernel."""
+    from functools import partial
+
+    from tpukern_torch.ops import cross_entropy as ce
+
+    bf, f32 = torch.bfloat16, torch.float32
+    d, V = cfg.d_model, cfg.vocab
+
+    def inputs(n, dd, v, dt):
+        x = _randn(gen, n, dd, dtype=f32).to(dt)
+        w = _randn(gen, dd, v, dtype=f32).div(dd ** 0.5).to(dt)
+        t = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        t[torch.rand(n, generator=gen, device="cuda") < 0.05] = -1
+        return x, w, t
+
+    for n, dd, v, dt, exp2 in ((200, 128, 1000, f32, False),
+                               (200, 128, 1000, f32, True),
+                               (129, 100, 257, bf, True),
+                               (N, d, V, f32, False), (N, d, V, bf, True)):
+        x, w, t = inputs(n, dd, v, dt)
+        cot = torch.rand(n, generator=gen, device="cuda")
+        case = f"({n},{dd})x({dd},{v}) {dt} exp2={exp2}"
+        loss, lse = ce.ce_fwd(x, w, t, exp2)
+        dx, dw = ce.ce_bwd(x, w, t, lse, cot, exp2)
+        rloss, rlse = ce._ce_ref(x, w, t)
+        rdx, rdw = ce.ce_bwd_ref(x, w, t, rlse, cot)
+        for what, out, ref in (("loss", loss, rloss), ("lse", lse, rlse)):
+            checks.record("ce_fwd", *_compare("ce_fwd", f"{what} {case}",
+                                              out, ref))
+        for what, out, ref in (("dx", dx, rdx), ("dW", dw, rdw)):
+            checks.record("ce_bwd", *_compare(
+                "ce_bwd", f"{what} {case}", out, ref,
+                scale=ref.abs().max().item(), dtype=dt))
+        ignored = t < 0
+        checks.record("ce_bwd", bool((loss[ignored] == 0).all()
+                                     and (dx[ignored] == 0).all()), 0.0)
+        del rdx, rdw
+
+    for dt, exp2 in ((f32, False), (bf, True)):
+        tag = "f32" if dt == f32 else "bf16"
+        x, w, t = inputs(N, d, V, dt)
+        g = torch.full((N,), 1.0 / N, device="cuda")
+        t64 = t.long()
+        _, lse = ce.ce_fwd(x, w, t, exp2)
+
+        def lib_fwd(x=x, w=w, t64=t64):
+            return F.cross_entropy(torch.matmul(x, w).float(), t64,
+                                   ignore_index=-1, reduction="none")
+
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ll = F.cross_entropy(torch.matmul(xl, wl).float(), t64,
+                             ignore_index=-1, reduction="none")
+        flops, io = 2 * N * d * V, _nbytes(x, w, t) + 8 * N
+        timed[f"ce_fwd {tag}"] = _timed_entry(
+            "ce_fwd", [N, d, V], partial(ce.ce_fwd, x, w, t, exp2),
+            partial(ce._ce_ref, x, w, t), lib_fwd, flops, io, dt)
+        # one recompute of the score tile, then the dx and dW products
+        timed[f"ce_bwd {tag}"] = _timed_entry(
+            "ce_bwd", [N, d, V], partial(ce.ce_bwd, x, w, t, lse, g, exp2),
+            partial(ce.ce_bwd_ref, x, w, t, lse, g),
+            partial(torch.autograd.grad, ll, (xl, wl), g, retain_graph=True),
+            3 * flops, _nbytes(x, w, t, lse, g) + 4 * (N * d + d * V), dt)
 
 
 def _timed(fn, *args):
@@ -472,7 +619,9 @@ def phase_serve(cfg, params, ops):
     return launches, requests
 
 
-_CATEGORIES = (("rms_norm", "rms_norm_kernel"),
+_CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
+                                  "ce_bwd_")),
+               ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
                ("fa_fwd", "fa_fwd_"),
                ("fa_bwd", "fa_bwd_kernel"),
@@ -607,12 +756,14 @@ def _batch(cfg, B, S, seed):
 
 
 def phase_train(cfg, B, S, steps=5):
-    """The training main path: `steps` Adam steps of make_train_step on
-    one seeded batch; launch counts reset just before and read just
-    after; then one more step under the profiler."""
+    """A training main path: `steps` Adam steps of make_train_step on
+    one seeded batch (the same parameters and batch for the unfused and
+    the fused loss); launch counts reset just before and read just
+    after; then one more step under the profiler. Returns the launches
+    and the losses."""
     from tpukern_torch.models import init_params, make_train_step, param_leaves
-    from tpukern_torch.ops import (attention, attention_bwd, matmul, rmsnorm,
-                                   rope)
+    from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
+                                   matmul, rmsnorm, rope)
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                          device="cuda")
@@ -625,6 +776,9 @@ def phase_train(cfg, B, S, steps=5):
     tokens, targets = _batch(cfg, B, S, SEED)
     ops = [matmul.matmul, rope.rope_batched, attention.flash_attention,
            attention_bwd.flash_attention_bwd, rmsnorm.rms_norm]
+    if cfg.fused_loss:
+        ops += [cross_entropy.ce_fwd, cross_entropy.ce_bwd]
+    label = "fused loss" if cfg.fused_loss else "unfused loss"
     for op in ops:
         op.launches = 0
     torch.cuda.synchronize()
@@ -637,24 +791,28 @@ def phase_train(cfg, B, S, steps=5):
         ms.append(1e3 * (time.perf_counter() - t0))
     launches = {op.__name__: op.launches for op in ops}
     med = float(np.median(ms[1:]))
-    print(f"[train] 7bish f32, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
-          f"parameters, Adam lr {TRAIN_LR:g}, B={B} S={S}; peak device memory "
+    print(f"[train] 7bish f32, {label}, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, Adam lr {TRAIN_LR:g}, B={B} "
+          f"S={S}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[train] losses {[round(x, 6) for x in losses]}")
-    print(f"[train] step ms {[round(x, 3) for x in ms]}; median of steps "
-          f"2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
-    print(f"[train] launches {launches}")
+    print(f"[train] {label} losses {[round(x, 6) for x in losses]}")
+    print(f"[train] {label} step ms {[round(x, 3) for x in ms]}; median of "
+          f"steps 2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
+    print(f"[train] {label} launches {launches}")
     require(all(np.isfinite(losses)), f"losses not finite: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the training path never launched: {launches}")
-    _profile("train step", lambda: step(params, tokens, targets).item(), 1)
-    return launches
+    _profile(f"train step ({label})",
+             lambda: step(params, tokens, targets).item(), 1)
+    return launches, losses
 
 
 def _plain_loss(params, tokens, targets, cfg):
-    """loss_fn with the plain functions only, for torch.autograd."""
+    """loss_fn with the plain functions only, for torch.autograd; with
+    cfg.fused_loss the head and loss are cross_entropy_ref."""
     from tpukern_torch.ops.attention import attention_ref
+    from tpukern_torch.ops.cross_entropy import cross_entropy_ref
     from tpukern_torch.ops.matmul import matmul_ref
     from tpukern_torch.ops.rmsnorm import rms_norm_ref
     from tpukern_torch.ops.rope import rope_batched_ref
@@ -680,19 +838,24 @@ def _plain_loss(params, tokens, targets, cfg):
         u = torch.nn.functional.gelu(matmul_ref(hn, lp["w1"]),
                                      approximate="tanh")
         h = h + matmul_ref(u, lp["w2"]).reshape(B, S, d)
-    logits = matmul_ref(rms_norm_ref(h, params["lnf"]).reshape(B * S, d),
-                        params["head"])
+    hn = rms_norm_ref(h, params["lnf"]).reshape(B * S, d)
+    if cfg.fused_loss:
+        return cross_entropy_ref(hn, params["head"], targets.reshape(-1)
+                                 ).mean()
+    logits = matmul_ref(hn, params["head"])
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets.reshape(-1, 1)).mean()
 
 
 def phase_train_parity(cfg, S):
     """One loss-and-grad through the kernels against _plain_loss, at the
-    7bish widths with 2 layers, B=1, f32, on the same card."""
+    7bish widths with 2 layers, B=1, f32, on the same card; with
+    cfg.fused_loss also the fused against the unfused kernel loss."""
     import dataclasses
     from tpukern_torch.models import init_params, loss_fn, param_leaves
 
     cfg = dataclasses.replace(cfg, n_layers=2)
+    label = "fused" if cfg.fused_loss else "unfused"
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 2), device="cuda")
     leaves = param_leaves(params)
@@ -706,9 +869,15 @@ def phase_train_parity(cfg, S):
     (lk, gk), (lp, gp) = out["kernels"], out["plain"]
     loss_rel = ((lk - lp).abs() / lp.abs()).item()
     ok = bool(torch.isfinite(lk)) and loss_rel <= TRAIN_LOSS_REL
-    print(f"[parity] 7bish widths, 2 layers, B=1 S={S} f32: loss kernels "
-          f"{lk.item():.7f} plain {lp.item():.7f} rel {loss_rel:.3e} "
-          f"(<= {TRAIN_LOSS_REL:g}) {'ok' if ok else 'MISS'}")
+    print(f"[parity] 7bish widths, 2 layers, B=1 S={S} f32, {label} loss: "
+          f"loss kernels {lk.item():.7f} plain {lp.item():.7f} rel "
+          f"{loss_rel:.3e} (<= {TRAIN_LOSS_REL:g}) {'ok' if ok else 'MISS'}")
+    if cfg.fused_loss:
+        with torch.no_grad():
+            lu = loss_fn(params, tokens, targets,
+                         dataclasses.replace(cfg, fused_loss=False))
+        print(f"[parity] fused kernel loss {lk.item():.7f} unfused kernel "
+              f"loss {lu.item():.7f} rel {((lk - lu).abs() / lu.abs()).item():.3e}")
     names = ["embed"] + [f"layers.{i}.{k}" for i, lp_ in
                          enumerate(params["layers"]) for k in lp_] + [
                              "lnf", "head"]
@@ -720,7 +889,7 @@ def phase_train_parity(cfg, S):
         ok &= good
         print(f"[parity]   grad {name:16s} rel_rms {rel:.3e} "
               f"{'ok' if good else 'MISS'}")
-    print(f"[parity] worst gradient rel_rms {worst:.3e} "
+    print(f"[parity] {label} worst gradient rel_rms {worst:.3e} "
           f"(<= {TRAIN_GRAD_REL:g}) {'ok' if ok else 'MISS'}")
     return ok
 
@@ -767,11 +936,20 @@ def main():
     del params
     torch.cuda.empty_cache()
 
-    train_launches = phase_train(tcfg, TB, TS)
-    if not phase_train_parity(tcfg, TS):
-        print("chip_smoke: the training loss or a gradient disagrees",
-              file=sys.stderr)
-        return 1
+    train_launches, unfused_losses = phase_train(tcfg, TB, TS)
+    torch.cuda.empty_cache()
+    fcfg = dataclasses.replace(tcfg, fused_loss=True)
+    fused_launches, fused_losses = phase_train(fcfg, TB, TS)
+    require(fused_launches["ce_fwd"] > 0 and fused_launches["ce_bwd"] > 0,
+            f"the fused loss never launched its kernels: {fused_launches}")
+    print(f"[train] fused - unfused loss per step "
+          f"{[f'{a - b:.2e}' for a, b in zip(fused_losses, unfused_losses)]}")
+    torch.cuda.empty_cache()
+    for c in (tcfg, fcfg):
+        if not phase_train_parity(c, TS):
+            print("chip_smoke: the training loss or a gradient disagrees",
+                  file=sys.stderr)
+            return 1
     for name, r in train_timing.items():  # rms_norm, flash_attention: checks
         # at the training shapes
         if name in timing:
@@ -779,7 +957,9 @@ def main():
                                               r["max_abs_err"])
         else:
             timing[name] = r
-    launches = {**train_launches, **launches}  # serving counts for its four
+    # serving counts for its four, the fused phase for the CE kernels
+    launches = {**train_launches, **launches,
+                **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")}}
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -794,11 +974,29 @@ def main():
            "rope_batched": ("tpukern_torch/csrc/rope.cu",
                             "tpukern/ops/rope.py:81"),
            "flash_attention_bwd": ("tpukern_torch/csrc/flash_attention_bwd.cu",
-                                   "tpukern/ops/attention_bwd.py:339")}
+                                   "tpukern/ops/attention_bwd.py:339"),
+           "ce_fwd": ("tpukern_torch/csrc/cross_entropy.cu",
+                      "tpukern/ops/cross_entropy.py:53"),
+           "ce_bwd": ("tpukern_torch/csrc/cross_entropy.cu",
+                      "tpukern/ops/cross_entropy.py:95")}
+    # one backward kernel serves both of the TPU's backward kernels
+    also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132"}
+    # the PyTorch call(s) behind library_ms (null where there is none)
+    library = {
+        "rms_norm": "F.rms_norm",
+        "flash_attention": "F.scaled_dot_product_attention(enable_gqa=True)",
+        "matmul": "torch.matmul (cuBLAS, input dtype)",
+        "flash_attention_bwd": "autograd backward of "
+                               "F.scaled_dot_product_attention",
+        "ce_fwd": "torch.matmul + F.cross_entropy (two calls)",
+        "ce_bwd": "autograd backward of torch.matmul + F.cross_entropy "
+                  "(two calls)"}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
              launches=launches[n], max_abs_err=timing[n]["max_abs_err"],
-             ms=timing[n]["ms"], plain_ms=timing[n]["plain_ms"])
+             **{k: timing[n][k] for k in keys}, library=library.get(n),
+             **({"also_replaces": also[n]} if n in also else {}))
         for n in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

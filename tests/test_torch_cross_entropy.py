@@ -1,0 +1,257 @@
+"""The fused LM-head cross-entropy of tpukern_torch against the JAX
+package on CPU, and the training step with Config.fused_loss.
+
+Inputs come from a numpy seed and go through both sides. The JAX side
+runs its Pallas kernels in interpret mode (conftest forces the CPU
+platform); the port side takes the plain PyTorch versions, as its
+wrappers do for CPU tensors, inside the same autograd Function that
+launches the kernels on a card. Everything is f32, tolerance 2e-5, as in
+tests/test_torch_train_ops.py (sums are taken in another order).
+"""
+
+import dataclasses
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tpukern.models import Config as JaxConfig
+from tpukern.models import init_params as jax_init_params
+from tpukern.models import loss_fn as jax_loss_fn
+from tpukern.models import make_train_step as jax_make_train_step
+from tpukern.ops import cross_entropy as jce
+from tpukern_torch.core.tolerances import check_all_close
+from tpukern_torch.models import (Config, init_params, loss_fn,
+                                  make_train_step, param_leaves,
+                                  params_from_jax, serving)
+from tpukern_torch.ops import cross_entropy as ce
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+SHAPES = [(256, 128, 1024), (200, 128, 1000)]  # tiles and tails in N and V
+# tests/test_torch_train.py's 2-layer config
+SHAPE = dict(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+             d_ff=256, max_seq=64)
+JCFG = JaxConfig(**SHAPE, fused_loss=True)
+CFG = Config(**SHAPE, fused_loss=True)
+LR = 0.5
+
+
+def _inputs(N, D, V, seed=0):
+    """x, w (f32) and int32 targets with a quarter of them -1."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.05).astype(np.float32)
+    t = rng.integers(0, V, N).astype(np.int32)
+    t[rng.permutation(N)[:N // 4]] = -1
+    return x, w, t
+
+
+@pytest.mark.parametrize("N,D,V", SHAPES)
+def test_fused_loss_and_lse_match_jax(N, D, V):
+    x, w, t = _inputs(N, D, V)
+    loss = ce.fused_cross_entropy(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(t).long())
+    loss2, lse = ce.fused_cross_entropy(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t),
+        return_lse=True)
+    jloss, jlse = jce.fused_cross_entropy(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(t), return_lse=True)
+    assert loss.dtype == lse.dtype == torch.float32 and loss.shape == (N,)
+    assert not lse.requires_grad
+    check_all_close(loss, np.asarray(jloss), name="loss", **F32)
+    check_all_close(loss2, np.asarray(jloss), name="loss", **F32)
+    check_all_close(lse, np.asarray(jlse), name="lse", **F32)
+    assert (loss[torch.from_numpy(t) < 0] == 0).all()
+
+
+@pytest.mark.parametrize("N,D,V", SHAPES)
+def test_fused_grads_match_jax(N, D, V):
+    """dx and dW of the mean loss through _FusedCE against jax.grad;
+    ignored rows get exactly-zero dx."""
+    x, w, t = _inputs(N, D, V, seed=1)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    ce.fused_cross_entropy(xt, wt, torch.from_numpy(t)).mean().backward()
+
+    def mean_loss(x, w):
+        return jnp.mean(jce.fused_cross_entropy(x, w, jnp.asarray(t)))
+
+    jdx, jdw = jax.grad(mean_loss, (0, 1))(jnp.asarray(x), jnp.asarray(w))
+    check_all_close(xt.grad, np.asarray(jdx), name="dx", **F32)
+    check_all_close(wt.grad, np.asarray(jdw), name="dW", **F32)
+    assert (xt.grad[torch.from_numpy(t) < 0] == 0).all()
+
+
+def test_plain_backward_equals_autograd():
+    """ce_bwd_ref, the kernel's plain version, against torch.autograd of
+    cross_entropy_ref, with a per-token cotangent."""
+    x, w, t = _inputs(200, 64, 1000, seed=2)
+    g = np.random.default_rng(3).standard_normal(200).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    tt = torch.from_numpy(t)
+    dx, dw = torch.autograd.grad(ce.cross_entropy_ref(xt, wt, tt),
+                                 (xt, wt), torch.from_numpy(g))
+    _, lse = ce.fused_cross_entropy(xt, wt, tt, return_lse=True)
+    rdx, rdw = ce.ce_bwd_ref(xt.detach(), wt.detach(), tt, lse,
+                             torch.from_numpy(g))
+    check_all_close(rdx, dx, name="dx", **F32)
+    check_all_close(rdw, dw, name="dW", **F32)
+
+
+@pytest.mark.parametrize("N,D,V", SHAPES)
+def test_chunked_matches_jax(N, D, V):
+    x, w, t = _inputs(N, D, V, seed=4)
+    out = ce.chunked_cross_entropy(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(t), chunk=256)
+    ref = jce.chunked_cross_entropy(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(t), chunk=256)
+    check_all_close(out, np.asarray(ref), name="chunked", **F32)
+
+
+def test_bf16_inputs_keep_their_dtypes():
+    """bf16 x and w: f32 losses, gradients in the inputs' dtypes, values
+    at the bf16 row of _TOLS against the f32 plain version."""
+    x, w, t = _inputs(64, 32, 300, seed=5)
+    xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    wb = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
+    loss = ce.fused_cross_entropy(xb, wb, torch.from_numpy(t))
+    loss.sum().backward()
+    assert loss.dtype == torch.float32
+    assert xb.grad.dtype == wb.grad.dtype == torch.bfloat16
+    ref = ce.cross_entropy_ref(xb.detach(), wb.detach(), torch.from_numpy(t))
+    check_all_close(loss, ref, name="loss", **F32)
+
+
+def test_bad_targets_raise():
+    x, w, _ = _inputs(8, 16, 40)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    with pytest.raises(ValueError, match="vocab"):
+        ce.fused_cross_entropy(x, w, torch.full((8,), 40))
+    with pytest.raises(ValueError, match="shape"):
+        ce.fused_cross_entropy(x, w, torch.zeros(4, 2, dtype=torch.long))
+    with pytest.raises(ValueError, match="vs w"):
+        ce.fused_cross_entropy(x, w.T.contiguous(), torch.zeros(8))
+
+
+@pytest.mark.parametrize("N,V,sms", [(2048, 32768, 132), (200, 1000, 132),
+                                     (1, 5, 132), (70000, 129, 8)])
+def test_vocab_splits_cover_every_tile(N, V, sms):
+    """The forward's split: every split has a tile, every tile a split."""
+    n_split, tps = ce.splits(N, V, sms)
+    n_vt = -(-V // ce.TILE)
+    assert (n_split - 1) * tps < n_vt <= n_split * tps
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jparams = jax_init_params(JCFG, jax.random.key(0))
+    rng = np.random.default_rng(0)
+    tokens, targets = (rng.integers(0, CFG.vocab, (2, 64)).astype(np.int32)
+                       for _ in range(2))
+    return jparams, tokens, targets
+
+
+def _trainable(jparams):
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    for t in param_leaves(params):
+        t.requires_grad_()
+    return params
+
+
+def _loss_and_grads(params, tokens, targets, cfg):
+    loss = loss_fn(params, torch.from_numpy(tokens),
+                   torch.from_numpy(targets), cfg)
+    return loss.detach(), torch.autograd.grad(loss, param_leaves(params))
+
+
+def _jax_leaves(tree):
+    return ([tree["embed"]] + [w for lp in tree["layers"]
+                               for w in lp.values()]
+            + [tree["lnf"], tree["head"]])
+
+
+def test_fused_loss_fn_matches_jax(setup):
+    """The loss and every gradient of loss_fn with fused_loss=True, with
+    the JAX init's weights, against JAX's loss_fn with fused_loss=True."""
+    jparams, tokens, targets = setup
+    loss, grads = _loss_and_grads(_trainable(jparams), tokens, targets, CFG)
+    jloss, jgrads = jax.value_and_grad(jax_loss_fn)(
+        jparams, jnp.asarray(tokens), jnp.asarray(targets), JCFG)
+    check_all_close(loss, np.asarray(jloss), name="loss", **F32)
+    jleaves = _jax_leaves(jgrads)
+    assert len(grads) == len(jleaves) == 3 + 8 * CFG.n_layers
+    for i, (g, jg) in enumerate(zip(grads, jleaves)):
+        check_all_close(g, np.asarray(jg), name=f"leaf {i}", **F32)
+
+
+def test_fused_loss_fn_equals_unfused(setup):
+    """The same loss and gradients as the port's unfused log-softmax."""
+    jparams, tokens, targets = setup
+    params = _trainable(jparams)
+    loss, grads = _loss_and_grads(params, tokens, targets, CFG)
+    uloss, ugrads = _loss_and_grads(
+        params, tokens, targets, dataclasses.replace(CFG, fused_loss=False))
+    check_all_close(loss, uloss, name="loss", **F32)
+    for i, (g, ug) in enumerate(zip(grads, ugrads)):
+        check_all_close(g, ug, name=f"leaf {i}", **F32)
+
+
+def test_fused_sgd_step_matches_jax(setup):
+    """One make_train_step SGD step with fused_loss on both sides,
+    compared on the new params."""
+    jparams, tokens, targets = setup
+    params = _trainable(jparams)
+    step = make_train_step(CFG, torch.optim.SGD(param_leaves(params), lr=LR))
+    loss = step(params, torch.from_numpy(tokens), torch.from_numpy(targets))
+    tx = optax.sgd(LR)
+    jnew, _, jloss = jax_make_train_step(JCFG, tx)(
+        jparams, tx.init(jparams), jnp.asarray(tokens), jnp.asarray(targets))
+    check_all_close(loss, np.asarray(jloss), name="loss", **F32)
+    for i, (p, jp) in enumerate(zip(param_leaves(params), _jax_leaves(jnew))):
+        check_all_close(p.detach(), np.asarray(jp), name=f"leaf {i}", **F32)
+
+
+@pytest.mark.parametrize("variant", ["accum_steps=2", "remat"])
+def test_fused_variant_equals_plain_step(setup, variant):
+    """accum_steps=2 and remat=True with fused_loss give the plain fused
+    step's loss and params."""
+    jparams, tokens, targets = setup
+
+    def one_step(cfg, accum_steps=1):
+        params = _trainable(jparams)
+        opt = torch.optim.SGD(param_leaves(params), lr=LR)
+        loss = make_train_step(cfg, opt, accum_steps)(
+            params, torch.from_numpy(tokens), torch.from_numpy(targets))
+        return loss, params
+
+    ref_loss, ref = one_step(CFG)
+    if variant == "remat":
+        loss, params = one_step(dataclasses.replace(CFG, remat=True))
+    else:
+        loss, params = one_step(CFG, 2)
+    check_all_close(loss, ref_loss, name="loss", **F32)
+    for i, (p, rp) in enumerate(zip(param_leaves(params), param_leaves(ref))):
+        check_all_close(p.detach(), rp.detach(), name=f"leaf {i}", **F32)
+
+
+@pytest.mark.parametrize("fn", [init_params, serving.init_cache])
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_init_params_on_cpu_when_asked():
+    params = init_params(Config(**SHAPE), torch.Generator().manual_seed(0),
+                         device="cpu")
+    assert all(t.device.type == "cpu" for t in param_leaves(params))
+    assert params["head"].shape == (SHAPE["d_model"], SHAPE["vocab"])
+
+
+def test_init_params_rejects_a_generator_elsewhere():
+    with pytest.raises(ValueError, match="generator on cpu"):
+        init_params(Config(**SHAPE), torch.Generator().manual_seed(0),
+                    device="cuda")

@@ -17,8 +17,8 @@ import torch
 from tpukern_torch.core.tolerances import check_all_close
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
-from tpukern_torch.ops import (attention, attention_bwd, matmul,
-                               paged_attention, rmsnorm, rope)
+from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
+                               matmul, paged_attention, rmsnorm, rope)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -153,7 +153,7 @@ def test_batcher_on_kernels_equals_plain(cuda):
     the same greedy streams as the plain path on the CPU."""
     cfg = Config(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
                  d_ff=256, max_seq=512)
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (17, 40, 9)]
@@ -292,7 +292,7 @@ def test_train_loss_and_grads_on_kernels_equal_plain(cuda, dt):
     2**-9 of a value."""
     cfg = Config(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
                  d_ff=256, max_seq=64, param_dtype=DTYPES[dt])
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
                 for _ in range(2))
@@ -317,3 +317,71 @@ def test_train_loss_and_grads_on_kernels_equal_plain(cuda, dt):
         assert a.dtype == b.dtype == torch.bfloat16
         rel = ((a.cpu().float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 1e-2, f"leaf {i}: relative RMS error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("N,D,V", [(200, 128, 1000), (256, 64, 1024),
+                                   (129, 100, 257)])
+def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
+    """The forward (loss, lse: two launches) and the fused backward (dx,
+    dW: one launch) against the plain versions on the same inputs, tails
+    in N and V, D off the 8-element vector width, a quarter of the
+    targets ignored. The forward sums in f32 on both sides (bf16 inputs
+    are exact in f32), so loss and lse are held at the f32 tolerance; dx
+    and dW relative to their largest value, since the atomics and the
+    plain GEMMs sum in different orders. With bf16 inputs both sides
+    round dlog to bf16 before the products, and a dlog that lies near a
+    rounding boundary may round the other way on one side: one bf16 step
+    (at most 2**-7 of it) moves an output by up to 2**-7 of the largest,
+    hence the bf16 tolerance there."""
+    g = torch.Generator(device=cuda).manual_seed(N + D + V)
+    x = torch.randn((N, D), generator=g, device=cuda).to(DTYPES[dt])
+    w = (torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
+         ).to(DTYPES[dt])
+    t = torch.randint(0, V, (N,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    t[::4] = -1
+    cot = torch.rand(N, generator=g, device=cuda)
+    before = (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches)
+    loss, lse = cross_entropy.ce_fwd(x, w, t, use_exp2)
+    dx, dw = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
+    torch.cuda.synchronize()
+    assert (cross_entropy.ce_fwd.launches,
+            cross_entropy.ce_bwd.launches) == (before[0] + 2, before[1] + 1)
+    rloss, rlse = cross_entropy._ce_ref(x, w, t)
+    rdx, rdw = cross_entropy.ce_bwd_ref(x, w, t, rlse, cot)
+    check_all_close(loss, rloss, name="loss", **F32)
+    check_all_close(lse, rlse, name="lse", **F32)
+    tol = 1e-4 if dt == "f32" else 2e-2
+    for name, a, b in (("dx", dx, rdx), ("dW", dw, rdw)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        check_all_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
+                        name=name)
+    assert (loss[t < 0] == 0).all() and (dx[t < 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_loss_on_kernels_equals_unfused(cuda):
+    """loss_fn with fused_loss on the card (init_params' default device)
+    equals the unfused loss_fn, loss and every gradient."""
+    cfg = Config(vocab=300, d_model=128, n_layers=2, n_heads=4,
+                 n_kv_heads=2, d_ff=256, max_seq=64, fused_loss=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    leaves = param_leaves(params)
+    assert all(t.is_cuda for t in leaves)
+    for t in leaves:
+        t.requires_grad_()
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(cuda)
+                for _ in range(2))
+    before = cross_entropy.ce_bwd.launches
+    out = {}
+    for fused in (True, False):
+        c = Config(**{**cfg.__dict__, "fused_loss": fused})
+        loss = loss_fn(params, tok, tgt, c)
+        out[fused] = [loss] + list(torch.autograd.grad(loss, leaves))
+    assert cross_entropy.ce_bwd.launches == before + 1
+    for i, (a, b) in enumerate(zip(out[True], out[False])):
+        check_all_close(a, b, name=f"leaf {i - 1}", **F32)

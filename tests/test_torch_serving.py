@@ -46,7 +46,8 @@ def _prefill_both(jparams, params, prompt):
                                     dtype=jnp.float32)
     jlogits, jcache = jax_serving.prefill(jparams, JCFG, jnp.asarray(prompt),
                                           jcache)
-    cache = serving.init_cache(CFG, 2, 2, 128, dtype=torch.float32)
+    cache = serving.init_cache(CFG, 2, 2, 128, dtype=torch.float32,
+                               device="cpu")
     logits, cache = serving.prefill(params, CFG, torch.from_numpy(prompt),
                                     cache)
     return (jlogits, jcache), (logits, cache)

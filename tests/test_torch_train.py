@@ -152,9 +152,8 @@ def test_variant_equals_plain_step(setup, variant):
         check_all_close(p.detach(), ref_named[name].detach(), name=name, **F32)
 
 
-@pytest.mark.parametrize("field,value", [("fused_loss", True), ("window", 8),
-                                         ("softcap", 30.0), ("sinks", 2),
-                                         ("n_experts", 4)])
+@pytest.mark.parametrize("field,value", [("window", 8), ("softcap", 30.0),
+                                         ("sinks", 2), ("n_experts", 4)])
 def test_unported_training_options_raise(setup, field, value):
     jparams, tokens, targets = setup
     params = params_from_jax(jax.tree.map(np.asarray, jparams))

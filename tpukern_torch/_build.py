@@ -65,6 +65,14 @@ SIGNATURES = {
     # page_size, pages_per_seq, D, sm_scale, dtype, stream
     "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _P],
+    # x, w, targets (i32), part (f32), N, D, V, n_split, tiles_per_split,
+    # log2, dtype, stream
+    "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # part, targets, loss, lse, N, n_split, stream
+    "tk_ce_combine": [_P, _P, _P, _P, _I, _I, _P],
+    # x, w, targets, lse, g, dx (f32), dw (f32), N, D, V, log2, dtype,
+    # stream
+    "tk_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

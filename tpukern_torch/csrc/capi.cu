@@ -74,4 +74,26 @@ int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
       pages_per_seq, D, sm_scale, dtype, static_cast<cudaStream_t>(stream)));
 }
 
+int tk_ce_fwd(const void* x, const void* w, const int* targets, float* part,
+              int N, int D, int V, int n_split, int tiles_per_split, int log2,
+              int dtype, void* stream) {
+  return checked(tk::ce_fwd_launch(x, w, targets, part, N, D, V, n_split,
+                                   tiles_per_split, log2, dtype,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ce_combine(const float* part, const int* targets, float* loss,
+                  float* lse, int N, int n_split, void* stream) {
+  return checked(tk::ce_combine_launch(part, targets, loss, lse, N, n_split,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ce_bwd(const void* x, const void* w, const int* targets,
+              const float* lse, const float* g, float* dx, float* dw, int N,
+              int D, int V, int log2, int dtype, void* stream) {
+  return checked(tk::ce_bwd_launch(x, w, targets, lse, g, dx, dw, N, D, V,
+                                   log2, dtype,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

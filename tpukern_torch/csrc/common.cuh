@@ -38,6 +38,206 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One bf16 tensor-core product on 16x16 A and 16x8 B fragments with f32
+// accumulation. Fragment layouts of mma.m16n8k16 (lane = 4 * g + t):
+//   A (16x16, row): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
+//                   a3 = A[g+8][2t+8..]
+//   B (16x8, col):  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
+//   C (16x8):       c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// ------------------------------------------------------------ GEMM tiles
+// One block of 256 threads accumulates the 128 x 128 tile at (m0, n0) of
+// C = A[M,K] · B[K,N] (NN) or A · B[N,K]^T (TRANS_B) in f32 registers.
+// Every global load is bounds-checked: past M, N or K it reads zeros.
+// csrc/matmul.cu writes the tile out; csrc/cross_entropy.cu reduces it.
+
+// f32 inputs on CUDA-core FMAs in full f32 (never TF32). Thread (tx, ty)
+// = (tid % 16, tid / 16) holds acc[i][j] at row sgemm_pos(i, ty) and
+// column sgemm_pos(j, tx): an 8 x 8 register tile split in two 4-wide
+// halves, so shared-memory reads are float4 and conflict-free. `as` and
+// `bs` are shared [F_BK][128] buffers; the next K slice is fetched into
+// registers while the current one is multiplied.
+constexpr int F_BM = 128, F_BN = 128, F_BK = 8, F_THREADS = 256;
+
+__device__ __forceinline__ int sgemm_pos(int i, int t) {
+  return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
+}
+
+// acc += a · b (four lanes of a and b each), the 8 x 8 FMA step
+__device__ __forceinline__ void fma_8x8(float (&acc)[8][8], float4 a0,
+                                        float4 a1, float4 b0, float4 b1) {
+  const float ra[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+}
+
+template <bool TRANS_B>
+__device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
+                                           const float* __restrict__ b, int M,
+                                           int N, int K, int m0, int n0,
+                                           float (*as)[F_BM], float (*bs)[F_BN],
+                                           float (&acc)[8][8]) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  // loader: A (and B^T) rows tid/2, k (tid%2)*4..+3; B (NN) k tid/32,
+  // n (tid%32)*4..+3
+  const int lr = tid >> 1, lk = (tid & 1) * 4;
+  const int bk_ = tid >> 5, bn_ = (tid & 31) * 4;
+  float pa[4], pb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + lr, kk = k0 + lk + i;
+      pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
+      if constexpr (TRANS_B) {
+        const int n = n0 + lr;
+        pb[i] = n < N && kk < K ? b[(int64_t)n * K + kk] : 0.f;
+      } else {
+        const int kb = k0 + bk_, n = n0 + bn_ + i;
+        pb[i] = kb < K && n < N ? b[(int64_t)kb * N + n] : 0.f;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += F_BK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      as[lk + i][lr] = pa[i];
+      if constexpr (TRANS_B) bs[lk + i][lr] = pb[i];
+      else bs[bk_][bn_ + i] = pb[i];
+    }
+    __syncthreads();
+    if (k0 + F_BK < K) fetch(k0 + F_BK);  // in flight during the FMAs
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk)
+      fma_8x8(acc, *reinterpret_cast<const float4*>(&as[kk][ty * 4]),
+              *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]),
+              *reinterpret_cast<const float4*>(&bs[kk][tx * 4]),
+              *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]));
+    __syncthreads();
+  }
+}
+
+// bf16 inputs on the tensor cores with mma.sync m16n8k16 (f32
+// accumulate): 8 warps in a 2 x 4 grid, each a 64 x 32 sub-tile, K in
+// slices of 32 staged through padded shared memory (`as`: [128][H_LDK];
+// `bs`: [128][H_LDK] for TRANS_B, else [H_BK][H_LDN]) with 16-byte loads
+// where a row is whole (vec_a, vec_b: its length is a multiple of 8 and
+// the base is 16-byte aligned). Lane 4g + t of warp w holds acc[mt][nt][e]
+// at row hgemm_row(w, mt, g, e) and column hgemm_col(w, nt, t, e).
+constexpr int H_BM = 128, H_BN = 128, H_BK = 32, H_THREADS = 256;
+constexpr int H_LDK = H_BK + 8;   // [row][k] tiles: conflict-free pair reads
+constexpr int H_LDN = H_BN + 8;   // [k][n] tile (NN): conflict-free reads
+
+__device__ __forceinline__ int hgemm_row(int warp, int mt, int g, int e) {
+  return (warp >> 2) * 64 + mt * 16 + g + (e < 2 ? 0 : 8);
+}
+__device__ __forceinline__ int hgemm_col(int warp, int nt, int t, int e) {
+  return (warp & 3) * 32 + nt * 8 + 2 * t + (e & 1);
+}
+
+// 8 consecutive bf16 of a row-major (rows, cols) matrix at (r, c), zeros
+// past either edge; one 16-byte load when the chunk is whole and aligned
+__device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
+                                       int cols, bool vec) {
+  if (r >= rows) return make_uint4(0, 0, 0, 0);
+  const bf16* row = p + (int64_t)r * cols;
+  if (vec && c + 8 <= cols) return *reinterpret_cast<const uint4*>(row + c);
+  union { uint4 u; unsigned short h[8]; } v;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v.h[e] = c + e < cols ? __bfloat16_as_ushort(row[c + e]) : 0;
+  return v.u;
+}
+
+template <bool TRANS_B>
+__device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
+                                           const bf16* __restrict__ b, int M,
+                                           int N, int K, int m0, int n0,
+                                           bool vec_a, bool vec_b, bf16* as,
+                                           bf16* bs, float (&acc)[4][4][4]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += H_BK) {
+    __syncthreads();  // the previous tile is consumed
+    // 512 chunks of 8 per operand tile, 2 per thread
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ch = tid + i * H_THREADS;
+      const int r = ch >> 2, kc = (ch & 3) * 8;
+      // the K edge: a chunk straddling K is loaded element by element
+      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
+          load8(a, m0 + r, M, k0 + kc, K, vec_a);
+      if constexpr (TRANS_B) {
+        *reinterpret_cast<uint4*>(&bs[r * H_LDK + kc]) =
+            load8(b, n0 + r, N, k0 + kc, K, vec_b);
+      } else {
+        const int kr = ch >> 4, nc = (ch & 15) * 8;
+        *reinterpret_cast<uint4*>(&bs[kr * H_LDN + nc]) =
+            load8(b, k0 + kr, K, n0 + nc, N, vec_b);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int ks = 0; ks < H_BK / 16; ++ks) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
+        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
+        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t b0, b1;
+        if constexpr (TRANS_B) {
+          const bf16* bp = &bs[(wn + nt * 8 + g) * H_LDK + ks * 16 + 2 * t];
+          b0 = *reinterpret_cast<const uint32_t*>(bp);
+          b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
+        } else {
+          const bf16* bp = &bs[(ks * 16 + 2 * t) * H_LDN + wn + nt * 8 + g];
+          b0 = pack_bf16(bp[0], bp[H_LDN]);
+          b1 = pack_bf16(bp[8 * H_LDN], bp[9 * H_LDN]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
+      }
+    }
+  }
+}
+
 // Host launchers. Each checks its arguments, returns cudaErrorInvalidValue
 // for a shape or dtype it does not take, and otherwise launches on
 // `stream` and returns cudaSuccess; capi.cu then reports cudaGetLastError().
@@ -70,5 +270,16 @@ cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
                                    int dtype, cudaStream_t stream);
+cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
+                          float* part, int N, int D, int V, int n_split,
+                          int tiles_per_split, int log2, int dtype,
+                          cudaStream_t stream);
+cudaError_t ce_combine_launch(const float* part, const int* targets,
+                              float* loss, float* lse, int N, int n_split,
+                              cudaStream_t stream);
+cudaError_t ce_bwd_launch(const void* x, const void* w, const int* targets,
+                          const float* lse, const float* g, float* dx,
+                          float* dw, int N, int D, int V, int log2, int dtype,
+                          cudaStream_t stream);
 
 }  // namespace tk

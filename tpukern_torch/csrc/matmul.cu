@@ -30,9 +30,8 @@
 namespace tk {
 namespace {
 
-// ---------------------------------------------------------- f32 CUDA cores
-constexpr int F_BM = 128, F_BN = 128, F_BK = 8, F_THREADS = 256;
-
+// The main loops are common.cuh's sgemm_tile and hgemm_tile (shared with
+// csrc/cross_entropy.cu); each kernel adds the epilogue.
 template <bool TRANS_B>
 __global__ void __launch_bounds__(F_THREADS)
 sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -40,69 +39,18 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
              int K) {
   __shared__ __align__(16) float as[F_BK][F_BM];  // A tile, k-major
   __shared__ __align__(16) float bs[F_BK][F_BN];  // B tile, k-major
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-
-  // loader: A (and B^T) rows tid/2, k (tid%2)*4..+3; B (NN) k tid/32,
-  // n (tid%32)*4..+3
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
-  const int bk_ = tid >> 5, bn_ = (tid & 31) * 4;
-  float pa[4], pb[4];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + lr, kk = k0 + lk + i;
-      pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
-      if constexpr (TRANS_B) {
-        const int n = n0 + lr;
-        pb[i] = n < N && kk < K ? b[(int64_t)n * K + kk] : 0.f;
-      } else {
-        const int kb = k0 + bk_, n = n0 + bn_ + i;
-        pb[i] = kb < K && n < N ? b[(int64_t)kb * N + n] : 0.f;
-      }
-    }
-  };
-
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      as[lk + i][lr] = pa[i];
-      if constexpr (TRANS_B) bs[lk + i][lr] = pb[i];
-      else bs[bk_][bn_ + i] = pb[i];
-    }
-    __syncthreads();
-    if (k0 + F_BK < K) fetch(k0 + F_BK);  // in flight during the FMAs
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-      const float ra[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  sgemm_tile<TRANS_B>(a, b, M, N, K, m0, n0, as, bs, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int r = m0 + sgemm_pos(i, ty);
     if (r >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      const int c = n0 + sgemm_pos(j, tx);
       if (c >= N) continue;
       if (c32) c32[(int64_t)r * N + c] = acc[i][j];
       if (c16) c16[(int64_t)r * N + c] = __float2bfloat16(acc[i][j]);
@@ -110,41 +58,6 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// ------------------------------------------------------- bf16 tensor cores
-constexpr int H_BM = 128, H_BN = 128, H_BK = 32, H_THREADS = 256;
-constexpr int H_LDK = H_BK + 8;   // [row][k] tiles: conflict-free pair reads
-constexpr int H_LDN = H_BN + 8;   // [k][n] tile (NN): conflict-free reads
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// 8 consecutive bf16 of a row-major (rows, cols) matrix at (r, c), zeros
-// past either edge; one 16-byte load when the chunk is whole and aligned
-__device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
-                                       int cols, bool vec) {
-  if (r >= rows) return make_uint4(0, 0, 0, 0);
-  const bf16* row = p + (int64_t)r * cols;
-  if (vec && c + 8 <= cols) return *reinterpret_cast<const uint4*>(row + c);
-  union { uint4 u; unsigned short h[8]; } v;
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    v.h[e] = c + e < cols ? __bfloat16_as_ushort(row[c + e]) : 0;
-  return v.u;
-}
-
-// Fragment layouts of mma.m16n8k16 (lane = 4 * g + t): see
-// csrc/flash_attention.cu.
 template <bool TRANS_B>
 __global__ void __launch_bounds__(H_THREADS)
 hgemm_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
@@ -153,66 +66,11 @@ hgemm_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   __shared__ __align__(16) bf16 as[H_BM * H_LDK];
   // TRANS_B: [n][k] like A; NN: [k][n]
   __shared__ __align__(16) bf16 bs[TRANS_B ? H_BN * H_LDK : H_BK * H_LDN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-    __syncthreads();  // the previous tile is consumed
-    // 512 chunks of 8 per operand tile, 2 per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ch = tid + i * H_THREADS;
-      const int r = ch >> 2, kc = (ch & 3) * 8;
-      // the K edge: a chunk straddling K is loaded element by element
-      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
-          load8(a, m0 + r, M, k0 + kc, K, vec_a);
-      if constexpr (TRANS_B) {
-        *reinterpret_cast<uint4*>(&bs[r * H_LDK + kc]) =
-            load8(b, n0 + r, N, k0 + kc, K, vec_b);
-      } else {
-        const int kr = ch >> 4, nc = (ch & 15) * 8;
-        *reinterpret_cast<uint4*>(&bs[kr * H_LDN + nc]) =
-            load8(b, k0 + kr, K, n0 + nc, N, vec_b);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < H_BK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        uint32_t b0, b1;
-        if constexpr (TRANS_B) {
-          const bf16* bp = &bs[(wn + nt * 8 + g) * H_LDK + ks * 16 + 2 * t];
-          b0 = *reinterpret_cast<const uint32_t*>(bp);
-          b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
-        } else {
-          const bf16* bp = &bs[(ks * 16 + 2 * t) * H_LDN + wn + nt * 8 + g];
-          b0 = pack_bf16(bp[0], bp[H_LDN]);
-          b1 = pack_bf16(bp[8 * H_LDN], bp[9 * H_LDN]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-  }
+  hgemm_tile<TRANS_B>(a, b, M, N, K, m0, n0, vec_a, vec_b, as, bs, acc);
 
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
@@ -220,8 +78,8 @@ hgemm_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm + mt * 16 + g + (e < 2 ? 0 : 8);
-        const int c = n0 + wn + nt * 8 + 2 * t + (e & 1);
+        const int r = m0 + hgemm_row(warp, mt, g, e);
+        const int c = n0 + hgemm_col(warp, nt, t, e);
         if (r >= M || c >= N) continue;
         if (c32) c32[(int64_t)r * N + c] = acc[mt][nt][e];
         if (c16) c16[(int64_t)r * N + c] = __float2bfloat16(acc[mt][nt][e]);

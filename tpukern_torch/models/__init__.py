@@ -1,5 +1,9 @@
-"""Models: the decoder's parameters, its single-device training step and
-the paged serving path."""
+"""Models: the decoder's parameters, its single-device training step
+(with the unfused or the fused LM-head loss) and the paged serving path.
+
+init_params and serving.init_cache build on the card unless the caller
+passes device="cpu"; params_from_jax converts to CPU tensors; the rest
+runs on the device of its inputs."""
 
 from tpukern_torch.models.transformer import (Config, forward, init_params,
                                               loss_fn, make_train_step,

@@ -6,7 +6,10 @@ free slots mid-stream (a single-slot prefill writes the new sequence's
 pages while the other slots keep their state), every step decodes all
 slots in one batched paged-decode call, and finished sequences (EOS or
 token budget) free their slot at once. Prompts are padded to a bucket
-length, as in the JAX driver.
+length, as in the JAX batcher.
+
+The batcher runs on the device of its params, and its cache follows
+them.
 
 Not ported: chunked prefill, the prefix cache, ring pools, int8 pools,
 sampled decoding (kernels #26/#27), and the speculative and tensor-

@@ -12,6 +12,10 @@ decode_step write the new tokens' K/V into the cache's pools in place
 and return the cache with new lengths: a copy of the pools per step
 would cost more than the step.
 
+init_cache builds its pools on the card unless the caller passes
+device="cpu"; prefill, decode_step and generate run on the device of
+their inputs (a CPU tensor takes every kernel's plain version).
+
 Not ported: the quantized (int8/fp8) pools, ring pools, verify_step,
 share_prefix, prefill_prefix, make_tp_serving and quantize_model_weights
 (ROADMAP.md queue 1 item 10).
@@ -51,8 +55,9 @@ def _check_cfg(cfg: Config):
 
 
 def init_cache(cfg: Config, batch, pages_per_seq, page_size=128,
-               dtype=torch.bfloat16, device=None, ring=False):
-    """Fixed page pool; sequence b owns physical pages
+               dtype=torch.bfloat16, device="cuda", ring=False):
+    """Fixed page pool on `device` (the card unless the caller asks for
+    "cpu"); sequence b owns physical pages
     [b*pages_per_seq, (b+1)*pages_per_seq) — the identity mapping a real
     allocator would replace (the kernel only sees the table)."""
     _check_cfg(cfg)

@@ -5,9 +5,15 @@ parameters, and the single-device training path `forward` -> `loss_fn`
 Parameters are a plain dict with the JAX package's tree: embed (V, d),
 layers (a list of dicts with ln1, wq, wk, wv, wo, ln2, w1, w2), lnf (d,)
 and head (d, V). Projections keep the (d_in, d_out) layout, so `h @ w`
-means the same on both sides. Not ported here: the fused loss, sliding
-window and softcap in training, sinks, MoE and the tp/sp/ep mesh axes
-(each raises NotImplementedError naming its ROADMAP.md item).
+means the same on both sides. Config.fused_loss runs the LM head and its
+loss through ops/cross_entropy.py's fused kernels. Not ported here:
+sliding window and softcap in training, sinks, MoE and the tp/sp/ep mesh
+axes (each raises NotImplementedError naming its ROADMAP.md item).
+
+init_params builds on the card unless the caller passes device="cpu";
+params_from_jax is a conversion and gives CPU tensors. The training path
+runs on the device of its params and tokens: a CPU tensor takes every
+kernel's plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpukern_torch.ops.cross_entropy import fused_cross_entropy
 from tpukern_torch.ops.trainable import (flash_attention_trainable, matmul_t,
                                          rms_norm_t, rope_t)
 
@@ -51,12 +58,20 @@ class Config:
         return self.d_model // self.n_heads
 
 
-def init_params(cfg: Config, generator: torch.Generator, device=None):
-    """Random weights, normal * 0.02 in cfg.param_dtype, norm gains 1.
+def init_params(cfg: Config, generator: torch.Generator, device="cuda"):
+    """Random weights, normal * 0.02 in cfg.param_dtype, norm gains 1, on
+    `device` (the card unless the caller asks for "cpu").
 
-    The same distribution as the JAX init_params, drawn from `generator`
-    (which must live on `device`), so not the same numbers: parity tests
-    convert JAX weights with params_from_jax instead."""
+    The same distribution as the JAX init_params, drawn from `generator`,
+    which must live on `device` (ValueError otherwise), so not the same
+    numbers: parity tests convert JAX weights with params_from_jax
+    instead."""
+    device = torch.device(device)
+    gdev = generator.device
+    if gdev.type != device.type or (device.index is not None
+                                    and gdev.index != device.index):
+        raise ValueError(f"generator on {gdev}, params on {device}: make "
+                         f"the generator with torch.Generator(device=...)")
     dt = cfg.param_dtype
 
     def w(*shape):
@@ -186,11 +201,16 @@ def forward(params, tokens, cfg: Config, tp_size: int = 1, tp_axis=None,
 
 
 def loss_fn(params, tokens, targets, cfg: Config):
-    """Mean next-token NLL of the unfused log-softmax (transformer.py:270)."""
+    """Mean next-token NLL over all B·S tokens (transformer.py:258-273).
+
+    cfg.fused_loss: the final hidden states and the head go through
+    fused_cross_entropy, so the (B·S, vocab) logits are never formed;
+    otherwise the head GEMM and an unfused log-softmax. The mean counts
+    ignored tokens (target < 0, fused path only) as 0, as jnp.mean does."""
     if cfg.fused_loss:
-        raise NotImplementedError(
-            "not ported yet: Config.fused_loss: ROADMAP.md queue 1 item 8 "
-            "(ops/cross_entropy.py, kernels #13-#15)")
+        hn = forward(params, tokens, cfg, return_hidden=True)
+        return fused_cross_entropy(hn, params["head"],
+                                   targets.reshape(-1)).mean()
     logp = torch.log_softmax(forward(params, tokens, cfg), dim=-1)
     return -logp.gather(-1, targets[..., None].long()).mean()
 

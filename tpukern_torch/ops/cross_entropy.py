@@ -1,0 +1,186 @@
+"""Fused linear + softmax cross-entropy: the LM-head loss without logits.
+
+The port of tpukern/ops/cross_entropy.py. Kernels: csrc/cross_entropy.cu,
+which replaces `_ce_fwd_kernel` (cross_entropy.py:53) with a split-vocab
+forward and a combine pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
+(:132) with one backward kernel per input dtype that recomputes each
+score tile once and adds its dx and dW contributions with f32 atomics.
+The logits never reach device memory, forward or backward.
+
+Layouts as in JAX: x (N, D) activations, w (D, V) head, logits = x @ w.
+Tokens with target < 0 get loss 0 and gradient 0. The v5e block ladder
+(`_ce_blocks`, block_n/block_v) and the (n_blocks, 1, bn) target layout
+are not ported: the Hopper tiles are fixed inside the kernels.
+`chunked_cross_entropy` is plain torch, as it is XLA in JAX.
+"""
+
+import torch
+
+from tpukern_torch import _build
+from tpukern_torch.core import cdiv
+
+NEG_BIG = -0.7 * 3.4e38
+TILE = 128  # token rows and vocab columns of a score tile (csrc BN, BV)
+
+
+def cross_entropy_ref(x, w, targets):
+    """Per-token -log softmax(x @ w)[target] in f32; 0 where target < 0."""
+    return _ce_ref(x, w, targets)[0]
+
+
+def _ce_ref(x, w, targets):
+    """(loss, natural-log lse), both f32 (N,), from the f32 logits."""
+    logits = x.float() @ w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    t = logits.gather(-1, targets.long().clamp(min=0)[:, None])[:, 0]
+    return torch.where(targets < 0, 0.0, lse - t), lse
+
+
+def ce_bwd_ref(x, w, targets, lse, g):
+    """(dx, dW) in f32 of sum(g * loss), from the saved lse: dlog =
+    g·(softmax - onehot), zero on rows with target < 0, rounded to x's
+    dtype before the products as JAX's kernels round it
+    (cross_entropy.py:127, :157); a no-op for f32."""
+    xf, wf = x.float(), w.float()
+    dlog = torch.exp(xf @ wf - lse[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    dlog[rows, targets.long().clamp(min=0)] -= 1.0
+    dlog *= torch.where(targets < 0, 0.0, g.float())[:, None]
+    dlog = dlog.to(x.dtype).float()
+    return dlog @ wf.T, xf.T @ dlog
+
+
+def splits(N, V, n_sms):
+    """(n_split, tiles_per_split) of the forward's vocab split: about four
+    blocks per SM (two resident, two waves), every split non-empty."""
+    n_vt, row_tiles = cdiv(V, TILE), cdiv(N, TILE)
+    want = min(n_vt, max(1, cdiv(4 * n_sms, row_tiles)))
+    tps = cdiv(n_vt, want)
+    return cdiv(n_vt, tps), tps
+
+
+def ce_fwd(x, w, targets, use_exp2=False):
+    """(loss, lse) f32 (N,) of logits = x @ w for int32 targets < V. A CPU
+    tensor takes the plain version; a CUDA tensor launches the split
+    forward and the combine pass (two launches, both counted)."""
+    if x.device.type == "cpu":
+        return _ce_ref(x, w, targets)
+    _build.check_cuda(x, w, targets)
+    N, D = x.shape
+    V = w.shape[1]
+    x, w = _build.aligned(x), _build.aligned(w)
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_split, tps = splits(N, V, n_sms)
+    part = torch.empty(n_split, 3, N, device=x.device)
+    loss = torch.empty(N, device=x.device)
+    lse = torch.empty(N, device=x.device)
+    s = _build.stream(x)
+    _build.launch("tk_ce_fwd", x.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                  part.data_ptr(), N, D, V, n_split, tps, int(use_exp2),
+                  _build.dtype_code(x), s)
+    ce_fwd.launches += 1
+    _build.launch("tk_ce_combine", part.data_ptr(), targets.data_ptr(),
+                  loss.data_ptr(), lse.data_ptr(), N, n_split, s)
+    ce_fwd.launches += 1
+    return loss, lse
+
+
+ce_fwd.launches = 0
+
+
+def ce_bwd(x, w, targets, lse, g, use_exp2=False):
+    """(dx, dW) in f32 of sum(g * loss), recomputed from the forward's
+    lse. A CPU tensor takes ce_bwd_ref; a CUDA tensor launches the fused
+    backward kernel once (it serves both TPU kernels #14 and #15)."""
+    if x.device.type == "cpu":
+        return ce_bwd_ref(x, w, targets, lse, g)
+    _build.check_cuda(x, w, targets, lse, g)
+    N, D = x.shape
+    V = w.shape[1]
+    x, w = _build.aligned(x), _build.aligned(w)
+    lse, g = lse.float().contiguous(), g.float().contiguous()
+    dx = torch.zeros(N, D, device=x.device)  # atomicAdd targets
+    dw = torch.zeros(D, V, device=x.device)
+    _build.launch("tk_ce_bwd", x.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                  lse.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                  N, D, V, int(use_exp2), _build.dtype_code(x),
+                  _build.stream(x))
+    ce_bwd.launches += 1
+    return dx, dw
+
+
+ce_bwd.launches = 0
+
+
+class _FusedCE(torch.autograd.Function):
+    """The custom VJP of JAX's _fused_ce_core (cross_entropy.py:233-360):
+    the forward saves (x, w, targets, lse), the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, use_exp2):
+        loss, lse = ce_fwd(x, w, targets, use_exp2)
+        ctx.save_for_backward(x, w, targets, lse)
+        ctx.use_exp2 = use_exp2
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, targets, lse = ctx.saved_tensors
+        dx, dw = ce_bwd(x, w, targets, lse, g, ctx.use_exp2)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def _targets(targets, N, V):
+    """int32 targets, checked once: shape (N,) and every value < V."""
+    if targets.shape != (N,):
+        raise ValueError(f"targets must have shape ({N},), got "
+                         f"{tuple(targets.shape)}")
+    if N and int(targets.max()) >= V:
+        raise ValueError(f"a target is >= the vocab size {V}")
+    return targets.to(torch.int32).contiguous()
+
+
+def fused_cross_entropy(x, w, targets, *, use_exp2=None, return_lse=False):
+    """Per-token CE loss of logits = x @ w without materializing logits.
+
+    x: (N, D) f32 or bf16; w: (D, V) (inputs of two dtypes are promoted to
+    one); targets: (N,) int, negative = ignored (zero loss and gradient).
+    Returns f32 (N,) losses, differentiable w.r.t. x and w; with
+    return_lse, (losses, natural-log lse), not differentiable. use_exp2
+    picks the log2 tier (default: x other than f32), as in JAX."""
+    N, D = x.shape
+    if w.shape[0] != D:
+        raise ValueError(f"x (N, {D}) vs w {tuple(w.shape)}")
+    V = w.shape[1]
+    tgt = _targets(targets, N, V)
+    if use_exp2 is None:
+        use_exp2 = x.dtype != torch.float32
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    if return_lse:
+        with torch.no_grad():
+            return ce_fwd(x, w, tgt, bool(use_exp2))
+    return _FusedCE.apply(x, w, tgt, bool(use_exp2))
+
+
+def chunked_cross_entropy(x, w, targets, *, chunk=2048):
+    """Streaming baseline (JAX's lax.scan version): one (N, chunk) logits
+    slab at a time with an online (max, sum) and the target logit, in f32.
+    Differentiable by autograd, which keeps every slab for the backward."""
+    N = x.shape[0]
+    V = w.shape[1]
+    xf, wf = x.float(), w.float()
+    tgt = targets.long()[:, None]
+    m = torch.full((N, 1), NEG_BIG, device=x.device)
+    l = torch.zeros(N, 1, device=x.device)
+    t = torch.zeros(N, 1, device=x.device)
+    for off in range(0, V, chunk):
+        s = xf @ wf[:, off:off + chunk]
+        cols = torch.arange(off, off + s.shape[1], device=x.device)
+        t = t + torch.where(cols == tgt, s, 0.0).sum(-1, keepdim=True)
+        m_new = torch.maximum(m, s.max(-1, keepdim=True).values)
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    loss = (m + torch.log(l) - t)[:, 0]
+    return torch.where(targets < 0, 0.0, loss)

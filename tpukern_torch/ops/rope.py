@@ -14,8 +14,9 @@ from tpukern_torch import _build
 _LOG_THETA = math.log(10000.0)
 
 
-def make_cos_sin(S, D, device=None):
-    """f32 (S, D/2) tables: angle = pos * exp(j * (-2 ln theta / D))."""
+def make_cos_sin(S, D, device="cuda"):
+    """f32 (S, D/2) tables on `device` (the card unless the caller asks
+    for "cpu"): angle = pos * exp(j * (-2 ln theta / D))."""
     pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
     return _cos_sin(pos, D)
 
