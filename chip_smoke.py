@@ -10,12 +10,14 @@
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape;
 4. checks the training slices' kernels (matmul in its three epilogues,
-   rope_batched, the flash_attention lse, flash_attention_bwd, and the
-   fused cross-entropy's forward and backward) against their plain
-   versions, and times them at the 7bish training shapes; every timed
-   kernel also gets its bound (bytes or operations over the H100's peak)
-   and, where one PyTorch call computes the same function, that call's
-   time;
+   rope_batched, the flash_attention lse, flash_attention_bwd, the fused
+   cross-entropy's forward and backward, and the featured attention:
+   flash_attention with window, sinks, softcap and segments, and the
+   two-kernel backward flash_attention_dq / flash_attention_dkv) against
+   their plain versions, and times them at the 7bish training shapes;
+   every timed kernel also gets its bound (bytes or operations over the
+   H100's peak) and, where one PyTorch call computes the same function,
+   that call's time;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; the kernels' launch counts are reset
@@ -25,11 +27,14 @@
 8. trains the 7bish preset in f32 at full depth: 5 Adam steps (lr
    TRAIN_LR) on one seeded batch (B=2, S=1024), launch counts reset just
    before and read just after, then profiles one more step by kernel
-   category; once with the unfused log-softmax loss and once with
-   Config.fused_loss (the fused cross-entropy kernels);
+   category; once with the unfused log-softmax loss, once with
+   Config.fused_loss (the fused cross-entropy kernels) and once with
+   Config.window=512 and Config.softcap=50.0 (the featured forward and
+   the two-kernel backward, and no launch of the fused backward);
 9. checks one loss-and-grad at the 7bish widths with 2 layers (B=1,
    S=1024, f32) against a loss built from the plain functions only,
-   differentiated by torch.autograd, unfused and fused.
+   differentiated by torch.autograd: unfused, fused, and with the window
+   and softcap.
 
 Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
@@ -37,10 +42,12 @@ any phase fails. The last line is {"ok": true, "device": {...}}.
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -472,8 +479,171 @@ def phase_train_kernels(cfg, B, S):
         10 * D * B * Hq * S * (S + 1) // 2, _nbytes(*args, q, k, v), f32)
 
     _ce_kernels(checks, timed, gen, cfg, B * S)
+    _featured_kernels(checks, timed, gen, cfg, B, S)
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
+
+
+# the featured training configuration: a sliding window of half the
+# context and a logit softcap (Gemma-2's attention softcap)
+WINDOW, SOFTCAP = 512, 50.0
+
+
+def _band_pairs(S, window):
+    """Visible (q, kv) pairs of one causal head under a window."""
+    return sum(min(r + 1, window) for r in range(S))
+
+
+def _flex_attention(window, softcap, S):
+    """The one PyTorch call of the featured attention, timed as the
+    library call only: torch.compile of flex_attention with cap·tanh(s/cap)
+    as its score_mod (applied to the scaled score, before the mask) and
+    the causal band of `window` keys as its block mask. Returns a function
+    (q, k, v, enable_gqa=False) -> (o, natural-log lse)."""
+    from functools import partial
+
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def band(b, h, qi, ki):
+        return (ki <= qi) & (ki > qi - window)
+
+    torch._inductor.config.compile_threads = 1  # no worker processes
+    return partial(torch.compile(flex_attention), score_mod=score_mod,
+                   block_mask=create_block_mask(band, None, None, S, S,
+                                                device="cuda"),
+                   return_lse=True)
+
+
+def _featured_kernels(checks, timed, gen, cfg, B, S):
+    """The featured forward (#6 with window, sinks, softcap, segments) and
+    the two-kernel backward (#9 flash_attention_dq, #10
+    flash_attention_dkv) against their plain versions: each feature set
+    at small odd shapes (GQA 2, S off the tiles) in f32 and bf16, fused=
+    False with no feature, and the slice shape with window and softcap.
+    Times at the slice shape (B, Hq, S, D) with WINDOW and SOFTCAP, f32,
+    where the library call is flex_attention (_flex_attention) and its
+    autograd backward (for #9 and #10 together), first checked against
+    the plain versions; and at the window-only shape, where it is SDPA
+    with a boolean band mask and its autograd backward."""
+    from functools import partial
+
+    from tpukern_torch.core.feature_sets import FEATURE_SETS, feature_kwargs
+    from tpukern_torch.ops import attention, attention_bwd
+
+    bf, f32 = torch.bfloat16, torch.float32
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fa, ref = attention.flash_attention, attention.attention_ref
+    dq, dkv = attention_bwd.flash_attention_dq, attention_bwd.flash_attention_dkv
+    dq_ref = attention_bwd.flash_attention_dq_ref
+    dkv_ref = attention_bwd.flash_attention_dkv_ref
+
+    def bwd_checks(case, q, k, v, do, kw):
+        o, lse = ref(q, k, v, causal=True, return_stats=True, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, di)
+        out = (dq(*args, causal=True, **kw), *dkv(*args, causal=True, **kw))
+        refs = (dq_ref(*args, causal=True, **kw),
+                *dkv_ref(*args, causal=True, **kw))
+        for name, grad, a, b in zip(("flash_attention_dq",) + (
+                "flash_attention_dkv",) * 2, ("dq", "dk", "dv"), out, refs):
+            checks.record(name, *_compare(name, f"{grad} {case}", a, b))
+
+    for (Bb, S_, dd), dt in (((2, 333, 128), f32), ((1, 200, 64), bf),
+                             ((2, 333, 128), bf), ((1, 77, 32), f32)):
+        q = _randn(gen, Bb, 4, S_, dd, dtype=dt)
+        k, v = (_randn(gen, Bb, 2, S_, dd, dtype=dt) for _ in range(2))
+        do = _randn(gen, Bb, 4, S_, dd, dtype=dt)
+        k4, v4 = (t.repeat_interleave(2, dim=1) for t in (k, v))
+        for name in FEATURE_SETS:
+            kw, seen = feature_kwargs(name, Bb, S_, "cuda")
+            case = f"{name} B{Bb} H4/2 S{S_} D{dd} {dt}"
+            o, lse = fa(q, k, v, causal=True, return_stats=True, **kw)
+            ro, rlse = ref(q, k, v, causal=True, return_stats=True, **kw)
+            checks.record("flash_attention", *_compare(
+                "flash_attention", f"o {case}", o, ro))
+            checks.record("flash_attention", *_compare(
+                "flash_attention", f"lse {case}", lse[..., seen],
+                rlse[..., seen], dtype=f32))
+            checks.record("flash_attention", bool(
+                (o[..., ~seen, :] == 0).all()), 0.0)
+            if "sinks" not in name:  # sinks are forward-only
+                bwd_checks(f"{name} B{Bb} H4 S{S_} D{dd} {dt}", q, k4, v4,
+                           do, kw)
+        bwd_checks(f"fused=False B{Bb} H4 S{S_} D{dd} {dt}", q, k4, v4, do,
+                   {})
+
+    # the slice shape: window and softcap, f32, as the training step runs
+    # them (forward GQA 16/8; the backward on K, V repeated to 16 heads)
+    feat = dict(window=WINDOW, softcap=SOFTCAP)
+    q = _randn(gen, B, Hq, S, D, dtype=f32)
+    k, v = (_randn(gen, B, Hkv, S, D, dtype=f32) for _ in range(2))
+    do = _randn(gen, B, Hq, S, D, dtype=f32)
+    k16, v16 = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+    case = f"window {WINDOW} softcap {SOFTCAP:g} B{B} H{Hq}/{Hkv} S{S} D{D}"
+    for what, a, b in zip(("o", "lse"),
+                          fa(q, k, v, causal=True, return_stats=True, **feat),
+                          ref(q, k, v, causal=True, return_stats=True,
+                              **feat)):
+        checks.record("flash_attention", *_compare(
+            "flash_attention", f"{what} {case}", a, b))
+    bwd_checks(case, q, k16, v16, do, feat)
+
+    pairs = B * Hq * _band_pairs(S, WINDOW)
+    product = 2 * D * pairs  # flops of one D-deep product over the band
+    band = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    band &= ~torch.ones(S, S, dtype=torch.bool, device="cuda").tril(
+        -WINDOW)
+    flex = _flex_attention(WINDOW, SOFTCAP, S)
+    for tag, kw in ((f"window {WINDOW} softcap {SOFTCAP:g}", feat),
+                    (f"window-only {WINDOW}", dict(window=WINDOW))):
+        o, lse = fa(q, k, v, causal=True, return_stats=True, **kw)
+        di = (o * do).sum(-1)
+        args = (q, k16, v16, do, lse, di)
+        # the library call and autograd's backward of it (dq, dk and dv
+        # together) on the backward kernels' inputs
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k16, v16))
+        if "softcap" in kw:
+            t0 = time.perf_counter()  # the first calls compile
+            lib_fwd = partial(flex, q, k, v, enable_gqa=True)
+            ol = flex(ql, kl, vl)[0]
+        else:
+            lib_fwd = partial(F.scaled_dot_product_attention, q, k, v,
+                              attn_mask=band, enable_gqa=True)
+            ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band)
+        lib_bwd = partial(torch.autograd.grad, ol, (ql, kl, vl), do,
+                          retain_graph=True)
+        if "softcap" in kw:  # flex computes this function: o, lse, grads
+            err = max((a - b).abs().max().item() for a, b in zip(
+                (*lib_fwd(), *lib_bwd()),
+                (*ref(q, k, v, causal=True, return_stats=True, **kw),
+                 dq_ref(*args, causal=True, **kw),
+                 *dkv_ref(*args, causal=True, **kw))))
+            print(f"[library] flex_attention {tag}: compiled and checked in "
+                  f"{time.perf_counter() - t0:.1f} s; o, lse, dq, dk, dv "
+                  f"max_abs {err:.3e} against the plain versions")
+            require(err <= 1e-2, f"flex_attention is not the featured "
+                    f"attention: max_abs {err:.3e}")
+        timed[f"flash_attention {tag}"] = _timed_entry(
+            "flash_attention", [B, Hq, S, D],
+            partial(fa, q, k, v, causal=True, return_stats=True, **kw),
+            partial(ref, q, k, v, causal=True, return_stats=True, **kw),
+            lib_fwd, 2 * product, _nbytes(q, k, v, o, lse), f32)
+        io = _nbytes(*args)
+        timed[f"flash_attention_dq {tag}"] = _timed_entry(
+            "flash_attention_dq", [B, Hq, S, D],
+            partial(dq, *args, causal=True, **kw),
+            partial(dq_ref, *args, causal=True, **kw), lib_bwd,
+            3 * product, io + _nbytes(q), f32)
+        timed[f"flash_attention_dkv {tag}"] = _timed_entry(
+            "flash_attention_dkv", [B, Hq, S, D],
+            partial(dkv, *args, causal=True, **kw),
+            partial(dkv_ref, *args, causal=True, **kw), lib_bwd,
+            4 * product, io + _nbytes(k16, v16), f32)
 
 
 def _ce_kernels(checks, timed, gen, cfg, N):
@@ -624,7 +794,7 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
                ("fa_fwd", "fa_fwd_"),
-               ("fa_bwd", "fa_bwd_kernel"),
+               ("fa_bwd", ("fa_bwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
                ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
@@ -755,12 +925,20 @@ def _batch(cfg, B, S, seed):
             for _ in range(2))
 
 
+def _train_label(cfg):
+    if cfg.window is not None:
+        return f"window {cfg.window} softcap {cfg.softcap:g}"
+    return "fused loss" if cfg.fused_loss else "unfused loss"
+
+
 def phase_train(cfg, B, S, steps=5):
     """A training main path: `steps` Adam steps of make_train_step on
     one seeded batch (the same parameters and batch for the unfused and
-    the fused loss); launch counts reset just before and read just
-    after; then one more step under the profiler. Returns the launches
-    and the losses."""
+    the fused loss and the window and softcap); launch counts reset just
+    before and read just after; then one more step under the profiler.
+    With a window the backward must take the two featured kernels, one
+    launch of each per layer and step, and never the fused one. Returns
+    the launches, the losses and dict(ms, tokens_s, peak_gib)."""
     from tpukern_torch.models import init_params, make_train_step, param_leaves
     from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
                                    matmul, rmsnorm, rope)
@@ -778,7 +956,11 @@ def phase_train(cfg, B, S, steps=5):
            attention_bwd.flash_attention_bwd, rmsnorm.rms_norm]
     if cfg.fused_loss:
         ops += [cross_entropy.ce_fwd, cross_entropy.ce_bwd]
-    label = "fused loss" if cfg.fused_loss else "unfused loss"
+    featured = cfg.window is not None or cfg.softcap is not None
+    if featured:
+        ops += [attention_bwd.flash_attention_dq,
+                attention_bwd.flash_attention_dkv]
+    label = _train_label(cfg)
     for op in ops:
         op.launches = 0
     torch.cuda.synchronize()
@@ -791,21 +973,30 @@ def phase_train(cfg, B, S, steps=5):
         ms.append(1e3 * (time.perf_counter() - t0))
     launches = {op.__name__: op.launches for op in ops}
     med = float(np.median(ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[train] 7bish f32, {label}, {cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f} B parameters, Adam lr {TRAIN_LR:g}, B={B} "
-          f"S={S}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"S={S}; peak device memory {peak:.2f} GiB")
     print(f"[train] {label} losses {[round(x, 6) for x in losses]}")
     print(f"[train] {label} step ms {[round(x, 3) for x in ms]}; median of "
           f"steps 2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
     print(f"[train] {label} launches {launches}")
     require(all(np.isfinite(losses)), f"losses not finite: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    if featured:
+        fused_bwd = launches.pop("flash_attention_bwd")
+        require(fused_bwd == 0, f"the fused backward launched {fused_bwd} "
+                "times under a window/softcap")
+        per_run = cfg.n_layers * steps
+        require(all(launches[n] == per_run for n in (
+            "flash_attention", "flash_attention_dq", "flash_attention_dkv")),
+            f"not {per_run} launches of each attention kernel: {launches}")
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the training path never launched: {launches}")
     _profile(f"train step ({label})",
              lambda: step(params, tokens, targets).item(), 1)
-    return launches, losses
+    return launches, losses, dict(ms=med, tokens_s=B * S / med * 1e3,
+                                  peak_gib=peak)
 
 
 def _plain_loss(params, tokens, targets, cfg):
@@ -832,7 +1023,8 @@ def _plain_loss(params, tokens, targets, cfg):
         q = heads(matmul_ref(hn, lp["wq"]), Hq)
         k = heads(matmul_ref(hn, lp["wk"]), Hkv)
         v = heads(matmul_ref(hn, lp["wv"]), Hkv, rotate=False)
-        o = attention_ref(q, k, v, causal=True).transpose(1, 2)
+        o = attention_ref(q, k, v, causal=True, window=cfg.window,
+                          softcap=cfg.softcap).transpose(1, 2)
         h = h + matmul_ref(o.reshape(B * S, d), lp["wo"]).reshape(B, S, d)
         hn = rms_norm_ref(h, lp["ln2"]).reshape(B * S, d)
         u = torch.nn.functional.gelu(matmul_ref(hn, lp["w1"]),
@@ -850,12 +1042,13 @@ def _plain_loss(params, tokens, targets, cfg):
 def phase_train_parity(cfg, S):
     """One loss-and-grad through the kernels against _plain_loss, at the
     7bish widths with 2 layers, B=1, f32, on the same card; with
-    cfg.fused_loss also the fused against the unfused kernel loss."""
+    cfg.fused_loss also the fused against the unfused kernel loss; with
+    cfg.window and cfg.softcap the plain loss masks and caps alike."""
     import dataclasses
     from tpukern_torch.models import init_params, loss_fn, param_leaves
 
     cfg = dataclasses.replace(cfg, n_layers=2)
-    label = "fused" if cfg.fused_loss else "unfused"
+    label = _train_label(cfg)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 2), device="cuda")
     leaves = param_leaves(params)
@@ -901,6 +1094,11 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch.compile (flex_attention, a library call timed beside the
+    # featured kernels) caches in the checkout's build directory
+    build = Path(__file__).resolve().parent / "tpukern_torch" / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
     from tpukern_torch.models import Config, init_params
     from tpukern_torch.ops import attention, paged_attention, rmsnorm, rope
 
@@ -936,16 +1134,23 @@ def main():
     del params
     torch.cuda.empty_cache()
 
-    train_launches, unfused_losses = phase_train(tcfg, TB, TS)
+    train_launches, unfused_losses, unfused_stats = phase_train(tcfg, TB, TS)
     torch.cuda.empty_cache()
     fcfg = dataclasses.replace(tcfg, fused_loss=True)
-    fused_launches, fused_losses = phase_train(fcfg, TB, TS)
+    fused_launches, fused_losses, _ = phase_train(fcfg, TB, TS)
     require(fused_launches["ce_fwd"] > 0 and fused_launches["ce_bwd"] > 0,
             f"the fused loss never launched its kernels: {fused_launches}")
     print(f"[train] fused - unfused loss per step "
           f"{[f'{a - b:.2e}' for a, b in zip(fused_losses, unfused_losses)]}")
     torch.cuda.empty_cache()
-    for c in (tcfg, fcfg):
+    wcfg = dataclasses.replace(tcfg, window=WINDOW, softcap=SOFTCAP)
+    featured_launches, _, featured_stats = phase_train(wcfg, TB, TS)
+    for name, st in (("featured", featured_stats),
+                     ("default", unfused_stats)):
+        print(f"[train] {name:8s} step {st['ms']:.3f} ms = "
+              f"{st['tokens_s']:.1f} tokens/s, peak {st['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    for c in (tcfg, fcfg, wcfg):
         if not phase_train_parity(c, TS):
             print("chip_smoke: the training loss or a gradient disagrees",
                   file=sys.stderr)
@@ -957,9 +1162,12 @@ def main():
                                               r["max_abs_err"])
         else:
             timing[name] = r
-    # serving counts for its four, the fused phase for the CE kernels
+    # serving counts for its four, the fused phase for the CE kernels,
+    # the featured phase for the two-kernel backward
     launches = {**train_launches, **launches,
-                **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")}}
+                **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")},
+                **{n: featured_launches[n] for n in ("flash_attention_dq",
+                                                     "flash_attention_dkv")}}
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -978,9 +1186,18 @@ def main():
            "ce_fwd": ("tpukern_torch/csrc/cross_entropy.cu",
                       "tpukern/ops/cross_entropy.py:53"),
            "ce_bwd": ("tpukern_torch/csrc/cross_entropy.cu",
-                      "tpukern/ops/cross_entropy.py:95")}
-    # one backward kernel serves both of the TPU's backward kernels
-    also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132"}
+                      "tpukern/ops/cross_entropy.py:95"),
+           "flash_attention_dq": (
+               "tpukern_torch/csrc/flash_attention_featured_bwd.cu",
+               "tpukern/ops/attention_bwd.py:31"),
+           "flash_attention_dkv": (
+               "tpukern_torch/csrc/flash_attention_featured_bwd.cu",
+               "tpukern/ops/attention_bwd.py:110")}
+    # one backward kernel serves both of the TPU's backward kernels; the
+    # two-kernel backward also stands for its transposed-layout twins
+    also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
+            "flash_attention_dq": "tpukern/ops/attention_bwd.py:188",
+            "flash_attention_dkv": "tpukern/ops/attention_bwd.py:261"}
     # the PyTorch call(s) behind library_ms (null where there is none)
     library = {
         "rms_norm": "F.rms_norm",
@@ -990,7 +1207,11 @@ def main():
                                "F.scaled_dot_product_attention",
         "ce_fwd": "torch.matmul + F.cross_entropy (two calls)",
         "ce_bwd": "autograd backward of torch.matmul + F.cross_entropy "
-                  "(two calls)"}
+                  "(two calls)",
+        "flash_attention_dq": "autograd backward of torch.compile("
+                              "flex_attention) with the softcap score_mod "
+                              "and the band block mask (dq, dk, dv together)",
+        "flash_attention_dkv": "as flash_attention_dq"}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],

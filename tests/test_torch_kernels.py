@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpukern_torch.core.feature_sets import FEATURE_SETS, feature_kwargs
 from tpukern_torch.core.tolerances import check_all_close
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
@@ -384,4 +385,138 @@ def test_fused_loss_on_kernels_equals_unfused(cuda):
         out[fused] = [loss] + list(torch.autograd.grad(loss, leaves))
     assert cross_entropy.ce_bwd.launches == before + 1
     for i, (a, b) in enumerate(zip(out[True], out[False])):
+        check_all_close(a, b, name=f"leaf {i - 1}", **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,D", [(100, 64), (200, 128), (77, 32)])
+@pytest.mark.parametrize("name", sorted(FEATURE_SETS))
+def test_flash_attention_features(cuda, name, S, D, dt):
+    """The forward's window, sinks, softcap and segments (GQA 2, lengths
+    off the tiles): o on every row, lse on the rows that see a key."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v = (torch.randn((2, h, S, D), generator=g, device=cuda)
+               .to(DTYPES[dt]) for h in (4, 2, 2))
+    kw, seen = feature_kwargs(name, 2, S, cuda)
+    before = attention.flash_attention.launches
+    o, lse = attention.flash_attention(q, k, v, causal=True,
+                                       return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    ro, rlse = attention.attention_ref(q, k, v, causal=True,
+                                       return_stats=True, **kw)
+    check_all_close(o.float(), ro.float(), dtype=DTYPES[dt], name=name,
+                    **(F32 if dt == "f32" else {}))
+    check_all_close(lse[..., seen], rlse[..., seen], rtol=1e-4, atol=1e-4,
+                    name=f"{name} lse")
+    assert not o[..., ~seen, :].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_wide_window_is_causal(cuda, dt):
+    """The featured instance with a window as long as the sequence gives
+    the serving instance's causal result."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((1, h, 300, 128), generator=g, device=cuda)
+               .to(DTYPES[dt]) for h in (4, 2, 2))
+    check_all_close(
+        attention.flash_attention(q, k, v, causal=True, window=300).float(),
+        attention.flash_attention(q, k, v, causal=True).float(),
+        dtype=DTYPES[dt], **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,D", [(100, 64), (200, 128), (77, 32)])
+@pytest.mark.parametrize("name", ["window", "softcap", "segments",
+                                  "window+softcap+segments", "none"])
+def test_flash_attention_featured_bwd(cuda, name, S, D, dt):
+    """flash_attention_dq and flash_attention_dkv (one launch each, no
+    fused launch) against the plain backward with the same masks, on the
+    forward's own o and lse; "none" is fused=False with no feature."""
+    kw = dict() if name == "none" else feature_kwargs(name, 2, S, cuda)[0]
+    g = torch.Generator(device=cuda).manual_seed(S * D)
+    q, k, v, do = (torch.randn((2, 3, S, D), generator=g, device=cuda)
+                   .to(DTYPES[dt]) for _ in range(4))
+    o, lse = attention.attention_ref(q, k, v, causal=True, return_stats=True,
+                                     **kw)
+    counts = (attention_bwd.flash_attention_dq.launches,
+              attention_bwd.flash_attention_dkv.launches,
+              attention_bwd.flash_attention_bwd.launches)
+    out = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                            fused=False, **kw)
+    torch.cuda.synchronize()
+    assert (attention_bwd.flash_attention_dq.launches,
+            attention_bwd.flash_attention_dkv.launches,
+            attention_bwd.flash_attention_bwd.launches) == (
+                counts[0] + 1, counts[1] + 1, counts[2])
+    ref = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                causal=True, **kw)
+    for grad, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == DTYPES[dt]
+        check_all_close(a.float(), b.float(), dtype=DTYPES[dt],
+                        name=f"{name} {grad}", **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+def test_featured_bwd_noncontiguous_inputs(cuda):
+    """v and do as transposed views (the layout the training step hands
+    the backward): the wrappers' contiguous copies must outlive the
+    launch, or dK/dV may be allocated over them."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k = (torch.randn((1, 4, 500, 128), generator=g, device=cuda)
+            for _ in range(2))
+    v, do = (torch.randn((1, 500, 4, 128), generator=g, device=cuda)
+             .transpose(1, 2) for _ in range(2))
+    kw = dict(causal=True, window=200, softcap=30.0)
+    o, lse = attention.attention_ref(q, k, v, return_stats=True, **kw)
+    for _ in range(3):
+        out = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        ref = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        for grad, a, b in zip(("dq", "dk", "dv"), out, ref):
+            check_all_close(a, b, name=grad, **F32)
+
+
+@pytest.mark.cuda
+def test_featured_bwd_is_deterministic(cuda):
+    """Each output of the two-kernel backward has one owner: two runs are
+    bit for bit equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((2, 4, 300, 128), generator=g, device=cuda)
+                   for _ in range(4))
+    o, lse = attention.flash_attention(q, k, v, causal=True, window=100,
+                                       softcap=30.0, return_stats=True)
+    runs = [attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=True, window=100,
+                                              softcap=30.0)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_featured_train_on_kernels_equals_plain(cuda):
+    """loss_fn with Config.window and Config.softcap and every gradient
+    through the kernels against the same function on the CPU; the
+    backward takes the two featured kernels, never the fused one."""
+    cfg = Config(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=256, max_seq=64, window=24, softcap=30.0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+                for _ in range(2))
+    counts = (attention_bwd.flash_attention_dq.launches,
+              attention_bwd.flash_attention_bwd.launches)
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = params_to(params, dev, copy=True)
+        leaves = param_leaves(p)
+        for t in leaves:
+            t.requires_grad_()
+        loss = loss_fn(p, tok.to(dev), tgt.to(dev), cfg)
+        grads[str(dev)] = [loss] + list(torch.autograd.grad(loss, leaves))
+    assert attention_bwd.flash_attention_dq.launches == counts[0] + 2
+    assert attention_bwd.flash_attention_bwd.launches == counts[1]
+    for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         check_all_close(a, b, name=f"leaf {i - 1}", **F32)

@@ -117,8 +117,7 @@ def test_paged_attention_matches_jax(dt, D, group):
 
 def test_unported_features_raise():
     q = torch.zeros(1, 2, 8, 32)
-    for kw in (dict(window=4), dict(softcap=30.0), dict(sinks=2),
-               dict(causal_offset=3), dict(return_carry=True)):
+    for kw in (dict(causal_offset=3), dict(return_carry=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attention.flash_attention(q, q, q, causal=True, **kw)
     kp = torch.zeros(2, 4, 16, 32)

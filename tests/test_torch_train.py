@@ -152,8 +152,71 @@ def test_variant_equals_plain_step(setup, variant):
         check_all_close(p.detach(), ref_named[name].detach(), name=name, **F32)
 
 
-@pytest.mark.parametrize("field,value", [("window", 8), ("softcap", 30.0),
-                                         ("sinks", 2), ("n_experts", 4)])
+# window and softcap that cut the 64-token sequences: the band of 24 keys
+# and a cap of 30 on the attention logits (the Gemma-2 style training
+# configuration at this size)
+FEATURED = dict(window=24, softcap=30.0)
+
+
+def test_featured_logits_loss_and_every_gradient_match_jax(setup):
+    """Config.window and Config.softcap: logits, then the loss and every
+    gradient through the featured forward and the two-kernel backward."""
+    jparams, tokens, targets = setup
+    jcfg = dataclasses.replace(JCFG, **FEATURED)
+    cfg = dataclasses.replace(CFG, **FEATURED)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    logits = forward(params, torch.from_numpy(tokens), cfg)
+    ref = jax_forward(jparams, jnp.asarray(tokens), jcfg)
+    check_all_close(logits, np.asarray(ref), name="logits", **F32)
+    plain = forward(params, torch.from_numpy(tokens), CFG)
+    assert not torch.allclose(logits, plain, rtol=1e-3, atol=1e-3)
+    _loss_and_grads_match(jparams, tokens, targets, jcfg, cfg)
+
+
+def test_featured_sgd_step_matches_jax(setup):
+    """One SGD step with window and softcap on both sides."""
+    jparams, tokens, targets = setup
+    jcfg = dataclasses.replace(JCFG, **FEATURED)
+    loss, params = _one_sgd_step(jparams, tokens, targets,
+                                 dataclasses.replace(CFG, **FEATURED))
+    tx = optax.sgd(LR)
+    jnew, _, jloss = jax_make_train_step(jcfg, tx)(
+        jparams, tx.init(jparams), jnp.asarray(tokens), jnp.asarray(targets))
+    check_all_close(loss, np.asarray(jloss), name="loss", **F32)
+    jnamed = _named(jnew)
+    for name, p in _named(params).items():
+        check_all_close(p.detach(), np.asarray(jnamed[name]), name=name, **F32)
+
+
+def test_sinks_forward_matches_jax(setup):
+    """Config.sinks (inference-only) with a window: forward() through the
+    forward kernel, on params that do not require grad."""
+    jparams, tokens, _ = setup
+    kw = dict(window=16, sinks=4)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    logits = forward(params, torch.from_numpy(tokens),
+                     dataclasses.replace(CFG, **kw))
+    ref = jax_forward(jparams, jnp.asarray(tokens),
+                      dataclasses.replace(JCFG, **kw))
+    check_all_close(logits, np.asarray(ref), name="logits", **F32)
+
+
+def test_sinks_in_training_raise(setup):
+    """Differentiating through sinks fails loudly, as in JAX: the backward
+    kernels do not carry the sink mask."""
+    jparams, tokens, targets = setup
+    params = _trainable(jparams)
+    cfg = dataclasses.replace(CFG, window=16, sinks=4)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        loss_fn(params, torch.from_numpy(tokens), torch.from_numpy(targets),
+                cfg)
+    with torch.no_grad():
+        loss = loss_fn(params, torch.from_numpy(tokens),
+                       torch.from_numpy(targets), cfg)
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("field,value", [("n_experts", 4)])
 def test_unported_training_options_raise(setup, field, value):
     jparams, tokens, targets = setup
     params = params_from_jax(jax.tree.map(np.asarray, jparams))

@@ -51,14 +51,21 @@ SIGNATURES = {
     "tk_rope_cached": [_P, _P, _P, _P, _I64, _I, _I, _P],
     # x, y, rows, head_dim, seq_len, sign, dtype, stream
     "tk_rope_batched": [_P, _P, _I64, _I, _I, _F, _I, _P],
-    # q, k, v, o, lse (or None), B, Hq, Hkv, Sq, Skv, D, sm_scale, causal,
-    # dtype, stream
-    "tk_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                           _I, _I, _P],
+    # q, k, v, o, lse (or None), q_seg, kv_seg (or None), B, Hq, Hkv, Sq,
+    # Skv, D, sm_scale, causal, window, sinks, softcap, dtype, stream
+    "tk_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, lse, di, dq (f32), dk, dv, B, H, Sq, Skv, D, sm_scale,
     # causal, dtype, stream
     "tk_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, do, lse, di, q_seg, kv_seg (or None), dq, B, H, Sq, Skv, D,
+    # sm_scale, causal, window, softcap, dtype, stream
+    "tk_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _F, _I, _I, _F, _I, _P],
+    # the same with dk, dv in place of dq
+    "tk_flash_attention_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _F, _I, _I, _F, _I, _P],
     # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, stream
     "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
@@ -159,6 +166,11 @@ def launch(name, *args):
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """t's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -40,12 +40,13 @@ int tk_rope_batched(const void* x, void* y, int64_t rows, int head_dim,
 }
 
 int tk_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-                       int D, float sm_scale, int causal, int dtype,
-                       void* stream) {
-  return checked(tk::flash_attention_launch(q, k, v, o, lse, B, Hq, Hkv, Sq,
-                                            Skv, D, sm_scale, causal, dtype,
-                                            static_cast<cudaStream_t>(stream)));
+                       float* lse, const int* q_seg, const int* kv_seg, int B,
+                       int Hq, int Hkv, int Sq, int Skv, int D, float sm_scale,
+                       int causal, int window, int sinks, float softcap,
+                       int dtype, void* stream) {
+  return checked(tk::flash_attention_launch(
+      q, k, v, o, lse, q_seg, kv_seg, B, Hq, Hkv, Sq, Skv, D, sm_scale, causal,
+      window, sinks, softcap, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 int tk_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -56,6 +57,29 @@ int tk_flash_attention_bwd(const void* q, const void* k, const void* v,
   return checked(tk::flash_attention_bwd_launch(
       q, k, v, dout, lse, di, dq, dk, dv, B, H, Sq, Skv, D, sm_scale, causal,
       dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_flash_attention_dq(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* di,
+                          const int* q_seg, const int* kv_seg, void* dq, int B,
+                          int H, int Sq, int Skv, int D, float sm_scale,
+                          int causal, int window, float softcap, int dtype,
+                          void* stream) {
+  return checked(tk::flash_attention_dq_launch(
+      q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Sq, Skv, D, sm_scale,
+      causal, window, softcap, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_flash_attention_dkv(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse, const float* di,
+                           const int* q_seg, const int* kv_seg, void* dk,
+                           void* dv, int B, int H, int Sq, int Skv, int D,
+                           float sm_scale, int causal, int window,
+                           float softcap, int dtype, void* stream) {
+  return checked(tk::flash_attention_dkv_launch(
+      q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Sq, Skv, D,
+      sm_scale, causal, window, softcap, dtype,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,

@@ -58,6 +58,91 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
+// ------------------------------------------------ attention masks
+// The masks of the featured attention path, one definition for the
+// forward (csrc/flash_attention.cu) and the two-kernel backward
+// (csrc/flash_attention_featured_bwd.cu), in the semantics of
+// tpukern/ops/attention.py: causal keeps key c for query r iff c <= r; a
+// window also needs c >= r - window + 1, or c < sinks (sinks are
+// forward-only); segment ids need equal ids. The tails (r >= Sq,
+// c >= Skv) are the kernels' own.
+struct AttnMask {
+  const int* qseg;  // (B, Sq) segment ids, or null
+  const int* kseg;  // (B, Skv), null with qseg
+  int causal;
+  int window;       // 0: no window
+  int sinks;        // 0: no sinks
+  float softcap;    // 0: no cap
+  float inv_cap;
+  float scale;      // sm_scale
+};
+
+// The mask of a launcher's arguments, or false if they make none: a
+// window needs causal, sinks a window, a softcap is >= 0 (0: none), and
+// segment ids come as a pair.
+inline bool make_mask(const int* q_seg, const int* kv_seg, int causal,
+                      int window, int sinks, float softcap, float sm_scale,
+                      AttnMask* m) {
+  if (window < 0 || sinks < 0 || (window > 0 && !causal) ||
+      (sinks > 0 && window == 0) || !(softcap >= 0.f) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
+    return false;
+  *m = AttnMask{q_seg, kv_seg, causal, window, sinks, softcap,
+                softcap > 0.f ? 1.f / softcap : 0.f, sm_scale};
+  return true;
+}
+
+// whether query qi sees key kvi; qs and ks are their segment ids (read
+// only with segments)
+__device__ __forceinline__ bool mask_visible(const AttnMask& m, int qi,
+                                             int kvi, int qs, int ks) {
+  return (!m.causal || kvi <= qi) &&
+         (m.window == 0 || kvi >= qi - m.window + 1 || kvi < m.sinks) &&
+         (!m.qseg || qs == ks);
+}
+
+// A scaled score s under the softcap: cap * tanh(s / cap) with the
+// accurate tanhf (tanh.approx.f32 has about 11 bits), applied before any
+// mask (attention.py:207-214); t = tanh(s / cap) for the backward's chain
+// dS *= 1 - t^2. Without a cap, s and t = 0.
+__device__ __forceinline__ float soft_cap(const AttnMask& m, float s,
+                                          float& t) {
+  t = 0.f;
+  if (m.softcap > 0.f) {
+    t = tanhf(s * m.inv_cap);
+    s = m.softcap * t;
+  }
+  return s;
+}
+
+// ------------------------------------------- attention backward tiles
+// csrc/flash_attention_bwd.cu and csrc/flash_attention_featured_bwd.cu
+// stage their tiles as f32 in shared memory, rows padded to D + 4 floats,
+// and read them as float4.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// rows x D of a (rows_total, D) matrix from row r0 into smem [rows][D + 4]
+// as f32, zeros past rows_total; a block of NT threads
+template <typename T, int D, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
+                                           int rows, int rows_total) {
+  constexpr int LD = D + 4;
+  for (int i = threadIdx.x; i < rows * D; i += NT) {
+    const int r = i / D, c = i % D;
+    dst[r * LD + c] = r0 + r < rows_total
+                          ? to_f32(src[(int64_t)(r0 + r) * D + c]) : 0.f;
+  }
+}
+
 // ------------------------------------------------------------ GEMM tiles
 // One block of 256 threads accumulates the 128 x 128 tile at (m0, n0) of
 // C = A[M,K] · B[K,N] (NN) or A · B[N,K]^T (TRANS_B) in f32 registers.
@@ -251,9 +336,12 @@ cudaError_t rope_batched_launch(const void* x, void* y, int64_t rows,
                                 int head_dim, int seq_len, float sign,
                                 int dtype, cudaStream_t stream);
 cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
-                                   void* o, float* lse, int B, int Hq, int Hkv,
+                                   void* o, float* lse, const int* q_seg,
+                                   const int* kv_seg, int B, int Hq, int Hkv,
                                    int Sq, int Skv, int D, float sm_scale,
-                                   int causal, int dtype, cudaStream_t stream);
+                                   int causal, int window, int sinks,
+                                   float softcap, int dtype,
+                                   cudaStream_t stream);
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* di,
@@ -261,6 +349,16 @@ cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        int H, int Sq, int Skv, int D,
                                        float sm_scale, int causal, int dtype,
                                        cudaStream_t stream);
+cudaError_t flash_attention_dq_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, const int* q_seg, const int* kv_seg,
+    void* dq, int B, int H, int Sq, int Skv, int D, float sm_scale, int causal,
+    int window, float softcap, int dtype, cudaStream_t stream);
+cudaError_t flash_attention_dkv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, const int* q_seg, const int* kv_seg,
+    void* dk, void* dv, int B, int H, int Sq, int Skv, int D, float sm_scale,
+    int causal, int window, float softcap, int dtype, cudaStream_t stream);
 cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
                           int M, int N, int K, int trans_b, int dtype,
                           cudaStream_t stream);

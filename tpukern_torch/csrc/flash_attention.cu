@@ -13,6 +13,20 @@
 // It is a template flag, so the serving path's instance compiles as it
 // did without the output.
 //
+// The FEAT instances add the masks of the featured training path, as
+// runtime arguments (struct AttnMask, common.cuh): a sliding window (key c visible to
+// query r iff r - window + 1 <= c <= r) with attention sinks (c < sinks
+// also visible), a logit softcap applied to the f32 score after the
+// sm_scale multiply and before masking (s = cap * tanh(s / cap), with the
+// accurate tanhf, then log2(e) in the bf16 tier; attention.py:207-214),
+// and segment ids (a mismatching pair is masked; a row whose running max
+// stays NEG_BIG sees no key and outputs 0, attention.py:338-343). The
+// KV loop of a window starts at the tile holding max(0, q0 - window + 1),
+// as the TPU kernel's should_run/in_band and KV-index pinning do
+// (attention.py:124-137, :557-564), so work scales with S * window; the
+// tiles below `sinks` run first. The serving path's instance (FEAT off)
+// compiles as before.
+//
 // What bounds it: prefill attention at D = 128 does 4*D flops for every
 // (query, key) pair it reads 4*D bytes of K/V for once per 64 queries, so
 // it is compute bound. The bf16 kernel computes both products on the tensor
@@ -30,6 +44,8 @@
 // sm_scale * log2(e), exp2), the f32 kernel in natural log space with exp,
 // as the two tiers of the TPU kernel do. The scale is applied in f32 to
 // the scores; the TPU kernel folds it into q and rounds q back to bf16.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace tk {
@@ -37,6 +53,22 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// The KV tiles a query tile [q0, q0 + BQ) visits, in order: the sink
+// tiles [0, sink_end), then the band [lo, kv_end). Without a window lo is
+// 0; sink_end and lo are multiples of BK with sink_end <= lo.
+template <int BK>
+struct KvRange {
+  int lo, sink_end;
+  __device__ KvRange(const AttnMask& f, int q0, bool feat) {
+    lo = feat && f.window > 0 ? max(0, q0 - f.window + 1) / BK * BK : 0;
+    sink_end = feat ? min(lo, (f.sinks + BK - 1) / BK * BK) : 0;
+  }
+  __device__ int first() const { return sink_end > 0 ? 0 : lo; }
+  __device__ int next(int k0) const {
+    return k0 + BK == sink_end ? lo : k0 + BK;
+  }
+};
 
 // ---------------------------------------------------------------- bf16 mma
 constexpr int MMA_BQ = 64;   // query rows per block: 4 warps x 16
@@ -60,18 +92,19 @@ __device__ __forceinline__ uint32_t load_pair(const bf16* base, int row, int row
 //                   a3 = A[g+8][2t+8..]
 //   B (16x8, col):  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
 //   C (16x8):       c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
-template <int D, bool LSE>
+template <int D, bool LSE, bool FEAT>
 __global__ void __launch_bounds__(MMA_THREADS)
 fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                  float scale_log2, int causal) {
+                  float scale_log2, AttnMask f) {
   constexpr int LDS = D + 8;  // padded smem row: conflict-free B loads of K
   constexpr int KS = D / 16;  // k-steps of Q K^T
   constexpr int NT = MMA_BK / 8;  // n-tiles of S
   constexpr int DT = D / 8;       // n-tiles of O
   __shared__ __align__(16) bf16 k_s[MMA_BK * LDS];
   __shared__ __align__(16) bf16 v_s[MMA_BK * LDS];
+  __shared__ int kseg_s[FEAT ? MMA_BK : 1];
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -85,6 +118,9 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * MMA_BQ;
   const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   const int r1 = r0 + 8;
+  const bool segs = FEAT && f.qseg;
+  const int qs0 = segs && r0 < Sq ? f.qseg[(int64_t)b * Sq + r0] : -1;
+  const int qs1 = segs && r1 < Sq ? f.qseg[(int64_t)b * Sq + r1] : -1;
 
   uint32_t qf[KS][4];
 #pragma unroll
@@ -101,9 +137,14 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < DT; ++i) of[i][0] = of[i][1] = of[i][2] = of[i][3] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
 
-  const int kv_end = causal ? min(Skv, q0 + MMA_BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += MMA_BK) {
+  const int kv_end = f.causal ? min(Skv, q0 + MMA_BQ) : Skv;
+  const KvRange<MMA_BK> kr(f, q0, FEAT);
+  for (int k0 = kr.first(); k0 < kv_end; k0 = kr.next(k0)) {
     __syncthreads();  // the previous tile is consumed
+    if (segs && threadIdx.x < MMA_BK) {
+      const int c = k0 + threadIdx.x;
+      kseg_s[threadIdx.x] = c < Skv ? f.kseg[(int64_t)b * Skv + c] : -2;
+    }
     for (int i = threadIdx.x; i < MMA_BK * (D / 8); i += MMA_THREADS) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
@@ -138,8 +179,16 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = e < 2 ? r0 : r1;
         const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = col < Skv && (!causal || col <= row);
-        sf[nt][e] = ok ? sf[nt][e] * scale_log2 : NEG_BIG;
+        if constexpr (FEAT) {
+          float t;
+          const bool ok = col < Skv &&
+                          mask_visible(f, row, col, e < 2 ? qs0 : qs1,
+                                       segs ? kseg_s[col - k0] : 0);
+          sf[nt][e] = ok ? soft_cap(f, sf[nt][e] * f.scale, t) * LOG2E : NEG_BIG;
+        } else {
+          const bool ok = col < Skv && (!f.causal || col <= row);
+          sf[nt][e] = ok ? sf[nt][e] * scale_log2 : NEG_BIG;
+        }
       }
       mx0 = fmaxf(mx0, fmaxf(sf[nt][0], sf[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(sf[nt][2], sf[nt][3]));
@@ -194,8 +243,9 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  // a row that saw no key (segments) keeps m == NEG_BIG: output 0
+  const float inv0 = l0 == 0.f || (segs && m0 <= 0.5f * NEG_BIG) ? 0.f : 1.f / l0;
+  const float inv1 = l1 == 0.f || (segs && m1 <= 0.5f * NEG_BIG) ? 0.f : 1.f / l1;
   if (LSE && t == 0) {  // m is in log2 units here
     float* lb = lse + (int64_t)(b * Hq + h) * Sq;
     if (r0 < Sq) lb[r0] = LN2 * m0 + logf(fmaxf(l0, 1e-37f));
@@ -219,16 +269,17 @@ constexpr int FMA_BK = 32;  // keys per tile: one per lane
 constexpr int FMA_THREADS = 128;
 constexpr int FMA_RPW = FMA_BQ / (FMA_THREADS / 32);
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, bool FEAT>
 __global__ void __launch_bounds__(FMA_THREADS)
 fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                  float sm_scale, int causal) {
+                  float sm_scale, AttnMask f) {
   constexpr int DPL = D / 32;  // output columns per lane
   __shared__ float q_s[FMA_BQ][D];
   __shared__ float k_s[FMA_BK][D + 1];  // +1: lanes read distinct rows
   __shared__ float v_s[FMA_BK][D];
+  __shared__ int kseg_s[FEAT ? FMA_BK : 1];
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -243,6 +294,13 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, c = i % D;
     q_s[r][c] = q0 + r < Sq ? to_f32(qb[(int64_t)(q0 + r) * D + c]) * sm_scale : 0.f;
   }
+  const bool segs = FEAT && f.qseg;
+  int qs[FMA_RPW];
+#pragma unroll
+  for (int rr = 0; rr < FMA_RPW; ++rr) {
+    const int qi = q0 + warp * FMA_RPW + rr;
+    qs[rr] = segs && qi < Sq ? f.qseg[(int64_t)b * Sq + qi] : -1;
+  }
 
   float m[FMA_RPW], l[FMA_RPW], acc[FMA_RPW][DPL];
 #pragma unroll
@@ -253,9 +311,14 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
   }
 
-  const int kv_end = causal ? min(Skv, q0 + FMA_BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += FMA_BK) {
+  const int kv_end = f.causal ? min(Skv, q0 + FMA_BQ) : Skv;
+  const KvRange<FMA_BK> kr(f, q0, FEAT);
+  for (int k0 = kr.first(); k0 < kv_end; k0 = kr.next(k0)) {
     __syncthreads();
+    if (segs && threadIdx.x < FMA_BK) {
+      const int c = k0 + threadIdx.x;
+      kseg_s[threadIdx.x] = c < Skv ? f.kseg[(int64_t)b * Skv + c] : -2;
+    }
     for (int i = threadIdx.x; i < FMA_BK * D; i += FMA_THREADS) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < Skv;
@@ -270,7 +333,15 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f;
 #pragma unroll 8
       for (int c = 0; c < D; ++c) s = fmaf(q_s[r][c], k_s[lane][c], s);
-      const bool ok = kj < Skv && (!causal || kj <= q0 + r);
+      bool ok;
+      if constexpr (FEAT) {
+        float t;  // q_s holds q * sm_scale: cap the scaled score
+        s = soft_cap(f, s, t);
+        ok = kj < Skv && mask_visible(f, q0 + r, kj, qs[rr],
+                                      segs ? kseg_s[lane] : 0);
+      } else {
+        ok = kj < Skv && (!f.causal || kj <= q0 + r);
+      }
       s = ok ? s : NEG_BIG;
       const float mn = fmaxf(m[rr], warp_max(s));
       const float alpha = expf(m[rr] - mn);
@@ -291,7 +362,8 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < FMA_RPW; ++rr) {
     const int qi = q0 + warp * FMA_RPW + rr;
     if (qi >= Sq) continue;
-    const float inv = l[rr] == 0.f ? 0.f : 1.f / l[rr];
+    const float inv = l[rr] == 0.f || (segs && m[rr] <= 0.5f * NEG_BIG)
+                          ? 0.f : 1.f / l[rr];
     if (LSE && lane == 0)
       lse[(int64_t)(b * Hq + h) * Sq + qi] = m[rr] + logf(fmaxf(l[rr], 1e-37f));
 #pragma unroll
@@ -300,53 +372,62 @@ fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, bool LSE>
-void launch_dl(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-               float sm_scale, int causal, int dtype, cudaStream_t stream) {
+template <int D, bool LSE, bool FEAT>
+void launch_dlf(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                const AttnMask& f, int dtype, cudaStream_t stream) {
   if (dtype == kBF16) {
     dim3 grid((Sq + MMA_BQ - 1) / MMA_BQ, Hq, B);
-    fa_fwd_mma_kernel<D, LSE><<<grid, MMA_THREADS, 0, stream>>>(
+    fa_fwd_mma_kernel<D, LSE, FEAT><<<grid, MMA_THREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
-        Skv, sm_scale * LOG2E, causal);
+        Skv, f.scale * LOG2E, f);
   } else {
     dim3 grid((Sq + FMA_BQ - 1) / FMA_BQ, Hq, B);
-    fa_fwd_fma_kernel<float, D, LSE><<<grid, FMA_THREADS, 0, stream>>>(
+    fa_fwd_fma_kernel<float, D, LSE, FEAT><<<grid, FMA_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv,
-        Sq, Skv, sm_scale, causal);
+        Sq, Skv, f.scale, f);
   }
 }
 
 template <int D>
 void launch_d(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
-              float sm_scale, int causal, int dtype, cudaStream_t stream) {
-  if (lse)
-    launch_dl<D, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal,
-                       dtype, stream);
-  else
-    launch_dl<D, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal,
-                        dtype, stream);
+              const AttnMask& f, int dtype, cudaStream_t stream) {
+  const bool feat = f.window > 0 || f.softcap > 0.f || f.qseg;
+  auto go = [&](auto lse_flag, auto feat_flag) {
+    launch_dlf<D, decltype(lse_flag)::value, decltype(feat_flag)::value>(
+        q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, f, dtype, stream);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (lse) feat ? go(T{}, T{}) : go(T{}, F{});
+  else feat ? go(F{}, T{}) : go(F{}, F{});
 }
 
 }  // namespace
 
 cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
-                                   void* o, float* lse, int B, int Hq, int Hkv,
+                                   void* o, float* lse, const int* q_seg,
+                                   const int* kv_seg, int B, int Hq, int Hkv,
                                    int Sq, int Skv, int D, float sm_scale,
-                                   int causal, int dtype, cudaStream_t stream) {
+                                   int causal, int window, int sinks,
+                                   float softcap, int dtype,
+                                   cudaStream_t stream) {
   if (B < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq < 0 || Skv < 0)
     return cudaErrorInvalidValue;
   if (causal && Sq != Skv) return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
+  AttnMask f;
+  if (!make_mask(q_seg, kv_seg, causal, window, sinks, softcap, sm_scale, &f))
+    return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (Hq > 65535 || B > 65535) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: launch_d<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
-    case 64: launch_d<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
-    case 128: launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, sm_scale, causal, dtype, stream); break;
+    case 32: launch_d<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, f, dtype, stream); break;
+    case 64: launch_d<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, f, dtype, stream); break;
+    case 128: launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, f, dtype, stream); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

@@ -46,30 +46,6 @@ constexpr int smem_floats() {
   return 2 * BKV * (D + 4) + 2 * BQ * (D + 4) + 2 * BKV * LDP + 2 * BQ;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// rows x D of a (rows_total, D) matrix from row r0 into smem [rows][LD] as
-// f32, zeros past rows_total
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int rows, int rows_total) {
-  constexpr int LD = D + 4;
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = r0 + r < rows_total
-                          ? to_f32(src[(int64_t)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -103,8 +79,8 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* dib = di + bh * Sq;
   float* dqb = dq + bh * Sq * D;
 
-  stage<T, D>(k_s, k + bh * Skv * D, kv0, BKV, Skv);
-  stage<T, D>(v_s, v + bh * Skv * D, kv0, BKV, Skv);
+  stage_rows<T, D, THREADS>(k_s, k + bh * Skv * D, kv0, BKV, Skv);
+  stage_rows<T, D, THREADS>(v_s, v + bh * Skv * D, kv0, BKV, Skv);
 
   const int c = (tid % DC) * 4, rg = tid / DC;
   float dk_acc[RPT][4], dv_acc[RPT][4];
@@ -116,8 +92,8 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the causal frontier: Q tiles wholly before kv0 see none of its keys
   for (int q0 = causal ? kv0 / BQ * BQ : 0; q0 < Sq; q0 += BQ) {
     __syncthreads();  // the previous Q tile is consumed
-    stage<T, D>(q_s, qb, q0, BQ, Sq);
-    stage<T, D>(do_s, dob, q0, BQ, Sq);
+    stage_rows<T, D, THREADS>(q_s, qb, q0, BQ, Sq);
+    stage_rows<T, D, THREADS>(do_s, dob, q0, BQ, Sq);
     if (tid < BQ) {
       const bool in = q0 + tid < Sq;
       lse_s[tid] = in ? lseb[q0 + tid] : 0.f;

@@ -6,9 +6,13 @@ Parameters are a plain dict with the JAX package's tree: embed (V, d),
 layers (a list of dicts with ln1, wq, wk, wv, wo, ln2, w1, w2), lnf (d,)
 and head (d, V). Projections keep the (d_in, d_out) layout, so `h @ w`
 means the same on both sides. Config.fused_loss runs the LM head and its
-loss through ops/cross_entropy.py's fused kernels. Not ported here:
-sliding window and softcap in training, sinks, MoE and the tp/sp/ep mesh
-axes (each raises NotImplementedError naming its ROADMAP.md item).
+loss through ops/cross_entropy.py's fused kernels; Config.window and
+Config.softcap run attention through the featured forward and the
+two-kernel backward. Config.sinks is inference-only, as in the JAX
+package: forward() runs the forward kernel with it, and differentiating
+through it raises NotImplementedError. Not ported here: MoE and the
+tp/sp/ep mesh axes (each raises NotImplementedError naming its
+ROADMAP.md item).
 
 init_params builds on the card unless the caller passes device="cpu";
 params_from_jax is a conversion and gives CPU tensors. The training path
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpukern_torch.ops.attention import flash_attention
 from tpukern_torch.ops.cross_entropy import fused_cross_entropy
 from tpukern_torch.ops.trainable import (flash_attention_trainable, matmul_t,
                                          rms_norm_t, rope_t)
@@ -130,11 +135,7 @@ def param_leaves(params) -> list[torch.Tensor]:
 
 def _check_forward(cfg: Config, tp_size=1, tp_axis=None, sp_axis=None,
                    ep_axis=None):
-    todo = [(cfg.window is not None or cfg.softcap is not None,
-             "window/softcap in training: ROADMAP.md queue 1 item 6 (the "
-             "featured backward kernels #9/#10)"),
-            (cfg.sinks is not None, "sinks: ROADMAP.md queue 1 item 5"),
-            (cfg.n_experts, "MoE layers: ROADMAP.md queue 1 item 11"),
+    todo = [(cfg.n_experts, "MoE layers: ROADMAP.md queue 1 item 11"),
             (tp_size != 1 or any(a is not None
                                  for a in (tp_axis, sp_axis, ep_axis)),
              "tp/sp/ep mesh axes: ROADMAP.md queue 1 item 13")]
@@ -156,7 +157,20 @@ def _attn_block(h, lp, cfg: Config):
     q = to_heads(matmul_t(h2, lp["wq"]), hq)
     k = to_heads(matmul_t(h2, lp["wk"]), hkv)
     v = matmul_t(h2, lp["wv"]).reshape(B, S, hkv, Dh).transpose(1, 2)
-    o = flash_attention_trainable(q, k, v, True, None)
+    if cfg.sinks is not None:
+        # an inference-only mask (tpukern/models/transformer.py:180-184):
+        # the forward kernel, which has no backward
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "Config.sinks is inference-only in the JAX package: the "
+                "backward kernels do not carry the sink mask; run forward() "
+                "under torch.no_grad()")
+        o = flash_attention(q, k, v, causal=True, window=cfg.window,
+                            sinks=cfg.sinks, softcap=cfg.softcap)
+    else:
+        o = flash_attention_trainable(q, k, v, True, None, cfg.window,
+                                      cfg.softcap)
     o = o.transpose(1, 2).reshape(B * S, hq * Dh)
     return matmul_t(o, lp["wo"]).reshape(B, S, d)
 

@@ -1,12 +1,23 @@
 """FlashAttention-2 backward: dQ, dK, dV from the forward's saved (o, lse).
 
-The port of tpukern/ops/attention_bwd.py `flash_attention_bwd` on its
-fused path (no window, softcap or segment_ids). Kernel:
-csrc/flash_attention_bwd.cu, which replaces `_bwd_fused_kernel`
-(attention_bwd.py:339). The TPU's dQ tiers (`dq_resident`, the partials
-tier, FUSED_BWD_DQ_BUDGET, fused_bwd_partials_budget) are not ported:
-one CUDA design serves every S. The two-kernel featured backward
-(`_dq_kernel`, `_dkv_kernel`) is ROADMAP.md queue 1 item 6.
+The port of tpukern/ops/attention_bwd.py `flash_attention_bwd` and its
+dispatch (attention_bwd.py:587-598, :675-676):
+
+- no window, softcap or segment_ids (and `fused` unset): the fused
+  kernel, csrc/flash_attention_bwd.cu, which replaces `_bwd_fused_kernel`
+  (attention_bwd.py:339). The TPU's dQ tiers (`dq_resident`, the partials
+  tier, FUSED_BWD_DQ_BUDGET, fused_bwd_partials_budget) are not ported:
+  one CUDA design serves every S.
+- any of those features, or fused=False: the two-kernel featured
+  backward, csrc/flash_attention_featured_bwd.cu: `flash_attention_dq`
+  replaces `_dq_kernel` (:31) and `flash_attention_dkv` replaces
+  `_dkv_kernel` (:110). Their transposed-layout twins `_dq_t_kernel`
+  (:188) and `_dkv_t_kernel` (:261) compute the same function in the
+  TPU's layout for D <= 64 and need no entry point here: their function
+  is these two kernels'.
+
+block_q, block_k, transposed and interpret are TPU layout and tiling
+knobs and are not ported.
 """
 
 import math
@@ -14,48 +25,76 @@ import math
 import torch
 
 from tpukern_torch import _build
-from tpukern_torch.ops.attention import HEAD_DIMS
+from tpukern_torch.ops.attention import (HEAD_DIMS, check_features,
+                                         segments_i32, visible)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None):
-    """q, o, do: (B, H, Sq, D); k, v: (B, H, Skv, D); lse: f32 (B, H, Sq),
-    the forward's natural-log stats. Returns (dq, dk, dv) in the dtypes of
-    q, k, v. H is the same for q and k here: the caller sums a GQA group.
-
-    di = rowsum(o * do) is plain torch, as it is XLA in JAX. A CPU tensor
-    takes flash_attention_bwd_ref; a CUDA tensor launches the kernel (f32
-    or bf16, head dims 32, 64 and 128, causal needs Sq == Skv)."""
+def _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o=None):
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     if (k.shape != (B, H, Skv, D) or v.shape != k.shape
-            or o.shape != q.shape or do.shape != q.shape
-            or lse.shape != (B, H, Sq)):
+            or do.shape != q.shape or lse.shape != (B, H, Sq)
+            or (o is not None and o.shape != q.shape)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} o {tuple(o.shape)} lse "
-                         f"{tuple(lse.shape)} do {tuple(do.shape)}")
+                         f"v {tuple(v.shape)} lse {tuple(lse.shape)} do "
+                         f"{tuple(do.shape)}")
     if causal and Sq != Skv:
         raise NotImplementedError("causal with Sq != Skv: ROADMAP.md queue 1 "
                                   "item 5")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       sm_scale=sm_scale)
-    _build.check_cuda(q, k, v, o, lse, do)
+    check_features(causal, window, softcap=softcap)
+    return 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
+
+
+def _check_cuda(q, k, v, do, lse, di):
+    _build.check_cuda(q, k, v, do, lse, di)
+    D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if not q.dtype == k.dtype == v.dtype == do.dtype:
         raise TypeError(f"dtypes differ: q {q.dtype} k {k.dtype} v {v.dtype} "
                         f"do {do.dtype}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
+                        window=None, softcap=None, segment_ids=None,
+                        fused=None):
+    """q, o, do: (B, H, Sq, D); k, v: (B, H, Skv, D); lse: f32 (B, H, Sq),
+    the forward's natural-log stats. Returns (dq, dk, dv) in the dtypes of
+    q, k, v. H is the same for q and k here: the caller sums a GQA group.
+
+    window, softcap and segment_ids mirror the forward's masks and run on
+    the two-kernel featured backward, as does fused=False; otherwise the
+    fused kernel. fused=True with a feature raises ValueError, as JAX's
+    assert does. di = rowsum(o * do) is plain torch, as it is XLA in JAX. A CPU
+    tensor takes the plain versions; a CUDA tensor launches the kernels
+    (f32 or bf16, head dims 32, 64 and 128, causal needs Sq == Skv)."""
+    sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o)
+    featured = (window is not None or softcap is not None
+                or segment_ids is not None)
+    if featured and fused:
+        raise ValueError("window/softcap/segment_ids need the two-kernel "
+                         "backward, not fused=True")
+    if fused is None:
+        fused = not featured
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    if fused and q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     di = (o.float() * do.float()).sum(-1)
+    if not fused:
+        feat = dict(kw, window=window, softcap=softcap,
+                    segment_ids=segment_ids)
+        dq = flash_attention_dq(q, k, v, do, lse, di, **feat)
+        return (dq, *flash_attention_dkv(q, k, v, do, lse, di, **feat))
+    _check_cuda(q, k, v, do, lse, di)
+    B, H, Sq, D = q.shape
     q, k, v, do = (_build.aligned(t) for t in (q, k, v, do))
     lse = lse.float().contiguous()
     dq = torch.zeros(B, H, Sq, D, device=q.device)  # atomicAdd target
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.launch("tk_flash_attention_bwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv,
-                  D, sm_scale, int(causal), _build.dtype_code(q),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq,
+                  k.shape[2], D, sm_scale, int(causal), _build.dtype_code(q),
                   _build.stream(q))
     flash_attention_bwd.launches += 1
     return dq.to(q.dtype), dk, dv
@@ -64,23 +103,123 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None):
 flash_attention_bwd.launches = 0
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=False,
-                            sm_scale=None):
-    """Recompute-from-lse backward in f32 einsums."""
-    D = q.shape[-1]
+def _launch_featured(name, q, k, v, do, lse, di, outs, *, causal, sm_scale,
+                     window, softcap, segment_ids):
+    """Launch one featured kernel writing `outs`. The contiguous copies
+    made here stay referenced until the launch is queued, so the
+    allocator cannot hand their memory to `outs` (it reuses a freed
+    block only for work queued after the free)."""
+    _check_cuda(q, k, v, do, lse, di)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    ins = (*(_build.aligned(t) for t in (q, k, v, do)),
+           lse.float().contiguous(), di.float().contiguous(),
+           *segments_i32(segment_ids, B, Sq, Skv, q.device))
+    _build.launch(name, *map(_build.ptr, ins), *(t.data_ptr() for t in outs),
+                  B, H, Sq, Skv, D, sm_scale, int(causal), window or 0,
+                  softcap or 0.0, _build.dtype_code(q), _build.stream(q))
+
+
+def flash_attention_dq(q, k, v, do, lse, di, *, causal=False, sm_scale=None,
+                       window=None, softcap=None, segment_ids=None):
+    """dQ of the two-kernel backward (`_dq_kernel`), from the forward's
+    natural-log lse and di = rowsum(o * do); in q's dtype. A CPU tensor
+    takes flash_attention_dq_ref; a CUDA tensor launches the kernel."""
+    sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale)
+    feat = dict(causal=causal, sm_scale=sm_scale, window=window,
+                softcap=softcap, segment_ids=segment_ids)
+    if q.device.type == "cpu":
+        return flash_attention_dq_ref(q, k, v, do, lse, di, **feat)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch_featured("tk_flash_attention_dq", q, k, v, do, lse, di, (dq,),
+                     **feat)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, do, lse, di, *, causal=False, sm_scale=None,
+                        window=None, softcap=None, segment_ids=None):
+    """(dK, dV) of the two-kernel backward (`_dkv_kernel`), in the dtypes
+    of k and v. A CPU tensor takes flash_attention_dkv_ref; a CUDA tensor
+    launches the kernel."""
+    sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale)
+    feat = dict(causal=causal, sm_scale=sm_scale, window=window,
+                softcap=softcap, segment_ids=segment_ids)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_ref(q, k, v, do, lse, di, **feat)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch_featured("tk_flash_attention_dkv", q, k, v, do, lse, di,
+                     (dk, dv), **feat)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def _p_ds(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+          segment_ids):
+    """P and dS of the recompute from lse, in f32, zero where a pair is
+    masked (where-selects: a row that sees no key has an lse of -inf or
+    about NEG_BIG, and exp(s - lse) is inf there). sm_scale None is
+    1/sqrt(D)."""
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
     p = torch.exp(s - lse.float()[..., None])
-    if causal:
-        Sq, Skv = s.shape[-2:]
-        keep = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
-        p = p.masked_fill(~keep, 0.0)
-    di = (o.float() * dof).sum(-1)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    ds = p * (dp - di[..., None]) * sm_scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    keep = visible(q.shape[2], k.shape[2], q.device, causal=causal,
+                   window=window, segment_ids=segment_ids)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - di.float()[..., None]) * sm_scale
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    return p, ds
+
+
+def _dq_of(ds, k, dtype):
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(dtype)
+
+
+def _dkv_of(p, ds, q, do, k, v):
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, di, *, causal=False,
+                           sm_scale=None, window=None, softcap=None,
+                           segment_ids=None):
+    """Plain dQ = dS·K in f32 einsums, cast to q's dtype."""
+    _, ds = _p_ds(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+                  segment_ids)
+    return _dq_of(ds, k, q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, di, *, causal=False,
+                            sm_scale=None, window=None, softcap=None,
+                            segment_ids=None):
+    """Plain dK = dSᵀ·Q and dV = Pᵀ·dO in f32 einsums, cast to k's and
+    v's dtypes."""
+    p, ds = _p_ds(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+                  segment_ids)
+    return _dkv_of(p, ds, q, do, k, v)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=False,
+                            sm_scale=None, window=None, softcap=None,
+                            segment_ids=None):
+    """Recompute-from-lse backward in f32 einsums, with the forward's
+    masks: (dq, dk, dv)."""
+    di = (o.float() * do.float()).sum(-1)
+    p, ds = _p_ds(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+                  segment_ids)
+    return (_dq_of(ds, k, q.dtype), *_dkv_of(p, ds, q, do, k, v))

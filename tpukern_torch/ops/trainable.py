@@ -11,9 +11,11 @@ on a CPU tensor both take the plain versions:
   in JAX (trainable.py:56-74).
 - rope_t: kernel forward; backward is the inverse rotation, sign=-1
   (trainable.py:77-92).
-- flash_attention_trainable: the forward saves (q, k, v, o, lse); the
-  backward repeats K/V over the GQA group, runs the fused backward kernel
-  and sums dK/dV over the group (attention.py:1001-1047).
+- flash_attention_trainable: the forward saves (q, k, v, o, lse,
+  segment_ids); the backward repeats K/V over the GQA group, runs
+  flash_attention_bwd (the fused kernel, or the two-kernel featured
+  backward under a window, softcap or segment_ids) and sums dK/dV over
+  the group (attention.py:1001-1047).
 """
 
 import torch
@@ -84,33 +86,39 @@ def rope_t(x, seq_len):
 
 class _FlashAttentionT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, window, softcap,
+                segment_ids):
         o, lse = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 return_stats=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+                                 window=window, softcap=softcap,
+                                 segment_ids=segment_ids, return_stats=True)
+        ctx.save_for_backward(q, k, v, o, lse, *(segment_ids or ()))
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+                      softcap=softcap)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, *seg = ctx.saved_tensors
         B, Hq, _, D = q.shape
         Hkv, Skv = k.shape[1], k.shape[2]
         group = Hq // Hkv
-        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        kw = dict(ctx.kw, segment_ids=tuple(seg) or None)
+        none = (None,) * 5  # causal, sm_scale, window, softcap, segment_ids
         if group == 1:
-            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, **kw)
-            return dq, dk, dv, None, None
+            return (*flash_attention_bwd(q, k, v, o, lse, g, **kw), *none)
         dq, dk_full, dv_full = flash_attention_bwd(
             q, k.repeat_interleave(group, dim=1),
             v.repeat_interleave(group, dim=1), o, lse, g, **kw)
         dk = dk_full.reshape(B, Hkv, group, Skv, D).sum(2).to(k.dtype)
         dv = dv_full.reshape(B, Hkv, group, Skv, D).sum(2).to(v.dtype)
-        return dq, dk, dv, None, None
+        return (dq, dk, dv, *none)
 
 
-def flash_attention_trainable(q, k, v, causal=False, sm_scale=None):
-    """Differentiable FA-2: kernel forward saving (o, lse), fused kernel
-    backward. window, softcap and segment_ids (the featured backward
-    kernels) are ROADMAP.md queue 1 item 6."""
-    return _FlashAttentionT.apply(q, k, v, causal, sm_scale)
+def flash_attention_trainable(q, k, v, causal=False, sm_scale=None,
+                              window=None, softcap=None, segment_ids=None):
+    """Differentiable FA-2: kernel forward saving (o, lse), kernel
+    backward. window (causal sliding window), softcap (logit cap) and
+    segment_ids ((q_seg (B, Sq), kv_seg (B, Skv)) ints, no gradient) run
+    the featured forward and the two-kernel backward."""
+    return _FlashAttentionT.apply(q, k, v, causal, sm_scale, window, softcap,
+                                  segment_ids)
