@@ -520,3 +520,123 @@ def test_featured_train_on_kernels_equals_plain(cuda):
     assert attention_bwd.flash_attention_bwd.launches == counts[1]
     for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
         check_all_close(a, b, name=f"leaf {i - 1}", **F32)
+
+
+def _paged_case(dev, dt, B, Hq, Hkv, T, D, page, pps, lengths, seed):
+    """q (B, Hq, T, D) and pools of B * pps pages behind a shuffled
+    table, on dev in dt."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = B * pps
+    q = torch.randn((B, Hq, T, D), generator=g, device=dev).to(dt)
+    kp, vp = (torch.randn((Hkv, P, page, D), generator=g, device=dev).to(dt)
+              for _ in range(2))
+    table = torch.randperm(P, generator=g, device=dev).reshape(B, pps)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, lengths, table.to(torch.int32)
+
+
+PREFIX_CASES = {
+    # chip_smoke.py's timed shapes: a 256-token chunk over a 900-token
+    # prefix, and a gamma = 4 verification whose last length passes the
+    # pool (the clamp)
+    "chunk": (1, 16, 8, 256, 128, 128, 8, [900]),
+    "verify": (4, 16, 8, 5, 128, 128, 8, [6, 133, 705, 1029]),
+    "D32 T7": (3, 8, 1, 7, 32, 16, 4, [7, 30, 64]),
+    "D64 T70": (2, 4, 2, 70, 64, 16, 8, [70, 128]),
+    "D128 T1": (3, 4, 4, 1, 128, 16, 4, [1, 33, 64]),
+}
+PREFIX_FEATURES = {"none": {}, "window": dict(window=40),
+                   "window+sinks": dict(window=40, sinks=5),
+                   "softcap": dict(softcap=2.0),
+                   "all": dict(window=100, sinks=3, softcap=2.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("feat", sorted(PREFIX_FEATURES))
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_paged_prefill_matches_plain(cuda, case, feat, dt):
+    """#24 against paged_prefill_ref: every head dim, groups 1 to 8, T
+    of 1, 7, 70 and 256, shuffled tables, lengths on and off the pages
+    and past the pool, with and without the window, sinks and softcap."""
+    args = _paged_case(cuda, DTYPES[dt], *PREFIX_CASES[case], seed=len(case))
+    kw = PREFIX_FEATURES[feat]
+    before = paged_attention.paged_prefill_attention.launches
+    out = paged_attention.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_prefill_attention.launches == before + 1
+    check_all_close(out.float(),
+                    paged_attention.paged_prefill_ref(*args, **kw).float(),
+                    dtype=DTYPES[dt], name=f"{case} {feat}",
+                    **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("feat", sorted(PREFIX_FEATURES))
+def test_paged_decode_features_match_plain(cuda, feat, dt):
+    """#23's featured instance against the plain version: the serving
+    shape's lengths (one past the pool) and a short band."""
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, DTYPES[dt], 4, 16, 8, 1, 128, 128, 8, [1, 129, 700, 1025],
+        seed=7)
+    args = (q[:, :, 0], kp, vp, lengths, table)
+    kw = PREFIX_FEATURES[feat]
+    out = paged_attention.paged_attention(*args, **kw)
+    check_all_close(out.float(),
+                    paged_attention.paged_attention_ref(*args, **kw).float(),
+                    dtype=DTYPES[dt], name=feat,
+                    **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+def test_paged_prefill_wide_window_is_plain(cuda):
+    """A window longer than every sequence gives the plain instance's
+    result."""
+    args = _paged_case(cuda, torch.bfloat16, *PREFIX_CASES["verify"], seed=2)
+    assert torch.equal(
+        paged_attention.paged_prefill_attention(*args, window=4096),
+        paged_attention.paged_prefill_attention(*args))
+
+
+@pytest.mark.cuda
+def test_paged_unsupported_shapes_raise(cuda):
+    """A head dim of 96 or a GQA group of 16 raises on a CUDA tensor."""
+    for Hq, D in ((4, 96), (16, 64)):
+        q, kp, vp, lengths, table = _paged_case(
+            cuda, torch.bfloat16, 1, Hq, 1, 3, D, 16, 2, [5], seed=0)
+        with pytest.raises(ValueError, match="group|head dim"):
+            paged_attention.paged_prefill_attention(q, kp, vp, lengths, table)
+        with pytest.raises(ValueError, match="group|head dim"):
+            paged_attention.paged_attention(q[:, :, 0], kp, vp, lengths,
+                                            table)
+
+
+@pytest.mark.cuda
+def test_serving_features_on_kernels_equal_plain(cuda):
+    """Chunked admission, the prefix cache and SpeculativeBatcher, with
+    and without a window, sinks and softcap, through the kernels (f32
+    weights and pools): the same greedy streams as the plain path on the
+    CPU, and the prefix kernel launched."""
+    from tpukern_torch.models import SpeculativeBatcher
+
+    base = Config(vocab=128, d_model=128, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=256, max_seq=512)
+    params = init_params(base, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, base.vocab, 40).astype(np.int32)
+    prompts = [shared, np.concatenate([shared, [5, 9, 11]]).astype(np.int32),
+               rng.integers(0, base.vocab, 9).astype(np.int32)]
+    kw = dict(n_slots=2, pages_per_seq=4, page_size=16, max_new_tokens=6,
+              prompt_buckets=(64,), cache_dtype=torch.float32)
+    for cfg in (base, Config(**{**base.__dict__, "window": 16, "sinks": 2,
+                                "softcap": 0.5})):
+        for make in (
+                lambda p: ContinuousBatcher(p, cfg, chunked_prefill=8, **kw),
+                lambda p: ContinuousBatcher(p, cfg, prefix_cache=True, **kw),
+                lambda p: SpeculativeBatcher(p, cfg, p, cfg, gamma=3, **kw)):
+            ref = make(params).run(list(enumerate(prompts)))
+            before = paged_attention.paged_prefill_attention.launches
+            out = make(params_to(params, cuda)).run(list(enumerate(prompts)))
+            assert out == ref
+            assert paged_attention.paged_prefill_attention.launches > before

@@ -123,6 +123,6 @@ def test_unported_features_raise():
     kp = torch.zeros(2, 4, 16, 32)
     args = (torch.zeros(2, 2, 32), kp, kp, torch.ones(2, dtype=torch.int32),
             torch.zeros(2, 2, dtype=torch.int32))
-    for kw in (dict(window=4), dict(ring=True), dict(softcap=30.0)):
+    for kw in (dict(ring=True), dict(alibi_slopes=torch.ones(2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             paged_attention.paged_attention(*args, **kw)

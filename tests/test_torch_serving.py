@@ -7,6 +7,7 @@ to 2e-5 (sums taken in another order) and greedy token streams agree
 exactly.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,7 +23,8 @@ from tpukern.models import serving as jax_serving
 from tpukern.models.batcher import ContinuousBatcher as JaxBatcher
 from tpukern.models.transformer import init_params as jax_init_params
 from tpukern_torch.core.tolerances import check_all_close
-from tpukern_torch.models import Config, ContinuousBatcher, params_from_jax
+from tpukern_torch.models import (Config, ContinuousBatcher,
+                                  SpeculativeBatcher, params_from_jax)
 from tpukern_torch.models import serving
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -135,15 +137,31 @@ def test_generate_equals_batcher(setup):
 
 def test_unported_serving_options_raise(setup):
     _, params, _ = setup
-    for kw in (dict(greedy=False), dict(chunked_prefill=32), dict(ring=True),
-               dict(prefix_cache=True), dict(cache_dtype=torch.int8)):
+    wcfg = dataclasses.replace(CFG, window=32)
+    for cfg, kw in ((CFG, dict(greedy=False)), (wcfg, dict(ring=True)),
+                    (CFG, dict(cache_dtype=torch.int8))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousBatcher(params, CFG, 2, 2, **kw)
+            ContinuousBatcher(params, cfg, 2, 2, **kw)
+    with pytest.raises(NotImplementedError, match="#26/#27"):
+        SpeculativeBatcher(params, CFG, params, CFG, 2, 2, greedy=False)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, tpukern_torch.models.batcher, tpukern_torch._build; "
-            "sys.exit(int('jax' in sys.modules))")
+    """Every module of the port, and chip_smoke.py's module-level imports,
+    load without jax or the JAX package (tpukern)."""
+    import tpukern_torch
+    pkg = os.path.dirname(tpukern_torch.__file__)
+    mods = sorted(
+        "tpukern_torch." + os.path.relpath(os.path.join(d, f), pkg)[:-3]
+        .replace(os.sep, ".").removesuffix(".__init__")
+        for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
+    assert "tpukern_torch.models.speculative" in mods
+    code = ("import importlib, runpy, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpukern')]\n"
+            "sys.exit(f'imported {bad}' if bad else 0)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    env=dict(os.environ, PYTHONPATH=ROOT))
 

@@ -69,9 +69,13 @@ SIGNATURES = {
     # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, stream
     "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
-    # page_size, pages_per_seq, D, sm_scale, dtype, stream
+    # page_size, pages_per_seq, D, sm_scale, window, sinks, softcap,
+    # dtype, stream
     "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _P],
+                           _I, _I, _F, _I, _I, _F, _I, _P],
+    # the same with T (new tokens per sequence) after Hkv
+    "tk_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _I, _I, _F, _I, _P],
     # x, w, targets (i32), part (f32), N, D, V, n_split, tiles_per_split,
     # log2, dtype, stream
     "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

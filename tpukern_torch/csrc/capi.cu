@@ -91,11 +91,23 @@ int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,
 int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                        const int* lengths, const int* page_table, void* o,
                        int B, int Hq, int Hkv, int P, int page_size,
-                       int pages_per_seq, int D, float sm_scale, int dtype,
-                       void* stream) {
+                       int pages_per_seq, int D, float sm_scale, int window,
+                       int sinks, float softcap, int dtype, void* stream) {
   return checked(tk::paged_attention_launch(
       q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P, page_size,
-      pages_per_seq, D, sm_scale, dtype, static_cast<cudaStream_t>(stream)));
+      pages_per_seq, D, sm_scale, window, sinks, softcap, dtype,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
+                     const int* lengths, const int* page_table, void* o, int B,
+                     int Hq, int Hkv, int T, int P, int page_size,
+                     int pages_per_seq, int D, float sm_scale, int window,
+                     int sinks, float softcap, int dtype, void* stream) {
+  return checked(tk::paged_prefill_launch(
+      q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size,
+      pages_per_seq, D, sm_scale, window, sinks, softcap, dtype,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int tk_ce_fwd(const void* x, const void* w, const int* targets, float* part,

@@ -58,6 +58,13 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
+// two f32 rounded to bf16 in one register (lo in the low half): an A
+// fragment of P for the P V product of the attention kernels
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------ attention masks
 // The masks of the featured attention path, one definition for the
 // forward (csrc/flash_attention.cu) and the two-kernel backward
@@ -100,6 +107,23 @@ __device__ __forceinline__ bool mask_visible(const AttnMask& m, int qi,
          (m.window == 0 || kvi >= qi - m.window + 1 || kvi < m.sinks) &&
          (!m.qseg || qs == ks);
 }
+
+// The KV tiles a query tile whose first query sits at position q0 visits,
+// in order: the sink tiles [0, sink_end), then the band [lo, end). Without
+// a window (or with FEAT off) lo is 0; sink_end and lo are multiples of BK
+// with sink_end <= lo. The query tile's own end bounds the loop.
+template <int BK>
+struct KvRange {
+  int lo, sink_end;
+  __device__ KvRange(const AttnMask& f, int q0, bool feat) {
+    lo = feat && f.window > 0 ? max(0, q0 - f.window + 1) / BK * BK : 0;
+    sink_end = feat ? min(lo, (f.sinks + BK - 1) / BK * BK) : 0;
+  }
+  __device__ int first() const { return sink_end > 0 ? 0 : lo; }
+  __device__ int next(int k0) const {
+    return k0 + BK == sink_end ? lo : k0 + BK;
+  }
+};
 
 // A scaled score s under the softcap: cap * tanh(s / cap) with the
 // accurate tanhf (tanh.approx.f32 has about 11 bits), applied before any
@@ -367,7 +391,15 @@ cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    const int* page_table, void* o, int B, int Hq,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
+                                   int window, int sinks, float softcap,
                                    int dtype, cudaStream_t stream);
+cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
+                                 const void* v_pages, const int* lengths,
+                                 const int* page_table, void* o, int B, int Hq,
+                                 int Hkv, int T, int P, int page_size,
+                                 int pages_per_seq, int D, float sm_scale,
+                                 int window, int sinks, float softcap,
+                                 int dtype, cudaStream_t stream);
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
                           float* part, int N, int D, int V, int n_split,
                           int tiles_per_split, int log2, int dtype,

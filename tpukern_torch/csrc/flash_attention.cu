@@ -54,31 +54,10 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// The KV tiles a query tile [q0, q0 + BQ) visits, in order: the sink
-// tiles [0, sink_end), then the band [lo, kv_end). Without a window lo is
-// 0; sink_end and lo are multiples of BK with sink_end <= lo.
-template <int BK>
-struct KvRange {
-  int lo, sink_end;
-  __device__ KvRange(const AttnMask& f, int q0, bool feat) {
-    lo = feat && f.window > 0 ? max(0, q0 - f.window + 1) / BK * BK : 0;
-    sink_end = feat ? min(lo, (f.sinks + BK - 1) / BK * BK) : 0;
-  }
-  __device__ int first() const { return sink_end > 0 ? 0 : lo; }
-  __device__ int next(int k0) const {
-    return k0 + BK == sink_end ? lo : k0 + BK;
-  }
-};
-
 // ---------------------------------------------------------------- bf16 mma
 constexpr int MMA_BQ = 64;   // query rows per block: 4 warps x 16
 constexpr int MMA_BK = 64;   // keys per tile
 constexpr int MMA_THREADS = 128;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // two adjacent bf16 of row `row` (0 past the end), as one 32-bit register
 __device__ __forceinline__ uint32_t load_pair(const bf16* base, int row, int rows,

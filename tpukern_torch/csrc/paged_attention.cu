@@ -19,6 +19,14 @@
 // All `group` query heads share one pass over the KV head's pages, as the
 // TPU kernel batches them (paged_attention.py:324-325).
 //
+// The FEAT instance adds the masks of the TPU kernel's float pools
+// (:209-249): a sliding window keeps positions >= length - window, or
+// < sinks, and a softcap maps each scaled score s to cap * tanh(s / cap)
+// before the mask. Its tile loop visits the sink tiles, then the tiles
+// from the one holding length - window on (KvRange, common.cuh), as the
+// TPU kernel skips blocks wholly older than the band (:111-122). The plain
+// decode instance (FEAT off) compiles as before.
+//
 // What bounds it: decode reads every live K/V byte once and does 4 flops
 // per group and per byte pair, so it is bound by memory bandwidth, and at
 // small batch by too few blocks: B * Hkv blocks (32 at B = 4, Hkv = 8) on
@@ -41,13 +49,13 @@ __device__ __forceinline__ uint4 load16(const T* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 __global__ void __launch_bounds__(PA_THREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages, const int* __restrict__ lengths,
                     const int* __restrict__ page_table, T* __restrict__ o, int Hq,
                     int Hkv, int P, int page_size, int pages_per_seq,
-                    float sm_scale) {
+                    AttnMask f) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int CH = D / VEC;          // 16-byte chunks per row
   // score pass: TPR threads per K row, CPT chunks each, PA_THREADS / TPR
@@ -80,9 +88,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // a caller may pass length + 1 for a slot already at the pool's end
   // (an inactive slot's dead decode); nothing past the pool exists
   const int len = max(0, min(lengths[b], pages_per_seq * page_size));
+  // the query token's position: the band is taken from the unclamped
+  // length, as the TPU kernel's mask is
+  const int qpos = lengths[b] - 1;
+  const KvRange<PA_TILE> kr(f, max(qpos, 0), FEAT);
 
   for (int i = tid; i < group * D; i += PA_THREADS)
-    q_s[i / D][i % D] = to_f32(q_b[i]) * sm_scale;
+    q_s[i / D][i % D] = to_f32(q_b[i]) * f.scale;
   if (tid < PA_GMAX) {
     m_s[tid] = NEG_BIG;
     l_s[tid] = 0.f;
@@ -93,7 +105,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[gi][e] = 0.f;
 
-  for (int t0 = 0; t0 < len; t0 += PA_TILE) {
+  for (int t0 = kr.first(); t0 < len; t0 = kr.next(t0)) {
     const int n = min(PA_TILE, len - t0);
     __syncthreads();  // q_s/m_s written, or the previous tile consumed
     if (tid < n) {
@@ -144,7 +156,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
           for (int off = TPR / 2; off > 0; off >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (sub == 0) p_s[gi][j] = j < n ? s : NEG_BIG;
+          if (sub == 0) {
+            bool ok = j < n;
+            if constexpr (FEAT) {
+              float t;
+              s = soft_cap(f, s, t);
+              ok = ok && mask_visible(f, qpos, t0 + j, 0, 0);
+            }
+            p_s[gi][j] = ok ? s : NEG_BIG;
+          }
         }
       }
     }
@@ -200,7 +220,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) red_s[tid * VEC + e] = acc[gi][e];
       __syncthreads();
-      const float l = l_s[gi];
+      // a head whose max stays NEG_BIG saw no position (a window past
+      // the pool's end): output 0
+      const float l = m_s[gi] <= 0.5f * NEG_BIG ? 0.f : l_s[gi];
       for (int d = tid; d < D; d += PA_THREADS) {
         float s = 0.f;
         for (int t = 0; t < TG; ++t) s += red_s[(t * CH + d / VEC) * VEC + d % VEC];
@@ -210,21 +232,31 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+template <typename T, int D, bool FEAT>
+void launch_tdf(dim3 grid, cudaStream_t stream, const void* q,
+                const void* k_pages, const void* v_pages, const int* lengths,
+                const int* page_table, void* o, int Hq, int Hkv, int P,
+                int page_size, int pages_per_seq, const AttnMask& f) {
+  paged_decode_kernel<T, D, FEAT><<<grid, PA_THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), lengths, page_table, static_cast<T*>(o),
+      Hq, Hkv, P, page_size, pages_per_seq, f);
+}
+
 template <int D>
 void launch_d(dim3 grid, cudaStream_t stream, const void* q, const void* k_pages,
               const void* v_pages, const int* lengths, const int* page_table,
               void* o, int Hq, int Hkv, int P, int page_size, int pages_per_seq,
-              float sm_scale, int dtype) {
+              const AttnMask& f, int dtype) {
+  const bool feat = f.window > 0 || f.softcap > 0.f;
+  auto go = [&](auto kernel) {
+    kernel(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv,
+           P, page_size, pages_per_seq, f);
+  };
   if (dtype == kBF16)
-    paged_decode_kernel<bf16, D><<<grid, PA_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
-        static_cast<const bf16*>(v_pages), lengths, page_table,
-        static_cast<bf16*>(o), Hq, Hkv, P, page_size, pages_per_seq, sm_scale);
+    feat ? go(&launch_tdf<bf16, D, true>) : go(&launch_tdf<bf16, D, false>);
   else
-    paged_decode_kernel<float, D><<<grid, PA_THREADS, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), lengths, page_table,
-        static_cast<float*>(o), Hq, Hkv, P, page_size, pages_per_seq, sm_scale);
+    feat ? go(&launch_tdf<float, D, true>) : go(&launch_tdf<float, D, false>);
 }
 
 }  // namespace
@@ -234,20 +266,24 @@ cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    const int* page_table, void* o, int B, int Hq,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
+                                   int window, int sinks, float softcap,
                                    int dtype, cudaStream_t stream) {
   if (B < 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > PA_GMAX || page_size <= 0 ||
       pages_per_seq < 0 || P < 0 || B > 65535)
     return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
+  AttnMask f;
+  if (!make_mask(nullptr, nullptr, 1, window, sinks, softcap, sm_scale, &f))
+    return cudaErrorInvalidValue;
   // the 16-byte loads need 16-byte aligned pools (rows are, given the D)
   if ((reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(v_pages)) % 16)
     return cudaErrorMisalignedAddress;
   if (B == 0) return cudaSuccess;
   dim3 grid(Hkv, B);
   switch (D) {
-    case 32: launch_d<32>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
-    case 64: launch_d<64>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
-    case 128: launch_d<128>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, sm_scale, dtype); break;
+    case 32: launch_d<32>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, f, dtype); break;
+    case 64: launch_d<64>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, f, dtype); break;
+    case 128: launch_d<128>(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv, P, page_size, pages_per_seq, f, dtype); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

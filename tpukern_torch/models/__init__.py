@@ -1,5 +1,6 @@
 """Models: the decoder's parameters, its single-device training step
-(with the unfused or the fused LM-head loss) and the paged serving path.
+(with the unfused or the fused LM-head loss), the paged serving path and
+greedy speculative decoding.
 
 init_params and serving.init_cache build on the card unless the caller
 passes device="cpu"; params_from_jax converts to CPU tensors; the rest
@@ -9,8 +10,9 @@ from tpukern_torch.models.transformer import (Config, forward, init_params,
                                               loss_fn, make_train_step,
                                               param_leaves, params_from_jax,
                                               params_to)
-from tpukern_torch.models.batcher import ContinuousBatcher
+from tpukern_torch.models.batcher import ContinuousBatcher, SpeculativeBatcher
+from tpukern_torch.models.speculative import speculative_generate
 
 __all__ = ["Config", "forward", "init_params", "loss_fn", "make_train_step",
            "param_leaves", "params_from_jax", "params_to",
-           "ContinuousBatcher"]
+           "ContinuousBatcher", "SpeculativeBatcher", "speculative_generate"]

@@ -1,19 +1,30 @@
 """Continuous batching: a slot scheduler over the paged serving path.
 
-The port of tpukern/models/batcher.py's ContinuousBatcher with greedy
-decoding: B_max slots share one paged KV pool; requests are admitted into
-free slots mid-stream (a single-slot prefill writes the new sequence's
-pages while the other slots keep their state), every step decodes all
-slots in one batched paged-decode call, and finished sequences (EOS or
-token budget) free their slot at once. Prompts are padded to a bucket
-length, as in the JAX batcher.
+The port of tpukern/models/batcher.py's ContinuousBatcher and
+SpeculativeBatcher with greedy decoding: B_max slots share one paged KV
+pool; requests are admitted into free slots mid-stream (a single-slot
+prefill writes the new sequence's pages while the other slots keep their
+state), every step decodes all slots in one batched paged-decode call,
+and finished sequences (EOS or token budget) free their slot at once.
+Prompts are padded to a bucket length, as in the JAX batcher.
 
-The batcher runs on the device of its params, and its cache follows
+- chunked_prefill=C admits a prompt longer than C in C-token chunks
+  through verify_step (the paged prefix-prefill kernel), so admission
+  memory is O(C), not O(prompt).
+- prefix_cache=True aliases the full pages of the longest prompt prefix
+  a resident slot shares (share_prefix) and scores only the rest; a slot
+  whose pages an active slot still aliases is not recycled.
+- SpeculativeBatcher drafts gamma tokens per slot with a small model,
+  scores each slot's gamma + 1 candidates in one batched verify_step and
+  keeps the longest prefix the target agrees with: the greedy streams
+  equal ContinuousBatcher's.
+
+The batchers run on the device of their params, and their caches follow
 them.
 
-Not ported: chunked prefill, the prefix cache, ring pools, int8 pools,
-sampled decoding (kernels #26/#27), and the speculative and tensor-
-parallel batchers (ROADMAP.md queue 1 item 10).
+Not ported: ring pools, int8 pools, sampled decoding (kernels #26/#27,
+and the sampled SpeculativeBatcher), and the tensor-parallel batchers
+(ROADMAP.md queue 1 item 10).
 """
 
 import dataclasses
@@ -21,9 +32,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpukern_torch.models.serving import decode_step, init_cache, prefill
+from tpukern_torch.models.serving import (decode_step, init_cache, prefill,
+                                          rollback, share_prefix,
+                                          verify_step)
+from tpukern_torch.models.speculative import SpecStats
 
 _TODO = "ROADMAP.md queue 1 item 10 (serving chain)"
+_SAMPLING = "sampled decoding: ROADMAP.md kernels #26/#27 (ops/sampling.py)"
 
 
 def _bucket(n, buckets, cap=None):
@@ -41,6 +56,13 @@ def _bucket(n, buckets, cap=None):
     raise ValueError(f"prompt length {n} exceeds the page pool ({cap})")
 
 
+def _padded(tokens, n, device):
+    """tokens zero-padded to n, as a (1, n) int32 tensor on device."""
+    out = np.zeros(n, np.int32)
+    out[:len(tokens)] = tokens
+    return torch.from_numpy(out[None]).to(device)
+
+
 class ContinuousBatcher:
     """Admit / step / collect loop over a fixed slot pool.
 
@@ -54,12 +76,14 @@ class ContinuousBatcher:
                  eos_id=None, max_new_tokens=64, prompt_buckets=(64, 128),
                  greedy=True, cache_dtype=torch.bfloat16,
                  chunked_prefill=None, ring=False, prefix_cache=False):
-        for name, on in dict(greedy=not greedy,
-                             chunked_prefill=chunked_prefill is not None,
-                             ring=ring, prefix_cache=prefix_cache).items():
-            if on:
-                raise NotImplementedError(f"ContinuousBatcher({name}=...): "
-                                          f"{_TODO}")
+        if not greedy:
+            raise NotImplementedError(f"ContinuousBatcher(greedy=False): "
+                                      f"{_SAMPLING}")
+        if ring:
+            raise NotImplementedError(f"ContinuousBatcher(ring=True): {_TODO}")
+        if chunked_prefill is not None and chunked_prefill < 1:
+            raise ValueError(f"chunked_prefill must be >= 1: "
+                             f"{chunked_prefill}")
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -69,7 +93,12 @@ class ContinuousBatcher:
         self.device = params["embed"].device
         self.cache = init_cache(cfg, n_slots, pages_per_seq, page_size,
                                 dtype=cache_dtype, device=self.device)
+        self.page_size = page_size
+        self.pages_per_seq = pages_per_seq
         self.max_len = pages_per_seq * page_size
+        self.chunk = chunked_prefill
+        self.prefix_cache = prefix_cache
+        self.slot_prompt = [None] * n_slots  # the prefix cache's prompts
         self.active = np.zeros(n_slots, bool)
         self.last_tok = np.zeros(n_slots, np.int32)
         self.n_generated = np.zeros(n_slots, np.int32)
@@ -78,19 +107,69 @@ class ContinuousBatcher:
         self.finished = {}     # request_id -> [tokens]
 
     def free_slots(self):
-        return [i for i in range(self.n_slots) if not self.active[i]]
+        idle = [i for i in range(self.n_slots) if not self.active[i]]
+        if not self.prefix_cache:
+            return idle
+        # a slot is recyclable only if no active slot still aliases a page
+        # it owns (identity allocator: page p belongs to slot p // pps)
+        table = self.cache.page_table.cpu().numpy()
+        owners = {int(p) // self.pages_per_seq
+                  for j in range(self.n_slots) if self.active[j]
+                  for p in table[j]}
+        return [i for i in idle if i not in owners]
 
-    def _prefill_slot(self, tokens, true_len, slot):
-        """Prefill one slot on a single-sequence view of the shared cache
-        (its page-table row and a zero start); returns (vocab,) logits."""
-        view = dataclasses.replace(
-            self.cache, page_table=self.cache.page_table[slot:slot + 1],
-            lengths=torch.zeros(1, dtype=torch.int32, device=self.device))
+    def _view(self, cache, slot, start):
+        """A single-sequence view of cache: slot's page-table row, and
+        lengths [start]."""
+        return dataclasses.replace(
+            cache, page_table=cache.page_table[slot:slot + 1],
+            lengths=torch.tensor([start], dtype=torch.int32,
+                                 device=self.device))
+
+    def _prefill_slot(self, tokens, true_len, slot, params=None, cfg=None,
+                      cache=None):
+        """Prefill one slot of cache (default: the target's) from a zero
+        start; returns (vocab,) logits at the last true token."""
+        cache = self.cache if cache is None else cache
         last = torch.tensor([true_len - 1], device=self.device)
-        logits, _ = prefill(self.params, self.cfg, tokens, view,
-                            last_index=last)
-        self.cache.lengths[slot] = true_len
+        logits, _ = prefill(params or self.params, cfg or self.cfg, tokens,
+                            self._view(cache, slot, 0), last_index=last)
+        cache.lengths[slot] = true_len
         return logits[0]
+
+    def _admit_tokens(self, tokens, slot, start):
+        """Score tokens (a prompt's tail) into slot from position start, in
+        chunks of self.chunk (default: one chunk of max(64, n)) padded to
+        that length, through verify_step; the slot's length advances by
+        each chunk's true tokens. Returns the logits of the last one."""
+        C = self.chunk or max(64, len(tokens))
+        logits = None
+        for off in range(0, len(tokens), C):
+            piece = tokens[off:off + C]
+            out, _ = verify_step(self.params, self.cfg,
+                                 _padded(piece, C, self.device),
+                                 self._view(self.cache, slot, start))
+            logits = out[0, len(piece) - 1]
+            start += len(piece)
+            self.cache.lengths[slot] = start
+        return logits
+
+    def _find_shared_prefix(self, prompt_ids, slot):
+        """Longest common prompt prefix with any slot whose pages are still
+        resident (active or not yet recycled): (src_slot, share_len), or
+        (None, 0) below one page. share_len is capped at len(prompt) - 1,
+        so admission always scores at least one token."""
+        best, best_n = None, 0
+        for j, pj in enumerate(self.slot_prompt):
+            if j == slot or pj is None:
+                continue
+            n = min(len(pj), len(prompt_ids))
+            eq = pj[:n] == prompt_ids[:n]
+            common = n if eq.all() else int(np.argmin(eq))
+            common = min(common, len(prompt_ids) - 1)
+            if common > best_n:
+                best, best_n = j, common
+        return (best, best_n) if best_n >= self.page_size else (None, 0)
 
     def add_request(self, request_id, prompt_ids):
         """Admit a prompt into a free slot (raises if none free)."""
@@ -103,11 +182,27 @@ class ContinuousBatcher:
         if true_len + self.max_new > self.max_len:
             raise ValueError(f"prompt of {true_len} + {self.max_new} new "
                              f"tokens exceeds the slot's {self.max_len}")
-        bucket = _bucket(true_len, self.buckets, cap=self.max_len)
-        padded = np.zeros(bucket, np.int32)
-        padded[:true_len] = prompt_ids
-        logits = self._prefill_slot(
-            torch.from_numpy(padded[None]).to(self.device), true_len, slot)
+        src, share = None, 0
+        if self.prefix_cache:
+            src, share = self._find_shared_prefix(prompt_ids, slot)
+            self.slot_prompt[slot] = prompt_ids
+        if src is not None:
+            self.cache = share_prefix(self.cache, src, [slot], share)
+            logits = self._admit_tokens(prompt_ids[share:], slot, share)
+        else:
+            if self.prefix_cache:
+                # a recycled row may still alias another slot's pages:
+                # back to its own before this admission writes
+                pps = self.pages_per_seq
+                self.cache.page_table[slot] = torch.arange(
+                    slot * pps, (slot + 1) * pps, dtype=torch.int32,
+                    device=self.device)
+            if self.chunk is not None and true_len > self.chunk:
+                logits = self._admit_tokens(prompt_ids, slot, 0)
+            else:
+                bucket = _bucket(true_len, self.buckets, cap=self.max_len)
+                logits = self._prefill_slot(
+                    _padded(prompt_ids, bucket, self.device), true_len, slot)
         self.active[slot] = True
         self.n_generated[slot] = 0
         self.slot_request[slot] = request_id
@@ -117,6 +212,23 @@ class ContinuousBatcher:
 
     def _sample(self, logits):
         return torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+
+    def _emit(self, slot, tokens):
+        """Append tokens to slot's request until EOS or the budget; frees
+        the slot then. Returns (number emitted, whether it finished)."""
+        rid = self.slot_request[slot]
+        n = 0
+        for tok in tokens:
+            self.outputs[rid].append(int(tok))
+            self.n_generated[slot] += 1
+            n += 1
+            if ((self.eos_id is not None and tok == self.eos_id)
+                    or self.n_generated[slot] >= self.max_new):
+                self.active[slot] = False
+                self.finished[rid] = self.outputs.pop(rid)
+                self.slot_request[slot] = None
+                return n, True
+        return n, False
 
     def step(self):
         """One decode step across all slots; collects tokens for active
@@ -129,22 +241,11 @@ class ContinuousBatcher:
             active=torch.from_numpy(self.active).to(self.device))
         next_tok = self._sample(logits)
         n_emitted = 0
-        for slot in range(self.n_slots):
-            if not self.active[slot]:
-                continue
-            tok = int(self.last_tok[slot])
-            rid = self.slot_request[slot]
-            self.outputs[rid].append(tok)
-            self.n_generated[slot] += 1
-            n_emitted += 1
-            done = ((self.eos_id is not None and tok == self.eos_id)
-                    or self.n_generated[slot] >= self.max_new)
-            if done:
-                self.active[slot] = False
-                self.finished[rid] = self.outputs.pop(rid)
-                self.slot_request[slot] = None
-            else:
-                self.last_tok[slot] = int(next_tok[slot])
+        for slot in np.flatnonzero(self.active):
+            n, done = self._emit(slot, [self.last_tok[slot]])
+            n_emitted += n
+            if not done:
+                self.last_tok[slot] = next_tok[slot]
         return n_emitted
 
     def run(self, requests, max_steps=10_000):
@@ -159,3 +260,113 @@ class ContinuousBatcher:
                 break
             self.step()
         return self.finished
+
+
+class SpeculativeBatcher(ContinuousBatcher):
+    """Continuous batching with batched greedy speculative decoding.
+
+    Every step: all active slots draft gamma tokens with the small model
+    (gamma batched draft decode steps), the target scores every slot's
+    gamma + 1 candidates in one batched verify_step (the paged prefix-
+    prefill kernel), and each slot accepts its longest prefix of drafts
+    equal to the target's greedy choices, so a slot emits 1 to gamma + 1
+    tokens per target pass and the streams equal target-only greedy
+    decoding.
+
+    Cache discipline per round (both pools, per-slot lengths): n -> draft
+    to n + gamma -> verify to n + gamma + 1 -> accept j -> both rolled back
+    to n + j + 1 (full-accept slots first run one masked draft catch-up
+    step for the last draft). `stats` counts the rounds (target passes)
+    and the drafted and accepted tokens. greedy=False (rejection
+    sampling) raises NotImplementedError."""
+
+    def __init__(self, params, cfg, draft_params, draft_cfg, n_slots,
+                 pages_per_seq, gamma=4, page_size=128, **kw):
+        if not kw.get("greedy", True):
+            raise NotImplementedError(f"SpeculativeBatcher(greedy=False): "
+                                      f"{_SAMPLING}")
+        super().__init__(params, cfg, n_slots, pages_per_seq,
+                         page_size=page_size, **kw)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.gamma = gamma
+        self.stats = SpecStats()
+        # the draft's cache on the target's pool dtype
+        self.dcache = init_cache(draft_cfg, n_slots, pages_per_seq,
+                                 page_size, dtype=self.cache.k_pages.dtype,
+                                 device=self.device)
+
+    def add_request(self, request_id, prompt_ids):
+        prompt_ids = np.asarray(prompt_ids, np.int32)
+        if len(prompt_ids) + self.max_new + self.gamma + 1 > self.max_len:
+            raise ValueError(f"prompt of {len(prompt_ids)} + {self.max_new} "
+                             f"new + gamma+1 {self.gamma + 1} tokens exceeds "
+                             f"the slot's {self.max_len}")
+        slot = super().add_request(request_id, prompt_ids)
+        # the draft's prefill of the same slot (its logits are unused: the
+        # first proposal starts from the target's first token)
+        bucket = _bucket(len(prompt_ids), self.buckets, cap=self.max_len)
+        self._prefill_slot(_padded(prompt_ids, bucket, self.device),
+                           len(prompt_ids), slot, self.draft_params,
+                           self.draft_cfg, self.dcache)
+        return slot
+
+    def step(self):
+        """One speculative round across all active slots; returns the
+        number of tokens emitted."""
+        if not self.active.any():
+            return 0
+        g = self.gamma
+        act = torch.from_numpy(self.active).to(self.device)
+        n_before = self.cache.lengths.cpu().numpy().astype(np.int64)
+
+        # 1. gamma batched draft decode steps
+        drafts = np.zeros((self.n_slots, g), np.int32)
+        cur = self.last_tok.copy()
+        for i in range(g):
+            dl, self.dcache = decode_step(
+                self.draft_params, self.draft_cfg,
+                torch.from_numpy(cur).to(self.device), self.dcache,
+                active=act)
+            cur = self._sample(dl)
+            drafts[:, i] = cur
+
+        # 2. one batched target verification of gamma + 1 candidates
+        cand = np.concatenate([self.last_tok[:, None], drafts], axis=1)
+        vl, self.cache = verify_step(self.params, self.cfg,
+                                     torch.from_numpy(cand).to(self.device),
+                                     self.cache)
+        greedy = self._sample(vl)                        # (B, g + 1)
+        self.stats.rounds += 1
+
+        # 3. per-slot acceptance, emission, EOS and budget
+        new_len = n_before.copy()      # inactive and finished slots
+        full_accept = np.zeros(self.n_slots, bool)
+        n_emitted = 0
+        for slot in np.flatnonzero(self.active):
+            j = 0
+            while j < g and drafts[slot, j] == greedy[slot, j]:
+                j += 1
+            full_accept[slot] = j == g
+            self.stats.drafted += g
+            self.stats.accepted += j
+            n, done = self._emit(slot, [self.last_tok[slot],
+                                        *drafts[slot, :j]])
+            n_emitted += n
+            if not done:
+                self.last_tok[slot] = greedy[slot, j]
+                new_len[slot] = n_before[slot] + j + 1
+
+        # 4. target rollback to the accepted lengths
+        self.cache = rollback(self.cache, new_len)
+
+        # 5. the draft's catch-up for full-accept slots (it never saw the
+        # last draft), then its rollback
+        catch = full_accept & self.active
+        if catch.any():
+            _, self.dcache = decode_step(
+                self.draft_params, self.draft_cfg,
+                torch.from_numpy(drafts[:, -1].copy()).to(self.device),
+                self.dcache, active=torch.from_numpy(catch).to(self.device))
+        self.dcache = rollback(self.dcache, new_len)
+        return n_emitted

@@ -2,23 +2,29 @@
 
 The port of tpukern/models/serving.py for float pools: a paged KV pool per
 layer, a prefill that runs the causal flash-attention kernel over the
-prompt and writes K/V into pages, and a decode step that runs the paged
-decode kernel per layer. Norms and RoPE go through their kernels too;
-the projections, the embedding lookup, the tanh-GELU MLP, the page writes
+prompt and writes K/V into pages, a decode step that runs the paged
+decode kernel per layer, and a verify step that scores T new tokens per
+sequence against the pages with the paged prefix-prefill kernel (chunked
+prefill, prefix-cache admission, speculative verification). The
+sliding window, attention sinks and logit softcap of Config reach all
+three kernels. share_prefix aliases a prompt prefix's pages from one
+slot into others, prefill_prefix prefills one slot, and rollback rewinds
+the lengths. Norms and RoPE go through their kernels too; the
+projections, the embedding lookup, the tanh-GELU MLP, the page writes
 and the argmax are plain PyTorch, as the JAX path leaves them to XLA.
 
-Unlike the JAX functions, which return new arrays, prefill and
-decode_step write the new tokens' K/V into the cache's pools in place
-and return the cache with new lengths: a copy of the pools per step
-would cost more than the step.
+Unlike the JAX functions, which return new arrays, prefill, decode_step,
+verify_step, share_prefix and prefill_prefix write the cache's pools
+(and share_prefix its page table) in place and return the cache with
+new lengths: a copy of the pools per step would cost more than the step.
 
 init_cache builds its pools on the card unless the caller passes
-device="cpu"; prefill, decode_step and generate run on the device of
-their inputs (a CPU tensor takes every kernel's plain version).
+device="cpu"; the other functions run on the device of their inputs (a
+CPU tensor takes every kernel's plain version).
 
-Not ported: the quantized (int8/fp8) pools, ring pools, verify_step,
-share_prefix, prefill_prefix, make_tp_serving and quantize_model_weights
-(ROADMAP.md queue 1 item 10).
+Not ported: the quantized (int8/fp8) pools, ring pools, MoE,
+Config.pv_int8, make_tp_serving and quantize_model_weights (ROADMAP.md
+queue 1 item 10).
 """
 
 import dataclasses
@@ -28,7 +34,8 @@ import torch.nn.functional as F
 
 from tpukern_torch.models.transformer import Config
 from tpukern_torch.ops.attention import flash_attention
-from tpukern_torch.ops.paged_attention import paged_attention
+from tpukern_torch.ops.paged_attention import (paged_attention,
+                                               paged_prefill_attention)
 from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
 
@@ -47,9 +54,6 @@ class KVCache:
 
 
 def _check_cfg(cfg: Config):
-    for name in ("window", "softcap", "sinks"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(f"Config.{name}: {_TODO}")
     if cfg.n_experts or cfg.pv_int8:
         raise NotImplementedError(f"MoE or int8 serving: {_TODO}")
 
@@ -149,7 +153,8 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
-        o = flash_attention(q, k, v, causal=True)
+        o = flash_attention(q, k, v, causal=True, window=cfg.window,
+                            sinks=cfg.sinks, softcap=cfg.softcap)
         o = o.transpose(1, 2).reshape(B * T, -1) @ lp["wo"]
         h = h + o.reshape(B, T, -1)
         hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
@@ -187,7 +192,8 @@ def decode_step(params, cfg: Config, last_tokens, cache: KVCache,
         _write_tokens(cache.k_pages, li, k, cache.page_table, cache.lengths)
         _write_tokens(cache.v_pages, li, v, cache.page_table, cache.lengths)
         o = paged_attention(q[:, :, 0], cache.k_pages[li], cache.v_pages[li],
-                            attn_len, cache.page_table)
+                            attn_len, cache.page_table, window=cfg.window,
+                            sinks=cfg.sinks, softcap=cfg.softcap)
         h = h + (o.reshape(B, -1) @ lp["wo"]).reshape(h.shape)
         hn = rms_norm(h.reshape(B, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
@@ -196,6 +202,92 @@ def decode_step(params, cfg: Config, last_tokens, cache: KVCache,
     adv = 1 if active is None else active.to(torch.int32)
     lengths = (cache.lengths + adv).to(torch.int32)
     return logits, dataclasses.replace(cache, lengths=lengths)
+
+
+def verify_step(params, cfg: Config, tokens, cache: KVCache,
+                pages_per_block=None):
+    """Score T tokens (B, T) in one pass against the paged cache: each
+    layer writes their K/V into the pages at lengths[b] .. lengths[b]+T-1,
+    then runs the paged prefix-prefill kernel (token t sees the cached
+    prefix and the new tokens up to t). Returns f32 logits at every
+    position (B, T, vocab) and the cache with lengths + T: the
+    speculative verification step and the chunked-prefill continuation.
+    pages_per_block is accepted and ignored, as in paged_attention."""
+    _check_cfg(cfg)
+    B, T = tokens.shape
+    h = F.embedding(tokens.long(), params["embed"])
+    start = cache.lengths
+    positions = start[:, None] + torch.arange(T, device=tokens.device)
+    rope_q = _rope_tables(cache, positions, cfg.n_heads)
+    rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
+    attn_len = start + T
+    for li, lp in enumerate(params["layers"]):
+        hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
+        q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
+        _write_tokens(cache.k_pages, li, k, cache.page_table, start)
+        _write_tokens(cache.v_pages, li, v, cache.page_table, start)
+        o = paged_prefill_attention(q, cache.k_pages[li], cache.v_pages[li],
+                                    attn_len, cache.page_table,
+                                    pages_per_block=pages_per_block,
+                                    window=cfg.window, sinks=cfg.sinks,
+                                    softcap=cfg.softcap)
+        o = o.transpose(1, 2).reshape(B * T, -1) @ lp["wo"]
+        h = h + o.reshape(B, T, -1)
+        hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
+        h = h + _mlp(hn, lp).reshape(h.shape)
+    hn = rms_norm(h.reshape(B * T, -1), params["lnf"])
+    logits = (hn @ params["head"]).float().reshape(B, T, -1)
+    lengths = attn_len.to(torch.int32)
+    return logits, dataclasses.replace(cache, lengths=lengths)
+
+
+def share_prefix(cache: KVCache, src_slot, dst_slots, prefix_len):
+    """Prefix caching: alias src_slot's first prefix_len positions into
+    each dst slot. Each dst row of the page table is first reset to the
+    slot's own (identity) pages, a recycled slot may still hold aliases;
+    then its first prefix_len // page entries point at src's pages, which
+    dst only reads (serving writes at positions >= length), and the
+    partial page's prefix_len % page rows are copied into dst's own page
+    in every layer. Writes the table and pools in place; returns the
+    cache with dst lengths set to prefix_len. Host ints throughout."""
+    if src_slot in dst_slots:
+        raise ValueError(f"src slot {src_slot} is among dst {dst_slots}")
+    page = cache.k_pages.shape[3]
+    pps = cache.page_table.shape[1]
+    full, rem = divmod(int(prefix_len), page)
+    table = cache.page_table
+    lengths = cache.lengths.clone()
+    for d in dst_slots:
+        table[d] = torch.arange(d * pps, (d + 1) * pps, dtype=table.dtype,
+                                device=table.device)
+        table[d, :full] = table[src_slot, :full]
+        if rem:
+            sp, dp = int(table[src_slot, full]), d * pps + full
+            for pages in (cache.k_pages, cache.v_pages):
+                pages[:, :, dp, :rem] = pages[:, :, sp, :rem]
+        lengths[d] = prefix_len
+    return dataclasses.replace(cache, lengths=lengths)
+
+
+def prefill_prefix(params, cfg: Config, prompt, cache: KVCache, slot=0):
+    """Prefill one slot's prompt (T,) on a single-slot view of the shared
+    cache (its page-table row and a zero start), the producer half of
+    share_prefix. Returns ((vocab,) logits, cache with lengths[slot] =
+    T)."""
+    view = dataclasses.replace(
+        cache, page_table=cache.page_table[slot:slot + 1],
+        lengths=torch.zeros(1, dtype=torch.int32, device=prompt.device))
+    logits, _ = prefill(params, cfg, prompt[None], view)
+    lengths = cache.lengths.clone()
+    lengths[slot] = prompt.shape[0]
+    return logits[0], dataclasses.replace(cache, lengths=lengths)
+
+
+def rollback(cache: KVCache, new_lengths):
+    """Rewind the cache to new_lengths (B,): positions past them are dead
+    (the kernels mask them, and later writes overwrite them)."""
+    lengths = torch.as_tensor(new_lengths, dtype=torch.int32)
+    return dataclasses.replace(cache, lengths=lengths.to(cache.lengths.device))
 
 
 def generate(params, cfg: Config, prompt, n_steps, pages_per_seq=8,
