@@ -11,7 +11,10 @@
    f32 shapes, and times both at the serving shape: paged_prefill_attention
    (#24) at a 256-token chunk over a 900-token prefix and at a gamma = 4
    verification whose last length passes the pool, small f32/bf16 cases of
-   every head dim, and the window, sinks and softcap of #24 and #23;
+   every head dim, and the window, sinks and softcap of #24 and #23; #23's
+   bf16 P against the plain version that rounds it and the one that
+   keeps it in f32; the sampling kernels #26 and #27 at the serving shape
+   (4, 32768) f32 and at a 128256-token vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
    cross-entropy's forward and backward, and the featured attention:
@@ -26,12 +29,18 @@
    mid-stream, 32 new tokens each; then [chunked] the same requests with
    chunked_prefill=256, [prefix] 4 requests sharing a 512-token system
    prompt with prefix_cache=True and without, [spec] SpeculativeBatcher
-   (gamma 4) on 4 of them with the target as its own draft and with a
-   2-layer draft, and [gemma2-serve] window 512, sinks 4 and softcap 50
-   over prompts longer than the window. Each run resets the kernels'
-   launch counts just before and reads them just after;
-6. profiles one admission, a few decode steps, a chunked admission and
-   two speculative rounds (device time by kernel);
+   (gamma 4) on 4 of them with the target as its own draft, with a
+   2-layer draft, and with an agreeing 2-layer draft (the target with wo
+   and w2 of layers 2-15 zeroed computes the draft's function at full
+   depth's cost), [sample] sampled decoding (temperature 0.8 with top_k
+   50, top_p 0.9, min_p 0.05; top_k 1 must give the greedy streams; one
+   sampled generate), [spec-sample] the sampled SpeculativeBatcher and
+   speculative_sample_generate with the agreeing draft, and
+   [gemma2-serve] window 512, sinks 4 and softcap 50 over prompts longer
+   than the window. Each run resets the kernels' launch counts just
+   before and reads them just after;
+6. profiles one admission, a few decode steps (greedy and sampled), a
+   chunked admission and two speculative rounds (device time by kernel);
 7. checks one prefill's logits against the plain functions in f32, and
    one verify_step's (plain and Gemma-2-style, bf16, full depth); then,
    in f32 at the 7bish widths cut to 2 layers, requires equal greedy
@@ -413,9 +422,186 @@ def phase_kernels(cfg):
         print(f"[library] SDPA for {name}: max_abs "
               f"{(lib.float() - ref.float()).abs().max().item():.3e} "
               f"against the plain version")
+    _paged_bf16_p(serve_case)
+    _sampling_kernels(checks, timed, gen)
 
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
+
+
+def _paged_bf16_p(args):
+    """#23 on bf16 pools rounds P to bf16 for the P V sum, as JAX's
+    _decode_kernel does: its error against the plain version that rounds
+    P alike (the check above) beside its error against P kept in f32 (the
+    plain version on the same values as f32 pools)."""
+    from tpukern_torch.ops import paged_attention
+
+    q, kp, vp, lengths, table = args
+    out = paged_attention.paged_attention(*args).float()
+    errs = []
+    for ref in (paged_attention.paged_attention_ref(*args),
+                paged_attention.paged_attention_ref(
+                    q.float(), kp.float(), vp.float(), lengths, table)):
+        ref = ref.to(torch.bfloat16).float()
+        errs.append(((out - ref).abs().max().item(),
+                     int((out != ref).sum())))
+    print(f"[check] paged_attention  bf16 P at the serving shape: max_abs "
+          f"{errs[0][0]:.3e} against the plain version that rounds P "
+          f"({errs[0][1]} of {out.numel()} outputs differ), {errs[1][0]:.3e} "
+          f"against P in f32 ({errs[1][1]} differ)")
+
+
+# the sampling kernels' shapes: the 7bish serving batch and vocabulary,
+# and Llama-3's vocabulary
+SAMPLE_VOCABS = (32768, 128256)
+SAMPLE_T = 0.8  # the temperature of the sampled checks and runs
+
+
+def _index_check(case, out, ref, score, near=None):
+    """#26's indices `out` against its twin's `ref`: equal, or (with the
+    bool rows `near`) different only in those rows. The error is the
+    largest gap between the twin's scores at the two indices. Prints one
+    line; returns (ok, error)."""
+    same = out == ref
+    err = (score.gather(1, out.long()[:, None])
+           - score.gather(1, ref.long()[:, None])).abs().max().item()
+    ok = bool(same.all() if near is None else (same | near).all())
+    extra = "" if near is None else f", {int(near.sum())} near-tie rows"
+    print(f"[check] sample           {case:44s} {int((~same).sum())} of "
+          f"{out.numel()} indices differ{extra}; score gap {err:.3e} "
+          f"{'ok' if ok else 'MISS'}")
+    return ok, err
+
+
+def _kept_sets(x, a, b, T):
+    """Top-p rule: per row the kept sets (x >= threshold) of thresholds a
+    and b differ by at most one token, of softmax(x / T) mass < 1e-4.
+    Returns (ok, tokens that differ, their largest mass)."""
+    probs = torch.softmax(x.double() / T, -1)
+    differ = (x >= a[:, None]) ^ (x >= b[:, None])
+    n = differ.sum(-1)
+    mass = (probs * differ).sum(-1)
+    return (bool((n <= 1).all() and (mass < 1e-4).all()), int(n.sum()),
+            mass.max().item())
+
+
+def _sampling_kernels(checks, timed, gen):
+    """#26 (`sample`) and #27 (`sample_threshold`) against their plain
+    twins at (4, V) f32 logits of scale 3, V in SAMPLE_VOCABS. #26:
+    greedy, and input noise under top-k 50 thresholds, indices equal; its
+    in-kernel Philox noise against the twin, which computes the same
+    bits: equal except where the two best perturbed scores lie within
+    1e-5; the same seed repeats; every draw inside the top-50 set over 8
+    seeds; 8192 draws of one 16-wide row within 3 sigma of softmax(x/T).
+    #27: count mode bit-equal (k 1, 50, 1000); mass mode (p 0.5, 0.9,
+    0.99 at T 1 and 0.8) within one boundary token of mass < 1e-4. Times
+    at both vocabularies; the library call of #26 is torch.argmax (greedy
+    mode) and of #27's count mode torch.topk; mass mode has none (sort,
+    softmax and cumsum are three calls)."""
+    from functools import partial
+
+    from tpukern_torch.ops import sampling as sp
+
+    f32 = torch.float32
+    for V in SAMPLE_VOCABS:
+        x = 3 * _randn(gen, 4, V, dtype=f32)
+        tag = f"(4, {V}) f32"
+        ref = sp._stream_sample_ref(x, 0, inv_temp=1.0, gumbel=False)
+        checks.record("sample", *_index_check(f"greedy {tag}",
+                                              sp.greedy_sample(x), ref, x))
+        thr = sp._bisect_threshold_ref(x, mode="count", kk=50)
+        live = x >= thr[:, None]
+        noise = -torch.log(-torch.log(torch.rand(
+            x.shape, generator=gen, device="cuda")))
+        kw = dict(inv_temp=1 / SAMPLE_T, gumbel=True, thresholds=thr)
+        score = torch.where(live, x * (1 / SAMPLE_T) + noise, sp.NEG_BIG)
+        checks.record("sample", *_index_check(
+            f"input noise, top-k 50 {tag}",
+            sp._stream_sample(x, 0, noise=noise, **kw),
+            sp._stream_sample_ref(x, 0, noise=noise, **kw), score))
+        out = sp._stream_sample(x, 1234, **kw)
+        score = torch.where(live, x * (1 / SAMPLE_T)
+                            + sp._gumbel(1234, *x.shape, "cuda"), sp.NEG_BIG)
+        top2 = torch.topk(score, 2, dim=-1).values
+        checks.record("sample", *_index_check(
+            f"Philox, top-k 50 {tag}", out,
+            sp._stream_sample_ref(x, 1234, **kw), score,
+            near=top2[:, 0] - top2[:, 1] < 1e-5))
+        again = bool((sp._stream_sample(x, 1234, **kw) == out).all())
+        topk = torch.topk(x, 50, dim=-1).indices
+        inside = all(bool((topk == sp.sample(x, seed, SAMPLE_T, top_k=50)
+                           [:, None]).any(-1).all()) for seed in range(8))
+        print(f"[check] sample           {'Philox ' + tag:44s} same seed "
+              f"same draw {again}; 8 seeds inside the top-50 set {inside} "
+              f"{'ok' if again and inside else 'MISS'}")
+        checks.record("sample", again and inside, 0.0)
+        for k in (1, 50, 1000):
+            out = sp.topk_threshold(x, k)
+            err = (out - sp._bisect_threshold_ref(x, mode="count", kk=k)
+                   ).abs().max().item()
+            ok = err == 0 and bool((out == torch.topk(x, k).values[:, -1])
+                                   .all())
+            print(f"[check] sample_threshold {f'count k={k} ' + tag:44s} "
+                  f"max_abs {err:.3e} (bit-equal) {'ok' if ok else 'MISS'}")
+            checks.record("sample_threshold", ok, err)
+        for p in (0.5, 0.9, 0.99):
+            for T in (1.0, SAMPLE_T):
+                out = sp.topp_threshold(x, p, T)
+                ref = sp._bisect_threshold_ref(x, mode="mass", pp=p,
+                                               inv_temp=1 / T)
+                ok, n, mass = _kept_sets(x, out, ref, T)
+                ok &= bool((out == sp.topp_threshold(x, p, T)).all()
+                           and (x == out[:, None]).any(-1).all())
+                err = (out - ref).abs().max().item()
+                print(f"[check] sample_threshold "
+                      f"{f'mass p={p} T={T} ' + tag:44s} max_abs {err:.3e}; "
+                      f"{n} kept tokens differ, mass <= {mass:.3e}; repeats, "
+                      f"data values {'ok' if ok else 'MISS'}")
+                checks.record("sample_threshold", ok, err)
+        # one bf16 greedy case: the kernel reads bf16 logits
+        xb = x.to(torch.bfloat16)
+        checks.record("sample", *_index_check(
+            f"greedy (4, {V}) bf16", sp.greedy_sample(xb),
+            sp._stream_sample_ref(xb, 0, inv_temp=1.0, gumbel=False),
+            xb.float()))
+
+        # times: each mode beside its twin, its library call and its bound
+        # (bytes: the logits and thresholds read once, the (4,) output
+        # written once; operations: float ops a column, a log counted as
+        # one, the Philox integer work uncounted: the peaks table has no
+        # integer rate)
+        io = _nbytes(x) + 16
+        timed[f"sample greedy V{V}"] = _timed_entry(
+            "sample", [4, V], partial(sp.greedy_sample, x),
+            partial(sp._stream_sample_ref, x, 0, inv_temp=1.0, gumbel=False),
+            partial(torch.argmax, x, -1), x.numel(), io, f32)
+        timed[f"sample Philox top-k V{V}"] = _timed_entry(
+            "sample", [4, V], partial(sp._stream_sample, x, 7, **kw),
+            partial(sp._stream_sample_ref, x, 7, **kw), None,
+            8 * x.numel(), io + 16, f32)
+        timed[f"sample_threshold count V{V}"] = _timed_entry(
+            "sample_threshold", [4, V], partial(sp.topk_threshold, x, 50),
+            partial(sp._bisect_threshold_ref, x, mode="count", kk=50),
+            partial(torch.topk, x, 50), 0, io, f32)
+        timed[f"sample_threshold mass V{V}"] = _timed_entry(
+            "sample_threshold", [4, V],
+            partial(sp.topp_threshold, x, 0.9, SAMPLE_T),
+            partial(sp._bisect_threshold_ref, x, mode="mass", pp=0.9,
+                    inv_temp=1 / SAMPLE_T), None, 3 * x.numel(), io, f32)
+
+    # frequencies of the in-kernel noise: 8192 draws of one 16-wide row
+    V, N = 16, 8192
+    base = 1.5 * _randn(gen, 1, V, dtype=f32)
+    got = sp.sample(base.expand(N, V).contiguous(), 7, SAMPLE_T)
+    freq = torch.bincount(got.long(), minlength=V).double() / N
+    probs = torch.softmax(base[0].double() / SAMPLE_T, -1)
+    dev = (freq - probs).abs() / (3 * torch.sqrt(probs * (1 - probs) / N)
+                                  + 2e-3)
+    ok = bool((dev < 1).all())
+    print(f"[check] sample           {f'Philox frequencies ({N}, {V})':44s} "
+          f"largest |freq - p| {dev.max().item():.3f} of its 3-sigma band "
+          f"{'ok' if ok else 'MISS'}")
+    checks.record("sample", ok, 0.0)
 
 
 def _paged_case(gen, B, hq, hkv, dd, page, pps, lengths, dt, T=None):
@@ -872,7 +1058,8 @@ def _drive(cb, requests, ops=()):
             step_tokens.append(n)
     return dict(admit_ms=admit, step_ms=step_ms, step_tokens=step_tokens,
                 mid_stream=mid, wall=time.perf_counter() - t0,
-                launches={op.__name__: op.launches for op in ops})
+                launches={op.__name__: op.launches for op in ops},
+                finished=dict(cb.finished))
 
 
 def _ms_per_token(run):
@@ -1014,29 +1201,71 @@ def phase_prefix(cfg, params, ops):
     return launches
 
 
+def _agreeing(params, cfg):
+    """(target, draft, draft cfg): the target with wo and w2 of layers
+    2-15 zeroed (those layers then add nothing to the residual stream, at
+    full cost) and its first two layers as the draft, which so computes
+    the target's function."""
+    zero = {k: torch.zeros_like(params["layers"][0][k]) for k in ("wo", "w2")}
+    target = dict(params, layers=[lp if i < 2 else dict(lp, **zero)
+                                  for i, lp in enumerate(params["layers"])])
+    return (target, dict(params, layers=params["layers"][:2]),
+            dataclasses.replace(cfg, n_layers=2))
+
+
+def _rounding_split(cfg, params, prompt):
+    """Where a bf16 draft's decode and the target's verification part:
+    the logits of one position after the prompt from decode_step (#23),
+    from verify_step with T = 1 (#24 at the decode's GEMM shapes) and as
+    position 0 of a T = 5 verify_step (#24, five times the GEMM rows),
+    each from the same prefilled cache."""
+    from tpukern_torch.models import serving
+
+    tokens = torch.from_numpy(prompt[None]).to("cuda")
+    cand = torch.tensor([[7, 1, 2, 3, 4]], dtype=torch.int32, device="cuda")
+
+    def cache():
+        c = serving.init_cache(cfg, 1, 8, 128, device="cuda")
+        return serving.prefill(params, cfg, tokens, c)[1]
+
+    dec = serving.decode_step(params, cfg, cand[:, 0], cache())[0][0]
+    ver1 = serving.verify_step(params, cfg, cand[:, :1], cache())[0][0, 0]
+    ver5 = serving.verify_step(params, cfg, cand, cache())[0][0, 0]
+    for label, a, b in (("#23 decode vs #24 verify, T=1", dec, ver1),
+                        ("#24 verify T=1 vs T=5 (GEMM rows)", ver1, ver5)):
+        print(f"[spec] rounding: {label}: logits max_abs "
+              f"{(a - b).abs().max().item():.3e}, {int((a != b).sum())} of "
+              f"{a.numel()} differ, argmax {int(a.argmax())} vs "
+              f"{int(b.argmax())}")
+
+
 def phase_spec(cfg, params, requests, ops):
     """[spec]: SpeculativeBatcher(gamma=4) on 4 slots, 32 new tokens each,
     with the target as its own draft (every proposal accepted, so gamma + 1
-    tokens per slot per round) and with a 2-layer draft made of the
-    target's first two layers, embed, lnf and head; ContinuousBatcher's
-    decode over the same requests in the same call."""
+    tokens per slot per round), with a 2-layer draft made of the target's
+    first two layers, embed, lnf and head, and with that draft for the
+    agreeing target of _agreeing; ContinuousBatcher's decode over the same
+    requests (on the target, and on the agreeing target) in the same
+    call."""
     from tpukern_torch.models.batcher import (ContinuousBatcher,
                                               SpeculativeBatcher)
 
     requests = requests[:4]
-    draft = dict(params, layers=params["layers"][:2])
-    dcfg = dataclasses.replace(cfg, n_layers=2)
+    agree, draft, dcfg = _agreeing(params, cfg)
     warm = SpeculativeBatcher(params, cfg, draft, dcfg, gamma=GAMMA,
                               **dict(SERVE_KW, max_new_tokens=6))
     warm.run(requests[:1])
     del warm
-    base = _drive(ContinuousBatcher(params, cfg, **SERVE_KW), requests)
-    print(f"[spec] ContinuousBatcher: {len(base['step_ms'])} decode steps, "
-          f"{_ms_per_token(base):.3f} ms per emitted token")
+    for tag, target in (("", params), (" (agreeing target)", agree)):
+        base = _drive(ContinuousBatcher(target, cfg, **SERVE_KW), requests)
+        print(f"[spec] ContinuousBatcher{tag}: {len(base['step_ms'])} decode "
+              f"steps, {_ms_per_token(base):.3f} ms per emitted token")
+    _rounding_split(cfg, params, requests[0][1])
     total = 0
-    for name, dp, dc in (("self-draft", params, cfg),
-                         ("2-layer draft", draft, dcfg)):
-        sb = SpeculativeBatcher(params, cfg, dp, dc, gamma=GAMMA, **SERVE_KW)
+    for name, tp, dp, dc in (("self-draft", params, params, cfg),
+                             ("2-layer draft", params, draft, dcfg),
+                             ("agreeing 2-layer draft", agree, draft, dcfg)):
+        sb = SpeculativeBatcher(tp, cfg, dp, dc, gamma=GAMMA, **SERVE_KW)
         run = _drive(sb, requests, ops)
         st = sb.stats
         print(f"[spec] {name}: acceptance {st.acceptance_rate:.4f} "
@@ -1049,15 +1278,190 @@ def phase_spec(cfg, params, requests, ops):
         require(run["launches"]["paged_prefill_attention"] > 0,
                 f"speculative verification never launched #24: {run}")
         total += run["launches"]["paged_prefill_attention"]
-        if name == "self-draft":
-            # in bf16 the draft's decode (#23, f32 P) and the target's
-            # verify (#24, bf16 P, other GEMM shapes) round differently,
-            # and at an argmax near-tie the target rejects its own
-            # proposal: about 1 in 11 here. Every proposal is accepted in
-            # f32 ([exact], _short_rounds)
+        if name != "2-layer draft":
+            # in bf16 the draft's decode (#23) and the target's verify
+            # (#24) still round differently (the score products in
+            # another order, other GEMM shapes), and at an argmax near-tie
+            # the target rejects a proposal it would make itself. Every
+            # proposal is accepted in f32 ([exact], _short_rounds)
             require(st.acceptance_rate >= 0.8,
-                    f"self-draft accepted only {st}")
+                    f"{name} accepted only {st}")
     return total
+
+
+# [sample]: the supports of the sampled runs, at temperature SAMPLE_T
+SAMPLE_RUNS = {"top_k=50": dict(top_k=50), "top_p=0.9": dict(top_p=0.9),
+               "min_p=0.05": dict(min_p=0.05)}
+
+
+def _sampling_counts(reset=False):
+    """The launches of #26 and of #27 by mode; with reset, set to 0."""
+    from tpukern_torch.ops import sampling as sp
+
+    names = ((sp._stream_sample, "launches", "sample"),
+             (sp._bisect_threshold, "count_launches", "count"),
+             (sp._bisect_threshold, "mass_launches", "mass"),
+             (sp._bisect_threshold, "launches", None))
+    if reset:
+        for fn, attr, _ in names:
+            setattr(fn, attr, 0)
+    return {key: getattr(fn, attr) for fn, attr, key in names if key}
+
+
+def _top1_draws(cb):
+    """Wrap cb._sample to hold each top_k=1 draw to the row's maximum
+    logit: returns counts of the draws, of those off the maximum (must
+    stay 0) and of those that differ from the first maximum's index (a
+    tie at the maximum: the bf16 head's logits tie often, and top-k keeps
+    every tied token, as JAX's threshold does)."""
+    counts = dict(draws=0, off_max=0, tie_picks=0)
+    sample = cb._sample
+
+    def checked(logits):
+        tok = sample(logits)
+        x = logits.float()
+        t = torch.from_numpy(tok).to(x.device).long()
+        picked = x.gather(1, t[:, None])[:, 0]
+        counts["draws"] += len(tok)
+        counts["off_max"] += int((picked != x.amax(-1)).sum())
+        counts["tie_picks"] += int((t != x.argmax(-1)).sum())
+        return tok
+
+    cb._sample = checked
+    return counts
+
+
+def phase_sample(cfg, params, requests):
+    """[sample]: phase_serve's requests through ContinuousBatcher(greedy=
+    False, temperature=SAMPLE_T) with each support of SAMPLE_RUNS, each
+    twice, in turns with two greedy runs (greedy, the supports, the
+    supports reversed, greedy); then with top_k=1, whose every draw must
+    be a maximum of its logits and whose streams must be the greedy ones
+    where no tie at the maximum parted them; then one generate(greedy=
+    False, temperature=0.7, top_p=0.9) of 32 tokens. The launch counts of
+    #26 and #27 are set to 0 just before each run and read just after.
+    Prints ms per emitted token, median step and admission ms of each
+    support beside the greedy runs'. Returns the launches over all these
+    runs."""
+    from tpukern_torch.models import ContinuousBatcher, generate
+
+    warm = ContinuousBatcher(params, cfg, greedy=False, temperature=SAMPLE_T,
+                             top_k=50, top_p=0.9,
+                             **dict(SERVE_KW, max_new_tokens=2))
+    warm.run(requests[:1])
+    del warm
+    total = dict(sample=0, count=0, mass=0)
+    runs = {name: dict(greedy=False, temperature=SAMPLE_T, seed=SEED, **kw)
+            for name, kw in SAMPLE_RUNS.items()}
+    runs["greedy"] = {}
+    runs["top_k=1"] = dict(greedy=False, top_k=1, seed=SEED)
+    # the timed runs in turns (greedy, each support, each support, greedy),
+    # then the top_k=1 check
+    names = list(SAMPLE_RUNS)
+    order = ["greedy", *names, *names[::-1], "greedy", "top_k=1"]
+    per_token, steps, admits, streams = {}, {}, {}, {}
+    for name in order:
+        kw = runs[name]
+        cb = ContinuousBatcher(params, cfg, **kw, **SERVE_KW)
+        top1 = _top1_draws(cb) if name == "top_k=1" else None
+        _sampling_counts(reset=True)
+        run = _drive(cb, requests)
+        counts = _sampling_counts()
+        per_token.setdefault(name, []).append(_ms_per_token(run))
+        steps.setdefault(name, []).extend(run["step_ms"])
+        admits.setdefault(name, []).extend(run["admit_ms"].values())
+        streams.setdefault(name, run["finished"])
+        print(f"[sample] {name} run {len(per_token[name])}: "
+              f"{per_token[name][-1]:.3f} ms per emitted token (median step "
+              f"{np.median(run['step_ms']):.3f} ms); launches #26 "
+              f"{counts['sample']}, #27 count {counts['count']}, #27 mass "
+              f"{counts['mass']}")
+        _require_finished(cb, requests, 32, cfg, f"sample {name}")
+        require((counts["sample"] > 0) == (name != "greedy")
+                and (counts["count"] > 0) == ("top_k" in kw)
+                and (counts["mass"] > 0) == ("top_p" in kw),
+                f"sample {name}: launches {counts}")
+        if top1 is not None:
+            same = run["finished"] == streams["greedy"]
+            print(f"[sample] top_k=1 (each draw checked against its logits, "
+                  f"so its time includes the checks): {top1['draws']} "
+                  f"draws, {top1['off_max']} off the maximum, "
+                  f"{top1['tie_picks']} tied maxima drawn past the first; "
+                  f"streams equal the greedy ones: {same}")
+            require(top1["off_max"] == 0 and (same or top1["tie_picks"] > 0),
+                    f"top_k=1 sampling is not greedy decoding: {top1}")
+        for k in total:
+            total[k] += counts[k]
+    for name in ["greedy", *names]:
+        print(f"[sample] {name}: {np.mean(per_token[name]):.3f} ms per "
+              f"emitted token (mean of {len(per_token[name])} runs), median "
+              f"step {np.median(steps[name]):.3f} ms, median admission "
+              f"{np.median(admits[name]):.3f} ms")
+    rid, prompt = requests[0]
+    _sampling_counts(reset=True)
+    t0 = time.perf_counter()
+    out = generate(params, cfg, torch.from_numpy(prompt[None]).to("cuda"), 32,
+                   greedy=False, temperature=0.7, top_p=0.9, seed=SEED)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _sampling_counts()
+    print(f"[sample] generate(greedy=False, temperature=0.7, top_p=0.9), "
+          f"prompt {len(prompt)}: 32 tokens in {ms:.1f} ms (prefill "
+          f"included); launches #26 {counts['sample']}, #27 mass "
+          f"{counts['mass']}")
+    require(out.shape == (1, 32) and bool(((out >= 0) & (out < cfg.vocab))
+                                          .all())
+            and counts["sample"] == 32 and counts["mass"] == 32,
+            f"generate: {tuple(out.shape)}, launches {counts}")
+    for k in total:
+        total[k] += counts[k]
+    return total
+
+
+def phase_spec_sample(cfg, params, requests, ops):
+    """[spec-sample]: the sampled SpeculativeBatcher (temperature
+    SAMPLE_T, gamma 4) with the agreeing draft of _agreeing on 4 of the
+    requests, beside the sampled ContinuousBatcher on the agreeing target;
+    then speculative_sample_generate once, 32 tokens."""
+    from tpukern_torch.models import (ContinuousBatcher, SpeculativeBatcher,
+                                      speculative_sample_generate)
+
+    requests = requests[:4]
+    agree, draft, dcfg = _agreeing(params, cfg)
+    kw = dict(greedy=False, temperature=SAMPLE_T, seed=SEED, **SERVE_KW)
+    warm = SpeculativeBatcher(agree, cfg, draft, dcfg, gamma=GAMMA,
+                              **dict(kw, max_new_tokens=6))
+    warm.run(requests[:1])
+    del warm
+    base = _drive(ContinuousBatcher(agree, cfg, **kw), requests)
+    sb = SpeculativeBatcher(agree, cfg, draft, dcfg, gamma=GAMMA,
+                            accept_seed=SEED, **kw)
+    run = _drive(sb, requests, ops)
+    st = sb.stats
+    print(f"[spec-sample] T={SAMPLE_T}, agreeing 2-layer draft: acceptance "
+          f"{st.acceptance_rate:.4f} ({st.accepted}/{st.drafted}), "
+          f"{st.rounds} target passes for {sum(run['step_tokens'])} tokens, "
+          f"{_ms_per_token(run):.3f} ms per emitted token (median round "
+          f"{np.median(run['step_ms']):.3f} ms); sampled ContinuousBatcher "
+          f"{_ms_per_token(base):.3f}; launches {run['launches']}")
+    _require_finished(sb, requests, 32, cfg, "spec-sample")
+    require(run["launches"]["paged_prefill_attention"] > 0
+            and st.acceptance_rate >= 0.5,
+            f"spec-sample: {st}, launches {run['launches']}")
+    rid, prompt = requests[0]
+    t0 = time.perf_counter()
+    out, st = speculative_sample_generate(
+        agree, cfg, draft, dcfg, torch.from_numpy(prompt[None]).to("cuda"),
+        32, gamma=GAMMA, temperature=SAMPLE_T, seed=SEED, return_stats=True)
+    ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[spec-sample] speculative_sample_generate: 32 tokens in "
+          f"{ms:.1f} ms (prefills included), acceptance "
+          f"{st.acceptance_rate:.4f} ({st.accepted}/{st.drafted}), "
+          f"{st.rounds} rounds")
+    require(out.shape == (1, 32) and bool(((out >= 0) & (out < cfg.vocab))
+                                          .all()) and st.accepted > 0,
+            f"speculative_sample_generate: {tuple(out.shape)}, {st}")
+    return run["launches"]["paged_prefill_attention"]
 
 
 def _short_rounds(sb, requests):
@@ -1114,6 +1518,8 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                ("fa_bwd", ("fa_bwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
                ("paged_prefill", "paged_prefill_"),
+               ("sampling", ("sample_kernel", "sample_combine_kernel",
+                             "threshold_kernel")),
                ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
 
@@ -1158,9 +1564,10 @@ def _profile(label, fn, n):
 
 def phase_profile(cfg, params, requests):
     """Where the device time goes: one 512-bucket admission and 8 decode
-    steps of 4 active slots, one chunked admission (chunked_prefill=256)
-    and 2 speculative rounds (gamma 4, the 2-layer draft) of 4 slots,
-    each under torch.profiler."""
+    steps of 4 active slots, greedy and sampled (SAMPLE_T with top_p 0.9,
+    and with top_k 50), one chunked admission (chunked_prefill=256) and 2
+    speculative rounds (gamma 4, the 2-layer draft) of 4 slots, each under
+    torch.profiler."""
     from tpukern_torch.models.batcher import (ContinuousBatcher,
                                               SpeculativeBatcher)
 
@@ -1172,6 +1579,15 @@ def phase_profile(cfg, params, requests):
     _profile(f"prefill (T={len(prompt)}, bucket 512)",
              lambda: cb.add_request(rid, prompt), 1)
     _profile("decode step (4 slots)", cb.step, 8)
+    for tag, kw in (("top_p 0.9", dict(top_p=0.9)),
+                    ("top_k 50", dict(top_k=50))):
+        cb = ContinuousBatcher(params, cfg, greedy=False,
+                               temperature=SAMPLE_T, **kw, **SERVE_KW)
+        for r, p in requests[:4]:
+            cb.add_request(r, p)
+        cb.step()
+        _profile(f"sampled decode step (4 slots, T {SAMPLE_T}, {tag})",
+                 cb.step, 8)
     cb = ContinuousBatcher(params, cfg, chunked_prefill=256, **SERVE_KW)
     _profile(f"chunked admission (T={len(prompt)}, 2 chunks of 256)",
              lambda: cb.add_request(rid, prompt), 1)
@@ -1575,6 +1991,8 @@ def main():
         phase_chunked(cfg, params, requests, serve_run, serve_ops)
         + phase_prefix(cfg, params, serve_ops)
         + phase_spec(cfg, params, requests, serve_ops))
+    sample_launches = phase_sample(cfg, params, requests)
+    prefix_launches += phase_spec_sample(cfg, params, requests, serve_ops)
     phase_gemma2(cfg, params, serve_ops)
     phase_profile(cfg, params, requests)
     if not phase_logits(cfg, params, requests[0][1]):
@@ -1617,10 +2035,13 @@ def main():
         else:
             timing[name] = r
     # serving counts for its four, the chunked, prefix and speculative
-    # runs for #24, the fused phase for the CE kernels, the featured phase
-    # for the two-kernel backward
+    # runs for #24, the sampled runs for #26 and #27, the fused phase for
+    # the CE kernels, the featured phase for the two-kernel backward
     launches = {**train_launches, **launches,
                 "paged_prefill_attention": prefix_launches,
+                "sample": sample_launches["sample"],
+                "sample_threshold": (sample_launches["count"]
+                                     + sample_launches["mass"]),
                 **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")},
                 **{n: featured_launches[n] for n in ("flash_attention_dq",
                                                      "flash_attention_dkv")}}
@@ -1650,7 +2071,11 @@ def main():
                "tpukern/ops/attention_bwd.py:31"),
            "flash_attention_dkv": (
                "tpukern_torch/csrc/flash_attention_featured_bwd.cu",
-               "tpukern/ops/attention_bwd.py:110")}
+               "tpukern/ops/attention_bwd.py:110"),
+           "sample": ("tpukern_torch/csrc/sampling.cu",
+                      "tpukern/ops/sampling.py:45"),
+           "sample_threshold": ("tpukern_torch/csrc/sampling.cu",
+                                "tpukern/ops/sampling.py:182")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -1674,13 +2099,20 @@ def main():
         "flash_attention_dq": "autograd backward of torch.compile("
                               "flex_attention) with the softcap score_mod "
                               "and the band block mask (dq, dk, dv together)",
-        "flash_attention_dkv": "as flash_attention_dq"}
+        "flash_attention_dkv": "as flash_attention_dq",
+        "sample": "torch.argmax (greedy mode, one call)",
+        "sample_threshold": "torch.topk(x, 50) (count mode, one call); the "
+                            "mass mode has none (sort, softmax and cumsum)"}
+    # #27's launches by mode
+    modes = {"sample_threshold": {"count_launches": sample_launches["count"],
+                                  "mass_launches": sample_launches["mass"]}}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
              launches=launches[n], max_abs_err=timing[n]["max_abs_err"],
              **{k: timing[n][k] for k in keys}, library=library.get(n),
-             **({"also_replaces": also[n]} if n in also else {}))
+             **({"also_replaces": also[n]} if n in also else {}),
+             **modes.get(n, {}))
         for n in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

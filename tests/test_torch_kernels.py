@@ -640,3 +640,137 @@ def test_serving_features_on_kernels_equal_plain(cuda):
             out = make(params_to(params, cuda)).run(list(enumerate(prompts)))
             assert out == ref
             assert paged_attention.paged_prefill_attention.launches > before
+
+
+# ------------------------------------------------- sampling (#26, #27)
+
+def _sample_logits(dev, B, V, dt, seed, scale=3.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((B, V), generator=g, device=dev) * scale).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,V", [(4, 32768), (3, 1000), (2, 128256),
+                                 (8192, 16)])
+def test_sample_kernel_greedy_and_noise(cuda, B, V, dt):
+    """#26 in greedy mode and with input noise and top-k thresholds:
+    indices equal the plain twin's (first index on ties)."""
+    from tpukern_torch.ops import sampling
+
+    x = _sample_logits(cuda, B, V, DTYPES[dt], B + V)
+    before = sampling._stream_sample.launches
+    np.testing.assert_array_equal(sampling.greedy_sample(x).cpu().numpy(),
+                                  torch.argmax(x.float(), -1).cpu().numpy())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    noise = -torch.log(-torch.log(torch.rand((B, V), generator=g,
+                                             device=cuda)))
+    thr = sampling._bisect_threshold_ref(x, mode="count", kk=min(50, V))
+    kw = dict(inv_temp=1 / 0.7, gumbel=True, thresholds=thr, noise=noise)
+    np.testing.assert_array_equal(
+        sampling._stream_sample(x, 0, **kw).cpu().numpy(),
+        sampling._stream_sample_ref(x, 0, **kw).cpu().numpy())
+    assert sampling._stream_sample.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_sample_kernel_ties(cuda):
+    """Ties inside one block's columns and across two blocks (columns 5
+    and 3000 of 2048-column blocks), and -0 against +0."""
+    from tpukern_torch.ops import sampling
+
+    x = torch.zeros((4, 5000), device=cuda)
+    x[0, [5, 3000]] = 2.0
+    x[1, [4095, 4096]] = 7.0
+    x[2, :] = -0.0
+    x[2, 3] = 0.0
+    np.testing.assert_array_equal(sampling.greedy_sample(x).cpu().numpy(),
+                                  [5, 4095, 0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1000, 32768])
+def test_sample_kernel_philox_equals_plain(cuda, V):
+    """In-kernel noise: the plain twin computes the same Philox bits, so
+    the draws are equal except where the two best perturbed scores lie
+    within 1e-5 (log's last bits may differ); the same seed repeats."""
+    from tpukern_torch.ops import sampling
+
+    B, T = 64, 0.8
+    x = _sample_logits(cuda, B, V, torch.float32, V)
+    out = sampling.sample(x, 1234, temperature=T)
+    ref = sampling._stream_sample_ref(x, 1234, inv_temp=1 / T, gumbel=True)
+    assert (sampling.sample(x, 1234, temperature=T) == out).all()
+    score = x * (1 / T) + sampling._gumbel(1234, B, V, cuda)
+    top2 = torch.topk(score, 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < 1e-5
+    assert ((out == ref) | near).all()
+
+
+@pytest.mark.cuda
+def test_sample_kernel_frequencies(cuda):
+    """8192 rows of one 16-wide row through the in-kernel noise: each
+    token's frequency within a 3-sigma band of softmax(x / T)."""
+    from tpukern_torch.ops import sampling
+
+    V, N, T = 16, 8192, 0.8
+    base = _sample_logits(cuda, 1, V, torch.float32, 3, scale=1.5)
+    got = sampling.sample(base.expand(N, V).contiguous(), 7, temperature=T)
+    freq = torch.bincount(got.long(), minlength=V).double() / N
+    probs = torch.softmax(base[0].double() / T, -1)
+    tol = 3 * torch.sqrt(probs * (1 - probs) / N) + 2e-3
+    assert ((freq - probs).abs() < tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1000, 32768, 128256])
+def test_threshold_kernel(cuda, V):
+    """#27 count mode: bit-equal to the twin (the k-th largest value, ties
+    included); mass mode: the kept sets differ by at most the boundary
+    token, of mass < 1e-4; both are data values and repeat run to run."""
+    from tpukern_torch.ops import sampling
+
+    x = _sample_logits(cuda, 4, V, torch.float32, V)
+    x[1, :20] = x[1].max()  # a 21-way tie at the top
+    before = dict(count=sampling._bisect_threshold.count_launches,
+                  mass=sampling._bisect_threshold.mass_launches)
+    for k in (1, 8, 21, 50, 1000):
+        out = sampling.topk_threshold(x, k)
+        np.testing.assert_array_equal(
+            out.cpu().numpy(),
+            sampling._bisect_threshold_ref(x, mode="count", kk=k).cpu().numpy())
+        assert (out == torch.topk(x, k).values[:, -1]).all()
+    for p, T in ((0.1, 1.0), (0.9, 0.8), (0.999, 1.0)):
+        out = sampling.topp_threshold(x, p, T)
+        assert (out == sampling.topp_threshold(x, p, T)).all()
+        ref = sampling._bisect_threshold_ref(x, mode="mass", pp=p,
+                                             inv_temp=1 / T)
+        probs = torch.softmax(x.double() / T, -1)
+        for r in range(4):
+            assert (x[r] == out[r]).any()
+            differ = (x[r] >= out[r]) ^ (x[r] >= ref[r])
+            assert int(differ.sum()) <= 1
+            assert float(probs[r][differ].sum()) < 1e-4
+    assert sampling._bisect_threshold.count_launches == before["count"] + 5
+    assert sampling._bisect_threshold.mass_launches == before["mass"] + 6
+
+
+@pytest.mark.cuda
+def test_paged_attention_bf16_rounds_p(cuda):
+    """#23's bf16 instance rounds P to bf16 for the P V sum, as the plain
+    version now does: closer to it than to P kept in f32."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kp, vp = (torch.randn((8, 32, 128, 128), generator=g, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    q = (2 * torch.randn((4, 16, 128), generator=g, device=cuda)).to(
+        torch.bfloat16)
+    table = torch.randperm(32, generator=g, device=cuda).reshape(4, 8)
+    lengths = torch.tensor([1, 129, 700, 1024], dtype=torch.int32,
+                           device=cuda)
+    args = (q, kp, vp, lengths, table.to(torch.int32))
+    out = paged_attention.paged_attention(*args).float()
+    ref = paged_attention.paged_attention_ref(*args).float()
+    f32_p = paged_attention.paged_attention_ref(
+        *(t.float() for t in args[:3]), *args[3:]).to(torch.bfloat16).float()
+    check_all_close(out, ref, dtype=torch.bfloat16)
+    assert (out != ref).sum() < (out != f32_p).sum()

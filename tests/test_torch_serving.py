@@ -138,12 +138,12 @@ def test_generate_equals_batcher(setup):
 def test_unported_serving_options_raise(setup):
     _, params, _ = setup
     wcfg = dataclasses.replace(CFG, window=32)
-    for cfg, kw in ((CFG, dict(greedy=False)), (wcfg, dict(ring=True)),
+    for cfg, kw in ((wcfg, dict(ring=True)),
                     (CFG, dict(cache_dtype=torch.int8))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatcher(params, cfg, 2, 2, **kw)
-    with pytest.raises(NotImplementedError, match="#26/#27"):
-        SpeculativeBatcher(params, CFG, params, CFG, 2, 2, greedy=False)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SpeculativeBatcher(params, cfg, params, cfg, 2, 2, **kw)
 
 
 def test_port_imports_no_jax():

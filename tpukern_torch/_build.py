@@ -84,6 +84,12 @@ SIGNATURES = {
     # x, w, targets, lse, g, dx (f32), dw (f32), N, D, V, log2, dtype,
     # stream
     "tk_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, thresholds (or None), noise (or None), mode, seed, inv_temp, B, V,
+    # n_split, part (or None), out, dtype, stream
+    "tk_sample": [_P, _P, _P, _I, _I64, _F, _I, _I, _I, _P, _P, _I, _P],
+    # x (f32), thresholds, B, V, mode (0 count, 1 mass), k, p, inv_temp,
+    # stream
+    "tk_sample_threshold": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
 }
 
 

@@ -132,4 +132,18 @@ int tk_ce_bwd(const void* x, const void* w, const int* targets,
                                    static_cast<cudaStream_t>(stream)));
 }
 
+int tk_sample(const void* x, const float* thr, const float* noise, int mode,
+              long long seed, float inv_temp, int B, int V, int n_split,
+              unsigned long long* part, int* out, int dtype, void* stream) {
+  return checked(tk::sample_launch(x, thr, noise, mode, seed, inv_temp, B, V,
+                                   n_split, part, out, dtype,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+int tk_sample_threshold(const float* x, float* thr, int B, int V, int mode,
+                        int kk, float pp, float inv_temp, void* stream) {
+  return checked(tk::sample_threshold_launch(
+      x, thr, B, V, mode, kk, pp, inv_temp, static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

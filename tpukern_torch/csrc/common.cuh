@@ -411,5 +411,12 @@ cudaError_t ce_bwd_launch(const void* x, const void* w, const int* targets,
                           const float* lse, const float* g, float* dx,
                           float* dw, int N, int D, int V, int log2, int dtype,
                           cudaStream_t stream);
+cudaError_t sample_launch(const void* x, const float* thr, const float* noise,
+                          int mode, long long seed, float inv_temp, int B,
+                          int V, int n_split, unsigned long long* part,
+                          int* out, int dtype, cudaStream_t stream);
+cudaError_t sample_threshold_launch(const float* x, float* thr, int B, int V,
+                                    int mode, int kk, float pp,
+                                    float inv_temp, cudaStream_t stream);
 
 }  // namespace tk

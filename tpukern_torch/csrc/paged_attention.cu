@@ -12,7 +12,8 @@
 //   1. scores: PA_TPR threads share a K row and, for every query head of
 //      the GQA group, dot it with q (shuffle-reduced across those threads),
 //   2. one warp per query head folds the tile into the running max and sum
-//      (natural exp in f32, as the TPU kernel does),
+//      (natural exp in f32, as the TPU kernel does) and keeps P rounded to
+//      the pools' dtype for step 3, as the TPU kernel's P V dot takes it,
 //   3. each thread owns one 16-byte column chunk of V and a strided subset
 //      of the tile's tokens, and accumulates p * V for every head of the
 //      group; the token subsets are summed once, at the end.
@@ -170,15 +171,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
     __syncthreads();
 
-    // 2. online softmax, one warp per query head
+    // 2. online softmax, one warp per query head. The sum l takes p in
+    //    f32; the P V pass takes p in the pools' dtype, as the TPU kernel
+    //    casts p to V's dtype before its P V dot (paged_attention.py:69-74)
     for (int gi = warp; gi < group; gi += PA_WARPS) {
       const float s0 = p_s[gi][lane], s1 = p_s[gi][lane + 32];
       const float m_old = m_s[gi];
       const float mn = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - mn), p1 = expf(s1 - mn);
       const float sum = warp_sum(p0 + p1);
-      p_s[gi][lane] = p0;
-      p_s[gi][lane + 32] = p1;
+      p_s[gi][lane] = to_f32(from_f32<T>(p0));
+      p_s[gi][lane + 32] = to_f32(from_f32<T>(p1));
       if (lane == 0) {
         const float alpha = expf(m_old - mn);
         alpha_s[gi] = alpha;

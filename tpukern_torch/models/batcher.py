@@ -1,12 +1,12 @@
 """Continuous batching: a slot scheduler over the paged serving path.
 
 The port of tpukern/models/batcher.py's ContinuousBatcher and
-SpeculativeBatcher with greedy decoding: B_max slots share one paged KV
-pool; requests are admitted into free slots mid-stream (a single-slot
-prefill writes the new sequence's pages while the other slots keep their
-state), every step decodes all slots in one batched paged-decode call,
-and finished sequences (EOS or token budget) free their slot at once.
-Prompts are padded to a bucket length, as in the JAX batcher.
+SpeculativeBatcher: B_max slots share one paged KV pool; requests are
+admitted into free slots mid-stream (a single-slot prefill writes the
+new sequence's pages while the other slots keep their state), every step
+decodes all slots in one batched paged-decode call, and finished
+sequences (EOS or token budget) free their slot at once. Prompts are
+padded to a bucket length, as in the JAX batcher.
 
 - chunked_prefill=C admits a prompt longer than C in C-token chunks
   through verify_step (the paged prefix-prefill kernel), so admission
@@ -14,16 +14,23 @@ Prompts are padded to a bucket length, as in the JAX batcher.
 - prefix_cache=True aliases the full pages of the longest prompt prefix
   a resident slot shares (share_prefix) and scores only the rest; a slot
   whose pages an active slot still aliases is not recycled.
+- greedy=False samples at `temperature`: through ops/sampling.py's
+  sample (#27's thresholds, then #26) when top_k, top_p or min_p is set,
+  else with torch.multinomial, as JAX's _sample dispatches. The seed of
+  each sampling call is drawn on the host from np.random.default_rng(
+  seed), where JAX draws a device scalar: reading one back would wait on
+  the device every step.
 - SpeculativeBatcher drafts gamma tokens per slot with a small model,
   scores each slot's gamma + 1 candidates in one batched verify_step and
-  keeps the longest prefix the target agrees with: the greedy streams
-  equal ContinuousBatcher's.
+  keeps the longest prefix the target agrees with (greedy: the streams
+  equal ContinuousBatcher's), or, with greedy=False, accepts by
+  rejection sampling on the host (models/speculative.py), so each slot's
+  stream is distributed as target-only sampling.
 
 The batchers run on the device of their params, and their caches follow
 them.
 
-Not ported: ring pools, int8 pools, sampled decoding (kernels #26/#27,
-and the sampled SpeculativeBatcher), and the tensor-parallel batchers
+Not ported: ring pools, int8 pools and the tensor-parallel batchers
 (ROADMAP.md queue 1 item 10).
 """
 
@@ -35,10 +42,11 @@ import torch
 from tpukern_torch.models.serving import (decode_step, init_cache, prefill,
                                           rollback, share_prefix,
                                           verify_step)
-from tpukern_torch.models.speculative import SpecStats
+from tpukern_torch.models.speculative import (SpecStats, _host_probs,
+                                              rejection_accept)
+from tpukern_torch.ops.sampling import sample
 
 _TODO = "ROADMAP.md queue 1 item 10 (serving chain)"
-_SAMPLING = "sampled decoding: ROADMAP.md kernels #26/#27 (ops/sampling.py)"
 
 
 def _bucket(n, buckets, cap=None):
@@ -74,11 +82,11 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg, n_slots, pages_per_seq, page_size=128,
                  eos_id=None, max_new_tokens=64, prompt_buckets=(64, 128),
-                 greedy=True, cache_dtype=torch.bfloat16,
+                 greedy=True, temperature=1.0, seed=0, top_k=0, top_p=1.0,
+                 min_p=0.0, cache_dtype=torch.bfloat16,
                  chunked_prefill=None, ring=False, prefix_cache=False):
-        if not greedy:
-            raise NotImplementedError(f"ContinuousBatcher(greedy=False): "
-                                      f"{_SAMPLING}")
+        if temperature <= 0:
+            raise ValueError(f"temperature must be > 0: {temperature}")
         if ring:
             raise NotImplementedError(f"ContinuousBatcher(ring=True): {_TODO}")
         if chunked_prefill is not None and chunked_prefill < 1:
@@ -91,6 +99,13 @@ class ContinuousBatcher:
         self.max_new = max_new_tokens
         self.buckets = tuple(sorted(prompt_buckets))
         self.device = params["embed"].device
+        self.greedy = greedy
+        self.temperature = temperature
+        # the support of sampled decoding; all off: torch.multinomial over
+        # the temperature-scaled distribution
+        self.top_k, self.top_p, self.min_p = top_k, top_p, min_p
+        self._seeds = np.random.default_rng(seed)
+        self._gen = torch.Generator(self.device).manual_seed(seed)
         self.cache = init_cache(cfg, n_slots, pages_per_seq, page_size,
                                 dtype=cache_dtype, device=self.device)
         self.page_size = page_size
@@ -211,6 +226,21 @@ class ContinuousBatcher:
         return slot
 
     def _sample(self, logits):
+        """(B,) int32 numpy tokens of logits (B, vocab): argmax, or a
+        draw at the temperature (JAX's _sample, batcher.py:328-342)."""
+        if self.greedy:
+            return self._argmax(logits)
+        if self.top_k or self.top_p < 1.0 or self.min_p > 0.0:
+            tok = sample(logits, int(self._seeds.integers(0, 2**31 - 1)),
+                         temperature=self.temperature, top_k=self.top_k,
+                         top_p=self.top_p, min_p=self.min_p)
+        else:
+            probs = torch.softmax(logits.float() / self.temperature, -1)
+            tok = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return tok.to(torch.int32).cpu().numpy()
+
+    @staticmethod
+    def _argmax(logits):
         return torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
 
     def _emit(self, slot, tokens):
@@ -263,34 +293,38 @@ class ContinuousBatcher:
 
 
 class SpeculativeBatcher(ContinuousBatcher):
-    """Continuous batching with batched greedy speculative decoding.
+    """Continuous batching with batched speculative decoding.
 
     Every step: all active slots draft gamma tokens with the small model
     (gamma batched draft decode steps), the target scores every slot's
     gamma + 1 candidates in one batched verify_step (the paged prefix-
-    prefill kernel), and each slot accepts its longest prefix of drafts
-    equal to the target's greedy choices, so a slot emits 1 to gamma + 1
-    tokens per target pass and the streams equal target-only greedy
-    decoding.
+    prefill kernel), and each slot accepts a prefix of its drafts, so a
+    slot emits 1 to gamma + 1 tokens per target pass. Greedy: the longest
+    prefix equal to the target's greedy choices, so the streams equal
+    target-only greedy decoding. greedy=False: the drafts are drawn from
+    the draft's distributions at `temperature` and accepted by rejection
+    sampling (models/speculative.py rejection_accept), all on the host
+    from np.random.default_rng(accept_seed), as in JAX; each slot's
+    emitted tokens are then distributed as target-only sampling.
 
     Cache discipline per round (both pools, per-slot lengths): n -> draft
     to n + gamma -> verify to n + gamma + 1 -> accept j -> both rolled back
     to n + j + 1 (full-accept slots first run one masked draft catch-up
     step for the last draft). `stats` counts the rounds (target passes)
-    and the drafted and accepted tokens. greedy=False (rejection
-    sampling) raises NotImplementedError."""
+    and the drafted and accepted tokens."""
 
     def __init__(self, params, cfg, draft_params, draft_cfg, n_slots,
-                 pages_per_seq, gamma=4, page_size=128, **kw):
-        if not kw.get("greedy", True):
-            raise NotImplementedError(f"SpeculativeBatcher(greedy=False): "
-                                      f"{_SAMPLING}")
+                 pages_per_seq, gamma=4, page_size=128, accept_seed=0,
+                 **kw):
         super().__init__(params, cfg, n_slots, pages_per_seq,
                          page_size=page_size, **kw)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.gamma = gamma
         self.stats = SpecStats()
+        # the host generator of the sampled drafts and acceptance draws
+        # (greedy rounds never touch it)
+        self._accept_rng = np.random.default_rng(accept_seed)
         # the draft's cache on the target's pool dtype
         self.dcache = init_cache(draft_cfg, n_slots, pages_per_seq,
                                  page_size, dtype=self.cache.k_pages.dtype,
@@ -320,15 +354,23 @@ class SpeculativeBatcher(ContinuousBatcher):
         act = torch.from_numpy(self.active).to(self.device)
         n_before = self.cache.lengths.cpu().numpy().astype(np.int64)
 
-        # 1. gamma batched draft decode steps
+        # 1. gamma batched draft decode steps (sampled: every slot draws
+        # from its draft distribution, which the acceptance needs again)
+        sampled = not self.greedy
         drafts = np.zeros((self.n_slots, g), np.int32)
+        q_all = [None] * g
         cur = self.last_tok.copy()
         for i in range(g):
             dl, self.dcache = decode_step(
                 self.draft_params, self.draft_cfg,
                 torch.from_numpy(cur).to(self.device), self.dcache,
                 active=act)
-            cur = self._sample(dl)
+            if sampled:
+                q_all[i] = _host_probs(dl, self.temperature)
+                cur = np.array([self._accept_rng.choice(q.shape[-1], p=q)
+                                for q in q_all[i]], np.int32)
+            else:
+                cur = self._argmax(dl)
             drafts[:, i] = cur
 
         # 2. one batched target verification of gamma + 1 candidates
@@ -336,7 +378,11 @@ class SpeculativeBatcher(ContinuousBatcher):
         vl, self.cache = verify_step(self.params, self.cfg,
                                      torch.from_numpy(cand).to(self.device),
                                      self.cache)
-        greedy = self._sample(vl)                        # (B, g + 1)
+        if sampled:
+            p_all = _host_probs(vl, self.temperature)    # (B, g + 1, V)
+            q_all = np.stack(q_all, axis=1)              # (B, g, V)
+        else:
+            greedy = self._argmax(vl)                    # (B, g + 1)
         self.stats.rounds += 1
 
         # 3. per-slot acceptance, emission, EOS and budget
@@ -344,9 +390,14 @@ class SpeculativeBatcher(ContinuousBatcher):
         full_accept = np.zeros(self.n_slots, bool)
         n_emitted = 0
         for slot in np.flatnonzero(self.active):
-            j = 0
-            while j < g and drafts[slot, j] == greedy[slot, j]:
-                j += 1
+            if sampled:
+                j, nxt = rejection_accept(drafts[slot], q_all[slot],
+                                          p_all[slot], self._accept_rng)
+            else:
+                j = 0
+                while j < g and drafts[slot, j] == greedy[slot, j]:
+                    j += 1
+                nxt = greedy[slot, j]
             full_accept[slot] = j == g
             self.stats.drafted += g
             self.stats.accepted += j
@@ -354,7 +405,7 @@ class SpeculativeBatcher(ContinuousBatcher):
                                         *drafts[slot, :j]])
             n_emitted += n
             if not done:
-                self.last_tok[slot] = greedy[slot, j]
+                self.last_tok[slot] = nxt
                 new_len[slot] = n_before[slot] + j + 1
 
         # 4. target rollback to the accepted lengths

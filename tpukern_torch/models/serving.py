@@ -29,6 +29,7 @@ queue 1 item 10).
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +39,7 @@ from tpukern_torch.ops.paged_attention import (paged_attention,
                                                paged_prefill_attention)
 from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
+from tpukern_torch.ops.sampling import sample
 
 _TODO = "ROADMAP.md queue 1 item 10 (serving chain)"
 
@@ -291,20 +293,40 @@ def rollback(cache: KVCache, new_lengths):
 
 
 def generate(params, cfg: Config, prompt, n_steps, pages_per_seq=8,
-             page_size=128, greedy=True, cache_dtype=torch.bfloat16):
-    """Prefill the prompt (B, T), then decode n_steps tokens greedily.
-    Returns (B, n_steps) token ids."""
-    if not greedy:
-        raise NotImplementedError("sampled decoding: ROADMAP.md kernels "
-                                  "#26/#27 (ops/sampling.py)")
+             page_size=128, greedy=True, seed=0, temperature=1.0, top_k=0,
+             top_p=1.0, min_p=0.0, cache_dtype=torch.bfloat16):
+    """Prefill the prompt (B, T), then decode n_steps tokens, greedily or
+    sampled. Returns (B, n_steps) int32 token ids; the first is the
+    prefill's argmax, as in JAX.
+
+    Sampled (greedy=False): with top_k, top_p or min_p set, or a
+    temperature other than 1, each step runs ops/sampling.py's sample
+    (#27's thresholds, then #26) with a seed drawn on the host from
+    np.random.default_rng(seed), so no step waits on the device;
+    otherwise torch.multinomial draws from softmax(logits) with a
+    torch.Generator on the prompt's device seeded with `seed`."""
     B = prompt.shape[0]
     cache = init_cache(cfg, B, pages_per_seq, page_size, dtype=cache_dtype,
                        device=prompt.device)
     logits, cache = prefill(params, cfg, prompt, cache)
+    restricted = top_k or top_p < 1.0 or min_p > 0.0 or temperature != 1.0
+    seeds = np.random.default_rng(seed)
+    generator = torch.Generator(prompt.device).manual_seed(seed)
+
+    def pick(logits):
+        if greedy:
+            return torch.argmax(logits, -1).to(torch.int32)
+        if restricted:
+            return sample(logits, int(seeds.integers(0, 2**31 - 1)),
+                          temperature=temperature, top_k=top_k, top_p=top_p,
+                          min_p=min_p)
+        return torch.multinomial(torch.softmax(logits, -1), 1,
+                                 generator=generator)[:, 0].to(torch.int32)
+
     tok = torch.argmax(logits, -1).to(torch.int32)
     outs = []
     for _ in range(n_steps):
         outs.append(tok)
         logits, cache = decode_step(params, cfg, tok, cache)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = pick(logits)
     return torch.stack(outs, dim=1)

@@ -162,7 +162,13 @@ paged_prefill_attention.launches = 0
 def paged_prefill_ref(q, k_pages, v_pages, lengths, page_table, *,
                       window=None, sinks=None, softcap=None):
     """Gather each sequence's pages, then masked f32 attention of its T
-    new tokens (the visible positions of paged_prefill_attention)."""
+    new tokens (the visible positions of paged_prefill_attention).
+
+    On bf16 pools the unnormalized weights exp(s - m) are rounded to bf16
+    before the P V product, as the kernels (and JAX's _pv_accumulate)
+    round P to V's dtype; the normalizer sums them in f32. Here m is the
+    row's final max, where the kernels round against a running max, so
+    the two agree to bf16 rounding, not bit for bit."""
     B, Hq, T, D = q.shape
     Hkv, _, page_size, _ = k_pages.shape
     group = Hq // Hkv
@@ -186,9 +192,13 @@ def paged_prefill_ref(q, k_pages, v_pages, lengths, page_table, *,
         keep &= band
     s = s.masked_fill(~keep[:, None, None], float("-inf"))
     empty = ~keep.any(dim=-1)[:, None, None, :, None]  # sees nothing -> 0
-    p = torch.softmax(s.masked_fill(empty, 0.0), dim=-1).masked_fill(empty,
-                                                                     0.0)
+    s = s.masked_fill(empty, 0.0)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(empty, 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    if v_pages.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
     o = torch.einsum("bhgtk,bhkd->bhgtd", p, v_seq.float())
+    o = o / torch.where(denom == 0, 1.0, denom)
     return o.reshape(B, Hq, T, D).to(q.dtype)
 
 
