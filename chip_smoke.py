@@ -13,8 +13,13 @@
    verification whose last length passes the pool, small f32/bf16 cases of
    every head dim, and the window, sinks and softcap of #24 and #23; #23's
    bf16 P against the plain version that rounds it and the one that
-   keeps it in f32; the sampling kernels #26 and #27 at the serving shape
-   (4, 32768) f32 and at a 128256-token vocabulary;
+   keeps it in f32; the quantize kernels #20 (round to nearest and
+   stochastic), #21 and #22 at the K/V write and q shapes, and every
+   quantized instance of #23 and #24 (int8 with and without q_int8 and
+   pv_int8, pv_int8 at two pages_per_block, fp8) at the serving shapes in
+   bf16 and f32, with the window, sinks and softcap; the sampling kernels
+   #26 and #27 at the serving shape (4, 32768) f32 and at a 128256-token
+   vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
    cross-entropy's forward and backward, and the featured attention:
@@ -37,16 +42,23 @@
    sampled generate), [spec-sample] the sampled SpeculativeBatcher and
    speculative_sample_generate with the agreeing draft, and
    [gemma2-serve] window 512, sinks 4 and softcap 50 over prompts longer
-   than the window. Each run resets the kernels' launch counts just
-   before and reads them just after;
-6. profiles one admission, a few decode steps (greedy and sampled), a
-   chunked admission and two speculative rounds (device time by kernel);
-7. checks one prefill's logits against the plain functions in f32, and
-   one verify_step's (plain and Gemma-2-style, bf16, full depth); then,
-   in f32 at the 7bish widths cut to 2 layers, requires equal greedy
-   streams: chunked against unchunked, the prefix cache on against off,
-   SpeculativeBatcher and speculative_generate against ContinuousBatcher,
-   and windowed serving against greedy decoding with the plain functions;
+   than the window; [int8-serve] and [fp8-serve] the serve requests on
+   the quantized KV tier (int8, int8 with Config.pv_int8, fp8; each twice
+   in turns with two bf16 runs), chunked, with the prefix cache, and
+   SpeculativeBatcher on int8 caches. Each run resets the kernels' launch
+   counts just before and reads them just after;
+6. profiles one admission, a few decode steps (greedy on bf16, int8 and
+   fp8 pools, and sampled), a chunked admission and two speculative
+   rounds (device time by kernel);
+7. checks one prefill's logits against the plain functions in f32, one
+   verify_step's (plain and Gemma-2-style, bf16, full depth) and one
+   decode step's on each quantized tier against the plain quantized
+   functions; then, in f32 at the 7bish widths cut to 2 layers, requires
+   equal greedy streams: chunked against unchunked, the prefix cache on
+   against off, SpeculativeBatcher and speculative_generate against
+   ContinuousBatcher, windowed serving against greedy decoding with the
+   plain functions, and on int8 pools chunk sizes, the prefix cache and
+   speculation each against a path of the same function;
 8. trains the 7bish preset in f32 at full depth: 5 Adam steps (lr
    TRAIN_LR) on one seeded batch (B=2, S=1024), launch counts reset just
    before and read just after, then profiles one more step by kernel
@@ -63,6 +75,7 @@ Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,7 +120,14 @@ TRAIN_LR = 3e-4
 # (f32 on CUDA cores, bf16 on tensor cores). A kernel's bound is the
 # larger of its bytes and its operations over these.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
+               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
+# the quantized paged kernels in f32: the kernels take a running max where
+# the plain versions take the final one, so with pv_int8 a p * v_scale
+# within an f32 rounding of a rounding boundary quantizes one step apart,
+# which moves an output by at most amax / (127 l): those tiers are held to
+# this (rtol, atol); the others to TOLS
+QUANT_PV_F32_TOL = (2e-3, 2e-3)
 
 
 def require(cond, msg):
@@ -170,12 +190,12 @@ def _randn(gen, *shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _compare(name, case, out, ref, scale=1.0, dtype=None):
+def _compare(name, case, out, ref, scale=1.0, dtype=None, tol=None):
     """max |out - ref| <= atol * scale + rtol * |ref| elementwise, at the
-    tolerance of `dtype` (default: out's); scale (the largest |ref|) holds
-    gradients of small magnitude to the tolerance relative to their own
-    size."""
-    rtol, atol = TOLS[dtype or out.dtype]
+    tolerance `tol` (rtol, atol), default that of `dtype` (default: out's);
+    scale (the largest |ref|) holds gradients of small magnitude to the
+    tolerance relative to their own size."""
+    rtol, atol = tol or TOLS[dtype or out.dtype]
     d = (out.float() - ref.float()).abs()
     bound = atol * scale + rtol * ref.float().abs()
     ok = bool(torch.isfinite(out.float()).all() and (d <= bound).all())
@@ -238,8 +258,12 @@ class _Checks:
 
 
 def _bound(flops, nbytes, dtype):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    t_ops = flops / PEAK_FLOP_S[dtype]
+    """(ms, "bytes" or "operations"): the least time the card could take.
+    flops is a count at dtype's rate, or {dtype: count} for work of
+    several types."""
+    if not isinstance(flops, dict):
+        flops = {dtype: flops}
+    t_ops = sum(n / PEAK_FLOP_S[dt] for dt, n in flops.items())
     t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -423,6 +447,7 @@ def phase_kernels(cfg):
               f"{(lib.float() - ref.float()).abs().max().item():.3e} "
               f"against the plain version")
     _paged_bf16_p(serve_case)
+    _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case)
     _sampling_kernels(checks, timed, gen)
 
     _time_kernels(timed, checks.results)
@@ -449,6 +474,184 @@ def _paged_bf16_p(args):
           f"{errs[0][0]:.3e} against the plain version that rounds P "
           f"({errs[0][1]} of {out.numel()} outputs differ), {errs[1][0]:.3e} "
           f"against P in f32 ({errs[1][1]} differ)")
+
+
+# the quantized instances of #23/#24: tier -> (pool dtype, q_int8, pv_int8,
+# pages_per_block); pv_int8 quantizes p per block of page * pages_per_block
+# tokens, so it runs at two
+QUANT_KERNEL_TIERS = {
+    "int8": ("int8", False, False, 8),
+    "int8 q_int8": ("int8", True, False, 8),
+    "int8 pv_int8 ppb1": ("int8", False, True, 1),
+    "int8 q_int8 pv_int8 ppb1": ("int8", True, True, 1),
+    "int8 q_int8 pv_int8 ppb8": ("int8", True, True, 8),
+    "fp8": ("fp8", False, False, 8)}
+# the tiers as served (int8 pools always take q_int8): timed
+QUANT_SERVED = ("int8 q_int8", "int8 q_int8 pv_int8 ppb8", "fp8")
+_QUANT_LABEL = {True: "#23 quantized", False: "#24 quantized"}
+
+
+def _quant_case(args, tier):
+    """(q, pools, scales, lengths, table) of a float paged case with its
+    pools quantized to the tier's dtype (quantize_pages), and the tier's
+    keyword arguments."""
+    from tpukern_torch.ops import paged_attention
+
+    q, kp, vp, lengths, table = args
+    dtype, q_int8, pv_int8, ppb = QUANT_KERNEL_TIERS[tier]
+    kq, ks = paged_attention.quantize_pages(kp.float(), dtype)
+    vq, vs = paged_attention.quantize_pages(vp.float(), dtype)
+    return ((q, kq, ks, vq, vs, lengths, table),
+            dict(pages_per_block=ppb, q_int8=q_int8, pv_int8=pv_int8))
+
+
+def _quant_work(args, kw):
+    """(flops by dtype, bytes) of a quantized paged call: the score and the
+    P V products, 2 D each a visible (query head, position) pair, at int8's
+    rate under q_int8 / pv_int8, else at q's type's; q, o, the 1-byte K and
+    V rows and their f32 scales at the positions some token sees, the
+    lengths and the table, each once."""
+    q, kq, ks, vq, vs, lengths, table = args
+    T = 1 if q.dim() == 3 else q.shape[2]
+    Hkv, _, page, D = kq.shape
+    keep = _visible(lengths, T, table.shape[1] * page)
+    half = 2 * D * q.shape[1] * int(keep.sum())
+    flops = {}
+    for on in (kw["q_int8"], kw["pv_int8"]):
+        dt = torch.int8 if on else q.dtype
+        flops[dt] = flops.get(dt, 0) + half
+    live = int(keep.any(dim=1).sum())
+    return flops, (2 * _nbytes(q) + 2 * live * Hkv * (D + 4)
+                   + _nbytes(lengths, table))
+
+
+def _quant_library(args):
+    """_paged_library on pools dequantized to q's type outside the timed
+    call."""
+    q, kq, ks, vq, vs, lengths, table = args
+    kd, vd = ((p.float() * s[..., None]).to(q.dtype)
+              for p, s in ((kq, ks), (vq, vs)))
+    return _paged_library(q, kd, vd, lengths, table)
+
+
+def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
+    """#20 (round to nearest), #21 and #22 against their plain versions at
+    the K/V write shapes (32 rows a decode step, 4096 a 512-token
+    prefill), q's shape (64 rows) and an odd width: values equal (int8
+    exactly, fp8 bit for bit), scales within 1 f32 ulp; #20's stochastic
+    mode by tests/test_quant.py's midpoint test. Then every quantized
+    instance of #23 and #24 against its plain version at the serving
+    shapes (decode, gamma = 4 verification, a 256-token chunk) with q in
+    bf16 and in f32, and with the window, sinks and softcap; the served
+    tiers timed beside SDPA on dequantized gathered copies."""
+    from functools import partial
+
+    from tpukern_torch.ops import paged_attention as pa
+    from tpukern_torch.ops import quant
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for rows, K in ((32, 128), (64, 128), (4096, 128), (33, 100)):
+        for dt in (bf, f32):
+            x = 3 * _randn(gen, rows, K, dtype=f32)
+            x[0] = 0
+            x = x.to(dt)
+            for name, fn, ref in (
+                    ("quantize_int8", quant.quantize_int8, quant.quantize_ref),
+                    ("quantize_fp8", quant.quantize_fp8,
+                     quant.quantize_fp8_ref)):
+                (v, s), (rv, rs) = fn(x), ref(x)
+                n = int((v.view(torch.uint8) != rv.view(torch.uint8)).sum())
+                ulps = int((s.view(torch.int32) - rs.view(torch.int32))
+                           .abs().max())
+                err = max((v.float() - rv.float()).abs().max().item(),
+                          (s - rs).abs().max().item())
+                ok = n == 0 and ulps <= 1
+                print(f"[check] {name:16s} {f'({rows}, {K}) {dt}':44s} "
+                      f"{n} values differ, scales within {ulps} ulp "
+                      f"{'ok' if ok else 'MISS'}")
+                checks.record(name, ok, err)
+            v, s = quant.quantize_int8(x)
+            for out in (bf, f32):
+                checks.record("dequantize_int8", *_compare(
+                    "dequantize_int8", f"({rows}, {K}) -> {out}",
+                    quant.dequantize_int8(v, s, out),
+                    quant.dequantize_ref(v, s, out), tol=(0.0, 0.0)))
+    # stochastic rounding: 0.505 at scale 0.01 is 50.5, drawn to 50 or 51
+    x = torch.full((64, 128), 0.505, device=serve_case[0].device)
+    x[:, 0] = 1.27
+    draws = torch.stack([quant.quantize_int8(x, seed=s, stochastic=True)[0]
+                         for s in range(16)])[:, :, 1:].float()
+    again = quant.quantize_int8(x, seed=3, stochastic=True)[0][:, 1:]
+    ok = (set(draws.unique().tolist()) <= {50.0, 51.0}
+          and abs(draws.mean().item() - 50.5) < 0.02
+          and torch.equal(again.float(), draws[3])
+          and not torch.equal(draws[3], draws[4]))
+    print(f"[check] quantize_int8    {'stochastic, 0.505 at scale 0.01':44s} "
+          f"values {sorted(set(draws.unique().tolist()))}, mean "
+          f"{draws.mean().item():.4f} (50.5), a seed repeats, seeds differ "
+          f"{'ok' if ok else 'MISS'}")
+    checks.record("quantize_int8", ok, 0.0)
+    for name, rows, fn, ref, nout in (
+            ("quantize_int8", 32, quant.quantize_int8, quant.quantize_ref, 1),
+            ("quantize_int8", 4096, quant.quantize_int8, quant.quantize_ref,
+             1),
+            ("quantize_fp8", 32, quant.quantize_fp8, quant.quantize_fp8_ref,
+             1),
+            ("quantize_fp8", 4096, quant.quantize_fp8, quant.quantize_fp8_ref,
+             1),
+            ("dequantize_int8", 4096, None, None, 2)):
+        x = _randn(gen, rows, 128, dtype=bf)
+        if fn is None:
+            v, s = quant.quantize_int8(x)
+            fn, ref = (partial(quant.dequantize_int8, v, s, bf),
+                       partial(quant.dequantize_ref, v, s, bf))
+            nbytes = _nbytes(v, s) + rows * 128 * nout
+        else:
+            fn, ref = partial(fn, x), partial(ref, x)
+            nbytes = _nbytes(x) + rows * 128 * nout + 4 * rows
+        # operations: |x|, the max, the division and the rounding a value
+        timed[f"{name} ({rows}, 128)"] = _timed_entry(
+            name, [rows, 128], fn, ref, None, 4 * rows * 128, nbytes, f32)
+
+    cases = {"decode": serve_case, "verify": verify_case, "chunk": chunk_case}
+    for tier in QUANT_KERNEL_TIERS:
+        for case, base in cases.items():
+            args, kw = _quant_case(base, tier)
+            fn, ref = ((pa.paged_attention_quantized,
+                        pa.paged_attention_quantized_ref) if case == "decode"
+                       else (pa.paged_prefill_attention_quantized,
+                             pa.paged_prefill_quantized_ref))
+            name = fn.__name__
+            for dt in (bf, f32) if case != "chunk" else (bf,):
+                a = (args[0].to(dt), *args[1:])
+                tol = QUANT_PV_F32_TOL if dt == f32 and kw["pv_int8"] else None
+                checks.record(name, *_compare(
+                    _QUANT_LABEL[case == "decode"], f"{tier} {case} {dt}",
+                    fn(*a, **kw), ref(*a, **kw), tol=tol))
+            if tier in QUANT_SERVED:
+                timed[f"{_QUANT_LABEL[case == 'decode']} {tier} {case}"] = (
+                    _timed_entry(
+                    name, list(args[0].shape), partial(fn, *args, **kw),
+                        partial(ref, *args, **kw), _quant_library(args),
+                        *_quant_work(args, kw), bf))
+    for tier, feat, dt in (
+            ("int8 q_int8 pv_int8 ppb8", GEMMA2, bf),
+            ("fp8", GEMMA2, bf),
+            ("int8 q_int8 pv_int8 ppb1", dict(window=40, sinks=5,
+                                              softcap=2.0), f32),
+            ("int8 q_int8", dict(window=40, sinks=5), f32)):
+        tag = " ".join(f"{k} {v:g}" for k, v in feat.items())
+        for case in ("decode", "verify"):
+            args, kw = _quant_case(cases[case], tier)
+            a = (args[0].to(dt), *args[1:])
+            fn, ref = ((pa.paged_attention_quantized,
+                        pa.paged_attention_quantized_ref) if case == "decode"
+                       else (pa.paged_prefill_attention_quantized,
+                             pa.paged_prefill_quantized_ref))
+            tol = QUANT_PV_F32_TOL if dt == f32 and kw["pv_int8"] else None
+            checks.record(fn.__name__, *_compare(
+                _QUANT_LABEL[case == "decode"], f"{tier} {tag} {case} {dt}",
+                fn(*a, **kw, **feat), ref(*a, **kw, **feat), tol=tol))
 
 
 # the sampling kernels' shapes: the 7bish serving batch and vocabulary,
@@ -1510,6 +1713,257 @@ def phase_gemma2(cfg, params, ops):
     return featured
 
 
+# [int8-serve] / [fp8-serve]: the quantized tiers (cache dtype,
+# Config.pv_int8); the whole-prompt runs go in turns with two bf16 runs
+QUANT_SERVE = {"int8": (torch.int8, False),
+               "int8 pv_int8": (torch.int8, True),
+               "fp8": (torch.float8_e4m3fn, False)}
+
+
+def _quant_ops():
+    from tpukern_torch.ops import attention, paged_attention, quant, rmsnorm
+    from tpukern_torch.ops import rope
+
+    return [rmsnorm.rms_norm, rope.rope_cached, attention.flash_attention,
+            paged_attention.paged_attention,
+            paged_attention.paged_prefill_attention,
+            paged_attention.paged_attention_quantized,
+            paged_attention.paged_prefill_attention_quantized,
+            quant.quantize_int8, quant.quantize_fp8, quant.dequantize_int8]
+
+
+def _tier_counts(reset=False):
+    """The quantized #23's and #24's launches by tier ("#23 int8", "#23
+    pv_int8", "#23 fp8", "#24 ..."); with reset, set to 0."""
+    from tpukern_torch.ops import paged_attention as pa
+
+    fns = {"#23": pa.paged_attention_quantized,
+           "#24": pa.paged_prefill_attention_quantized}
+    tiers = ("int8", "pv_int8", "fp8")
+    if reset:
+        for fn in fns.values():
+            for t in tiers:
+                setattr(fn, f"{t}_launches", 0)
+    return {f"{k} {t}": getattr(fn, f"{t}_launches")
+            for k, fn in fns.items() for t in tiers}
+
+
+def _agreement(streams, ref):
+    """Per request, how many leading tokens of streams equal ref's."""
+    out = []
+    for rid in sorted(ref):
+        a, b = streams[rid], ref[rid]
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        out.append(n)
+    return out
+
+
+def _pool_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in (
+        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales)
+        if t is not None)
+
+
+def _drive_quant(cb, requests, tag, need):
+    """_drive with the quantized tier's counts: the float paged kernels
+    must not launch, every count named in `need` must. Returns the run
+    with its tier counts under run["tiers"]."""
+    _tier_counts(reset=True)
+    run = _drive(cb, requests, _quant_ops())
+    run["tiers"] = _tier_counts()
+    counts = {**run["launches"], **run["tiers"]}
+    require(counts["paged_attention"] == 0
+            and counts["paged_prefill_attention"] == 0
+            and all(counts[n] > 0 for n in need),
+            f"{tag}: the float paged kernels launched, or one of {need} did "
+            f"not: {counts}")
+    return run
+
+
+def _add_counts(total, run):
+    for k, v in {**run["launches"], **run["tiers"]}.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_quant_serve(cfg, params, requests):
+    """[int8-serve] and [fp8-serve]: phase_serve's requests through
+    ContinuousBatcher on each quantized tier (int8, int8 with
+    Config.pv_int8, fp8), whole-prompt admission, each tier twice in turns
+    with two bf16 runs (equal streams, first tokens equal the bf16
+    tier's: the prefill attends over unquantized K/V); then int8 and fp8
+    with chunked_prefill=256, int8 with the prefix cache, and
+    SpeculativeBatcher (the agreeing draft) on int8 caches. Each run
+    resets the launch counts just before and reads them just after: the
+    quantized instances and #20/#22 launch, the float paged kernels
+    never. Returns the launches summed over these runs."""
+    from tpukern_torch.models.batcher import (ContinuousBatcher,
+                                              SpeculativeBatcher)
+
+    total = {}
+
+    def batcher(tier, **kw):
+        if tier == "bf16":
+            return ContinuousBatcher(params, cfg, **kw, **SERVE_KW)
+        dt, pv = QUANT_SERVE[tier]
+        return ContinuousBatcher(params, dataclasses.replace(cfg, pv_int8=pv),
+                                 cache_dtype=dt, **kw, **SERVE_KW)
+
+    def need(tier, prefix=False):
+        dt, pv = QUANT_SERVE[tier]
+        t = "fp8" if dt != torch.int8 else "pv_int8" if pv else "int8"
+        q = "quantize_int8" if dt == torch.int8 else "quantize_fp8"
+        return [q, f"#23 {t}"] + ([f"#24 {t}"] if prefix else [])
+
+    for tier in QUANT_SERVE:  # warm-up outside the counted runs
+        warm = ContinuousBatcher(
+            params, dataclasses.replace(cfg, pv_int8=QUANT_SERVE[tier][1]),
+            cache_dtype=QUANT_SERVE[tier][0], chunked_prefill=256,
+            **dict(SERVE_KW, max_new_tokens=2))
+        warm.run([(f"w{b}", np.ones(b - 10, np.int32)) for b in (128, 512)])
+    del warm
+    torch.cuda.synchronize()
+    runs, pools = {}, {}
+    order = ["bf16", *QUANT_SERVE, *list(QUANT_SERVE)[::-1], "bf16"]
+    for tier in order:
+        cb = batcher(tier)
+        pools[tier] = _pool_bytes(cb.cache)
+        if tier == "bf16":
+            run = _drive(cb, requests)
+        else:
+            run = _drive_quant(cb, requests, f"{tier}-serve", need(tier))
+            _add_counts(total, run)
+        _require_finished(cb, requests, 32, cfg, f"{tier}-serve")
+        runs.setdefault(tier, []).append(run)
+    bf16 = runs["bf16"][0]["finished"]
+    require(runs["bf16"][1]["finished"] == bf16, "two bf16 runs differ")
+    for tier in QUANT_SERVE:
+        tag = f"[{tier.split()[0]}-serve]"
+        a, b = (r["finished"] for r in runs[tier])
+        firsts = [a[rid][0] == bf16[rid][0] for rid in sorted(bf16)]
+        step = [float(np.median(r["step_ms"])) for r in runs[tier]]
+        per_tok = [_ms_per_token(r) for r in runs[tier]]
+        print(f"{tag} {tier}: decode median {step[0]:.3f} / {step[1]:.3f} "
+              f"ms/step, {per_tok[0]:.3f} / {per_tok[1]:.3f} ms per emitted "
+              f"token (runs 1 / 2); bf16 in the same turns "
+              f"{_ms_per_token(runs['bf16'][0]):.3f} / "
+              f"{_ms_per_token(runs['bf16'][1]):.3f}; KV pool "
+              f"{pools[tier]} bytes against bf16's {pools['bf16']} "
+              f"({pools[tier] / pools['bf16']:.4f}x)")
+        print(f"{tag} {tier}: leading tokens equal to the bf16 stream "
+              f"{_agreement(a, bf16)} of 32; first tokens equal "
+              f"{sum(firsts)}/{len(firsts)}; two runs equal {a == b}; "
+              f"launches {runs[tier][0]['launches']}, by tier "
+              f"{runs[tier][0]['tiers']}")
+        require(a == b and all(firsts),
+                f"{tier}-serve: runs differ or a first token is not the "
+                f"bf16 tier's: {a} {b}")
+
+    # chunked admission (#24 quantized), the prefix cache, speculation
+    for tier in ("int8", "fp8"):
+        cb = batcher(tier, chunked_prefill=256)
+        run = _drive_quant(cb, requests, f"{tier} chunked",
+                           need(tier, prefix=True))
+        _add_counts(total, run)
+        _require_finished(cb, requests, 32, cfg, f"{tier} chunked")
+        print(f"[{tier}-serve] chunked_prefill=256: admission ms "
+              f"{[round(run['admit_ms'][r], 3) for r, _ in requests]}; "
+              f"decode {_ms_per_token(run):.3f} ms per emitted token; "
+              f"leading tokens equal to the bf16 stream "
+              f"{_agreement(run['finished'], bf16)}; by tier {run['tiers']}")
+    shared = _prefix_requests(cfg)
+    cb = batcher("int8", prefix_cache=True)
+    run = _drive_quant(cb, shared, "int8 prefix cache",
+                       need("int8", prefix=True))
+    _add_counts(total, run)
+    _require_finished(cb, shared, 32, cfg, "int8 prefix cache")
+    t = cb.cache.page_table.cpu()
+    require(all(bool((t[j, :4] == t[0, :4]).all()) for j in range(1, 4)),
+            f"int8 prefix cache: the hits did not alias the shared pages {t}")
+    print(f"[int8-serve] prefix_cache: admission ms "
+          f"{[round(run['admit_ms'][r], 3) for r, _ in shared]} (request 0 "
+          f"a miss, 1-3 hits on 512 shared tokens); by tier {run['tiers']}")
+
+    agree, draft, dcfg = _agreeing(params, cfg)
+    spec_req = requests[:4]
+    base = _drive(ContinuousBatcher(agree, cfg, cache_dtype=torch.int8,
+                                    **SERVE_KW), spec_req)
+    sb = SpeculativeBatcher(agree, cfg, draft, dcfg, gamma=GAMMA,
+                            cache_dtype=torch.int8, **SERVE_KW)
+    require(sb.dcache.quantized and sb.dcache.k_pages.dtype == torch.int8,
+            "the draft cache is not in the target's tier")
+    run = _drive_quant(sb, spec_req, "int8 spec", need("int8", prefix=True))
+    _add_counts(total, run)
+    _require_finished(sb, spec_req, 32, cfg, "int8 spec")
+    st = sb.stats
+    print(f"[int8-serve] SpeculativeBatcher (gamma {GAMMA}, agreeing 2-layer "
+          f"draft): acceptance {st.acceptance_rate:.4f} "
+          f"({st.accepted}/{st.drafted}), {st.rounds} target passes, "
+          f"{_ms_per_token(run):.3f} ms per emitted token against "
+          f"ContinuousBatcher's {_ms_per_token(base):.3f} (int8, agreeing "
+          f"target); by tier {run['tiers']}")
+    require(st.acceptance_rate >= 0.5, f"int8 spec accepted only {st}")
+    print(f"[quant-serve] launches over these runs {total}")
+    return total
+
+
+@contextlib.contextmanager
+def _plain_serving():
+    """models/serving.py with every kernel it calls swapped for its plain
+    version (norms, RoPE, the quantized paged kernels, the quantizers)."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.ops import paged_attention as pa
+    from tpukern_torch.ops import quant, rmsnorm, rope
+
+    swap = dict(rms_norm=rmsnorm.rms_norm_ref,
+                rope_cached=rope.rope_cached_ref,
+                paged_attention_quantized=pa.paged_attention_quantized_ref,
+                paged_prefill_attention_quantized=(
+                    pa.paged_prefill_quantized_ref),
+                quantize_int8=quant.quantize_ref,
+                quantize_fp8=quant.quantize_fp8_ref)
+    saved = {k: getattr(serving, k) for k in swap}
+    for k, v in swap.items():
+        setattr(serving, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(serving, k, v)
+
+
+def phase_quant_logits(cfg, params, prompt):
+    """One decode step on each quantized tier after a prefill of prompt,
+    through the kernels and through the plain functions (_plain_serving)
+    on copies of the same cache, at full depth: bf16 as served (rel RMS
+    <= E2E_BF16_REL) and f32 (max abs <= E2E_F32_ATOL), each with
+    _logits_verdict's argmax rule."""
+    from tpukern_torch.models import params_to, serving
+
+    dev = params["embed"].device
+    tokens = torch.from_numpy(prompt[None]).to(dev)
+    p32 = params_to(params, torch.float32)
+    ok = True
+    for name, p, f32 in (("bf16", params, False), ("f32", p32, True)):
+        for tier, (dt, pv) in QUANT_SERVE.items():
+            c = dataclasses.replace(cfg, pv_int8=pv, param_dtype=(
+                torch.float32 if f32 else cfg.param_dtype))
+            cache = serving.init_cache(c, 1, 8, 128, dtype=dt, device=dev)
+            logits, cache = serving.prefill(p, c, tokens, cache)
+            tok = logits.argmax(-1).to(torch.int32)
+            copy = dataclasses.replace(cache, **{
+                k: getattr(cache, k).clone() for k in (
+                    "k_pages", "v_pages", "k_scales", "v_scales", "lengths")})
+            out, _ = serving.decode_step(p, c, tok, cache)
+            with _plain_serving():
+                ref, _ = serving.decode_step(p, c, tok, copy)
+            ok &= _logits_verdict(out[0], ref[0], f32,
+                                  f"{tier} decode step, {name} weights, "
+                                  f"kernels vs plain quantized functions")
+    del p32
+    return ok
+
+
 _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                                   "ce_bwd_")),
                ("rms_norm", "rms_norm_kernel"),
@@ -1517,6 +1971,8 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                ("fa_fwd", "fa_fwd_"),
                ("fa_bwd", ("fa_bwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
+               ("paged_quant", "paged_quant_kernel"),
+               ("quantize", "quantize_kernel"),
                ("paged_prefill", "paged_prefill_"),
                ("sampling", ("sample_kernel", "sample_combine_kernel",
                              "threshold_kernel")),
@@ -1564,8 +2020,9 @@ def _profile(label, fn, n):
 
 def phase_profile(cfg, params, requests):
     """Where the device time goes: one 512-bucket admission and 8 decode
-    steps of 4 active slots, greedy and sampled (SAMPLE_T with top_p 0.9,
-    and with top_k 50), one chunked admission (chunked_prefill=256) and 2
+    steps of 4 active slots, greedy on bf16, int8 and fp8 pools and
+    sampled (SAMPLE_T with top_p 0.9, and with top_k 50), one chunked
+    admission (chunked_prefill=256) and 2
     speculative rounds (gamma 4, the 2-layer draft) of 4 slots, each under
     torch.profiler."""
     from tpukern_torch.models.batcher import (ContinuousBatcher,
@@ -1579,6 +2036,14 @@ def phase_profile(cfg, params, requests):
     _profile(f"prefill (T={len(prompt)}, bucket 512)",
              lambda: cb.add_request(rid, prompt), 1)
     _profile("decode step (4 slots)", cb.step, 8)
+    for tier in ("int8", "fp8"):
+        cq = ContinuousBatcher(params, cfg, cache_dtype=QUANT_SERVE[tier][0],
+                               **SERVE_KW)
+        for r, p in requests[:4]:
+            cq.add_request(r, p)
+        cq.step()
+        _profile(f"{tier} decode step (4 slots)", cq.step, 8)
+    del cq
     for tag, kw in (("top_p 0.9", dict(top_p=0.9)),
                     ("top_k 50", dict(top_k=50))):
         cb = ContinuousBatcher(params, cfg, greedy=False,
@@ -1721,8 +2186,8 @@ def phase_exact(cfg, requests):
     unchunked admission, the prefix cache on against off, SpeculativeBatcher
     (a 1-layer draft, and the target as its own draft, which must accept
     every proposal) and speculative_generate against ContinuousBatcher,
-    and windowed serving (GEMMA2, unchunked and chunked) against greedy
-    decoding with the plain functions."""
+    windowed serving (GEMMA2, unchunked and chunked) against greedy
+    decoding with the plain functions, and the int8 tier's paths."""
     from tpukern_torch.models import (ContinuousBatcher, SpeculativeBatcher,
                                       init_params, speculative_generate)
 
@@ -1775,6 +2240,33 @@ def phase_exact(cfg, requests):
         same(f"{GEMMA2} chunked_prefill={chunk} vs plain greedy",
              ContinuousBatcher(params, gcfg, chunked_prefill=chunk,
                                **kw).run(shared), ref)
+
+    # int8 pools, each comparison between paths of one function: a whole
+    # prompt's prefill attends over the unquantized K/V (as JAX's does), a
+    # chunk or a prefix hit over the quantized pool. So chunked admission
+    # is held against other chunk sizes (over the prompts longer than
+    # both), the prefix cache against chunked admission without it (the
+    # 512 shared tokens are two chunks of 256 on both sides), speculation
+    # against whole-prompt decoding; chunked against whole admission is
+    # printed, not required
+    k8 = dict(kw, cache_dtype=torch.int8)
+    long = [(r, p) for r, p in requests if len(p) > 256]
+    c256 = ContinuousBatcher(params, c2, chunked_prefill=256, **k8).run(long)
+    same("int8 chunked_prefill=256 vs 128", c256, ContinuousBatcher(
+        params, c2, chunked_prefill=128, **k8).run(long))
+    same("int8 prefix_cache on vs off, chunked_prefill=256",
+         ContinuousBatcher(params, c2, prefix_cache=True, chunked_prefill=256,
+                           **k8).run(shared),
+         ContinuousBatcher(params, c2, chunked_prefill=256, **k8).run(shared))
+    base8 = ContinuousBatcher(params, c2, **k8).run(requests)
+    same("int8 SpeculativeBatcher (1-layer draft) vs ContinuousBatcher",
+         SpeculativeBatcher(params, c2, draft, dcfg, gamma=GAMMA,
+                            **k8).run(requests), base8)
+    print(f"[exact] int8 chunked_prefill=256 against whole admission (not "
+          f"one function): leading tokens equal "
+          f"{_agreement(c256, {r: base8[r] for r, _ in long})} of {n_new}; "
+          f"int8 against f32 pools: "
+          f"{_agreement(base8, base)} of {n_new}")
     return ok
 
 
@@ -1994,8 +2486,10 @@ def main():
     sample_launches = phase_sample(cfg, params, requests)
     prefix_launches += phase_spec_sample(cfg, params, requests, serve_ops)
     phase_gemma2(cfg, params, serve_ops)
+    quant_launches = phase_quant_serve(cfg, params, requests)
     phase_profile(cfg, params, requests)
-    if not phase_logits(cfg, params, requests[0][1]):
+    if not (phase_logits(cfg, params, requests[0][1])
+            and phase_quant_logits(cfg, params, requests[0][1])):
         print("chip_smoke: end-to-end logits disagree", file=sys.stderr)
         return 1
     del params
@@ -2035,9 +2529,15 @@ def main():
         else:
             timing[name] = r
     # serving counts for its four, the chunked, prefix and speculative
-    # runs for #24, the sampled runs for #26 and #27, the fused phase for
-    # the CE kernels, the featured phase for the two-kernel backward
+    # runs for #24, the sampled runs for #26 and #27, the quantized tier's
+    # runs for #20-#22 and the quantized #23/#24 (#21 is on no serving
+    # path: its count there is 0), the fused phase for the CE kernels, the
+    # featured phase for the two-kernel backward
     launches = {**train_launches, **launches,
+                **{n: quant_launches[n] for n in (
+                    "quantize_int8", "quantize_fp8", "dequantize_int8",
+                    "paged_attention_quantized",
+                    "paged_prefill_attention_quantized")},
                 "paged_prefill_attention": prefix_launches,
                 "sample": sample_launches["sample"],
                 "sample_threshold": (sample_launches["count"]
@@ -2075,7 +2575,19 @@ def main():
            "sample": ("tpukern_torch/csrc/sampling.cu",
                       "tpukern/ops/sampling.py:45"),
            "sample_threshold": ("tpukern_torch/csrc/sampling.cu",
-                                "tpukern/ops/sampling.py:182")}
+                                "tpukern/ops/sampling.py:182"),
+           "quantize_int8": ("tpukern_torch/csrc/quant.cu",
+                             "tpukern/ops/quant.py:36"),
+           "dequantize_int8": ("tpukern_torch/csrc/quant.cu",
+                               "tpukern/ops/quant.py:89"),
+           "quantize_fp8": ("tpukern_torch/csrc/quant.cu",
+                            "tpukern/ops/quant.py:128"),
+           "paged_attention_quantized": (
+               "tpukern_torch/csrc/paged_quant.cu",
+               "tpukern/ops/paged_attention.py:77"),
+           "paged_prefill_attention_quantized": (
+               "tpukern_torch/csrc/paged_quant.cu",
+               "tpukern/ops/paged_attention.py:513")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -2102,10 +2614,17 @@ def main():
         "flash_attention_dkv": "as flash_attention_dq",
         "sample": "torch.argmax (greedy mode, one call)",
         "sample_threshold": "torch.topk(x, 50) (count mode, one call); the "
-                            "mass mode has none (sort, softmax and cumsum)"}
-    # #27's launches by mode
+                            "mass mode has none (sort, softmax and cumsum)",
+        "paged_attention_quantized": "as paged_attention, on pools "
+                                     "dequantized outside the timed call",
+        "paged_prefill_attention_quantized": "as paged_attention_quantized"}
+    # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
-                                  "mass_launches": sample_launches["mass"]}}
+                                  "mass_launches": sample_launches["mass"]},
+             **{n: {f"{t}_launches": quant_launches[f"{k} {t}"]
+                    for t in ("int8", "pv_int8", "fp8")}
+                for k, n in (("#23", "paged_attention_quantized"),
+                             ("#24", "paged_prefill_attention_quantized"))}}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],

@@ -774,3 +774,164 @@ def test_paged_attention_bf16_rounds_p(cuda):
         *(t.float() for t in args[:3]), *args[3:]).to(torch.bfloat16).float()
     check_all_close(out, ref, dtype=torch.bfloat16)
     assert (out != ref).sum() < (out != f32_p).sum()
+
+
+# ------------------------------------- the quantized tier (#20-#22, #23/#24)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,K", [(32, 128), (4096, 128), (33, 100), (5, 24)])
+def test_quantize_kernels_equal_plain(cuda, S, K, dt):
+    """#20 (round to nearest) and #22 bit for bit against quantize_ref and
+    quantize_fp8_ref (true divisions, round half to even), #21 against
+    dequantize_ref; rows of zeros and odd widths (element loads)."""
+    from tpukern_torch.ops import quant
+
+    g = torch.Generator(device=cuda).manual_seed(S + K)
+    x = (3 * torch.randn((S, K), generator=g, device=cuda)).to(DTYPES[dt])
+    x[0] = 0
+    counts = (quant.quantize_int8.launches, quant.quantize_fp8.launches,
+              quant.dequantize_int8.launches)
+    for fn, ref in ((quant.quantize_int8, quant.quantize_ref),
+                    (quant.quantize_fp8, quant.quantize_fp8_ref)):
+        (v, s), (rv, rs) = fn(x), ref(x)
+        assert v.dtype == rv.dtype and torch.equal(v.view(torch.uint8),
+                                                   rv.view(torch.uint8))
+        assert torch.equal(s, rs)
+    v, s = quant.quantize_int8(x)
+    for out in (torch.float32, torch.bfloat16):
+        assert torch.equal(quant.dequantize_int8(v, s, out),
+                           quant.dequantize_ref(v, s, out))
+    torch.cuda.synchronize()
+    assert (quant.quantize_int8.launches, quant.quantize_fp8.launches,
+            quant.dequantize_int8.launches) == (counts[0] + 2, counts[1] + 1,
+                                                counts[2] + 2)
+
+
+@pytest.mark.cuda
+def test_quantize_stochastic_kernel(cuda):
+    """#20's stochastic mode by its distribution (tests/test_quant.py's
+    midpoint test): 50.5 draws 50 or 51 with mean 50.5; a seed repeats,
+    seeds differ."""
+    from tpukern_torch.ops import quant
+
+    x = torch.full((64, 128), 0.505, device=cuda)
+    x[:, 0] = 1.27
+    draws = torch.stack([quant.quantize_int8(x, seed=s, stochastic=True)[0]
+                         for s in range(16)])[:, :, 1:].float()
+    assert set(draws.unique().tolist()) <= {50.0, 51.0}
+    assert abs(draws.mean().item() - 50.5) < 0.02
+    again = quant.quantize_int8(x, seed=3, stochastic=True)[0][:, 1:].float()
+    assert torch.equal(again, draws[3]) and not torch.equal(draws[3],
+                                                            draws[4])
+
+
+# tier -> (pool dtype, q_int8, pv_int8, pages_per_block)
+QUANT_TIERS = {"int8": ("int8", False, False, 8),
+               "int8 q_int8": ("int8", True, False, 8),
+               "int8 pv_int8 ppb1": ("int8", False, True, 1),
+               "int8 q_int8 pv_int8 ppb8": ("int8", True, True, 8),
+               "fp8": ("fp8", False, False, 4)}
+# f32: the kernels take a running max where the plain versions take the
+# final one; with pv_int8 a p * v_scale within an f32 rounding of a
+# rounding boundary then quantizes one step apart, which moves an output
+# by at most amax / (127 l), so those tiers hold f32 to 2e-3
+QUANT_F32 = dict(rtol=1e-4, atol=1e-4)
+QUANT_F32_PV = dict(rtol=2e-3, atol=2e-3)
+# lengths 0 and 3 < T = 5: rows (and a whole decode row) that see nothing,
+# where no page block runs and the output is 0
+QUANT_CASES = {**PREFIX_CASES, "short": (3, 4, 2, 5, 64, 16, 4, [0, 3, 40])}
+
+
+def _quantized_case(dev, dt, tier, case, seed):
+    q, kp, vp, lengths, table = _paged_case(dev, dt, *QUANT_CASES[case],
+                                            seed=seed)
+    dtype, q_int8, pv_int8, ppb = QUANT_TIERS[tier]
+    ppb = min(ppb, table.shape[1])
+    kq, ks = paged_attention.quantize_pages(kp.float(), dtype)
+    vq, vs = paged_attention.quantize_pages(vp.float(), dtype)
+    kw = dict(pages_per_block=ppb, q_int8=q_int8, pv_int8=pv_int8)
+    return (q, kq, ks, vq, vs, lengths, table), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["chunk", "verify", "D32 T7", "D64 T70",
+                                  "short"])
+@pytest.mark.parametrize("tier", sorted(QUANT_TIERS))
+def test_paged_quantized_matches_plain(cuda, tier, case, dt):
+    """#24's and #23's quantized instances against their plain versions,
+    on the chunk and verification shapes of chip_smoke.py, small ones and
+    lengths of 0 and below T; decode on the same pools at the prefix's
+    last token."""
+    args, kw = _quantized_case(cuda, DTYPES[dt], tier, case, len(case))
+    tol = ({} if dt == "bf16" else
+           QUANT_F32_PV if kw["pv_int8"] else QUANT_F32)
+    fn = paged_attention.paged_prefill_attention_quantized
+    before = fn.launches
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = paged_attention.paged_prefill_quantized_ref(*args, **kw)
+    check_all_close(out.float(), ref.float(), dtype=DTYPES[dt],
+                    name=f"prefix {tier} {case}", **tol)
+    dargs = (args[0][:, :, -1], *args[1:])
+    out = paged_attention.paged_attention_quantized(*dargs, **kw)
+    ref = paged_attention.paged_attention_quantized_ref(*dargs, **kw)
+    check_all_close(out.float(), ref.float(), dtype=DTYPES[dt],
+                    name=f"decode {tier} {case}", **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", ["window+sinks", "softcap", "all"])
+@pytest.mark.parametrize("tier", ["int8 q_int8 pv_int8 ppb8", "fp8"])
+def test_paged_quantized_features(cuda, tier, feat):
+    """The window, sinks and softcap on the quantized instances."""
+    args, kw = _quantized_case(cuda, torch.float32, tier, "verify", 3)
+    kw.update(PREFIX_FEATURES[feat])
+    tol = QUANT_F32_PV if kw["pv_int8"] else QUANT_F32
+    for fn, ref, a in (
+            (paged_attention.paged_prefill_attention_quantized,
+             paged_attention.paged_prefill_quantized_ref, args),
+            (paged_attention.paged_attention_quantized,
+             paged_attention.paged_attention_quantized_ref,
+             (args[0][:, :, 0], *args[1:]))):
+        check_all_close(fn(*a, **kw).float(), ref(*a, **kw).float(),
+                        name=f"{tier} {feat}", **tol)
+
+
+@pytest.mark.cuda
+def test_quantized_serving_on_kernels_equals_plain(cuda):
+    """ContinuousBatcher (chunked admission) and SpeculativeBatcher on int8,
+    int8 + pv_int8 and fp8 pools through the kernels (f32 weights): the
+    greedy streams of the plain path on the CPU; the quantized instances
+    and #20/#22 launch, the float instances do not."""
+    from tpukern_torch.models import SpeculativeBatcher
+    from tpukern_torch.ops import quant
+
+    base = Config(vocab=128, d_model=128, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=256, max_seq=512)
+    params = init_params(base, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab, n).astype(np.int32)
+               for n in (40, 9, 23)]
+    for dt, pv in ((torch.int8, False), (torch.int8, True),
+                   (torch.float8_e4m3fn, False)):
+        cfg = Config(**{**base.__dict__, "pv_int8": pv})
+        kw = dict(n_slots=2, pages_per_seq=4, page_size=16, max_new_tokens=6,
+                  prompt_buckets=(64,), cache_dtype=dt)
+        for make in (
+                lambda p: ContinuousBatcher(p, cfg, chunked_prefill=8, **kw),
+                lambda p: SpeculativeBatcher(p, cfg, p, cfg, gamma=3, **kw)):
+            ref = make(params).run(list(enumerate(prompts)))
+            ops = (paged_attention.paged_attention,
+                   paged_attention.paged_prefill_attention,
+                   paged_attention.paged_attention_quantized,
+                   paged_attention.paged_prefill_attention_quantized,
+                   quant.quantize_int8, quant.quantize_fp8)
+            before = [op.launches for op in ops]
+            out = make(params_to(params, cuda)).run(list(enumerate(prompts)))
+            grew = [op.launches > b for op, b in zip(ops, before)]
+            assert out == ref
+            assert grew[:4] == [False, False, True, True]
+            assert grew[4] == (dt == torch.int8) and grew[5] != grew[4]

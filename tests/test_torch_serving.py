@@ -138,8 +138,10 @@ def test_generate_equals_batcher(setup):
 def test_unported_serving_options_raise(setup):
     _, params, _ = setup
     wcfg = dataclasses.replace(CFG, window=32)
+    # the int8 tier is ported (tests/test_torch_quantized_serving.py);
+    # MoE serving is not
     for cfg, kw in ((wcfg, dict(ring=True)),
-                    (CFG, dict(cache_dtype=torch.int8))):
+                    (dataclasses.replace(CFG, n_experts=2), {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatcher(params, cfg, 2, 2, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -37,8 +37,10 @@ LIB_NAME = "libtpukern_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# dtype codes shared with csrc/common.cuh (enum tk::Dtype)
+# dtype codes shared with csrc/common.cuh (enum tk::Dtype): the float
+# types of activations, and the 1-byte pools of the quantized KV tier
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KV_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _F = ctypes.c_float
@@ -76,6 +78,17 @@ SIGNATURES = {
     # the same with T (new tokens per sequence) after Hkv
     "tk_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _I, _I, _F, _I, _P],
+    # q, q_scales (or None), k_pages, k_scales, v_pages, v_scales, lengths,
+    # page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, D,
+    # block_tokens, sm_scale, window, sinks, softcap, dtype, kv_dtype,
+    # pv_int8, stream (decode is T = 1)
+    "tk_paged_prefill_quantized": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _F,
+                                                         _I, _I, _I, _P],
+    # x, values, scales, S, K, mode (0 int8, 1 int8 stochastic, 2 fp8),
+    # seed, dtype, stream
+    "tk_quantize": [_P, _P, _P, _I64, _I, _I, _I64, _I, _P],
+    # values, scales, out, S, K, out dtype, stream
+    "tk_dequantize": [_P, _P, _P, _I64, _I, _I, _P],
     # x, w, targets (i32), part (f32), N, D, V, n_split, tiles_per_split,
     # log2, dtype, stream
     "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -110,6 +110,32 @@ int tk_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
       static_cast<cudaStream_t>(stream)));
 }
 
+int tk_paged_prefill_quantized(
+    const void* q, const float* q_scales, const void* k_pages,
+    const float* k_scales, const void* v_pages, const float* v_scales,
+    const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
+    int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
+    float sm_scale, int window, int sinks, float softcap, int dtype,
+    int kv_dtype, int pv_int8, void* stream) {
+  return checked(tk::paged_prefill_quantized_launch(
+      q, q_scales, k_pages, k_scales, v_pages, v_scales, lengths, page_table, o,
+      B, Hq, Hkv, T, P, page_size, pages_per_seq, D, block_tokens, sm_scale,
+      window, sinks, softcap, dtype, kv_dtype, pv_int8,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_quantize(const void* x, void* values, float* scales, int64_t S, int K,
+                int mode, long long seed, int dtype, void* stream) {
+  return checked(tk::quantize_launch(x, values, scales, S, K, mode, seed, dtype,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+int tk_dequantize(const void* values, const float* scales, void* out,
+                  int64_t S, int K, int dtype, void* stream) {
+  return checked(tk::dequantize_launch(values, scales, out, S, K, dtype,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
 int tk_ce_fwd(const void* x, const void* w, const int* targets, float* part,
               int N, int D, int V, int n_split, int tiles_per_split, int log2,
               int dtype, void* stream) {

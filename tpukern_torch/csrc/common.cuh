@@ -8,8 +8,9 @@
 
 namespace tk {
 
-// dtype codes: tpukern_torch/_build.py DTYPE_CODES
-enum Dtype { kF32 = 0, kBF16 = 1 };
+// dtype codes: tpukern_torch/_build.py DTYPE_CODES (the float types of
+// activations) and KV_CODES (the 1-byte pools of the quantized tier)
+enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3 };
 
 using bf16 = __nv_bfloat16;
 
@@ -63,6 +64,25 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// word 0 of Philox4x32-10 at counter (c0, c1, 0, 0) and key (k0, k1): the
+// in-kernel random bits of csrc/sampling.cu and csrc/quant.cu
+__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
+                                                 uint32_t k0, uint32_t k1) {
+  uint32_t c2 = 0, c3 = 0;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
 }
 
 // ------------------------------------------------ attention masks
@@ -400,6 +420,19 @@ cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  int pages_per_seq, int D, float sm_scale,
                                  int window, int sinks, float softcap,
                                  int dtype, cudaStream_t stream);
+cudaError_t paged_prefill_quantized_launch(
+    const void* q, const float* q_scales, const void* k_pages,
+    const float* k_scales, const void* v_pages, const float* v_scales,
+    const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
+    int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
+    float sm_scale, int window, int sinks, float softcap, int dtype,
+    int kv_dtype, int pv_int8, cudaStream_t stream);
+cudaError_t quantize_launch(const void* x, void* values, float* scales,
+                            int64_t S, int K, int mode, long long seed,
+                            int dtype, cudaStream_t stream);
+cudaError_t dequantize_launch(const void* values, const float* scales,
+                              void* out, int64_t S, int K, int dtype,
+                              cudaStream_t stream);
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
                           float* part, int N, int D, int V, int n_split,
                           int tiles_per_split, int log2, int dtype,

@@ -58,24 +58,6 @@ constexpr int TH_BINS = 256;
 constexpr int TH_SMEM_MAX = 40960;  // values of a row staged in shared memory
 constexpr double TH_FIX = 1099511627776.0;  // 2^40: fixed-point scale of w
 
-// word 0 of Philox4x32-10 at counter (c0, c1, 0, 0) and key (k0, k1)
-__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
-                                                 uint32_t k0, uint32_t k1) {
-  uint32_t c2 = 0, c3 = 0;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
 __device__ __forceinline__ float gumbel(uint32_t bits) {
   const float u = (static_cast<float>(bits & 0x7FFFFFu) + 0.5f) *
                   (1.f / 8388608.f);

@@ -27,11 +27,18 @@ padded to a bucket length, as in the JAX batcher.
   rejection sampling on the host (models/speculative.py), so each slot's
   stream is distributed as target-only sampling.
 
+- cache_dtype=torch.int8 or torch.float8_e4m3fn serves from the
+  quantized KV tier (models/serving.py), through every admission path,
+  greedy and sampled; SpeculativeBatcher's draft cache takes the
+  target's tier. Each step passes decode_step JAX's length-aware
+  pages_per_block (_pick_ppb, from a host mirror of the lengths), on
+  which Config.pv_int8's function depends.
+
 The batchers run on the device of their params, and their caches follow
 them.
 
-Not ported: ring pools, int8 pools and the tensor-parallel batchers
-(ROADMAP.md queue 1 item 10).
+Not ported: ring pools and the tensor-parallel batchers (ROADMAP.md
+queue 1 item 10).
 """
 
 import dataclasses
@@ -39,9 +46,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpukern_torch.models.serving import (decode_step, init_cache, prefill,
-                                          rollback, share_prefix,
-                                          verify_step)
+from tpukern_torch.models.serving import (_pages_per_block, decode_step,
+                                          init_cache, prefill, rollback,
+                                          share_prefix, verify_step)
 from tpukern_torch.models.speculative import (SpecStats, _host_probs,
                                               rejection_accept)
 from tpukern_torch.ops.sampling import sample
@@ -117,9 +124,18 @@ class ContinuousBatcher:
         self.active = np.zeros(n_slots, bool)
         self.last_tok = np.zeros(n_slots, np.int32)
         self.n_generated = np.zeros(n_slots, np.int32)
+        # host mirror of each slot's live tokens: the length-aware page
+        # block of a step without a device readback
+        self.host_len = np.zeros(n_slots, np.int64)
         self.slot_request = [None] * n_slots
         self.outputs = {}      # request_id -> [tokens so far]
         self.finished = {}     # request_id -> [tokens]
+
+    def _pick_ppb(self, max_live):
+        """JAX's length-aware page block: the largest that fits the
+        longest live sequence (tpukern/models/batcher.py:138-143)."""
+        return _pages_per_block(self.pages_per_seq,
+                                -(-int(max_live) // self.page_size))
 
     def free_slots(self):
         idle = [i for i in range(self.n_slots) if not self.active[i]]
@@ -220,6 +236,7 @@ class ContinuousBatcher:
                     _padded(prompt_ids, bucket, self.device), true_len, slot)
         self.active[slot] = True
         self.n_generated[slot] = 0
+        self.host_len[slot] = true_len
         self.slot_request[slot] = request_id
         self.outputs[request_id] = []
         self.last_tok[slot] = int(self._sample(logits[None])[0])
@@ -265,10 +282,14 @@ class ContinuousBatcher:
         slots and frees slots that hit EOS or the token budget."""
         if not self.active.any():
             return 0
+        # attention sees each slot's history and the token written now
+        ppb = self._pick_ppb(self.host_len[self.active].max() + 1)
         logits, self.cache = decode_step(
             self.params, self.cfg,
             torch.from_numpy(self.last_tok).to(self.device), self.cache,
-            active=torch.from_numpy(self.active).to(self.device))
+            active=torch.from_numpy(self.active).to(self.device),
+            pages_per_block=ppb)
+        self.host_len[self.active] += 1
         next_tok = self._sample(logits)
         n_emitted = 0
         for slot in np.flatnonzero(self.active):
@@ -325,7 +346,7 @@ class SpeculativeBatcher(ContinuousBatcher):
         # the host generator of the sampled drafts and acceptance draws
         # (greedy rounds never touch it)
         self._accept_rng = np.random.default_rng(accept_seed)
-        # the draft's cache on the target's pool dtype
+        # the draft's cache in the target's tier (pool dtype, and scales)
         self.dcache = init_cache(draft_cfg, n_slots, pages_per_seq,
                                  page_size, dtype=self.cache.k_pages.dtype,
                                  device=self.device)
@@ -353,6 +374,8 @@ class SpeculativeBatcher(ContinuousBatcher):
         g = self.gamma
         act = torch.from_numpy(self.active).to(self.device)
         n_before = self.cache.lengths.cpu().numpy().astype(np.int64)
+        # one page block for the round: up to n + gamma + 1 tokens
+        ppb = self._pick_ppb(n_before[self.active].max() + g + 1)
 
         # 1. gamma batched draft decode steps (sampled: every slot draws
         # from its draft distribution, which the acceptance needs again)
@@ -364,7 +387,7 @@ class SpeculativeBatcher(ContinuousBatcher):
             dl, self.dcache = decode_step(
                 self.draft_params, self.draft_cfg,
                 torch.from_numpy(cur).to(self.device), self.dcache,
-                active=act)
+                active=act, pages_per_block=ppb)
             if sampled:
                 q_all[i] = _host_probs(dl, self.temperature)
                 cur = np.array([self._accept_rng.choice(q.shape[-1], p=q)
@@ -377,7 +400,7 @@ class SpeculativeBatcher(ContinuousBatcher):
         cand = np.concatenate([self.last_tok[:, None], drafts], axis=1)
         vl, self.cache = verify_step(self.params, self.cfg,
                                      torch.from_numpy(cand).to(self.device),
-                                     self.cache)
+                                     self.cache, pages_per_block=ppb)
         if sampled:
             p_all = _host_probs(vl, self.temperature)    # (B, g + 1, V)
             q_all = np.stack(q_all, axis=1)              # (B, g, V)
@@ -418,6 +441,7 @@ class SpeculativeBatcher(ContinuousBatcher):
             _, self.dcache = decode_step(
                 self.draft_params, self.draft_cfg,
                 torch.from_numpy(drafts[:, -1].copy()).to(self.device),
-                self.dcache, active=torch.from_numpy(catch).to(self.device))
+                self.dcache, active=torch.from_numpy(catch).to(self.device),
+                pages_per_block=ppb)
         self.dcache = rollback(self.dcache, new_len)
         return n_emitted

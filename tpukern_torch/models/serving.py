@@ -1,8 +1,8 @@
 """Serving path: prefill + continuous decode over a paged KV cache.
 
-The port of tpukern/models/serving.py for float pools: a paged KV pool per
-layer, a prefill that runs the causal flash-attention kernel over the
-prompt and writes K/V into pages, a decode step that runs the paged
+The port of tpukern/models/serving.py: a paged KV pool per layer, a
+prefill that runs the causal flash-attention kernel over the prompt and
+writes K/V into pages, a decode step that runs the paged
 decode kernel per layer, and a verify step that scores T new tokens per
 sequence against the pages with the paged prefix-prefill kernel (chunked
 prefill, prefix-cache admission, speculative verification). The
@@ -10,8 +10,17 @@ sliding window, attention sinks and logit softcap of Config reach all
 three kernels. share_prefix aliases a prompt prefix's pages from one
 slot into others, prefill_prefix prefills one slot, and rollback rewinds
 the lengths. Norms and RoPE go through their kernels too; the
-projections, the embedding lookup, the tanh-GELU MLP, the page writes
+projections, the embedding lookup, the tanh-GELU MLP, the page scatter
 and the argmax are plain PyTorch, as the JAX path leaves them to XLA.
+
+The quantized tier: init_cache(dtype=torch.int8 or torch.float8_e4m3fn)
+builds 1-byte pools with per-token f32 scale pools; every new K/V token
+is row-quantized as it is written (quantize_int8 / quantize_fp8, #20 /
+#22 on the card: JAX's quantize_ref / quantize_fp8_ref), and decode_step
+and verify_step attend with the quantized paged kernels: on int8 pools
+always with the int8 score dot (q_int8), and with Config.pv_int8 also
+the int8 P V dot. Prefill attends over the unquantized K/V, so the first
+token equals the float tiers'.
 
 Unlike the JAX functions, which return new arrays, prefill, decode_step,
 verify_step, share_prefix and prefill_prefix write the cache's pools
@@ -22,9 +31,8 @@ init_cache builds its pools on the card unless the caller passes
 device="cpu"; the other functions run on the device of their inputs (a
 CPU tensor takes every kernel's plain version).
 
-Not ported: the quantized (int8/fp8) pools, ring pools, MoE,
-Config.pv_int8, make_tp_serving and quantize_model_weights (ROADMAP.md
-queue 1 item 10).
+Not ported: ring pools, MoE, make_tp_serving and quantize_model_weights
+(ROADMAP.md queue 1 item 10).
 """
 
 import dataclasses
@@ -35,8 +43,10 @@ import torch.nn.functional as F
 
 from tpukern_torch.models.transformer import Config
 from tpukern_torch.ops.attention import flash_attention
-from tpukern_torch.ops.paged_attention import (paged_attention,
-                                               paged_prefill_attention)
+from tpukern_torch.ops.paged_attention import (
+    QUANT_DTYPES, paged_attention, paged_attention_quantized,
+    paged_prefill_attention, paged_prefill_attention_quantized)
+from tpukern_torch.ops.quant import quantize_fp8, quantize_int8
 from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
 from tpukern_torch.ops.sampling import sample
@@ -53,11 +63,20 @@ class KVCache:
     # f32 (max_seq, D/2) RoPE tables, built once with the cache
     cos: torch.Tensor
     sin: torch.Tensor
+    # the quantized tier (int8 or float8_e4m3fn pools): per-token scales
+    # (L, Hkv, P, page) f32; None for float pools
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
+
+    @property
+    def quantized(self):
+        return self.k_scales is not None
+
 
 
 def _check_cfg(cfg: Config):
-    if cfg.n_experts or cfg.pv_int8:
-        raise NotImplementedError(f"MoE or int8 serving: {_TODO}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"MoE serving: {_TODO}")
 
 
 def init_cache(cfg: Config, batch, pages_per_seq, page_size=128,
@@ -65,46 +84,119 @@ def init_cache(cfg: Config, batch, pages_per_seq, page_size=128,
     """Fixed page pool on `device` (the card unless the caller asks for
     "cpu"); sequence b owns physical pages
     [b*pages_per_seq, (b+1)*pages_per_seq) — the identity mapping a real
-    allocator would replace (the kernel only sees the table)."""
+    allocator would replace (the kernel only sees the table).
+
+    dtype bf16 or f32 gives float pools; torch.int8 or
+    torch.float8_e4m3fn the quantized tier: 1-byte pools and f32 scale
+    pools, half the bytes of bf16 pools a token. Config.pv_int8 needs
+    int8 pools (ValueError otherwise, as in JAX)."""
     _check_cfg(cfg)
     if ring:
         raise NotImplementedError(f"ring pools: {_TODO}")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"{dtype} pools (quantized tier): {_TODO}")
+    if dtype not in (torch.bfloat16, torch.float32, *QUANT_DTYPES):
+        raise TypeError(f"pools are bf16, f32, int8 or float8_e4m3fn, got "
+                        f"{dtype}")
+    if cfg.pv_int8 and dtype != torch.int8:
+        raise ValueError(f"Config.pv_int8=True requires an int8 KV cache, "
+                         f"got dtype={dtype}")
     P = batch * pages_per_seq
     shape = (cfg.n_layers, cfg.n_kv_heads, P, page_size, cfg.head_dim)
     cos, sin = make_cos_sin(cfg.max_seq, cfg.head_dim, device=device)
+    quant = dtype in QUANT_DTYPES
     return KVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),
         v_pages=torch.zeros(shape, dtype=dtype, device=device),
         page_table=torch.arange(P, dtype=torch.int32, device=device
                                 ).reshape(batch, pages_per_seq),
         lengths=torch.zeros(batch, dtype=torch.int32, device=device),
-        cos=cos, sin=sin)
+        cos=cos, sin=sin,
+        k_scales=(torch.zeros(shape[:4], dtype=torch.float32, device=device)
+                  if quant else None),
+        v_scales=(torch.zeros(shape[:4], dtype=torch.float32, device=device)
+                  if quant else None))
 
 
-def _write_tokens(pages, layer, new, table, start):
-    """Write new (B, Hkv, T, D) tokens into pages[layer] in place, at
-    positions start[b] .. start[b]+T-1 of each sequence.
+def _pages_per_block(pages_per_seq, max_live_pages=None):
+    """JAX's page-block pick (tpukern/models/serving.py:123-138): the
+    largest of 8, 4, 2, 1 pages that divides pages_per_seq and, with a
+    max_live_pages hint, fits the live range. The CUDA kernels need no
+    page DMA batch; the pick matters for pv_int8, whose p is quantized
+    per block of page * pages_per_block tokens."""
+    cands = [d for d in (8, 4, 2, 1) if pages_per_seq % d == 0]
+    if max_live_pages is not None:
+        fit = [d for d in cands if d <= max(int(max_live_pages), 1)]
+        if fit:
+            return fit[0]
+    return cands[0]
+
+
+def _slots(table, start, T, page_size):
+    """Where T new tokens a sequence go: (physical page, row) (B, T) for
+    positions start[b] .. start[b]+T-1, and the source token of each
+    (None for T = 1). One step computes them once for all its layers.
 
     Positions clamp at the pool's last slot, so a full sequence cannot
     write past its pages. The JAX version writes token by token and the
     last clamped token wins; here every clamped token writes that last
-    token's value, so duplicate indices agree. An inactive slot's decode
-    writes at its frozen length: a dead write, overwritten before the
-    slot's length ever covers it."""
-    B, Hkv, T, D = new.shape
-    page_size = pages.shape[3]
+    token's value (its source token is T - 1), so duplicate indices agree.
+    An inactive slot's decode writes at its frozen length: a dead write,
+    overwritten before the slot's length ever covers it."""
     max_pos = table.shape[1] * page_size - 1
-    t = torch.arange(T, device=new.device)
+    t = torch.arange(T, device=table.device)
     want = start.long()[:, None] + t[None, :]                  # (B, T)
     pos = want.clamp(max=max_pos)
-    if T > 1:
-        src = torch.where(want >= max_pos, T - 1, t[None, :])
-        new = new.gather(2, src[:, None, :, None].expand(B, Hkv, T, D))
+    src = torch.where(want >= max_pos, T - 1, t[None, :]) if T > 1 else None
     phys = table.long().gather(1, pos // page_size)
-    pages[layer][:, phys, pos % page_size] = (
-        new.permute(1, 0, 2, 3).to(pages.dtype))
+    return phys, pos % page_size, src
+
+
+def _scatter(pool, layer, new, slots):
+    """pool[layer][h, phys, row] = new[b, h, src] for the (B, T) slots of
+    _slots; new is (B, Hkv, T, ...)."""
+    phys, row, src = slots
+    if src is not None:
+        b = torch.arange(new.shape[0], device=new.device)[:, None]
+        new = new[b, :, src].movedim(1, 2)
+    pool[layer][:, phys, row] = new.movedim(1, 0).to(pool.dtype)
+
+
+def _write_tokens(pages, layer, new, table, start):
+    """Write new (B, Hkv, T, D) tokens into pages[layer] in place, at
+    positions start[b] .. start[b]+T-1 of each sequence (_slots)."""
+    _scatter(pages, layer, new, _slots(table, start, new.shape[2],
+                                       pages.shape[3]))
+
+
+def _write_tokens_quantized(pages, scales, layer, new, slots):
+    """Row-quantize new (B, Hkv, T, D) tokens to the pool's 1-byte dtype
+    (quantize_int8 or quantize_fp8 over all B * Hkv * T rows, before the
+    scatter) and write the values and per-token scales into pages[layer]
+    and scales[layer] in place, at the step's _slots."""
+    B, Hkv, T, D = new.shape
+    qfn = quantize_int8 if pages.dtype == torch.int8 else quantize_fp8
+    vals, s = qfn(new.reshape(B * Hkv * T, D))
+    _scatter(pages, layer, vals.reshape(B, Hkv, T, D), slots)
+    _scatter(scales, layer, s.reshape(B, Hkv, T), slots)
+
+
+def _write_kv(cache: KVCache, layer, k, v, slots):
+    """Write one layer's new K/V tokens through the cache's tier, at the
+    step's _slots."""
+    if cache.quantized:
+        for pages, scales, new in ((cache.k_pages, cache.k_scales, k),
+                                   (cache.v_pages, cache.v_scales, v)):
+            _write_tokens_quantized(pages, scales, layer, new, slots)
+    else:
+        _scatter(cache.k_pages, layer, k, slots)
+        _scatter(cache.v_pages, layer, v, slots)
+
+
+def _quant_flags(cfg: Config, cache: KVCache):
+    """JAX's flags of the quantized kernels: the int8 score dot on int8 K,
+    the int8 P V dot with Config.pv_int8 on int8 V."""
+    return dict(q_int8=cache.k_pages.dtype == torch.int8,
+                pv_int8=bool(cfg.pv_int8)
+                and cache.v_pages.dtype == torch.int8)
 
 
 def _rope_tables(cache: KVCache, positions, n_heads):
@@ -152,6 +244,7 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
     positions = start[:, None] + torch.arange(T, device=tokens.device)
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
+    slots = _slots(cache.page_table, start, T, cache.k_pages.shape[3])
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
@@ -161,8 +254,7 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
         h = h + o.reshape(B, T, -1)
         hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
-        _write_tokens(cache.k_pages, li, k, cache.page_table, start)
-        _write_tokens(cache.v_pages, li, v, cache.page_table, start)
+        _write_kv(cache, li, k, v, slots)
     if last_index is None:
         h_last = h[:, -1]
     else:
@@ -175,27 +267,38 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
 
 
 def decode_step(params, cfg: Config, last_tokens, cache: KVCache,
-                active=None):
+                active=None, pages_per_block=None):
     """One continuous-batching decode step: last_tokens (B,) -> logits
     (B, vocab) in f32, through the paged decode kernel per layer. active
     (B,) bool masks which slots advance (inactive slots' lengths don't
-    move; their page writes land at the frozen length, which stays dead)."""
+    move; their page writes land at the frozen length, which stays dead).
+    pages_per_block overrides _pages_per_block(pages_per_seq), as the
+    batchers' length-aware pick does; only pv_int8 depends on it."""
     _check_cfg(cfg)
+    ppb = pages_per_block or _pages_per_block(cache.page_table.shape[1])
     B = last_tokens.shape[0]
     h = F.embedding(last_tokens.long(), params["embed"])[:, None, :]
     positions = cache.lengths[:, None]
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
+    slots = _slots(cache.page_table, cache.lengths, 1, cache.k_pages.shape[3])
     # attention sees each slot's history + the token written this step
     attn_len = cache.lengths + 1
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
-        _write_tokens(cache.k_pages, li, k, cache.page_table, cache.lengths)
-        _write_tokens(cache.v_pages, li, v, cache.page_table, cache.lengths)
-        o = paged_attention(q[:, :, 0], cache.k_pages[li], cache.v_pages[li],
-                            attn_len, cache.page_table, window=cfg.window,
-                            sinks=cfg.sinks, softcap=cfg.softcap)
+        _write_kv(cache, li, k, v, slots)
+        feat = dict(window=cfg.window, sinks=cfg.sinks, softcap=cfg.softcap)
+        if cache.quantized:
+            o = paged_attention_quantized(
+                q[:, :, 0], cache.k_pages[li], cache.k_scales[li],
+                cache.v_pages[li], cache.v_scales[li], attn_len,
+                cache.page_table, pages_per_block=ppb,
+                **_quant_flags(cfg, cache), **feat)
+        else:
+            o = paged_attention(q[:, :, 0], cache.k_pages[li],
+                                cache.v_pages[li], attn_len,
+                                cache.page_table, **feat)
         h = h + (o.reshape(B, -1) @ lp["wo"]).reshape(h.shape)
         hn = rms_norm(h.reshape(B, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
@@ -214,25 +317,31 @@ def verify_step(params, cfg: Config, tokens, cache: KVCache,
     prefix and the new tokens up to t). Returns f32 logits at every
     position (B, T, vocab) and the cache with lengths + T: the
     speculative verification step and the chunked-prefill continuation.
-    pages_per_block is accepted and ignored, as in paged_attention."""
+    pages_per_block as in decode_step."""
     _check_cfg(cfg)
+    ppb = pages_per_block or _pages_per_block(cache.page_table.shape[1])
     B, T = tokens.shape
     h = F.embedding(tokens.long(), params["embed"])
     start = cache.lengths
     positions = start[:, None] + torch.arange(T, device=tokens.device)
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
+    slots = _slots(cache.page_table, start, T, cache.k_pages.shape[3])
     attn_len = start + T
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
-        _write_tokens(cache.k_pages, li, k, cache.page_table, start)
-        _write_tokens(cache.v_pages, li, v, cache.page_table, start)
-        o = paged_prefill_attention(q, cache.k_pages[li], cache.v_pages[li],
-                                    attn_len, cache.page_table,
-                                    pages_per_block=pages_per_block,
-                                    window=cfg.window, sinks=cfg.sinks,
-                                    softcap=cfg.softcap)
+        _write_kv(cache, li, k, v, slots)
+        feat = dict(window=cfg.window, sinks=cfg.sinks, softcap=cfg.softcap)
+        if cache.quantized:
+            o = paged_prefill_attention_quantized(
+                q, cache.k_pages[li], cache.k_scales[li], cache.v_pages[li],
+                cache.v_scales[li], attn_len, cache.page_table,
+                pages_per_block=ppb, **_quant_flags(cfg, cache), **feat)
+        else:
+            o = paged_prefill_attention(q, cache.k_pages[li],
+                                        cache.v_pages[li], attn_len,
+                                        cache.page_table, **feat)
         o = o.transpose(1, 2).reshape(B * T, -1) @ lp["wo"]
         h = h + o.reshape(B, T, -1)
         hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
@@ -250,8 +359,9 @@ def share_prefix(cache: KVCache, src_slot, dst_slots, prefix_len):
     then its first prefix_len // page entries point at src's pages, which
     dst only reads (serving writes at positions >= length), and the
     partial page's prefix_len % page rows are copied into dst's own page
-    in every layer. Writes the table and pools in place; returns the
-    cache with dst lengths set to prefix_len. Host ints throughout."""
+    in every layer (with its scales on the quantized tier). Writes the
+    table and pools in place; returns the cache with dst lengths set to
+    prefix_len. Host ints throughout."""
     if src_slot in dst_slots:
         raise ValueError(f"src slot {src_slot} is among dst {dst_slots}")
     page = cache.k_pages.shape[3]
@@ -265,8 +375,10 @@ def share_prefix(cache: KVCache, src_slot, dst_slots, prefix_len):
         table[d, :full] = table[src_slot, :full]
         if rem:
             sp, dp = int(table[src_slot, full]), d * pps + full
-            for pages in (cache.k_pages, cache.v_pages):
-                pages[:, :, dp, :rem] = pages[:, :, sp, :rem]
+            for pool in (cache.k_pages, cache.v_pages, cache.k_scales,
+                         cache.v_scales):
+                if pool is not None:
+                    pool[:, :, dp, :rem] = pool[:, :, sp, :rem]
         lengths[d] = prefix_len
     return dataclasses.replace(cache, lengths=lengths)
 
@@ -304,7 +416,9 @@ def generate(params, cfg: Config, prompt, n_steps, pages_per_seq=8,
     (#27's thresholds, then #26) with a seed drawn on the host from
     np.random.default_rng(seed), so no step waits on the device;
     otherwise torch.multinomial draws from softmax(logits) with a
-    torch.Generator on the prompt's device seeded with `seed`."""
+    torch.Generator on the prompt's device seeded with `seed`.
+    cache_dtype=torch.int8 or torch.float8_e4m3fn serves from the
+    quantized tier."""
     B = prompt.shape[0]
     cache = init_cache(cfg, B, pages_per_seq, page_size, dtype=cache_dtype,
                        device=prompt.device)

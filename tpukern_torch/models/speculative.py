@@ -21,7 +21,9 @@ the drafts.
 Cache discipline: both caches hold the n emitted tokens, and one pending
 token `last` is in neither. The draft grows to n + gamma, the target to
 n + gamma + 1; after accepting j drafts both roll back to n + j + 1 (on
-full acceptance the draft first catches up on d_gamma).
+full acceptance the draft first catches up on d_gamma). cache_dtype may
+be the quantized tier's torch.int8 or torch.float8_e4m3fn: rollback
+moves only the lengths, so every kept token keeps its scales.
 """
 
 import dataclasses
