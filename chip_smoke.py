@@ -17,9 +17,14 @@
    stochastic), #21 and #22 at the K/V write and q shapes, and every
    quantized instance of #23 and #24 (int8 with and without q_int8 and
    pv_int8, pv_int8 at two pages_per_block, fp8) at the serving shapes in
-   bf16 and f32, with the window, sinks and softcap; the sampling kernels
-   #26 and #27 at the serving shape (4, 32768) f32 and at a 128256-token
-   vocabulary;
+   bf16 and f32, with the window, sinks and softcap; ring pools (5 pages
+   of 128 slots, lengths wrapped more than once, sinks 4, the window at
+   its ring limit, T = 5 verification rows) and ALiBi on every instance
+   of #23 and #24 (float bf16 and f32, int8 with q_int8 and pv_int8,
+   fp8); the w8a16 GEMM #25 at the 7bish weight shapes (M = 4, 20, 128;
+   forced at 256 and 2048; a K tail and an N of 1000) in bf16 and f32,
+   each call twice (bit-equal); the sampling kernels #26 and #27 at the
+   serving shape (4, 32768) f32 and at a 128256-token vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
    cross-entropy's forward and backward, and the featured attention:
@@ -45,20 +50,31 @@
    than the window; [int8-serve] and [fp8-serve] the serve requests on
    the quantized KV tier (int8, int8 with Config.pv_int8, fp8; each twice
    in turns with two bf16 runs), chunked, with the prefix cache, and
-   SpeculativeBatcher on int8 caches. Each run resets the kernels' launch
-   counts just before and reads them just after;
+   SpeculativeBatcher on int8 caches; [w8a16-serve] the serve requests
+   with quantize_model_weights's tree (#25's launches per step checked
+   against the dispatch rule; twice in turns with two bf16 runs, on int8
+   pools, chunked, and SpeculativeBatcher with a w8a16 agreeing draft);
+   [ring-serve] the [gemma2-serve] config on ring pools of 640 slots in
+   turns with flat pools, 560-620-token prompts and 256 new tokens (every
+   stream wraps), int8 rings, SpeculativeBatcher on rings and
+   generate(ring=True). Each run resets the kernels' launch counts just
+   before and reads them just after;
 6. profiles one admission, a few decode steps (greedy on bf16, int8 and
-   fp8 pools, and sampled), a chunked admission and two speculative
+   fp8 pools, with w8a16 weights, and sampled), a chunked admission and two speculative
    rounds (device time by kernel);
 7. checks one prefill's logits against the plain functions in f32, one
    verify_step's (plain and Gemma-2-style, bf16, full depth) and one
    decode step's on each quantized tier against the plain quantized
+   functions, and one w8a16 decode step's against the plain w8a16
    functions; then, in f32 at the 7bish widths cut to 2 layers, requires
    equal greedy streams: chunked against unchunked, the prefix cache on
    against off, SpeculativeBatcher and speculative_generate against
    ContinuousBatcher, windowed serving against greedy decoding with the
-   plain functions, and on int8 pools chunk sizes, the prefix cache and
-   speculation each against a path of the same function;
+   plain functions, on int8 pools chunk sizes, the prefix cache and
+   speculation each against a path of the same function, w8a16 through
+   the kernels against the plain functions, ring pools against flat pools
+   (wrapping) and SpeculativeBatcher on a ring against ContinuousBatcher
+   on a ring;
 8. trains the 7bish preset in f32 at full depth: 5 Adam steps (lr
    TRAIN_LR) on one seeded batch (B=2, S=1024), launch counts reset just
    before and read just after, then profiles one more step by kernel
@@ -240,9 +256,13 @@ def _device_events(fn, n):
 
 def _device_ms(fn, n=20):
     """Device-only ms per call (the sum of its kernels' durations), or
-    None if the profiler saw no device op."""
-    ev = _device_events(fn, n)
-    return sum(e - s for s, e, _ in ev) / n / 1e3 if ev else None
+    None if the profiler saw no device op in three sessions (one session
+    saw none for SDPA at the verification shape on an H100)."""
+    for _ in range(3):
+        ev = _device_events(fn, n)
+        if ev:
+            return sum(e - s for s, e, _ in ev) / n / 1e3
+    return None
 
 
 class _Checks:
@@ -448,6 +468,8 @@ def phase_kernels(cfg):
               f"against the plain version")
     _paged_bf16_p(serve_case)
     _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case)
+    _ring_kernels(checks, timed, gen, cfg, serve_case, verify_case)
+    _w8a16_kernels(checks, timed, gen, cfg)
     _sampling_kernels(checks, timed, gen)
 
     _time_kernels(timed, checks.results)
@@ -505,7 +527,7 @@ def _quant_case(args, tier):
             dict(pages_per_block=ppb, q_int8=q_int8, pv_int8=pv_int8))
 
 
-def _quant_work(args, kw):
+def _quant_work(args, kw, **feat):
     """(flops by dtype, bytes) of a quantized paged call: the score and the
     P V products, 2 D each a visible (query head, position) pair, at int8's
     rate under q_int8 / pv_int8, else at q's type's; q, o, the 1-byte K and
@@ -514,7 +536,7 @@ def _quant_work(args, kw):
     q, kq, ks, vq, vs, lengths, table = args
     T = 1 if q.dim() == 3 else q.shape[2]
     Hkv, _, page, D = kq.shape
-    keep = _visible(lengths, T, table.shape[1] * page)
+    keep = _visible(lengths, T, table.shape[1] * page, **feat)
     half = 2 * D * q.shape[1] * int(keep.sum())
     flops = {}
     for on in (kw["q_int8"], kw["pv_int8"]):
@@ -525,13 +547,13 @@ def _quant_work(args, kw):
                    + _nbytes(lengths, table))
 
 
-def _quant_library(args):
+def _quant_library(args, **feat):
     """_paged_library on pools dequantized to q's type outside the timed
     call."""
     q, kq, ks, vq, vs, lengths, table = args
     kd, vd = ((p.float() * s[..., None]).to(q.dtype)
               for p, s in ((kq, ks), (vq, vs)))
-    return _paged_library(q, kd, vd, lengths, table)
+    return _paged_library(q, kd, vd, lengths, table, **feat)
 
 
 def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
@@ -652,6 +674,196 @@ def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
             checks.record(fn.__name__, *_compare(
                 _QUANT_LABEL[case == "decode"], f"{tier} {tag} {case} {dt}",
                 fn(*a, **kw, **feat), ref(*a, **kw, **feat), tol=tol))
+
+
+# [ring] kernel cases: 4 sequences on rings of 5 pages of 128 slots (640,
+# the [ring-serve] pool), lengths wrapped more than once and one exactly
+# full, sinks 4 and windows at the ring's limit (decode: ring - sinks;
+# T = 5 new tokens: ring - sinks - 4)
+RING_PPS, RING_LENGTHS, RING_SINKS = 5, [600, 1500, 2900, 640], 4
+RING_WINDOW = {1: 128 * RING_PPS - RING_SINKS, 5: 128 * RING_PPS - RING_SINKS - 4}
+# the quantized tiers on rings (page blocks divide the 5 pages)
+RING_QUANT_TIERS = {"int8 q_int8": ("int8", True, False, RING_PPS),
+                    "int8 q_int8 pv_int8 ppb1": ("int8", True, True, 1),
+                    "fp8": ("fp8", False, False, RING_PPS)}
+
+
+def _ring_kernels(checks, timed, gen, cfg, serve_case, verify_case):
+    """Ring pools and ALiBi on every instance of #23 and #24 against the
+    plain versions at the serving widths: float in bf16 and f32, int8
+    (q_int8, with and without pv_int8) and fp8; decode and a T = 5
+    verification on rings wrapped more than once with sinks 4 and the
+    window at its ring limit, a 512 window with ALiBi on a ring, and ALiBi
+    on the flat pools of the serving decode and verification cases. Times the ring decode and verification
+    (float bf16 and int8) beside SDPA on a gathered copy with the mask of
+    the visible slots."""
+    from functools import partial
+
+    from tpukern_torch.ops import paged_attention as pa
+
+    bf, f32 = torch.bfloat16, torch.float32
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # the ALiBi paper's slopes 2^(-8 h / Hq), h = 1 .. Hq
+    slopes = 2.0 ** (-8.0 * torch.arange(1, Hq + 1, device="cuda") / Hq)
+    ring = {T: dict(ring=True, sinks=RING_SINKS, window=RING_WINDOW[T])
+            for T in (1, 5)}
+    feats = {"ring sinks 4 window at the limit": (ring[1], ring[5]),
+             "ring window 512 alibi": (dict(ring=True, window=512,
+                                            alibi_slopes=slopes),) * 2}
+    cases = {}
+    for dt in (bf, f32):
+        cases[dt] = (_paged_case(gen, 4, Hq, Hkv, D, 128, RING_PPS,
+                                 RING_LENGTHS, dt),
+                     _paged_case(gen, 4, Hq, Hkv, D, 128, RING_PPS,
+                                 RING_LENGTHS, dt, T=5))
+        flat = tuple(tuple(a.to(dt) if a.is_floating_point() else a
+                           for a in case) for case in (serve_case,
+                                                       verify_case))
+        for tag, (fd, fv) in {**feats, "flat alibi": (
+                dict(alibi_slopes=slopes),) * 2}.items():
+            dec, ver = flat if tag == "flat alibi" else cases[dt]
+            checks.record("paged_attention", *_compare(
+                "paged_attention", f"{tag} {dt}",
+                pa.paged_attention(*dec, **fd),
+                pa.paged_attention_ref(*dec, **fd)))
+            checks.record("paged_prefill_attention", *_compare(
+                "paged_prefill", f"{tag} T5 {dt}",
+                pa.paged_prefill_attention(*ver, **fv),
+                pa.paged_prefill_ref(*ver, **fv)))
+            for tier, (qdt, q_int8, pv_int8, ppb) in RING_QUANT_TIERS.items():
+                if dt == f32 and tier == "int8 q_int8":
+                    continue
+                kw = dict(pages_per_block=1 if ppb == 1 else dec[4].shape[1],
+                          q_int8=q_int8, pv_int8=pv_int8)
+                tol = QUANT_PV_F32_TOL if dt == f32 and pv_int8 else None
+                for fn, ref, base, feat in (
+                        (pa.paged_attention_quantized,
+                         pa.paged_attention_quantized_ref, dec, fd),
+                        (pa.paged_prefill_attention_quantized,
+                         pa.paged_prefill_quantized_ref, ver, fv)):
+                    kq, ks = pa.quantize_pages(base[1].float(), qdt)
+                    vq, vs = pa.quantize_pages(base[2].float(), qdt)
+                    a = (base[0], kq, ks, vq, vs, base[3], base[4])
+                    checks.record(fn.__name__, *_compare(
+                        _QUANT_LABEL[fn is pa.paged_attention_quantized],
+                        f"{tier} {tag} {dt}", fn(*a, **kw, **feat),
+                        ref(*a, **kw, **feat), tol=tol))
+    dec, ver = cases[bf]
+    for label, name, fn, ref, args, feat in (
+            ("#23 ring", "paged_attention", pa.paged_attention,
+             pa.paged_attention_ref, dec, ring[1]),
+            ("#24 ring verify", "paged_prefill_attention",
+             pa.paged_prefill_attention, pa.paged_prefill_ref, ver, ring[5])):
+        timed[label] = _timed_entry(
+            name, list(args[0].shape), partial(fn, *args, **feat),
+            partial(ref, *args, **feat), _paged_library(*args, **feat),
+            *_paged_work(*args, **feat), bf)
+    for label, fn, ref, base, T in (
+            ("#23 quantized ring int8", pa.paged_attention_quantized,
+             pa.paged_attention_quantized_ref, dec, 1),
+            ("#24 quantized ring int8 verify",
+             pa.paged_prefill_attention_quantized,
+             pa.paged_prefill_quantized_ref, ver, 5)):
+        kq, ks = pa.quantize_pages(base[1].float(), "int8")
+        vq, vs = pa.quantize_pages(base[2].float(), "int8")
+        a = (base[0], kq, ks, vq, vs, base[3], base[4])
+        kw = dict(pages_per_block=RING_PPS, q_int8=True, pv_int8=False)
+        timed[label] = _timed_entry(
+            fn.__name__, list(a[0].shape), partial(fn, *a, **kw, **ring[T]),
+            partial(ref, *a, **kw, **ring[T]), _quant_library(a, **ring[T]),
+            *_quant_work(a, kw, **ring[T]), bf)
+    for label, args, feat in (("#23", dec, ring[1]), ("#24", ver, ring[5])):
+        lib = _paged_library(*args, **feat)().reshape(args[0].shape)
+        ref = (pa.paged_attention_ref if args[0].dim() == 3
+               else pa.paged_prefill_ref)(*args, **feat)
+        print(f"[library] SDPA with the ring mask for {label}: max_abs "
+              f"{(lib.float() - ref.float()).abs().max().item():.3e} against "
+              f"the plain version")
+
+
+def _w8a16_shapes(cfg):
+    """The 7bish projections (K, N) by weight, one of each shape."""
+    d, Dh = cfg.d_model, cfg.head_dim
+    return {"head": (d, cfg.vocab), "w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d),
+            "wq/wo": (d, cfg.n_heads * Dh), "wk/wv": (d, cfg.n_kv_heads * Dh)}
+
+
+def _w8a16_work(M, K, N, dt):
+    """(flops, bytes) of one w8a16 product: 2 M N K operations at x's
+    type's rate; the int8 weights, the f32 scales, x and y once."""
+    es = torch.empty(0, dtype=dt).element_size()
+    return 2 * M * N * K, K * N + 4 * N + es * M * K + es * M * N
+
+
+def _w8a16_kernels(checks, timed, gen, cfg):
+    """#25 against matmul_w8a16_ref at the 7bish weight shapes: M = 4
+    (decode), 20 (a gamma = 4 verification of 4 slots) and 128 (a
+    bucket-128 prefill), and forced at M = 256 and 2048, in bf16 and f32;
+    a K tail (K = 200) and an N that is no tile multiple (1000). Each call
+    twice: the split-K sum must repeat bit for bit. Times M = 4 on every
+    shape, 20 on the head, 128 on w1, and the forced kernel at 256 and
+    2048 on w1 beside the dispatch path (JAX's dequant-then-dot at
+    M > 128); library: torch.matmul over pre-dequantized bf16 weights (the
+    bf16 tier's GEMM)."""
+    from functools import partial
+
+    from tpukern_torch.harness import run_benchmark
+    from tpukern_torch.ops import matmul_w8a16 as w8
+
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = {**_w8a16_shapes(cfg), "K tail": (200, 2048),
+              "N 1000": (cfg.d_model, 1000)}
+    weights = {name: w8.quantize_weights(0.02 * _randn(gen, K, N, dtype=f32))
+               for name, (K, N) in shapes.items()}
+
+    def check(tag, x, q, s, force=False):
+        out = w8.matmul_w8a16(x, q, s, force_kernel=force)
+        again = w8.matmul_w8a16(x, q, s, force_kernel=force)
+        ok, err = _compare("matmul_w8a16", tag, out,
+                           w8.matmul_w8a16_ref(x, q, s))
+        if not torch.equal(out, again):
+            print(f"[check] matmul_w8a16     {tag}: a second call differs "
+                  f"MISS")
+            ok = False
+        checks.record("matmul_w8a16", ok, err)
+
+    for name, (q, s) in weights.items():
+        K, N = q.shape
+        for M in (4, 20, 128) if name not in ("K tail", "N 1000") else (4, 20):
+            for dt in (bf, f32):
+                check(f"{name} {M}x{K}x{N} {dt}", _randn(gen, M, K, dtype=dt),
+                      q, s)
+    for name in ("wq/wo", "w1"):
+        q, s = weights[name]
+        for M in (256, 2048):
+            for dt in (bf, f32):
+                check(f"{name} {M}x{q.shape[0]}x{q.shape[1]} {dt} forced",
+                      _randn(gen, M, q.shape[0], dtype=dt), q, s, force=True)
+
+    def entry(name, M, force=False):
+        q, s = weights[name]
+        K, N = q.shape
+        x = _randn(gen, M, K, dtype=bf)
+        wd = (q.float() * s).to(bf)  # the bf16 tier's weights
+        timed[f"matmul_w8a16 {name} M{M}"] = _timed_entry(
+            "matmul_w8a16", [M, K, N],
+            partial(w8.matmul_w8a16, x, q, s, force_kernel=force),
+            partial(w8.matmul_w8a16_ref, x, q, s),
+            partial(torch.matmul, x, wd), *_w8a16_work(M, K, N, bf), bf)
+        return x, q, s
+
+    for name in ("head", "w1", "w2", "wq/wo", "wk/wv"):
+        entry(name, 4)
+    entry("head", 20)
+    entry("w1", 128)
+    for M in (256, 2048):
+        x, q, s = entry("w1", M, force=True)
+        path = partial(w8._dequant_matmul, x, q, s, bf)
+        dev = _device_ms(path)
+        print(f"[time] matmul_w8a16 dispatch path (dequant in bf16, then "
+              f"torch.matmul) w1 M{M}: {run_benchmark(path):.4f} ms "
+              f"events, {'not measured' if dev is None else f'{dev:.4f}'} ms "
+              f"device")
 
 
 # the sampling kernels' shapes: the 7bish serving batch and vocabulary,
@@ -820,21 +1032,29 @@ def _paged_case(gen, B, hq, hkv, dd, page, pps, lengths, dt, T=None):
     return qq, kp, vp, lens, table
 
 
-def _visible(lengths, T, S):
-    """Bool (B, T, S): token t of sequence b sees positions
-    [0, lengths[b] - T + t] of its S-token pool."""
-    qpos = lengths.long()[:, None] - T + torch.arange(T, device=lengths.device)
-    return torch.arange(S, device=lengths.device) <= qpos[..., None]
+def _visible(lengths, T, S, window=None, sinks=None, ring=False):
+    """Bool (B, T, S): whether token t of sequence b sees slot j of its
+    S-slot pool: flat, positions [0, lengths[b] - T + t]; on a ring, the
+    position the slot holds (paged_attention._positions); with a window,
+    only the band and the sinks."""
+    from tpukern_torch.ops.paged_attention import _positions
+
+    qpos, kpos = _positions(lengths, T, S, sinks, ring, lengths.device)
+    rel = kpos[:, None, :] - qpos[..., None]
+    keep = (kpos[:, None, :] >= 0) & (rel <= 0)
+    if window is not None:
+        keep &= (rel >= 1 - window) | (kpos[:, None, :] < (sinks or 0))
+    return keep
 
 
-def _paged_work(q, k_pages, v_pages, lengths, page_table):
+def _paged_work(q, k_pages, v_pages, lengths, page_table, **feat):
     """(flops, bytes) of paged attention on these inputs: 4 D flops per
     visible (query head, position) pair; q, o, the K and V rows of the
     positions some token sees, the lengths and the table, each once."""
     T = 1 if q.dim() == 3 else q.shape[2]
     Hkv, _, page, D = k_pages.shape
     S = page_table.shape[1] * page
-    keep = _visible(lengths, T, S)
+    keep = _visible(lengths, T, S, **feat)
     pairs = int(keep.sum())
     live = int(keep.any(dim=1).sum())
     return (4 * D * q.shape[1] * pairs,
@@ -842,12 +1062,14 @@ def _paged_work(q, k_pages, v_pages, lengths, page_table):
             + _nbytes(lengths, page_table))
 
 
-def _paged_library(q, k_pages, v_pages, lengths, page_table):
+def _paged_library(q, k_pages, v_pages, lengths, page_table, **feat):
     """The library yardstick of #23 and #24 (no PyTorch call reads a page
     table): F.scaled_dot_product_attention(enable_gqa=True) on a
     contiguous copy of each sequence's K/V with the boolean mask of the
-    visible positions. The gather and the mask are made here, outside the
-    timed call, which this returns; decode q (B, Hq, D) goes in as T = 1."""
+    visible slots (feat: window, sinks, ring; in slot order, which
+    attention does not see). The gather and the mask are made here,
+    outside the timed call, which this returns; decode q (B, Hq, D) goes
+    in as T = 1."""
     from functools import partial
 
     q4 = q[:, :, None] if q.dim() == 3 else q
@@ -857,7 +1079,7 @@ def _paged_library(q, k_pages, v_pages, lengths, page_table):
     table = page_table.long()
     k, v = (p[:, table].permute(1, 0, 2, 3, 4).reshape(B, Hkv, S, D)
             .contiguous() for p in (k_pages, v_pages))
-    mask = _visible(lengths, T, S)[:, None]
+    mask = _visible(lengths, T, S, **feat)[:, None]
     return partial(F.scaled_dot_product_attention, q4, k, v, attn_mask=mask,
                    enable_gqa=True)
 
@@ -1907,16 +2129,334 @@ def phase_quant_serve(cfg, params, requests):
     return total
 
 
+def _weight_bytes(params):
+    """Bytes of the projections and the head (what w8a16 quantizes), and
+    of the whole tree."""
+    from tpukern_torch.models import param_leaves
+    from tpukern_torch.models.serving import W8A16_WEIGHTS
+
+    proj = [params["head"]] + [lp[k] for lp in params["layers"]
+                               for k in W8A16_WEIGHTS]
+    flat = [t for w in proj for t in (w.values() if isinstance(w, dict)
+                                      else [w])]
+    return _nbytes(*flat), _nbytes(*param_leaves(params))
+
+
+def _w8a16_ops():
+    from tpukern_torch.ops import matmul_w8a16
+
+    return _quant_ops() + [matmul_w8a16.matmul_w8a16]
+
+
+def _w8a16_step_counts(cfg, qparams, requests):
+    """#25's launches in one call of each serving step on the w8a16 tree,
+    against the dispatch rule (the kernel at M <= 128 rows): a decode step
+    of 4 slots and a gamma = 4 verification of 4 slots (M = 4, 20: every
+    projection and the head, 6 L + 1), whole prefills in buckets 128 (M =
+    128: 6 L + 1), 256 and 512 (the layers take the dequant-then-dot path,
+    the head at M = 1 the kernel: 1), a 256-token chunk (M = 256
+    everywhere: 0)."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.models.batcher import ContinuousBatcher
+    from tpukern_torch.ops.matmul_w8a16 import matmul_w8a16
+
+    full = 6 * cfg.n_layers + 1
+    cb = ContinuousBatcher(qparams, cfg, **SERVE_KW)
+    counts, want = {}, {}
+    by_bucket = {}
+    for rid, prompt in requests:
+        b = 128 if len(prompt) <= 128 else 256 if len(prompt) <= 256 else 512
+        by_bucket.setdefault(b, (rid, prompt))
+    for b, (rid, prompt) in sorted(by_bucket.items()):
+        if not cb.free_slots():
+            break
+        matmul_w8a16.launches = 0
+        cb.add_request(rid, prompt)
+        counts[f"prefill bucket {b}"] = matmul_w8a16.launches
+        want[f"prefill bucket {b}"] = full if b == 128 else 1
+    for rid, prompt in requests:
+        if cb.free_slots() and rid not in cb.outputs:
+            cb.add_request(rid, prompt)
+    cb.step()
+    matmul_w8a16.launches = 0
+    cb.step()
+    counts["decode step"], want["decode step"] = matmul_w8a16.launches, full
+    dev = qparams["embed"].device
+    for tag, T, B, n in (("verify gamma 4", 5, 4, full),
+                         ("chunk of 256", 256, 1, 0)):
+        cache = serving.init_cache(cfg, B, 8, 128, device=dev)
+        toks = torch.zeros(B, T, dtype=torch.int32, device=dev)
+        matmul_w8a16.launches = 0
+        serving.verify_step(qparams, cfg, toks, cache)
+        counts[tag], want[tag] = matmul_w8a16.launches, n
+    print(f"[w8a16-serve] #25 launches per call {counts}")
+    require(counts == want, f"#25 launches {counts}, want {want}")
+    return counts["decode step"]
+
+
+def phase_w8a16_serve(cfg, params, requests):
+    """[w8a16-serve]: quantize_model_weights on the 7bish bf16 params on
+    the card, then phase_serve's requests through ContinuousBatcher with
+    the w8a16 tree twice in turns with two bf16 runs, once on int8 KV
+    pools, once with chunked_prefill=256, and SpeculativeBatcher with a
+    w8a16 agreeing target and draft. Each run resets the launch counts
+    just before and reads them just after; #25 must launch in every w8a16
+    run. Weight quantization moves the logits, so leading tokens equal to
+    the bf16 streams are printed, not required. Returns #25's launches
+    summed over these runs."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.models.batcher import (ContinuousBatcher,
+                                              SpeculativeBatcher)
+
+    qparams = serving.quantize_model_weights(params)
+    require(qparams["head"]["q"].is_cuda and qparams["head"]["q"].dtype ==
+            torch.int8, "quantize_model_weights did not stay on the card")
+    (pq, tq), (pb, tb) = _weight_bytes(qparams), _weight_bytes(params)
+    print(f"[w8a16-serve] weight bytes: projections and head {pq} (w8a16) "
+          f"against {pb} (bf16), {pq / pb:.4f}x; whole tree {tq} against "
+          f"{tb}")
+    per_step = _w8a16_step_counts(cfg, qparams, requests)
+    warm = ContinuousBatcher(qparams, cfg, chunked_prefill=256,
+                             **dict(SERVE_KW, max_new_tokens=2))
+    warm.run([(f"w{b}", np.ones(b - 10, np.int32)) for b in (128, 256, 512)])
+    del warm
+    torch.cuda.synchronize()
+    ops = _w8a16_ops()
+    total, runs = 0, {}
+    for tag in ("bf16", "w8a16", "w8a16", "bf16"):
+        cb = ContinuousBatcher(qparams if tag == "w8a16" else params, cfg,
+                               **SERVE_KW)
+        run = _drive(cb, requests, ops)
+        _require_finished(cb, requests, 32, cfg, f"{tag}-serve")
+        n = run["launches"]["matmul_w8a16"]
+        require((n > 0) == (tag == "w8a16"),
+                f"{tag}: #25 launched {n} times")
+        total += n
+        runs.setdefault(tag, []).append(run)
+    bf16 = runs["bf16"][0]["finished"]
+    a, b = (r["finished"] for r in runs["w8a16"])
+    firsts = [a[r][0] == bf16[r][0] for r in sorted(bf16)]
+    print(f"[w8a16-serve] decode median "
+          f"{' / '.join(f'{np.median(r['step_ms']):.3f}' for r in runs['w8a16'])}"
+          f" ms/step, "
+          f"{' / '.join(f'{_ms_per_token(r):.3f}' for r in runs['w8a16'])} "
+          f"ms per emitted token (runs 1 / 2); bf16 in the same turns "
+          f"{' / '.join(f'{_ms_per_token(r):.3f}' for r in runs['bf16'])}; "
+          f"#25 launches {[r['launches']['matmul_w8a16'] for r in runs['w8a16']]}"
+          f" ({per_step} per decode step)")
+    print(f"[w8a16-serve] leading tokens equal to the bf16 stream "
+          f"{_agreement(a, bf16)} of 32; first tokens equal "
+          f"{sum(firsts)}/{len(firsts)}; two runs equal {a == b}")
+    require(a == b, "two w8a16 runs differ")
+
+    cb = ContinuousBatcher(qparams, cfg, cache_dtype=torch.int8, **SERVE_KW)
+    _tier_counts(reset=True)
+    run = _drive(cb, requests, ops)
+    _require_finished(cb, requests, 32, cfg, "w8a16 int8 KV")
+    tiers = _tier_counts()
+    require(run["launches"]["matmul_w8a16"] > 0 and tiers["#23 int8"] > 0,
+            f"w8a16 on int8 pools: {run['launches']} {tiers}")
+    total += run["launches"]["matmul_w8a16"]
+    print(f"[w8a16-serve] int8 KV pools: {_ms_per_token(run):.3f} ms per "
+          f"emitted token; leading tokens equal to the bf16 stream "
+          f"{_agreement(run['finished'], bf16)}; #25 "
+          f"{run['launches']['matmul_w8a16']}, quantized #23 "
+          f"{tiers['#23 int8']}")
+
+    cb = ContinuousBatcher(qparams, cfg, chunked_prefill=256, **SERVE_KW)
+    run = _drive(cb, requests, ops)
+    _require_finished(cb, requests, 32, cfg, "w8a16 chunked")
+    n = run["launches"]
+    require(n["matmul_w8a16"] > 0 and n["paged_prefill_attention"] > 0,
+            f"w8a16 chunked: {n}")
+    total += n["matmul_w8a16"]
+    print(f"[w8a16-serve] chunked_prefill=256: admission ms "
+          f"{[round(run['admit_ms'][r], 3) for r, _ in requests]}; "
+          f"{_ms_per_token(run):.3f} ms per emitted token; #25 "
+          f"{n['matmul_w8a16']} (decode steps and the short prompts' "
+          f"whole prefills; a 256-token chunk launches none)")
+
+    agree, draft, dcfg = _agreeing(params, cfg)
+    qa, qd = (serving.quantize_model_weights(p) for p in (agree, draft))
+    spec_req = requests[:4]
+    base = _drive(ContinuousBatcher(qa, cfg, **SERVE_KW), spec_req)
+    sb = SpeculativeBatcher(qa, cfg, qd, dcfg, gamma=GAMMA, **SERVE_KW)
+    run = _drive(sb, spec_req, ops)
+    _require_finished(sb, spec_req, 32, cfg, "w8a16 spec")
+    st = sb.stats
+    total += run["launches"]["matmul_w8a16"]
+    print(f"[w8a16-serve] SpeculativeBatcher (gamma {GAMMA}, w8a16 agreeing "
+          f"target and 2-layer draft): acceptance {st.acceptance_rate:.4f} "
+          f"({st.accepted}/{st.drafted}), {st.rounds} target passes, "
+          f"{_ms_per_token(run):.3f} ms per emitted token against "
+          f"ContinuousBatcher's {_ms_per_token(base):.3f}; #25 "
+          f"{run['launches']['matmul_w8a16']}")
+    require(run["launches"]["matmul_w8a16"] > 0 and st.rounds > 0,
+            f"w8a16 spec: {run['launches']} {st}")
+    print(f"[w8a16-serve] #25 launches over these runs {total}")
+    return total, qparams
+
+
+# [ring-serve]: Gemma-2-style serving (GEMMA2) on ring pools of 5 pages
+# of 128 slots (640 >= window + sinks + gamma + 1) against flat pools of 8
+RING_SERVE_KW = dict(n_slots=4, page_size=128, max_new_tokens=256,
+                     prompt_buckets=(640,))
+
+
+def _ring_requests(cfg):
+    """4 prompts of 560-620 tokens (bucket 640): with 256 new tokens each
+    stream passes the 640-slot ring."""
+    rng = np.random.default_rng(SEED + 7)
+    return [(i, rng.integers(0, cfg.vocab, n).astype(np.int32))
+            for i, n in enumerate(rng.integers(560, 621, 4))]
+
+
+def _ring_counts(reset=False):
+    """ring_launches of #23, #24 and their quantized instances; with
+    reset, set to 0."""
+    from tpukern_torch.ops import paged_attention as pa
+
+    fns = (pa.paged_attention, pa.paged_prefill_attention,
+           pa.paged_attention_quantized, pa.paged_prefill_attention_quantized)
+    if reset:
+        for fn in fns:
+            fn.ring_launches = 0
+    return {fn.__name__: fn.ring_launches for fn in fns}
+
+
+def phase_ring_serve(cfg, params):
+    """[ring-serve]: the [gemma2-serve] config (window 512, sinks 4,
+    softcap 50) through ContinuousBatcher on ring pools (5 pages of 128)
+    in turns with flat pools of 8 pages, 4 prompts of 560-620 tokens and
+    256 new tokens (every stream wraps the ring); then int8 ring pools,
+    SpeculativeBatcher on a ring (the agreeing draft, float and int8
+    pools) and generate(ring=True). The ring instances must launch, and
+    the first tokens equal the flat pools' (the prefill is one function).
+    Returns the ring launches of each paged kernel summed over the ring
+    runs."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.models.batcher import (ContinuousBatcher,
+                                              SpeculativeBatcher)
+
+    gcfg = dataclasses.replace(cfg, **GEMMA2)
+    requests = _ring_requests(cfg)
+    n_new = RING_SERVE_KW["max_new_tokens"]
+    total = {}
+
+    def counted(make, tag, need):
+        _ring_counts(reset=True)
+        _tier_counts(reset=True)
+        cb = make()
+        run = _drive(cb, requests, _quant_ops())
+        _require_finished(cb, requests, n_new, cfg, tag)
+        rc = _ring_counts()
+        require(all(rc[n] > 0 for n in need),
+                f"{tag}: a ring instance of {need} did not launch: {rc}")
+        for k, v in rc.items():
+            total[k] = total.get(k, 0) + v
+        return cb, run, rc
+
+    def ring_cb(**kw):
+        return ContinuousBatcher(params, gcfg, pages_per_seq=5, ring=True,
+                                 **kw, **RING_SERVE_KW)
+
+    warm = ContinuousBatcher(params, gcfg, pages_per_seq=5, ring=True,
+                             **dict(RING_SERVE_KW, max_new_tokens=2))
+    warm.run(requests[:1])
+    del warm
+    runs, pools = {}, {}
+    for tag in ("flat", "ring", "ring", "flat"):
+        if tag == "flat":
+            cb = ContinuousBatcher(params, gcfg, pages_per_seq=8,
+                                   **RING_SERVE_KW)
+            run = _drive(cb, requests)
+            _require_finished(cb, requests, n_new, cfg, "flat")
+        else:
+            cb, run, rc = counted(ring_cb, "ring", ["paged_attention"])
+            require(rc["paged_attention"] == run["launches"]["paged_attention"],
+                    f"a decode on the ring pool took the flat instance: {rc} "
+                    f"{run['launches']}")
+        pools[tag] = _pool_bytes(cb.cache)
+        runs.setdefault(tag, []).append(run)
+    flat = runs["flat"][0]["finished"]
+    a, b = (r["finished"] for r in runs["ring"])
+    firsts = [a[r][0] == flat[r][0] for r in sorted(flat)]
+    print(f"[ring-serve] {GEMMA2}, prompt lengths "
+          f"{[len(p) for _, p in requests]}, {n_new} new tokens: ring pools "
+          f"{pools['ring']} bytes against flat {pools['flat']} "
+          f"({pools['ring'] / pools['flat']:.4f}x); ms per emitted token "
+          f"ring {' / '.join(f'{_ms_per_token(r):.3f}' for r in runs['ring'])}"
+          f", flat in the same turns "
+          f"{' / '.join(f'{_ms_per_token(r):.3f}' for r in runs['flat'])}")
+    print(f"[ring-serve] leading tokens equal to the flat stream "
+          f"{_agreement(a, flat)} of {n_new}; first tokens equal "
+          f"{sum(firsts)}/{len(firsts)}; two ring runs equal {a == b}; "
+          f"ring #23 launches {total['paged_attention']}")
+    require(all(firsts) and a == b,
+            f"ring-serve: a first token is not the flat pool's, or two runs "
+            f"differ: {a} {b}")
+
+    _, run, rc = counted(lambda: ring_cb(cache_dtype=torch.int8), "int8 ring",
+                         ["paged_attention_quantized"])
+    print(f"[ring-serve] int8 ring pools: {_ms_per_token(run):.3f} ms per "
+          f"emitted token; leading tokens equal to the flat bf16 stream "
+          f"{_agreement(run['finished'], flat)}; ring launches {rc}")
+    agree, draft, dcfg = _agreeing(params, gcfg)
+    for dt, need in ((torch.bfloat16, "paged_prefill_attention"),
+                     (torch.int8, "paged_prefill_attention_quantized")):
+        sb, run, rc = counted(lambda: SpeculativeBatcher(
+            agree, gcfg, draft, dcfg, gamma=GAMMA, pages_per_seq=5,
+            ring=True, cache_dtype=dt, **RING_SERVE_KW), f"{dt} ring spec",
+            [need])
+        require(not sb.dcache.ring, "the draft cache is a ring")
+        st = sb.stats
+        print(f"[ring-serve] SpeculativeBatcher on a {dt} ring (gamma "
+              f"{GAMMA}, agreeing 2-layer draft on a flat pool that clamps "
+              f"past 640): acceptance {st.acceptance_rate:.4f} "
+              f"({st.accepted}/{st.drafted}), {st.rounds} target passes, "
+              f"{_ms_per_token(run):.3f} ms per emitted token; ring "
+              f"launches {rc}")
+    _ring_counts(reset=True)
+    prompt = torch.from_numpy(requests[0][1][None]).to("cuda")
+    out = serving.generate(params, gcfg, prompt, n_steps=96, pages_per_seq=5,
+                           ring=True)
+    ref = serving.generate(params, gcfg, prompt, n_steps=96, pages_per_seq=8)
+    rc = _ring_counts()
+    for k, v in rc.items():
+        total[k] += v
+    require(out.shape == (1, 96) and rc["paged_attention"] == 96 * cfg.n_layers
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+            f"generate(ring=True): {tuple(out.shape)} {rc}")
+    print(f"[ring-serve] generate(ring=True), {prompt.shape[1]} + 96 tokens:"
+          f" leading tokens equal to generate on flat pools "
+          f"{_agreement({0: out[0].tolist()}, {0: ref[0].tolist()})}; ring "
+          f"#23 launches {rc['paged_attention']}")
+    print(f"[ring-serve] ring launches over these runs {total}")
+    return total
+
+
 @contextlib.contextmanager
 def _plain_serving():
     """models/serving.py with every kernel it calls swapped for its plain
-    version (norms, RoPE, the quantized paged kernels, the quantizers)."""
+    version (norms, RoPE, attention, the float and quantized paged
+    kernels, the quantizers, #25: at M <= 128 its plain version, above it
+    the dequant-then-dot path, which runs no kernel of the port)."""
     from tpukern_torch.models import serving
+    from tpukern_torch.ops import attention
+    from tpukern_torch.ops import matmul_w8a16 as w8
     from tpukern_torch.ops import paged_attention as pa
     from tpukern_torch.ops import quant, rmsnorm, rope
 
+    def plain_w8a16(x, q, s):
+        return (w8.matmul_w8a16_ref(x, q, s) if x.shape[0] <= w8.KERNEL_MAX_M
+                else w8._dequant_matmul(x, q, s, x.dtype))
+
     swap = dict(rms_norm=rmsnorm.rms_norm_ref,
                 rope_cached=rope.rope_cached_ref,
+                flash_attention=attention.attention_ref,
+                paged_attention=pa.paged_attention_ref,
+                paged_prefill_attention=pa.paged_prefill_ref,
+                matmul_w8a16=plain_w8a16,
                 paged_attention_quantized=pa.paged_attention_quantized_ref,
                 paged_prefill_attention_quantized=(
                     pa.paged_prefill_quantized_ref),
@@ -1964,6 +2504,36 @@ def phase_quant_logits(cfg, params, prompt):
     return ok
 
 
+def phase_w8a16_logits(cfg, qparams, prompt):
+    """One decode step of the w8a16 tree after a prefill of prompt, at
+    full depth, through the kernels and through the plain functions
+    (_plain_serving: #25's plain version, the plain attention, paged
+    attention, norms and RoPE) on copies of the same cache: bf16 as served
+    (rel RMS <= E2E_BF16_REL) and f32 (max abs <= E2E_F32_ATOL), each with
+    _logits_verdict's argmax rule."""
+    from tpukern_torch.models import params_to, serving
+
+    dev = qparams["embed"].device
+    tokens = torch.from_numpy(prompt[None]).to(dev)
+    ok = True
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        p = qparams if dt == torch.bfloat16 else params_to(qparams, dt)
+        c = dataclasses.replace(cfg, param_dtype=dt)
+        cache = serving.init_cache(c, 1, 8, 128, dtype=dt, device=dev)
+        logits, cache = serving.prefill(p, c, tokens, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        copy = dataclasses.replace(cache, **{
+            k: getattr(cache, k).clone() for k in ("k_pages", "v_pages",
+                                                   "lengths")})
+        out, _ = serving.decode_step(p, c, tok, cache)
+        with _plain_serving():
+            ref, _ = serving.decode_step(p, c, tok, copy)
+        ok &= _logits_verdict(out[0], ref[0], dt == torch.float32,
+                              f"w8a16 decode step, {name}, kernels vs "
+                              f"plain w8a16 functions")
+    return ok
+
+
 _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                                   "ce_bwd_")),
                ("rms_norm", "rms_norm_kernel"),
@@ -1976,6 +2546,7 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                ("paged_prefill", "paged_prefill_"),
                ("sampling", ("sample_kernel", "sample_combine_kernel",
                              "threshold_kernel")),
+               ("w8a16", "w8a16_"),
                ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
 
@@ -2018,11 +2589,11 @@ def _profile(label, fn, n):
         print(f"[profile] {label}   {t / n / 1e3:.4f} ms  {name[:90]}")
 
 
-def phase_profile(cfg, params, requests):
+def phase_profile(cfg, params, requests, qparams):
     """Where the device time goes: one 512-bucket admission and 8 decode
-    steps of 4 active slots, greedy on bf16, int8 and fp8 pools and
-    sampled (SAMPLE_T with top_p 0.9, and with top_k 50), one chunked
-    admission (chunked_prefill=256) and 2
+    steps of 4 active slots, greedy on bf16, int8 and fp8 pools, with the
+    w8a16 weights (qparams) and sampled (SAMPLE_T with top_p 0.9, and with
+    top_k 50), one chunked admission (chunked_prefill=256) and 2
     speculative rounds (gamma 4, the 2-layer draft) of 4 slots, each under
     torch.profiler."""
     from tpukern_torch.models.batcher import (ContinuousBatcher,
@@ -2044,6 +2615,12 @@ def phase_profile(cfg, params, requests):
         cq.step()
         _profile(f"{tier} decode step (4 slots)", cq.step, 8)
     del cq
+    cw = ContinuousBatcher(qparams, cfg, **SERVE_KW)
+    for r, p in requests[:4]:
+        cw.add_request(r, p)
+    cw.step()
+    _profile("w8a16 decode step (4 slots)", cw.step, 8)
+    del cw
     for tag, kw in (("top_p 0.9", dict(top_p=0.9)),
                     ("top_k 50", dict(top_k=50))):
         cb = ContinuousBatcher(params, cfg, greedy=False,
@@ -2187,9 +2764,13 @@ def phase_exact(cfg, requests):
     (a 1-layer draft, and the target as its own draft, which must accept
     every proposal) and speculative_generate against ContinuousBatcher,
     windowed serving (GEMMA2, unchunked and chunked) against greedy
-    decoding with the plain functions, and the int8 tier's paths."""
+    decoding with the plain functions, the int8 tier's paths, w8a16
+    through the kernels against the plain functions, ring pools against
+    flat pools, and SpeculativeBatcher on a ring against ContinuousBatcher
+    on a ring."""
     from tpukern_torch.models import (ContinuousBatcher, SpeculativeBatcher,
-                                      init_params, speculative_generate)
+                                      init_params, serving,
+                                      speculative_generate)
 
     c2 = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.float32)
     params = init_params(c2, torch.Generator(device="cuda").manual_seed(
@@ -2267,6 +2848,27 @@ def phase_exact(cfg, requests):
           f"{_agreement(c256, {r: base8[r] for r, _ in long})} of {n_new}; "
           f"int8 against f32 pools: "
           f"{_agreement(base8, base)} of {n_new}")
+
+    # w8a16 through the kernels against the plain functions; ring pools
+    # against flat pools over streams that wrap the ring (JAX's own
+    # property, tests/test_batcher.py:378), and speculation on a ring
+    qp = serving.quantize_model_weights(params)
+    w8 = ContinuousBatcher(qp, c2, **kw).run(requests)
+    with _plain_serving():
+        w8_plain = ContinuousBatcher(qp, c2, **kw).run(requests)
+    same("w8a16 kernels vs w8a16 plain functions", w8, w8_plain)
+    print(f"[exact] w8a16 against f32 weights: leading tokens equal "
+          f"{_agreement(w8, base)} of {n_new}")
+    g2, gd = (dataclasses.replace(c, **GEMMA2) for c in (c2, dcfg))
+    rreq = _ring_requests(cfg)
+    rkw = dict(kw, max_new_tokens=96, prompt_buckets=(640,))
+    ring = ContinuousBatcher(params, g2, ring=True,
+                             **dict(rkw, pages_per_seq=5)).run(rreq)
+    same(f"ring pools (5 pages) vs flat pools (8), {GEMMA2}, 560-620 + 96 "
+         f"tokens", ring, ContinuousBatcher(params, g2, **rkw).run(rreq))
+    same("SpeculativeBatcher on a ring vs ContinuousBatcher on a ring",
+         SpeculativeBatcher(params, g2, draft, gd, gamma=GAMMA, ring=True,
+                            **dict(rkw, pages_per_seq=5)).run(rreq), ring)
     return ok
 
 
@@ -2487,12 +3089,15 @@ def main():
     prefix_launches += phase_spec_sample(cfg, params, requests, serve_ops)
     phase_gemma2(cfg, params, serve_ops)
     quant_launches = phase_quant_serve(cfg, params, requests)
-    phase_profile(cfg, params, requests)
+    w8a16_launches, qparams = phase_w8a16_serve(cfg, params, requests)
+    ring_launches = phase_ring_serve(cfg, params)
+    phase_profile(cfg, params, requests, qparams)
     if not (phase_logits(cfg, params, requests[0][1])
-            and phase_quant_logits(cfg, params, requests[0][1])):
+            and phase_quant_logits(cfg, params, requests[0][1])
+            and phase_w8a16_logits(cfg, qparams, requests[0][1])):
         print("chip_smoke: end-to-end logits disagree", file=sys.stderr)
         return 1
-    del params
+    del params, qparams
     torch.cuda.empty_cache()
     if not phase_exact(cfg, requests):
         print("chip_smoke: a serving stream differs from its reference",
@@ -2544,7 +3149,8 @@ def main():
                                      + sample_launches["mass"]),
                 **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")},
                 **{n: featured_launches[n] for n in ("flash_attention_dq",
-                                                     "flash_attention_dkv")}}
+                                                     "flash_attention_dkv")},
+                "matmul_w8a16": w8a16_launches}
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -2587,7 +3193,9 @@ def main():
                "tpukern/ops/paged_attention.py:77"),
            "paged_prefill_attention_quantized": (
                "tpukern_torch/csrc/paged_quant.cu",
-               "tpukern/ops/paged_attention.py:513")}
+               "tpukern/ops/paged_attention.py:513"),
+           "matmul_w8a16": ("tpukern_torch/csrc/matmul_w8a16.cu",
+                            "tpukern/ops/matmul_w8a16.py:106")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -2617,7 +3225,10 @@ def main():
                             "mass mode has none (sort, softmax and cumsum)",
         "paged_attention_quantized": "as paged_attention, on pools "
                                      "dequantized outside the timed call",
-        "paged_prefill_attention_quantized": "as paged_attention_quantized"}
+        "paged_prefill_attention_quantized": "as paged_attention_quantized",
+        "matmul_w8a16": "torch.matmul over the weights dequantized to bf16 "
+                        "outside the timed call (the bf16 tier's GEMM, "
+                        "cuBLAS)"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -2625,6 +3236,13 @@ def main():
                     for t in ("int8", "pv_int8", "fp8")}
                 for k, n in (("#23", "paged_attention_quantized"),
                              ("#24", "paged_prefill_attention_quantized"))}}
+    # the ring instances' launches in [ring-serve]; ALiBi has none to
+    # count: no serving path passes slopes (JAX's passes none either)
+    for n, v in ring_launches.items():
+        modes.setdefault(n, {}).update(
+            ring_launches=v,
+            alibi="no serving path passes slopes (as in JAX); held against "
+                  "the plain version in the kernel phase only")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],

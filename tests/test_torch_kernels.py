@@ -935,3 +935,146 @@ def test_quantized_serving_on_kernels_equals_plain(cuda):
             assert out == ref
             assert grew[:4] == [False, False, True, True]
             assert grew[4] == (dt == torch.int8) and grew[5] != grew[4]
+
+
+# ------------------------------------------------ w8a16 GEMM (#25)
+
+# (M, N, K): the 7bish decode shapes (wk/wv, wq/wo, w1, w2, the head), a
+# verification, a whole 128-token prefill, forced prefill sizes, a K tail
+# and an N that is no tile (nor 16-byte) multiple
+W8A16_SHAPES = [(4, 1024, 2048), (4, 2048, 2048), (4, 8192, 2048),
+                (4, 2048, 8192), (1, 32768, 2048), (20, 2048, 2048),
+                (128, 8192, 2048), (256, 2048, 2048), (2048, 1024, 512),
+                (7, 1000, 200), (3, 136, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M,N,K", W8A16_SHAPES)
+def test_matmul_w8a16_matches_plain(cuda, M, N, K, dt):
+    """The kernel (forced at every M) against matmul_w8a16_ref, bit for
+    bit on a second call (the split-K partials are summed in slice order,
+    whichever block finishes last)."""
+    from tpukern_torch.ops import matmul_w8a16 as w8
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    x = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
+    w = torch.randn((K, N), generator=g, device=cuda) * 0.02
+    q, s = w8.quantize_weights(w)
+    before = w8.matmul_w8a16.launches
+    out = w8.matmul_w8a16(x, q, s, force_kernel=True)
+    again = w8.matmul_w8a16(x, q, s, force_kernel=True)
+    torch.cuda.synchronize()
+    assert w8.matmul_w8a16.launches == before + 2
+    assert out.dtype == x.dtype and torch.equal(out, again)
+    ref = w8.matmul_w8a16_ref(x, q, s)
+    check_all_close(out.float(), ref.float(), dtype=DTYPES[dt],
+                    name=f"w8a16 {M}x{N}x{K} {dt}",
+                    **(F32 if dt == "f32" else {}))
+    f32 = w8.matmul_w8a16(x, q, s, out_dtype=torch.float32, force_kernel=True)
+    check_all_close(f32, w8.matmul_w8a16_ref(x, q, s, out_dtype=torch.float32),
+                    name="f32 out", **F32)
+
+
+# ------------------------------------------------ ring pools and ALiBi
+
+# (B, Hq, Hkv, T, D, page, pps, lengths, window, sinks): rings of 64 and
+# 1024 slots wrapped more than once, sinks, windows at the ring's limit
+RING_CASES = {"small": (2, 4, 2, 5, 32, 16, 4, [150, 9], 60, 0),
+              "sinks": (3, 8, 2, 5, 64, 16, 4, [150, 70, 5], 56, 4),
+              "serve": (4, 16, 8, 5, 128, 128, 5, [600, 1500, 2900, 640],
+                        632, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_paged_ring_matches_plain(cuda, case, alibi, dt):
+    """#24 (T = 5) and #23 (each sequence's last token) on wrapped rings,
+    with and without ALiBi, against their plain versions; ring_launches
+    counts the launches."""
+    *shape, window, sinks = RING_CASES[case]
+    q, kp, vp, lengths, table = _paged_case(cuda, DTYPES[dt], *shape,
+                                            seed=len(case))
+    kw = dict(ring=True, window=window, sinks=sinks)
+    if alibi:
+        kw["alibi_slopes"] = 2.0 ** -torch.arange(
+            1, q.shape[1] + 1, device=cuda, dtype=torch.float32)
+    tol = F32 if dt == "f32" else {}
+    fn = paged_attention.paged_prefill_attention
+    before = fn.ring_launches
+    out = fn(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert fn.ring_launches == before + 1
+    ref = paged_attention.paged_prefill_ref(q, kp, vp, lengths, table, **kw)
+    check_all_close(out.float(), ref.float(), dtype=DTYPES[dt],
+                    name=f"prefix {case}", **tol)
+    kw["window"] += 4  # one token: the decode limit is ring - sinks
+    args = (q[:, :, -1], kp, vp, lengths, table)
+    check_all_close(paged_attention.paged_attention(*args, **kw).float(),
+                    paged_attention.paged_attention_ref(*args, **kw).float(),
+                    dtype=DTYPES[dt], name=f"decode {case}", **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+@pytest.mark.parametrize("tier", ["int8", "int8 pv_int8 ppb1",
+                                  "int8 q_int8 pv_int8 ppb8", "fp8"])
+def test_paged_quantized_ring_matches_plain(cuda, tier, case, alibi):
+    """The quantized instances on the same rings, f32 q."""
+    *shape, window, sinks = RING_CASES[case]
+    q, kp, vp, lengths, table = _paged_case(cuda, torch.float32, *shape,
+                                            seed=len(case) + 1)
+    dtype, q_int8, pv_int8, ppb = QUANT_TIERS[tier]
+    kq, ks = paged_attention.quantize_pages(kp, dtype)
+    vq, vs = paged_attention.quantize_pages(vp, dtype)
+    kw = dict(pages_per_block=1 if ppb == 1 else table.shape[1],
+              q_int8=q_int8, pv_int8=pv_int8, ring=True, window=window,
+              sinks=sinks)
+    if alibi:
+        kw["alibi_slopes"] = 2.0 ** -torch.arange(
+            1, q.shape[1] + 1, device=cuda, dtype=torch.float32)
+    tol = QUANT_F32_PV if pv_int8 else QUANT_F32
+    args = (q, kq, ks, vq, vs, lengths, table)
+    check_all_close(
+        paged_attention.paged_prefill_attention_quantized(*args, **kw),
+        paged_attention.paged_prefill_quantized_ref(*args, **kw),
+        name=f"prefix {tier} {case}", **tol)
+    kw["window"] += 4
+    dargs = (q[:, :, -1], *args[1:])
+    check_all_close(
+        paged_attention.paged_attention_quantized(*dargs, **kw),
+        paged_attention.paged_attention_quantized_ref(*dargs, **kw),
+        name=f"decode {tier} {case}", **tol)
+
+
+@pytest.mark.cuda
+def test_w8a16_and_ring_serving_on_kernels_equal_plain(cuda):
+    """w8a16 params and ring pools (window 24, sinks 4, 48 slots; the
+    streams wrap) through the kernels: the greedy streams of the plain
+    path on the CPU, with #25 and the ring instances launched."""
+    from tpukern_torch.models import SpeculativeBatcher, serving
+    from tpukern_torch.ops import matmul_w8a16 as w8
+
+    cfg = Config(vocab=128, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=256, max_seq=512, window=24, sinks=4)
+    params = serving.quantize_model_weights(
+        init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (40, 9, 23)]
+    kw = dict(n_slots=2, pages_per_seq=3, page_size=16, max_new_tokens=20,
+              prompt_buckets=(48,), cache_dtype=torch.float32, ring=True)
+    for make in (lambda p: ContinuousBatcher(p, cfg, **kw),
+                 lambda p: SpeculativeBatcher(p, cfg, p, cfg, gamma=3, **kw)):
+        ref = make(params).run(list(enumerate(prompts)))
+        before = (w8.matmul_w8a16.launches,
+                  paged_attention.paged_attention.ring_launches
+                  + paged_attention.paged_prefill_attention.ring_launches)
+        out = make(params_to(params, cuda)).run(list(enumerate(prompts)))
+        after = (w8.matmul_w8a16.launches,
+                 paged_attention.paged_attention.ring_launches
+                 + paged_attention.paged_prefill_attention.ring_launches)
+        assert out == ref
+        assert after[0] > before[0] and after[1] > before[1]

@@ -123,6 +123,9 @@ def test_unported_features_raise():
     kp = torch.zeros(2, 4, 16, 32)
     args = (torch.zeros(2, 2, 32), kp, kp, torch.ones(2, dtype=torch.int32),
             torch.zeros(2, 2, dtype=torch.int32))
-    for kw in (dict(ring=True), dict(alibi_slopes=torch.ones(2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ring pools and ALiBi are ported: what JAX asserts raises ValueError
+    # (a ring without a window, a window past the ring, softcap + ALiBi)
+    for kw in (dict(ring=True), dict(ring=True, window=33),
+               dict(alibi_slopes=torch.ones(2), softcap=1.0)):
+        with pytest.raises(ValueError):
             paged_attention.paged_attention(*args, **kw)

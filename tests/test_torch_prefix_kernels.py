@@ -65,8 +65,10 @@ def test_paged_options_raise():
         1, 4, 2, 3, 32, 16, 2, [8], seed=0))
     for fn, qq in ((pa.paged_prefill_attention, q),
                    (pa.paged_attention, q[:, :, 0])):
-        for kw in (dict(ring=True), dict(alibi_slopes=torch.ones(4))):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # ring pools and ALiBi are ported: JAX's asserts as ValueErrors
+        for kw in (dict(ring=True), dict(ring=True, window=33),
+                   dict(alibi_slopes=torch.ones(4), softcap=1.0)):
+            with pytest.raises(ValueError):
                 fn(qq, k, v, lengths, table, **kw)
         for kw in (dict(window=0), dict(sinks=2), dict(softcap=0.0)):
             with pytest.raises(ValueError):

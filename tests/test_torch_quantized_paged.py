@@ -124,6 +124,8 @@ def test_quantized_options_raise():
                dict(pages_per_block=3)):
         with pytest.raises(ValueError):
             pa.paged_attention_quantized(*args, **kw)
-    for kw in (dict(ring=True), dict(alibi_slopes=torch.ones(HQ))):
-        with pytest.raises(NotImplementedError):
+    # ring pools and ALiBi are ported: JAX's asserts as ValueErrors
+    for kw in (dict(ring=True), dict(ring=True, window=PAGE * PPS + 1),
+               dict(alibi_slopes=torch.ones(HQ), softcap=1.0)):
+        with pytest.raises(ValueError):
             pa.paged_attention_quantized(*args, **kw)

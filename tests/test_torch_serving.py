@@ -137,15 +137,19 @@ def test_generate_equals_batcher(setup):
 
 def test_unported_serving_options_raise(setup):
     _, params, _ = setup
-    wcfg = dataclasses.replace(CFG, window=32)
-    # the int8 tier is ported (tests/test_torch_quantized_serving.py);
-    # MoE serving is not
-    for cfg, kw in ((wcfg, dict(ring=True)),
-                    (dataclasses.replace(CFG, n_experts=2), {})):
+    # the int8 tier and ring pools are ported (tests/test_torch_quantized_
+    # serving.py, tests/test_torch_ring.py): a ring without a window
+    # raises ValueError, as JAX asserts; MoE serving is not ported
+    for cls in (ContinuousBatcher, SpeculativeBatcher):
+        args = (params, CFG) if cls is ContinuousBatcher else (
+            params, CFG, params, CFG)
+        with pytest.raises(ValueError, match="window"):
+            cls(*args, 2, 2, ring=True)
+        moe = dataclasses.replace(CFG, n_experts=2)
+        margs = (params, moe) if cls is ContinuousBatcher else (
+            params, moe, params, moe)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousBatcher(params, cfg, 2, 2, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SpeculativeBatcher(params, cfg, params, cfg, 2, 2, **kw)
+            cls(*margs, 2, 2)
 
 
 def test_port_imports_no_jax():

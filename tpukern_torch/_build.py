@@ -70,20 +70,25 @@ SIGNATURES = {
                                _I, _I, _I, _I, _F, _I, _I, _F, _I, _P],
     # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, stream
     "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w (int8), s (f32), out, ws (or None), tickets, M, N, K, splits,
+    # K slices a split, dtype, out dtype, stream
+    "tk_matmul_w8a16": [_P] * 6 + [_I] * 7 + [_P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
     # page_size, pages_per_seq, D, sm_scale, window, sinks, softcap,
-    # dtype, stream
+    # ring (slots a sequence, 0: flat), ALiBi slopes (or None), dtype,
+    # stream
     "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _F, _I, _P],
+                           _I, _I, _F, _I, _I, _F, _I, _P, _I, _P],
     # the same with T (new tokens per sequence) after Hkv
     "tk_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _I, _I, _F, _I, _P],
+                         _I, _I, _F, _I, _I, _F, _I, _P, _I, _P],
     # q, q_scales (or None), k_pages, k_scales, v_pages, v_scales, lengths,
     # page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, D,
-    # block_tokens, sm_scale, window, sinks, softcap, dtype, kv_dtype,
-    # pv_int8, stream (decode is T = 1)
+    # block_tokens, sm_scale, window, sinks, softcap, ring, slopes (or
+    # None), dtype, kv_dtype, pv_int8, stream (decode is T = 1)
     "tk_paged_prefill_quantized": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _F,
-                                                         _I, _I, _I, _P],
+                                                         _I, _P, _I, _I, _I,
+                                                         _P],
     # x, values, scales, S, K, mode (0 int8, 1 int8 stochastic, 2 fp8),
     # seed, dtype, stream
     "tk_quantize": [_P, _P, _P, _I64, _I, _I, _I64, _I, _P],

@@ -88,14 +88,23 @@ int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,
                                    static_cast<cudaStream_t>(stream)));
 }
 
+int tk_matmul_w8a16(const void* x, const void* w, const float* s, void* out,
+                    float* ws, int* tickets, int M, int N, int K, int splits,
+                    int kt_per, int dtype, int out_dtype, void* stream) {
+  return checked(tk::matmul_w8a16_launch(x, w, s, out, ws, tickets, M, N, K,
+                                         splits, kt_per, dtype, out_dtype,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
 int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                        const int* lengths, const int* page_table, void* o,
                        int B, int Hq, int Hkv, int P, int page_size,
                        int pages_per_seq, int D, float sm_scale, int window,
-                       int sinks, float softcap, int dtype, void* stream) {
+                       int sinks, float softcap, int ring, const float* slopes,
+                       int dtype, void* stream) {
   return checked(tk::paged_attention_launch(
       q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P, page_size,
-      pages_per_seq, D, sm_scale, window, sinks, softcap, dtype,
+      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, dtype,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -103,10 +112,11 @@ int tk_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                      const int* lengths, const int* page_table, void* o, int B,
                      int Hq, int Hkv, int T, int P, int page_size,
                      int pages_per_seq, int D, float sm_scale, int window,
-                     int sinks, float softcap, int dtype, void* stream) {
+                     int sinks, float softcap, int ring, const float* slopes,
+                     int dtype, void* stream) {
   return checked(tk::paged_prefill_launch(
       q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size,
-      pages_per_seq, D, sm_scale, window, sinks, softcap, dtype,
+      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, dtype,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -115,12 +125,12 @@ int tk_paged_prefill_quantized(
     const float* k_scales, const void* v_pages, const float* v_scales,
     const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
     int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
-    float sm_scale, int window, int sinks, float softcap, int dtype,
-    int kv_dtype, int pv_int8, void* stream) {
+    float sm_scale, int window, int sinks, float softcap, int ring,
+    const float* slopes, int dtype, int kv_dtype, int pv_int8, void* stream) {
   return checked(tk::paged_prefill_quantized_launch(
       q, q_scales, k_pages, k_scales, v_pages, v_scales, lengths, page_table, o,
       B, Hq, Hkv, T, P, page_size, pages_per_seq, D, block_tokens, sm_scale,
-      window, sinks, softcap, dtype, kv_dtype, pv_int8,
+      window, sinks, softcap, ring, slopes, dtype, kv_dtype, pv_int8,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -92,7 +92,9 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
 // tpukern/ops/attention.py: causal keeps key c for query r iff c <= r; a
 // window also needs c >= r - window + 1, or c < sinks (sinks are
 // forward-only); segment ids need equal ids. The tails (r >= Sq,
-// c >= Skv) are the kernels' own.
+// c >= Skv) are the kernels' own. The paged kernels add two options of
+// tpukern/ops/paged_attention.py: a ring pool (slot_pos) and ALiBi
+// slopes (alibi).
 struct AttnMask {
   const int* qseg;  // (B, Sq) segment ids, or null
   const int* kseg;  // (B, Skv), null with qseg
@@ -102,6 +104,8 @@ struct AttnMask {
   float softcap;    // 0: no cap
   float inv_cap;
   float scale;      // sm_scale
+  int ring;         // paged: slots a sequence of a ring pool; 0: flat pool
+  const float* slopes;  // paged: (Hq,) ALiBi slopes, or null
 };
 
 // The mask of a launcher's arguments, or false if they make none: a
@@ -119,6 +123,22 @@ inline bool make_mask(const int* q_seg, const int* kv_seg, int causal,
   return true;
 }
 
+// The mask of a paged kernel: causal, the window, sinks and softcap of
+// make_mask, a ring of `ring` slots a sequence (0: a flat pool; a ring
+// needs a window no wider than ring - sinks) and ALiBi slopes (null: none;
+// not with a softcap). False if the arguments make no mask.
+inline bool make_paged_mask(int window, int sinks, float softcap, int ring,
+                            const float* slopes, float sm_scale,
+                            AttnMask* m) {
+  if (ring < 0 || (ring > 0 && (window == 0 || window > ring - sinks)) ||
+      (slopes && softcap > 0.f) ||
+      !make_mask(nullptr, nullptr, 1, window, sinks, softcap, sm_scale, m))
+    return false;
+  m->ring = ring;
+  m->slopes = slopes;
+  return true;
+}
+
 // whether query qi sees key kvi; qs and ks are their segment ids (read
 // only with segments)
 __device__ __forceinline__ bool mask_visible(const AttnMask& m, int qi,
@@ -128,15 +148,44 @@ __device__ __forceinline__ bool mask_visible(const AttnMask& m, int qi,
          (!m.qseg || qs == ks);
 }
 
+// The position that slot `slot` of a paged sequence holds when its newest
+// token sits at position `last`: the slot itself on a flat pool (and in
+// the sink slots of a ring); on a ring of m.ring slots, whose slots past
+// the sinks rotate with period R = ring - sinks, the largest position
+// <= last congruent to the slot mod R (paged_attention.py:213-231), or -1
+// where that falls below the ring region (a slot not written yet). The
+// caller masks positions < 0 and > its query's.
+__device__ __forceinline__ int slot_pos(const AttnMask& m, int slot,
+                                        int last) {
+  if (m.ring == 0 || slot < m.sinks) return slot;
+  const int R = m.ring - m.sinks;
+  int d = (last - slot) % R;
+  if (d < 0) d += R;
+  return last - d < m.sinks ? -1 : last - d;
+}
+
+// ALiBi: the scaled score of query head `head` at position qpos for the
+// key at position kpos, plus slopes[head] * (kpos - qpos), rounded as
+// JAX's f32 ops round it (paged_attention.py:232-240); unchanged without
+// slopes.
+__device__ __forceinline__ float alibi(const AttnMask& m, int head, float s,
+                                       int kpos, int qpos) {
+  return m.slopes ? __fadd_rn(s, __fmul_rn(m.slopes[head],
+                                           static_cast<float>(kpos - qpos)))
+                  : s;
+}
+
 // The KV tiles a query tile whose first query sits at position q0 visits,
 // in order: the sink tiles [0, sink_end), then the band [lo, end). Without
-// a window (or with FEAT off) lo is 0; sink_end and lo are multiples of BK
+// a window (or with FEAT off, or on a ring pool, where any slot may hold a
+// position inside the band) lo is 0; sink_end and lo are multiples of BK
 // with sink_end <= lo. The query tile's own end bounds the loop.
 template <int BK>
 struct KvRange {
   int lo, sink_end;
   __device__ KvRange(const AttnMask& f, int q0, bool feat) {
-    lo = feat && f.window > 0 ? max(0, q0 - f.window + 1) / BK * BK : 0;
+    lo = feat && f.window > 0 && f.ring == 0
+             ? max(0, q0 - f.window + 1) / BK * BK : 0;
     sink_end = feat ? min(lo, (f.sinks + BK - 1) / BK * BK) : 0;
   }
   __device__ int first() const { return sink_end > 0 ? 0 : lo; }
@@ -406,27 +455,34 @@ cudaError_t flash_attention_dkv_launch(
 cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
                           int M, int N, int K, int trans_b, int dtype,
                           cudaStream_t stream);
+cudaError_t matmul_w8a16_launch(const void* x, const void* w, const float* s,
+                                void* out, float* ws, int* tickets, int M,
+                                int N, int K, int splits, int kt_per,
+                                int dtype, int out_dtype, cudaStream_t stream);
 cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const int* lengths,
                                    const int* page_table, void* o, int B, int Hq,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
                                    int window, int sinks, float softcap,
-                                   int dtype, cudaStream_t stream);
+                                   int ring, const float* slopes, int dtype,
+                                   cudaStream_t stream);
 cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  const void* v_pages, const int* lengths,
                                  const int* page_table, void* o, int B, int Hq,
                                  int Hkv, int T, int P, int page_size,
                                  int pages_per_seq, int D, float sm_scale,
                                  int window, int sinks, float softcap,
-                                 int dtype, cudaStream_t stream);
+                                 int ring, const float* slopes, int dtype,
+                                 cudaStream_t stream);
 cudaError_t paged_prefill_quantized_launch(
     const void* q, const float* q_scales, const void* k_pages,
     const float* k_scales, const void* v_pages, const float* v_scales,
     const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
     int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
-    float sm_scale, int window, int sinks, float softcap, int dtype,
-    int kv_dtype, int pv_int8, cudaStream_t stream);
+    float sm_scale, int window, int sinks, float softcap, int ring,
+    const float* slopes, int dtype, int kv_dtype, int pv_int8,
+    cudaStream_t stream);
 cudaError_t quantize_launch(const void* x, void* values, float* scales,
                             int64_t S, int K, int mode, long long seed,
                             int dtype, cudaStream_t stream);

@@ -25,8 +25,13 @@
 // < sinks, and a softcap maps each scaled score s to cap * tanh(s / cap)
 // before the mask. Its tile loop visits the sink tiles, then the tiles
 // from the one holding length - window on (KvRange, common.cuh), as the
-// TPU kernel skips blocks wholly older than the band (:111-122). The plain
-// decode instance (FEAT off) compiles as before.
+// TPU kernel skips blocks wholly older than the band (:111-122). It also
+// takes the TPU kernel's last two options: a ring pool, where slot j holds
+// the newest position congruent to j (slot_pos, common.cuh: the TPU
+// kernel's :213-231) and every live slot is visited, since any may hold a
+// position inside the window (:113-120), and ALiBi, which adds
+// slopes[head] * (k_pos - q_pos) to the scaled score before the mask
+// (:232-240). The plain decode instance (FEAT off) compiles as before.
 //
 // What bounds it: decode reads every live K/V byte once and does 4 flops
 // per group and per byte pair, so it is bound by memory bandwidth, and at
@@ -161,8 +166,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
             bool ok = j < n;
             if constexpr (FEAT) {
               float t;
-              s = soft_cap(f, s, t);
-              ok = ok && mask_visible(f, qpos, t0 + j, 0, 0);
+              const int pos = slot_pos(f, t0 + j, qpos);
+              s = alibi(f, hk * group + gi, soft_cap(f, s, t), pos, qpos);
+              ok = ok && pos >= 0 && mask_visible(f, qpos, pos, 0, 0);
             }
             p_s[gi][j] = ok ? s : NEG_BIG;
           }
@@ -251,7 +257,7 @@ void launch_d(dim3 grid, cudaStream_t stream, const void* q, const void* k_pages
               const void* v_pages, const int* lengths, const int* page_table,
               void* o, int Hq, int Hkv, int P, int page_size, int pages_per_seq,
               const AttnMask& f, int dtype) {
-  const bool feat = f.window > 0 || f.softcap > 0.f;
+  const bool feat = f.window > 0 || f.softcap > 0.f || f.ring > 0 || f.slopes;
   auto go = [&](auto kernel) {
     kernel(grid, stream, q, k_pages, v_pages, lengths, page_table, o, Hq, Hkv,
            P, page_size, pages_per_seq, f);
@@ -270,13 +276,15 @@ cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
                                    int window, int sinks, float softcap,
-                                   int dtype, cudaStream_t stream) {
+                                   int ring, const float* slopes, int dtype,
+                                   cudaStream_t stream) {
   if (B < 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > PA_GMAX || page_size <= 0 ||
       pages_per_seq < 0 || P < 0 || B > 65535)
     return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
   AttnMask f;
-  if (!make_mask(nullptr, nullptr, 1, window, sinks, softcap, sm_scale, &f))
+  if (!make_paged_mask(window, sinks, softcap, ring, slopes, sm_scale, &f) ||
+      (ring && ring != pages_per_seq * page_size))
     return cudaErrorInvalidValue;
   // the 16-byte loads need 16-byte aligned pools (rows are, given the D)
   if ((reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(v_pages)) % 16)

@@ -5,7 +5,13 @@
 // (causal within the new tokens). With the FEAT masks (AttnMask,
 // common.cuh) a sliding window keeps only positions >= qi - window + 1,
 // or < sinks, and a softcap maps each scaled score s to cap * tanh(s / cap)
-// before the mask. A row that sees no position outputs 0.
+// before the mask. A row that sees no position outputs 0. The FEAT
+// instance also takes a ring pool, where slot j holds the newest position
+// congruent to j (slot_pos, common.cuh; the TPU kernel's :621-634) and
+// every live slot is visited (the KV loop neither starts at the band nor
+// stops at the block's last position), and ALiBi slopes, which add
+// slopes[head] * (k_pos - q_pos) to the scaled score before the mask
+// (:639-645).
 //
 // Replaces tpukern/ops/paged_attention.py:513 `_prefix_kernel` for float
 // pools (its wrapper `paged_prefill_attention`, :681). There, one grid
@@ -61,14 +67,17 @@ struct PrefixRows {
   int q_first;          // the first row's position
 
   __device__ PrefixRows(const int* lengths, int Hq_, int Hkv, int T_, int S,
-                        int row0, int BQ)
+                        int row0, int BQ, bool ring)
       : b(blockIdx.z), hk(blockIdx.y), Hq(Hq_), T(T_), group(Hq_ / Hkv),
         R(T_ * (Hq_ / Hkv)) {
     base = lengths[b] - T;
     const int last = min(row0 + BQ, R) - 1;
     q_first = base + row0 / group;
-    kv_end = max(0, min(S, base + last / group + 1));
+    // a ring's slots hold positions in no order: every written one
+    kv_end = max(0, min(S, ring ? base + T : base + last / group + 1));
   }
+  // the query head of row r (rows past R take the last row's)
+  __device__ int head(int r) const { return hk * group + min(r, R - 1) % group; }
   // offset of row r in q or o (B, Hq, T, D)
   __device__ int64_t offset(int r, int D) const {
     return ((b * Hq + hk * group + r % group) * T + r / group) * (int64_t)D;
@@ -108,7 +117,7 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
 
   const int row0 = blockIdx.x * MMA_BQ;
   const PrefixRows rows(lengths, Hq, Hkv, T, pages_per_seq * page_size, row0,
-                        MMA_BQ);
+                        MMA_BQ, f.ring > 0);
   const bf16* k_h = k_pages + rows.hk * P * page_size * D;
   const bf16* v_h = v_pages + rows.hk * P * page_size * D;
   const int* table = page_table + rows.b * pages_per_seq;
@@ -183,8 +192,9 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
         bool ok = col < rows.kv_end && col <= qi;
         if constexpr (FEAT) {
           float th;
-          s = soft_cap(f, s, th);
-          ok = ok && mask_visible(f, qi, col, 0, 0);
+          const int pos = slot_pos(f, col, rows.base + T - 1);
+          s = alibi(f, rows.head(e < 2 ? r0 : r1), soft_cap(f, s, th), pos, qi);
+          ok = col < rows.kv_end && pos >= 0 && mask_visible(f, qi, pos, 0, 0);
         }
         sf[nt][e] = ok ? s : NEG_BIG;
       }
@@ -275,7 +285,7 @@ paged_prefill_fma_kernel(const float* __restrict__ q,
 
   const int row0 = blockIdx.x * FMA_BQ;
   const PrefixRows rows(lengths, Hq, Hkv, T, pages_per_seq * page_size, row0,
-                        FMA_BQ);
+                        FMA_BQ, f.ring > 0);
   const float* k_h = k_pages + rows.hk * P * page_size * D;
   const float* v_h = v_pages + rows.hk * P * page_size * D;
   const int* table = page_table + rows.b * pages_per_seq;
@@ -318,8 +328,9 @@ paged_prefill_fma_kernel(const float* __restrict__ q,
       bool ok = kj < rows.kv_end && kj <= qi;
       if constexpr (FEAT) {
         float th;  // q_s holds q * sm_scale: cap the scaled score
-        s = soft_cap(f, s, th);
-        ok = ok && mask_visible(f, qi, kj, 0, 0);
+        const int pos = slot_pos(f, kj, rows.base + T - 1);
+        s = alibi(f, rows.head(row0 + r), soft_cap(f, s, th), pos, qi);
+        ok = kj < rows.kv_end && pos >= 0 && mask_visible(f, qi, pos, 0, 0);
       }
       s = ok ? s : NEG_BIG;
       const float mn = fmaxf(m[rr], warp_max(s));
@@ -374,7 +385,7 @@ void launch_d(const void* q, const void* k_pages, const void* v_pages,
               const int* lengths, const int* page_table, void* o, int B, int Hq,
               int Hkv, int T, int P, int page_size, int pages_per_seq,
               const AttnMask& f, int dtype, cudaStream_t stream) {
-  if (f.window > 0 || f.softcap > 0.f)
+  if (f.window > 0 || f.softcap > 0.f || f.ring > 0 || f.slopes)
     launch_df<D, true>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv,
                        T, P, page_size, pages_per_seq, f, dtype, stream);
   else
@@ -390,13 +401,16 @@ cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  int Hkv, int T, int P, int page_size,
                                  int pages_per_seq, int D, float sm_scale,
                                  int window, int sinks, float softcap,
-                                 int dtype, cudaStream_t stream) {
+                                 int ring, const float* slopes, int dtype,
+                                 cudaStream_t stream) {
   if (B < 0 || T < 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > PP_GMAX ||
       page_size <= 0 || pages_per_seq < 0 || P < 0 || B > 65535 || Hkv > 65535)
     return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
+  // a ring keeps the earliest token's window after the T wrapped writes
   AttnMask f;
-  if (!make_mask(nullptr, nullptr, 1, window, sinks, softcap, sm_scale, &f))
+  if (!make_paged_mask(window, sinks, softcap, ring, slopes, sm_scale, &f) ||
+      (ring && (ring != pages_per_seq * page_size || window + T - 1 > ring - sinks)))
     return cudaErrorInvalidValue;
   // the bf16 kernel's 16-byte K/V loads need 16-byte aligned pools, and
   // its 4-byte q loads a 4-byte aligned q

@@ -30,7 +30,11 @@
 // mean of V). One block owns a (sequence, KV head, tile of 16 query rows),
 // rows flattened t-major as in csrc/paged_prefill.cu; a block of pages no
 // row of the tile sees under a window is skipped, as the TPU decode
-// kernel skips it (a skipped block would add nothing).
+// kernel skips it (a skipped block would add nothing). On a ring pool
+// (slot_pos, common.cuh) no block is skipped and every written slot is
+// visited, since any may hold a position inside the window; ALiBi slopes
+// add slopes[head] * (k_pos - q_pos) after the softcap, before the masks,
+// in the TPU kernels' order (:232-240, :639-645).
 //
 // What bounds it: it reads each live K/V byte once per row tile (half the
 // bytes of bf16 pools) and does 4 D operations per visible (row, token)
@@ -104,7 +108,9 @@ __global__ void __launch_bounds__(PQ_THREADS) paged_quant_kernel(PQArgs a) {
   const int S = a.pages_per_seq * a.page_size;
   const int base = a.lengths[b] - a.T;  // the position of token 0
   const int last = min(row0 + PQ_RB, R) - 1;
-  const int kv_end = max(0, min(S, base + last / group + 1));
+  // a ring's slots hold positions in no order: every written one
+  const int kv_end =
+      max(0, min(S, a.f.ring ? base + a.T : base + last / group + 1));
   const int q_first = base + row0 / group;
   const int* table = a.page_table + b * a.pages_per_seq;
   const int64_t pool = hk * a.P * a.page_size;  // this head's first pool row
@@ -162,8 +168,8 @@ __global__ void __launch_bounds__(PQ_THREADS) paged_quant_kernel(PQArgs a) {
 
   for (int blk0 = 0; blk0 < kv_end; blk0 += bk) {
     // a block older than every row's band (and past the sinks) adds nothing
-    if (a.f.window > 0 && blk0 + bk - 1 < q_first - a.f.window + 1 &&
-        blk0 >= a.f.sinks)
+    if (a.f.window > 0 && a.f.ring == 0 &&
+        blk0 + bk - 1 < q_first - a.f.window + 1 && blk0 >= a.f.sinks)
       continue;
     const int blk_end = min(blk0 + bk, kv_end), nb = blk_end - blk0;
 
@@ -208,16 +214,17 @@ __global__ void __launch_bounds__(PQ_THREADS) paged_quant_kernel(PQArgs a) {
             }
           }
         }
-        const int pos = t0 + j;
+        const int slot = t0 + j, pos = slot_pos(a.f, slot, base + a.T - 1);
 #pragma unroll
         for (int rr = 0; rr < 8; ++rr) {
           const int r = rb + rr, gr = row0 + r;
           float s = Q8 ? __fmul_rn((float)is[rr], qsc_s[r]) : fs[rr];
           s = __fmul_rn(__fmul_rn(s, ks_s[j]), a.f.scale);
           float th;
-          s = soft_cap(a.f, s, th);
-          const bool ok = gr < R && mask_visible(a.f, qpos(gr), pos, 0, 0);
-          s_s[r * bk + pos - blk0] = ok ? s : NEG_BIG;
+          s = alibi(a.f, static_cast<int>(hk) * group + min(gr, R - 1) % group,
+                    soft_cap(a.f, s, th), pos, qpos(gr));
+          const bool ok = gr < R && pos >= 0 && mask_visible(a.f, qpos(gr), pos, 0, 0);
+          s_s[r * bk + slot - blk0] = ok ? s : NEG_BIG;
         }
       }
     }
@@ -247,7 +254,13 @@ __global__ void __launch_bounds__(PQ_THREADS) paged_quant_kernel(PQArgs a) {
         amax = warp_max(amax);
         amax = amax <= 0.f ? 1.f : amax;
         const float k = __fdiv_rn(127.f, amax);
-        for (int j = lane; j < nb; j += 32) sr[j] = rintf(__fmul_rn(sr[j], k));
+        // as JAX's cast to int8: where 127 / amax overflows (a block far
+        // below the running max, as ALiBi makes), inf saturates to 127
+        // and 0 * inf (NaN) gives 0
+        for (int j = lane; j < nb; j += 32) {
+          const float r = rintf(__fmul_rn(sr[j], k));
+          sr[j] = r != r ? 0.f : fminf(r, 127.f);
+        }
       }
       if (lane == 0) {
         const float alpha = expf(m_old - mn);
@@ -350,9 +363,9 @@ cudaError_t launch_pq(const PQArgs& a, int B, cudaStream_t stream) {
 // Checks the arguments and launches the instance of (dtype, kv_dtype,
 // q_int8 = q_scales given, pv_int8); q_int8 and pv_int8 need int8 pools.
 cudaError_t paged_quant_launch(PQArgs a, int B, int window, int sinks,
-                               float softcap, float sm_scale, int dtype,
-                               int kv_dtype, int pv_int8,
-                               cudaStream_t stream) {
+                               float softcap, int ring, const float* slopes,
+                               float sm_scale, int dtype, int kv_dtype,
+                               int pv_int8, cudaStream_t stream) {
   const bool q8 = a.q_scales != nullptr, pv8 = pv_int8 != 0;
   if (B < 0 || a.T < 0 || a.Hkv <= 0 || a.Hkv > 65535 || a.Hq % a.Hkv ||
       a.page_size <= 0 || a.pages_per_seq < 0 || a.P < 0 || B > 65535 ||
@@ -362,7 +375,10 @@ cudaError_t paged_quant_launch(PQArgs a, int B, int window, int sinks,
   if ((dtype != kBF16 && dtype != kF32) || (kv_dtype != kI8 && kv_dtype != kE4M3) ||
       (kv_dtype == kE4M3 && (q8 || pv8)))
     return cudaErrorInvalidValue;
-  if (!make_mask(nullptr, nullptr, 1, window, sinks, softcap, sm_scale, &a.f))
+  // a ring keeps the earliest token's window after the T wrapped writes
+  if (!make_paged_mask(window, sinks, softcap, ring, slopes, sm_scale, &a.f) ||
+      (ring && (ring != a.pages_per_seq * a.page_size ||
+                window + a.T - 1 > ring - sinks)))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a.k_pages) |
        reinterpret_cast<uintptr_t>(a.v_pages)) % 16)
@@ -392,14 +408,15 @@ cudaError_t paged_prefill_quantized_launch(
     const float* k_scales, const void* v_pages, const float* v_scales,
     const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
     int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
-    float sm_scale, int window, int sinks, float softcap, int dtype,
-    int kv_dtype, int pv_int8, cudaStream_t stream) {
+    float sm_scale, int window, int sinks, float softcap, int ring,
+    const float* slopes, int dtype, int kv_dtype, int pv_int8,
+    cudaStream_t stream) {
   const PQArgs a{q, q_scales, static_cast<const uint8_t*>(k_pages), k_scales,
                  static_cast<const uint8_t*>(v_pages), v_scales, lengths,
                  page_table, o, Hq, Hkv, T, P, page_size, pages_per_seq, D,
                  block_tokens, AttnMask{}};
-  return paged_quant_launch(a, B, window, sinks, softcap, sm_scale, dtype,
-                            kv_dtype, pv_int8, stream);
+  return paged_quant_launch(a, B, window, sinks, softcap, ring, slopes,
+                            sm_scale, dtype, kv_dtype, pv_int8, stream);
 }
 
 }  // namespace tk

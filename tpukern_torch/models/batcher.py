@@ -34,11 +34,19 @@ padded to a bucket length, as in the JAX batcher.
   pages_per_block (_pick_ppb, from a host mirror of the lengths), on
   which Config.pv_int8's function depends.
 
+- ring=True serves from ring pools (serving.init_cache; Config.window
+  required): a sequence may run to Config.max_seq tokens over pages that
+  hold the window. As in JAX, the prefix cache and chunked admission
+  refuse ring pools, and a prompt bucket must fit one lap of the ring
+  (a padded prefill's tail would wrap over live slots); SpeculativeBatcher
+  keeps its draft on a flat pool, whose writes clamp at its end.
+- Params may be w8a16 (serving.quantize_model_weights), the target's
+  and the draft's: the batchers only pass them on.
+
 The batchers run on the device of their params, and their caches follow
 them.
 
-Not ported: ring pools and the tensor-parallel batchers (ROADMAP.md
-queue 1 item 10).
+Not ported: the tensor-parallel batchers (ROADMAP.md queue 1 item 13).
 """
 
 import dataclasses
@@ -52,8 +60,6 @@ from tpukern_torch.models.serving import (_pages_per_block, decode_step,
 from tpukern_torch.models.speculative import (SpecStats, _host_probs,
                                               rejection_accept)
 from tpukern_torch.ops.sampling import sample
-
-_TODO = "ROADMAP.md queue 1 item 10 (serving chain)"
 
 
 def _bucket(n, buckets, cap=None):
@@ -94,11 +100,23 @@ class ContinuousBatcher:
                  chunked_prefill=None, ring=False, prefix_cache=False):
         if temperature <= 0:
             raise ValueError(f"temperature must be > 0: {temperature}")
-        if ring:
-            raise NotImplementedError(f"ContinuousBatcher(ring=True): {_TODO}")
         if chunked_prefill is not None and chunked_prefill < 1:
             raise ValueError(f"chunked_prefill must be >= 1: "
                              f"{chunked_prefill}")
+        if ring:
+            # JAX's asserts (tpukern/models/batcher.py:84-104): a padded
+            # prefill's tail or a chunk's padded tail would wrap over live
+            # slots, and sharing pages with a wrapping slot is unsafe
+            cap = pages_per_seq * page_size
+            if prefix_cache:
+                raise ValueError("the prefix cache needs flat pools")
+            if chunked_prefill is not None:
+                raise ValueError("chunked admission is not supported on "
+                                 "ring pools")
+            if max(prompt_buckets) > cap:
+                raise ValueError(f"ring pool: prompt bucket "
+                                 f"{max(prompt_buckets)} > ring capacity "
+                                 f"{cap} would wrap padded prefill writes")
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -114,10 +132,12 @@ class ContinuousBatcher:
         self._seeds = np.random.default_rng(seed)
         self._gen = torch.Generator(self.device).manual_seed(seed)
         self.cache = init_cache(cfg, n_slots, pages_per_seq, page_size,
-                                dtype=cache_dtype, device=self.device)
+                                dtype=cache_dtype, device=self.device,
+                                ring=ring)
         self.page_size = page_size
         self.pages_per_seq = pages_per_seq
-        self.max_len = pages_per_seq * page_size
+        # a ring bounds a sequence by the RoPE tables, not by its pages
+        self.max_len = cfg.max_seq if ring else pages_per_seq * page_size
         self.chunk = chunked_prefill
         self.prefix_cache = prefix_cache
         self.slot_prompt = [None] * n_slots  # the prefix cache's prompts
@@ -346,7 +366,10 @@ class SpeculativeBatcher(ContinuousBatcher):
         # the host generator of the sampled drafts and acceptance draws
         # (greedy rounds never touch it)
         self._accept_rng = np.random.default_rng(accept_seed)
-        # the draft's cache in the target's tier (pool dtype, and scales)
+        # the draft's cache in the target's tier (pool dtype, and scales),
+        # on a flat pool even for a ring target, as in JAX: past its end
+        # the draft's writes clamp (its proposals get worse, the target's
+        # verification keeps the streams)
         self.dcache = init_cache(draft_cfg, n_slots, pages_per_seq,
                                  page_size, dtype=self.cache.k_pages.dtype,
                                  device=self.device)

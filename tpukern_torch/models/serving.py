@@ -10,8 +10,9 @@ sliding window, attention sinks and logit softcap of Config reach all
 three kernels. share_prefix aliases a prompt prefix's pages from one
 slot into others, prefill_prefix prefills one slot, and rollback rewinds
 the lengths. Norms and RoPE go through their kernels too; the
-projections, the embedding lookup, the tanh-GELU MLP, the page scatter
-and the argmax are plain PyTorch, as the JAX path leaves them to XLA.
+projections of float weights, the embedding lookup, the tanh-GELU MLP,
+the page scatter and the argmax are plain PyTorch, as the JAX path leaves
+them to XLA.
 
 The quantized tier: init_cache(dtype=torch.int8 or torch.float8_e4m3fn)
 builds 1-byte pools with per-token f32 scale pools; every new K/V token
@@ -22,6 +23,17 @@ always with the int8 score dot (q_int8), and with Config.pv_int8 also
 the int8 P V dot. Prefill attends over the unquantized K/V, so the first
 token equals the float tiers'.
 
+Ring pools: init_cache(ring=True) (Config.window required) makes each
+sequence's pages a rolling buffer, as JAX's: a token at position p lives
+in slot p for p < sinks, else in slot sinks + (p - sinks) mod (ring_tokens
+- sinks), so a sequence can run past its pages with memory bounded by the
+window; the paged kernels recover each slot's position from the length.
+
+The w8a16 tier: quantize_model_weights turns every projection and the LM
+head into an int8 {"q", "s"} pair, and _wmm sends each such product
+through ops/matmul_w8a16.py (#25 on the card at M <= 128 rows, JAX's
+dequant-then-dot above).
+
 Unlike the JAX functions, which return new arrays, prefill, decode_step,
 verify_step, share_prefix and prefill_prefix write the cache's pools
 (and share_prefix its page table) in place and return the cache with
@@ -31,8 +43,8 @@ init_cache builds its pools on the card unless the caller passes
 device="cpu"; the other functions run on the device of their inputs (a
 CPU tensor takes every kernel's plain version).
 
-Not ported: ring pools, MoE, make_tp_serving and quantize_model_weights
-(ROADMAP.md queue 1 item 10).
+Not ported: MoE and make_tp_serving (ROADMAP.md queue 1 items 11 and
+13).
 """
 
 import dataclasses
@@ -43,6 +55,7 @@ import torch.nn.functional as F
 
 from tpukern_torch.models.transformer import Config
 from tpukern_torch.ops.attention import flash_attention
+from tpukern_torch.ops.matmul_w8a16 import matmul_w8a16, quantize_weights
 from tpukern_torch.ops.paged_attention import (
     QUANT_DTYPES, paged_attention, paged_attention_quantized,
     paged_prefill_attention, paged_prefill_attention_quantized)
@@ -51,7 +64,10 @@ from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
 from tpukern_torch.ops.sampling import sample
 
-_TODO = "ROADMAP.md queue 1 item 10 (serving chain)"
+_TODO = "ROADMAP.md queue 1 item 11 (MoE)"
+# the layer weights quantize_model_weights turns into w8a16 pairs (and
+# the head)
+W8A16_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 @dataclasses.dataclass
@@ -67,11 +83,16 @@ class KVCache:
     # (L, Hkv, P, page) f32; None for float pools
     k_scales: torch.Tensor | None = None
     v_scales: torch.Tensor | None = None
+    # a rolling buffer (init_cache(ring=True)): writes wrap at ring_tokens
+    ring: bool = False
 
     @property
     def quantized(self):
         return self.k_scales is not None
 
+    @property
+    def ring_tokens(self):
+        return self.page_table.shape[1] * self.k_pages.shape[3]
 
 
 def _check_cfg(cfg: Config):
@@ -89,10 +110,21 @@ def init_cache(cfg: Config, batch, pages_per_seq, page_size=128,
     dtype bf16 or f32 gives float pools; torch.int8 or
     torch.float8_e4m3fn the quantized tier: 1-byte pools and f32 scale
     pools, half the bytes of bf16 pools a token. Config.pv_int8 needs
-    int8 pools (ValueError otherwise, as in JAX)."""
+    int8 pools (ValueError otherwise, as in JAX).
+
+    ring=True makes each sequence's pages a rolling buffer of
+    pages_per_seq * page_size tokens (the module docstring): it needs
+    Config.window and a capacity of at least window + sinks (ValueError
+    otherwise, where JAX asserts); size it at window + the longest verify
+    or chunk T."""
     _check_cfg(cfg)
     if ring:
-        raise NotImplementedError(f"ring pools: {_TODO}")
+        if cfg.window is None:
+            raise ValueError("a ring cache requires Config.window")
+        need = cfg.window + int(cfg.sinks or 0)
+        if need > pages_per_seq * page_size:
+            raise ValueError(f"ring capacity {pages_per_seq * page_size} < "
+                             f"window + sinks {need}")
     if dtype not in (torch.bfloat16, torch.float32, *QUANT_DTYPES):
         raise TypeError(f"pools are bf16, f32, int8 or float8_e4m3fn, got "
                         f"{dtype}")
@@ -113,7 +145,8 @@ def init_cache(cfg: Config, batch, pages_per_seq, page_size=128,
         k_scales=(torch.zeros(shape[:4], dtype=torch.float32, device=device)
                   if quant else None),
         v_scales=(torch.zeros(shape[:4], dtype=torch.float32, device=device)
-                  if quant else None))
+                  if quant else None),
+        ring=ring)
 
 
 def _pages_per_block(pages_per_seq, max_live_pages=None):
@@ -130,22 +163,36 @@ def _pages_per_block(pages_per_seq, max_live_pages=None):
     return cands[0]
 
 
-def _slots(table, start, T, page_size):
+def _slots(table, start, T, page_size, ring=False, sinks=0):
     """Where T new tokens a sequence go: (physical page, row) (B, T) for
     positions start[b] .. start[b]+T-1, and the source token of each
-    (None for T = 1). One step computes them once for all its layers.
+    (None where every token has a slot of its own). One step computes
+    them once for all its layers.
 
-    Positions clamp at the pool's last slot, so a full sequence cannot
-    write past its pages. The JAX version writes token by token and the
-    last clamped token wins; here every clamped token writes that last
-    token's value (its source token is T - 1), so duplicate indices agree.
-    An inactive slot's decode writes at its frozen length: a dead write,
-    overwritten before the slot's length ever covers it."""
-    max_pos = table.shape[1] * page_size - 1
+    Flat pools clamp positions at the pool's last slot, so a full
+    sequence cannot write past its pages; the JAX version writes token by
+    token and the last clamped token wins, so here every clamped token
+    writes that last token's value (its source token is T - 1). Ring
+    pools wrap: position p goes to slot p below `sinks`, else to sinks +
+    (p - sinks) mod R with R = ring_tokens - sinks; a write of more than R
+    tokens gives a slot several, and it takes the newest, as JAX's token
+    by token writes leave it. Either way duplicate indices write equal
+    values (PyTorch's scatter has no defined order for them). An inactive
+    slot's decode writes at its frozen length: a dead write, overwritten
+    before the slot's length ever covers it (on a ring it lands on the
+    slot of position length - R, outside the window)."""
+    cap = table.shape[1] * page_size
     t = torch.arange(T, device=table.device)
     want = start.long()[:, None] + t[None, :]                  # (B, T)
-    pos = want.clamp(max=max_pos)
-    src = torch.where(want >= max_pos, T - 1, t[None, :]) if T > 1 else None
+    if ring:
+        R = cap - sinks
+        wraps = want >= sinks
+        pos = torch.where(wraps, sinks + (want - sinks) % R, want)
+        src = (torch.where(wraps, t + R * ((T - 1 - t) // R), t)
+               if T > R else None)
+    else:
+        pos = want.clamp(max=cap - 1)
+        src = torch.where(want >= cap - 1, T - 1, t) if T > 1 else None
     phys = table.long().gather(1, pos // page_size)
     return phys, pos % page_size, src
 
@@ -160,11 +207,11 @@ def _scatter(pool, layer, new, slots):
     pool[layer][:, phys, row] = new.movedim(1, 0).to(pool.dtype)
 
 
-def _write_tokens(pages, layer, new, table, start):
+def _write_tokens(pages, layer, new, table, start, ring=False, sinks=0):
     """Write new (B, Hkv, T, D) tokens into pages[layer] in place, at
     positions start[b] .. start[b]+T-1 of each sequence (_slots)."""
     _scatter(pages, layer, new, _slots(table, start, new.shape[2],
-                                       pages.shape[3]))
+                                       pages.shape[3], ring, sinks))
 
 
 def _write_tokens_quantized(pages, scales, layer, new, slots):
@@ -199,6 +246,44 @@ def _quant_flags(cfg: Config, cache: KVCache):
                 and cache.v_pages.dtype == torch.int8)
 
 
+def _step_slots(cfg: Config, cache: KVCache, start, T):
+    """_slots of a step of T tokens from start, in the cache's layout."""
+    return _slots(cache.page_table, start, T, cache.k_pages.shape[3],
+                  cache.ring, int(cfg.sinks or 0))
+
+
+def _attn_features(cfg: Config, cache: KVCache):
+    """The paged kernels' mask options of cfg on this cache."""
+    return dict(window=cfg.window, sinks=cfg.sinks, softcap=cfg.softcap,
+                ring=cache.ring)
+
+
+def quantize_model_weights(params):
+    """The weight-only int8 (w8a16) serving tier, as JAX's: wq, wk, wv,
+    wo, w1, w2 of every layer and the LM head become {"q": int8, "s": f32
+    per column} (quantize_weights), which every serving step sends through
+    matmul_w8a16: half the weight bytes of bf16 per decode step. The
+    embedding and the norm gains stay as they are. Runs on the params'
+    device. Serving-only: forward and the train step refuse such params."""
+    def q(w):
+        qq, s = quantize_weights(w)
+        return {"q": qq, "s": s}
+
+    out = dict(params)
+    out["head"] = q(params["head"])
+    out["layers"] = [
+        {k: (q(v) if k in W8A16_WEIGHTS else v) for k, v in lp.items()}
+        for lp in params["layers"]]
+    return out
+
+
+def _wmm(h2, w):
+    """h2 @ w for a float weight, or matmul_w8a16 for a w8a16 pair."""
+    if isinstance(w, dict):
+        return matmul_w8a16(h2, w["q"], w["s"])
+    return h2 @ w
+
+
 def _rope_tables(cache: KVCache, positions, n_heads):
     """cos/sin rows for (B, n_heads, T) rows at positions (B, T): the
     layout of _layer_qkv's flattened heads. Positions past the tables
@@ -215,9 +300,9 @@ def _layer_qkv(h, lp, cfg: Config, rope_q, rope_k):
     B, T, d = h.shape
     Dh, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h2 = h.reshape(B * T, d)
-    q = (h2 @ lp["wq"]).reshape(B, T, Hq, Dh).transpose(1, 2)
-    k = (h2 @ lp["wk"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
-    v = (h2 @ lp["wv"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
+    q = _wmm(h2, lp["wq"]).reshape(B, T, Hq, Dh).transpose(1, 2)
+    k = _wmm(h2, lp["wk"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
+    v = _wmm(h2, lp["wv"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
     q = rope_cached(q.reshape(B * Hq * T, Dh), *rope_q).reshape(B, Hq, T, Dh)
     k = rope_cached(k.reshape(B * Hkv * T, Dh), *rope_k
                     ).reshape(B, Hkv, T, Dh)
@@ -226,7 +311,7 @@ def _layer_qkv(h, lp, cfg: Config, rope_q, rope_k):
 
 def _mlp(h, lp):
     # jax.nn.gelu defaults to the tanh form; torch's default is erf
-    return F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+    return _wmm(F.gelu(_wmm(h, lp["w1"]), approximate="tanh"), lp["w2"])
 
 
 def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
@@ -244,13 +329,13 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
     positions = start[:, None] + torch.arange(T, device=tokens.device)
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
-    slots = _slots(cache.page_table, start, T, cache.k_pages.shape[3])
+    slots = _step_slots(cfg, cache, start, T)
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
         o = flash_attention(q, k, v, causal=True, window=cfg.window,
                             sinks=cfg.sinks, softcap=cfg.softcap)
-        o = o.transpose(1, 2).reshape(B * T, -1) @ lp["wo"]
+        o = _wmm(o.transpose(1, 2).reshape(B * T, -1), lp["wo"])
         h = h + o.reshape(B, T, -1)
         hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
@@ -260,7 +345,7 @@ def prefill(params, cfg: Config, tokens, cache: KVCache, last_index=None):
     else:
         h_last = h[torch.arange(B, device=h.device), last_index.long()]
     hn = rms_norm(h_last, params["lnf"])
-    logits = (hn @ params["head"]).float()
+    logits = _wmm(hn, params["head"]).float()
     n_new = T if last_index is None else last_index + 1
     lengths = (cache.lengths + n_new).to(torch.int32)
     return logits, dataclasses.replace(cache, lengths=lengths)
@@ -281,14 +366,14 @@ def decode_step(params, cfg: Config, last_tokens, cache: KVCache,
     positions = cache.lengths[:, None]
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
-    slots = _slots(cache.page_table, cache.lengths, 1, cache.k_pages.shape[3])
+    slots = _step_slots(cfg, cache, cache.lengths, 1)
     # attention sees each slot's history + the token written this step
     attn_len = cache.lengths + 1
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
         _write_kv(cache, li, k, v, slots)
-        feat = dict(window=cfg.window, sinks=cfg.sinks, softcap=cfg.softcap)
+        feat = _attn_features(cfg, cache)
         if cache.quantized:
             o = paged_attention_quantized(
                 q[:, :, 0], cache.k_pages[li], cache.k_scales[li],
@@ -299,11 +384,11 @@ def decode_step(params, cfg: Config, last_tokens, cache: KVCache,
             o = paged_attention(q[:, :, 0], cache.k_pages[li],
                                 cache.v_pages[li], attn_len,
                                 cache.page_table, **feat)
-        h = h + (o.reshape(B, -1) @ lp["wo"]).reshape(h.shape)
+        h = h + _wmm(o.reshape(B, -1), lp["wo"]).reshape(h.shape)
         hn = rms_norm(h.reshape(B, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
     hn = rms_norm(h[:, 0], params["lnf"])
-    logits = (hn @ params["head"]).float()
+    logits = _wmm(hn, params["head"]).float()
     adv = 1 if active is None else active.to(torch.int32)
     lengths = (cache.lengths + adv).to(torch.int32)
     return logits, dataclasses.replace(cache, lengths=lengths)
@@ -326,13 +411,13 @@ def verify_step(params, cfg: Config, tokens, cache: KVCache,
     positions = start[:, None] + torch.arange(T, device=tokens.device)
     rope_q = _rope_tables(cache, positions, cfg.n_heads)
     rope_k = _rope_tables(cache, positions, cfg.n_kv_heads)
-    slots = _slots(cache.page_table, start, T, cache.k_pages.shape[3])
+    slots = _step_slots(cfg, cache, start, T)
     attn_len = start + T
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h.reshape(B * T, -1), lp["ln1"]).reshape(h.shape)
         q, k, v = _layer_qkv(hn, lp, cfg, rope_q, rope_k)
         _write_kv(cache, li, k, v, slots)
-        feat = dict(window=cfg.window, sinks=cfg.sinks, softcap=cfg.softcap)
+        feat = _attn_features(cfg, cache)
         if cache.quantized:
             o = paged_prefill_attention_quantized(
                 q, cache.k_pages[li], cache.k_scales[li], cache.v_pages[li],
@@ -342,12 +427,12 @@ def verify_step(params, cfg: Config, tokens, cache: KVCache,
             o = paged_prefill_attention(q, cache.k_pages[li],
                                         cache.v_pages[li], attn_len,
                                         cache.page_table, **feat)
-        o = o.transpose(1, 2).reshape(B * T, -1) @ lp["wo"]
+        o = _wmm(o.transpose(1, 2).reshape(B * T, -1), lp["wo"])
         h = h + o.reshape(B, T, -1)
         hn = rms_norm(h.reshape(B * T, -1), lp["ln2"])
         h = h + _mlp(hn, lp).reshape(h.shape)
     hn = rms_norm(h.reshape(B * T, -1), params["lnf"])
-    logits = (hn @ params["head"]).float().reshape(B, T, -1)
+    logits = _wmm(hn, params["head"]).float().reshape(B, T, -1)
     lengths = attn_len.to(torch.int32)
     return logits, dataclasses.replace(cache, lengths=lengths)
 
@@ -361,7 +446,10 @@ def share_prefix(cache: KVCache, src_slot, dst_slots, prefix_len):
     partial page's prefix_len % page rows are copied into dst's own page
     in every layer (with its scales on the quantized tier). Writes the
     table and pools in place; returns the cache with dst lengths set to
-    prefix_len. Host ints throughout."""
+    prefix_len. Host ints throughout. Ring pools raise ValueError (a wrap
+    would overwrite shared pages), as JAX asserts."""
+    if cache.ring:
+        raise ValueError("prefix sharing needs a non-ring pool")
     if src_slot in dst_slots:
         raise ValueError(f"src slot {src_slot} is among dst {dst_slots}")
     page = cache.k_pages.shape[3]
@@ -406,7 +494,7 @@ def rollback(cache: KVCache, new_lengths):
 
 def generate(params, cfg: Config, prompt, n_steps, pages_per_seq=8,
              page_size=128, greedy=True, seed=0, temperature=1.0, top_k=0,
-             top_p=1.0, min_p=0.0, cache_dtype=torch.bfloat16):
+             top_p=1.0, min_p=0.0, cache_dtype=torch.bfloat16, ring=False):
     """Prefill the prompt (B, T), then decode n_steps tokens, greedily or
     sampled. Returns (B, n_steps) int32 token ids; the first is the
     prefill's argmax, as in JAX.
@@ -418,10 +506,10 @@ def generate(params, cfg: Config, prompt, n_steps, pages_per_seq=8,
     otherwise torch.multinomial draws from softmax(logits) with a
     torch.Generator on the prompt's device seeded with `seed`.
     cache_dtype=torch.int8 or torch.float8_e4m3fn serves from the
-    quantized tier."""
+    quantized tier; ring=True from ring pools (init_cache)."""
     B = prompt.shape[0]
     cache = init_cache(cfg, B, pages_per_seq, page_size, dtype=cache_dtype,
-                       device=prompt.device)
+                       device=prompt.device, ring=ring)
     logits, cache = prefill(params, cfg, prompt, cache)
     restricted = top_k or top_p < 1.0 or min_p > 0.0 or temperature != 1.0
     seeds = np.random.default_rng(seed)

@@ -14,6 +14,11 @@ through it raises NotImplementedError. Not ported here: MoE and the
 tp/sp/ep mesh axes (each raises NotImplementedError naming its
 ROADMAP.md item).
 
+A w8a16 tree (serving.quantize_model_weights: int8 {"q", "s"} pairs) is
+serving-only, as in the JAX package: forward and the train step raise
+ValueError for it; params_from_jax, params_to and param_leaves walk its
+pairs.
+
 init_params builds on the card unless the caller passes device="cpu";
 params_from_jax is a conversion and gives CPU tensors. The training path
 runs on the device of its params and tokens: a CPU tensor takes every
@@ -106,8 +111,11 @@ def params_from_jax(tree) -> dict[str, Any]:
     """The JAX params tree, given as numpy arrays, as CPU tensors of the
     same dtypes and layout. numpy has no bf16: convert bf16 leaves to f32
     on the JAX side (`np.asarray(x.astype(jnp.float32))`) and cast back
-    with `.to(torch.bfloat16)` here if wanted."""
+    with `.to(torch.bfloat16)` here if wanted. A w8a16 weight (JAX's
+    quantize_model_weights: {"q": int8, "s": f32}) stays such a pair."""
     def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x))
 
     return dict(embed=leaf(tree["embed"]),
@@ -117,20 +125,44 @@ def params_from_jax(tree) -> dict[str, Any]:
 
 
 def params_to(params, *args, **kwargs):
-    """params with every tensor converted by Tensor.to(*args, **kwargs)."""
-    return dict(embed=params["embed"].to(*args, **kwargs),
-                layers=[{k: v.to(*args, **kwargs) for k, v in lp.items()}
+    """params with every tensor converted by Tensor.to(*args, **kwargs),
+    except that a w8a16 pair {"q", "s"} only moves: q stays int8 and s
+    f32."""
+    def to(x):
+        if isinstance(x, dict):
+            return {k: v.to(torch.empty(0, device=v.device)
+                            .to(*args, **kwargs).device)
+                    for k, v in x.items()}
+        return x.to(*args, **kwargs)
+
+    return dict(embed=to(params["embed"]),
+                layers=[{k: to(v) for k, v in lp.items()}
                         for lp in params["layers"]],
-                lnf=params["lnf"].to(*args, **kwargs),
-                head=params["head"].to(*args, **kwargs))
+                lnf=to(params["lnf"]), head=to(params["head"]))
 
 
 def param_leaves(params) -> list[torch.Tensor]:
     """The parameter tensors in a fixed order (embed, each layer's in
-    insertion order, lnf, head): what an optimizer is built over."""
+    insertion order, lnf, head; a w8a16 pair gives q, then s): what an
+    optimizer is built over."""
+    def flat(x):
+        return list(x.values()) if isinstance(x, dict) else [x]
+
     return ([params["embed"]]
-            + [w for lp in params["layers"] for w in lp.values()]
-            + [params["lnf"], params["head"]])
+            + [t for lp in params["layers"] for w in lp.values()
+               for t in flat(w)]
+            + [params["lnf"], *flat(params["head"])])
+
+
+def _check_trainable(params):
+    """w8a16 weights are a serving tier (JAX's quantize_model_weights):
+    the training path takes full-precision weights only."""
+    if any(isinstance(w, dict) for w in
+           [params["head"], *(v for lp in params["layers"]
+                              for v in lp.values())]):
+        raise ValueError("w8a16 params (quantize_model_weights) are "
+                         "serving-only: forward and the train step take "
+                         "full-precision weights")
 
 
 def _check_forward(cfg: Config, tp_size=1, tp_axis=None, sp_axis=None,
@@ -198,8 +230,10 @@ def forward(params, tokens, cfg: Config, tp_size: int = 1, tp_axis=None,
     cfg.remat recomputes each layer in the backward pass
     (torch.utils.checkpoint) instead of keeping its activations. The
     mesh arguments keep the JAX signature; anything but their defaults
-    raises NotImplementedError."""
+    raises NotImplementedError. w8a16 params (serving-only) raise
+    ValueError."""
     _check_forward(cfg, tp_size, tp_axis, sp_axis, ep_axis)
+    _check_trainable(params)
     B, S = tokens.shape
     h = params["embed"][tokens]
     for lp in params["layers"]:
@@ -259,6 +293,7 @@ def make_train_step(cfg: Config, optimizer, accum_steps=1):
     leaf's .grad, applies the optimizer in place and returns the loss."""
 
     def step(params, tokens, targets):
+        _check_trainable(params)
         leaves = param_leaves(params)
         if not all(p.requires_grad for p in leaves):
             raise ValueError("every parameter must require grad "

@@ -11,10 +11,13 @@ the quantized tier: 1-byte int8 or fp8 e4m3 pools with one f32 scale per
 token (quantize_pages, paged_attention_quantized,
 paged_prefill_attention_quantized), with JAX's q_int8 (an int8 score
 dot) and pv_int8 (an int8 P V dot) options, whose decode and prefix
-instances are one kernel, csrc/paged_quant.cu. Pools carry the natural
-head dim:
-the 128-lane pad of the JAX pools is a TPU compiler requirement and is
-not ported. ALiBi and ring pools are not ported yet.
+instances are one kernel, csrc/paged_quant.cu. Every instance also
+takes JAX's ring pools (ring=True: the pool is a rolling buffer of
+pages_per_seq * page_size slots a sequence, and each slot's position is
+recovered from the length, _positions) and ALiBi (alibi_slopes: (Hq,)
+slopes, slope * (k_pos - q_pos) added to the scaled score before the
+mask). Pools carry the natural head dim: the 128-lane pad of the JAX
+pools is a TPU compiler requirement and is not ported.
 """
 
 import math
@@ -26,17 +29,14 @@ from tpukern_torch.ops.quant import quantize_fp8, quantize_int8, quantize_ref
 
 MAX_GROUP = 8      # csrc/paged_attention.cu PA_GMAX, csrc/paged_prefill.cu
 HEAD_DIMS = (32, 64, 128)  # launch_d of both kernels
-_TODO = "ROADMAP.md queue 1 item 10 (ops/paged_attention.py options)"
 
 
-def _check_features(name, window, sinks, softcap, alibi_slopes, ring):
-    """JAX's asserts on the masks as ValueErrors; the options the port
-    lacks raise NotImplementedError."""
-    for opt, value in dict(alibi_slopes=alibi_slopes,
-                           ring=ring or None).items():
-        if value is not None:
-            raise NotImplementedError(f"{name}({opt}=...) is not ported "
-                                      f"yet: {_TODO}")
+def _check_features(name, q, k_pages, page_table, window, sinks, softcap,
+                    alibi_slopes, ring, T=1):
+    """JAX's asserts on the masks, as ValueErrors. A ring pool needs a
+    window, and T new tokens need window + T - 1 <= ring_tokens - sinks
+    (the earliest keeps its window after the T wrapped writes; decode is
+    T = 1); ALiBi slopes are (Hq,), and not with a softcap."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1: {window}")
     if sinks and window is None:
@@ -45,6 +45,29 @@ def _check_features(name, window, sinks, softcap, alibi_slopes, ring):
         raise ValueError(f"sinks must be >= 0: {sinks}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0: {softcap}")
+    if alibi_slopes is not None:
+        if softcap is not None:
+            raise ValueError(f"{name}: softcap + alibi ordering is "
+                             "ambiguous")
+        if tuple(alibi_slopes.shape) != (q.shape[1],):
+            raise ValueError(f"{name}: alibi_slopes "
+                             f"{tuple(alibi_slopes.shape)} for {q.shape[1]} "
+                             "query heads")
+    if ring:
+        cap = page_table.shape[1] * k_pages.shape[2] - int(sinks or 0)
+        if window is None or window + T - 1 > cap:
+            raise ValueError(f"{name}: a ring cache needs window + T - 1 <= "
+                             f"ring capacity - sinks: {window} + {T} - 1 vs "
+                             f"{cap}")
+
+
+def _ring_args(q, page_table, k_pages, ring, alibi_slopes):
+    """The kernels' ring (slots a sequence, 0 for a flat pool) and slopes
+    (an f32 tensor on q's device, or None)."""
+    ring_tokens = page_table.shape[1] * k_pages.shape[2] if ring else 0
+    slopes = (None if alibi_slopes is None else
+              alibi_slopes.to(q.device, torch.float32).contiguous())
+    return ring_tokens, slopes
 
 
 def _launch_checks(q, k_pages, v_pages, lengths, page_table):
@@ -83,43 +106,50 @@ def paged_attention(q, k_pages, v_pages, lengths, page_table, *,
     < lengths[b] (lengths past the pool count as the whole pool); a length
     of 0 gives 0. window keeps positions >= lengths[b] - window, or
     < sinks; softcap maps each scaled score s to cap·tanh(s/cap) before
-    the mask.
+    the mask; alibi_slopes (Hq,) adds slope * (k_pos - q_pos) to it.
+    ring=True reads the pool as a rolling buffer (the module docstring):
+    lengths count absolute tokens and may pass the pool.
 
     pages_per_block is the TPU kernel's page-DMA batch: accepted and
     ignored, since the CUDA kernel gathers token rows, not whole pages.
-    alibi_slopes and ring raise NotImplementedError. A CPU tensor takes
-    paged_attention_ref; a CUDA tensor launches the kernel (head dim 32,
-    64 or 128), and `featured_launches` counts the launches of its
-    window/softcap instance."""
+    A CPU tensor takes paged_attention_ref; a CUDA tensor launches the
+    kernel (head dim 32, 64 or 128); `featured_launches` counts the
+    launches of its featured instance (window, softcap, ring or ALiBi),
+    `ring_launches` those on ring pools."""
     del pages_per_block
-    _check_features("paged_attention", window, sinks, softcap, alibi_slopes,
-                    ring)
+    _check_features("paged_attention", q, k_pages, page_table, window, sinks,
+                    softcap, alibi_slopes, ring)
     _check_shapes(q, k_pages, v_pages)
+    feat = dict(window=window, sinks=sinks, softcap=softcap,
+                alibi_slopes=alibi_slopes, ring=ring)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, lengths, page_table,
-                                   window=window, sinks=sinks,
-                                   softcap=softcap)
+                                   **feat)
     _launch_checks(q, k_pages, v_pages, lengths, page_table)
     B, Hq, D = q.shape
     Hkv, P, page_size, _ = k_pages.shape
     q = q.contiguous()
     k_pages, v_pages = _build.aligned(k_pages), _build.aligned(v_pages)
     lengths, page_table = lengths.contiguous(), page_table.contiguous()
+    ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
+                                     alibi_slopes)
     o = torch.empty_like(q)
     _build.launch("tk_paged_attention", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), lengths.data_ptr(),
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, P,
                   page_size, page_table.shape[1], D, 1.0 / math.sqrt(D),
-                  window or 0, sinks or 0, softcap or 0.0,
-                  _build.dtype_code(q), _build.stream(q))
+                  window or 0, sinks or 0, softcap or 0.0, ring_tokens,
+                  _build.ptr(slopes), _build.dtype_code(q), _build.stream(q))
     paged_attention.launches += 1
-    if window or softcap:  # the featured instance
+    paged_attention.ring_launches += bool(ring)
+    if window or softcap or ring or slopes is not None:  # the featured one
         paged_attention.featured_launches += 1
     return o
 
 
 paged_attention.launches = 0
 paged_attention.featured_launches = 0
+paged_attention.ring_launches = 0
 
 
 def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
@@ -132,44 +162,94 @@ def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
     the pages; lengths (B,) int32 counts live tokens including those T.
     Token t of sequence b sees positions [0, lengths[b] - T + t] (within
     the pool), and with a window only those >= lengths[b] - T + t -
-    window + 1, or < sinks; softcap as in paged_attention. A row that
-    sees no position gives 0. Returns (B, Hq, T, D).
+    window + 1, or < sinks; softcap, alibi_slopes and ring as in
+    paged_attention (a ring needs window + T - 1 <= ring_tokens - sinks).
+    A row that sees no position gives 0. Returns (B, Hq, T, D).
 
-    pages_per_block is accepted and ignored, as in paged_attention.
-    alibi_slopes and ring raise NotImplementedError. A CPU tensor takes
-    paged_prefill_ref; a CUDA tensor launches the kernel (bf16 or f32,
-    head dim 32, 64 or 128, GQA group at most 8)."""
+    pages_per_block is accepted and ignored, as in paged_attention. A CPU
+    tensor takes paged_prefill_ref; a CUDA tensor launches the kernel
+    (bf16 or f32, head dim 32, 64 or 128, GQA group at most 8);
+    `ring_launches` counts those on ring pools."""
     del pages_per_block
-    _check_features("paged_prefill_attention", window, sinks, softcap,
-                    alibi_slopes, ring)
+    _check_features("paged_prefill_attention", q, k_pages, page_table,
+                    window, sinks, softcap, alibi_slopes, ring, T=q.shape[2])
     _check_shapes(q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_prefill_ref(q, k_pages, v_pages, lengths, page_table,
-                                 window=window, sinks=sinks, softcap=softcap)
+                                 window=window, sinks=sinks, softcap=softcap,
+                                 alibi_slopes=alibi_slopes, ring=ring)
     _launch_checks(q, k_pages, v_pages, lengths, page_table)
     B, Hq, T, D = q.shape
     Hkv, P, page_size, _ = k_pages.shape
     q = q.contiguous()
     k_pages, v_pages = _build.aligned(k_pages), _build.aligned(v_pages)
     lengths, page_table = lengths.contiguous(), page_table.contiguous()
+    ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
+                                     alibi_slopes)
     o = torch.empty_like(q)
     _build.launch("tk_paged_prefill", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), lengths.data_ptr(),
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, T, P,
                   page_size, page_table.shape[1], D, 1.0 / math.sqrt(D),
-                  window or 0, sinks or 0, softcap or 0.0,
-                  _build.dtype_code(q), _build.stream(q))
+                  window or 0, sinks or 0, softcap or 0.0, ring_tokens,
+                  _build.ptr(slopes), _build.dtype_code(q), _build.stream(q))
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.ring_launches += bool(ring)
     return o
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.ring_launches = 0
+
+
+def _positions(lengths, T, S, sinks, ring, device):
+    """(query positions (B, T), key positions (B, S) of each sequence's S
+    slots). Token t sits at lengths[b] - T + t. A flat pool's slot j holds
+    position j; a ring's slot j holds j below the sinks, else the largest
+    position <= lengths[b] - 1 congruent to j mod ring - sinks, or -1
+    where that falls below the sinks (not written yet), as the TPU
+    kernels recover it (paged_attention.py:213-231)."""
+    last = lengths.to(device).long()[:, None] - 1                # (B, 1)
+    qpos = last - (T - 1) + torch.arange(T, device=device)
+    slot = torch.arange(S, device=device)[None, :]
+    if not ring:
+        return qpos, slot.expand(qpos.shape[0], S)
+    sinks = int(sinks or 0)
+    kpos = last - torch.remainder(last - slot, S - sinks)
+    return qpos, torch.where(slot < sinks, slot,
+                             torch.where(kpos < sinks, -1, kpos))
+
+
+def _softmax_terms(s, lengths, T, window, sinks, ring, alibi_slopes):
+    """The unnormalized weights p = exp(s - max) of scaled (and capped)
+    scores s (B, Hkv, group, T, S) and their sum over S: ALiBi added
+    first, then the masks (a live position <= the query's, and the window
+    or the sinks); a row that sees nothing has p = 0 and a sum of 0."""
+    B, Hkv, group, _, S = s.shape
+    qpos, kpos = _positions(lengths, T, S, sinks, ring, s.device)
+    rel = kpos[:, None, :] - qpos[..., None]                      # (B, T, S)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(s.device, torch.float32)
+        s = s + slopes.reshape(1, Hkv, group, 1, 1) * rel[:, None, None]
+    keep = (kpos[:, None, :] >= 0) & (rel <= 0)
+    if window is not None:
+        band = rel >= 1 - window
+        if sinks:
+            band |= kpos[:, None, :] < sinks
+        keep &= band
+    s = s.masked_fill(~keep[:, None, None], float("-inf"))
+    empty = ~keep.any(dim=-1)[:, None, None, :, None]  # sees nothing -> 0
+    s = s.masked_fill(empty, 0.0)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(empty, 0.0)
+    return p, p.sum(dim=-1, keepdim=True)
 
 
 def paged_prefill_ref(q, k_pages, v_pages, lengths, page_table, *,
-                      window=None, sinks=None, softcap=None):
+                      window=None, sinks=None, softcap=None,
+                      alibi_slopes=None, ring=False):
     """Gather each sequence's pages, then masked f32 attention of its T
-    new tokens (the visible positions of paged_prefill_attention).
+    new tokens (the visible positions of paged_prefill_attention, with
+    ALiBi and ring positions by _softmax_terms).
 
     On bf16 pools the unnormalized weights exp(s - m) are rounded to bf16
     before the P V product, as the kernels (and JAX's _pv_accumulate)
@@ -188,20 +268,8 @@ def paged_prefill_ref(q, k_pages, v_pages, lengths, page_table, *,
     s = torch.einsum("bhgtd,bhkd->bhgtk", qf, k_seq.float()) / math.sqrt(D)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = (lengths.to(q.device).long()[:, None] - T
-            + torch.arange(T, device=q.device))                   # (B, T)
-    pos = torch.arange(S, device=q.device)
-    keep = pos <= qpos[..., None]                                 # (B, T, S)
-    if window is not None:
-        band = pos >= qpos[..., None] - window + 1
-        if sinks:
-            band |= pos < sinks
-        keep &= band
-    s = s.masked_fill(~keep[:, None, None], float("-inf"))
-    empty = ~keep.any(dim=-1)[:, None, None, :, None]  # sees nothing -> 0
-    s = s.masked_fill(empty, 0.0)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(empty, 0.0)
-    denom = p.sum(dim=-1, keepdim=True)
+    p, denom = _softmax_terms(s, lengths, T, window, sinks, ring,
+                              alibi_slopes)
     if v_pages.dtype == torch.bfloat16:
         p = p.to(torch.bfloat16).float()
     o = torch.einsum("bhgtk,bhkd->bhgtd", p, v_seq.float())
@@ -209,12 +277,10 @@ def paged_prefill_ref(q, k_pages, v_pages, lengths, page_table, *,
     return o.reshape(B, Hq, T, D).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pages, v_pages, lengths, page_table, *,
-                        window=None, sinks=None, softcap=None):
+def paged_attention_ref(q, k_pages, v_pages, lengths, page_table, **kw):
     """paged_prefill_ref with one new token per sequence."""
     return paged_prefill_ref(q[:, :, None], k_pages, v_pages, lengths,
-                             page_table, window=window, sinks=sinks,
-                             softcap=softcap)[:, :, 0]
+                             page_table, **kw)[:, :, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +331,7 @@ def _check_quantized(name, q, k_pages, k_scales, v_pages, v_scales,
 
 def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                       page_table, pages_per_block, q_int8, pv_int8, window,
-                      sinks, softcap):
+                      sinks, softcap, alibi_slopes, ring):
     """Launch a quantized instance on CUDA tensors, q (B, Hq, T, D); q_int8
     row-quantizes q through quantize_int8 (#20) first. Returns o (q's
     shape and type)."""
@@ -288,6 +354,8 @@ def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
     k_scales, v_scales = (s.float().contiguous() for s in (k_scales,
                                                            v_scales))
     lengths, page_table = lengths.contiguous(), page_table.contiguous()
+    ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
+                                     alibi_slopes)
     B, Hq, T = q.shape[:3]
     _build.launch("tk_paged_prefill_quantized", qk.data_ptr(),
                   _build.ptr(q_scales), k_pages.data_ptr(),
@@ -295,14 +363,15 @@ def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                   v_scales.data_ptr(), lengths.data_ptr(),
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, T, P,
                   page, page_table.shape[1], D, bk, 1.0 / math.sqrt(D),
-                  window or 0, sinks or 0, softcap or 0.0, dtype,
-                  _build.KV_CODES[k_pages.dtype], int(pv_int8),
-                  _build.stream(q))
+                  window or 0, sinks or 0, softcap or 0.0, ring_tokens,
+                  _build.ptr(slopes), dtype, _build.KV_CODES[k_pages.dtype],
+                  int(pv_int8), _build.stream(q))
     return o
 
 
-def _count_tier(fn, k_pages, pv_int8):
+def _count_tier(fn, k_pages, pv_int8, ring):
     fn.launches += 1
+    fn.ring_launches += bool(ring)
     if k_pages.dtype == torch.float8_e4m3fn:
         fn.fp8_launches += 1
     elif pv_int8:
@@ -331,24 +400,27 @@ def paged_attention_quantized(q, k_pages, k_scales, v_pages, v_scales,
     pages_per_block tokens, so the result depends on pages_per_block as
     JAX's does, and contracted against the raw int8 V in int32.
     pages_per_block (default 4, as JAX's) must divide the pages a
-    sequence. A CPU tensor takes paged_attention_quantized_ref; a CUDA
-    tensor launches the kernel (head dim 32, 64 or 128; blocks of at most
-    BLOCK_TOKENS_MAX tokens), and launches, int8_launches,
-    pv_int8_launches and fp8_launches count its launches by tier."""
-    _check_features("paged_attention_quantized", window, sinks, softcap,
-                    alibi_slopes, ring)
+    sequence. window, sinks, softcap, alibi_slopes and ring as in
+    paged_attention. A CPU tensor takes paged_attention_quantized_ref; a
+    CUDA tensor launches the kernel (head dim 32, 64 or 128; blocks of at
+    most BLOCK_TOKENS_MAX tokens), and launches, int8_launches,
+    pv_int8_launches and fp8_launches count its launches by tier,
+    ring_launches those on ring pools."""
+    _check_features("paged_attention_quantized", q, k_pages, page_table,
+                    window, sinks, softcap, alibi_slopes, ring)
     _check_quantized("paged_attention_quantized", q, k_pages, k_scales,
                      v_pages, v_scales, page_table, pages_per_block, q_int8,
                      pv_int8)
     kw = dict(pages_per_block=pages_per_block, q_int8=q_int8,
-              pv_int8=pv_int8, window=window, sinks=sinks, softcap=softcap)
+              pv_int8=pv_int8, window=window, sinks=sinks, softcap=softcap,
+              alibi_slopes=alibi_slopes, ring=ring)
     if q.device.type == "cpu":
         return paged_attention_quantized_ref(q, k_pages, k_scales, v_pages,
                                              v_scales, lengths, page_table,
                                              **kw)
     o = _launch_quantized(q[:, :, None], k_pages, k_scales, v_pages,
                           v_scales, lengths, page_table, **kw)[:, :, 0]
-    _count_tier(paged_attention_quantized, k_pages, pv_int8)
+    _count_tier(paged_attention_quantized, k_pages, pv_int8, ring)
     return o
 
 
@@ -360,37 +432,41 @@ def paged_prefill_attention_quantized(q, k_pages, k_scales, v_pages,
                                       ring=False, sinks=None):
     """Multi-token causal attention against a quantized paged KV cache:
     q (B, Hq, T, D) as paged_prefill_attention, the pools, scales and
-    options as paged_attention_quantized. Returns (B, Hq, T, D)."""
-    _check_features("paged_prefill_attention_quantized", window, sinks,
-                    softcap, alibi_slopes, ring)
+    options as paged_attention_quantized (a ring needs window + T - 1 <=
+    ring_tokens - sinks). Returns (B, Hq, T, D)."""
+    _check_features("paged_prefill_attention_quantized", q, k_pages,
+                    page_table, window, sinks, softcap, alibi_slopes, ring,
+                    T=q.shape[2])
     _check_quantized("paged_prefill_attention_quantized", q, k_pages,
                      k_scales, v_pages, v_scales, page_table,
                      pages_per_block, q_int8, pv_int8)
     kw = dict(pages_per_block=pages_per_block, q_int8=q_int8,
-              pv_int8=pv_int8, window=window, sinks=sinks, softcap=softcap)
+              pv_int8=pv_int8, window=window, sinks=sinks, softcap=softcap,
+              alibi_slopes=alibi_slopes, ring=ring)
     if q.device.type == "cpu":
         return paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages,
                                            v_scales, lengths, page_table,
                                            **kw)
     o = _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                           page_table, **kw)
-    _count_tier(paged_prefill_attention_quantized, k_pages, pv_int8)
+    _count_tier(paged_prefill_attention_quantized, k_pages, pv_int8, ring)
     return o
 
 
 for _fn in (paged_attention_quantized, paged_prefill_attention_quantized):
     _fn.launches = _fn.int8_launches = _fn.pv_int8_launches = 0
-    _fn.fp8_launches = 0
+    _fn.fp8_launches = _fn.ring_launches = 0
 
 
 def paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
                                 lengths, page_table, *, pages_per_block=4,
                                 q_int8=False, pv_int8=False, window=None,
-                                sinks=None, softcap=None):
+                                sinks=None, softcap=None, alibi_slopes=None,
+                                ring=False):
     """The quantized kernels' function, gathered per sequence, in the TPU
     kernels' order: the score (q_int8: float(int dot) * q_scale; else
-    q . k cast to q's type), * k_scale, * 1/sqrt(D), the softcap, the
-    masks of paged_prefill_ref; p = exp(s - m) with m the row's final max
+    q . k cast to q's type), * k_scale, * 1/sqrt(D), the softcap, ALiBi
+    and the masks of _softmax_terms; p = exp(s - m) with m the row's final max
     (the kernels take a running max: the same up to rounding, since
     pv_int8's quantization is invariant to p's scale), l = sum p;
     p' = p * v_scale, then
@@ -428,20 +504,8 @@ def paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
     s = s * ks[:, :, None, None] * (1.0 / math.sqrt(D))
     if softcap is not None:
         s = softcap * torch.tanh(s * (1.0 / softcap))
-    qpos = (lengths.to(q.device).long()[:, None] - T
-            + torch.arange(T, device=q.device))                   # (B, T)
-    pos = torch.arange(S, device=q.device)
-    keep = pos <= qpos[..., None]                                 # (B, T, S)
-    if window is not None:
-        band = pos >= qpos[..., None] - window + 1
-        if sinks:
-            band |= pos < sinks
-        keep &= band
-    s = s.masked_fill(~keep[:, None, None], float("-inf"))
-    empty = ~keep.any(dim=-1)[:, None, None, :, None]
-    s = s.masked_fill(empty, 0.0)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(empty, 0.0)
-    denom = p.sum(dim=-1, keepdim=True)
+    p, denom = _softmax_terms(s, lengths, T, window, sinks, ring,
+                              alibi_slopes)
     pv = p * vs[:, :, None, None]
     if pv_int8:
         bk = page * pages_per_block
@@ -451,6 +515,9 @@ def paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
         # a true division (a Python scalar over a tensor multiplies by
         # its reciprocal)
         pq = torch.round(blocks * (torch.full_like(amax, 127.0) / amax))
+        # JAX's cast to int8: where 127 / amax overflows, inf saturates to
+        # 127 and 0 * inf (NaN) gives 0
+        pq = torch.nan_to_num(pq, nan=0.0).clamp(max=127.0)
         vb = v_seq.reshape(B, Hkv, S // bk, bk, D).double()
         ob = torch.einsum("bhgtnk,bhnkd->bhgtnd", pq.double(), vb)
         o = (ob.float() * (amax * (1.0 / 127.0))).sum(dim=-2)
