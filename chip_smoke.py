@@ -34,6 +34,11 @@
    every timed kernel also gets its bound (bytes or operations over the
    H100's peak) and, where one PyTorch call computes the same function,
    that call's time (for the paged kernels, SDPA on a gathered copy);
+   [gmm]/[tgmm]: the grouped GEMMs #28 (NN and trans_w) and #29 against
+   gmm_ref/tgmm_ref in f32 and bf16 at the Mixtral expert products (8192
+   routed rows: w1 4096 x 14336, w2 14336 x 4096, their dx and dW), at the
+   bench shape (8192 x 2048 x 1408, E 8) under five splits and at the test
+   cases, timed at the first two (bf16 beside torch._grouped_mm);
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; then [chunked] the same requests with
@@ -85,7 +90,17 @@
 9. checks one loss-and-grad at the 7bish widths with 2 layers (B=1,
    S=1024, f32) against a loss built from the plain functions only,
    differentiated by torch.autograd: unfused, fused, and with the window
-   and softcap.
+   and softcap;
+10. [moe-train]: trains Mixtral-8x7B's widths cut to 2 layers (8
+   experts, top 2, capacity factor 2.0; f32) for 5 Adam steps on B=2,
+   S=2048 through the capacity-dispatch path (matmul launches, none of
+   #28/#29), with the share of routed assignments dropped and one
+   profiled step; [moe-dropless]: moe_block_dropless(use_kernel=True) on
+   that model's first moe layer, T 4096, k 2: 2 gmm, 2 trans_w and 2 tgmm
+   launches a forward plus backward, out and grads against the plain
+   ragged products, ms, 3 Adam steps, and a router that sends half the
+   tokens to one expert; then the train parity at the Mixtral widths
+   (S=1024), counting the routings that part between the two runs.
 
 Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
@@ -226,13 +241,25 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _timed_entry(name, shape, kernel, plain, library, flops, nbytes, dtype):
+# the timing schedule of a call that takes tens of ms (the Mixtral expert
+# products): run_benchmark's arguments, and no profiled calls. A call that
+# long is one kernel or a few that keep the queue full, so its events time
+# is its device time; the profiler dropped whole calls of such kernels on
+# an H100 (device times of 0.5x the events' or none at all in a session
+# of 2 calls)
+LIGHT = dict(bench=dict(warmup=1, iters=2, reps=3), device_n=0)
+
+
+def _timed_entry(name, shape, kernel, plain, library, flops, nbytes, dtype,
+                 light=False):
     """One kernel to time: its call, its plain version's, the one
     PyTorch call of the same function (or None), and the work the
     function needs on these inputs (operations, and bytes with each input
-    read once and each output written once)."""
+    read once and each output written once); `light` times it on the
+    LIGHT schedule."""
     return dict(name=name, shape=shape, kernel=kernel, plain=plain,
-                library=library, flops=flops, nbytes=nbytes, dtype=dtype)
+                library=library, flops=flops, nbytes=nbytes, dtype=dtype,
+                **(LIGHT if light else dict(bench={}, device_n=20)))
 
 
 def _device_events(fn, n):
@@ -257,8 +284,8 @@ def _device_events(fn, n):
 def _device_ms(fn, n=20):
     """Device-only ms per call (the sum of its kernels' durations), or
     None if the profiler saw no device op in three sessions (one session
-    saw none for SDPA at the verification shape on an H100)."""
-    for _ in range(3):
+    saw none for SDPA at the verification shape on an H100) or n is 0."""
+    for _ in range(3 if n else 0):
         ev = _device_events(fn, n)
         if ev:
             return sum(e - s for s, e, _ in ev) / n / 1e3
@@ -301,15 +328,16 @@ def _time_kernels(timed, results):
         return "not measured" if ms is None else f"{ms:.4f}"
 
     for key, t in timed.items():
-        lib = t["library"]
+        lib, kw, n = t["library"], t["bench"], t["device_n"]
         bound_ms, bound_by = _bound(t["flops"], t["nbytes"], t["dtype"])
-        r = dict(shape=t["shape"], ms=run_benchmark(t["kernel"]),
-                 plain_ms=run_benchmark(t["plain"]),
-                 library_ms=None if lib is None else run_benchmark(lib),
+        r = dict(shape=t["shape"], ms=run_benchmark(t["kernel"], **kw),
+                 plain_ms=run_benchmark(t["plain"], **kw),
+                 library_ms=None if lib is None else run_benchmark(lib, **kw),
                  bound_ms=bound_ms, bound_by=bound_by,
-                 device_ms=_device_ms(t["kernel"]),
-                 plain_device_ms=_device_ms(t["plain"]),
-                 library_device_ms=None if lib is None else _device_ms(lib))
+                 device_ms=_device_ms(t["kernel"], n),
+                 plain_device_ms=_device_ms(t["plain"], n),
+                 library_device_ms=(None if lib is None
+                                    else _device_ms(lib, n)))
         for k, v in r.items():
             results[t["name"]].setdefault(k, v)
         libs = ("none" if lib is None else
@@ -2547,7 +2575,9 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
                ("sampling", ("sample_kernel", "sample_combine_kernel",
                              "threshold_kernel")),
                ("w8a16", "w8a16_"),
-               ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+               ("grouped_gemm", ("gmm_f32_kernel", "gmm_bf16_kernel")),
+               ("gemm (port)", ("sgemm_kernel", "hgemm_mma_kernel")),
+               ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
 
 
@@ -2954,7 +2984,8 @@ def phase_train(cfg, B, S, steps=5):
 
 def _plain_loss(params, tokens, targets, cfg):
     """loss_fn with the plain functions only, for torch.autograd; with
-    cfg.fused_loss the head and loss are cross_entropy_ref."""
+    cfg.fused_loss the head and loss are cross_entropy_ref; with
+    cfg.n_experts each FFN is _plain_moe."""
     from tpukern_torch.ops.attention import attention_ref
     from tpukern_torch.ops.cross_entropy import cross_entropy_ref
     from tpukern_torch.ops.matmul import matmul_ref
@@ -2980,6 +3011,9 @@ def _plain_loss(params, tokens, targets, cfg):
                           softcap=cfg.softcap).transpose(1, 2)
         h = h + matmul_ref(o.reshape(B * S, d), lp["wo"]).reshape(B, S, d)
         hn = rms_norm_ref(h, lp["ln2"]).reshape(B * S, d)
+        if cfg.n_experts:
+            h = h + _plain_moe(hn, lp["moe"], cfg).reshape(B, S, d)
+            continue
         u = torch.nn.functional.gelu(matmul_ref(hn, lp["w1"]),
                                      approximate="tanh")
         h = h + matmul_ref(u, lp["w2"]).reshape(B, S, d)
@@ -2994,28 +3028,46 @@ def _plain_loss(params, tokens, targets, cfg):
 
 def phase_train_parity(cfg, S):
     """One loss-and-grad through the kernels against _plain_loss, at the
-    7bish widths with 2 layers, B=1, f32, on the same card; with
-    cfg.fused_loss also the fused against the unfused kernel loss; with
-    cfg.window and cfg.softcap the plain loss masks and caps alike."""
+    7bish (or Mixtral) widths with 2 layers, B=1, f32, on the same card;
+    with cfg.fused_loss also the fused against the unfused kernel loss;
+    with cfg.window and cfg.softcap the plain loss masks and caps alike.
+    With cfg.n_experts both runs record their routing: the (token,
+    choice) routings that part between them are counted, and the loss and
+    gradient bounds hold when none part (a routing can part only where a
+    router's top-k gap lies within the f32 difference of the layers
+    below; then the line says so, and the [moe-dropless] and [gmm] checks
+    decide)."""
     import dataclasses
     from tpukern_torch.models import init_params, loss_fn, param_leaves
 
     cfg = dataclasses.replace(cfg, n_layers=2)
     label = _train_label(cfg)
+    widths = "Mixtral widths MoE" if cfg.n_experts else "7bish widths"
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 2), device="cuda")
     leaves = param_leaves(params)
     for t in leaves:
         t.requires_grad_()
     tokens, targets = _batch(cfg, 1, S, SEED + 2)
-    out = {}
+    out, routes = {}, {}
     for name, fn in (("kernels", loss_fn), ("plain", _plain_loss)):
-        loss = fn(params, tokens, targets, cfg)
-        out[name] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        with _routes() as rec:
+            loss = fn(params, tokens, targets, cfg)
+            out[name] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        routes[name] = [top for top, _ in rec]
+    parted = sum(int((a != b).sum()) for a, b in zip(routes["kernels"],
+                                                     routes["plain"]))
+    if cfg.n_experts:
+        n = sum(t.numel() for t in routes["kernels"])
+        print(f"[parity] {widths}: {parted} of {n} (token, choice) routings "
+              "part between the kernel run and the plain run"
+              + ("" if parted == 0 else "; the loss and gradient bounds do "
+                 "not apply, the [moe-dropless] and [gmm] checks decide"))
     (lk, gk), (lp, gp) = out["kernels"], out["plain"]
     loss_rel = ((lk - lp).abs() / lp.abs()).item()
-    ok = bool(torch.isfinite(lk)) and loss_rel <= TRAIN_LOSS_REL
-    print(f"[parity] 7bish widths, 2 layers, B=1 S={S} f32, {label} loss: "
+    ok = bool(torch.isfinite(lk)) and (loss_rel <= TRAIN_LOSS_REL
+                                       or parted > 0)
+    print(f"[parity] {widths}, 2 layers, B=1 S={S} f32, {label} loss: "
           f"loss kernels {lk.item():.7f} plain {lp.item():.7f} rel "
           f"{loss_rel:.3e} (<= {TRAIN_LOSS_REL:g}) {'ok' if ok else 'MISS'}")
     if cfg.fused_loss:
@@ -3024,20 +3076,428 @@ def phase_train_parity(cfg, S):
                          dataclasses.replace(cfg, fused_loss=False))
         print(f"[parity] fused kernel loss {lk.item():.7f} unfused kernel "
               f"loss {lu.item():.7f} rel {((lk - lu).abs() / lu.abs()).item():.3e}")
-    names = ["embed"] + [f"layers.{i}.{k}" for i, lp_ in
-                         enumerate(params["layers"]) for k in lp_] + [
-                             "lnf", "head"]
+
+    def names(prefix, tree):
+        return [n for k, v in tree.items() for n in (
+            names(f"{prefix}{k}.", v) if isinstance(v, dict)
+            else [f"{prefix}{k}"])]
+
     worst = 0.0
-    for name, a, b in zip(names, gk, gp):
+    for name, a, b in zip(["embed"] + names("layers.", dict(enumerate(
+            params["layers"]))) + ["lnf", "head"], gk, gp):
         rel = ((a - b).norm() / b.norm()).item()
         worst = max(worst, rel)
-        good = bool(torch.isfinite(a).all()) and rel <= TRAIN_GRAD_REL
+        good = bool(torch.isfinite(a).all()) and (rel <= TRAIN_GRAD_REL
+                                                  or parted > 0)
         ok &= good
-        print(f"[parity]   grad {name:16s} rel_rms {rel:.3e} "
+        print(f"[parity]   grad {name:20s} rel_rms {rel:.3e} "
               f"{'ok' if good else 'MISS'}")
     print(f"[parity] {label} worst gradient rel_rms {worst:.3e} "
           f"(<= {TRAIN_GRAD_REL:g}) {'ok' if ok else 'MISS'}")
     return ok
+
+
+# ------------------------------------------------------------------ MoE
+# Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+# config.json: hidden 4096, 32/8 heads of 128, expert width 14336, 8
+# experts, 2 a token, vocabulary 32000) in the JAX Config's MoE (GELU
+# experts of two matrices, RoPE theta 10000, capacity factor 2.0), f32 as
+# the training path, cut to 2 layers: with Adam one layer is 981.5 M
+# parameters (15.7 GB at 16 B each), and 2 layers with the embedding and
+# head about 35.6 GB before activations, the deepest whole-layer cut that
+# leaves room on 80 GB
+MIXTRAL = dict(vocab=32000, d_model=4096, n_layers=2, n_heads=32,
+               n_kv_heads=8, d_ff=14336, max_seq=2048, n_experts=8,
+               moe_top_k=2, moe_capacity_factor=2.0)
+MOE_B, MOE_S = 2, 2048  # T = 4096 tokens, C = 2048 slots an expert
+MOE_PARITY_S = 1024
+# the grouped GEMM's own bench shape (T, K, N; bench/ops.py:166-178) and
+# the five splits of tools/gmm_tune.py:136-142 (E 8)
+GMM_BENCH = (8192, 2048, 1408)
+GMM_SPLITS = {"balanced": [1024] * 8,
+              "skewed_2x": [2048, 2048, 1024, 1024, 512, 512, 512, 512],
+              "hot_expert": [4096, 1536, 1024, 512, 512, 256, 128, 128],
+              "two_empty": [2048, 0, 2560, 2048, 0, 1024, 256, 256],
+              "one_hot": [8192, 0, 0, 0, 0, 0, 0, 0]}
+# the CASES of tests/test_grouped_matmul.py:32-41 (T, K, N, sizes):
+# boundaries inside a block, empty groups, E = 1, one group over many
+# blocks, sum < T, all groups in one block
+GMM_CASES = [(256, 128, 128, [64, 64, 64, 64]),
+             (256, 128, 128, [37, 91, 3, 125]),
+             (256, 128, 128, [0, 200, 0, 56]),
+             (256, 128, 128, [256]),
+             (512, 128, 128, [500, 7, 5]),
+             (256, 128, 128, [10, 20, 30, 40]),
+             (192, 256, 384, [64, 0, 65, 0, 63]),
+             (64, 128, 128, [8] * 8)]
+GMM_LIBRARY = ("torch._grouped_mm (bf16 only: f32 has no grouped call, so "
+               "the f32 rows have none; the bf16 times are in the [time] "
+               "lines)")
+
+
+def _gmm_inputs(gen, T, K, N, sizes, dt):
+    """x (T, K), w (E, K, N) scaled so each product is of unit size, dy
+    (T, N) scaled by the largest group's rows, the int32 sizes."""
+    f32 = torch.float32
+    x = _randn(gen, T, K, dtype=f32).to(dt)
+    w = (_randn(gen, len(sizes), K, N, dtype=f32) / K ** 0.5).to(dt)
+    dy = (_randn(gen, T, N, dtype=f32) / max(max(sizes), 1) ** 0.5).to(dt)
+    return x, w, dy, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _gmm_work(sizes, T, K, N, dt, kind):
+    """(flops, bytes) of one grouped product on these sizes: 2 Σgs K N
+    operations; the live rows of x, the live groups' W slabs (gmm) or dy's
+    live rows (tgmm), and the output, once each."""
+    es = torch.empty(0, dtype=dt).element_size()
+    rows, live = sum(sizes), sum(s > 0 for s in sizes)
+    if kind == "tgmm":
+        nbytes = es * (rows * K + rows * N + len(sizes) * K * N)
+    else:
+        nbytes = es * (rows * K + live * K * N + T * N)
+    return 2 * rows * K * N, nbytes + 4 * len(sizes)
+
+
+def _grouped_mm(kind, x, w, dy, gs):
+    """The one PyTorch call of each product (bf16), or None with the
+    reason printed: torch._grouped_mm over the cumulative offsets."""
+    from functools import partial
+
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    args = {"gmm": (x, w), "gmm trans_w": (dy, w.transpose(1, 2)),
+            "tgmm": (x.t(), dy)}[kind]
+    fn = partial(torch._grouped_mm, *args, offs=offs)
+    try:
+        fn()
+    except (RuntimeError, AttributeError, TypeError) as e:
+        print(f"[library] torch._grouped_mm {kind}: does not run here "
+              f"({type(e).__name__}: {str(e)[:160]}); library_ms none")
+        return None
+    return fn
+
+
+def _gmm_check(checks, kind, case, x, w, dy, gs):
+    """One call of #28 (kind "gmm", "gmm trans_w") or #29 ("tgmm")
+    against its plain version: the live rows (gmm) or every slab (tgmm)
+    at the dtype's tolerance; zeros past sum(group_sizes) and in an empty
+    group's slab."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    live = int(gs.sum())
+    if kind == "tgmm":
+        out, ref = gm.tgmm(x, dy, gs), gm.tgmm_ref(x, dy, gs)
+        zero = out[gs == 0]
+    else:
+        trans = kind == "gmm trans_w"
+        a = dy if trans else x
+        out, ref = (gm.gmm(a, w, gs, trans_w=trans),
+                    gm.gmm_ref(a, w, gs, trans_w=trans))
+        zero = out[live:]
+        out, ref = out[:live], ref[:live]
+    ok, err = _compare(kind, case, out, ref, dtype=x.dtype)
+    if zero.numel() and zero.abs().max().item() != 0:
+        print(f"[check] {kind:16s} {case}: rows or slabs outside every "
+              "group are not zero MISS")
+        ok = False
+    checks.record("tgmm" if kind == "tgmm" else "gmm", ok, err)
+
+
+def phase_moe_kernels():
+    """[gmm]/[tgmm]: #28 (NN and trans_w) and #29 against gmm_ref/tgmm_ref
+    in f32 and bf16 at the Mixtral expert products (T·k = 8192 balanced
+    rows: w1 K 4096 N 14336, w2 K 14336 N 4096, their dx and dW), at the
+    bench shape under the five splits and at the test CASES; times at the
+    first two beside the plain version, the bound and torch._grouped_mm
+    (bf16). Returns {kernel: dict(max_abs_err, ms, ...)} and all-ok."""
+    from functools import partial
+
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    checks, timed = _Checks(), {}
+    d, ff, E = MIXTRAL["d_model"], MIXTRAL["d_ff"], MIXTRAL["n_experts"]
+    rows = MOE_B * MOE_S * MIXTRAL["moe_top_k"]
+
+    def kernel_of(kind, x, w, dy, gs):
+        if kind == "tgmm":
+            return (partial(gm.tgmm, x, dy, gs), partial(gm.tgmm_ref, x, dy,
+                                                         gs))
+        trans = kind == "gmm trans_w"
+        a = dy if trans else x
+        return (partial(gm.gmm, a, w, gs, trans_w=trans),
+                partial(gm.gmm_ref, a, w, gs, trans_w=trans))
+
+    def entry(key, kind, inputs, sizes, T, K, N, dt, light=False):
+        x, w, dy, gs = inputs
+        kernel, plain = kernel_of(kind, x, w, dy, gs)
+        lib = (_grouped_mm(kind, x, w, dy, gs) if dt == torch.bfloat16
+               else None)
+        if kind == "gmm trans_w":  # x is dy here: (T, N) · W[e]ᵀ -> (T, K)
+            K, N = N, K
+        timed[key] = _timed_entry(
+            "tgmm" if kind == "tgmm" else "gmm", [T, K, N, len(sizes)],
+            kernel, plain, lib, *_gmm_work(sizes, T, K, N, dt, kind.split()[0]),
+            dt, light=light)
+        if lib is not None:
+            ref = plain()
+            got = lib()
+            if kind != "tgmm":
+                ref, got = ref[:sum(sizes)], got[:sum(sizes)]
+            print(f"[library] torch._grouped_mm {key}: max_abs "
+                  f"{(got.float() - ref).abs().max().item():.3e} against "
+                  "the plain version")
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        sizes = [rows // E] * E
+        # w1: x (rows, d) · W1 (E, d, ff); w2: h (rows, ff) · W2 (E, ff, d)
+        for name, K, N in (("w1", d, ff), ("w2", ff, d)):
+            inputs = _gmm_inputs(gen, rows, K, N, sizes, dt)
+            for kind, what in (("gmm", "forward"), ("gmm trans_w", "dx"),
+                               ("tgmm", "dW")):
+                case = f"Mixtral {name} {what} {rows}x{K}x{N} E{E} {tag}"
+                _gmm_check(checks, kind, case, *inputs)
+                entry(f"{kind} Mixtral {name} {tag}", kind, inputs, sizes,
+                      rows, K, N, dt, light=True)
+            del inputs
+        T, K, N = GMM_BENCH
+        for split, sizes in GMM_SPLITS.items():
+            inputs = _gmm_inputs(gen, T, K, N, sizes, dt)
+            for kind in ("gmm", "gmm trans_w", "tgmm"):
+                _gmm_check(checks, kind, f"{split} {T}x{K}x{N} {tag}",
+                           *inputs)
+                if kind != "gmm trans_w" or split == "balanced":
+                    entry(f"{kind} {split} {tag}", kind, inputs, sizes, T, K,
+                          N, dt)
+        for T, K, N, sizes in GMM_CASES:
+            inputs = _gmm_inputs(gen, T, K, N, sizes, dt)
+            for kind in ("gmm", "gmm trans_w", "tgmm"):
+                _gmm_check(checks, kind, f"T{T} K{K} N{N} {sizes} {tag}",
+                           *inputs)
+    torch.cuda.synchronize()
+    _time_kernels(timed, checks.results)
+    return checks.results, checks.ok
+
+
+@contextlib.contextmanager
+def _routes():
+    """While open, every moe_dispatch call (the capacity tier's routing)
+    records its top-k experts (T, k) and the number of assignments it
+    kept, as device tensors: instrumentation of this script only."""
+    from tpukern_torch.models import moe
+
+    dispatch, rec = moe.moe_dispatch, []
+
+    def recorded(x, params, *, k=1, e_total=None, **kw):
+        E = e_total or params["w1"].shape[0]
+        with torch.no_grad():
+            probs = torch.softmax((x @ params["router"][:, :E]).float(), -1)
+            top = torch.topk(probs, k, dim=-1).indices
+        slots, combine = dispatch(x, params, k=k, e_total=e_total, **kw)
+        rec.append((top, (combine > 0).sum()))
+        return slots, combine
+
+    moe.moe_dispatch = recorded
+    try:
+        yield rec
+    finally:
+        moe.moe_dispatch = dispatch
+
+
+def _drop_share(rec, k):
+    routed = sum(top.shape[0] * k for top, _ in rec)
+    kept = sum(int(n) for _, n in rec)
+    return 1.0 - kept / routed, kept, routed
+
+
+def phase_moe_train(cfg, B, S, steps=5):
+    """[moe-train]: `steps` Adam steps of make_train_step at the Mixtral
+    widths (2 layers, f32) on one seeded batch, launch counts reset just
+    before and read just after: the capacity-dispatch path, whose expert
+    products are matmul launches; #28/#29 must not launch. Then one step
+    under the profiler. Returns layer 0's moe weights (detached copies,
+    for [moe-dropless]), the launches, the losses and dict(ms, tokens_s,
+    peak_gib, drop_share)."""
+    from tpukern_torch.models import init_params, make_train_step, param_leaves
+    from tpukern_torch.models.moe import expert_capacity
+    from tpukern_torch.ops import (attention, attention_bwd, grouped_matmul,
+                                   matmul, rmsnorm, rope)
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 5), device="cuda")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    n_params = sum(t.numel() for t in leaves)
+    opt = torch.optim.Adam(leaves, lr=TRAIN_LR, eps=1e-8)
+    step = make_train_step(cfg, opt)
+    tokens, targets = _batch(cfg, B, S, SEED + 5)
+    ops = [matmul.matmul, rope.rope_batched, attention.flash_attention,
+           attention_bwd.flash_attention_bwd, rmsnorm.rms_norm,
+           grouped_matmul.gmm, grouped_matmul.tgmm]
+    for op in ops:
+        op.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    with _routes() as rec:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step(params, tokens, targets)
+            losses.append(loss.item())  # synchronises
+            ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {op.__name__: op.launches for op in ops}
+    med = float(np.median(ms[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share, kept, routed = _drop_share(rec, cfg.moe_top_k)
+    C = expert_capacity(B * S, cfg.n_experts, cfg.moe_top_k,
+                        cfg.moe_capacity_factor)
+    print(f"[moe-train] Mixtral widths f32, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, {cfg.n_experts} experts top-"
+          f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor:g} "
+          f"(C = {C} slots an expert), Adam lr {TRAIN_LR:g}, B={B} S={S}; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"[moe-train] losses {[round(x, 6) for x in losses]}")
+    print(f"[moe-train] step ms {[round(x, 3) for x in ms]}; median of steps "
+          f"2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
+    print(f"[moe-train] routed assignments dropped: {routed - kept} of "
+          f"{routed} ({share:.4f}) over {len(rec)} dispatches")
+    print(f"[moe-train] launches {launches}")
+    require(all(np.isfinite(losses)), f"MoE losses not finite: {losses}")
+    require(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    grouped = {n: launches.pop(n) for n in ("gmm", "tgmm")}
+    require(not any(grouped.values()), f"capacity dispatch launched "
+            f"#28/#29: {grouped}")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the MoE training path never launched: {launches}")
+    _profile("MoE train step (Mixtral widths, 2 layers)",
+             lambda: step(params, tokens, targets).item(), 1)
+    moe0 = {k: v.detach().clone() for k, v in
+            params["layers"][0]["moe"].items()}
+    launches.update(grouped)
+    return moe0, launches, losses, dict(ms=med, tokens_s=B * S / med * 1e3,
+                                        peak_gib=peak, drop_share=share)
+
+
+def _dropless_run(x, mp, k, use_kernel):
+    """moe_block_dropless and the grads of mean(out²) for x, router, w1,
+    w2 (examples/moe_grouped_gemm.py:73-79)."""
+    from tpukern_torch.models.moe import moe_block_dropless
+
+    out = moe_block_dropless(x, mp, k=k, use_kernel=use_kernel)
+    grads = torch.autograd.grad((out ** 2).mean(),
+                                [x, mp["router"], mp["w1"], mp["w2"]])
+    return out.detach(), grads
+
+
+def phase_moe_dropless(mp, cfg, T):
+    """[moe-dropless]: moe_block_dropless(use_kernel=True) on layer 0's moe
+    weights of [moe-train], T tokens of d, k = cfg.moe_top_k: forward and
+    the grads of mean(out²), with #28's 2 forward, 2 trans_w and #29's 2
+    launches a call; out and the grads of x, router, w1, w2 against
+    use_kernel=False (plain ragged products) on the same input; ms
+    forward and forward plus backward of both; 3 Adam steps of the layer;
+    then once with a router biased so that one expert takes half the
+    tokens. Counts reset at the start and read at the end. Returns the
+    phase's launches and all-ok."""
+    from tpukern_torch.harness import run_benchmark
+    from tpukern_torch.models.moe import moe_block_dropless
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    k, d, E = cfg.moe_top_k, cfg.d_model, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    # unit-scale hidden states: a normed layer input, whose grad a layer
+    # inside a model needs (so the first product's dx launches too)
+    x = _randn(gen, T, d, dtype=torch.float32).requires_grad_()
+    mp = {n: v.detach().clone().requires_grad_() for n, v in mp.items()}
+    # expert 0's logit gains 100 (x . u) for a unit u: it leads for the
+    # half of the tokens with x . u > 0 and drops out for the rest
+    u = _randn(gen, d, dtype=torch.float32)
+    router = mp["router"].detach().clone()
+    router[:, 0] += 100.0 * u / u.norm()
+    hot = dict(mp, router=router.requires_grad_())
+    for op in (gm.gmm, gm.tgmm):
+        op.launches = 0
+    gm.gmm.trans_w_launches = 0
+    ok = True
+
+    def counts():
+        return (gm.gmm.launches - gm.gmm.trans_w_launches,
+                gm.gmm.trans_w_launches, gm.tgmm.launches)
+
+    for label, params in (("router as trained", mp), ("hot expert", hot)):
+        probs = torch.softmax((x.detach() @ params["router"].detach()
+                               ).float(), -1)
+        sizes = torch.bincount(torch.topk(probs, k).indices.reshape(-1),
+                               minlength=E).tolist()
+        before = counts()
+        out, grads = _dropless_run(x, params, k, True)
+        torch.cuda.synchronize()
+        per_call = tuple(a - b for a, b in zip(counts(), before))
+        good = per_call == (2, 2, 2)
+        print(f"[moe-dropless] {label}: T={T} d={d} k={k}, group sizes "
+              f"{sizes}; launches a forward plus backward: gmm {per_call[0]},"
+              f" gmm trans_w {per_call[1]}, tgmm {per_call[2]} "
+              f"{'ok' if good else 'MISS (want 2, 2, 2)'}")
+        ok &= good
+        rout, rgrads = _dropless_run(x, params, k, False)
+        good, err = _compare("moe_dropless", f"{label} out vs plain", out,
+                             rout)
+        ok &= good
+        for name, a, b in zip(("x", "router", "w1", "w2"), grads, rgrads):
+            rel = ((a - b).norm() / b.norm()).item()
+            good = bool(torch.isfinite(a).all()) and rel <= TRAIN_GRAD_REL
+            ok &= good
+            print(f"[moe-dropless]   {label} grad {name:6s} rel_rms "
+                  f"{rel:.3e} (<= {TRAIN_GRAD_REL:g}) "
+                  f"{'ok' if good else 'MISS'}")
+        xd = x.detach()
+        times = {}
+        for tag, uk in (("kernels", True), ("plain", False)):
+            with torch.no_grad():
+                fwd = run_benchmark(lambda: moe_block_dropless(
+                    xd, params, k=k, use_kernel=uk), **LIGHT["bench"])
+            both = run_benchmark(lambda: _dropless_run(x, params, k, uk),
+                                 **LIGHT["bench"])
+            times[tag] = (fwd, both)
+        print(f"[moe-dropless] {label} ms forward / forward plus backward: "
+              f"kernels {times['kernels'][0]:.3f} / {times['kernels'][1]:.3f}"
+              f", plain {times['plain'][0]:.3f} / {times['plain'][1]:.3f}")
+    opt = torch.optim.Adam([mp["router"], mp["w1"], mp["w2"]], lr=TRAIN_LR,
+                           eps=1e-8)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = (moe_block_dropless(x.detach(), mp, k=k, use_kernel=True)
+                ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    good = bool(np.all(np.isfinite(losses)))
+    ok &= good
+    print(f"[moe-dropless] 3 Adam steps of the layer (lr {TRAIN_LR:g}), "
+          f"mean(out²) {[f'{v:.6e}' for v in losses]} "
+          f"{'ok' if good else 'MISS'}")
+    launches = dict(gmm=gm.gmm.launches, tgmm=gm.tgmm.launches,
+                    trans_w=gm.gmm.trans_w_launches)
+    print(f"[moe-dropless] launches over the phase {launches}")
+    require(launches["gmm"] > 0 and launches["tgmm"] > 0,
+            f"the dropless path never launched #28/#29: {launches}")
+    return launches, ok
+
+
+def _plain_moe(h, mp, cfg):
+    """moe_block_topk from plain functions: the same dispatch (plain torch
+    in the port), matmul_ref for each expert's two products."""
+    from tpukern_torch.models import moe
+    from tpukern_torch.ops.matmul import matmul_ref
+
+    x_slots, combine = moe.moe_dispatch(
+        h, mp, k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+    ys = torch.stack([matmul_ref(F.gelu(matmul_ref(x_slots[e], mp["w1"][e]),
+                                        approximate="tanh"), mp["w2"][e])
+                      for e in range(mp["w1"].shape[0])])
+    return torch.einsum("tec,ecd->td", combine, ys.float()).to(h.dtype)
 
 
 def main():
@@ -3070,7 +3530,10 @@ def main():
     phase_build()
     timing, kernels_ok = phase_kernels(cfg)
     train_timing, train_ok = phase_train_kernels(tcfg, TB, TS)
-    if not (kernels_ok and train_ok):
+    moe_timing, moe_ok = phase_moe_kernels()
+    train_timing.update(moe_timing)
+    torch.cuda.empty_cache()
+    if not (kernels_ok and train_ok and moe_ok):
         print("chip_smoke: a kernel disagrees with its plain version",
               file=sys.stderr)
         return 1
@@ -3126,6 +3589,23 @@ def main():
             print("chip_smoke: the training loss or a gradient disagrees",
                   file=sys.stderr)
             return 1
+    torch.cuda.empty_cache()
+    mcfg = Config(**MIXTRAL)
+    moe0, moe_train_launches, _, moe_stats = phase_moe_train(mcfg, MOE_B,
+                                                             MOE_S)
+    torch.cuda.empty_cache()
+    dropless_launches, dropless_ok = phase_moe_dropless(
+        moe0, mcfg, MOE_B * MOE_S)
+    del moe0
+    torch.cuda.empty_cache()
+    if not (dropless_ok and phase_train_parity(mcfg, MOE_PARITY_S)):
+        print("chip_smoke: the MoE outputs or gradients disagree",
+              file=sys.stderr)
+        return 1
+    print(f"[moe-train] step {moe_stats['ms']:.3f} ms = "
+          f"{moe_stats['tokens_s']:.1f} tokens/s, peak "
+          f"{moe_stats['peak_gib']:.2f} GiB, dropped share "
+          f"{moe_stats['drop_share']:.4f}")
     for name, r in train_timing.items():  # rms_norm, flash_attention: checks
         # at the training shapes
         if name in timing:
@@ -3137,7 +3617,8 @@ def main():
     # runs for #24, the sampled runs for #26 and #27, the quantized tier's
     # runs for #20-#22 and the quantized #23/#24 (#21 is on no serving
     # path: its count there is 0), the fused phase for the CE kernels, the
-    # featured phase for the two-kernel backward
+    # featured phase for the two-kernel backward, [moe-dropless] for the
+    # grouped GEMMs
     launches = {**train_launches, **launches,
                 **{n: quant_launches[n] for n in (
                     "quantize_int8", "quantize_fp8", "dequantize_int8",
@@ -3150,7 +3631,8 @@ def main():
                 **{n: fused_launches[n] for n in ("ce_fwd", "ce_bwd")},
                 **{n: featured_launches[n] for n in ("flash_attention_dq",
                                                      "flash_attention_dkv")},
-                "matmul_w8a16": w8a16_launches}
+                "matmul_w8a16": w8a16_launches,
+                **{n: dropless_launches[n] for n in ("gmm", "tgmm")}}
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -3195,7 +3677,11 @@ def main():
                "tpukern_torch/csrc/paged_quant.cu",
                "tpukern/ops/paged_attention.py:513"),
            "matmul_w8a16": ("tpukern_torch/csrc/matmul_w8a16.cu",
-                            "tpukern/ops/matmul_w8a16.py:106")}
+                            "tpukern/ops/matmul_w8a16.py:106"),
+           "gmm": ("tpukern_torch/csrc/grouped_matmul.cu",
+                   "tpukern/ops/grouped_matmul.py:147"),
+           "tgmm": ("tpukern_torch/csrc/grouped_matmul.cu",
+                    "tpukern/ops/grouped_matmul.py:235")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -3228,7 +3714,9 @@ def main():
         "paged_prefill_attention_quantized": "as paged_attention_quantized",
         "matmul_w8a16": "torch.matmul over the weights dequantized to bf16 "
                         "outside the timed call (the bf16 tier's GEMM, "
-                        "cuBLAS)"}
+                        "cuBLAS)",
+        "gmm": GMM_LIBRARY,
+        "tgmm": GMM_LIBRARY}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -3243,6 +3731,11 @@ def main():
             ring_launches=v,
             alibi="no serving path passes slopes (as in JAX); held against "
                   "the plain version in the kernel phase only")
+    # #28's trans_w instance (the VJP's dx) in [moe-dropless]; the
+    # capacity-dispatch trainer ([moe-train]) launches neither
+    for n in ("gmm", "tgmm"):
+        modes[n] = {"moe_train_launches": moe_train_launches[n]}
+    modes["gmm"]["trans_w_launches"] = dropless_launches["trans_w"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],

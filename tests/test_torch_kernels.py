@@ -1078,3 +1078,113 @@ def test_w8a16_and_ring_serving_on_kernels_equal_plain(cuda):
                  + paged_attention.paged_prefill_attention.ring_launches)
         assert out == ref
         assert after[0] > before[0] and after[1] > before[1]
+
+
+# the grouped GEMM (#28 gmm, #29 tgmm): the CASES of
+# tests/test_grouped_matmul.py:32-41 (T, K, N, sizes) and the five splits
+# of tools/gmm_tune.py:136-142 (T 8192, E 8) at K 256 and an N that is no
+# tile multiple
+GMM_CASES = {
+    "aligned": (256, 128, 128, [64, 64, 64, 64]),
+    "mid_block": (256, 128, 128, [37, 91, 3, 125]),
+    "empty": (256, 128, 128, [0, 200, 0, 56]),
+    "E1": (256, 128, 128, [256]),
+    "many_blocks": (512, 128, 128, [500, 7, 5]),
+    "sum_lt_T": (256, 128, 128, [10, 20, 30, 40]),
+    "empty_interleaved": (192, 256, 384, [64, 0, 65, 0, 63]),
+    "one_block": (64, 128, 128, [8] * 8),
+    **{f"split {name}": (8192, 256, 200, sizes) for name, sizes in {
+        "balanced": [1024] * 8,
+        "skewed_2x": [2048, 2048, 1024, 1024, 512, 512, 512, 512],
+        "hot_expert": [4096, 1536, 1024, 512, 512, 256, 128, 128],
+        "two_empty": [2048, 0, 2560, 2048, 0, 1024, 256, 256],
+        "one_hot": [8192, 0, 0, 0, 0, 0, 0, 0]}.items()},
+}
+
+
+def _gmm_case(dev, dt, T, K, N, sizes, seed):
+    """x (T, K), w (E, K, N) scaled so each product is of unit size, dy
+    (T, N) scaled by the largest group's rows, and the int32 sizes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, K), generator=g, device=dev).to(DTYPES[dt])
+    w = (torch.randn((len(sizes), K, N), generator=g, device=dev)
+         / K ** 0.5).to(DTYPES[dt])
+    dy = (torch.randn((T, N), generator=g, device=dev)
+          / max(max(sizes), 1) ** 0.5).to(DTYPES[dt])
+    return x, w, dy, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_and_tgmm_match_plain(cuda, case, dt):
+    """#28 (NN and trans_w) and #29 against gmm_ref/tgmm_ref: the live
+    rows at the tolerance of the dtype, zeros past sum(group_sizes) and in
+    an empty group's slab, one launch each."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    T, K, N, sizes = GMM_CASES[case]
+    x, w, dy, gs = _gmm_case(cuda, dt, T, K, N, sizes, seed=len(case))
+    live = sum(sizes)
+    tol = F32 if dt == "f32" else {}
+    before = gm.gmm.launches, gm.gmm.trans_w_launches, gm.tgmm.launches
+    y = gm.gmm(x, w, gs)
+    yt = gm.gmm(x, w.transpose(1, 2).contiguous(), gs, trans_w=True)
+    dw = gm.tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert (gm.gmm.launches, gm.gmm.trans_w_launches,
+            gm.tgmm.launches) == (before[0] + 2, before[1] + 1,
+                                  before[2] + 1)
+    ref = gm.gmm_ref(x, w, gs)
+    for name, out in (("gmm", y), ("gmm trans_w", yt)):
+        assert out.dtype == DTYPES[dt] and out.shape == (T, N)
+        check_all_close(out[:live].float(), ref[:live], dtype=DTYPES[dt],
+                        name=f"{name} {case}", **tol)
+        assert not out[live:].any()
+    check_all_close(dw.float(), gm.tgmm_ref(x, dy, gs), dtype=DTYPES[dt],
+                    name=f"tgmm {case}", **tol)
+    assert not dw[[e for e, s in enumerate(sizes) if s == 0]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["mid_block", "empty_interleaved",
+                                  "split hot_expert"])
+def test_grouped_matmul_grads_match_plain(cuda, case, dt):
+    """grouped_matmul's dx (#28 trans_w) and dw (#29) against autograd of
+    gmm_ref on the card, with mixed output dtypes (f32 out_dtype on bf16
+    inputs)."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    T, K, N, sizes = GMM_CASES[case]
+    x, w, dy, gs = _gmm_case(cuda, dt, T, K, N, sizes, seed=7)
+    grads = []
+    for fn in (gm.grouped_matmul, gm.gmm_ref):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xg, wg, gs)
+        grads.append(torch.autograd.grad(y, (xg, wg), dy.to(y.dtype)))
+    (dx, dw), (rx, rw) = grads
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    tol = F32 if dt == "f32" else {}
+    check_all_close(dx.float(), rx.float(), dtype=DTYPES[dt], name="dx",
+                    **tol)
+    check_all_close(dw.float(), rw.float(), dtype=DTYPES[dt], name="dw",
+                    **tol)
+    out = gm.gmm(x, w, gs, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    live = sum(sizes)
+    check_all_close(out[:live], gm.gmm_ref(x, w, gs)[:live],
+                    dtype=DTYPES[dt], **tol)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_raises(cuda):
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    x = torch.zeros(16, 8, device=cuda, dtype=torch.float16)
+    w = torch.zeros(2, 8, 8, device=cuda, dtype=torch.float16)
+    gs = torch.tensor([8, 8], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        gm.gmm(x, w, gs)
+    with pytest.raises(ValueError, match="tensors on"):
+        gm.gmm(x.float(), w.float(), gs.cpu())

@@ -88,6 +88,20 @@ int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,
                                    static_cast<cudaStream_t>(stream)));
 }
 
+int tk_gmm(const void* x, const void* w, const int* group_sizes, void* y32,
+           void* y16, int T, int N, int K, int E, int trans_w, int dtype,
+           void* stream) {
+  return checked(tk::gmm_launch(x, w, group_sizes, y32, y16, T, N, K, E,
+                                trans_w, dtype,
+                                static_cast<cudaStream_t>(stream)));
+}
+
+int tk_tgmm(const void* x, const void* dy, const int* group_sizes, void* o32,
+            void* o16, int T, int K, int N, int E, int dtype, void* stream) {
+  return checked(tk::tgmm_launch(x, dy, group_sizes, o32, o16, T, K, N, E,
+                                 dtype, static_cast<cudaStream_t>(stream)));
+}
+
 int tk_matmul_w8a16(const void* x, const void* w, const float* s, void* out,
                     float* ws, int* tickets, int M, int N, int K, int splits,
                     int kt_per, int dtype, int out_dtype, void* stream) {

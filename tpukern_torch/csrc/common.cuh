@@ -240,7 +240,13 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
 // One block of 256 threads accumulates the 128 x 128 tile at (m0, n0) of
 // C = A[M,K] · B[K,N] (NN) or A · B[N,K]^T (TRANS_B) in f32 registers.
 // Every global load is bounds-checked: past M, N or K it reads zeros.
-// csrc/matmul.cu writes the tile out; csrc/cross_entropy.cu reduces it.
+// csrc/matmul.cu writes the tile out; csrc/cross_entropy.cu reduces it;
+// csrc/grouped_matmul.cu writes one group's rows of it.
+//
+// TRANS_A (with NN B only): A is stored K-major, A[m][k] = a[k * M + m],
+// and the contraction runs over [k_begin, K) alone: the token-major x and
+// dy of a weight gradient, summed over one group's rows (tgmm). Without
+// TRANS_A, k_begin is 0 and K is also A's row length.
 
 // f32 inputs on CUDA-core FMAs in full f32 (never TF32). Thread (tx, ty)
 // = (tid % 16, tid / 16) holds acc[i][j] at row sgemm_pos(i, ty) and
@@ -265,26 +271,33 @@ __device__ __forceinline__ void fma_8x8(float (&acc)[8][8], float4 a0,
     for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
 }
 
-template <bool TRANS_B>
+template <bool TRANS_B, bool TRANS_A = false>
 __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
                                            const float* __restrict__ b, int M,
                                            int N, int K, int m0, int n0,
                                            float (*as)[F_BM], float (*bs)[F_BN],
-                                           float (&acc)[8][8]) {
+                                           float (&acc)[8][8],
+                                           int k_begin = 0) {
+  static_assert(!(TRANS_A && TRANS_B), "TRANS_A takes an NN B");
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  // loader: A (and B^T) rows tid/2, k (tid%2)*4..+3; B (NN) k tid/32,
-  // n (tid%32)*4..+3
+  // loader: A (and B^T) rows tid/2, k (tid%2)*4..+3; B (NN) and A
+  // (TRANS_A) k tid/32, n (or m) (tid%32)*4..+3
   const int lr = tid >> 1, lk = (tid & 1) * 4;
   const int bk_ = tid >> 5, bn_ = (tid & 31) * 4;
   float pa[4], pb[4];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = m0 + lr, kk = k0 + lk + i;
-      pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
+      if constexpr (TRANS_A) {
+        const int ka = k0 + bk_, m = m0 + bn_ + i;
+        pa[i] = ka < K && m < M ? a[(int64_t)ka * M + m] : 0.f;
+      } else {
+        const int r = m0 + lr, kk = k0 + lk + i;
+        pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
+      }
       if constexpr (TRANS_B) {
-        const int n = n0 + lr;
+        const int n = n0 + lr, kk = k0 + lk + i;
         pb[i] = n < N && kk < K ? b[(int64_t)n * K + kk] : 0.f;
       } else {
         const int kb = k0 + bk_, n = n0 + bn_ + i;
@@ -298,11 +311,12 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < K; k0 += F_BK) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      as[lk + i][lr] = pa[i];
+      if constexpr (TRANS_A) as[bk_][bn_ + i] = pa[i];
+      else as[lk + i][lr] = pa[i];
       if constexpr (TRANS_B) bs[lk + i][lr] = pb[i];
       else bs[bk_][bn_ + i] = pb[i];
     }
@@ -320,11 +334,12 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 
 // bf16 inputs on the tensor cores with mma.sync m16n8k16 (f32
 // accumulate): 8 warps in a 2 x 4 grid, each a 64 x 32 sub-tile, K in
-// slices of 32 staged through padded shared memory (`as`: [128][H_LDK];
-// `bs`: [128][H_LDK] for TRANS_B, else [H_BK][H_LDN]) with 16-byte loads
-// where a row is whole (vec_a, vec_b: its length is a multiple of 8 and
-// the base is 16-byte aligned). Lane 4g + t of warp w holds acc[mt][nt][e]
-// at row hgemm_row(w, mt, g, e) and column hgemm_col(w, nt, t, e).
+// slices of 32 staged through padded shared memory (`as`: [128][H_LDK],
+// or [H_BK][H_LDN] for TRANS_A; `bs`: [128][H_LDK] for TRANS_B, else
+// [H_BK][H_LDN]) with 16-byte loads where a row is whole (vec_a, vec_b:
+// its length is a multiple of 8 and the base is 16-byte aligned). Lane
+// 4g + t of warp w holds acc[mt][nt][e] at row hgemm_row(w, mt, g, e) and
+// column hgemm_col(w, nt, t, e). TRANS_A and k_begin as in sgemm_tile.
 constexpr int H_BM = 128, H_BN = 128, H_BK = 32, H_THREADS = 256;
 constexpr int H_LDK = H_BK + 8;   // [row][k] tiles: conflict-free pair reads
 constexpr int H_LDN = H_BN + 8;   // [k][n] tile (NN): conflict-free reads
@@ -350,12 +365,14 @@ __device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
   return v.u;
 }
 
-template <bool TRANS_B>
+template <bool TRANS_B, bool TRANS_A = false>
 __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
                                            const bf16* __restrict__ b, int M,
                                            int N, int K, int m0, int n0,
                                            bool vec_a, bool vec_b, bf16* as,
-                                           bf16* bs, float (&acc)[4][4][4]) {
+                                           bf16* bs, float (&acc)[4][4][4],
+                                           int k_begin = 0) {
+  static_assert(!(TRANS_A && TRANS_B), "TRANS_A takes an NN B");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
@@ -365,16 +382,23 @@ __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
+  for (int k0 = k_begin; k0 < K; k0 += H_BK) {
     __syncthreads();  // the previous tile is consumed
     // 512 chunks of 8 per operand tile, 2 per thread
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int ch = tid + i * H_THREADS;
       const int r = ch >> 2, kc = (ch & 3) * 8;
-      // the K edge: a chunk straddling K is loaded element by element
-      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
-          load8(a, m0 + r, M, k0 + kc, K, vec_a);
+      if constexpr (TRANS_A) {
+        // K-major A: rows past K (the group's end) read zeros
+        const int kr = ch >> 4, mc = (ch & 15) * 8;
+        *reinterpret_cast<uint4*>(&as[kr * H_LDN + mc]) =
+            load8(a, k0 + kr, K, m0 + mc, M, vec_a);
+      } else {
+        // the K edge: a chunk straddling K is loaded element by element
+        *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
+            load8(a, m0 + r, M, k0 + kc, K, vec_a);
+      }
       if constexpr (TRANS_B) {
         *reinterpret_cast<uint4*>(&bs[r * H_LDK + kc]) =
             load8(b, n0 + r, N, k0 + kc, K, vec_b);
@@ -391,11 +415,20 @@ __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
       uint32_t af[4][4];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
+        if constexpr (TRANS_A) {
+          // [k][m]: a k pair is two rows apart, as B's in the NN path
+          const bf16* ap = &as[(ks * 16 + 2 * t) * H_LDN + wm + mt * 16 + g];
+          af[mt][0] = pack_bf16(ap[0], ap[H_LDN]);
+          af[mt][1] = pack_bf16(ap[8], ap[H_LDN + 8]);
+          af[mt][2] = pack_bf16(ap[8 * H_LDN], ap[9 * H_LDN]);
+          af[mt][3] = pack_bf16(ap[8 * H_LDN + 8], ap[9 * H_LDN + 8]);
+        } else {
+          const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
+          af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+          af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
+          af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+          af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -455,6 +488,12 @@ cudaError_t flash_attention_dkv_launch(
 cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
                           int M, int N, int K, int trans_b, int dtype,
                           cudaStream_t stream);
+cudaError_t gmm_launch(const void* x, const void* w, const int* group_sizes,
+                       void* y32, void* y16, int T, int N, int K, int E,
+                       int trans_w, int dtype, cudaStream_t stream);
+cudaError_t tgmm_launch(const void* x, const void* dy, const int* group_sizes,
+                        void* o32, void* o16, int T, int K, int N, int E,
+                        int dtype, cudaStream_t stream);
 cudaError_t matmul_w8a16_launch(const void* x, const void* w, const float* s,
                                 void* out, float* ws, int* tickets, int M,
                                 int N, int K, int splits, int kt_per,

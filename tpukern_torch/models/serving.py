@@ -43,8 +43,9 @@ init_cache builds its pools on the card unless the caller passes
 device="cpu"; the other functions run on the device of their inputs (a
 CPU tensor takes every kernel's plain version).
 
-Not ported: MoE and make_tp_serving (ROADMAP.md queue 1 items 11 and
-13).
+Not ported: make_tp_serving (ROADMAP.md queue 1 item 13). MoE serving
+raises NotImplementedError: the JAX package's serving has no MoE path
+(its layers read w1/w2 only); MoE runs in training (models/moe.py).
 """
 
 import dataclasses
@@ -64,7 +65,8 @@ from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
 from tpukern_torch.ops.sampling import sample
 
-_TODO = "ROADMAP.md queue 1 item 11 (MoE)"
+_TODO = ("the JAX package's serving has no MoE path (ROADMAP.md queue 1 "
+         "item 11: MoE is a training slice)")
 # the layer weights quantize_model_weights turns into w8a16 pairs (and
 # the head)
 W8A16_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")

@@ -3,16 +3,19 @@ parameters, and the single-device training path `forward` -> `loss_fn`
 -> `make_train_step`, which runs the kernels through ops/trainable.py.
 
 Parameters are a plain dict with the JAX package's tree: embed (V, d),
-layers (a list of dicts with ln1, wq, wk, wv, wo, ln2, w1, w2), lnf (d,)
-and head (d, V). Projections keep the (d_in, d_out) layout, so `h @ w`
-means the same on both sides. Config.fused_loss runs the LM head and its
-loss through ops/cross_entropy.py's fused kernels; Config.window and
-Config.softcap run attention through the featured forward and the
-two-kernel backward. Config.sinks is inference-only, as in the JAX
-package: forward() runs the forward kernel with it, and differentiating
-through it raises NotImplementedError. Not ported here: MoE and the
-tp/sp/ep mesh axes (each raises NotImplementedError naming its
-ROADMAP.md item).
+layers (a list of dicts with ln1, wq, wk, wv, wo, ln2, and w1, w2 or,
+with Config.n_experts, a dict moe = {router, w1, w2}), lnf (d,) and head
+(d, V). Projections keep the (d_in, d_out) layout, so `h @ w` means the
+same on both sides. Config.n_experts runs each layer's FFN through
+models/moe.py's capacity dispatch (moe_block_topk: top moe_top_k experts
+a token, moe_capacity_factor), as JAX's trainer does. Config.fused_loss
+runs the LM head and its loss through ops/cross_entropy.py's fused
+kernels; Config.window and Config.softcap run attention through the
+featured forward and the two-kernel backward. Config.sinks is
+inference-only, as in the JAX package: forward() runs the forward kernel
+with it, and differentiating through it raises NotImplementedError. Not
+ported here: the tp/sp/ep mesh axes (NotImplementedError naming
+ROADMAP.md queue 1 item 13).
 
 A w8a16 tree (serving.quantize_model_weights: int8 {"q", "s"} pairs) is
 serving-only, as in the JAX package: forward and the train step raise
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpukern_torch.models.moe import init_moe_params, moe_block_topk
 from tpukern_torch.ops.attention import flash_attention
 from tpukern_torch.ops.cross_entropy import fused_cross_entropy
 from tpukern_torch.ops.trainable import (flash_attention_trainable, matmul_t,
@@ -50,9 +54,9 @@ class Config:
     d_ff: int = 1024
     max_seq: int = 256
     param_dtype: Any = torch.float32
-    # the fields below keep the JAX Config's shape; the serving and
-    # training paths raise NotImplementedError for those they lack (remat
-    # is ported)
+    # the fields below keep the JAX Config's shape; serving raises
+    # NotImplementedError for n_experts (the JAX package's serving has no
+    # MoE path)
     n_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 2.0
@@ -91,18 +95,24 @@ def init_params(cfg: Config, generator: torch.Generator, device="cuda"):
     def ones():
         return torch.ones(cfg.d_model, dtype=dt, device=device)
 
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers: ROADMAP.md queue 1 item 11")
     Dh = cfg.head_dim
-    layers = [dict(ln1=ones(),
-                   wq=w(cfg.d_model, cfg.n_heads * Dh),
-                   wk=w(cfg.d_model, cfg.n_kv_heads * Dh),
-                   wv=w(cfg.d_model, cfg.n_kv_heads * Dh),
-                   wo=w(cfg.n_heads * Dh, cfg.d_model),
-                   ln2=ones(),
-                   w1=w(cfg.d_model, cfg.d_ff),
-                   w2=w(cfg.d_ff, cfg.d_model))
-              for _ in range(cfg.n_layers)]
+
+    def layer():
+        lp = dict(ln1=ones(),
+                  wq=w(cfg.d_model, cfg.n_heads * Dh),
+                  wk=w(cfg.d_model, cfg.n_kv_heads * Dh),
+                  wv=w(cfg.d_model, cfg.n_kv_heads * Dh),
+                  wo=w(cfg.n_heads * Dh, cfg.d_model),
+                  ln2=ones())
+        if cfg.n_experts:
+            lp["moe"] = init_moe_params(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.n_experts, dtype=dt,
+                                        device=device)
+        else:
+            lp.update(w1=w(cfg.d_model, cfg.d_ff), w2=w(cfg.d_ff, cfg.d_model))
+        return lp
+
+    layers = [layer() for _ in range(cfg.n_layers)]
     return dict(embed=w(cfg.vocab, cfg.d_model), layers=layers, lnf=ones(),
                 head=w(cfg.d_model, cfg.vocab))
 
@@ -111,8 +121,9 @@ def params_from_jax(tree) -> dict[str, Any]:
     """The JAX params tree, given as numpy arrays, as CPU tensors of the
     same dtypes and layout. numpy has no bf16: convert bf16 leaves to f32
     on the JAX side (`np.asarray(x.astype(jnp.float32))`) and cast back
-    with `.to(torch.bfloat16)` here if wanted. A w8a16 weight (JAX's
-    quantize_model_weights: {"q": int8, "s": f32}) stays such a pair."""
+    with `.to(torch.bfloat16)` here if wanted. A nested dict (a layer's
+    moe weights, or a w8a16 pair {"q": int8, "s": f32} of JAX's
+    quantize_model_weights) stays such a dict."""
     def leaf(x):
         if isinstance(x, dict):
             return {k: leaf(v) for k, v in x.items()}
@@ -124,15 +135,23 @@ def params_from_jax(tree) -> dict[str, Any]:
                 lnf=leaf(tree["lnf"]), head=leaf(tree["head"]))
 
 
+def _is_w8a16(x):
+    """A w8a16 pair: a dict with the keys q and s (every other dict of
+    the tree, a layer's moe, holds weights)."""
+    return isinstance(x, dict) and x.keys() == {"q", "s"}
+
+
 def params_to(params, *args, **kwargs):
     """params with every tensor converted by Tensor.to(*args, **kwargs),
-    except that a w8a16 pair {"q", "s"} only moves: q stays int8 and s
-    f32."""
+    a layer's moe dict included, except that a w8a16 pair {"q", "s"} only
+    moves: q stays int8 and s f32."""
     def to(x):
-        if isinstance(x, dict):
+        if _is_w8a16(x):
             return {k: v.to(torch.empty(0, device=v.device)
                             .to(*args, **kwargs).device)
                     for k, v in x.items()}
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
         return x.to(*args, **kwargs)
 
     return dict(embed=to(params["embed"]),
@@ -143,10 +162,13 @@ def params_to(params, *args, **kwargs):
 
 def param_leaves(params) -> list[torch.Tensor]:
     """The parameter tensors in a fixed order (embed, each layer's in
-    insertion order, lnf, head; a w8a16 pair gives q, then s): what an
+    insertion order, lnf, head; a nested dict gives its own in insertion
+    order: a moe dict router, w1, w2, a w8a16 pair q, then s): what an
     optimizer is built over."""
     def flat(x):
-        return list(x.values()) if isinstance(x, dict) else [x]
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in flat(v)]
+        return [x]
 
     return ([params["embed"]]
             + [t for lp in params["layers"] for w in lp.values()
@@ -156,10 +178,14 @@ def param_leaves(params) -> list[torch.Tensor]:
 
 def _check_trainable(params):
     """w8a16 weights are a serving tier (JAX's quantize_model_weights):
-    the training path takes full-precision weights only."""
-    if any(isinstance(w, dict) for w in
-           [params["head"], *(v for lp in params["layers"]
-                              for v in lp.values())]):
+    the training path takes full-precision weights only. A layer's moe
+    dict is not such a pair."""
+    def pairs(x):
+        if _is_w8a16(x):
+            return True
+        return isinstance(x, dict) and any(pairs(v) for v in x.values())
+
+    if pairs(params["head"]) or any(pairs(lp) for lp in params["layers"]):
         raise ValueError("w8a16 params (quantize_model_weights) are "
                          "serving-only: forward and the train step take "
                          "full-precision weights")
@@ -167,13 +193,10 @@ def _check_trainable(params):
 
 def _check_forward(cfg: Config, tp_size=1, tp_axis=None, sp_axis=None,
                    ep_axis=None):
-    todo = [(cfg.n_experts, "MoE layers: ROADMAP.md queue 1 item 11"),
-            (tp_size != 1 or any(a is not None
-                                 for a in (tp_axis, sp_axis, ep_axis)),
-             "tp/sp/ep mesh axes: ROADMAP.md queue 1 item 13")]
-    for unported, what in todo:
-        if unported:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if tp_size != 1 or any(a is not None for a in (tp_axis, sp_axis,
+                                                   ep_axis)):
+        raise NotImplementedError("not ported yet: tp/sp/ep mesh axes: "
+                                  "ROADMAP.md queue 1 item 13")
 
 
 def _attn_block(h, lp, cfg: Config):
@@ -214,11 +237,22 @@ def _mlp_block(h, lp):
     return matmul_t(u, lp["w2"]).reshape(B, S, d)
 
 
+def _moe_block(h, lp, cfg: Config):
+    """The routed FFN of JAX's trainer: capacity dispatch over the
+    layer's moe weights (models/moe.py moe_block_topk)."""
+    B, S, d = h.shape
+    y = moe_block_topk(h.reshape(B * S, d), lp["moe"], k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor)
+    return y.reshape(B, S, d)
+
+
 def _layer(h, lp, cfg: Config):
     B, S, d = h.shape
     hn = rms_norm_t(h.reshape(B * S, d), lp["ln1"]).reshape(h.shape)
     h = h + _attn_block(hn, lp, cfg)
     hn = rms_norm_t(h.reshape(B * S, d), lp["ln2"]).reshape(h.shape)
+    if cfg.n_experts:
+        return h + _moe_block(hn, lp, cfg)
     return h + _mlp_block(hn, lp)
 
 

@@ -1,2 +1,18 @@
 """Ops: one module per op family, each a kernel wrapper plus its plain
-PyTorch version (the `*_ref` function beside it)."""
+PyTorch version (the `*_ref` function beside it). Importing this package
+imports every ported family, as tpukern/ops/__init__.py does."""
+
+from tpukern_torch.ops import (  # noqa: F401
+    rmsnorm,
+    rope,
+    matmul,
+    matmul_w8a16,
+    grouped_matmul,
+    attention,
+    attention_bwd,
+    paged_attention,
+    quant,
+    cross_entropy,
+    sampling,
+    trainable,
+)
