@@ -39,6 +39,14 @@
    routed rows: w1 4096 x 14336, w2 14336 x 4096, their dx and dW), at the
    bench shape (8192 x 2048 x 1408, E 8) under five splits and at the test
    cases, timed at the first two (bf16 beside torch._grouped_mm);
+   [zoo]: walks the port's variant registry at bench/ops.py's shapes
+   (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
+   reduce and dot, 4096^3 for the matmul ladder) and matmul_kpipe, with
+   the six zoo kernels' launch counts reset just before and read just
+   after; holds every variant against its plain version (#30-#32 also at
+   4095 x 4097, a tail in every tier) and times the zoo's variants with
+   the L2 flushed before each call, beside the plain version, the
+   library call and the bound;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; then [chunked] the same requests with
@@ -3499,6 +3507,192 @@ def _plain_moe(h, mp, cfg):
                       for e in range(mp["w1"].shape[0])])
     return torch.einsum("tec,ecd->td", combine, ys.float()).to(h.dtype)
 
+# [zoo]: the op-family zoo through the port's registry. The families of
+# this slice's kernels, timed and held against their plain versions, and
+# the families of earlier slices newly registered (checked only: their
+# kernels are timed in the phases above). Each variant maps to the kernel
+# it launches (None: a torch baseline).
+ZOO_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
+                "hardswish", "hardshrink", "reduce", "dot_product", "rope",
+                "rms_norm", "matmul"]
+ZOO_REGISTERED = ["attention", "paged_attention", "quant", "cross_entropy",
+                  "sampling", "grouped_matmul", "matmul_w8a16"]
+ZOO_KERNELS = ("ew_call", "reduce_all", "dot_prod", "matmul_naive", "rope",
+               "matmul_kpipe")
+# the variant whose times each zoo kernel's row of the kernels line keeps
+ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
+           "reduce_all": "reduce.sum_f32_f32_r256",
+           "dot_prod": "dot_product.dot_f32_f32_r64",
+           "matmul_naive": "matmul.sgemm_naive_f32", "rope": "rope.rope_f32",
+           "matmul_kpipe": "kpipe torch.float32"}
+ZOO_TIMING = dict(warmup=2, iters=20, reps=1, flush_l2=True)
+# 4095 x 4097 = 2^24 - 1 elements: a tail past the last whole vector in
+# every tier of #30 (1, 3 and 7 elements) and in #31/#32's 16-byte packs
+ZOO_TAIL = (4095, 4097)
+# the naive GEMM at 4096^3 takes tens of ms a call
+ZOO_TIMING_NAIVE = dict(warmup=1, iters=3, reps=1, flush_l2=True)
+
+
+def _zoo_fns():
+    from tpukern_torch.ops import _ew, dot_product, matmul, reduce, rope
+    return {"ew_call": _ew.ew_call, "reduce_all": reduce._reduce_all,
+            "dot_prod": dot_product.dot_prod,
+            "matmul_naive": matmul.matmul_naive, "rope": rope.rope,
+            "matmul_kpipe": matmul.matmul_kpipe}
+
+
+def _zoo_kernel(v):
+    """The kernel (a ZOO_KERNELS name or an earlier slice's) that variant
+    v launches, or None for a torch baseline."""
+    if "baseline" in v.tags:
+        return None
+    if v.family in ZOO_FAMILIES[:8]:
+        return "ew_call"
+    if v.family in ("reduce", "dot_product"):
+        return "reduce_all" if v.family == "reduce" else "dot_prod"
+    if v.family == "rope":
+        return "rope_cached" if v.name.endswith("cached") else "rope"
+    if v.family == "matmul":
+        return "matmul_naive" if "naive" in v.name else "matmul"
+    return v.family
+
+
+def _zoo_library(v, args):
+    """The one PyTorch call of v's function on args, or None."""
+    fam, a = v.family, args
+    calls = {"add": torch.add, "mul": torch.mul, "relu": torch.relu,
+             "sigmoid": torch.sigmoid, "elu": F.elu, "swish": F.silu,
+             "hardswish": F.hardswish,
+             "gelu": lambda x: F.gelu(x, approximate="tanh"),
+             "hardshrink": lambda x: F.hardshrink(x, lambd=0.5)}
+    op = v.name.split("_")[0]
+    if op in calls:
+        return lambda: calls[op](*a)
+    if fam == "reduce":
+        acc = {"f32": torch.float32, "f16": torch.float16,
+               "bf16": torch.bfloat16, "i32": torch.int32}[v.name.split("_")[2]]
+        if a[0].dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            return None  # torch has no sum or max of fp8
+        if op == "max":
+            return lambda: torch.amax(a[0])
+        return lambda: torch.sum(a[0], dtype=acc)
+    if fam == "dot_product":
+        return lambda: torch.dot(a[0].reshape(-1), a[1].reshape(-1))
+    if fam == "matmul" and "_tn_" in v.name:
+        return lambda: torch.matmul(a[0], a[1].T)
+    if fam == "matmul":
+        return lambda: torch.matmul(*a)
+    if fam == "rms_norm":
+        return lambda: F.rms_norm(a[0], (a[0].shape[-1],), eps=1e-5)
+    return None
+
+
+def phase_zoo():
+    """[zoo]: walks the port registry's variants of ZOO_FAMILIES and
+    ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
+    4096 x 4096; 16.8 M elements for reduce and dot; 4096^3 for the matmul
+    ladder), then matmul_kpipe at 4096^3 in f32 and bf16, with the
+    launch counts of the six zoo kernels set to 0 just before and read
+    just after; holds every variant against its plain version
+    (ops_bench.check), and those of #30-#32 also at ZOO_TAIL, whose
+    element count leaves a tail in every tier; prints every sum's error
+    against the f64 sum; then times each variant
+    of ZOO_FAMILIES with the
+    L2 flushed before every call beside its plain version, its library
+    call and its bound. Returns ({kernel: dict(max_abs_err, ms, ...)},
+    {kernel: launches}, all-ok)."""
+    from functools import partial
+
+    from tpukern_torch.core import registry
+    from tpukern_torch.harness import ops_bench, run_benchmark
+    from tpukern_torch.ops import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    size = ops_bench.Size()
+    checks, timed = _Checks(), []
+    n_reg = sum(len(registry.variants(f)) for f in registry.families())
+    print(f"[zoo] registry: {n_reg} variants ported, "
+          f"{len(registry.PENDING)} pending")
+    fns = _zoo_fns()
+    for f in fns.values():
+        f.launches = 0
+    for fam in ZOO_FAMILIES + ZOO_REGISTERED:
+        for name, v in sorted(registry.variants(fam).items()):
+            args = ops_bench.inputs(fam, name, size, gen)
+            ok, err, rule = ops_bench.check(v, args)
+            kernel = _zoo_kernel(v)
+            shape = [list(t.shape) for t in args]
+            print(f"[zoo] {fam + '.' + name:40s} {str(shape)[:40]:40s} "
+                  f"max_abs {err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
+            checks.ok &= ok
+            if kernel in fns:
+                checks.record(kernel, ok, err)
+            if fam in ZOO_FAMILIES:
+                timed.append((fam, v, args, kernel))
+            else:
+                del args
+    for dt in (torch.float32, torch.bfloat16):
+        a = _randn(gen, size.S, size.K, dtype=dt)
+        b = _randn(gen, size.K, size.S, dtype=dt)
+        out = matmul.matmul_kpipe(a, b)
+        ok, err = _compare("matmul_kpipe", f"{size.S}x{size.K}x{size.S} "
+                           f"{dt}", out, matmul.matmul_ref(a, b).to(dt))
+        checks.record("matmul_kpipe", ok, err)
+        timed.append(("matmul_kpipe", None, (a, b), "matmul_kpipe"))
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in fns.items()}
+    print(f"[zoo] launches in the walk: {launches}")
+    for n in ZOO_KERNELS:
+        require(launches[n] > 0, f"[zoo] {n} was never launched")
+    tail = ops_bench.Size(*ZOO_TAIL)
+    for fam in ZOO_FAMILIES[:10]:
+        for name, v in sorted(registry.variants(fam).items()):
+            ok, err, rule = ops_bench.check(
+                v, ops_bench.inputs(fam, name, tail, gen))
+            print(f"[zoo] tail {fam + '.' + name:35s} {ZOO_TAIL} max_abs "
+                  f"{err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
+            checks.record(_zoo_kernel(v), ok, err)
+    # every sum against the f64 sum (a record: the bf16 accumulator's
+    # error is held to its plain version above)
+    for name, v in sorted(registry.variants("reduce").items()):
+        if name.startswith("sum"):
+            x = ops_bench.inputs("reduce", name, size, gen)[0]
+            f64 = x.double().sum().item()
+            print(f"[zoo] reduce.{name:33s} against the f64 sum {f64:.1f}: "
+                  f"error {abs(v.fn(x).double().item() - f64):.3e}")
+
+    results = checks.results
+    for fam, v, args, kernel in timed:
+        if v is None:  # matmul_kpipe
+            a, b = args
+            kern, plain = (partial(matmul.matmul_kpipe, a, b),
+                           partial(matmul.matmul_ref, a, b))
+            lib, name = partial(torch.matmul, a, b), f"kpipe {a.dtype}"
+            flops, dt = 2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype
+            nbytes = _nbytes(a, b) + a.shape[0] * b.shape[1] * a.element_size()
+        else:
+            kern, plain = partial(v.fn, *args), partial(v.ref, *args)
+            lib, name = _zoo_library(v, args), f"{fam}.{v.name}"
+            flops, dt, nbytes = ops_bench.work(v, args, kern())
+        kw = ZOO_TIMING_NAIVE if kernel == "matmul_naive" else ZOO_TIMING
+        ms = run_benchmark(kern, **kw)
+        plain_ms = run_benchmark(plain, **kw)
+        lib_ms = None if lib is None else run_benchmark(lib, **kw)
+        bound, by = ops_bench.bound_ms(flops, dt, nbytes)
+        rate = nbytes / ms / 1e6
+        print(f"[time] {name:40s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+              f"bound {bound:.4f} ms by {by} ({bound / ms:.1%}); "
+              f"{rate:.1f} GB/s"
+              + (f", {flops / ms / 1e9:.2f} TFLOP/s" if flops else "")
+              + " (L2 flushed)")
+        if ZOO_ROW.get(kernel) == name:
+            results[kernel].update(
+                shape=[list(t.shape) for t in args], ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, variant=name)
+    return results, launches, checks.ok
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3533,7 +3727,9 @@ def main():
     moe_timing, moe_ok = phase_moe_kernels()
     train_timing.update(moe_timing)
     torch.cuda.empty_cache()
-    if not (kernels_ok and train_ok and moe_ok):
+    zoo_timing, zoo_launches, zoo_ok = phase_zoo()
+    torch.cuda.empty_cache()
+    if not (kernels_ok and train_ok and moe_ok and zoo_ok):
         print("chip_smoke: a kernel disagrees with its plain version",
               file=sys.stderr)
         return 1
@@ -3632,7 +3828,9 @@ def main():
                 **{n: featured_launches[n] for n in ("flash_attention_dq",
                                                      "flash_attention_dkv")},
                 "matmul_w8a16": w8a16_launches,
-                **{n: dropless_launches[n] for n in ("gmm", "tgmm")}}
+                **{n: dropless_launches[n] for n in ("gmm", "tgmm")},
+                **zoo_launches}
+    timing.update(zoo_timing)
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -3681,7 +3879,18 @@ def main():
            "gmm": ("tpukern_torch/csrc/grouped_matmul.cu",
                    "tpukern/ops/grouped_matmul.py:147"),
            "tgmm": ("tpukern_torch/csrc/grouped_matmul.cu",
-                    "tpukern/ops/grouped_matmul.py:235")}
+                    "tpukern/ops/grouped_matmul.py:235"),
+           "ew_call": ("tpukern_torch/csrc/elementwise.cu",
+                       "tpukern/ops/_ew.py:57"),
+           "reduce_all": ("tpukern_torch/csrc/reduce.cu",
+                          "tpukern/ops/reduce.py:68"),
+           "dot_prod": ("tpukern_torch/csrc/reduce.cu",
+                        "tpukern/ops/dot_product.py:27"),
+           "matmul_naive": ("tpukern_torch/csrc/matmul_naive.cu",
+                            "tpukern/ops/matmul.py:384"),
+           "rope": ("tpukern_torch/csrc/rope.cu", "tpukern/ops/rope.py:38"),
+           "matmul_kpipe": ("tpukern_torch/csrc/matmul.cu",
+                            "tpukern/ops/matmul.py:311")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -3716,7 +3925,15 @@ def main():
                         "outside the timed call (the bf16 tier's GEMM, "
                         "cuBLAS)",
         "gmm": GMM_LIBRARY,
-        "tgmm": GMM_LIBRARY}
+        "tgmm": GMM_LIBRARY,
+        "ew_call": "torch.add (the row's op; the others: torch.mul, "
+                   "torch.relu, torch.sigmoid, F.elu, F.gelu(approximate="
+                   "'tanh'), F.silu, F.hardswish, F.hardshrink(lambd=0.5))",
+        "reduce_all": "torch.sum(dtype=acc) (torch.amax for max; none for "
+                      "fp8 inputs)",
+        "dot_prod": "torch.dot",
+        "matmul_naive": "torch.matmul (cuBLAS, input dtype)",
+        "matmul_kpipe": "torch.matmul (cuBLAS, input dtype)"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -3736,6 +3953,12 @@ def main():
     for n in ("gmm", "tgmm"):
         modes[n] = {"moe_train_launches": moe_train_launches[n]}
     modes["gmm"]["trans_w_launches"] = dropless_launches["trans_w"]
+    # the zoo's rows: the variant each row's times are of; rope and
+    # matmul_kpipe launch the kernels of rope_batched and matmul
+    for n in ZOO_KERNELS:
+        modes[n] = {"variant": timing[n]["variant"]}
+    modes["rope"]["launches_kernel_of"] = "rope_batched"
+    modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],

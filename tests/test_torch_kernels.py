@@ -16,10 +16,12 @@ import torch
 
 from tpukern_torch.core.feature_sets import FEATURE_SETS, feature_kwargs
 from tpukern_torch.core.tolerances import check_all_close
+from tpukern_torch.harness import ops_bench
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
-from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
-                               matmul, paged_attention, rmsnorm, rope)
+from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
+                               dot_product, matmul, paged_attention, reduce,
+                               rmsnorm, rope)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -1188,3 +1190,201 @@ def test_grouped_matmul_raises(cuda):
         gm.gmm(x, w, gs)
     with pytest.raises(ValueError, match="tensors on"):
         gm.gmm(x.float(), w.float(), gs.cpu())
+
+
+# ---------------------------------------------------------------- the zoo:
+# #30 (ew_call), #31 (sum_all / max_all), #32 (dot_prod), #16
+# (matmul_naive) against their plain versions, at tail shapes, on
+# misaligned views, in every dtype row; the reductions' 0-d results need
+# no host sync
+EW_SHAPES = [(256, 256), (63, 130), (1,), (7,), (1000, 33)]
+
+
+def _zoo_close(out, ref, dtype, name):
+    rtol, atol = ops_bench.TOLS[dtype]
+    assert out.dtype == ref.dtype and out.shape == ref.shape, name
+    check_all_close(out.float(), ref.float(), rtol=rtol, atol=atol,
+                    name=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EW_SHAPES, ids=str)
+@pytest.mark.parametrize("tier", [t[0] for t in _ew.EW_TIERS])
+@pytest.mark.parametrize("op", sorted(_ew.OPS))
+def test_ew_kernel_matches_plain(cuda, op, tier, shape):
+    _, dt, vec = next(t for t in _ew.EW_TIERS if t[0] == tier)
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    xs = [torch.randn(shape, generator=g, device=cuda).to(dt)
+          for _ in range(_ew.OPS[op][1])]
+    before = _ew.ew_call.launches
+    out = _ew.ew_call(op, *xs, vec=vec)
+    torch.cuda.synchronize()
+    assert _ew.ew_call.launches == before + 1
+    _zoo_close(out, _ew.ew_ref(op, *xs), dt, f"{op} {tier}")
+    if op in ("add", "mul", "relu"):  # one rounding of the f32 result
+        assert torch.equal(out, _ew.ew_ref(op, *xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_ew_misaligned_views_and_device_scalar(cuda, dt):
+    """Views 4 bytes off a 16-byte boundary (copied before the 16-byte
+    loads), and a scalar operand read from device memory with no host
+    sync."""
+    flat = torch.randn(2 * 8191 + 2, device=cuda).to(dt)
+    x, y = flat[1:8192], flat[8193:]
+    _zoo_close(_ew.ew_call("mul", x, y), _ew.ew_ref("mul", x, y), dt, "mul")
+    s = flat[:1].float().sum()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _ew.ew_call("add", x, scalars=(s,))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _zoo_close(out, _ew.ew_ref("add", x, scalars=(s,)), dt, "add scalar")
+
+
+RED_SHAPES = [(300, 200), (63, 130), (1,), (17,), (4096, 4097)]
+
+
+def _exact(shape, dt, g):
+    """-1, -0.5, 0, 0.5, 1: sums exact in f32 (int8 truncates the
+    halves)."""
+    return (torch.randint(-2, 3, shape, generator=g, device=g.device)
+            .float() * 0.5).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RED_SHAPES, ids=str)
+@pytest.mark.parametrize("row", reduce._SUM_VARIANTS + [
+    ("max_" + s, i, a) for s, i, a in reduce._MAX_VARIANTS], ids=lambda r: r[0])
+def test_reduce_kernel_matches_plain(cuda, row, shape):
+    """Every row of the sum and max matrices: a 0-d result in the
+    accumulator's dtype, equal to the plain version (exact sums), or for
+    the bf16 accumulator within ops_bench.BF16_SUM_REL; the same result
+    twice (bit for bit); no host sync."""
+    sfx, in_dt, acc = row
+    mode = "max" if sfx.startswith("max_") else "sum"
+    x = _exact(shape, in_dt, torch.Generator(device=cuda).manual_seed(5))
+    fn = reduce.max_all if mode == "max" else reduce.sum_all
+    ref = (reduce.max_all_ref if mode == "max" else reduce.sum_all_ref)(
+        x, acc)
+    before = reduce._reduce_all.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(x, acc_dtype=acc)
+        again = fn(x, acc_dtype=acc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert reduce._reduce_all.launches == before + 2
+    assert out.shape == () and out.dtype == acc and out.is_cuda
+    assert torch.equal(out, again)
+    err = abs(out.double().item() - ref.double().item())
+    if mode == "sum" and acc == torch.bfloat16:
+        assert err <= ops_bench.BF16_SUM_REL * max(abs(ref.item()), 100.0)
+    else:
+        assert err == 0, (sfx, out.item(), ref.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
+def test_reduce_random_values_and_misaligned(cuda, dt):
+    """Normal values (sums in another order: f32 within 1e-4 relative to
+    the sum of |x|) and a view 2 elements off a 16-byte boundary."""
+    flat = torch.randn(300 * 200 + 2, device=cuda).to(dt)
+    x = flat[2:]
+    scale = x.float().abs().sum().item()
+    for fn, ref in ((reduce.sum_all, reduce.sum_all_ref),
+                    (reduce.max_all, reduce.max_all_ref)):
+        out, want = fn(x), ref(x)
+        assert abs(out.item() - want.item()) <= 1e-4 * max(scale, 1.0)
+    d = dot_product.dot_prod(x, flat[:-2])
+    want = dot_product.dot_prod_ref(x, flat[:-2])
+    assert abs(d.item() - want.item()) <= 1e-4 * max(
+        (x.float() * flat[:-2].float()).abs().sum().item(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RED_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
+def test_dot_kernel_matches_plain(cuda, dt, shape):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a, b = _exact(shape, dt, g), _exact(shape, dt, g)
+    before = dot_product.dot_prod.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dot_product.dot_prod(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dot_product.dot_prod.launches == before + 1
+    assert out.shape == () and out.dtype == torch.float32
+    assert out.item() == dot_product.dot_prod_ref(a, b).item()
+
+
+@pytest.mark.cuda
+def test_reduce_rejects_what_it_does_not_take(cuda):
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        reduce.sum_all(x, acc_dtype=torch.int32)
+    with pytest.raises(TypeError):
+        reduce.sum_all(x.to(torch.int8), acc_dtype=torch.float32)
+    with pytest.raises(TypeError):
+        dot_product.dot_prod(x.to(torch.float8_e4m3fn),
+                             x.to(torch.float8_e4m3fn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M,N,K", [(77, 130, 45), (130, 257, 300), (1, 1, 1),
+                                   (64, 80, 48), (33, 31, 4099)])
+def test_matmul_naive_matches_plain(cuda, M, N, K, dt):
+    """One thread an output, K in steps of 4 with a tail (K % 4 of 1, 0, 1,
+    0, 3)."""
+    g = torch.Generator(device=cuda).manual_seed(M * N + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
+    b = torch.randn((K, N), generator=g, device=cuda).to(DTYPES[dt])
+    before = matmul.matmul_naive.launches
+    out = matmul.matmul_naive(a, b)
+    torch.cuda.synchronize()
+    assert matmul.matmul_naive.launches == before + 1
+    _zoo_close(out, matmul.matmul_naive_ref(a, b), DTYPES[dt],
+               "matmul_naive")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rope_and_kpipe_launch_their_kernels(cuda, dt):
+    """rope on rope_batched's kernel (seq_len = S), matmul_kpipe on
+    matmul's: each counts its own launch and the kernel's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((63, 130), generator=g, device=cuda).to(DTYPES[dt])
+    r0, b0 = rope.rope.launches, rope.rope_batched.launches
+    _zoo_close(rope.rope(x), rope.rope_ref(x), DTYPES[dt], "rope")
+    assert (rope.rope.launches, rope.rope_batched.launches) == (r0 + 1,
+                                                                b0 + 1)
+    a = torch.randn((70, 90), generator=g, device=cuda).to(DTYPES[dt])
+    k0, m0 = matmul.matmul_kpipe.launches, matmul.matmul.launches
+    out = matmul.matmul_kpipe(a, a, trans_b=True)
+    assert (matmul.matmul_kpipe.launches, matmul.matmul.launches) == (
+        k0 + 1, m0 + 1)
+    _zoo_close(out, matmul.matmul_ref(a, a, trans_b=True).to(a.dtype),
+               DTYPES[dt], "matmul_kpipe")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16,
+                                 torch.float16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
+def test_rms_norm_options_match_plain(cuda, dt, acc):
+    """#4's zoo options: f16 rows, the accumulator dtype, scalar g."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((33, 200), generator=g, device=cuda).to(dt)
+    for gain in (0.37, 1 + 0.1 * torch.randn(200, generator=g, device=cuda)):
+        out = rmsnorm.rms_norm(x, gain, acc_dtype=acc)
+        _zoo_close(out, rmsnorm.rms_norm_ref(x, gain, acc_dtype=acc), dt,
+                   "rms_norm")

@@ -21,7 +21,20 @@ single-device training step (`models.transformer` forward, loss_fn,
 make_train_step, through `ops.trainable`), which adds matmul,
 rope_batched, the flash_attention lse and flash_attention_bwd; and its
 `Config.fused_loss` option (`ops.cross_entropy`), which adds the fused
-cross-entropy's forward and backward kernels.
+cross-entropy's forward and backward kernels. Later slices added the
+rest of serving and training (featured attention, chunked prefill, the
+prefix cache, speculation, sampling, the quantized KV tier, w8a16
+weights, ring pools, MoE).
+
+The op-family zoo runs through `core.registry`, the counterpart of
+tpukern's variant registry: importing `tpukern_torch.ops` registers each
+ported (family, name) with its function and plain version, and
+`core.registry.PENDING` gives every other JAX variant's reason. The
+zoo's own kernels so far: the elementwise template (`ops._ew`, behind
+the elementwise and activation families), the two-pass reduction and dot
+product (`ops.reduce`, `ops.dot_product`) and the naive GEMM
+(`ops.matmul.matmul_naive`); `harness.ops_bench` walks the registry on
+the card.
 """
 
 __version__ = "0.1.0"

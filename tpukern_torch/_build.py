@@ -38,17 +38,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # dtype codes shared with csrc/common.cuh (enum tk::Dtype): the float
-# types of activations, and the 1-byte pools of the quantized KV tier
+# types of activations, the 1-byte pools of the quantized KV tier, and all
+# of them with the storage types of the op-family zoo
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KV_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+CODES = {**DTYPE_CODES, **KV_CODES, torch.float16: 4,
+         torch.float8_e5m2: 5, torch.int32: 6}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _F = ctypes.c_float
 # argtypes of every C entry point (csrc/capi.cu); ctypes would otherwise
 # pass each pointer as a 32-bit int
 SIGNATURES = {
-    # x, g, y, rows, cols, eps, x_dtype, g_dtype, stream
-    "tk_rms_norm": [_P, _P, _P, _I64, _I64, _F, _I, _I, _P],
+    # x, g (or None), scalar g, y, rows, cols, eps, acc_bf16, x_dtype,
+    # g_dtype, stream
+    "tk_rms_norm": [_P, _P, _F, _P, _I64, _I64, _F, _I, _I, _I, _P],
     # x, cos, sin, y, rows, head_dim, dtype, stream
     "tk_rope_cached": [_P, _P, _P, _P, _I64, _I, _I, _P],
     # x, y, rows, head_dim, seq_len, sign, dtype, stream
@@ -114,6 +118,14 @@ SIGNATURES = {
     # x (f32), thresholds, B, V, mode (0 count, 1 mass), k, p, inv_temp,
     # stream
     "tk_sample_threshold": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # op, x0, x1 (or None), scalar s (f32, or None), y, n, vec, dtype,
+    # stream
+    "tk_ew": [_I, _P, _P, _P, _P, _I64, _I, _I, _P],
+    # x, y (dot, or None), partials, out, n, mode (0 sum, 1 max, 2 dot),
+    # in dtype, acc dtype, stream
+    "tk_reduce": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # a, b, c, M, N, K, dtype, stream
+    "tk_matmul_naive": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -19,10 +19,11 @@ const char* tk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int tk_rms_norm(const void* x, const void* g, void* y, int64_t rows,
-                int64_t cols, float eps, int x_dtype, int g_dtype,
-                void* stream) {
-  return checked(tk::rms_norm_launch(x, g, y, rows, cols, eps, x_dtype, g_dtype,
+int tk_rms_norm(const void* x, const void* g, float g_scalar, void* y,
+                int64_t rows, int64_t cols, float eps, int acc_bf16,
+                int x_dtype, int g_dtype, void* stream) {
+  return checked(tk::rms_norm_launch(x, g, g_scalar, y, rows, cols, eps,
+                                     acc_bf16, x_dtype, g_dtype,
                                      static_cast<cudaStream_t>(stream)));
 }
 
@@ -194,6 +195,25 @@ int tk_sample_threshold(const float* x, float* thr, int B, int V, int mode,
                         int kk, float pp, float inv_temp, void* stream) {
   return checked(tk::sample_threshold_launch(
       x, thr, B, V, mode, kk, pp, inv_temp, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ew(int op, const void* x0, const void* x1, const float* s, void* y,
+          int64_t n, int vec, int dtype, void* stream) {
+  return checked(tk::ew_launch(op, x0, x1, s, y, n, vec, dtype,
+                               static_cast<cudaStream_t>(stream)));
+}
+
+int tk_reduce(const void* x, const void* y, void* partials, void* out,
+              int64_t n, int mode, int in_dtype, int acc_dtype, void* stream) {
+  return checked(tk::reduce_launch(x, y, partials, out, n, mode, in_dtype,
+                                   acc_dtype,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+int tk_matmul_naive(const void* a, const void* b, void* c, int M, int N, int K,
+                    int dtype, void* stream) {
+  return checked(tk::matmul_naive_launch(a, b, c, M, N, K, dtype,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -3,16 +3,23 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tk {
 
 // dtype codes: tpukern_torch/_build.py DTYPE_CODES (the float types of
-// activations) and KV_CODES (the 1-byte pools of the quantized tier)
-enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3 };
+// activations), KV_CODES (the 1-byte pools of the quantized tier) and
+// CODES (all of them, with the storage types of the op-family zoo)
+enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3, kF16 = 4, kE5M2 = 5,
+             kI32 = 6 };
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+using e4m3 = __nv_fp8_e4m3;
+using e5m2 = __nv_fp8_e5m2;
 
 // mask value of tpukern/ops/attention.py NEG_BIG: finite, so a fully
 // masked tile never forms exp(-inf - -inf) = NaN
@@ -20,12 +27,24 @@ constexpr float NEG_BIG = -0.7f * 3.4e38f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(e5m2 x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
+}
+
+// VEC elements of T in one aligned load or store (16 bytes at most)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -452,8 +471,9 @@ __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
 // Host launchers. Each checks its arguments, returns cudaErrorInvalidValue
 // for a shape or dtype it does not take, and otherwise launches on
 // `stream` and returns cudaSuccess; capi.cu then reports cudaGetLastError().
-cudaError_t rms_norm_launch(const void* x, const void* g, void* y, int64_t rows,
-                            int64_t cols, float eps, int x_dtype, int g_dtype,
+cudaError_t rms_norm_launch(const void* x, const void* g, float g_scalar,
+                            void* y, int64_t rows, int64_t cols, float eps,
+                            int acc_bf16, int x_dtype, int g_dtype,
                             cudaStream_t stream);
 cudaError_t rope_cached_launch(const void* x, const void* cos, const void* sin,
                                void* y, int64_t rows, int head_dim, int dtype,
@@ -543,6 +563,14 @@ cudaError_t sample_launch(const void* x, const float* thr, const float* noise,
                           int mode, long long seed, float inv_temp, int B,
                           int V, int n_split, unsigned long long* part,
                           int* out, int dtype, cudaStream_t stream);
+cudaError_t ew_launch(int op, const void* x0, const void* x1, const float* s,
+                      void* y, int64_t n, int vec, int dtype,
+                      cudaStream_t stream);
+cudaError_t reduce_launch(const void* x, const void* y, void* partials,
+                          void* out, int64_t n, int mode, int in_dtype,
+                          int acc_dtype, cudaStream_t stream);
+cudaError_t matmul_naive_launch(const void* a, const void* b, void* c, int M,
+                                int N, int K, int dtype, cudaStream_t stream);
 cudaError_t sample_threshold_launch(const float* x, float* thr, int B, int V,
                                     int mode, int kk, float pp,
                                     float inv_temp, cudaStream_t stream);

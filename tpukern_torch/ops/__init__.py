@@ -1,8 +1,13 @@
 """Ops: one module per op family, each a kernel wrapper plus its plain
 PyTorch version (the `*_ref` function beside it). Importing this package
-imports every ported family, as tpukern/ops/__init__.py does."""
+imports every ported family and so fills the variant registry
+(tpukern_torch.core.registry), as tpukern/ops/__init__.py does."""
 
 from tpukern_torch.ops import (  # noqa: F401
+    elementwise,
+    activations,
+    reduce,
+    dot_product,
     rmsnorm,
     rope,
     matmul,

@@ -16,6 +16,7 @@ import math
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 HEAD_DIMS = (32, 64, 128)
 _TODO = "ROADMAP.md queue 1 item 5 (flash_attention features)"
@@ -161,3 +162,43 @@ def attention_ref(q, k, v, *, causal=False, sm_scale=None, window=None,
     p = p.masked_fill(all_masked, 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
     return (o, torch.logsumexp(s, dim=-1)) if return_stats else o
+
+
+# ---------------------------------------------------------------- registry
+
+def _fa_flops(q, k, v, **kw):
+    B, H, Sq, D = q.shape
+    f = 4 * B * H * Sq * k.shape[2] * D
+    return f // 2 if kw.get("causal") else f
+
+
+def _cast(fn, dt):
+    def wrapped(q, k, v, **kw):
+        return fn(q.to(dt), k.to(dt), v.to(dt), **kw)
+    return wrapped
+
+
+def _sdpa(q, k, v, *, causal=False, sm_scale=None):
+    """The SDPA baseline (attention.py sdpa_xla's role)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=sm_scale,
+        enable_gqa=q.shape[1] != k.shape[1])
+
+
+# the bf16 tiers of attention.py:1053-1066 and the transposed-layout twin
+# (`mha_splitq_bf16_tpv`): block sizes, the duo split and the layout are
+# TPU knobs, so all are this kernel; mha_splitq_f16, the bf16
+# accumulator, split-KV and the JAX library kernels are in
+# core.registry.PENDING
+for _name in ("mha_splitq_bf16", "mha_splitq_bf16_hyper",
+              "mha_splitq_bf16_stage2", "mha_splitq_bf16_stage4",
+              "mha_splitq_bf16_bigq", "mha_splitq_bf16_duo",
+              "mha_splitq_bf16_tpv"):
+    register("attention", _name, ref=_cast(attention_ref, torch.bfloat16),
+             flops=_fa_flops)(_cast(flash_attention, torch.bfloat16))
+register("attention", "mha_splitq_f32", ref=_cast(attention_ref, torch.float32),
+         flops=_fa_flops)(_cast(flash_attention, torch.float32))
+register("attention", "mha_xla_sdpa", ref=attention_ref, flops=_fa_flops,
+         tags=("baseline",))(_sdpa)
+register("attention", "mha_unfused", ref=attention_ref, flops=_fa_flops,
+         tags=("baseline",))(attention_ref)

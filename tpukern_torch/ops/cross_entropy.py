@@ -18,6 +18,7 @@ import torch
 
 from tpukern_torch import _build
 from tpukern_torch.core import cdiv
+from tpukern_torch.core.registry import register
 
 NEG_BIG = -0.7 * 3.4e38
 TILE = 128  # token rows and vocab columns of a score tile (csrc BN, BV)
@@ -184,3 +185,31 @@ def chunked_cross_entropy(x, w, targets, *, chunk=2048):
         m = m_new
     loss = (m + torch.log(l) - t)[:, 0]
     return torch.where(targets < 0, 0.0, loss)
+
+
+# ---------------------------------------------------------------- registry
+
+def _ce_flops(x, w, targets):
+    return 2 * x.shape[0] * x.shape[1] * w.shape[1]
+
+
+def _fused(dt):
+    def run(x, w, targets):
+        return fused_cross_entropy(x.to(dt), w.to(dt), targets)
+    return run
+
+
+def _ce_plain(dt):
+    def run(x, w, targets):
+        return cross_entropy_ref(x.to(dt), w.to(dt), targets)
+    return run
+
+
+register("cross_entropy", "fused_bf16", ref=_ce_plain(torch.bfloat16),
+         flops=_ce_flops)(_fused(torch.bfloat16))
+register("cross_entropy", "fused_f32", ref=_ce_plain(torch.float32),
+         flops=_ce_flops)(_fused(torch.float32))
+register("cross_entropy", "chunked_xla", ref=cross_entropy_ref,
+         flops=_ce_flops, tags=("baseline",))(chunked_cross_entropy)
+register("cross_entropy", "dense_xla", ref=cross_entropy_ref,
+         flops=_ce_flops, tags=("baseline",))(cross_entropy_ref)

@@ -23,6 +23,7 @@ keeps the names, not the knobs. A CPU tensor takes the plain version
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 
 def _offsets(group_sizes):
@@ -182,3 +183,28 @@ def grouped_matmul(x, w, group_sizes, config=None):
     lax.ragged_dot((T, K), (E, K, N), (E,)). `config` (JAX's dict of
     block sizes) is accepted and ignored."""
     return _GroupedMatmul.apply(x, w, group_sizes)
+
+
+# ---------------------------------------------------------------- registry
+
+def _gmm_flops(x, w, group_sizes):
+    # the routed rows, not the padded grid (reads the sizes on the host)
+    return 2 * int(group_sizes.sum()) * x.shape[1] * w.shape[-1]
+
+
+def _cast(fn, dt):
+    def wrapped(x, w, group_sizes):
+        return fn(x.to(dt), w.to(dt), group_sizes).to(dt)
+    return wrapped
+
+
+register("grouped_matmul", "gmm_bf16", ref=_cast(gmm_ref, torch.bfloat16),
+         flops=_gmm_flops)(_cast(gmm, torch.bfloat16))
+register("grouped_matmul", "gmm_f32", ref=_cast(gmm_ref, torch.float32),
+         flops=_gmm_flops)(_cast(gmm, torch.float32))
+register("grouped_matmul", "gmm_ragged_dot_xla",
+         ref=_cast(gmm_ref, torch.float32), flops=_gmm_flops,
+         tags=("baseline",))(_cast(gmm_ref, torch.float32))
+register("grouped_matmul", "tgmm_f32", ref=_cast(tgmm_ref, torch.float32),
+         flops=lambda x, dy, gs: 2 * int(gs.sum()) * x.shape[1] * dy.shape[1])(
+    _cast(tgmm, torch.float32))

@@ -1,17 +1,23 @@
 """GEMM: C = A·B or A·Bᵀ with f32 accumulation.
 
-The port of tpukern/ops/matmul.py `matmul`. Kernel: csrc/matmul.cu, one
-kernel per input dtype (f32 on CUDA cores, bf16 on the tensor cores)
-whose epilogue replaces the three Pallas bodies (matmul.py:140-172):
+The port of tpukern/ops/matmul.py. Kernels: csrc/matmul.cu, one kernel
+per input dtype (f32 on CUDA cores, bf16 on the tensor cores) whose
+epilogue replaces the three Pallas bodies of `matmul` (matmul.py:140-172):
 `kernel` writes the out dtype, `kernel_accio` the f32 accumulator,
-`kernel_accio_dual` both. The Mosaic knobs (block sizes, swizzle,
-buffer_count, lookahead, input_fusion, eager_store, jitter) are not
-ported.
+`kernel_accio_dual` both; `matmul_kpipe` (:311, the K loop inside the
+kernel) is the same function, and that kernel already loops over K, so
+it launches it too. csrc/matmul_naive.cu replaces `matmul_naive`'s
+kernel (:384), the naive rung of the registry's ladder. The Mosaic
+knobs (block sizes, swizzle, buffer_count, lookahead, input_fusion,
+eager_store, jitter) and the v5e tile model `auto_blocks` are not
+ported: the ladder's ksliced, pipelined, swizzled and stage names are
+aliases of `matmul`.
 """
 
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 
 def _out_dtype(a, out_dtype, acc_in_out):
@@ -63,3 +69,108 @@ def matmul_ref(a, b, *, trans_b=False):
     """f32 torch.matmul of the f32-cast inputs."""
     bf = b.float()
     return torch.matmul(a.float(), bf.T if trans_b else bf)
+
+
+def matmul_kpipe(a, b, *, out_dtype=None, trans_b=False):
+    """matmul with its K loop inside the kernel (matmul.py:277): `matmul`'s
+    function and kernel, which walks K inside each block."""
+    c = matmul(a, b, trans_b=trans_b, out_dtype=out_dtype)
+    if a.device.type != "cpu":
+        matmul_kpipe.launches += 1
+    return c
+
+
+matmul_kpipe.launches = 0
+
+
+def hgemm(a, b, *, trans_b=False, out_dtype=None):
+    """The bf16 GEMM (matmul.py hgemm): bf16 inputs into matmul; an f32
+    out_dtype takes the accumulator epilogue, as in JAX."""
+    out_dtype = out_dtype or torch.bfloat16
+    return matmul(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                  trans_b=trans_b, out_dtype=out_dtype,
+                  acc_in_out=out_dtype == torch.float32)
+
+
+def matmul_naive(a, b):
+    """C[M,N] = A[M,K] @ B[K,N], f32 accumulation, in A's dtype: one
+    thread per output element. A CPU tensor takes matmul_naive_ref; a
+    CUDA tensor launches the kernel (f32 or bf16, one dtype)."""
+    M, K = a.shape
+    if b.shape[0] != K or a.dtype != b.dtype:
+        raise ValueError(f"matmul_naive: a {tuple(a.shape)} {a.dtype} and b "
+                         f"{tuple(b.shape)} {b.dtype}")
+    if a.device.type == "cpu":
+        return matmul_naive_ref(a, b)
+    _build.check_cuda(a, b)
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty(M, b.shape[1], dtype=a.dtype, device=a.device)
+    _build.launch("tk_matmul_naive", a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                  M, b.shape[1], K, _build.dtype_code(a), _build.stream(a))
+    matmul_naive.launches += 1
+    return c
+
+
+matmul_naive.launches = 0
+
+
+def matmul_naive_ref(a, b):
+    return matmul_ref(a, b).to(a.dtype)
+
+
+def _flops(a, b):
+    # the (M, K) x (K, N) ladder and hgemm_tn_bf16's (N, K) b alike
+    return 2 * a.shape[0] * a.shape[1] * (
+        b.shape[0] if b.shape[1] == a.shape[1] else b.shape[1])
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _ladder(dt, trans_b=False, out=None, acc_in_out=False):
+    """(fn, plain version) of a `matmul` tier: inputs cast to dt."""
+    out = out or (_F32 if acc_in_out else dt)
+
+    def fn(a, b):
+        return matmul(a.to(dt), b.to(dt), trans_b=trans_b, out_dtype=out,
+                      acc_in_out=acc_in_out)
+
+    def ref(a, b):
+        return matmul_ref(a.to(dt), b.to(dt), trans_b=trans_b).to(out)
+    return fn, ref
+
+
+def _naive(dt):
+    return (lambda a, b: matmul_naive(a.to(dt), b.to(dt)),
+            lambda a, b: matmul_naive_ref(a.to(dt), b.to(dt)))
+
+
+def _baseline(dt):
+    """torch.matmul (cuBLAS on the card), the XLA baselines' role."""
+    return (lambda a, b: torch.matmul(a.to(dt), b.to(dt)),
+            lambda a, b: matmul_ref(a.to(dt), b.to(dt)).to(dt))
+
+
+# the registry ladder (matmul.py:522-588); hgemm_accbf16_bf16, hgemm_f16
+# and qgemm_i8_i32 are in core.registry.PENDING
+_LADDER = {
+    "sgemm_naive_f32": _naive(_F32),
+    "sgemm_ksliced_f32": _ladder(_F32),
+    "sgemm_pipelined_f32": _ladder(_F32),
+    "sgemm_swizzled_f32": _ladder(_F32),
+    "hgemm_naive_bf16": _naive(_BF16),
+    "hgemm_ksliced_bf16": _ladder(_BF16),
+    "hgemm_stage_bk256_bf16": _ladder(_BF16),
+    "hgemm_stage_bk512_bf16": _ladder(_BF16),
+    "hgemm_stage_bk1024_bf16": _ladder(_BF16),
+    "hgemm_swizzled_bf16": _ladder(_BF16),
+    "hgemm_accio_bf16": _ladder(_BF16, out=_BF16, acc_in_out=True),
+    "hgemm_accio_bf16_f32acc": _ladder(_BF16, acc_in_out=True),
+    "sgemm_accio_f32": _ladder(_F32, acc_in_out=True),
+    "hgemm_tn_bf16": _ladder(_BF16, trans_b=True),
+}
+for _name, (_fn, _ref) in _LADDER.items():
+    register("matmul", _name, ref=_ref, flops=_flops)(_fn)
+for _name, _dt in (("sgemm_xla_f32", _F32), ("hgemm_xla_bf16", _BF16)):
+    _fn, _ref = _baseline(_dt)
+    register("matmul", _name, ref=_ref, flops=_flops, tags=("baseline",))(_fn)

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 KERNEL_MAX_M = 128  # JAX's dispatch: above this M the dequant-dot path
 # csrc/matmul_w8a16.cu W_BM, W_BN, W_BK: the output tile and K slice
@@ -162,3 +163,28 @@ def matmul_w8a16(x, w_q, scale, *, out_dtype=None, force_kernel=False):
 
 
 matmul_w8a16.launches = 0
+
+
+# ---------------------------------------------------------------- registry
+
+def _w8a16_ref(x, w_q, scale):
+    """The variant's function in plain PyTorch: the kernel's at M <= 128,
+    JAX's dequant-then-dot path above (matmul_w8a16's dispatch)."""
+    if x.shape[0] > KERNEL_MAX_M:
+        return _dequant_matmul(x, w_q, scale, x.dtype)
+    return matmul_w8a16_ref(x, w_q, scale)
+
+
+def _dequant(x, w_q, scale):
+    return _dequant_matmul(x, w_q, scale, x.dtype)
+
+
+def _w8a16_flops(x, w_q, scale):
+    return 2 * x.shape[0] * x.shape[1] * w_q.shape[1]
+
+
+register("matmul_w8a16", "w8a16", ref=_w8a16_ref, flops=_w8a16_flops,
+         bytes_moved=lambda x, w_q, scale: w_q.numel())(matmul_w8a16)
+register("matmul_w8a16", "w8a16_dequant_xla", ref=_dequant,
+         flops=_w8a16_flops, bytes_moved=lambda x, w_q, scale: 2 * w_q.numel(),
+         tags=("baseline",))(_dequant)

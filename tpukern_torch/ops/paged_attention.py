@@ -25,7 +25,9 @@ import math
 import torch
 
 from tpukern_torch import _build
-from tpukern_torch.ops.quant import quantize_fp8, quantize_int8, quantize_ref
+from tpukern_torch.core.registry import register
+from tpukern_torch.ops.quant import (quantize_fp8, quantize_fp8_ref,
+                                    quantize_int8, quantize_ref)
 
 MAX_GROUP = 8      # csrc/paged_attention.cu PA_GMAX, csrc/paged_prefill.cu
 HEAD_DIMS = (32, 64, 128)  # launch_d of both kernels
@@ -534,3 +536,77 @@ def paged_attention_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
     return paged_prefill_quantized_ref(q[:, :, None], k_pages, k_scales,
                                        v_pages, v_scales, lengths,
                                        page_table, **kw)[:, :, 0]
+
+
+# ---------------------------------------------------------------- registry
+
+def default_alibi_slopes(n_heads, device="cuda"):
+    """The standard ALiBi slopes 2^(-8 i / n), i = 1..n (JAX's
+    default_alibi_slopes), f32 on `device`."""
+    i = torch.arange(1, n_heads + 1, dtype=torch.float32, device=device)
+    return 2.0 ** (-8.0 * i / n_heads)
+
+
+def _plain_pages(pages, dtype):
+    """quantize_pages with the plain quantizers (#20/#22 equal them bit
+    for bit)."""
+    Hkv, P, page, D = pages.shape
+    qfn = {"int8": quantize_ref, "fp8": quantize_fp8_ref}[dtype]
+    vals, scales = qfn(pages.reshape(Hkv * P * page, D))
+    return vals.reshape(Hkv, P, page, D), scales.reshape(Hkv, P, page)
+
+
+def _bf16(fn, alibi=False):
+    """fn on q, k, v cast to bf16 (JAX's variants), with ALiBi slopes."""
+    def run(q, k, v, lengths, table, **kw):
+        if alibi:
+            kw["alibi_slopes"] = default_alibi_slopes(q.shape[1], q.device)
+        bf = torch.bfloat16
+        return fn(q.to(bf), k.to(bf), v.to(bf), lengths, table, **kw)
+    return run
+
+
+def _alibi(fn):
+    def run(q, k, v, lengths, table, **kw):
+        return fn(q, k, v, lengths, table, alibi_slopes=default_alibi_slopes(
+            q.shape[1], q.device), **kw)
+    return run
+
+
+def _quantized(fn, pages, dtype="int8", **opts):
+    """fn on pools quantized by `pages` (quantize_pages or _plain_pages),
+    q in bf16 (JAX's _paged_quantized)."""
+    def run(q, k, v, lengths, table, **kw):
+        kq, ks = pages(k, dtype)
+        vq, vs = pages(v, dtype)
+        return fn(q.to(torch.bfloat16), kq, ks, vq, vs, lengths, table,
+                  **opts, **kw)
+    return run
+
+
+_DECODE_Q = dict(int8kv={}, int8kv_mxu=dict(q_int8=True),
+                 fp8kv=dict(dtype="fp8"),
+                 int8kv_mxu_full=dict(q_int8=True, pv_int8=True))
+_PREFILL_Q = dict(int8kv={}, int8kv_mxu=dict(q_int8=True))
+
+register("paged_attention", "paged_decode_f32", ref=paged_attention_ref)(
+    paged_attention)
+register("paged_attention", "paged_decode_bf16",
+         ref=_bf16(paged_attention_ref))(_bf16(paged_attention))
+register("paged_attention", "paged_decode_alibi",
+         ref=_bf16(paged_attention_ref, alibi=True))(
+    _bf16(paged_attention, alibi=True))
+register("paged_attention", "paged_prefix_prefill", ref=paged_prefill_ref)(
+    paged_prefill_attention)
+register("paged_attention", "paged_prefix_prefill_alibi",
+         ref=_alibi(paged_prefill_ref))(_alibi(paged_prefill_attention))
+for _sfx, _kw in _DECODE_Q.items():
+    register("paged_attention", f"paged_decode_{_sfx}",
+             ref=_quantized(paged_attention_quantized_ref, _plain_pages,
+                            **_kw))(
+        _quantized(paged_attention_quantized, quantize_pages, **_kw))
+for _sfx, _kw in _PREFILL_Q.items():
+    register("paged_attention", f"paged_prefix_prefill_{_sfx}",
+             ref=_quantized(paged_prefill_quantized_ref, _plain_pages,
+                            **_kw))(
+        _quantized(paged_prefill_attention_quantized, quantize_pages, **_kw))

@@ -25,6 +25,7 @@ kernel; `launches` on each wrapper counts its launches.
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
 _ROUND, _STOCHASTIC, _FP8 = 0, 1, 2  # csrc/quant.cu QuantMode
@@ -146,3 +147,15 @@ def dequantize_int8(values, scales, out_dtype=torch.float32):
 
 
 dequantize_int8.launches = 0
+
+
+# ---------------------------------------------------------------- registry
+
+register("quant", "quantize_int8", ref=quantize_ref)(quantize_int8)
+# the card draws Philox bits, the plain version a torch.Generator's: values
+# within one step of each other, scales equal
+register("quant", "quantize_int8_stochastic", ref=quantize_stochastic_ref,
+         tags=("stochastic",))(
+    lambda x, seed=0: quantize_int8(x, seed, stochastic=True))
+register("quant", "dequantize_int8", ref=dequantize_ref)(dequantize_int8)
+register("quant", "quantize_fp8", ref=quantize_fp8_ref)(quantize_fp8)

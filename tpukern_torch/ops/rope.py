@@ -1,8 +1,11 @@
 """RoPE: rotary position embedding, half-split (NeoX) pairs, theta=10000.
 
-The port of tpukern/ops/rope.py's cached-table path (serving) and
-`rope_batched` (training). Kernels: csrc/rope.cu, which replaces the
-Pallas `kernel`s of rope_cached (rope.py:118) and rope_batched (:81).
+The port of tpukern/ops/rope.py: the cached-table path (serving),
+`rope_batched` (training), `rope` and `rope_interleaved` (the registry's
+zoo variants). Kernels: csrc/rope.cu, which replaces the Pallas
+`kernel`s of rope_cached (rope.py:118) and rope_batched (:81); `rope`
+(:38, position = row) computes rope_batched's function at seq_len = S,
+so it launches that kernel.
 """
 
 import math
@@ -10,6 +13,7 @@ import math
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 
 _LOG_THETA = math.log(10000.0)
 
@@ -94,3 +98,65 @@ def rope_cached_ref(x, cos, sin):
     x1, x2 = xf[:, :half], xf[:, half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def rope(x):
+    """Half-split RoPE on (S, D), position = row index: rope_batched with
+    seq_len = S (the same angles, computed in the kernel). Output in
+    x.dtype; a CPU tensor takes rope_ref."""
+    y = rope_batched(x, x.shape[0], 1.0)
+    if x.device.type != "cpu":
+        rope.launches += 1
+    return y
+
+
+rope.launches = 0
+
+
+def rope_interleaved(x):
+    """Reference-layout RoPE: pairs (x[2i], x[2i+1]). De-interleaved in
+    torch, rotated by `rope`, re-interleaved (rope.py:143-151)."""
+    S, D = x.shape
+    xs = x.reshape(S, D // 2, 2)
+    y = rope(torch.cat([xs[:, :, 0], xs[:, :, 1]], dim=-1))
+    return torch.stack([y[:, :D // 2], y[:, D // 2:]], dim=-1).reshape(S, D)
+
+
+def rope_ref(x):
+    """Plain half-split reference with make_cos_sin's tables."""
+    S, D = x.shape
+    return rope_cached_ref(x, *make_cos_sin(S, D, device=x.device))
+
+
+def rope_interleaved_ref(x):
+    S, D = x.shape
+    cos, sin = make_cos_sin(S, D, device=x.device)
+    xf = x.float().reshape(S, D // 2, 2)
+    x1, x2 = xf[:, :, 0], xf[:, :, 1]
+    return torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                       dim=-1).reshape(S, D).to(x.dtype)
+
+
+def _cached(x):
+    S, D = x.shape
+    return rope_cached(x, *make_cos_sin(S, D, device=x.device))
+
+
+# (suffix, function, dtype, plain version) — rope.py:181-203; the
+# TPU block heights (_r64, _r128) are aliases
+_VARIANTS = [
+    ("f32", rope, torch.float32, rope_ref),
+    ("f32_r64", rope, torch.float32, rope_ref),
+    ("bf16", rope, torch.bfloat16, rope_ref),
+    ("bf16_r128", rope, torch.bfloat16, rope_ref),
+    ("f32_interleaved", rope_interleaved, torch.float32,
+     rope_interleaved_ref),
+    ("f32_cached", _cached, torch.float32, rope_ref),
+    ("bf16_cached", _cached, torch.bfloat16, rope_ref),
+]
+
+for _sfx, _impl, _dt, _ref in _VARIANTS:
+    register("rope", f"rope_{_sfx}",
+             ref=lambda x, _dt=_dt, _ref=_ref: _ref(x.to(_dt)),
+             bytes_moved=lambda x: 2 * x.numel() * x.element_size())(
+        lambda x, _impl=_impl, _dt=_dt: _impl(x.to(_dt)))

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core.registry import register
 from tpukern_torch.core.tiling import cdiv
 
 NEG_BIG = -0.7 * 3.4e38
@@ -306,3 +307,60 @@ def sample_ref(logits, generator, temperature=1.0, top_k=0, top_p=1.0,
     probs = torch.softmax(x / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# registry (sampling.py:344-420); seeds, k, p and min_p as JAX's defaults
+
+def _nbytes(x, *a, **k):
+    return x.numel() * x.element_size()
+
+
+def _argmax(logits, *a, **k):
+    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def _sample_plain(logits, seed=0, top_k=0, top_p=1.0, min_p=0.0):
+    """sample(logits, seed, 1.0, ...)'s plain twin: the support from the
+    plain thresholds, the draw from #26's twin (the same Philox bits)."""
+    thr = None
+    for t in ((topk_threshold(logits, top_k, use_kernel=False)
+               if top_k else None),
+              (topp_threshold(logits, top_p, use_kernel=False)
+               if top_p < 1.0 else None),
+              minp_threshold(logits, min_p) if min_p > 0.0 else None):
+        if t is not None:
+            thr = t if thr is None else torch.maximum(thr, t)
+    return _stream_sample_ref(logits, seed, inv_temp=1.0, gumbel=True,
+                              thresholds=thr)
+
+
+def _categorical(logits, seed=0, **kw):
+    """The categorical baseline: torch.multinomial from a generator on the
+    logits' device seeded with seed (jax.random.categorical's role)."""
+    gen = torch.Generator(logits.device).manual_seed(int(seed))
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+register("sampling", "greedy_stream", ref=_argmax, bytes_moved=_nbytes)(
+    lambda logits, **kw: greedy_sample(logits))
+register("sampling", "gumbel_stream", ref=_sample_plain,
+         bytes_moved=_nbytes)(
+    lambda logits, seed=0: sample(logits, seed))
+register("sampling", "topk_gumbel_stream",
+         ref=lambda x, seed=0, k=40: _sample_plain(x, seed, top_k=k),
+         bytes_moved=lambda x, *a, **k: 2 * _nbytes(x))(
+    lambda x, seed=0, k=40: sample(x, seed, top_k=k))
+register("sampling", "topp_gumbel_stream",
+         ref=lambda x, seed=0, p=0.9: _sample_plain(x, seed, top_p=p),
+         bytes_moved=lambda x, *a, **k: 3 * _nbytes(x))(
+    lambda x, seed=0, p=0.9: sample(x, seed, top_p=p))
+register("sampling", "minp_gumbel_stream",
+         ref=lambda x, seed=0, mp=0.05: _sample_plain(x, seed, min_p=mp),
+         bytes_moved=lambda x, *a, **k: 2 * _nbytes(x))(
+    lambda x, seed=0, mp=0.05: sample(x, seed, min_p=mp))
+register("sampling", "greedy_xla", ref=_argmax, bytes_moved=_nbytes,
+         tags=("baseline",))(_argmax)
+register("sampling", "categorical_xla", ref=_categorical, bytes_moved=_nbytes,
+         tags=("baseline",))(_categorical)
