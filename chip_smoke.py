@@ -42,10 +42,12 @@
    [zoo]: walks the port's variant registry at bench/ops.py's shapes
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder) and matmul_kpipe, with
-   the six zoo kernels' launch counts reset just before and read just
-   after; holds every variant against its plain version (#30-#32 also at
-   4095 x 4097, a tail in every tier) and times the zoo's variants with
-   the L2 flushed before each call, beside the plain version, the
+   the ten zoo kernels' launch counts reset just before and read just
+   after; holds every variant against its plain version (#30-#36 also at
+   4095 x 4097, a tail in every tier; the softmax variants also at the
+   sampling logits' 64 x 131072), runs softmax_global under sync debug
+   mode "error", and times the zoo's variants, and #35 and #36 alone,
+   with the L2 flushed before each call, beside the plain version, the
    library call and the bound;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
@@ -3510,51 +3512,72 @@ def _plain_moe(h, mp, cfg):
 # [zoo]: the op-family zoo through the port's registry. The families of
 # this slice's kernels, timed and held against their plain versions, and
 # the families of earlier slices newly registered (checked only: their
-# kernels are timed in the phases above). Each variant maps to the kernel
-# it launches (None: a torch baseline).
+# kernels are timed in the phases above). Each variant maps to the kernels
+# it launches (none: a torch baseline).
 ZOO_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                 "hardswish", "hardshrink", "reduce", "dot_product", "rope",
-                "rms_norm", "matmul"]
+                "rms_norm", "matmul", "softmax"]
 ZOO_REGISTERED = ["attention", "paged_attention", "quant", "cross_entropy",
                   "sampling", "grouped_matmul", "matmul_w8a16"]
 ZOO_KERNELS = ("ew_call", "reduce_all", "dot_prod", "matmul_naive", "rope",
-               "matmul_kpipe")
-# the variant whose times each zoo kernel's row of the kernels line keeps
+               "matmul_kpipe", "softmax_per_token", "online_softmax_per_token",
+               "softmax_grid_stats", "softmax_grid_norm")
+# the variant (or the call) whose times each zoo kernel's row of the
+# kernels line keeps
 ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
            "reduce_all": "reduce.sum_f32_f32_r256",
            "dot_prod": "dot_product.dot_f32_f32_r64",
            "matmul_naive": "matmul.sgemm_naive_f32", "rope": "rope.rope_f32",
-           "matmul_kpipe": "kpipe torch.float32"}
+           "matmul_kpipe": "kpipe torch.float32",
+           "softmax_per_token": "softmax.softmax_safe_f32_per_token",
+           "online_softmax_per_token": "softmax.softmax_online_f32_per_token",
+           "softmax_grid_stats": "softmax_grid_stats torch.float32",
+           "softmax_grid_norm": "softmax_grid_norm torch.float32"}
 ZOO_TIMING = dict(warmup=2, iters=20, reps=1, flush_l2=True)
 # 4095 x 4097 = 2^24 - 1 elements: a tail past the last whole vector in
-# every tier of #30 (1, 3 and 7 elements) and in #31/#32's 16-byte packs
+# every tier of #30 (1, 3 and 7 elements) and in #31/#32's 16-byte packs;
+# rows of #33-#36 that are no whole 16-byte packs
 ZOO_TAIL = (4095, 4097)
+# the families checked at ZOO_TAIL too: #30-#32's and softmax's
+ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax"]
 # the naive GEMM at 4096^3 takes tens of ms a call
 ZOO_TIMING_NAIVE = dict(warmup=1, iters=3, reps=1, flush_l2=True)
 
 
 def _zoo_fns():
     from tpukern_torch.ops import _ew, dot_product, matmul, reduce, rope
+    from tpukern_torch.ops import softmax as sm
     return {"ew_call": _ew.ew_call, "reduce_all": reduce._reduce_all,
             "dot_prod": dot_product.dot_prod,
             "matmul_naive": matmul.matmul_naive, "rope": rope.rope,
-            "matmul_kpipe": matmul.matmul_kpipe}
+            "matmul_kpipe": matmul.matmul_kpipe,
+            "softmax_per_token": sm.softmax_per_token,
+            "online_softmax_per_token": sm.online_softmax_per_token,
+            "softmax_grid_stats": sm.grid_stats,
+            "softmax_grid_norm": sm.grid_norm}
 
 
-def _zoo_kernel(v):
-    """The kernel (a ZOO_KERNELS name or an earlier slice's) that variant
-    v launches, or None for a torch baseline."""
+def _zoo_kernels(v):
+    """The kernels (ZOO_KERNELS names or an earlier slice's) that variant v
+    launches: none for a torch baseline."""
     if "baseline" in v.tags:
-        return None
+        return ()
     if v.family in ZOO_FAMILIES[:8]:
-        return "ew_call"
+        return ("ew_call",)
     if v.family in ("reduce", "dot_product"):
-        return "reduce_all" if v.family == "reduce" else "dot_prod"
+        return ("reduce_all",) if v.family == "reduce" else ("dot_prod",)
     if v.family == "rope":
-        return "rope_cached" if v.name.endswith("cached") else "rope"
+        return ("rope_cached",) if v.name.endswith("cached") else ("rope",)
     if v.family == "matmul":
-        return "matmul_naive" if "naive" in v.name else "matmul"
-    return v.family
+        return ("matmul_naive",) if "naive" in v.name else ("matmul",)
+    if v.family == "softmax":
+        if v.name.endswith("_global"):
+            return ("reduce_all", "ew_call")
+        if v.name.endswith("_grid"):
+            return ("softmax_grid_stats", "softmax_grid_norm")
+        return (("online_softmax_per_token",) if "_online_" in v.name
+                else ("softmax_per_token",))
+    return (v.family,)
 
 
 def _zoo_library(v, args):
@@ -3584,7 +3607,25 @@ def _zoo_library(v, args):
         return lambda: torch.matmul(*a)
     if fam == "rms_norm":
         return lambda: F.rms_norm(a[0], (a[0].shape[-1],), eps=1e-5)
+    if fam == "softmax" and v.name.endswith("_global"):
+        return lambda: torch.softmax(a[0].reshape(-1), 0)
+    if fam == "softmax":
+        return lambda: torch.softmax(a[0], -1)
     return None
+
+
+def _zoo_grid_calls(gen, size):
+    """#35 and #36 alone at size.S x size.K f32 with their default tiles
+    (64 x 512): [(name, kernel, plain, args, bytes)] for the timing loop.
+    #35 reads x and writes the partials; #36 reads x and the partials and
+    writes y."""
+    from tpukern_torch.ops import softmax as sm
+    x = _randn(gen, size.S, size.K, dtype=torch.float32)
+    m, d = sm.grid_stats(x)
+    return [("softmax_grid_stats", sm.grid_stats, sm.grid_stats_ref, (x,),
+             _nbytes(x, m, d)),
+            ("softmax_grid_norm", sm.grid_norm, sm.grid_norm_ref, (x, m, d),
+             _nbytes(x, m, d, x))]
 
 
 def phase_zoo():
@@ -3592,15 +3633,17 @@ def phase_zoo():
     ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
     4096 x 4096; 16.8 M elements for reduce and dot; 4096^3 for the matmul
     ladder), then matmul_kpipe at 4096^3 in f32 and bf16, with the
-    launch counts of the six zoo kernels set to 0 just before and read
-    just after; holds every variant against its plain version
-    (ops_bench.check), and those of #30-#32 also at ZOO_TAIL, whose
-    element count leaves a tail in every tier; prints every sum's error
-    against the f64 sum; then times each variant
-    of ZOO_FAMILIES with the
-    L2 flushed before every call beside its plain version, its library
-    call and its bound. Returns ({kernel: dict(max_abs_err, ms, ...)},
-    {kernel: launches}, all-ok)."""
+    launch counts of the zoo kernels set to 0 just before and read just
+    after; holds every variant against its plain version
+    (ops_bench.check), those of ZOO_TAILED also at ZOO_TAIL, whose element
+    count leaves a tail in every tier, and the softmax variants also at
+    the sampling logits' 64 x 131072 (rows wider than #33's shared
+    memory); runs softmax_global once under sync debug mode "error" (a
+    host read of its max or sum fails the run); prints every sum's error
+    against the f64 sum; then times each variant of ZOO_FAMILIES, and #35
+    and #36 alone, with the L2 flushed before every call beside its plain
+    version, its library call and its bound. Returns ({kernel:
+    dict(max_abs_err, ms, ...)}, {kernel: launches}, all-ok)."""
     from functools import partial
 
     from tpukern_torch.core import registry
@@ -3620,15 +3663,18 @@ def phase_zoo():
         for name, v in sorted(registry.variants(fam).items()):
             args = ops_bench.inputs(fam, name, size, gen)
             ok, err, rule = ops_bench.check(v, args)
-            kernel = _zoo_kernel(v)
+            kernels = _zoo_kernels(v)
             shape = [list(t.shape) for t in args]
             print(f"[zoo] {fam + '.' + name:40s} {str(shape)[:40]:40s} "
                   f"max_abs {err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
             checks.ok &= ok
-            if kernel in fns:
-                checks.record(kernel, ok, err)
+            for k in kernels:
+                if k in fns:
+                    checks.record(k, ok, err)
             if fam in ZOO_FAMILIES:
-                timed.append((fam, v, args, kernel))
+                timed.append((f"{fam}.{v.name}", kernels, partial(v.fn, *args),
+                              partial(v.ref, *args), _zoo_library(v, args),
+                              partial(ops_bench.work, v, args)))
             else:
                 del args
     for dt in (torch.float32, torch.bfloat16):
@@ -3638,43 +3684,79 @@ def phase_zoo():
         ok, err = _compare("matmul_kpipe", f"{size.S}x{size.K}x{size.S} "
                            f"{dt}", out, matmul.matmul_ref(a, b).to(dt))
         checks.record("matmul_kpipe", ok, err)
-        timed.append(("matmul_kpipe", None, (a, b), "matmul_kpipe"))
+        timed.append((f"kpipe {dt}", ("matmul_kpipe",),
+                      partial(matmul.matmul_kpipe, a, b),
+                      partial(matmul.matmul_ref, a, b),
+                      partial(torch.matmul, a, b),
+                      lambda _, a=a, b=b: (
+                          2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype,
+                          _nbytes(a, b) + a.shape[0] * b.shape[1]
+                          * a.element_size())))
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in fns.items()}
     print(f"[zoo] launches in the walk: {launches}")
     for n in ZOO_KERNELS:
         require(launches[n] > 0, f"[zoo] {n} was never launched")
-    tail = ops_bench.Size(*ZOO_TAIL)
-    for fam in ZOO_FAMILIES[:10]:
+    wide = ops_bench.Size(*size.sampling)
+    for fam in ZOO_TAILED:
         for name, v in sorted(registry.variants(fam).items()):
-            ok, err, rule = ops_bench.check(
-                v, ops_bench.inputs(fam, name, tail, gen))
-            print(f"[zoo] tail {fam + '.' + name:35s} {ZOO_TAIL} max_abs "
-                  f"{err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
-            checks.record(_zoo_kernel(v), ok, err)
-    # every sum against the f64 sum (a record: the bf16 accumulator's
-    # error is held to its plain version above)
+            for sz in (ops_bench.Size(*ZOO_TAIL),) + (
+                    (wide,) if fam == "softmax" else ()):
+                ok, err, rule = ops_bench.check(
+                    v, ops_bench.inputs(fam, name, sz, gen))
+                print(f"[zoo] {'tail' if sz.S == ZOO_TAIL[0] else 'wide'} "
+                      f"{fam + '.' + name:35s} {(sz.S, sz.K)} max_abs "
+                      f"{err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
+                checks.ok &= ok
+                for k in _zoo_kernels(v):
+                    checks.record(k, ok, err)
+    # softmax_global keeps its max and sum on the card: any host read of
+    # them raises here
+    v = registry.get("softmax", "softmax_f32_global")
+    x = ops_bench.inputs("softmax", v.name, size, gen)[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = v.fn(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ok, err, rule = ops_bench.softmax_check(out, v.ref(x), torch.float32,
+                                            whole=True)
+    print(f"[zoo] softmax_global with no host sync: max_abs {err:.3e} "
+          f"({rule}) {'ok' if ok else 'MISS'}")
+    for k in _zoo_kernels(v):
+        checks.record(k, ok, err)
+    # every sum against the f64 sum (a record: the bf16 accumulator is
+    # held above to its plain version in the kernel's order)
     for name, v in sorted(registry.variants("reduce").items()):
         if name.startswith("sum"):
             x = ops_bench.inputs("reduce", name, size, gen)[0]
             f64 = x.double().sum().item()
             print(f"[zoo] reduce.{name:33s} against the f64 sum {f64:.1f}: "
                   f"error {abs(v.fn(x).double().item() - f64):.3e}")
+    # #35 and #36 alone, each against its plain version, for their rows
+    for name, kern, plain, args, nbytes in _zoo_grid_calls(gen, size):
+        out, ref = kern(*args), plain(*args)
+        if isinstance(out, tuple):  # #35's partials m and d (d >= 1)
+            for o, r in zip(out, ref):
+                ok, err = _compare(name, f"{size.S}x{size.K} f32", o, r,
+                                   tol=ops_bench.TOLS[torch.float32])
+                checks.record(name, ok, err)
+        else:
+            ok, err, rule = ops_bench.softmax_check(out, ref, torch.float32)
+            print(f"[zoo] {name} {size.S}x{size.K} f32 max_abs {err:.3e} "
+                  f"({rule}) {'ok' if ok else 'MISS'}")
+            checks.record(name, ok, err)
+        timed.append((f"{name} {args[0].dtype}", (name,), partial(kern, *args),
+                      partial(plain, *args), None,
+                      lambda _, n=nbytes: (0, torch.float32, n)))
 
     results = checks.results
-    for fam, v, args, kernel in timed:
-        if v is None:  # matmul_kpipe
-            a, b = args
-            kern, plain = (partial(matmul.matmul_kpipe, a, b),
-                           partial(matmul.matmul_ref, a, b))
-            lib, name = partial(torch.matmul, a, b), f"kpipe {a.dtype}"
-            flops, dt = 2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype
-            nbytes = _nbytes(a, b) + a.shape[0] * b.shape[1] * a.element_size()
-        else:
-            kern, plain = partial(v.fn, *args), partial(v.ref, *args)
-            lib, name = _zoo_library(v, args), f"{fam}.{v.name}"
-            flops, dt, nbytes = ops_bench.work(v, args, kern())
-        kw = ZOO_TIMING_NAIVE if kernel == "matmul_naive" else ZOO_TIMING
+    for name, kernels, kern, plain, lib, work in timed:
+        # work(out): (operations, their dtype, bytes) of the bound
+        flops, dt, nbytes = work(kern())
+        kw = (ZOO_TIMING_NAIVE if kernels == ("matmul_naive",)
+              else ZOO_TIMING)
         ms = run_benchmark(kern, **kw)
         plain_ms = run_benchmark(plain, **kw)
         lib_ms = None if lib is None else run_benchmark(lib, **kw)
@@ -3686,11 +3768,15 @@ def phase_zoo():
               f"{rate:.1f} GB/s"
               + (f", {flops / ms / 1e9:.2f} TFLOP/s" if flops else "")
               + " (L2 flushed)")
-        if ZOO_ROW.get(kernel) == name:
-            results[kernel].update(
-                shape=[list(t.shape) for t in args], ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by, variant=name)
+        for k in kernels:
+            if ZOO_ROW.get(k) == name:
+                results[k].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound, bound_by=by, variant=name)
+        if name == "softmax.softmax_online_f32_grid":
+            # the variant's two kernels together, beside torch.softmax
+            for k in kernels:
+                results[k].update(variant_ms=ms, variant_library_ms=lib_ms)
     return results, launches, checks.ok
 
 
@@ -3890,7 +3976,15 @@ def main():
                             "tpukern/ops/matmul.py:384"),
            "rope": ("tpukern_torch/csrc/rope.cu", "tpukern/ops/rope.py:38"),
            "matmul_kpipe": ("tpukern_torch/csrc/matmul.cu",
-                            "tpukern/ops/matmul.py:311")}
+                            "tpukern/ops/matmul.py:311"),
+           "softmax_per_token": ("tpukern_torch/csrc/softmax.cu",
+                                 "tpukern/ops/softmax.py:49"),
+           "online_softmax_per_token": ("tpukern_torch/csrc/softmax.cu",
+                                        "tpukern/ops/softmax.py:85"),
+           "softmax_grid_stats": ("tpukern_torch/csrc/softmax.cu",
+                                  "tpukern/ops/softmax.py:134"),
+           "softmax_grid_norm": ("tpukern_torch/csrc/softmax.cu",
+                                 "tpukern/ops/softmax.py:172")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -3933,7 +4027,14 @@ def main():
                       "fp8 inputs)",
         "dot_prod": "torch.dot",
         "matmul_naive": "torch.matmul (cuBLAS, input dtype)",
-        "matmul_kpipe": "torch.matmul (cuBLAS, input dtype)"}
+        "matmul_kpipe": "torch.matmul (cuBLAS, input dtype)",
+        "softmax_per_token": "torch.softmax(x, -1)",
+        "online_softmax_per_token": "torch.softmax(x, -1)",
+        "softmax_grid_stats": "none for the kernel alone (no PyTorch call "
+                              "gives per-tile partials); the variant "
+                              "(#35 + #36) beside torch.softmax(x, -1): "
+                              "variant_ms, variant_library_ms",
+        "softmax_grid_norm": "as softmax_grid_stats"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -3956,7 +4057,8 @@ def main():
     # the zoo's rows: the variant each row's times are of; rope and
     # matmul_kpipe launch the kernels of rope_batched and matmul
     for n in ZOO_KERNELS:
-        modes[n] = {"variant": timing[n]["variant"]}
+        modes[n] = {k: timing[n][k] for k in (
+            "variant", "variant_ms", "variant_library_ms") if k in timing[n]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

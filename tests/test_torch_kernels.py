@@ -21,7 +21,7 @@ from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
 from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
                                dot_product, matmul, paged_attention, reduce,
-                               rmsnorm, rope)
+                               rmsnorm, rope, softmax)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -1207,6 +1207,14 @@ def _zoo_close(out, ref, dtype, name):
                     name=name)
 
 
+def _sm_close(out, ref, dtype, name, whole=False):
+    """A softmax by ops_bench.softmax_check: TOLS[dtype] with atol scaled
+    by each row's largest |ref|, and rows summing to 1."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape, name
+    ok, err, rule = ops_bench.softmax_check(out, ref, dtype, whole)
+    assert ok, f"{name}: max_abs {err:.3e} ({rule})"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", EW_SHAPES, ids=str)
 @pytest.mark.parametrize("tier", [t[0] for t in _ew.EW_TIERS])
@@ -1261,8 +1269,9 @@ def _exact(shape, dt, g):
 def test_reduce_kernel_matches_plain(cuda, row, shape):
     """Every row of the sum and max matrices: a 0-d result in the
     accumulator's dtype, equal to the plain version (exact sums), or for
-    the bf16 accumulator within ops_bench.BF16_SUM_REL; the same result
-    twice (bit for bit); no host sync."""
+    the bf16 accumulator to its plain version in the kernel's order
+    (reduce.sum_bf16_in_order); the same result twice (bit for bit); no
+    host sync."""
     sfx, in_dt, acc = row
     mode = "max" if sfx.startswith("max_") else "sum"
     x = _exact(shape, in_dt, torch.Generator(device=cuda).manual_seed(5))
@@ -1282,9 +1291,25 @@ def test_reduce_kernel_matches_plain(cuda, row, shape):
     assert torch.equal(out, again)
     err = abs(out.double().item() - ref.double().item())
     if mode == "sum" and acc == torch.bfloat16:
-        assert err <= ops_bench.BF16_SUM_REL * max(abs(ref.item()), 100.0)
+        assert torch.equal(out, reduce.sum_bf16_in_order(x))
     else:
         assert err == 0, (sfx, out.item(), ref.item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5), (300, 200), (4096, 4097)],
+                         ids=str)
+def test_reduce_bf16_accumulator_in_kernel_order(cuda, shape):
+    """Normal values, whose bf16 running sums round at almost every add:
+    the kernel equals its plain version in the kernel's order bit for
+    bit, also on a view 2 elements off a 16-byte boundary."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n = shape[0] * shape[1]
+    flat = (3 * torch.randn(n + 2, generator=g, device=cuda)).to(
+        torch.bfloat16)
+    for x in (flat[:n].reshape(shape), flat[2:].reshape(shape)):
+        assert torch.equal(reduce.sum_all(x, acc_dtype=torch.bfloat16),
+                           reduce.sum_bf16_in_order(x))
 
 
 @pytest.mark.cuda
@@ -1388,3 +1413,96 @@ def test_rms_norm_options_match_plain(cuda, dt, acc):
         out = rmsnorm.rms_norm(x, gain, acc_dtype=acc)
         _zoo_close(out, rmsnorm.rms_norm_ref(x, gain, acc_dtype=acc), dt,
                    "rms_norm")
+
+
+# ------------------------------------------------------------ softmax:
+# #33 (softmax_per_token), #34 (online_softmax_per_token), #35/#36
+# (grid_stats, grid_norm) against their plain versions in f32, bf16 and
+# f16: rows of one warp ((100, 130), (3, 1), (33, 1024)) and of one block
+# ((1, 4097), (5, 4096)), and rows wider than #33's shared-memory budget
+# ((2, 70000) in f32; (4, 262144) in every dtype); each call twice, bit
+# for bit
+SM_SHAPES = [(100, 130), (3, 1), (33, 1024), (1, 4097), (5, 4096),
+             (2, 70000), (4, 262144)]
+SM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _sm_input(shape, dt, dev):
+    g = torch.Generator(device=dev).manual_seed(shape[0] * 7 + shape[1])
+    return (3 * torch.randn(shape, generator=g, device=dev)).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+@pytest.mark.parametrize("fn", ["softmax_per_token",
+                                "online_softmax_per_token"])
+def test_softmax_per_token_matches_plain(cuda, fn, dt, shape):
+    f = getattr(softmax, fn)
+    x = _sm_input(shape, dt, cuda)
+    before = f.launches
+    out, again = f(x), f(x)
+    torch.cuda.synchronize()
+    assert f.launches == before + 2
+    _sm_close(out, softmax.softmax_ref(x), dt, fn)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_cols", [128, 512, 4096])
+@pytest.mark.parametrize("shape", SM_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+def test_softmax_grid_matches_plain(cuda, dt, shape, block_cols):
+    """#35's partials (m exactly: a max; d within f32's tolerance), #36 on
+    the kernel's partials, and online_softmax_grid against softmax_ref."""
+    x = _sm_input(shape, dt, cuda)
+    s0, n0 = softmax.grid_stats.launches, softmax.grid_norm.launches
+    m, d = softmax.grid_stats(x, 64, block_cols)
+    m_ref, d_ref = softmax.grid_stats_ref(x, block_cols)
+    assert torch.equal(m, m_ref)
+    _zoo_close(d, d_ref, torch.float32, "grid_stats d")
+    y = softmax.grid_norm(x, m, d, 64, block_cols)
+    _sm_close(y, softmax.grid_norm_ref(x, m, d), dt, "grid_norm")
+    out = softmax.online_softmax_grid(x, 64, block_cols)
+    torch.cuda.synchronize()
+    assert (softmax.grid_stats.launches, softmax.grid_norm.launches) == (
+        s0 + 2, n0 + 2)
+    assert torch.equal(out, y)
+    _sm_close(out, softmax.softmax_ref(x), dt, "online_softmax_grid")
+
+
+@pytest.mark.cuda
+def test_softmax_views_and_errors(cuda):
+    """A view off a 16-byte boundary and a column slice (copied before the
+    16-byte loads); the shapes and dtypes the kernels refuse."""
+    x = _sm_input((64, 513), torch.float32, cuda)
+    for v in (x[:, 1:], x.reshape(-1)[1:1 + 63 * 512].reshape(63, 512)):
+        for fn in (softmax.softmax_per_token,
+                   softmax.online_softmax_per_token,
+                   softmax.online_softmax_grid):
+            _sm_close(fn(v), softmax.softmax_ref(v), torch.float32,
+                      fn.__name__)
+    with pytest.raises(ValueError, match="2-D"):
+        softmax.softmax_per_token(x.reshape(-1))
+    with pytest.raises(TypeError):
+        softmax.online_softmax_per_token(x.to(torch.float8_e4m3fn))
+    with pytest.raises(ValueError, match="partials"):
+        softmax.grid_norm(x, *softmax.grid_stats(x, 64, 512), 64, 128)
+
+
+@pytest.mark.cuda
+def test_softmax_global_launches_31_and_30_twice_without_sync(cuda):
+    x = _sm_input((63, 130), torch.float32, cuda)
+    r0, e0 = reduce._reduce_all.launches, _ew.ew_call.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = softmax.softmax_global(x)
+        again = softmax.softmax_global(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (reduce._reduce_all.launches, _ew.ew_call.launches) == (r0 + 4,
+                                                                   e0 + 4)
+    _sm_close(out, softmax.softmax_global_ref(x), torch.float32,
+              "softmax_global", whole=True)
+    assert torch.equal(out, again)

@@ -7,7 +7,11 @@ every dtype. Their sums are exact in f32 too, so every f32-accumulated
 variant equals JAX's and f64's; the int32 ones are exact by type; the
 bf16 accumulator (each add rounded to bf16 on the card; one f32 sum
 rounded once in the plain version) is held to JAX and to f64 by _REL.
+`reduce.sum_bf16_in_order`, the card's bf16 accumulator in the kernel's
+own order, is held to a scalar walk of csrc/reduce.cu's threads.
 """
+
+import struct
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +54,63 @@ def test_sum_variant_matches_jax_and_f64(sfx):
         assert abs(got - ref) <= max(abs(ref) * rel, rel * 100)
     if acc != torch.bfloat16:  # exact sums: equal to JAX's
         assert _f64(port) == _f64(jax_out)
+
+
+def _bf16(v):
+    """v rounded to f32, then to bf16 by round half to even: the kernel's
+    round_bf16 of an f32 sum."""
+    u = struct.unpack("<I", struct.pack("<f", v))[0]
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", u))[0]
+
+
+def _in_order_scalar(vals, vec):
+    """csrc/reduce.cu's bf16-accumulator sum of vals (bf16 values), one
+    thread at a time: G blocks of 256 threads, thread t's packs of vec
+    elements t, t + 256 G, ..., then the tail element at t; each block's
+    warp trees; pass 2's folds of the G partials and its tree."""
+    n, nvec = len(vals), len(vals) // vec
+    g = min(max(-(-n // (256 * vec * 8)), 1), 1024)
+
+    def warp(lanes):
+        for o in (16, 8, 4, 2, 1):
+            lanes = [_bf16(lanes[i] + lanes[i ^ o]) for i in range(32)]
+        return lanes[0]
+
+    def block(v):
+        return warp([warp(v[32 * k:32 * k + 32]) for k in range(8)]
+                    + [0.0] * 24)
+
+    acc = []
+    for t in range(256 * g):
+        a = 0.0
+        for i in range(t, nvec, 256 * g):
+            for j in range(vec):
+                a = _bf16(a + vals[i * vec + j])
+        if nvec * vec + t < n:
+            a = _bf16(a + vals[nvec * vec + t])
+        acc.append(a)
+    part = [block(acc[256 * b:256 * b + 256]) for b in range(g)]
+    folds = []
+    for t in range(256):
+        a = 0.0
+        for i in range(t, g, 256):
+            a = _bf16(a + part[i])
+        folds.append(a)
+    return block(folds)
+
+
+# n: one block (a tail of 3 elements), and 4 blocks with threads of
+# unequal shares and a tail; bf16 inputs (8 a pack) and f32 ones (4)
+@pytest.mark.parametrize("n", [1, 4099, 49157])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=str)
+def test_sum_bf16_in_order_matches_scalar_walk(dt, n):
+    x = torch.from_numpy(3 * np.random.default_rng(n).standard_normal(
+        n).astype(np.float32)).to(dt)
+    vals = x.float().to(torch.bfloat16).float().tolist()
+    out = reduce.sum_bf16_in_order(x)
+    assert out.shape == () and out.dtype == torch.bfloat16
+    assert out.item() == _in_order_scalar(vals, 16 // x.element_size())
 
 
 @pytest.mark.parametrize("sfx", MAXES)

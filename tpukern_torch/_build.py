@@ -126,6 +126,13 @@ SIGNATURES = {
     "tk_reduce": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # a, b, c, M, N, K, dtype, stream
     "tk_matmul_naive": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, y, rows, cols, mode (0 safe, 1 online), dtype, stream
+    "tk_softmax": [_P, _P, _I64, _I64, _I, _I, _P],
+    # x, m, d (f32, rows x ncb), rows, cols, block_rows, block_cols, ncb,
+    # dtype, stream
+    "tk_softmax_grid_stats": [_P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    # x, m, d, y, rows, cols, block_rows, block_cols, ncb, dtype, stream
+    "tk_softmax_grid_norm": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
 }
 
 

@@ -66,12 +66,6 @@ _FA = "ROADMAP.md queue 1 item 5 (flash_attention, the rest)"
 
 # (family, name) -> why the JAX variant has no port variant yet
 PENDING: dict[tuple[str, str], str] = {
-    **{("softmax", f"softmax_{s}"): f"{_ZOO}: softmax, kernels #33-#36"
-       for s in ("safe_f32_per_token", "safe_f32_r64_per_token",
-                 "safe_bf16_per_token", "safe_bf16_r128_per_token",
-                 "safe_f16_f32_per_token", "online_f32_per_token",
-                 "online_bf16_per_token", "online_f32_grid",
-                 "online_bf16_grid", "f32_global")},
     **{("layer_norm", f"layer_norm_{s}"): f"{_ZOO}: layer_norm, kernel #37"
        for s in ("f32_r8", "f32_r64", "bf16_bf16_r16", "bf16_f32_r16",
                  "bf16_f32_r128", "f16_f16_r16", "f16_f32_r16",

@@ -216,4 +216,26 @@ int tk_matmul_naive(const void* a, const void* b, void* c, int M, int N, int K,
                                          static_cast<cudaStream_t>(stream)));
 }
 
+int tk_softmax(const void* x, void* y, int64_t rows, int64_t cols, int mode,
+               int dtype, void* stream) {
+  return checked(tk::softmax_launch(x, y, rows, cols, mode, dtype,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+int tk_softmax_grid_stats(const void* x, float* pm, float* pd, int64_t rows,
+                          int64_t cols, int br, int bc, int ncb, int dtype,
+                          void* stream) {
+  return checked(tk::softmax_grid_stats_launch(
+      x, pm, pd, rows, cols, br, bc, ncb, dtype,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_softmax_grid_norm(const void* x, const float* pm, const float* pd,
+                         void* y, int64_t rows, int64_t cols, int br, int bc,
+                         int ncb, int dtype, void* stream) {
+  return checked(tk::softmax_grid_norm_launch(
+      x, pm, pd, y, rows, cols, br, bc, ncb, dtype,
+      static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

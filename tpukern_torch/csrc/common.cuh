@@ -574,5 +574,16 @@ cudaError_t matmul_naive_launch(const void* a, const void* b, void* c, int M,
 cudaError_t sample_threshold_launch(const float* x, float* thr, int B, int V,
                                     int mode, int kk, float pp,
                                     float inv_temp, cudaStream_t stream);
+// mode 0: safe softmax (#33), 1: online (#34)
+cudaError_t softmax_launch(const void* x, void* y, int64_t rows, int64_t cols,
+                           int mode, int dtype, cudaStream_t stream);
+cudaError_t softmax_grid_stats_launch(const void* x, float* pm, float* pd,
+                                      int64_t rows, int64_t cols, int br,
+                                      int bc, int ncb, int dtype,
+                                      cudaStream_t stream);
+cudaError_t softmax_grid_norm_launch(const void* x, const float* pm,
+                                     const float* pd, void* y, int64_t rows,
+                                     int64_t cols, int br, int bc, int ncb,
+                                     int dtype, cudaStream_t stream);
 
 }  // namespace tk

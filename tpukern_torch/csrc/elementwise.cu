@@ -2,14 +2,17 @@
 // element computed in f32 and rounded once to the storage dtype.
 //
 // Replaces tpukern/ops/_ew.py:57 `kernel` (ew_call): one template for the
-// nine ops of the elementwise and activation families, taken from a fixed
-// table (EwOp, the order of tpukern_torch/ops/_ew.py OPS) instead of a
-// traced closure. The formulas are tpukern/ops/activations.py:23-57's:
-// elu is exp(x) - 1 (not expm1), gelu the tanh form, hardshrink at 0.5,
-// all in f32 with the accurate expf/tanhf (this file is built without
-// --use_fast_math). For add, mul and relu the f32 result rounded once is
-// the correctly rounded bf16 result, so the bf16 tiers equal JAX's bf16
-// arithmetic bit for bit; the transcendental ops may differ by an ulp.
+// nine ops of the elementwise and activation families and the two steps
+// of softmax_global, taken from a fixed table (EwOp, the order of
+// tpukern_torch/ops/_ew.py OPS) instead of a traced closure. The formulas
+// are tpukern/ops/activations.py:23-57's: elu is exp(x) - 1 (not expm1),
+// gelu the tanh form, hardshrink at 0.5; and tpukern/ops/softmax.py:201,
+// 205's: exp_sub is exp(a - s), div the true division a / s (never a
+// multiply by 1 / s); all in f32 with the accurate expf/tanhf (this file
+// is built without --use_fast_math). For add, mul and relu the f32 result
+// rounded once is the correctly rounded bf16 result, so the bf16 tiers
+// equal JAX's bf16 arithmetic bit for bit; the transcendental ops may
+// differ by an ulp.
 //
 // A binary op's second operand is an array x1 of x0's shape, or one f32
 // scalar s read from device memory by every thread (the traced scalars of
@@ -31,7 +34,7 @@ namespace tk {
 namespace {
 
 enum EwOp { kAdd = 0, kMul, kRelu, kElu, kGelu, kSigmoid, kSwish, kHardswish,
-            kHardshrink, kNumOps };
+            kHardshrink, kExpSub, kDiv, kNumOps };
 
 constexpr int EW_THREADS = 256;
 // sqrt(2 / pi) rounded to f32, as JAX's weak-typed Python float is
@@ -55,11 +58,13 @@ __device__ __forceinline__ float ew_apply(float a, float b) {
   if constexpr (OP == kSwish) return a * sigmoid(a);
   if constexpr (OP == kHardswish) return a * fminf(fmaxf(a + 3.f, 0.f), 6.f) / 6.f;
   if constexpr (OP == kHardshrink) return (a > 0.5f || a < -0.5f) ? a : 0.f;
+  if constexpr (OP == kExpSub) return expf(a - b);
+  if constexpr (OP == kDiv) return __fdiv_rn(a, b);
   return 0.f;
 }
 
 __host__ __device__ constexpr bool binary(int op) {
-  return op == kAdd || op == kMul;
+  return op == kAdd || op == kMul || op == kExpSub || op == kDiv;
 }
 
 template <typename T, int VEC, int OP>
@@ -107,6 +112,8 @@ void dispatch_op(int op, const void* x0, const void* x1, const float* s,
     case kSigmoid: go<T, VEC, kSigmoid>(x0, x1, s, y, n, blocks, stream); break;
     case kSwish: go<T, VEC, kSwish>(x0, x1, s, y, n, blocks, stream); break;
     case kHardswish: go<T, VEC, kHardswish>(x0, x1, s, y, n, blocks, stream); break;
+    case kExpSub: go<T, VEC, kExpSub>(x0, x1, s, y, n, blocks, stream); break;
+    case kDiv: go<T, VEC, kDiv>(x0, x1, s, y, n, blocks, stream); break;
     default: go<T, VEC, kHardshrink>(x0, x1, s, y, n, blocks, stream); break;
   }
 }

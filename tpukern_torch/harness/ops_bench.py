@@ -30,11 +30,13 @@ import torch
 import tpukern_torch.ops  # noqa: F401  (fills the registry)
 from tpukern_torch.core import registry
 from tpukern_torch.harness.bench import run_benchmark
+from tpukern_torch.ops import reduce
 
 EW_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                "hardswish", "hardshrink"]
 # bench/ops.py's order, then the families it leaves to other scripts;
-# softmax ... nms have no port variant yet (core.registry.PENDING)
+# layer_norm, transpose, embedding, histogram, gemv and nms have no port
+# variant yet (core.registry.PENDING)
 FAMILIES = EW_FAMILIES + [
     "softmax", "layer_norm", "rms_norm", "rope", "reduce", "dot_product",
     "transpose", "embedding", "histogram", "gemv", "nms", "cross_entropy",
@@ -53,11 +55,22 @@ PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
         torch.float16: (2e-3, 2e-3), torch.float8_e4m3fn: (1.5e-1, 1.5e-1),
         torch.float8_e5m2: (3e-1, 3e-1)}
-# the bf16-accumulator sum: every add rounds to bf16, in another order on
-# the card than in the plain version (one f32 sum rounded once), so it is
-# held as tests/test_reduce.py holds JAX's: |out - ref| <= max(rel |ref|,
-# 100 rel)
-BF16_SUM_REL = 3e-2
+# softmax outputs are probabilities, most of them far below TOLS's atol
+# (a 4096-wide row's are about 2e-4, the global softmax's of 4096^2 about
+# 6e-8): their atol is scaled by each row's largest |ref| (the whole
+# array's for the global softmax), and each row must sum to 1 within the
+# rounding of its outputs to their dtype (at most UNIT_ROUNDOFF |y| an
+# element, or HALF_SUBNORMAL, half the subnormal step, where y is below
+# the normal range: most of an f16 row of 262144 outputs is) plus
+# SOFTMAX_SUM_F32 for the f32 statistics: the kernels' longest chain of
+# roundings in a row's denominator (about 350 at 262144 columns: 64
+# packs a thread, then the trees) is about 2e-5 at worst and about 1e-6
+# as a random walk
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
+                 torch.float16: 2.0 ** -11}
+HALF_SUBNORMAL = {torch.float32: 2.0 ** -150, torch.bfloat16: 2.0 ** -134,
+                  torch.float16: 2.0 ** -25}
+SOFTMAX_SUM_F32 = 2e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +107,10 @@ def _in_dtype(family, name):
     tokens = name.split("_")
     if family in head:
         return _DTYPES[tokens[head[family]]]
-    return torch.bfloat16 if "bf16" in tokens else torch.float32
+    # bench/ops.py:48-49: bf16, else f16 (softmax_safe_f16_f32_per_token),
+    # else f32
+    return (torch.bfloat16 if "bf16" in tokens else
+            torch.float16 if "f16" in tokens else torch.float32)
 
 
 def inputs(family, name, size, gen):
@@ -115,7 +131,8 @@ def inputs(family, name, size, gen):
     if family in EW_FAMILIES:
         n = 2 if family == "elementwise" else 1
         return tuple(randn(S, K, dtype=dt) for _ in range(n))
-    if family in ("rms_norm", "rope"):
+    if family in ("softmax", "rms_norm", "rope"):
+        # softmax: bench/ops.py:46's standard normal
         return (randn(S, K, dtype=dt),)
     if family in ("reduce", "dot_product"):
         # bench/ops.py's values, exact in every dtype: -1, -0.5, 0, 0.5, 1
@@ -171,10 +188,35 @@ def _tol_dtype(v, args, out):
     return max(cands, key=lambda d: TOLS[d][0])
 
 
+def softmax_check(out, ref, dtype, whole=False):
+    """A softmax's out against ref: (ok, largest |difference|, the rule).
+    Elementwise within TOLS[dtype] with atol scaled by each row's largest
+    |ref| (whole: the array is one row), and every row's sum within
+    UNIT_ROUNDOFF + columns x HALF_SUBNORMAL of out's dtype, plus
+    SOFTMAX_SUM_F32, of 1."""
+    rtol, atol = TOLS[dtype]
+    o, r = out.double(), ref.double()
+    if whole:
+        o, r = o.reshape(1, -1), r.reshape(1, -1)
+    d = (o - r).abs()
+    scale = r.abs().amax(-1, keepdim=True)
+    miss = (o.sum(-1) - 1).abs()
+    lim = (UNIT_ROUNDOFF[out.dtype] + o.shape[-1] * HALF_SUBNORMAL[out.dtype]
+           + SOFTMAX_SUM_F32)
+    ok = bool(torch.isfinite(o).all()
+              and (d <= atol * scale + rtol * r.abs()).all()
+              and (miss <= lim).all())
+    return (ok, d.max().item() if d.numel() else 0.0,
+            f"rtol {rtol:g} atol {atol:g} x row max; rows sum to 1 within "
+            f"{lim:.3g}, worst {miss.max().item():.2e}")
+
+
 def check(v, args):
     """v.fn(*args) against v.ref(*args): (ok, largest |difference|, the
-    rule). Integers equal (a stochastic rounding: within one step);
-    the bf16-accumulator sum by BF16_SUM_REL; floats within TOLS."""
+    rule). Integers equal (a stochastic rounding: within one step); the
+    bf16-accumulator sum on the card equal to its plain version in the
+    kernel's order (reduce.sum_bf16_in_order); softmax by
+    softmax_check; floats within TOLS."""
     out, ref = v.fn(*args), v.ref(*args)
     pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
     ok, worst, rules = True, 0.0, []
@@ -190,9 +232,18 @@ def check(v, args):
             ok &= err <= lim
         elif v.family == "reduce" and o.dtype == torch.bfloat16 \
                 and v.name.startswith("sum"):
-            lim = BF16_SUM_REL * max(abs(r.double().item()), 100.0)
-            rules.append(f"bf16 sum within {lim:.3g}")
-            ok &= err <= lim
+            # each add rounds to bf16, so the result is the kernel's order's;
+            # a CPU tensor takes the plain version, ref itself
+            want = (reduce.sum_bf16_in_order(args[0].to(
+                _in_dtype(v.family, v.name))) if o.is_cuda else r)
+            err = (o.double() - want.double()).abs().item()
+            rules.append("bf16 sum equal to the kernel's order")
+            ok &= bool(torch.equal(o, want))
+        elif v.family == "softmax":
+            good, err, rule = softmax_check(
+                o, r, _tol_dtype(v, args, o), whole=v.name.endswith("global"))
+            rules.append(rule)
+            ok &= good
         else:
             rtol, atol = TOLS[_tol_dtype(v, args, o)]
             rules.append(f"rtol {rtol:g} atol {atol:g}")

@@ -8,6 +8,7 @@ from tpukern_torch.ops import (  # noqa: F401
     activations,
     reduce,
     dot_product,
+    softmax,
     rmsnorm,
     rope,
     matmul,

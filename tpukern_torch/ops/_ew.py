@@ -4,7 +4,8 @@
 same-shape arrays and at most one scalar. Kernel: csrc/elementwise.cu,
 which replaces the Pallas `kernel` of ew_call (_ew.py:57). Each op
 computes in f32 by the JAX kernels' formulas (activations.py:23-57: elu
-is exp(x) - 1, gelu the tanh form, hardshrink at 0.5) and rounds once
+is exp(x) - 1, gelu the tanh form, hardshrink at 0.5; softmax.py:201,
+205: exp_sub is exp(a - s), div the true division a / s) and rounds once
 to the inputs' dtype. A scalar operand may be a CUDA tensor: the kernel
 reads it from device memory, so a traced value (softmax_global's max
 and sum) is never read back on the host.
@@ -53,6 +54,11 @@ OPS = {
     "hardswish": (7, 1, lambda a: a * torch.clamp(a + 3.0, 0.0, 6.0) / 6.0),
     "hardshrink": (8, 1, lambda a: torch.where((a > 0.5) | (a < -0.5), a,
                                                0.0)),
+    # softmax_global's two steps (tpukern/ops/softmax.py:201, 205); a true
+    # division: a tensor divisor (a CPU one too) is never turned into a
+    # multiply by its reciprocal
+    "exp_sub": (9, 2, lambda a, s: torch.exp(a - s)),
+    "div": (10, 2, lambda a, s: a / s),
 }
 
 # (suffix, dtype, elements a thread loads and stores) — the 6-tier ladder

@@ -3,8 +3,8 @@
 Kernel: #32, the dot mode of csrc/reduce.cu, which replaces the Pallas
 `kernel` of dot_prod (dot_product.py:27): per-block partials, then one
 block, in a fixed order. The result is a 0-d f32 tensor on the inputs'
-device. f16 inputs are storage-only, as in JAX: products and sums in
-f32. The _r suffixes are the TPU's block heights; on Hopper they are
+device. f16 inputs are storage-only (core/config.py): products and sums
+in f32. The _r suffixes are the TPU's block heights; on Hopper they are
 aliases of one kernel instance.
 """
 

@@ -3,9 +3,10 @@
 The port of tpukern/ops/rmsnorm.py. Kernel: csrc/rmsnorm.cu, which
 replaces the Pallas `kernel` of rms_norm (rmsnorm.py:34), with its
 options: g a vector or a scalar, the accumulator dtype (bf16 rounds the
-row's mean square through bf16, rmsnorm.py:44-46; f16 is storage-only
-and sums in f32), and f16 rows, storage-only too. The TPU block heights
-of the registry's names (_r8 ... _r512) are aliases of one kernel.
+row's mean square through bf16, rmsnorm.py:44-46; an f16 one sums in
+f32), and f16 rows, both by core/config.py's storage-only policy. The
+TPU block heights of the registry's names (_r8 ... _r512) are aliases of
+one kernel.
 """
 
 import torch
