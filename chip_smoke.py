@@ -41,11 +41,14 @@
    cases, timed at the first two (bf16 beside torch._grouped_mm);
    [zoo]: walks the port's variant registry at bench/ops.py's shapes
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
-   reduce and dot, 4096^3 for the matmul ladder) and matmul_kpipe, with
-   the ten zoo kernels' launch counts reset just before and read just
-   after; holds every variant against its plain version (#30-#36 also at
-   4095 x 4097, a tail in every tier; the softmax variants also at the
-   sampling logits' 64 x 131072), runs softmax_global under sync debug
+   reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
+   D 512, S 8192, the one-hot #40 at V 1024) and matmul_kpipe, with the
+   fourteen zoo kernels' launch counts reset just before and read just
+   after; holds every variant against its plain version (#30-#37 also at
+   4095 x 4097, a tail in every tier; softmax and layer_norm also at the
+   sampling logits' 64 x 131072; the gathers #38-#40 bit for bit, also
+   at an odd shape, on indices outside [0, V) and with no host sync; #40
+   also at V 32768 with 128 tokens), runs softmax_global under sync debug
    mode "error", and times the zoo's variants, and #35 and #36 alone,
    with the L2 flushed before each call, beside the plain version, the
    library call and the bound;
@@ -3516,12 +3519,13 @@ def _plain_moe(h, mp, cfg):
 # it launches (none: a torch baseline).
 ZOO_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                 "hardswish", "hardshrink", "reduce", "dot_product", "rope",
-                "rms_norm", "matmul", "softmax"]
+                "rms_norm", "matmul", "softmax", "layer_norm", "embedding"]
 ZOO_REGISTERED = ["attention", "paged_attention", "quant", "cross_entropy",
                   "sampling", "grouped_matmul", "matmul_w8a16"]
 ZOO_KERNELS = ("ew_call", "reduce_all", "dot_prod", "matmul_naive", "rope",
                "matmul_kpipe", "softmax_per_token", "online_softmax_per_token",
-               "softmax_grid_stats", "softmax_grid_norm")
+               "softmax_grid_stats", "softmax_grid_norm", "layer_norm",
+               "embedding_prefetch", "embedding_dma", "embedding_onehot")
 # the variant (or the call) whose times each zoo kernel's row of the
 # kernels line keeps
 ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
@@ -3532,20 +3536,34 @@ ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
            "softmax_per_token": "softmax.softmax_safe_f32_per_token",
            "online_softmax_per_token": "softmax.softmax_online_f32_per_token",
            "softmax_grid_stats": "softmax_grid_stats torch.float32",
-           "softmax_grid_norm": "softmax_grid_norm torch.float32"}
+           "softmax_grid_norm": "softmax_grid_norm torch.float32",
+           "layer_norm": "layer_norm.layer_norm_f32_r8",
+           "embedding_prefetch": "embedding.embedding_prefetch_f32",
+           "embedding_dma": "embedding.embedding_dma_f32",
+           "embedding_onehot": "embedding.embedding_onehot_f32"}
 ZOO_TIMING = dict(warmup=2, iters=20, reps=1, flush_l2=True)
 # 4095 x 4097 = 2^24 - 1 elements: a tail past the last whole vector in
 # every tier of #30 (1, 3 and 7 elements) and in #31/#32's 16-byte packs;
-# rows of #33-#36 that are no whole 16-byte packs
+# rows of #33-#37 that are no whole 16-byte packs
 ZOO_TAIL = (4095, 4097)
-# the families checked at ZOO_TAIL too: #30-#32's and softmax's
-ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax"]
+# the families checked at ZOO_TAIL too: #30-#32's, softmax's and
+# layer_norm's; the last two also at ops_bench.Size().sampling's 64 x
+# 131072, rows wider than #33's and #37's shared memory
+ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax", "layer_norm"]
+ZOO_WIDE = ("softmax", "layer_norm")
+# the gathers' odd shape (V, D, S): rows of 509 elements, no whole 16-byte
+# chunks in bf16 or f32, an odd vocabulary, S a multiple of #39's 8
+# tokens; #40 (2 S V D operations) is checked at the bench vocabulary with
+# S cut to ZOO_ONEHOT_S, and at the odd shape with 8 tokens more
+ZOO_GATHER_ODD = (32767, 509, 8184)
+ZOO_ONEHOT_S = 128
 # the naive GEMM at 4096^3 takes tens of ms a call
 ZOO_TIMING_NAIVE = dict(warmup=1, iters=3, reps=1, flush_l2=True)
 
 
 def _zoo_fns():
-    from tpukern_torch.ops import _ew, dot_product, matmul, reduce, rope
+    from tpukern_torch.ops import (_ew, dot_product, embedding, layernorm,
+                                   matmul, reduce, rope)
     from tpukern_torch.ops import softmax as sm
     return {"ew_call": _ew.ew_call, "reduce_all": reduce._reduce_all,
             "dot_prod": dot_product.dot_prod,
@@ -3554,7 +3572,11 @@ def _zoo_fns():
             "softmax_per_token": sm.softmax_per_token,
             "online_softmax_per_token": sm.online_softmax_per_token,
             "softmax_grid_stats": sm.grid_stats,
-            "softmax_grid_norm": sm.grid_norm}
+            "softmax_grid_norm": sm.grid_norm,
+            "layer_norm": layernorm.layer_norm,
+            "embedding_prefetch": embedding.embedding_prefetch,
+            "embedding_dma": embedding.embedding_dma,
+            "embedding_onehot": embedding.embedding_onehot}
 
 
 def _zoo_kernels(v):
@@ -3577,6 +3599,8 @@ def _zoo_kernels(v):
             return ("softmax_grid_stats", "softmax_grid_norm")
         return (("online_softmax_per_token",) if "_online_" in v.name
                 else ("softmax_per_token",))
+    if v.family == "embedding":  # embedding_<design>_<dtype>
+        return (v.name.rsplit("_", 1)[0],)
     return (v.family,)
 
 
@@ -3611,6 +3635,10 @@ def _zoo_library(v, args):
         return lambda: torch.softmax(a[0].reshape(-1), 0)
     if fam == "softmax":
         return lambda: torch.softmax(a[0], -1)
+    if fam == "layer_norm":
+        return lambda: F.layer_norm(a[0], (a[0].shape[-1],), eps=1e-5)
+    if fam == "embedding":
+        return lambda: F.embedding(*a)
     return None
 
 
@@ -3628,6 +3656,55 @@ def _zoo_grid_calls(gen, size):
              _nbytes(x, m, d, x))]
 
 
+def _zoo_gathers(checks, gen):
+    """Each embedding variant against its plain version, bit for bit
+    (torch.equal), at ZOO_GATHER_ODD and on indices outside [0, V) (past
+    the end, -1, -V, -V - 1, int32's ends) at the bench shape, and once
+    with those indices as int64 under sync debug mode "error" (the int32
+    cast and the launch read nothing back); #40 at the bench vocabulary
+    with ZOO_ONEHOT_S tokens, and at the odd shape with 8 more."""
+    from tpukern_torch.core import registry
+    from tpukern_torch.harness import ops_bench
+
+    V, D, S = ops_bench.Size().embedding
+    Vo, Do, So = ZOO_GATHER_ODD
+    far = torch.tensor([V, V + 7, -1, -V, -V - 1, 2 ** 31 - 1, -2 ** 31],
+                       dtype=torch.int32, device="cuda")
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    for name, v in sorted(registry.variants("embedding").items()):
+        dt = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        onehot = "_onehot_" in name
+        s, so = (ZOO_ONEHOT_S, ZOO_ONEHOT_S + 8) if onehot else (S, So)
+        w = _randn(gen, V, D, dtype=dt)
+        idx = ints(V, s)
+        oob = idx.clone()
+        oob[::s // 8][:far.numel()] = far
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out64 = v.fn(oob.long(), w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        io, wo = ints(Vo, so), _randn(gen, Vo, Do, dtype=dt)
+        cases = [(f"V {V} D {D} S {s}", idx, w, v.fn(idx, w)),
+                 ("outside [0, V)", oob, w, v.fn(oob, w)),
+                 ("int64, no host sync", oob, w, out64),
+                 (f"odd V {Vo} D {Do} S {so}", io, wo, v.fn(io, wo))]
+        for case, i, ww, out in cases:
+            ref = v.ref(i, ww)
+            ok = out.shape == ref.shape and torch.equal(out, ref)
+            err = ((out.double() - ref.double()).abs().max().item()
+                   if out.shape == ref.shape else float("inf"))
+            print(f"[zoo] gather {name:24s} {case:28s} max_abs {err:.3e} "
+                  f"(bit-equal) {'ok' if ok else 'MISS'}")
+            checks.record(_zoo_kernels(v)[0], ok, err)
+        del w, wo
+
+
 def phase_zoo():
     """[zoo]: walks the port registry's variants of ZOO_FAMILIES and
     ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
@@ -3636,14 +3713,17 @@ def phase_zoo():
     launch counts of the zoo kernels set to 0 just before and read just
     after; holds every variant against its plain version
     (ops_bench.check), those of ZOO_TAILED also at ZOO_TAIL, whose element
-    count leaves a tail in every tier, and the softmax variants also at
-    the sampling logits' 64 x 131072 (rows wider than #33's shared
-    memory); runs softmax_global once under sync debug mode "error" (a
-    host read of its max or sum fails the run); prints every sum's error
-    against the f64 sum; then times each variant of ZOO_FAMILIES, and #35
-    and #36 alone, with the L2 flushed before every call beside its plain
-    version, its library call and its bound. Returns ({kernel:
-    dict(max_abs_err, ms, ...)}, {kernel: launches}, all-ok)."""
+    count leaves a tail in every tier, and the softmax and layer_norm
+    variants also at the sampling logits' 64 x 131072 (rows wider than
+    #33's and #37's shared memory); checks the gathers (_zoo_gathers);
+    runs softmax_global once under sync debug mode "error" (a host read
+    of its max or sum fails the run); prints every sum's error against
+    the f64 sum; then times each variant of ZOO_FAMILIES, and #35 and #36
+    alone, with the L2 flushed before every call beside its plain
+    version, its library call and its bound (#40's bound counts the
+    gather's bytes; its 2 S V D operations are printed beside it).
+    Returns ({kernel: dict(max_abs_err, ms, ...)}, {kernel: launches},
+    all-ok)."""
     from functools import partial
 
     from tpukern_torch.core import registry
@@ -3652,7 +3732,7 @@ def phase_zoo():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     size = ops_bench.Size()
-    checks, timed = _Checks(), []
+    checks, timed, onehot_ops = _Checks(), [], {}
     n_reg = sum(len(registry.variants(f)) for f in registry.families())
     print(f"[zoo] registry: {n_reg} variants ported, "
           f"{len(registry.PENDING)} pending")
@@ -3671,6 +3751,11 @@ def phase_zoo():
             for k in kernels:
                 if k in fns:
                     checks.record(k, ok, err)
+            if "_onehot_" in name:
+                # (operations, ms at the peak of the table's dtype)
+                ops = 2 * args[0].numel() * args[1].numel()
+                onehot_ops[f"{fam}.{name}"] = (
+                    ops, 1e3 * ops / ops_bench.PEAK_FLOP_S[args[1].dtype])
             if fam in ZOO_FAMILIES:
                 timed.append((f"{fam}.{v.name}", kernels, partial(v.fn, *args),
                               partial(v.ref, *args), _zoo_library(v, args),
@@ -3701,7 +3786,7 @@ def phase_zoo():
     for fam in ZOO_TAILED:
         for name, v in sorted(registry.variants(fam).items()):
             for sz in (ops_bench.Size(*ZOO_TAIL),) + (
-                    (wide,) if fam == "softmax" else ()):
+                    (wide,) if fam in ZOO_WIDE else ()):
                 ok, err, rule = ops_bench.check(
                     v, ops_bench.inputs(fam, name, sz, gen))
                 print(f"[zoo] {'tail' if sz.S == ZOO_TAIL[0] else 'wide'} "
@@ -3710,6 +3795,7 @@ def phase_zoo():
                 checks.ok &= ok
                 for k in _zoo_kernels(v):
                     checks.record(k, ok, err)
+    _zoo_gathers(checks, gen)
     # softmax_global keeps its max and sum on the card: any host read of
     # them raises here
     v = registry.get("softmax", "softmax_f32_global")
@@ -3768,6 +3854,10 @@ def phase_zoo():
               f"{rate:.1f} GB/s"
               + (f", {flops / ms / 1e9:.2f} TFLOP/s" if flops else "")
               + " (L2 flushed)")
+        if name in onehot_ops:
+            n, t = onehot_ops[name]
+            print(f"[time] {name:40s} 2 S V D = {n} operations: "
+                  f"{t:.4f} ms at the peak, {n / ms / 1e9:.2f} TFLOP/s")
         for k in kernels:
             if ZOO_ROW.get(k) == name:
                 results[k].update(
@@ -3984,7 +4074,15 @@ def main():
            "softmax_grid_stats": ("tpukern_torch/csrc/softmax.cu",
                                   "tpukern/ops/softmax.py:134"),
            "softmax_grid_norm": ("tpukern_torch/csrc/softmax.cu",
-                                 "tpukern/ops/softmax.py:172")}
+                                 "tpukern/ops/softmax.py:172"),
+           "layer_norm": ("tpukern_torch/csrc/layernorm.cu",
+                          "tpukern/ops/layernorm.py:52"),
+           "embedding_prefetch": ("tpukern_torch/csrc/embedding.cu",
+                                  "tpukern/ops/embedding.py:39"),
+           "embedding_dma": ("tpukern_torch/csrc/embedding.cu",
+                             "tpukern/ops/embedding.py:71"),
+           "embedding_onehot": ("tpukern_torch/csrc/embedding.cu",
+                                "tpukern/ops/embedding.py:108")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -4034,7 +4132,12 @@ def main():
                               "gives per-tile partials); the variant "
                               "(#35 + #36) beside torch.softmax(x, -1): "
                               "variant_ms, variant_library_ms",
-        "softmax_grid_norm": "as softmax_grid_stats"}
+        "softmax_grid_norm": "as softmax_grid_stats",
+        "layer_norm": "F.layer_norm(x, (K,), eps=1e-5) in x's dtype",
+        "embedding_prefetch": "F.embedding(idx, w) (int32 indices)",
+        "embedding_dma": "F.embedding(idx, w) (int32 indices)",
+        "embedding_onehot": "F.embedding(idx, w) (int32 indices), the "
+                            "gather the one-hot product computes"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -4058,7 +4161,8 @@ def main():
     # matmul_kpipe launch the kernels of rope_batched and matmul
     for n in ZOO_KERNELS:
         modes[n] = {k: timing[n][k] for k in (
-            "variant", "variant_ms", "variant_library_ms") if k in timing[n]}
+            "variant", "variant_ms", "variant_library_ms")
+            if k in timing[n]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -20,8 +20,9 @@ from tpukern_torch.harness import ops_bench
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
 from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
-                               dot_product, matmul, paged_attention, reduce,
-                               rmsnorm, rope, softmax)
+                               dot_product, embedding, layernorm, matmul,
+                               paged_attention, reduce, rmsnorm, rope,
+                               softmax)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -1506,3 +1507,180 @@ def test_softmax_global_launches_31_and_30_twice_without_sync(cuda):
     _sm_close(out, softmax.softmax_global_ref(x), torch.float32,
               "softmax_global", whole=True)
     assert torch.equal(out, again)
+
+
+# --------------------------------------------------------- layer_norm #37
+# against layer_norm_plain (the kernel's one-pass function) in f32, bf16
+# and f16, with an f32 and a bf16 accumulator: rows of one pack or less,
+# tails ((5, 4097), (33, 200) in bf16), rows staged in shared memory and
+# rows wider than its budget ((2, 70000) in f32, (4, 131072)); g and b
+# as numbers, as vectors (f32, bf16, and one of each), and mixed; each
+# call twice, bit for bit
+LN_SHAPES = [(33, 200), (3, 1), (17, 48), (64, 4096), (5, 4097), (2, 70000),
+             (4, 131072)]
+
+
+def _ln_input(shape, dt, dev):
+    g = torch.Generator(device=dev).manual_seed(shape[0] * 5 + shape[1])
+    return torch.randn(shape, generator=g, device=dev).to(dt)
+
+
+def _ln_affines(K, dev):
+    g = torch.Generator(device=dev).manual_seed(K)
+    gv = 1 + 0.1 * torch.randn(K, generator=g, device=dev)
+    bv = 0.1 * torch.randn(K, generator=g, device=dev)
+    return {"one": (1.0, 0.0), "scalars": (1.5, 0.3), "vectors": (gv, bv),
+            "bf16_vectors": (gv.bfloat16(), bv.bfloat16()),
+            "mixed_dtypes": (gv, bv.bfloat16()), "vector_g": (gv, 0.3),
+            "vector_b": (1.5, bv)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=str)
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+def test_layer_norm_matches_plain(cuda, dt, acc, shape):
+    x = _ln_input(shape, dt, cuda)
+    tol_dt = torch.bfloat16 if torch.bfloat16 in (dt, acc) else dt
+    for name, (g, b) in _ln_affines(shape[1], cuda).items():
+        before = layernorm.layer_norm.launches
+        out = layernorm.layer_norm(x, g, b, acc_dtype=acc)
+        again = layernorm.layer_norm(x, g, b, acc_dtype=acc)
+        torch.cuda.synchronize()
+        assert layernorm.layer_norm.launches == before + 2
+        _zoo_close(out, layernorm.layer_norm_plain(x, g, b, acc_dtype=acc),
+                   tol_dt, f"layer_norm {name}")
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_layer_norm_views_batch_dims_and_errors(cuda):
+    """A column slice and a view off a 16-byte boundary (copied before the
+    16-byte loads), a 3-D input, no host sync; the arguments the kernel
+    refuses."""
+    x = _ln_input((64, 513), torch.float32, cuda)
+    for v in (x[:, 1:], x.reshape(-1)[1:1 + 63 * 512].reshape(63, 512),
+              x[:, :512].reshape(8, 8, 512)):
+        _zoo_close(layernorm.layer_norm(v, 1.5, 0.3),
+                   layernorm.layer_norm_plain(v, 1.5, 0.3), torch.float32,
+                   "layer_norm view")
+    g = torch.ones(513, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layernorm.layer_norm(x, g, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(ValueError, match="shape"):
+        layernorm.layer_norm(x, torch.ones(512, device=cuda))
+    with pytest.raises(TypeError):
+        layernorm.layer_norm(x.to(torch.float8_e4m3fn))
+    with pytest.raises(TypeError):
+        layernorm.layer_norm(x, g.half())
+
+
+@pytest.mark.cuda
+def test_layer_norm_one_pass_variance_on_the_card(cuda):
+    """Rows of 16 values from 299, 299.5, ..., 301 (mean 300, spread
+    about 0.7), whose sums and sums of squares are exact in f32 in any
+    order: the kernel equals its plain version, the one-pass function of
+    JAX's kernel, which mean^2's rounding moves 1e-2 away from the
+    two-pass reference."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = 300 + 0.5 * torch.randint(-2, 3, (64, 16), generator=g,
+                                  device=cuda).float()
+    out = layernorm.layer_norm(x)
+    _zoo_close(out, layernorm.layer_norm_plain(x), torch.float32,
+               "layer_norm at mean 300")
+    assert (out - layernorm.layer_norm_ref(x)).abs().max().item() > 1e-3
+
+
+# ----------------------------------------------- embedding #38, #39, #40
+# every gather bit-equal to its plain version (f32, bf16 and f16 tables
+# for #38/#39, f32 and bf16 for #40): rows of whole 16-byte chunks and
+# rows of none (D 130, 509, 1 in 2-byte types), an odd vocabulary, #39 at
+# several block_tokens (and a row wider than its shared buffer, copied a
+# chunk at a time), #40 with tails in both tile dims; indices outside
+# [0, V) as int32 and int64, with no host sync
+EMB_CASES = [(37, 130, 24), (1000, 509, 64), (5, 1, 8), (300, 512, 136),
+             (32767, 64, 40)]
+EMB_FNS = {"prefetch": embedding.embedding_prefetch,
+           "dma": embedding.embedding_dma,
+           "onehot": embedding.embedding_onehot}
+EMB_PLAIN = {"prefetch": embedding.embedding_prefetch_plain,
+             "dma": embedding.embedding_dma_plain,
+             "onehot": embedding.embedding_onehot_plain}
+# the tables each design takes: #40 (a GEMM) f32 and bf16, as the
+# registry's variants
+EMB_KINDS = [(k, dt) for k in sorted(EMB_FNS) for dt in SM_DTYPES
+             if k != "onehot" or dt != torch.float16]
+
+
+def _emb_input(V, D, S, dt, dev):
+    g = torch.Generator(device=dev).manual_seed(V + D + S)
+    idx = torch.randint(0, V, (S,), generator=g, device=dev,
+                        dtype=torch.int32)
+    # indices outside [0, V): past the end, -1, -V, -V - 1, int32's ends
+    far = torch.tensor([V, V + 7, -1, -V, -V - 1, 2 ** 31 - 1, -2 ** 31],
+                       dtype=torch.int32, device=dev)
+    idx[::5][:far.numel()] = far[:idx[::5].numel()]
+    return idx, torch.randn((V, D), generator=g, device=dev).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EMB_CASES, ids=str)
+@pytest.mark.parametrize("kind,dt", EMB_KINDS, ids=str)
+def test_embedding_matches_plain(cuda, kind, dt, case):
+    fn, plain = EMB_FNS[kind], EMB_PLAIN[kind]
+    idx, w = _emb_input(*case, dt, cuda)
+    before = fn.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(idx, w)
+        out64 = fn(idx.long(), w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fn.launches == before + 2
+    ref = plain(idx, w)
+    assert out.dtype == w.dtype and out.shape == (case[2], case[1])
+    assert torch.equal(out, ref) and torch.equal(out64, ref)
+    inside = (idx >= 0) & (idx < case[0])
+    assert torch.equal(out[inside], w[idx[inside].long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("bt,V,D,S", [(1, 100, 48, 7), (8, 1000, 8192, 16),
+                                      (64, 500, 136, 128),
+                                      (1024, 300, 512, 2048)])
+def test_embedding_dma_block_tokens(cuda, bt, V, D, S, dt):
+    """block_tokens 1 to 1024; (8, D 8192 f32): a row of 2048 chunks
+    wider than the buffer (320 chunks a row a pass), copied in passes."""
+    idx, w = _emb_input(V, D, S, dt, cuda)
+    assert torch.equal(embedding.embedding_dma(idx, w, bt),
+                       embedding.embedding_dma_plain(idx, w, bt))
+
+
+@pytest.mark.cuda
+def test_embedding_views_and_errors(cuda):
+    """A table view 4 bytes off a 16-byte boundary (the element-wise
+    paths) and a strided index; the shapes and dtypes the kernels
+    refuse."""
+    idx, w = _emb_input(300, 65, 64, torch.float32, cuda)
+    wv = w.reshape(-1)[1:1 + 300 * 64].reshape(300, 64)
+    for kind, fn in EMB_FNS.items():
+        assert torch.equal(fn(idx[::2], wv), EMB_PLAIN[kind](idx[::2], wv))
+    for kind, fn in EMB_FNS.items():  # no tokens
+        assert fn(idx[:0], w).shape == (0, 65)
+    assert layernorm.layer_norm(w[:0]).shape == (0, 65)
+    with pytest.raises(ValueError, match="block size"):
+        embedding.embedding_dma(idx[:63], w)
+    with pytest.raises(ValueError, match="at most"):
+        embedding.embedding_dma(idx.repeat(32), w, 2048)
+    with pytest.raises(TypeError):
+        embedding.embedding_onehot(idx, w.half())
+    with pytest.raises(TypeError):
+        embedding.embedding_prefetch(idx.float(), w)
+    with pytest.raises(ValueError, match="idx"):
+        embedding.embedding_prefetch(idx[None], w)

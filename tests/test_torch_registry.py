@@ -9,6 +9,8 @@ tpukern_torch/harness/ops_bench.py (at a tiny size) and agrees with its
 plain version by ops_bench's own check.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +35,8 @@ def test_every_jax_variant_is_ported_or_pending():
     missing = JAX_NAMES - PORT_NAMES - set(registry.PENDING)
     assert not missing, f"neither ported nor pending: {sorted(missing)}"
     assert not PORT_NAMES & set(registry.PENDING), "ported and pending"
-    # the meter: 163 of the JAX registry's 207 variants
-    assert len(PORT_NAMES) == 163
+    # the meter: 177 of the JAX registry's 207 variants
+    assert len(PORT_NAMES) == 177
 
 
 def test_no_port_variant_outside_the_jax_registry():
@@ -77,3 +79,36 @@ def test_parity_helper_compares_at_the_dtype_tolerance():
     with pytest.raises(AssertionError):  # integers exactly
         assert_parity(lambda a: a + 1, lambda a: a + 2,
                       np.arange(4, dtype=np.int32), dtype="int32")
+
+
+def _tf32(t):
+    # round to nearest on TF32's 10 mantissa bits, as a TF32 mma reads
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("order,ok", [("rows in sequence", True),
+                                      ("tf32 inputs", False)])
+def test_grouped_matmul_check_holds_f32_rounding_not_tf32(order, ok):
+    """ops_bench.check holds tgmm_f32 within TOLS plus its contraction
+    slack: a product summing a 1024-row group in another f32 order
+    passes, one that reads its inputs as TF32 misses."""
+    v = registry.get("grouped_matmul", "tgmm_f32")
+    gen = torch.Generator("cpu").manual_seed(0)
+    x = torch.randn(2048, 24, generator=gen)
+    dy = torch.randn(2048, 16, generator=gen)
+    gs = torch.tensor([1024, 1024], dtype=torch.int32)
+
+    def fn(x, dy, gs):
+        if order == "tf32 inputs":
+            return v.ref(_tf32(x), _tf32(dy), gs)
+        out = torch.zeros(2, 24, 16)
+        for e in range(2):
+            for t in range(1024 * e, 1024 * (e + 1)):
+                out[e] += torch.outer(x[t], dy[t])
+        return out
+
+    other = dataclasses.replace(v, fn=fn)
+    good, err, rule = ops_bench.check(other, (x, dy, gs))
+    assert good == ok, f"{order}: {rule} ({err:.3e})"
+    assert err > 0

@@ -133,6 +133,15 @@ SIGNATURES = {
     "tk_softmax_grid_stats": [_P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
     # x, m, d, y, rows, cols, block_rows, block_cols, ncb, dtype, stream
     "tk_softmax_grid_norm": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    # x, g (or None), scalar g, b (or None), scalar b, y, rows, cols, eps,
+    # acc_bf16, x_dtype, g/b dtype, stream
+    "tk_layer_norm": [_P, _P, _F, _P, _F, _P, _I64, _I64, _F, _I, _I, _I,
+                      _P],
+    # idx (i32), w, out, S, V, D, block_tokens, mode (0 a block a token,
+    # 1 block_tokens a block), dtype, stream
+    "tk_embedding_gather": [_P, _P, _P, _I64, _I, _I64, _I, _I, _I, _P],
+    # idx (i32), w, out, S, V, D, dtype, stream
+    "tk_embedding_onehot": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

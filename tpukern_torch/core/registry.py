@@ -66,13 +66,6 @@ _FA = "ROADMAP.md queue 1 item 5 (flash_attention, the rest)"
 
 # (family, name) -> why the JAX variant has no port variant yet
 PENDING: dict[tuple[str, str], str] = {
-    **{("layer_norm", f"layer_norm_{s}"): f"{_ZOO}: layer_norm, kernel #37"
-       for s in ("f32_r8", "f32_r64", "bf16_bf16_r16", "bf16_f32_r16",
-                 "bf16_f32_r128", "f16_f16_r16", "f16_f32_r16",
-                 "f16_f32_r128")},
-    **{("embedding", f"embedding_{s}"): f"{_ZOO}: embedding, kernels #38-#40"
-       for s in ("prefetch_f32", "prefetch_bf16", "dma_f32", "dma_bf16",
-                 "onehot_f32", "onehot_bf16")},
     **{("histogram", s): f"{_ZOO}: histogram, kernel #41"
        for s in ("histogram_i32", "histogram_i32_r128",
                  "histogram_i32_sorted")},

@@ -238,4 +238,27 @@ int tk_softmax_grid_norm(const void* x, const float* pm, const float* pd,
       static_cast<cudaStream_t>(stream)));
 }
 
+int tk_layer_norm(const void* x, const void* g, float g_scalar, const void* b,
+                  float b_scalar, void* y, int64_t rows, int64_t cols,
+                  float eps, int acc_bf16, int x_dtype, int gb_dtype,
+                  void* stream) {
+  return checked(tk::layer_norm_launch(x, g, g_scalar, b, b_scalar, y, rows,
+                                       cols, eps, acc_bf16, x_dtype, gb_dtype,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+int tk_embedding_gather(const int* idx, const void* w, void* out, int64_t S,
+                        int V, int64_t D, int block_tokens, int mode,
+                        int dtype, void* stream) {
+  return checked(tk::embedding_gather_launch(
+      idx, w, out, S, V, D, block_tokens, mode, dtype,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_embedding_onehot(const int* idx, const void* w, void* out, int S,
+                        int V, int D, int dtype, void* stream) {
+  return checked(tk::embedding_onehot_launch(
+      idx, w, out, S, V, D, dtype, static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

@@ -58,6 +58,75 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The block's fold of every thread's pair (a, b), in every thread: each
+// warp folds its lanes by warp_fold(a, b), lane 0 posts the warp's pair
+// to red (64 floats of shared memory), then every warp folds the posted
+// pairs by the same tree, lanes past the last warp taking the fold's
+// identity (a0, b0), so every thread holds the same pair bit for bit.
+template <typename F>
+__device__ __forceinline__ void block_fold2(float& a, float& b, float a0,
+                                            float b0, float* red,
+                                            F&& warp_fold) {
+  warp_fold(a, b);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the last reader of red is done
+  if (lane == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+  }
+  __syncthreads();
+  const bool in = lane < (int)(blockDim.x >> 5);
+  a = in ? red[lane] : a0;
+  b = in ? red[32 + lane] : b0;
+  warp_fold(a, b);
+}
+
+// A block-a-row kernel (softmax #33, layer_norm #37) stages its row in
+// dynamic shared memory as it first reads it, up to ROW_STAGE_MAX bytes,
+// and reads a wider row again from global memory (L2). read_row: thread t
+// of a team of tsz calls f on its packs t, t + tsz, ... of N elements,
+// copying each to st (null: no staging) as it goes; a later pass of the
+// same thread reads back only its own packs (from st, or xr), so it needs
+// no barrier.
+constexpr int ROW_STAGE_MAX = 200 * 1024;
+
+template <typename T, int N, typename F>
+__device__ __forceinline__ void read_row(const T* xr, T* st, int64_t cols,
+                                         int t, int tsz, F&& f) {
+  for (int64_t c = (int64_t)t * N; c < cols; c += (int64_t)tsz * N) {
+    const Pack<T, N> q = *reinterpret_cast<const Pack<T, N>*>(xr + c);
+    if (st) *reinterpret_cast<Pack<T, N>*>(st + c) = q;
+    f(q);
+  }
+}
+
+// host: whether rows of n elements of T are whole 16-byte packs on the
+// 16-byte aligned bases a and b
+template <typename T>
+bool whole_packs(int64_t n, const void* a, const void* b) {
+  constexpr int VEC = 16 / sizeof(T);
+  return n % VEC == 0 && ((uintptr_t)a | (uintptr_t)b) % 16 == 0;
+}
+
+// host: the threads of a block a row, a power of two from lo up to 1024
+// with about four packs each
+inline int row_threads(int64_t packs, int lo) {
+  int threads = lo;
+  while (threads < 1024 && threads * 4 < packs) threads *= 2;
+  return threads;
+}
+
+// host: the dynamic shared memory that stages a row of `bytes` (0 above
+// ROW_STAGE_MAX: the row is read again), with the kernel's limit raised
+// where it is above the default 48 KiB
+template <typename K>
+cudaError_t row_stage_smem(K kernel, int64_t bytes, int* smem) {
+  *smem = bytes <= ROW_STAGE_MAX ? (int)bytes : 0;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
 // One bf16 tensor-core product on 16x16 A and 16x8 B fragments with f32
 // accumulation. Fragment layouts of mma.m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
@@ -585,5 +654,19 @@ cudaError_t softmax_grid_norm_launch(const void* x, const float* pm,
                                      const float* pd, void* y, int64_t rows,
                                      int64_t cols, int br, int bc, int ncb,
                                      int dtype, cudaStream_t stream);
+// g and b (cols,) of gb_dtype each, or null for g_scalar / b_scalar
+cudaError_t layer_norm_launch(const void* x, const void* g, float g_scalar,
+                              const void* b, float b_scalar, void* y,
+                              int64_t rows, int64_t cols, float eps,
+                              int acc_bf16, int x_dtype, int gb_dtype,
+                              cudaStream_t stream);
+// mode 0: one block a token (#38), 1: block_tokens a block (#39)
+cudaError_t embedding_gather_launch(const int* idx, const void* w, void* out,
+                                    int64_t S, int V, int64_t D,
+                                    int block_tokens, int mode, int dtype,
+                                    cudaStream_t stream);
+cudaError_t embedding_onehot_launch(const int* idx, const void* w, void* out,
+                                    int S, int V, int D, int dtype,
+                                    cudaStream_t stream);
 
 }  // namespace tk

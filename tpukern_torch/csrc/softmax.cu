@@ -7,11 +7,11 @@
 //     chip, the reference's per-token design (softmax.cu:429-581, SURVEY
 //     §2.1): the row's max, then exp and sum, then normalize. x is read
 //     from HBM once: the first phase copies each thread's 16-byte packs
-//     into shared memory (rows up to SM_STAGE_MAX bytes), and the other
-//     two read them back from there. A wider row (the 131072-token logits
-//     of sampling are 512 KiB in f32) is read from global memory again in
-//     each phase, inside the same kernel, so any width gives the right
-//     result.
+//     into shared memory (rows up to ROW_STAGE_MAX bytes, common.cuh
+//     read_row), and the other two read them back from there. A wider
+//     row (the 131072-token logits of sampling are 512 KiB in f32) is
+//     read from global memory again in each phase, inside the same
+//     kernel, so any width gives the right result.
 // #34 softmax_row_kernel<kOnline> replaces :85 `kernel`
 //     (online_softmax_per_token): one pass keeps a running (m, d) for each
 //     thread's packs (m from NEG_BIG, d *= exp(m - m_new) as in
@@ -61,7 +61,6 @@ enum SoftmaxMode { kSafe = 0, kOnline = 1 };
 constexpr float SM_NEG_BIG = -1e30f;
 constexpr int SM_WARPS = 8;               // warps of a warp-a-row or tile block
 constexpr int SM_WARP_ROW_MAX = 1024;     // longest row a warp takes
-constexpr int SM_STAGE_MAX = 200 * 1024;  // bytes of a row #33 stages
 
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float (&v)[N]) {
@@ -128,20 +127,11 @@ __device__ __forceinline__ float team_sum(float v, float* red) {
 
 template <bool BLOCK>
 __device__ __forceinline__ void team_md(float& m, float& d, float* red) {
-  warp_md(m, d);
-  if constexpr (BLOCK) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) {
-      red[warp] = m;
-      red[32 + warp] = d;
-    }
-    __syncthreads();
-    const bool in = lane < (int)(blockDim.x >> 5);
-    m = in ? red[lane] : SM_NEG_BIG;
-    d = in ? red[32 + lane] : 0.f;
+  if constexpr (BLOCK)
+    block_fold2(m, d, SM_NEG_BIG, 0.f, red,
+                [](float& a, float& b) { warp_md(a, b); });
+  else
     warp_md(m, d);
-  }
 }
 
 // one online step over a thread's pack v: JAX's chunk update
@@ -180,19 +170,15 @@ template <typename T, int N, bool BLOCK>
 __device__ __forceinline__ void safe_row(const T* xr, T* yr, T* st,
                                          int64_t cols, int t, int tsz,
                                          float* red) {
-  const int64_t step = (int64_t)tsz * N;
   float m = -INFINITY;
-  for (int64_t c = (int64_t)t * N; c < cols; c += step) {
-    const Pack<T, N> q = *reinterpret_cast<const Pack<T, N>*>(xr + c);
-    if (st) *reinterpret_cast<Pack<T, N>*>(st + c) = q;
+  read_row<T, N>(xr, st, cols, t, tsz, [&](const Pack<T, N>& q) {
 #pragma unroll
     for (int j = 0; j < N; ++j) m = fmaxf(m, to_f32(q.v[j]));
-  }
+  });
   m = team_max<BLOCK>(m, red);
-  // each thread reads back only the packs it staged
   const T* src = st ? st : xr;
   float d = 0.f;
-  for (int64_t c = (int64_t)t * N; c < cols; c += step) {
+  for (int64_t c = (int64_t)t * N; c < cols; c += (int64_t)tsz * N) {
     float v[N];
     load_f32<T, N>(src + c, v);
 #pragma unroll
@@ -305,12 +291,6 @@ softmax_norm_kernel(const T* __restrict__ x, const float* __restrict__ pm,
   }
 }
 
-template <typename T>
-bool whole_packs(int64_t n, const void* a, const void* b) {
-  constexpr int VEC = 16 / sizeof(T);
-  return n % VEC == 0 && ((uintptr_t)a | (uintptr_t)b) % 16 == 0;
-}
-
 // f(T()) with T the float type of the dtype code; false for another code
 template <typename F>
 bool by_dtype(int dtype, F&& f) {
@@ -337,19 +317,15 @@ cudaError_t launch_rows(const void* x, void* y, int64_t rows, int64_t cols,
            stream>>>(xt, yt, rows, cols, vec, MODE == kSafe);
     return cudaSuccess;
   }
-  const int64_t packs = vec ? cols / VEC : cols;
-  int threads = 128;
-  while (threads < 1024 && threads * 4 < packs) threads *= 2;
-  const bool stage = MODE == kSafe && bytes <= SM_STAGE_MAX;
-  const int smem = stage ? (int)bytes : 0;
+  const int threads = row_threads(vec ? cols / VEC : cols, 128);
   auto kernel = softmax_row_kernel<T, true, MODE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem = 0;
+  if (MODE == kSafe) {
+    const cudaError_t e = row_stage_smem(kernel, bytes, &smem);
     if (e != cudaSuccess) return e;
   }
   kernel<<<(unsigned)rows, threads, smem, stream>>>(xt, yt, rows, cols, vec,
-                                                    stage);
+                                                    smem > 0);
   return cudaSuccess;
 }
 

@@ -9,6 +9,8 @@ from tpukern_torch.ops import (  # noqa: F401
     reduce,
     dot_product,
     softmax,
+    layernorm,
+    embedding,
     rmsnorm,
     rope,
     matmul,
