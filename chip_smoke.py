@@ -42,16 +42,21 @@
    [zoo]: walks the port's variant registry at bench/ops.py's shapes
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
-   D 512, S 8192, the one-hot #40 at V 1024) and matmul_kpipe, with the
-   fourteen zoo kernels' launch counts reset just before and read just
-   after; holds every variant against its plain version (#30-#37 also at
-   4095 x 4097, a tail in every tier; softmax and layer_norm also at the
-   sampling logits' 64 x 131072; the gathers #38-#40 bit for bit, also
-   at an odd shape, on indices outside [0, V) and with no host sync; #40
-   also at V 32768 with 128 tokens), runs softmax_global under sync debug
-   mode "error", and times the zoo's variants, and #35 and #36 alone,
-   with the L2 flushed before each call, beside the plain version, the
-   library call and the bound;
+   D 512, S 8192, the one-hot #40 at V 1024; histogram 2^20 values in
+   256 bins, nms 1024 boxes) and matmul_kpipe, with the eighteen zoo
+   kernels' launch counts reset just before and read just after; holds
+   every variant against its plain version (#30-#37, the transpose #42
+   and gemv #44 also at 4095 x 4097, a tail in every tier; softmax and
+   layer_norm also at the sampling logits' 64 x 131072; the gathers
+   #38-#40 and the transpose bit for bit, the gathers also at an odd
+   shape, on indices outside [0, V) and with no host sync; #40 also at V
+   32768 with 128 tokens; histogram #41 also at 2^20 - 1 values in 1000
+   bins from -5 to 1005, at 2^26 values and with every value in one bin;
+   nms #43 also at 1000 and 4000 boxes with pairs at an IoU of exactly
+   0.5), runs softmax_global under sync debug mode "error", and times the
+   zoo's variants, #35, #36 and #43 alone, and #41 at 2^26 values and in
+   one bin, with the L2 flushed before each call, beside the plain
+   version, the library call and the bound;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; then [chunked] the same requests with
@@ -3519,13 +3524,15 @@ def _plain_moe(h, mp, cfg):
 # it launches (none: a torch baseline).
 ZOO_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                 "hardswish", "hardshrink", "reduce", "dot_product", "rope",
-                "rms_norm", "matmul", "softmax", "layer_norm", "embedding"]
+                "rms_norm", "matmul", "softmax", "layer_norm", "embedding",
+                "transpose", "histogram", "gemv", "nms"]
 ZOO_REGISTERED = ["attention", "paged_attention", "quant", "cross_entropy",
                   "sampling", "grouped_matmul", "matmul_w8a16"]
 ZOO_KERNELS = ("ew_call", "reduce_all", "dot_prod", "matmul_naive", "rope",
                "matmul_kpipe", "softmax_per_token", "online_softmax_per_token",
                "softmax_grid_stats", "softmax_grid_norm", "layer_norm",
-               "embedding_prefetch", "embedding_dma", "embedding_onehot")
+               "embedding_prefetch", "embedding_dma", "embedding_onehot",
+               "histogram", "transpose", "nms_keep", "gemv")
 # the variant (or the call) whose times each zoo kernel's row of the
 # kernels line keeps
 ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
@@ -3540,16 +3547,21 @@ ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
            "layer_norm": "layer_norm.layer_norm_f32_r8",
            "embedding_prefetch": "embedding.embedding_prefetch_f32",
            "embedding_dma": "embedding.embedding_dma_f32",
-           "embedding_onehot": "embedding.embedding_onehot_f32"}
+           "embedding_onehot": "embedding.embedding_onehot_f32",
+           "histogram": "histogram.histogram_i32",
+           "transpose": "transpose.transpose_f32_row",
+           "nms_keep": "nms_keep alone", "gemv": "gemv.gemv_f32_k_full"}
 ZOO_TIMING = dict(warmup=2, iters=20, reps=1, flush_l2=True)
 # 4095 x 4097 = 2^24 - 1 elements: a tail past the last whole vector in
 # every tier of #30 (1, 3 and 7 elements) and in #31/#32's 16-byte packs;
 # rows of #33-#37 that are no whole 16-byte packs
 ZOO_TAIL = (4095, 4097)
-# the families checked at ZOO_TAIL too: #30-#32's, softmax's and
-# layer_norm's; the last two also at ops_bench.Size().sampling's 64 x
-# 131072, rows wider than #33's and #37's shared memory
-ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax", "layer_norm"]
+# the families checked at ZOO_TAIL too: #30-#32's, softmax's, layer_norm's,
+# the transpose's (a ragged tile edge both ways) and gemv's (a K tail in
+# every block_k); softmax and layer_norm also at ops_bench.Size().sampling's
+# 64 x 131072, rows wider than #33's and #37's shared memory
+ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax", "layer_norm", "transpose",
+                                  "gemv"]
 ZOO_WIDE = ("softmax", "layer_norm")
 # the gathers' odd shape (V, D, S): rows of 509 elements, no whole 16-byte
 # chunks in bf16 or f32, an odd vocabulary, S a multiple of #39's 8
@@ -3559,11 +3571,22 @@ ZOO_GATHER_ODD = (32767, 509, 8184)
 ZOO_ONEHOT_S = 128
 # the naive GEMM at 4096^3 takes tens of ms a call
 ZOO_TIMING_NAIVE = dict(warmup=1, iters=3, reps=1, flush_l2=True)
+# histogram #41 beyond the bench input (2^20 values in 256 bins): (values,
+# bins, low, high) of values uniform in [low, high), out of range both
+# ways; a 2^26-value call (the bench's 4 MiB call is mostly launch); and
+# the bench input with every value in one bin (the atomics' contention)
+ZOO_HIST_ODD = (2 ** 20 - 1, 1000, -5, 1006)
+ZOO_HIST_LARGE = 2 ** 26
+# nms #43 checked at these box counts (a tenth of the boxes in pairs at an
+# IoU of exactly 0.5, kept only by the strict >), and its kernel timed
+# alone at the bench size on boxes sorted by score
+ZOO_NMS_CHECKED = (1000, 4000)
 
 
 def _zoo_fns():
-    from tpukern_torch.ops import (_ew, dot_product, embedding, layernorm,
-                                   matmul, reduce, rope)
+    from tpukern_torch.ops import (_ew, dot_product, embedding, gemv,
+                                   histogram, layernorm, matmul, nms, reduce,
+                                   rope, transpose)
     from tpukern_torch.ops import softmax as sm
     return {"ew_call": _ew.ew_call, "reduce_all": reduce._reduce_all,
             "dot_prod": dot_product.dot_prod,
@@ -3576,7 +3599,10 @@ def _zoo_fns():
             "layer_norm": layernorm.layer_norm,
             "embedding_prefetch": embedding.embedding_prefetch,
             "embedding_dma": embedding.embedding_dma,
-            "embedding_onehot": embedding.embedding_onehot}
+            "embedding_onehot": embedding.embedding_onehot,
+            "histogram": histogram.histogram,
+            "transpose": transpose.transpose, "nms_keep": nms.nms_keep,
+            "gemv": gemv.gemv}
 
 
 def _zoo_kernels(v):
@@ -3601,6 +3627,8 @@ def _zoo_kernels(v):
                 else ("softmax_per_token",))
     if v.family == "embedding":  # embedding_<design>_<dtype>
         return (v.name.rsplit("_", 1)[0],)
+    if v.family == "nms":
+        return ("nms_keep",)
     return (v.family,)
 
 
@@ -3639,6 +3667,12 @@ def _zoo_library(v, args):
         return lambda: F.layer_norm(a[0], (a[0].shape[-1],), eps=1e-5)
     if fam == "embedding":
         return lambda: F.embedding(*a)
+    if fam == "transpose":
+        return lambda: a[0].t().contiguous()
+    if fam == "histogram":  # int64 counts; the data lies in range
+        return lambda: torch.bincount(a[0], minlength=a[1])
+    if fam == "gemv":
+        return lambda: torch.mv(*a)
     return None
 
 
@@ -3705,6 +3739,71 @@ def _zoo_gathers(checks, gen):
         del w, wo
 
 
+def _zoo_memory_ops(checks, gen, timed):
+    """histogram #41 (both kernel variants) against its plain version at
+    ZOO_HIST_ODD, ZOO_HIST_LARGE and with every value in one bin, the last
+    two timed; nms #43 at ZOO_NMS_CHECKED boxes (kept indices equal, every
+    threshold-exact pair's second box kept), and its kernel alone at the
+    bench size, timed."""
+    from functools import partial
+
+    from tpukern_torch.core import registry
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import nms
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    n, bins = ops_bench.Size().hist
+    n_odd, bins_odd, lo, hi = ZOO_HIST_ODD
+    cases = [(f"{n_odd} values {bins_odd} bins, {lo} to {hi - 1}",
+              ints(lo, hi, n_odd), bins_odd),
+             (f"one bin, {n} values",
+              torch.full((n,), 7, dtype=torch.int32, device="cuda"), bins),
+             (f"{ZOO_HIST_LARGE} values {bins} bins",
+              ints(0, bins, ZOO_HIST_LARGE), bins)]
+    for name in ("histogram_i32", "histogram_i32_r128"):
+        v = registry.get("histogram", name)
+        for k, (case, x, b) in enumerate(cases):
+            ok, err, rule = ops_bench.check(v, (x, b))
+            print(f"[zoo] histogram.{name:20s} {case:36s} max_abs {err:.3e} "
+                  f"({rule}) {'ok' if ok else 'MISS'}")
+            checks.record("histogram", ok, err)
+            if k:
+                timed.append((f"histogram.{name} {case}", ("histogram",),
+                              partial(v.fn, x, b), partial(v.ref, x, b),
+                              partial(torch.bincount, x, minlength=b),
+                              partial(ops_bench.work, v, (x, b))))
+    for n_boxes in ZOO_NMS_CHECKED:
+        pairs = n_boxes // 10
+        boxes, scores = ops_bench.nms_boxes(n_boxes, gen, exact_pairs=pairs)
+        out, ref = nms.nms(boxes, scores), nms.nms_plain(boxes, scores)
+        kept = set(out.tolist())
+        ok = (torch.equal(out, ref)
+              and set(range(n_boxes - pairs, n_boxes)) <= kept)
+        err = float((out != ref).sum().item())
+        print(f"[zoo] nms {n_boxes} boxes, {pairs} pairs at IoU 0.5: "
+              f"{len(kept - {-1})} kept, {err:.0f} indices differ (equal, "
+              f"pairs kept) {'ok' if ok else 'MISS'}")
+        checks.record("nms_keep", ok, err)
+    n_boxes = ops_bench.Size().nms
+    boxes, scores = ops_bench.nms_boxes(n_boxes, gen)
+    ordered = boxes[torch.argsort(-scores, stable=True)]
+    keep, ref = nms.nms_keep(ordered), nms.nms_keep_plain(ordered)
+    ok = torch.equal(keep, ref)
+    print(f"[zoo] nms_keep alone, {n_boxes} sorted boxes: "
+          f"{int(keep.sum())} kept {'ok' if ok else 'MISS'}")
+    checks.record("nms_keep", ok, float((keep != ref).sum().item()))
+    # the bound: nms.py:26-38's 14 operations on each of the N^2 pairs;
+    # the boxes read, the int32 flags written
+    timed.append(("nms_keep alone", ("nms_keep",),
+                  partial(nms.nms_keep, ordered),
+                  partial(nms.nms_keep_plain, ordered), None,
+                  lambda _: (14 * n_boxes ** 2, torch.float32,
+                             _nbytes(ordered) + 4 * n_boxes)))
+
+
 def phase_zoo():
     """[zoo]: walks the port registry's variants of ZOO_FAMILIES and
     ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
@@ -3744,7 +3843,8 @@ def phase_zoo():
             args = ops_bench.inputs(fam, name, size, gen)
             ok, err, rule = ops_bench.check(v, args)
             kernels = _zoo_kernels(v)
-            shape = [list(t.shape) for t in args]
+            shape = [list(t.shape) if isinstance(t, torch.Tensor) else t
+                     for t in args]
             print(f"[zoo] {fam + '.' + name:40s} {str(shape)[:40]:40s} "
                   f"max_abs {err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
             checks.ok &= ok
@@ -3796,6 +3896,7 @@ def phase_zoo():
                 for k in _zoo_kernels(v):
                     checks.record(k, ok, err)
     _zoo_gathers(checks, gen)
+    _zoo_memory_ops(checks, gen, timed)
     # softmax_global keeps its max and sum on the card: any host read of
     # them raises here
     v = registry.get("softmax", "softmax_f32_global")
@@ -3867,6 +3968,10 @@ def phase_zoo():
             # the variant's two kernels together, beside torch.softmax
             for k in kernels:
                 results[k].update(variant_ms=ms, variant_library_ms=lib_ms)
+        if name == "nms.nms_f32":
+            # the sort, #43 and the compaction together
+            results["nms_keep"].update(variant_ms=ms,
+                                       variant_plain_ms=plain_ms)
     return results, launches, checks.ok
 
 
@@ -4082,7 +4187,14 @@ def main():
            "embedding_dma": ("tpukern_torch/csrc/embedding.cu",
                              "tpukern/ops/embedding.py:71"),
            "embedding_onehot": ("tpukern_torch/csrc/embedding.cu",
-                                "tpukern/ops/embedding.py:108")}
+                                "tpukern/ops/embedding.py:108"),
+           "histogram": ("tpukern_torch/csrc/histogram.cu",
+                         "tpukern/ops/histogram.py:47"),
+           "transpose": ("tpukern_torch/csrc/transpose.cu",
+                         "tpukern/ops/transpose.py:39"),
+           "nms_keep": ("tpukern_torch/csrc/nms.cu",
+                        "tpukern/ops/nms.py:24"),
+           "gemv": ("tpukern_torch/csrc/gemv.cu", "tpukern/ops/gemv.py:37")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -4137,7 +4249,13 @@ def main():
         "embedding_prefetch": "F.embedding(idx, w) (int32 indices)",
         "embedding_dma": "F.embedding(idx, w) (int32 indices)",
         "embedding_onehot": "F.embedding(idx, w) (int32 indices), the "
-                            "gather the one-hot product computes"}
+                            "gather the one-hot product computes",
+        "histogram": "torch.bincount(x, minlength=num_bins) (int64 counts; "
+                     "the data lies in [0, num_bins))",
+        "transpose": "x.t().contiguous()",
+        "nms_keep": "none: PyTorch has no NMS of its own, and torchvision "
+                    "(torchvision.ops.nms) is not installed on the host",
+        "gemv": "torch.mv(A, x) in the input dtype (cuBLAS)"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -4161,7 +4279,7 @@ def main():
     # matmul_kpipe launch the kernels of rope_batched and matmul
     for n in ZOO_KERNELS:
         modes[n] = {k: timing[n][k] for k in (
-            "variant", "variant_ms", "variant_library_ms")
+            "variant", "variant_ms", "variant_plain_ms", "variant_library_ms")
             if k in timing[n]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"

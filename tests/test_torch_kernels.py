@@ -10,6 +10,8 @@ bf16 row for bf16; 1e-4 for f32, since CUDA's exp/rsqrt and the
 summation order differ from PyTorch's in the last bits.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,11 @@ from tpukern_torch.core.tolerances import check_all_close
 from tpukern_torch.harness import ops_bench
 from tpukern_torch.models import (Config, ContinuousBatcher, init_params,
                                   loss_fn, param_leaves, params_to)
+from tpukern_torch.core import registry
 from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
-                               dot_product, embedding, layernorm, matmul,
-                               paged_attention, reduce, rmsnorm, rope,
-                               softmax)
+                               dot_product, embedding, gemv, histogram,
+                               layernorm, matmul, nms, paged_attention,
+                               reduce, rmsnorm, rope, softmax, transpose)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -1684,3 +1687,205 @@ def test_embedding_views_and_errors(cuda):
         embedding.embedding_prefetch(idx.float(), w)
     with pytest.raises(ValueError, match="idx"):
         embedding.embedding_prefetch(idx[None], w)
+
+
+# ------------------------------- histogram #41, transpose #42, nms #43,
+# gemv #44
+# transpose bit-equal to x.T in both dtypes, all three orders and four
+# super-tiles: the zoo's tail (a ragged tile edge both ways), rows of
+# whole tiles, a 1 x 1 matrix, odd widths (bf16 rows of no whole words)
+TR_SHAPES = [(4095, 4097), (384, 256), (1, 1), (63, 130), (129, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TR_SHAPES, ids=str)
+@pytest.mark.parametrize("block", [(128, 128), (256, 256), (512, 512),
+                                   (64, 192)], ids=str)
+@pytest.mark.parametrize("order", ["row", "col", "diag"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+def test_transpose_matches_plain(cuda, dt, order, block, shape):
+    g = torch.Generator(device=cuda).manual_seed(shape[0] + shape[1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dt)
+    before = transpose.transpose.launches
+    out = transpose.transpose(x, block, order)
+    torch.cuda.synchronize()
+    assert transpose.transpose.launches == before + 1
+    assert out.shape == shape[::-1] and out.dtype == dt
+    assert torch.equal(out, transpose.transpose_plain(x, block, order))
+    assert torch.equal(out, x.T)
+
+
+@pytest.mark.cuda
+def test_transpose_views_and_errors(cuda):
+    """A bf16 matrix 2 bytes off a 4-byte boundary (the element-wise
+    reads), a transposed view (made contiguous), an empty matrix; the
+    dtypes and blocks the kernel refuses."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    flat = torch.randn(300 * 64 + 1, generator=g, device=cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        xv = flat.to(dt)[1:].reshape(300, 64)
+        assert torch.equal(transpose.transpose(xv), xv.T)
+        assert torch.equal(transpose.transpose(xv.T), xv)
+    assert transpose.transpose(flat[:0].reshape(0, 5)).shape == (5, 0)
+    with pytest.raises(TypeError):
+        transpose.transpose(flat[:64].reshape(8, 8).half())
+    with pytest.raises(ValueError):
+        transpose.transpose(flat[:64].reshape(8, 8), block=(32, 32))
+
+
+# (values, bins, lo, hi): values uniform in [lo, hi); the zoo's odd case
+# (2^20 - 1 values, 1000 bins, -5 to 1005), bench/ops.py's, a tail of
+# every load width, one bin, and more bins than shared memory holds (the
+# global-atomic path)
+HIST_CASES = [(2 ** 20 - 1, 1000, -5, 1005), (2 ** 20, 256, 0, 256),
+              (4097, 7, -3, 12), (1, 1, 0, 1), (300001, 60000, -10, 60010)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", [8, 32, 128])
+@pytest.mark.parametrize("case", HIST_CASES, ids=str)
+def test_histogram_matches_plain(cuda, case, block_rows):
+    n, bins, lo, hi = case
+    g = torch.Generator(device=cuda).manual_seed(n + bins)
+    x = torch.randint(lo, hi, (n,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    before = histogram.histogram.launches
+    out = histogram.histogram(x, bins, block_rows)
+    torch.cuda.synchronize()
+    assert histogram.histogram.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (bins,)
+    assert torch.equal(out, histogram.histogram_plain(x, bins))
+    assert torch.equal(out, histogram.histogram_sorted(x, bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [1.0, 0.5])
+def test_histogram_hot_bin(cuda, share):
+    """Every value (or half of them) in bin 3: the warps' equal values
+    aggregated before their atomics, counts exact."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = 2 ** 20 + 3
+    x = torch.randint(0, 256, (n,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    x[torch.rand(n, generator=g, device=cuda) < share] = 3
+    out = histogram.histogram(x, 256)
+    assert torch.equal(out, histogram.histogram_plain(x, 256))
+    assert out[3].item() >= share * n * 0.99 and out.sum().item() == n
+
+
+@pytest.mark.cuda
+def test_histogram_int64_views_and_no_host_sync(cuda):
+    """int64 values narrowed on the card (no host read), a 2-D input, a
+    strided view and one 4 bytes off a 16-byte boundary."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randint(-3, 70, (64, 65), generator=g, device=cuda)
+    x[0, :4] += 2 ** 32
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = histogram.histogram(x, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out, histogram.histogram_plain(x, 64))
+    for xv in (x.to(torch.int32)[:, ::2], x.to(torch.int32).reshape(-1)[1:]):
+        assert torch.equal(histogram.histogram(xv, 64),
+                           histogram.histogram_plain(xv, 64))
+
+
+def _nms_case(n, dev):
+    g = torch.Generator(device=dev).manual_seed(n)
+    return ops_bench.nms_boxes(n, g, exact_pairs=n // 10 if n >= 100 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 4000])
+def test_nms_matches_plain(cuda, n):
+    """Kept indices equal; from 1000 boxes on a tenth of them are pairs at
+    an IoU of exactly 0.5, whose second box only the strict > keeps."""
+    boxes, scores = _nms_case(n, cuda)
+    before = nms.nms_keep.launches
+    out = nms.nms(boxes, scores)
+    torch.cuda.synchronize()
+    assert nms.nms_keep.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (n,)
+    assert torch.equal(out, nms.nms_plain(boxes, scores))
+    if n >= 100:
+        pairs = n // 10
+        kept = set(out.tolist())
+        assert set(range(n - pairs, n)) <= kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.0, 0.3, 0.7, 1.0])
+def test_nms_keep_thresholds(cuda, thr):
+    boxes, scores = _nms_case(1000, cuda)
+    order = torch.argsort(-scores, stable=True)
+    assert torch.equal(nms.nms_keep(boxes[order], thr),
+                       nms.nms_keep_plain(boxes[order], thr))
+
+
+GEMV_NAMES = sorted(registry.variants("gemv"))
+# the zoo's tail (a K tail in every block_k), test_matmul's shape, short
+# rows (teams of 4-16 lanes), a 1 x 1 product
+GEMV_CASES = [(4095, 4097), (300, 1024), (33, 48), (17, 7), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMV_CASES, ids=str)
+@pytest.mark.parametrize("name", GEMV_NAMES)
+def test_gemv_matches_plain(cuda, name, case):
+    """Each variant against its plain version by ops_bench.check (TOLS of
+    its dtype plus the contraction slack)."""
+    g = torch.Generator(device=cuda).manual_seed(case[0] + case[1])
+    v = registry.get("gemv", name)
+    args = (torch.randn(case, generator=g, device=cuda),
+            torch.randn(case[1], generator=g, device=cuda))
+    before = gemv.gemv.launches
+    ok, err, rule = ops_bench.check(v, args)
+    torch.cuda.synchronize()
+    assert gemv.gemv.launches == before + 1
+    assert ok, f"{name} {case}: {rule} missed ({err:.3e})"
+
+
+def _tf32(t):
+    # round to nearest on TF32's 10 mantissa bits, as a TF32 mma reads
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_gemv_mxu_f32_holds_the_f32_row(cuda):
+    """f32 `mxu` on CUDA-core FMAs: within TOLS's f32 row plus the
+    contraction slack at M 768, K 1024, where a product of TF32-rounded
+    inputs misses that rule."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    v = registry.get("gemv", "gemv_f32_mxu")
+    A = torch.randn(768, 1024, generator=g, device=cuda)
+    x = torch.randn(1024, generator=g, device=cuda)
+    ok, err, rule = ops_bench.check(v, (A, x))
+    assert ok, f"{rule} missed ({err:.3e})"
+    tf32 = dataclasses.replace(v, fn=lambda A, x: v.ref(_tf32(A), _tf32(x)))
+    assert not ops_bench.check(tf32, (A, x))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["vpu", "mxu"])
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+@pytest.mark.parametrize("block_k", [None, 7, 96, 512, 5000])
+def test_gemv_options_and_views(cuda, block_k, dt, mode):
+    """block_k of no whole pack (7) and of no whole mma chunk (96), beyond
+    K; A a view 2 elements off a 16-byte boundary (the element-wise
+    loads)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    flat = torch.randn(257 * 1000 + 2, generator=g, device=cuda).to(dt)
+    A = flat[2:].reshape(257, 1000)
+    x = torch.randn(1000, generator=g, device=cuda).to(dt)
+    for a in (A, A.contiguous()):
+        out = gemv.gemv(a, x, block_k=block_k, mode=mode)
+        ref = gemv.gemv_plain(a, x, block_k=block_k, mode=mode)
+        lim = (1e-4 + 1e-4 * ref.abs()
+               + 2 * 1000 ** 0.5 * 2.0 ** -24 * (a.float().abs()
+                                                 @ x.float().abs()))
+        assert ((out - ref).abs() <= lim).all(), (block_k, dt, mode)
+    with pytest.raises(TypeError):
+        gemv.gemv(A, x.float() if dt != torch.float32 else x.half())

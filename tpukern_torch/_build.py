@@ -142,6 +142,15 @@ SIGNATURES = {
     "tk_embedding_gather": [_P, _P, _P, _I64, _I, _I64, _I, _I, _I, _P],
     # idx (i32), w, out, S, V, D, dtype, stream
     "tk_embedding_onehot": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x (i32), n, out (i32, zeroed), bins, block_rows, stream
+    "tk_histogram": [_P, _I64, _P, _I, _I, _P],
+    # x, out, M, N, bm, bn, order (0 row, 1 col, 2 diag), dtype, stream
+    "tk_transpose": [_P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    # A, x, y (f32), M, K, K block, mode (0 vpu, 1 mxu), dtype, stream
+    "tk_gemv": [_P, _P, _P, _I, _I64, _I64, _I, _I, _P],
+    # boxes (f32, sorted), n, threshold, mask (u64 scratch), keep (i32),
+    # stream
+    "tk_nms_keep": [_P, _I, _F, _P, _P, _P],
 }
 
 

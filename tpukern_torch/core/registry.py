@@ -60,23 +60,11 @@ def families() -> list[str]:
     return sorted(_REGISTRY)
 
 
-_ZOO = "ROADMAP.md queue 1 item 12 (the op-family zoo)"
 _MM = "ROADMAP.md queue 1 item 2 (ops/matmul.py, the rest)"
 _FA = "ROADMAP.md queue 1 item 5 (flash_attention, the rest)"
 
 # (family, name) -> why the JAX variant has no port variant yet
 PENDING: dict[tuple[str, str], str] = {
-    **{("histogram", s): f"{_ZOO}: histogram, kernel #41"
-       for s in ("histogram_i32", "histogram_i32_r128",
-                 "histogram_i32_sorted")},
-    **{("transpose", f"transpose_{s}"): f"{_ZOO}: transpose, kernel #42"
-       for s in ("f32_row", "f32_row_b256", "f32_row_b512", "f32_col",
-                 "f32_diag", "bf16_row", "bf16_row_b256", "bf16_diag")},
-    ("nms", "nms_f32"): f"{_ZOO}: nms, kernel #43",
-    **{("gemv", f"gemv_{s}"): f"{_ZOO}: gemv, kernel #44"
-       for s in ("f32_k512", "f32_k2048", "f32_k_full", "f32_mxu",
-                 "bf16_k512", "bf16_k_full", "bf16_mxu", "f16_k512",
-                 "f16_k_full")},
     ("matmul", "hgemm_accbf16_bf16"): f"{_MM}: a bf16 accumulator in #1-#3",
     ("matmul", "hgemm_f16"): f"{_MM}: f16 inputs in #1-#3",
     ("matmul", "qgemm_i8_i32"): f"{_MM}: the int8 path of qgemm_i8_i32",

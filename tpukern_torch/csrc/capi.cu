@@ -261,4 +261,28 @@ int tk_embedding_onehot(const int* idx, const void* w, void* out, int S,
       idx, w, out, S, V, D, dtype, static_cast<cudaStream_t>(stream)));
 }
 
+int tk_histogram(const int* x, int64_t n, int* out, int bins, int block_rows,
+                 void* stream) {
+  return checked(tk::histogram_launch(x, n, out, bins, block_rows,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_transpose(const void* x, void* out, int64_t M, int64_t N, int bm,
+                 int bn, int order, int dtype, void* stream) {
+  return checked(tk::transpose_launch(x, out, M, N, bm, bn, order, dtype,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_gemv(const void* A, const void* x, float* y, int M, int64_t K,
+            int64_t bk, int mode, int dtype, void* stream) {
+  return checked(tk::gemv_launch(A, x, y, M, K, bk, mode, dtype,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+int tk_nms_keep(const float* boxes, int n, float thr, unsigned long long* mask,
+                int* keep, void* stream) {
+  return checked(tk::nms_keep_launch(boxes, n, thr, mask, keep,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

@@ -668,5 +668,20 @@ cudaError_t embedding_gather_launch(const int* idx, const void* w, void* out,
 cudaError_t embedding_onehot_launch(const int* idx, const void* w, void* out,
                                     int S, int V, int D, int dtype,
                                     cudaStream_t stream);
+// out: bins int32, zeroed by the caller; block_rows 8, 16, 32, 64 or 128
+cudaError_t histogram_launch(const int* x, int64_t n, int* out, int bins,
+                             int block_rows, cudaStream_t stream);
+// order 0 row, 1 col, 2 diag; bm and bn multiples of 64
+cudaError_t transpose_launch(const void* x, void* out, int64_t M, int64_t N,
+                             int bm, int bn, int order, int dtype,
+                             cudaStream_t stream);
+// mode 0 vpu, 1 mxu; bk: the K block
+cudaError_t gemv_launch(const void* A, const void* x, float* y, int M,
+                        int64_t K, int64_t bk, int mode, int dtype,
+                        cudaStream_t stream);
+// boxes (n, 4) f32 sorted by score; mask: n x ceil(n / 64) u64 scratch
+cudaError_t nms_keep_launch(const float* boxes, int n, float thr,
+                            unsigned long long* mask, int* keep,
+                            cudaStream_t stream);
 
 }  // namespace tk

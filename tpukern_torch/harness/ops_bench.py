@@ -35,9 +35,7 @@ from tpukern_torch.ops import reduce
 
 EW_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                "hardswish", "hardshrink"]
-# bench/ops.py's order, then the families it leaves to other scripts;
-# transpose, histogram, gemv and nms have no port variant yet
-# (core.registry.PENDING)
+# bench/ops.py's order, then the families it leaves to other scripts
 FAMILIES = EW_FAMILIES + [
     "softmax", "layer_norm", "rms_norm", "rope", "reduce", "dot_product",
     "transpose", "embedding", "histogram", "gemv", "nms", "cross_entropy",
@@ -73,7 +71,7 @@ HALF_SUBNORMAL = {torch.float32: 2.0 ** -150, torch.bfloat16: 2.0 ** -134,
                   torch.float16: 2.0 ** -25}
 SOFTMAX_SUM_F32 = 2e-5
 # a grouped product's outputs are f32 sums of n terms (a group's rows in
-# tgmm, K in gmm), summed in another order by the kernel than by ref:
+# tgmm, K in gmm and gemv), summed in another order by the kernel than by ref:
 # each order's rounding error is a random walk of about sqrt(n)
 # UNIT_ROUNDOFF times the sum of the terms' magnitudes, so the two are
 # held within CONTRACTION_F32 times that on top of TOLS. An output near 0
@@ -101,13 +99,17 @@ class Size:
     # take seconds a call at 32768 (bench/ops.py skips it there); 1024 is
     # the vocabulary of __graft_entry__.entry()'s config
     onehot_vocab: int = 1024
+    hist: tuple = (1 << 20, 256)        # values, bins (bench/ops.py)
+    # boxes: bench/ops.py has no nms shape; JAX's docstring's size
+    nms: int = 1024
 
 
 # the tiny size of the CPU tests
 TINY = Size(S=40, K=48, ce=(16, 32, 80), sampling=(4, 300),
             gmm=(48, 32, 24, 4), w8a16=(4, 64, 40),
             attention=(1, 4, 2, 33, 32), paged=(2, 4, 2, 32, 16, 4, 3),
-            quant=(24, 32), embedding=(64, 48, 40), onehot_vocab=37)
+            quant=(24, 32), embedding=(64, 48, 40), onehot_vocab=37,
+            hist=(1000, 37), nms=64)
 
 _DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
            "f32": torch.float32, "i8": torch.int8,
@@ -127,6 +129,35 @@ def _in_dtype(family, name):
     # else f32
     return (torch.bfloat16 if "bf16" in tokens else
             torch.float16 if "f16" in tokens else torch.float32)
+
+
+def nms_boxes(n, gen, exact_pairs=0):
+    """(boxes (n, 4), scores (n,)), f32 on gen's device: boxes drawn as
+    tests/test_memory_ops.py:70-74 draws its 64 (centres U(0, 100), sizes
+    U(5, 30), scores U(0, 1)) with the field scaled by sqrt(n / 64), so
+    the overlap stays that test's; then `exact_pairs` pairs apart from the
+    field, [x, y, x + 2, y + 1] above [x, y, x + 1, y + 1] in score at
+    integer x and y: an IoU of exactly 0.5, so the second box is kept
+    under the strict `>` and suppressed under `>=`."""
+    dev, f64 = gen.device, torch.float64
+    m = n - 2 * exact_pairs
+    field = 100 * math.sqrt(n / 64)
+
+    def unif(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+
+    centres, sizes = field * unif(m, 2), 5 + 25 * unif(m, 2)
+    boxes = [torch.cat([centres - sizes / 2, centres + sizes / 2], 1)]
+    scores = [unif(m)]
+    if exact_pairs:
+        k = torch.arange(exact_pairs, device=dev, dtype=f64)
+        x = math.ceil(field) + 20 + 4 * (k % 64)
+        y = 4 * torch.div(k, 64, rounding_mode="floor")
+        boxes += [torch.stack([x, y, x + 2, y + 1], 1),
+                  torch.stack([x, y, x + 1, y + 1], 1)]
+        s = unif(exact_pairs) / 2
+        scores += [0.5 + s, s]
+    return torch.cat(boxes).float(), torch.cat(scores).float()
 
 
 def inputs(family, name, size, gen):
@@ -157,6 +188,15 @@ def inputs(family, name, size, gen):
         def exact():
             return (ints(-2, 3, S, K).float() * 0.5).to(dt)
         return (exact(),) if family == "reduce" else (exact(), exact())
+    if family == "transpose":
+        return (randn(S, K, dtype=dt),)
+    if family == "gemv":
+        return randn(S, K, dtype=dt), randn(K, dtype=dt)
+    if family == "histogram":
+        n, bins = size.hist
+        return ints(0, bins, n), bins
+    if family == "nms":
+        return nms_boxes(size.nms, gen)
     if family == "embedding":
         V, D, St = size.embedding
         if "_onehot_" in name:
@@ -247,8 +287,9 @@ def check(v, args):
     rule). Integers equal (a stochastic rounding: within one step); the
     bf16-accumulator sum on the card equal to its plain version in the
     kernel's order (reduce.sum_bf16_in_order); softmax by
-    softmax_check; a gather (embedding) bit-equal; floats within TOLS,
-    a grouped product's with its contraction_slack on top."""
+    softmax_check; a gather (embedding) and a transpose bit-equal; floats
+    within TOLS, a grouped product's and a gemv's with their
+    contraction_slack on top (a gemv output sums K products)."""
     out, ref = v.fn(*args), v.ref(*args)
     pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
     ok, worst, rules = True, 0.0, []
@@ -271,7 +312,7 @@ def check(v, args):
             err = (o.double() - want.double()).abs().item()
             rules.append("bf16 sum equal to the kernel's order")
             ok &= bool(torch.equal(o, want))
-        elif v.family == "embedding":
+        elif v.family in ("embedding", "transpose"):
             rules.append("bit-equal")
             ok &= torch.equal(o, r)
         elif v.family == "softmax":
@@ -282,7 +323,7 @@ def check(v, args):
         else:
             rtol, atol = TOLS[_tol_dtype(v, args, o)]
             lim = atol + rtol * r.double().abs()
-            if v.family == "grouped_matmul":
+            if v.family in ("grouped_matmul", "gemv"):
                 lim = lim + contraction_slack(v, args, o)
                 rules.append(f"rtol {rtol:g} atol {atol:g} + "
                              f"{CONTRACTION_F32:g} sqrt(n) u_f32 sum|terms|")
@@ -304,7 +345,9 @@ def work(v, args, out):
         tensors = [*args, *(out if isinstance(out, tuple) else (out,))]
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
     flops = v.flops(*args) if v.flops else 0
-    floats = [t.dtype for t in args if t.dtype in PEAK_FLOP_S]
+    # histogram's num_bins is an int
+    floats = [t.dtype for t in args
+              if isinstance(t, torch.Tensor) and t.dtype in PEAK_FLOP_S]
     dtype = (torch.bfloat16 if torch.bfloat16 in floats
              or "bf16" in v.name.split("_") else torch.float32)
     return flops, dtype, nbytes

@@ -11,6 +11,10 @@ from tpukern_torch.ops import (  # noqa: F401
     softmax,
     layernorm,
     embedding,
+    histogram,
+    transpose,
+    gemv,
+    nms,
     rmsnorm,
     rope,
     matmul,
