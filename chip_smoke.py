@@ -118,7 +118,18 @@
    launches a forward plus backward, out and grads against the plain
    ragged products, ms, 3 Adam steps, and a router that sends half the
    tokens to one expert; then the train parity at the Mixtral widths
-   (S=1024), counting the routings that part between the two runs.
+   (S=1024), counting the routings that part between the two runs;
+11. [ring]: the ring collectives of tpukern_torch.parallel (#45 the
+   all-gather, #46 the reduce-scatter, and their composition) against
+   their plain ring walks bit for bit at 1-8 ranks on the card, in f32,
+   bf16 and f16, on x, another x' and x again; [ring-grads]: the
+   data-parallel all-reduce of 8 ranks' gradients of the 7bish training
+   config cut to 2 layers (each rank its own B=1, S=1024 batch), every
+   rank's copy against the plain walk and 8x the union batch's
+   gradient, with the two kernels' launch counts reset just before and
+   read just after; then #46, #45 and the all-reduce timed at the
+   16-layer parameter count (8 x 872.5 M f32) beside the plain walks,
+   one card's library calls and the bounds.
 
 Exits non-zero, without the result line, if there is no CUDA device or
 any phase fails. The last line is {"ok": true, "device": {...}}.
@@ -3975,6 +3986,215 @@ def phase_zoo():
     return results, launches, checks.ok
 
 
+# ------------------------------------------------------------- parallel
+RING_NS = (1, 2, 3, 4, 8)
+RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+RING_FNS = ("ring_all_gather", "ring_reduce_scatter", "ring_all_reduce_grads")
+# the kernels each collective launches (the kernels line's rows)
+RING_KERNELS = {"ring_all_gather": ("ring_all_gather",),
+                "ring_reduce_scatter": ("ring_reduce_scatter",),
+                "ring_all_reduce_grads": ("ring_reduce_scatter",
+                                          "ring_all_gather")}
+RING_RANKS = 8  # [ring-grads]: data-parallel ranks on the card
+RING_GRAD_S = 1024
+
+
+def _ring_shapes(n):
+    """tests/test_parallel.py's (64, 128) rows (66 where n does not divide
+    64), a ragged chunk of 37 x 5 elements (no 16-byte unit) and a large
+    one of 3 x 2^20 elements (more tiles than a rank has blocks, so blocks
+    drift apart)."""
+    return {"jax": (64 if 64 % n == 0 else 66, 128), "ragged": (37 * n, 5),
+            "large": (n * 3 * 2 ** 17, 8)}
+
+
+def phase_ring():
+    """[ring]: #45, #46 and ring_all_reduce_grads against their plain ring
+    walks with torch.equal, every rank's buffer, at n in RING_NS, in f32,
+    bf16 and f16, at _ring_shapes; each on x, then on another x', then on
+    x again: the later calls run on the flags and slots the earlier ones
+    left (the epochs), and a call that read a slot or an output before
+    its data arrived would return an earlier call's data. One all-reduce
+    under sync debug mode "error". Returns (_Checks, all-ok)."""
+    from tpukern_torch.parallel import Mesh, ring_kernels as rk
+
+    checks = _Checks()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n in RING_NS:
+        mesh = Mesh.on_device(n)
+        for label, (rows, cols) in _ring_shapes(n).items():
+            for fn in RING_FNS:
+                full = (rows, cols) if fn == "ring_all_gather" else (
+                    n, rows, cols)
+                res = []
+                for dt in RING_DTYPES:
+                    xs = [_randn(gen, *full, dtype=dt) for _ in range(2)]
+                    wants = [getattr(rk, fn + "_plain")(x, mesh, ranks=True)
+                             for x in xs]
+                    order = (0, 1, 0)
+                    outs = [getattr(rk, fn)(xs[i], mesh, ranks=True)
+                            for i in order]
+                    torch.cuda.synchronize()
+                    ok = all(o.shape == wants[i].shape
+                             and torch.equal(o, wants[i])
+                             for o, i in zip(outs, order))
+                    err = max((o.float() - wants[i].float()).abs().max()
+                              .item() for o, i in zip(outs, order))
+                    for k in RING_KERNELS[fn]:
+                        checks.record(k, ok, err)
+                    res.append(f"{str(dt)[6:]} {'ok' if ok else 'MISS'}")
+                print(f"[ring] {fn:22s} n={n} x {tuple(full)} ({label}), "
+                      f"on x, x', x, torch.equal: {', '.join(res)}")
+    mesh = Mesh.on_device(8)
+    x = _randn(gen, 8, 64, 128, dtype=torch.bfloat16)
+    want = rk.ring_all_reduce_grads_plain(x, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rk.ring_all_reduce_grads(x, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = torch.equal(out, want)
+    checks.record("ring_reduce_scatter", ok, 0.0)
+    print(f"[ring] ring_all_reduce_grads under sync debug mode \"error\": "
+          f"no host sync, {'ok' if ok else 'MISS'}")
+    return checks, checks.ok
+
+
+def phase_ring_grads(cfg):
+    """[ring-grads]: the data-parallel gradient all-reduce. At the 7bish
+    widths cut to 2 layers (f32), RING_RANKS ranks' gradients (loss_fn
+    and autograd, each rank on its own seeded batch, B=1 S=RING_GRAD_S),
+    flattened into x (n, R), R padded to a multiple of n, go through
+    ring_all_reduce_grads on a mesh of n ranks on the card, with the
+    launch counts set to 0 just before and read just after. Every rank's
+    copy must equal the plain ring walk bit for bit and match n times the
+    gradient of the union batch (B=n; the loss is a mean) per parameter
+    within TRAIN_GRAD_REL. Then times #46, #45 (on #46's result) and the
+    all-reduce at the 16-layer parameter count (27.9 GB of f32 operands:
+    the deepest cut that fits if not), beside the plain walks and the
+    library calls (the all-reduce beside its library calls only), with
+    bounds by bytes and the peak memory; #46 and #45 are also held to
+    their plain walks there. Returns ({kernel: timing},
+    {kernel: launches}, all-ok)."""
+    from tpukern_torch.harness import run_benchmark
+    from tpukern_torch.models import init_params, loss_fn, param_leaves
+    from tpukern_torch.parallel import Mesh, ring_kernels as rk
+
+    n, S = RING_RANKS, RING_GRAD_S
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg2, torch.Generator(device="cuda").manual_seed(
+        SEED + 3), device="cuda")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    P = sum(t.numel() for t in leaves)
+    R = -(-P // n) * n
+    batches = [tuple(_batch(cfg2, 1, S, SEED + 10 + r)) for r in range(n)]
+    x = torch.zeros((n, R), device="cuda")
+    for r, (tokens, targets) in enumerate(batches):
+        # rank r's gradients, flattened in param_leaves order (a zero tail)
+        loss = loss_fn(params, tokens, targets, cfg2)
+        x[r, :P] = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            loss, leaves)])
+    mesh = Mesh.on_device(n)
+    rk.ring_all_gather.launches = rk.ring_reduce_scatter.launches = 0
+    out = rk.ring_all_reduce_grads(x, mesh, ranks=True)
+    torch.cuda.synchronize()
+    launches = {"ring_all_gather": rk.ring_all_gather.launches,
+                "ring_reduce_scatter": rk.ring_reduce_scatter.launches}
+    plain = rk.ring_all_reduce_grads_plain(x, mesh, ranks=True)
+    bit = all(torch.equal(out[r], plain[r]) for r in range(n))
+    err = (out - plain).abs().max().item()
+    del plain
+    print(f"[ring-grads] 7bish f32, 2 layers, {P / 1e6:.1f} M parameters "
+          f"({P * 4 / 1e9:.3f} GB a rank), {n} ranks on the card, B=1 "
+          f"S={S} each: x {tuple(x.shape)}; launches {launches}; every "
+          f"rank's copy equals the plain ring walk: "
+          f"{'ok' if bit else 'MISS'} (max abs {err:.3e})")
+    tokens = torch.cat([b[0] for b in batches])
+    targets = torch.cat([b[1] for b in batches])
+    union = torch.autograd.grad(loss_fn(params, tokens, targets, cfg2),
+                                leaves)
+    worst, at = 0.0, 0
+    for g in union:
+        got = out[0, at:at + g.numel()].reshape(g.shape)
+        at += g.numel()
+        worst = max(worst, ((got - n * g).norm() / (n * g).norm()).item())
+        del got  # a view of out
+    good = worst <= TRAIN_GRAD_REL and bool(torch.isfinite(out).all())
+    print(f"[ring-grads] against {n}x the union batch's gradient (B={n}): "
+          f"worst rel_rms over {len(union)} parameters {worst:.3e} (<= "
+          f"{TRAIN_GRAD_REL:g}) {'ok' if good else 'MISS'}")
+    ok = bit and good and all(v > 0 for v in launches.values())
+    per_layer = sum(t.numel() for t in params["layers"][0].values())
+    del params, leaves, x, out, union, batches, g, loss
+    torch.cuda.empty_cache()
+
+    # timing at the 16-layer parameter count, or the deepest cut that fits:
+    # the plain all-gather holds x, its input, its output and three chunks
+    free, _ = torch.cuda.mem_get_info()
+    layers = cfg.n_layers
+    while layers > 2 and (2 * n + 5) * 4 * (
+            P + (layers - 2) * per_layer) > 0.95 * free:
+        layers -= 1
+    Rt = -(-(P + (layers - 2) * per_layer) // n) * n
+    e = 4
+    print(f"[ring-grads] timing at {layers} layers (of {cfg.n_layers}): R = "
+          f"{Rt} f32, n = {n}: x {n * Rt * e / 1e9:.1f} GB, the all-gathered "
+          f"copies {n * Rt * e / 1e9:.1f} GB, the reduce-scatter's output "
+          f"{Rt * e / 1e9:.2f} GB; {free / 1e9:.1f} GB free")
+    results = {k: dict(max_abs_err=0.0) for k in ("ring_all_gather",
+                                                  "ring_reduce_scatter")}
+    shape = f"n={n} R={Rt} f32"
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.randn((n, Rt), generator=tgen, device="cuda")
+    y = rk.ring_reduce_scatter(x, mesh)
+    good = torch.equal(y, rk.ring_reduce_scatter_plain(x, mesh))
+    _time_kernels({"ring_reduce_scatter": _timed_entry(
+        "ring_reduce_scatter", shape, lambda: rk.ring_reduce_scatter(x, mesh),
+        lambda: rk.ring_reduce_scatter_plain(x, mesh), lambda: x.sum(0),
+        (n - 1) * Rt, (n + 1) * Rt * e, torch.float32, light=True)}, results)
+    del x
+    torch.cuda.empty_cache()
+    ag = rk.ring_all_gather(y, mesh, ranks=True)
+    good &= torch.equal(ag, rk.ring_all_gather_plain(y, mesh, ranks=True))
+    del ag
+    _time_kernels({"ring_all_gather": _timed_entry(
+        "ring_all_gather", shape, lambda: rk.ring_all_gather(y, mesh),
+        lambda: rk.ring_all_gather_plain(y, mesh),
+        lambda: y.expand(n, -1).contiguous(), 0, (n + 1) * Rt * e,
+        torch.float32, light=True)}, results)
+    del y
+    torch.cuda.empty_cache()
+    # the all-reduce beside its library calls; its plain walk is the two
+    # plain walks above in turn (timed in one call, its temporaries split
+    # the cached output blocks and it no longer fits at 16 layers)
+    x = torch.randn((n, Rt), generator=tgen, device="cuda")
+    kw = LIGHT["bench"]
+    ar = dict(ms=run_benchmark(lambda: rk.ring_all_reduce_grads(x, mesh),
+                               **kw),
+              library_ms=run_benchmark(
+                  lambda: x.sum(0).expand(n, -1).contiguous(), **kw),
+              bound_ms=_bound(0, 2 * (n + 1) * Rt * e, torch.float32)[0])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del x
+    torch.cuda.empty_cache()
+    print(f"[time] ring_all_reduce_grads    at {shape}: kernels {ar['ms']:.4f}"
+          f" ms (events); library {ar['library_ms']:.4f} ms (x.sum(0), then "
+          f"expand(n, -1).contiguous()); bound {ar['bound_ms']:.4f} ms by "
+          "bytes")
+    print(f"[ring-grads] at {layers} layers #46 and #45 equal their plain "
+          f"walks: {'ok' if good else 'MISS'}; peak device memory "
+          f"{peak:.1f} GB (max_memory_allocated)")
+    for k in results:
+        results[k]["timed_layers"] = layers
+    results["ring_reduce_scatter"].update(
+        {f"all_reduce_{k}": v for k, v in ar.items()})
+    return results, launches, ok and good
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4079,6 +4299,17 @@ def main():
         print("chip_smoke: the MoE outputs or gradients disagree",
               file=sys.stderr)
         return 1
+    torch.cuda.empty_cache()
+    ring_checks, ring_ok = phase_ring()
+    ring_timing, ring_launches_dp, ring_grads_ok = phase_ring_grads(tcfg)
+    if not (ring_ok and ring_grads_ok):
+        print("chip_smoke: a ring collective disagrees with its plain walk "
+              "or the gradient all-reduce with the union batch",
+              file=sys.stderr)
+        return 1
+    for name, r in ring_timing.items():
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               ring_checks.results[name]["max_abs_err"])
     print(f"[moe-train] step {moe_stats['ms']:.3f} ms = "
           f"{moe_stats['tokens_s']:.1f} tokens/s, peak "
           f"{moe_stats['peak_gib']:.2f} GiB, dropped share "
@@ -4110,8 +4341,9 @@ def main():
                                                      "flash_attention_dkv")},
                 "matmul_w8a16": w8a16_launches,
                 **{n: dropless_launches[n] for n in ("gmm", "tgmm")},
-                **zoo_launches}
+                **zoo_launches, **ring_launches_dp}
     timing.update(zoo_timing)
+    timing.update(ring_timing)
 
     src = {"rms_norm": ("tpukern_torch/csrc/rmsnorm.cu",
                         "tpukern/ops/rmsnorm.py:34"),
@@ -4194,7 +4426,11 @@ def main():
                          "tpukern/ops/transpose.py:39"),
            "nms_keep": ("tpukern_torch/csrc/nms.cu",
                         "tpukern/ops/nms.py:24"),
-           "gemv": ("tpukern_torch/csrc/gemv.cu", "tpukern/ops/gemv.py:37")}
+           "gemv": ("tpukern_torch/csrc/gemv.cu", "tpukern/ops/gemv.py:37"),
+           "ring_all_gather": ("tpukern_torch/csrc/ring.cu",
+                               "tpukern/parallel/ring_kernels.py:28"),
+           "ring_reduce_scatter": ("tpukern_torch/csrc/ring.cu",
+                                   "tpukern/parallel/ring_kernels.py:73")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
@@ -4255,7 +4491,11 @@ def main():
         "transpose": "x.t().contiguous()",
         "nms_keep": "none: PyTorch has no NMS of its own, and torchvision "
                     "(torchvision.ops.nms) is not installed on the host",
-        "gemv": "torch.mv(A, x) in the input dtype (cuBLAS)"}
+        "gemv": "torch.mv(A, x) in the input dtype (cuBLAS)",
+        "ring_all_gather": "y.expand(n, -1).contiguous() (one card: the n "
+                           "copies, no NVLink or NCCL)",
+        "ring_reduce_scatter": "x.sum(0) (torch's own order; one card, no "
+                               "NVLink or NCCL)"}
     # #27's launches by mode, the quantized #23's and #24's by tier
     modes = {"sample_threshold": {"count_launches": sample_launches["count"],
                                   "mass_launches": sample_launches["mass"]},
@@ -4281,6 +4521,12 @@ def main():
         modes[n] = {k: timing[n][k] for k in (
             "variant", "variant_ms", "variant_plain_ms", "variant_library_ms")
             if k in timing[n]}
+    # the ring rows: launches in [ring-grads]'s all-reduce; times at the
+    # parameter count of timed_layers; the all-reduce's beside #46's
+    for n in ("ring_all_gather", "ring_reduce_scatter"):
+        modes[n] = {k: v for k, v in timing[n].items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms") and not k.endswith("device_ms")}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

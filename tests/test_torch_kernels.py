@@ -26,6 +26,7 @@ from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
                                dot_product, embedding, gemv, histogram,
                                layernorm, matmul, nms, paged_attention,
                                reduce, rmsnorm, rope, softmax, transpose)
+from tpukern_torch.parallel import Mesh, ring_kernels
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -1889,3 +1890,122 @@ def test_gemv_options_and_views(cuda, block_k, dt, mode):
         assert ((out - ref).abs() <= lim).all(), (block_k, dt, mode)
     with pytest.raises(TypeError):
         gemv.gemv(A, x.float() if dt != torch.float32 else x.half())
+
+
+RING_FNS = ["ring_all_gather", "ring_reduce_scatter", "ring_all_reduce_grads"]
+RING_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _ring_input(fn, n, shape, dt, dev, seed=None):
+    """tests/test_parallel.py's shapes ((64, 128) and (n, 64, 128); 66 rows
+    where n does not divide 64), a ragged chunk of 37 x 5 elements (no
+    16-byte unit), or a large one: more tiles than blocks a rank."""
+    rows, cols = {"jax": ((64 if 64 % n == 0 else 66), 128),
+                  "ragged": (37 * n, 5),
+                  "large": (n * (1 << 20) // 8 * 3, 8)}[shape]
+    full = (rows, cols) if fn == "ring_all_gather" else (n, rows, cols)
+    g = torch.Generator(device=dev).manual_seed(n if seed is None else seed)
+    return torch.randn(full, generator=g, device=dev).to(dt)
+
+
+def _ring_counts():
+    return (ring_kernels.ring_all_gather.launches,
+            ring_kernels.ring_reduce_scatter.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["jax", "ragged"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dt", RING_DTYPES, ids=str)
+@pytest.mark.parametrize("fn", RING_FNS)
+def test_ring_matches_plain(cuda, fn, dt, n, shape):
+    """#45, #46 and their composition equal the plain ring walk bit for
+    bit in every rank's buffer, on x, another x' and x again: the later
+    calls run on the flags and slots the earlier ones left (the epochs),
+    and one that read a slot before its data arrived would return an
+    earlier call's data."""
+    xs = [_ring_input(fn, n, shape, dt, cuda, seed) for seed in (n, n + 99)]
+    mesh = Mesh.on_device(n)
+    wants = [getattr(ring_kernels, fn + "_plain")(x, mesh, ranks=True)
+             for x in xs]
+    before = _ring_counts()
+    outs = [getattr(ring_kernels, fn)(xs[i], mesh, ranks=True)
+            for i in (0, 1, 0)]
+    torch.cuda.synchronize()
+    ag, rs = (a - b for a, b in zip(_ring_counts(), before))
+    assert (ag, rs) == {"ring_all_gather": (3, 0),
+                        "ring_reduce_scatter": (0, 3),
+                        "ring_all_reduce_grads": (3, 3)}[fn]
+    for out, i in zip(outs, (0, 1, 0)):
+        assert out.dtype == dt and out.shape == wants[i].shape
+        assert torch.equal(out, wants[i])
+    x, want = xs[0], wants[0]
+    glob = getattr(ring_kernels, fn)(x, mesh)
+    assert torch.equal(glob, want[0] if fn != "ring_reduce_scatter"
+                       else want.reshape(glob.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+def test_ring_large_chunks(cuda, dt, n):
+    """Chunks of more tiles than a rank has blocks: each block sends many
+    messages through its two slots, waiting on the receiver's done count
+    before it refills one."""
+    mesh = Mesh.on_device(n)
+    for fn in ("ring_reduce_scatter", "ring_all_gather"):
+        for seed in (1, 2, 1):
+            x = _ring_input(fn, n, "large", dt, cuda, seed)
+            out = getattr(ring_kernels, fn)(x, mesh, ranks=True)
+            assert torch.equal(out, getattr(ring_kernels, fn + "_plain")(
+                x, mesh, ranks=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.uint8, torch.int16, torch.int32,
+                                torch.float64, torch.bool], ids=str)
+def test_ring_all_gather_any_dtype(cuda, dt):
+    """#45 copies bytes: 16-byte units where the chunk and the buffers
+    allow, else 8, 4, 2 or 1; a view off a 16-byte boundary too."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for rows, cols in ((64, 16), (21, 3), (9, 1)):
+        flat = torch.randint(0, 2 if dt == torch.bool else 100,
+                             (3 * rows * cols + 1,), generator=g,
+                             device=cuda).to(dt)
+        for x in (flat[:-1].reshape(3 * rows, cols),
+                  flat[1:].reshape(3 * rows, cols)):
+            mesh = Mesh.on_device(3)
+            out = ring_kernels.ring_all_gather(x, mesh, ranks=True)
+            assert torch.equal(out, x.expand(3, -1, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", RING_DTYPES, ids=str)
+def test_ring_reduce_scatter_views_and_errors(cuda, dt):
+    """x a view 2 elements off a 16-byte boundary (the scalar path); an
+    int dtype raises; the plain version on the card is the same walk."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    flat = torch.randn(4 * 64 * 8 + 2, generator=g, device=cuda).to(dt)
+    x = flat[2:].reshape(4, 64, 8)
+    mesh = Mesh.on_device(4)
+    assert torch.equal(ring_kernels.ring_reduce_scatter(x, mesh),
+                       ring_kernels.ring_reduce_scatter_plain(x, mesh))
+    with pytest.raises(TypeError):
+        ring_kernels.ring_reduce_scatter(x.to(torch.int32), mesh)
+    with pytest.raises(ValueError):
+        ring_kernels.ring_reduce_scatter(x[:3], mesh)
+
+
+@pytest.mark.cuda
+def test_ring_no_host_sync(cuda):
+    x = _ring_input("ring_all_reduce_grads", 8, "jax", torch.bfloat16, cuda)
+    mesh = Mesh.on_device(8)
+    want = ring_kernels.ring_all_reduce_grads_plain(x, mesh)
+    ring_kernels.ring_all_reduce_grads(x, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ring_kernels.ring_all_reduce_grads(x, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, want)

@@ -35,6 +35,18 @@ the elementwise and activation families), the two-pass reduction and dot
 product (`ops.reduce`, `ops.dot_product`) and the naive GEMM
 (`ops.matmul.matmul_naive`); `harness.ops_bench` walks the registry on
 the card.
+
+The parallel layer (`parallel`) holds a mesh of ranks on one device
+(`parallel.Mesh.on_device(n)`), the ten collectives in plain torch and
+the ring collectives #45/#46 (`parallel.ring_kernels`: ring_all_gather,
+ring_reduce_scatter and ring_all_reduce_grads, the data-parallel
+gradient all-reduce) on `csrc/ring.cu`. Its CPU parity tests:
+
+    python -m pytest tests/test_torch_parallel.py -q
+
+and its kernels on the card, with every other kernel of the port:
+
+    python3 chip_smoke.py
 """
 
 __version__ = "0.1.0"

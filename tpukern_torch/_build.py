@@ -46,6 +46,7 @@ CODES = {**DTYPE_CODES, **KV_CODES, torch.float16: 4,
          torch.float8_e5m2: 5, torch.int32: 6}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_U64 = ctypes.c_uint64
 _F = ctypes.c_float
 # argtypes of every C entry point (csrc/capi.cu); ctypes would otherwise
 # pass each pointer as a 32-bit int
@@ -151,6 +152,11 @@ SIGNATURES = {
     # boxes (f32, sorted), n, threshold, mask (u64 scratch), keep (i32),
     # stream
     "tk_nms_keep": [_P, _I, _F, _P, _P, _P],
+    # x, out, flags (u64), n, chunk bytes, epoch, max_blocks, stream
+    "tk_ring_all_gather": [_P, _P, _P, _I, _I64, _U64, _I, _P],
+    # x, out, slots, flags (u64), n, chunk (elements), dtype, epoch,
+    # max_blocks, stream
+    "tk_ring_reduce_scatter": [_P, _P, _P, _P, _I, _I64, _I, _U64, _I, _P],
 }
 
 

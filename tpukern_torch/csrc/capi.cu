@@ -285,4 +285,21 @@ int tk_nms_keep(const float* boxes, int n, float thr, unsigned long long* mask,
                                      static_cast<cudaStream_t>(stream)));
 }
 
+int tk_ring_all_gather(const void* x, void* out, unsigned long long* flags,
+                       int n, int64_t chunk_bytes, unsigned long long base,
+                       int max_blocks, void* stream) {
+  return checked(tk::ring_all_gather_launch(
+      x, out, flags, n, chunk_bytes, base, max_blocks,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ring_reduce_scatter(const void* x, void* out, void* slots,
+                           unsigned long long* flags, int n, int64_t chunk,
+                           int dtype, unsigned long long base, int max_blocks,
+                           void* stream) {
+  return checked(tk::ring_reduce_scatter_launch(
+      x, out, slots, flags, n, chunk, dtype, base, max_blocks,
+      static_cast<cudaStream_t>(stream)));
+}
+
 }  // extern "C"

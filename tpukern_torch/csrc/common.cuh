@@ -683,5 +683,19 @@ cudaError_t gemv_launch(const void* A, const void* x, float* y, int M,
 cudaError_t nms_keep_launch(const float* boxes, int n, float thr,
                             unsigned long long* mask, int* keep,
                             cudaStream_t stream);
+// the ring collectives of n ranks on this card (csrc/ring.cu): x holds the
+// ranks' operands one after another, out their outputs; flags max_blocks
+// u64 (all-gather) or 2 max_blocks (reduce-scatter), slots max_blocks x 2
+// tiles of 16 KiB; base: the call's epoch
+cudaError_t ring_all_gather_launch(const void* x, void* out,
+                                   unsigned long long* flags, int n,
+                                   int64_t chunk_bytes,
+                                   unsigned long long base, int max_blocks,
+                                   cudaStream_t stream);
+cudaError_t ring_reduce_scatter_launch(const void* x, void* out, void* slots,
+                                       unsigned long long* flags, int n,
+                                       int64_t chunk, int dtype,
+                                       unsigned long long base,
+                                       int max_blocks, cudaStream_t stream);
 
 }  // namespace tk
