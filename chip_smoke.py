@@ -5,7 +5,10 @@
 
 1. prints the device, torch/CUDA/nvcc versions and whether triton imports;
 2. builds the kernels from tpukern_torch/csrc (one nvcc per source, in
-   parallel, or loads this source hash's build) and prints the seconds;
+   parallel, or loads this source hash's build) and prints the seconds,
+   and counts in the library's SASS (cuobjdump) the wgmma (HGMMA) and
+   TMA loads (UTMALDG) of #16's bf16 kernel and the matrix products of
+   #40's, which must have none;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape: paged_prefill_attention
@@ -43,20 +46,23 @@
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
    D 512, S 8192, the one-hot #40 at V 1024; histogram 2^20 values in
-   256 bins, nms 1024 boxes) and matmul_kpipe, with the eighteen zoo
-   kernels' launch counts reset just before and read just after; holds
+   256 bins, nms 1024 boxes), matmul_kpipe and #16 on each of its bf16
+   load paths, with the eighteen zoo kernels' launch counts (and #16's
+   by load path) reset just before and read just after; holds
    every variant against its plain version (#30-#37, the transpose #42
    and gemv #44 also at 4095 x 4097, a tail in every tier; softmax and
    layer_norm also at the sampling logits' 64 x 131072; the gathers
    #38-#40 and the transpose bit for bit, the gathers also at an odd
-   shape, on indices outside [0, V) and with no host sync; #40 also at V
-   32768 with 128 tokens; histogram #41 also at 2^20 - 1 values in 1000
+   shape, on indices outside [0, V) and with no host sync; #40 at V 1024
+   and 32768 with S 8192; #16 at 4095 x 4097 and with one operand by
+   TMA; histogram #41 also at 2^20 - 1 values in 1000
    bins from -5 to 1005, at 2^26 values and with every value in one bin;
    nms #43 also at 1000 and 4000 boxes with pairs at an IoU of exactly
    0.5), runs softmax_global under sync debug mode "error", and times the
-   zoo's variants, #35, #36 and #43 alone, and #41 at 2^26 values and in
-   one bin, with the L2 flushed before each call, beside the plain
-   version, the library call and the bound;
+   zoo's variants, #35, #36 and #43 alone, #41 at 2^26 values and in
+   one bin, #16 at 4095 x 4097 and #40 at V 32768, with the L2 flushed
+   before each call, beside the plain version, the library call and the
+   bound;
 5. serves the 7bish preset (random bf16 weights from a seeded generator)
    through ContinuousBatcher: 6 requests on 4 slots, 2 admitted
    mid-stream, 32 new tokens each; then [chunked] the same requests with
@@ -244,6 +250,50 @@ def phase_build():
         print(f"[build] ptxas {name}: {used}; {spills}")
     print(f"[build] {path} compiled in {seconds:.1f} s "
           f"({'fresh' if seconds else 'already built'})")
+    counts = sass_counts(path)
+    for kernel, want in SASS_WANT.items():
+        got = counts[kernel]
+        print(f"[build] sass {kernel}: "
+              + ", ".join(f"{op} {n}" for op, n in got.items()))
+        for op, present in want.items():
+            require((got[op] > 0) == present,
+                    f"{kernel}'s SASS has {got[op]} {op}, wanted "
+                    f"{'some' if present else 'none'}")
+
+
+# instructions the SASS of the redesigned kernels must (True) or must not
+# (False) hold, by a fragment of the mangled kernel name: #16's bf16
+# kernel with both operands by TMA runs wgmma (HGMMA) fed by TMA
+# (UTMALDG); #40 runs no matrix product (HMMA, HGMMA)
+SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": {"HGMMA": True,
+                                                   "UTMALDG": True},
+             "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
+
+
+def sass_counts(lib):
+    """{SASS_WANT fragment: {instruction: count}} in cuobjdump -sass of the
+    built library, summed over the functions whose names hold the
+    fragment."""
+    from tpukern_torch import _build
+    ops = sorted({op for want in SASS_WANT.values() for op in want})
+    counts = {k: dict.fromkeys(ops, 0) for k in SASS_WANT}
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.Popen([str(tool), "-sass", str(lib)],
+                            stdout=subprocess.PIPE, text=True)
+    current, seen = [], set()
+    for line in proc.stdout:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = [k for k in SASS_WANT if k in m.group(1)]
+            seen.update(current)
+            continue
+        for k in current:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[k][op] += 1
+    require(proc.wait() == 0, f"{tool} -sass failed")
+    require(seen == set(SASS_WANT), f"no SASS of {set(SASS_WANT) - seen}")
+    return counts
 
 
 def _randn(gen, *shape, dtype):
@@ -3576,12 +3626,22 @@ ZOO_TAILED = ZOO_FAMILIES[:10] + ["softmax", "layer_norm", "transpose",
 ZOO_WIDE = ("softmax", "layer_norm")
 # the gathers' odd shape (V, D, S): rows of 509 elements, no whole 16-byte
 # chunks in bf16 or f32, an odd vocabulary, S a multiple of #39's 8
-# tokens; #40 (2 S V D operations) is checked at the bench vocabulary with
-# S cut to ZOO_ONEHOT_S, and at the odd shape with 8 tokens more
+# tokens; #40 is also checked at ops_bench.Size().onehot_vocab, and
+# timed at both vocabularies
 ZOO_GATHER_ODD = (32767, 509, 8184)
-ZOO_ONEHOT_S = 128
-# the naive GEMM at 4096^3 takes tens of ms a call
-ZOO_TIMING_NAIVE = dict(warmup=1, iters=3, reps=1, flush_l2=True)
+# #16 beyond the ladder's 4096^3 (both operands by TMA in bf16): (M, N,
+# K) of each bf16 load path, checked in both dtypes; the first (ZOO_TAIL
+# as a product: K and N no multiple of 8) also timed
+ZOO_NAIVE_PATHS = {"copy": (4095, 4095, 4097), "mixed": (4096, 4097, 4096)}
+# #16's f32 tier also checked and timed at these n^3, beside the ladder's
+# 4096^3: whether the power-of-two row stride is what costs there. cuBLAS
+# sums 4104-term rows in another order than the kernel's (1.07e-3 apart
+# at 4104^3 on an H100), so these are held to the f64 product with the
+# contraction slack (ops_bench.contraction_slack), as a grouped product is
+ZOO_NAIVE_STRIDES = (4088, 4104)
+# the redesigned kernels (#16 on TMA + wgmma, #40 as a row selection),
+# whose every timed call goes into the kernels line beside the row's
+ZOO_REDESIGNED = ("matmul_naive", "embedding_onehot")
 # histogram #41 beyond the bench input (2^20 values in 256 bins): (values,
 # bins, low, high) of values uniform in [low, high), out of range both
 # ways; a 2^26-value call (the bench's 4 MiB call is mostly launch); and
@@ -3706,39 +3766,54 @@ def _zoo_gathers(checks, gen):
     (torch.equal), at ZOO_GATHER_ODD and on indices outside [0, V) (past
     the end, -1, -V, -V - 1, int32's ends) at the bench shape, and once
     with those indices as int64 under sync debug mode "error" (the int32
-    cast and the launch read nothing back); #40 at the bench vocabulary
-    with ZOO_ONEHOT_S tokens, and at the odd shape with 8 more."""
+    cast and the launch read nothing back); #40 also at the one-hot
+    bench vocabulary (ops_bench.Size().onehot_vocab) with all S tokens,
+    on indices outside [0, V) too. Returns #40's timed calls at V."""
+    from functools import partial
+
     from tpukern_torch.core import registry
     from tpukern_torch.harness import ops_bench
 
     V, D, S = ops_bench.Size().embedding
     Vo, Do, So = ZOO_GATHER_ODD
-    far = torch.tensor([V, V + 7, -1, -V, -V - 1, 2 ** 31 - 1, -2 ** 31],
-                       dtype=torch.int32, device="cuda")
+    Vh = ops_bench.Size().onehot_vocab
 
     def ints(hi, n):
         return torch.randint(0, hi, (n,), generator=gen, device="cuda",
                              dtype=torch.int32)
 
+    def outside(idx, V):
+        far = torch.tensor([V, V + 7, -1, -V, -V - 1, 2 ** 31 - 1,
+                            -2 ** 31], dtype=torch.int32, device="cuda")
+        oob = idx.clone()
+        oob[::idx.numel() // 8][:far.numel()] = far
+        return oob
+
+    timed = []
     for name, v in sorted(registry.variants("embedding").items()):
         dt = torch.bfloat16 if name.endswith("bf16") else torch.float32
-        onehot = "_onehot_" in name
-        s, so = (ZOO_ONEHOT_S, ZOO_ONEHOT_S + 8) if onehot else (S, So)
         w = _randn(gen, V, D, dtype=dt)
-        idx = ints(V, s)
-        oob = idx.clone()
-        oob[::s // 8][:far.numel()] = far
+        idx = ints(V, S)
+        oob = outside(idx, V)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             out64 = v.fn(oob.long(), w)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        io, wo = ints(Vo, so), _randn(gen, Vo, Do, dtype=dt)
-        cases = [(f"V {V} D {D} S {s}", idx, w, v.fn(idx, w)),
+        io, wo = ints(Vo, So), _randn(gen, Vo, Do, dtype=dt)
+        cases = [(f"V {V} D {D} S {S}", idx, w, v.fn(idx, w)),
                  ("outside [0, V)", oob, w, v.fn(oob, w)),
                  ("int64, no host sync", oob, w, out64),
-                 (f"odd V {Vo} D {Do} S {so}", io, wo, v.fn(io, wo))]
+                 (f"odd V {Vo} D {Do} S {So}", io, wo, v.fn(io, wo))]
+        if "_onehot_" in name:
+            wh = _randn(gen, Vh, D, dtype=dt)
+            oh = outside(ints(Vh, S), Vh)
+            cases.append((f"V {Vh} outside [0, V)", oh, wh, v.fn(oh, wh)))
+            timed.append((f"embedding.{name} V {V}", _zoo_kernels(v),
+                          partial(v.fn, idx, w), partial(v.ref, idx, w),
+                          partial(F.embedding, idx, w),
+                          partial(ops_bench.work, v, (idx, w))))
         for case, i, ww, out in cases:
             ref = v.ref(i, ww)
             ok = out.shape == ref.shape and torch.equal(out, ref)
@@ -3747,7 +3822,8 @@ def _zoo_gathers(checks, gen):
             print(f"[zoo] gather {name:24s} {case:28s} max_abs {err:.3e} "
                   f"(bit-equal) {'ok' if ok else 'MISS'}")
             checks.record(_zoo_kernels(v)[0], ok, err)
-        del w, wo
+        del wo
+    return timed
 
 
 def _zoo_memory_ops(checks, gen, timed):
@@ -3815,13 +3891,86 @@ def _zoo_memory_ops(checks, gen, timed):
                              _nbytes(ordered) + 4 * n_boxes)))
 
 
+def _f64_check(v, args):
+    """ops_bench.check's (ok, largest |difference|, rule) for an f32
+    product against the f64 product, within TOLS plus the contraction
+    slack; the rule also gives torch.matmul's own distance from it."""
+    from tpukern_torch.harness import ops_bench
+
+    out, ref = v.fn(*args), torch.matmul(*(t.double() for t in args))
+    rtol, atol = ops_bench.TOLS[torch.float32]
+    d = (out.double() - ref).abs()
+    lim = atol + rtol * ref.abs() + ops_bench.contraction_slack(v, args, out)
+    lib = (v.ref(*args).double() - ref).abs().max().item()
+    return (bool(torch.isfinite(out).all() and (d <= lim).all()),
+            d.max().item(), f"f64 product, rtol {rtol:g} atol {atol:g} + "
+            f"{ops_bench.CONTRACTION_F32:g} sqrt(n) u_f32 sum|terms|; "
+            f"torch.matmul {lib:.3e} from it")
+
+
+def _zoo_naive_paths(checks, gen):
+    """#16 against its plain version (ops_bench.check, the ladder's
+    variants) at ZOO_NAIVE_PATHS in f32 and bf16, against the f64 product
+    at ZOO_NAIVE_STRIDES in f32 (_f64_check), and in bf16 at the ladder's 4096^3 with both operands in views
+    2 bytes off, so on the threads' copy (element loads), bit-equal to
+    the TMA path (the same wgmmas on the same swizzled slabs). Returns the
+    timed calls: ZOO_NAIVE_PATHS' first shape's, the strides' and the
+    copy's."""
+    from functools import partial
+
+    from tpukern_torch.core import registry
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import matmul
+
+    both = ("sgemm_naive_f32", "hgemm_naive_bf16")
+    cases = [(mnk, both, k == 0, ops_bench.check) for k, mnk in
+             enumerate(ZOO_NAIVE_PATHS.values())]
+    cases += [((n, n, n), both[:1], True, _f64_check)
+              for n in ZOO_NAIVE_STRIDES]
+    timed = []
+    for (M, N, K), names, timing, check in cases:
+        for name in names:
+            v = registry.get("matmul", name)
+            dt = ops_bench._in_dtype("matmul", name)
+            args = (_randn(gen, M, K, dtype=dt), _randn(gen, K, N, dtype=dt))
+            ok, err, rule = check(v, args)
+            print(f"[zoo] matmul.{name} {M}x{N}x{K} (bf16 path "
+                  f"{matmul.tma_operands(*args)}) max_abs {err:.3e} "
+                  f"({rule}) {'ok' if ok else 'MISS'}")
+            checks.record("matmul_naive", ok, err)
+            if timing:
+                timed.append((f"matmul.{name} {M}x{N}x{K}",
+                              ("matmul_naive",), partial(v.fn, *args),
+                              partial(v.ref, *args),
+                              _zoo_library(v, args),
+                              partial(ops_bench.work, v, args)))
+    n, v = ops_bench.Size().S, registry.get("matmul", "hgemm_naive_bf16")
+    a, b = (_randn(gen, n, n, dtype=torch.bfloat16) for _ in range(2))
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    copy = partial(matmul.matmul_naive, off(a), off(b))
+    ok = torch.equal(copy(), matmul.matmul_naive(a, b))
+    print(f"[zoo] matmul.hgemm_naive_bf16 {n}^3 on the threads' copy: "
+          f"bit-equal to the TMA path {'ok' if ok else 'MISS'}")
+    checks.record("matmul_naive", ok, 0.0 if ok else float("inf"))
+    timed.append((f"matmul.hgemm_naive_bf16 {n}^3 element copy",
+                  ("matmul_naive",), copy, partial(v.ref, a, b),
+                  partial(torch.matmul, a, b),
+                  partial(ops_bench.work, v, (a, b))))
+    return timed
+
+
 def phase_zoo():
     """[zoo]: walks the port registry's variants of ZOO_FAMILIES and
     ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
     4096 x 4096; 16.8 M elements for reduce and dot; 4096^3 for the matmul
-    ladder), then matmul_kpipe at 4096^3 in f32 and bf16, with the
-    launch counts of the zoo kernels set to 0 just before and read just
-    after; holds every variant against its plain version
+    ladder), then matmul_kpipe at 4096^3 in f32 and bf16 and #16 at
+    ZOO_NAIVE_PATHS, with the launch counts of the zoo kernels (and #16's
+    by bf16 load path, each of which must be taken) set to 0 just before
+    and read just after; holds every variant against its plain version
     (ops_bench.check), those of ZOO_TAILED also at ZOO_TAIL, whose element
     count leaves a tail in every tier, and the softmax and layer_norm
     variants also at the sampling logits' 64 x 131072 (rows wider than
@@ -3830,8 +3979,9 @@ def phase_zoo():
     of its max or sum fails the run); prints every sum's error against
     the f64 sum; then times each variant of ZOO_FAMILIES, and #35 and #36
     alone, with the L2 flushed before every call beside its plain
-    version, its library call and its bound (#40's bound counts the
-    gather's bytes; its 2 S V D operations are printed beside it).
+    version, its library call and its bound (a gather's counts the
+    distinct rows it reads), and #16 at ZOO_NAIVE_PATHS' first shape, at
+    ZOO_NAIVE_STRIDES and on the threads' copy, and #40 at V 32768 too.
     Returns ({kernel: dict(max_abs_err, ms, ...)}, {kernel: launches},
     all-ok)."""
     from functools import partial
@@ -3842,13 +3992,15 @@ def phase_zoo():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     size = ops_bench.Size()
-    checks, timed, onehot_ops = _Checks(), [], {}
+    checks, timed = _Checks(), []
     n_reg = sum(len(registry.variants(f)) for f in registry.families())
     print(f"[zoo] registry: {n_reg} variants ported, "
           f"{len(registry.PENDING)} pending")
     fns = _zoo_fns()
     for f in fns.values():
         f.launches = 0
+    paths = matmul.matmul_naive.path_launches
+    paths.update(dict.fromkeys(paths, 0))
     for fam in ZOO_FAMILIES + ZOO_REGISTERED:
         for name, v in sorted(registry.variants(fam).items()):
             args = ops_bench.inputs(fam, name, size, gen)
@@ -3862,11 +4014,6 @@ def phase_zoo():
             for k in kernels:
                 if k in fns:
                     checks.record(k, ok, err)
-            if "_onehot_" in name:
-                # (operations, ms at the peak of the table's dtype)
-                ops = 2 * args[0].numel() * args[1].numel()
-                onehot_ops[f"{fam}.{name}"] = (
-                    ops, 1e3 * ops / ops_bench.PEAK_FLOP_S[args[1].dtype])
             if fam in ZOO_FAMILIES:
                 timed.append((f"{fam}.{v.name}", kernels, partial(v.fn, *args),
                               partial(v.ref, *args), _zoo_library(v, args),
@@ -3888,11 +4035,16 @@ def phase_zoo():
                           2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype,
                           _nbytes(a, b) + a.shape[0] * b.shape[1]
                           * a.element_size())))
+    timed += _zoo_naive_paths(checks, gen)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in fns.items()}
-    print(f"[zoo] launches in the walk: {launches}")
+    print(f"[zoo] launches in the walk: {launches}; matmul_naive's bf16 "
+          f"launches by load path: {paths}")
     for n in ZOO_KERNELS:
         require(launches[n] > 0, f"[zoo] {n} was never launched")
+    for path, n in paths.items():
+        require(n > 0, f"[zoo] matmul_naive's {path} path was never taken")
+    checks.results["matmul_naive"]["path_launches"] = dict(paths)
     wide = ops_bench.Size(*size.sampling)
     for fam in ZOO_TAILED:
         for name, v in sorted(registry.variants(fam).items()):
@@ -3906,7 +4058,7 @@ def phase_zoo():
                 checks.ok &= ok
                 for k in _zoo_kernels(v):
                     checks.record(k, ok, err)
-    _zoo_gathers(checks, gen)
+    timed += _zoo_gathers(checks, gen)
     _zoo_memory_ops(checks, gen, timed)
     # softmax_global keeps its max and sum on the card: any host read of
     # them raises here
@@ -3953,11 +4105,9 @@ def phase_zoo():
     for name, kernels, kern, plain, lib, work in timed:
         # work(out): (operations, their dtype, bytes) of the bound
         flops, dt, nbytes = work(kern())
-        kw = (ZOO_TIMING_NAIVE if kernels == ("matmul_naive",)
-              else ZOO_TIMING)
-        ms = run_benchmark(kern, **kw)
-        plain_ms = run_benchmark(plain, **kw)
-        lib_ms = None if lib is None else run_benchmark(lib, **kw)
+        ms = run_benchmark(kern, **ZOO_TIMING)
+        plain_ms = run_benchmark(plain, **ZOO_TIMING)
+        lib_ms = None if lib is None else run_benchmark(lib, **ZOO_TIMING)
         bound, by = ops_bench.bound_ms(flops, dt, nbytes)
         rate = nbytes / ms / 1e6
         print(f"[time] {name:40s} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
@@ -3966,15 +4116,15 @@ def phase_zoo():
               f"{rate:.1f} GB/s"
               + (f", {flops / ms / 1e9:.2f} TFLOP/s" if flops else "")
               + " (L2 flushed)")
-        if name in onehot_ops:
-            n, t = onehot_ops[name]
-            print(f"[time] {name:40s} 2 S V D = {n} operations: "
-                  f"{t:.4f} ms at the peak, {n / ms / 1e9:.2f} TFLOP/s")
         for k in kernels:
             if ZOO_ROW.get(k) == name:
                 results[k].update(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound, bound_by=by, variant=name)
+            elif k in ZOO_REDESIGNED:
+                results[k].setdefault("also_timed", {})[name] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound, bound_by=by)
         if name == "softmax.softmax_online_f32_grid":
             # the variant's two kernels together, beside torch.softmax
             for k in kernels:
@@ -4519,8 +4669,8 @@ def main():
     # matmul_kpipe launch the kernels of rope_batched and matmul
     for n in ZOO_KERNELS:
         modes[n] = {k: timing[n][k] for k in (
-            "variant", "variant_ms", "variant_plain_ms", "variant_library_ms")
-            if k in timing[n]}
+            "variant", "variant_ms", "variant_plain_ms", "variant_library_ms",
+            "path_launches", "also_timed") if k in timing[n]}
     # the ring rows: launches in [ring-grads]'s all-reduce; times at the
     # parameter count of timed_layers; the all-reduce's beside #46's
     for n in ("ring_all_gather", "ring_reduce_scatter"):

@@ -7,7 +7,8 @@ plain version on the CPU), bit for bit, at (V, D, S) = (64, 48, 40) and
 (37, 130, 24). Indices outside [0, V) give what each JAX variant gives in
 interpret mode, and embedding_ref what jnp.take gives. embedding_dma
 refuses a token count that is no multiple of block_tokens, as JAX's
-assert does; ops_bench.work counts a gather's bytes, not its table's.
+assert does; ops_bench.work counts the distinct rows a gather reads, not
+its table.
 """
 
 import jax.numpy as jnp
@@ -109,17 +110,51 @@ def test_dma_refuses_a_token_count_off_the_block():
                                    torch.from_numpy(w), 4))
 
 
+# (V, D) and indices with repeats and indices outside [0, V): #38/#39
+# read rows {0, 3, 5, 15} (-1, 16 and 2^31 - 1 clamp to 15), #40 rows
+# {0, 3, 5} (it reads nothing for an index outside [0, V))
+WORK_IDX = [0, 3, 3, -1, 16, 5, 0, 2 ** 31 - 1]
+
+
 @pytest.mark.parametrize("name", ["embedding_prefetch_f32",
                                   "embedding_onehot_bf16"])
 def test_ops_bench_work_counts_the_gather(name):
-    """The bound's bytes are the variant's bytes_moved: S rows read, S
-    rows written and the indices, never the whole table."""
+    """The bound's bytes are the variant's bytes_moved: each distinct row
+    the indices read, S rows written and the indices, never the whole
+    table."""
     v = registry.get("embedding", name)
-    size = ops_bench.Size(embedding=(4096, 64, 32), onehot_vocab=4096)
-    args = ops_bench.inputs("embedding", name, size,
-                            torch.Generator().manual_seed(0))
+    V, D = 16, 64
+    args = (torch.tensor(WORK_IDX, dtype=torch.int32),
+            torch.ones(V, D, dtype=torch.float32))
     flops, _, nbytes = ops_bench.work(v, args, v.fn(*args))
     item = 2 if name.endswith("bf16") else 4
+    read = 3 if "_onehot_" in name else 4
+    S = len(WORK_IDX)
     assert flops == 0
-    assert nbytes == v.bytes_moved(*args) == 2 * 32 * 64 * item + 32 * 4
+    assert nbytes == v.bytes_moved(*args) == (read + S) * D * item + S * 4
     assert nbytes < args[1].numel() * args[1].element_size()
+
+
+@pytest.mark.parametrize("inf", [np.inf, -np.inf], ids=str)
+def test_jax_onehot_spreads_an_inf_as_nan(inf):
+    """JAX's one-hot product multiplies every table row: an inf at (3, 2)
+    makes column 2 NaN (0 x inf) for every token that does not select
+    row 3, outside [0, V) too, and the inf for those that do. The port's
+    plain version (and kernel #40) selects the row: column 2 is the
+    token's own value, or 0 outside [0, V). The other columns agree bit
+    for bit (ROADMAP.md §3, "not a bit-exact oracle")."""
+    _, w = _case(8, 6, 16)
+    idx = OUT_OF_RANGE
+    w[3, 2] = inf
+    jout = np.asarray(jax_emb.embedding_onehot(jnp.asarray(idx),
+                                               jnp.asarray(w), 8))
+    out = to_numpy(embedding.embedding_onehot(torch.from_numpy(idx),
+                                              torch.from_numpy(w), 8))
+    hit, inside = idx == 3, (idx >= 0) & (idx < 8)
+    assert hit.any() and (~inside).any()
+    np.testing.assert_array_equal(jout[hit, 2], inf)
+    assert np.isnan(jout[~hit, 2]).all()
+    np.testing.assert_array_equal(out[:, 2], np.where(
+        inside, w[np.where(inside, idx, 0), 2], 0))
+    keep = [0, 1, 3, 4, 5]
+    np.testing.assert_array_equal(out[:, keep], jout[:, keep])

@@ -1372,8 +1372,10 @@ def test_reduce_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("M,N,K", [(77, 130, 45), (130, 257, 300), (1, 1, 1),
                                    (64, 80, 48), (33, 31, 4099)])
 def test_matmul_naive_matches_plain(cuda, M, N, K, dt):
-    """One thread an output, K in steps of 4 with a tail (K % 4 of 1, 0, 1,
-    0, 3)."""
+    """Shapes smaller than a tile or with an edge in every dimension: a K
+    tail in the last 64-wide slab (K % 64 of 45, 44, 1, 48, 3); in bf16
+    all but (64, 80, 48) have rows that TMA cannot take (K or N not a
+    multiple of 8) and load both operands by the block's threads."""
     g = torch.Generator(device=cuda).manual_seed(M * N + K)
     a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
     b = torch.randn((K, N), generator=g, device=cuda).to(DTYPES[dt])
@@ -1382,6 +1384,74 @@ def test_matmul_naive_matches_plain(cuda, M, N, K, dt):
     torch.cuda.synchronize()
     assert matmul.matmul_naive.launches == before + 1
     _zoo_close(out, matmul.matmul_naive_ref(a, b), DTYPES[dt],
+               "matmul_naive")
+
+
+# (M, N, K) and the bf16 load path they take: both operands by TMA (one
+# tile; whole tiles; an M edge, an N edge of a 128-wide tile and a K
+# tail), A by TMA and B by the threads (N % 8 != 0), and the reverse
+NAIVE_PATHS = [((128, 128, 64), "tma"), ((256, 384, 512), "tma"),
+               ((200, 264, 1000), "tma"), ((96, 130, 256), "mixed"),
+               ((70, 136, 100), "mixed"), ((130, 257, 300), "copy")]
+
+
+def _path_launches():
+    return dict(matmul.matmul_naive.path_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mnk,path", NAIVE_PATHS, ids=str)
+def test_matmul_naive_load_paths(cuda, mnk, path, dt):
+    """Each shape on the path the launcher takes (bf16; f32 has one
+    path), counted once in path_launches by tma_operands' mirror of its
+    rule, against the plain version."""
+    M, N, K = mnk
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
+    b = torch.randn((K, N), generator=g, device=cuda).to(DTYPES[dt])
+    before = _path_launches()
+    out = matmul.matmul_naive(a, b)
+    torch.cuda.synchronize()
+    want = dict(before)
+    if dt == "bf16":
+        want[path] += 1
+    assert _path_launches() == want
+    _zoo_close(out, matmul.matmul_naive_ref(a, b), DTYPES[dt],
+               f"matmul_naive {path}")
+
+
+def _misaligned(t):
+    """t's values in a view 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk", [(256, 384, 512), (200, 264, 1000)], ids=str)
+def test_matmul_naive_paths_agree_bit_for_bit(cuda, mnk):
+    """The threads' copy writes the slab in TMA's swizzled layout and the
+    same wgmmas run, so the copy path (operands in misaligned views), the
+    mixed paths and the TMA path give the same bits."""
+    M, N, K = mnk
+    g = torch.Generator(device=cuda).manual_seed(K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device=cuda).to(torch.bfloat16)
+    am, bm = _misaligned(a), _misaligned(b)
+    assert matmul.tma_operands(a, b) == (True, True)
+    assert matmul.tma_operands(am, bm) == (False, False)
+    before = _path_launches()
+    outs = [matmul.matmul_naive(x, y) for x, y in
+            ((a, b), (am, bm), (a, bm), (am, b))]
+    torch.cuda.synchronize()
+    after = _path_launches()
+    assert [after[k] - before[k] for k in ("tma", "copy", "mixed")] == [
+        1, 1, 2]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    _zoo_close(outs[0], matmul.matmul_naive_ref(a, b), torch.bfloat16,
                "matmul_naive")
 
 
@@ -1614,8 +1684,8 @@ EMB_FNS = {"prefetch": embedding.embedding_prefetch,
 EMB_PLAIN = {"prefetch": embedding.embedding_prefetch_plain,
              "dma": embedding.embedding_dma_plain,
              "onehot": embedding.embedding_onehot_plain}
-# the tables each design takes: #40 (a GEMM) f32 and bf16, as the
-# registry's variants
+# the tables each design takes: #40 f32 and bf16, as the registry's
+# variants
 EMB_KINDS = [(k, dt) for k in sorted(EMB_FNS) for dt in SM_DTYPES
              if k != "onehot" or dt != torch.float16]
 
@@ -1651,6 +1721,36 @@ def test_embedding_matches_plain(cuda, kind, dt, case):
     assert torch.equal(out, ref) and torch.equal(out64, ref)
     inside = (idx >= 0) & (idx < case[0])
     assert torch.equal(out[inside], w[idx[inside].long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("V,D,S", [(1024, 512, 1000), (32768, 512, 8195),
+                                   (32768, 509, 37)], ids=str)
+def test_embedding_onehot_selects_rows(cuda, V, D, S, dt):
+    """#40 at the bench's vocabulary and at 32768, S no multiple of the
+    block's 16 tokens, indices -1, V, -2^31 and 2^31 - 1 among them: the
+    table's row or zeros, bit-equal to the plain version; D 509 takes
+    the element path. -0.0 entries come back as -0.0."""
+    g = torch.Generator(device=cuda).manual_seed(V + S)
+    idx = torch.randint(0, V, (S,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    far = torch.tensor([-1, V, -2 ** 31, 2 ** 31 - 1], dtype=torch.int32,
+                       device=cuda)
+    idx[::9][:far.numel()] = far[:idx[::9].numel()]
+    w = torch.randn((V, D), generator=g, device=cuda).to(dt)
+    w[idx[1].long(), :7] = -0.0
+    before = embedding.embedding_onehot.launches
+    out = embedding.embedding_onehot(idx, w)
+    torch.cuda.synchronize()
+    assert embedding.embedding_onehot.launches == before + 1
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    ref = embedding.embedding_onehot_plain(idx, w)
+    assert torch.equal(out.view(bits), ref.view(bits))
+    assert torch.equal(out[1, :7].view(bits), w[idx[1].long(), :7].view(bits))
+    outside = (idx < 0) | (idx >= V)
+    assert outside.sum().item() == min(4, len(range(0, S, 9)))
+    assert not out[outside].any()
 
 
 @pytest.mark.cuda

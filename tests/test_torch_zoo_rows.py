@@ -138,3 +138,49 @@ def test_matmul_naive_errors():
     with pytest.raises(ValueError, match="matmul_naive"):
         matmul.matmul_naive(torch.ones(4, 3),
                             torch.ones(3, 5, dtype=torch.bfloat16))
+
+
+def _misaligned(shape, dtype):
+    """A contiguous view 2 bytes (bf16) past its buffer's 16-byte aligned
+    base."""
+    buf = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf[1:].view(shape)
+
+
+def _ones(*shape, dtype=torch.bfloat16):
+    return torch.ones(shape, dtype=dtype)
+
+
+# (a, b, the bf16 kernel's load path of each operand): TMA needs a 16-byte
+# aligned base and rows a multiple of 16 bytes (K % 8 for A, N % 8 for B)
+TMA_CASES = {
+    "aligned": (lambda: (_ones(64, 48), _ones(48, 80)), (True, True)),
+    "an M and K tail": (lambda: (_ones(200, 1000), _ones(1000, 264)),
+                        (True, True)),
+    "K % 8 != 0": (lambda: (_ones(64, 45), _ones(45, 80)), (False, True)),
+    "N % 8 != 0": (lambda: (_ones(64, 48), _ones(48, 81)), (True, False)),
+    "neither": (lambda: (_ones(77, 45), _ones(45, 130)), (False, False)),
+    "misaligned view of A": (
+        lambda: (_misaligned((64, 48), torch.bfloat16), _ones(48, 80)),
+        (False, True)),
+    "misaligned views": (
+        lambda: (_misaligned((64, 48), torch.bfloat16),
+                 _misaligned((48, 80), torch.bfloat16)), (False, False)),
+    "a view 16 bytes on": (
+        lambda: (_ones(65, 48)[1:], _ones(49, 80)[1:]), (True, True)),
+    "f32": (lambda: (_ones(64, 48, dtype=torch.float32),
+                     _ones(48, 80, dtype=torch.float32)), (False, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_tma_operands_picks_each_load_path(case):
+    """matmul.tma_operands, the rule by which #16's launcher picks each
+    operand's bf16 load path, on aligned, unaligned and misaligned-view
+    inputs; the CPU result is the plain version's whatever the path."""
+    make, want = TMA_CASES[case]
+    a, b = make()
+    assert matmul.tma_operands(a, b) == want
+    torch.testing.assert_close(matmul.matmul_naive(a, b),
+                               matmul.matmul_naive_ref(a, b), rtol=0, atol=0)

@@ -19,23 +19,24 @@
 //     copies all in flight together. A row that is not whole 16-byte
 //     chunks on aligned bases takes an element-wise path in the same
 //     kernel.
-// #40 embedding_onehot_{bf16,f32}_kernel replace :108 `kernel`
-//     (embedding_onehot :101), a GEMM onehot(idx) . W: each block owns a
-//     128 x 128 tile of (tokens, columns) and walks V in chunks; for each
-//     chunk it builds the tile's one-hot A in shared memory from idx and
-//     multiplies it against the same rows of W, accumulating in f32. bf16
-//     runs on mma.sync m16n8k16 (common.cuh's fragment layouts); f32 on
-//     CUDA-core FMAs in full f32 (common.cuh's 8 x 8 register tile), never
-//     TF32, which would round W to 10 mantissa bits. Both are exact: each
-//     output has one nonzero term, 1 x w. Its cost is 2 S V D operations,
-//     the design's (for small vocabularies).
+// #40 embedding_select_kernel replaces :108 `kernel` (embedding_onehot
+//     :101), which computes the gather as onehot(idx) . W on the matrix
+//     unit because the TPU gathers slowly and holds the table in VMEM.
+//     Each one-hot row has one nonzero term, so the product selects a
+//     row: on the H100, whose gather is native, the kernel selects it.
+//     A block takes 16 tokens, loads their indices into shared memory,
+//     and its 256 threads move the rows as 16-byte units (elements where
+//     the rows are not whole 16-byte chunks on aligned bases), four
+//     loads in flight a thread before their stores. No product is left,
+//     so no tensor core runs, and the time no longer grows with V.
 //
 // Indices outside [0, V) never read outside the table. #38 and #39 take
 // the TPU kernels' rule (JAX's interpret mode): a negative index counts
 // from the end, then the index is clamped to [0, V - 1]; #40 gives a zero
-// row, as its one-hot product does. #38 and #39 are bound by memory
-// bandwidth (S rows read, S rows written, the indices); #40 by its
-// operations.
+// row, as its one-hot product does (on a finite table its result is the
+// product's; a -0.0 entry stays -0.0 where the product's sum gives +0.0).
+// All three are bound by memory bandwidth: each distinct row read once
+// (a repeated row comes from the L2), S rows written, the indices.
 #include "common.cuh"
 
 namespace tk {
@@ -115,140 +116,58 @@ embedding_dma_kernel(const int* __restrict__ idx, const E* __restrict__ w,
   }
 }
 
-// idx of the tile's rows from m0, -1 past S or outside [0, V) (a zero
-// one-hot row)
-__device__ __forceinline__ void tile_ids(int* ids, const int* idx, int m0,
-                                         int S, int V, int rows) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const int i = m0 + r < S ? idx[m0 + r] : -1;
-    ids[r] = i >= 0 && i < V ? i : -1;
+// #40: a block of SEL_THREADS threads selects the rows of SEL_TOKENS
+// tokens, SEL_UNROLL loads in flight a thread before their stores
+constexpr int SEL_TOKENS = 16, SEL_THREADS = 256, SEL_UNROLL = 4;
+
+// the block's nt rows of P units (16-byte chunks, or elements) each, from
+// table w into out (the block's first output row), dealt to the threads
+// in turn; a row of -1 (an index outside [0, V)) reads nothing and
+// writes zeros
+template <typename U>
+__device__ __forceinline__ void select_rows(const int* rows,
+                                            const U* __restrict__ w,
+                                            U* __restrict__ out, int nt,
+                                            int64_t P) {
+  const int64_t n = nt * P;
+  for (int64_t i0 = threadIdx.x; i0 < n; i0 += SEL_UNROLL * SEL_THREADS) {
+    U v[SEL_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SEL_UNROLL; ++u) {
+      const int64_t i = i0 + u * SEL_THREADS;
+      if (i < n) {
+        const int64_t t = i / P;
+        const int r = rows[t];
+        v[u] = r >= 0 ? w[r * P + (i - t * P)] : U{};
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SEL_UNROLL; ++u) {
+      const int64_t i = i0 + u * SEL_THREADS;
+      if (i < n) out[i] = v[u];
+    }
   }
 }
 
-// bf16: 8 warps in a 2 x 4 grid, each a 64 x 32 sub-tile of 4 x 4
-// m16n8k16 products, V in chunks of H_BK
-__global__ void __launch_bounds__(H_THREADS)
-embedding_onehot_bf16_kernel(const int* __restrict__ idx,
-                             const bf16* __restrict__ w,
-                             bf16* __restrict__ out, int S, int V, int D,
-                             int vec_w) {
-  __shared__ __align__(16) bf16 as[H_BM * H_LDK];
-  __shared__ __align__(16) bf16 bs[H_BK * H_LDN];
-  __shared__ int ids[H_BM];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-  tile_ids(ids, idx, m0, S, V, H_BM);
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < V; k0 += H_BK) {
-    __syncthreads();  // ids are written; the previous chunk is consumed
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ch = tid + i * H_THREADS;
-      // A: row r's 8 one-hot entries at k0 + kc: a 1.0 (0x3F80) where
-      // the row's index falls
-      const int r = ch >> 2, kc = (ch & 3) * 8, c = k0 + kc;
-      const int id = ids[r];
-      uint32_t a[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        a[e] = (id == c + 2 * e ? 0x3F80u : 0u) |
-               (id == c + 2 * e + 1 ? 0x3F800000u : 0u);
-      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
-          make_uint4(a[0], a[1], a[2], a[3]);
-      // B: W's rows k0 + kr, columns n0 + nc; zeros past V and D
-      const int kr = ch >> 4, nc = (ch & 15) * 8;
-      *reinterpret_cast<uint4*>(&bs[kr * H_LDN + nc]) =
-          load8(w, k0 + kr, V, n0 + nc, D, vec_w);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < H_BK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bp = &bs[(ks * 16 + 2 * t) * H_LDN + wn + nt * 8 + g];
-        const uint32_t b0 = pack_bf16(bp[0], bp[H_LDN]);
-        const uint32_t b1 = pack_bf16(bp[8 * H_LDN], bp[9 * H_LDN]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
+template <typename E>
+__global__ void __launch_bounds__(SEL_THREADS)
+embedding_select_kernel(const int* __restrict__ idx, const E* __restrict__ w,
+                        E* __restrict__ out, int S, int V, int64_t D,
+                        int vec) {
+  __shared__ int rows[SEL_TOKENS];
+  const int64_t t0 = (int64_t)blockIdx.x * SEL_TOKENS;
+  const int nt = S - t0 < SEL_TOKENS ? (int)(S - t0) : SEL_TOKENS;
+  if ((int)threadIdx.x < nt) {
+    const int i = idx[t0 + threadIdx.x];
+    rows[threadIdx.x] = i >= 0 && i < V ? i : -1;
   }
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + hgemm_row(warp, mt, g, e);
-        const int c = n0 + hgemm_col(warp, nt, t, e);
-        if (r < S && c < D)
-          out[(int64_t)r * D + c] = __float2bfloat16(acc[mt][nt][e]);
-      }
-}
-
-// f32: thread (tid % 16, tid / 16) holds the 8 x 8 outputs at
-// sgemm_pos; V in chunks of F_BK
-__global__ void __launch_bounds__(F_THREADS)
-embedding_onehot_f32_kernel(const int* __restrict__ idx,
-                            const float* __restrict__ w,
-                            float* __restrict__ out, int S, int V, int D) {
-  __shared__ __align__(16) float as[F_BK][F_BM];
-  __shared__ __align__(16) float bs[F_BK][F_BN];
-  __shared__ int ids[F_BM];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-  // loader: chunk row tid / 32, tile rows (A) or columns (B) (tid % 32) * 4
-  const int lk = tid >> 5, lc = (tid & 31) * 4;
-  tile_ids(ids, idx, m0, S, V, F_BM);
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < V; k0 += F_BK) {
-    __syncthreads();
-    const int k = k0 + lk;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      as[lk][lc + i] = ids[lc + i] == k ? 1.f : 0.f;
-      const int n = n0 + lc + i;
-      bs[lk][lc + i] = k < V && n < D ? w[(int64_t)k * D + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk)
-      fma_8x8(acc, *reinterpret_cast<const float4*>(&as[kk][ty * 4]),
-              *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]),
-              *reinterpret_cast<const float4*>(&bs[kk][tx * 4]),
-              *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]));
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = m0 + sgemm_pos(i, ty), c = n0 + sgemm_pos(j, tx);
-      if (r < S && c < D) out[(int64_t)r * D + c] = acc[i][j];
-    }
+  __syncthreads();
+  if (vec)
+    select_rows(rows, reinterpret_cast<const uint4*>(w),
+                reinterpret_cast<uint4*>(out + t0 * D), nt,
+                D * (int64_t)sizeof(E) / 16);
+  else
+    select_rows(rows, w, out + t0 * D, nt, D);
 }
 
 // f(E()) with E the unsigned integer of the (f32, bf16 or f16) dtype's size
@@ -312,18 +231,13 @@ cudaError_t embedding_onehot_launch(const int* idx, const void* w, void* out,
     return cudaErrorInvalidValue;
   if (S == 0 || D == 0) return cudaSuccess;  // empty tensors: null pointers
   if (!idx || !w || !out) return cudaErrorInvalidValue;
-  if ((S + H_BM - 1) / H_BM > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((D + H_BN - 1) / H_BN, (S + H_BM - 1) / H_BM);
-  if (dtype == kBF16) {
-    const int vec_w = whole_chunks(D, 2, w, w);
-    embedding_onehot_bf16_kernel<<<grid, H_THREADS, 0, stream>>>(
-        idx, static_cast<const bf16*>(w), static_cast<bf16*>(out), S, V, D,
-        vec_w);
-  } else {
-    embedding_onehot_f32_kernel<<<grid, F_THREADS, 0, stream>>>(
-        idx, static_cast<const float*>(w), static_cast<float*>(out), S, V,
-        D);
-  }
+  const unsigned blocks = (unsigned)((S + SEL_TOKENS - 1) / SEL_TOKENS);
+  by_size(dtype, [&](auto tag) {
+    using E = decltype(tag);
+    embedding_select_kernel<E><<<blocks, SEL_THREADS, 0, stream>>>(
+        idx, static_cast<const E*>(w), static_cast<E*>(out), S, V, D,
+        whole_chunks(D, sizeof(E), w, out));
+  });
   return cudaSuccess;
 }
 

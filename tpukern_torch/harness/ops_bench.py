@@ -95,9 +95,9 @@ class Size:
     paged: tuple = (4, 16, 8, 128, 128, 8, 5)
     quant: tuple = (4096, 128)          # rows, K (a K/V write)
     embedding: tuple = (32768, 512, 8192)  # V, D, S (bench/ops.py)
-    # the vocabulary of the one-hot gather (#40): its 2 S V D operations
-    # take seconds a call at 32768 (bench/ops.py skips it there); 1024 is
-    # the vocabulary of __graft_entry__.entry()'s config
+    # the vocabulary of the one-hot gather (#40): bench/ops.py skips it at
+    # V 32768 (its TPU kernel holds the whole table in VMEM); 1024 is the
+    # vocabulary of __graft_entry__.entry()'s config
     onehot_vocab: int = 1024
     hist: tuple = (1 << 20, 256)        # values, bins (bench/ops.py)
     # boxes: bench/ops.py has no nms shape; JAX's docstring's size
@@ -337,7 +337,8 @@ def check(v, args):
 def work(v, args, out):
     """(operations, their dtype, bytes): the work the bound counts. The
     bytes are the variant's `bytes_moved` where it has one (a gather reads
-    S rows of its table, not the table), else every argument read once
+    the distinct rows its indices name, not the table), else every
+    argument read once
     and every output written once."""
     if v.bytes_moved:
         nbytes = v.bytes_moved(*args)

@@ -9,13 +9,13 @@ Kernels: csrc/embedding.cu, the three gather designs of the JAX module:
   issues every row's 16-byte `cp.async` copies into shared memory, waits
   for all of them at once, then stores the rows out. S must be a multiple
   of block_tokens (JAX's assert at :67, a ValueError here).
-- `embedding_onehot` (#40, replaces :108): onehot(idx) . W as a GEMM
-  whose one-hot A tile is built in shared memory from idx, one chunk of
-  the vocabulary at a time, with f32 accumulation: bf16 on mma.sync, f32
-  on CUDA-core FMAs (never TF32, which would round W). Its cost is
-  2 S V D operations: a design for small vocabularies, as JAX's
-  docstring says; its `block_tokens` is the TPU's block height, checked
-  and otherwise unused (the CUDA tile is 128 tokens).
+- `embedding_onehot` (#40, replaces :108): JAX computes onehot(idx) . W
+  on the matrix unit; each one-hot row has one nonzero term, so the
+  kernel selects the row instead: a block of 16 tokens loads their
+  indices, then moves the rows in 16-byte units, several rows in flight
+  a warp, and writes a zero row for an index outside [0, V). No product,
+  so its time does not grow with V. Its `block_tokens` is the TPU's
+  block height, checked and otherwise unused.
 
 Every result is bit-equal to a row of the table (or zeros). `idx` is a
 1-D int32 or int64 tensor, made int32 on the device (no host read), as
@@ -26,7 +26,8 @@ result to [0, V - 1]; #40 gives a zero row; `embedding_ref` (JAX's
 jnp.take) wraps [-V, 0) and gives NaN rows past that. Each variant's
 plain version (`*_plain`, the registry's `ref`) computes its own rule;
 #40's selects the row where JAX multiplies by the one-hot, which is the
-same for a finite table.
+same for a finite table (an inf in the table makes JAX's product NaN in
+that column for every token: ROADMAP.md §3, "not a bit-exact oracle").
 
 On a CPU tensor each function returns its plain version.
 """
@@ -114,8 +115,9 @@ embedding_dma.launches = 0
 
 
 def embedding_onehot(idx, weight, block_tokens=128):
-    """onehot(idx) . weight with f32 accumulation (#40); f32 or bf16
-    tables. CPU: embedding_onehot_plain."""
+    """onehot(idx) . weight (#40) as the row selection it computes: the
+    row where 0 <= idx < V, else zeros; f32 or bf16 tables. CPU:
+    embedding_onehot_plain."""
     _check(idx, weight, "embedding_onehot")
     if not isinstance(block_tokens, int) or block_tokens <= 0:
         raise ValueError(f"embedding_onehot: block_tokens must be a "
@@ -190,11 +192,22 @@ _VARIANTS = [
 ]
 
 
-def _bytes(dt):
+def _read_rows(idx, V, onehot):
+    """The distinct table rows a call must read: #40's in [0, V) (a zero
+    row reads nothing), #38/#39's after their wrap and clamp."""
+    if onehot:
+        i = idx.to(torch.int32).long()
+        return i[(i >= 0) & (i < V)].unique().numel()
+    return _rows(idx, V).unique().numel()
+
+
+def _bytes(dt, onehot):
     def bytes_moved(idx, weight, **_):
-        # the gather's: S rows read, S rows written, the indices (the
-        # table is never read whole)
-        return (2 * idx.shape[0] * weight.shape[1] * dt.itemsize
+        # the gather's: each distinct row it reads once, S rows written,
+        # the indices (the table is never read whole; a repeated row
+        # comes from the L2)
+        rows = _read_rows(idx, weight.shape[0], onehot) + idx.shape[0]
+        return (rows * weight.shape[1] * dt.itemsize
                 + idx.numel() * idx.element_size())
     return bytes_moved
 
@@ -203,6 +216,6 @@ for _sfx, _impl, _plain, _dt in _VARIANTS:
     register("embedding", f"embedding_{_sfx}",
              ref=lambda idx, weight, _plain=_plain, _dt=_dt, **kw: _plain(
                  idx, weight.to(_dt), **kw),
-             bytes_moved=_bytes(_dt))(
+             bytes_moved=_bytes(_dt, _sfx.startswith("onehot")))(
         lambda idx, weight, _impl=_impl, _dt=_dt, **kw: _impl(
             idx, weight.to(_dt), **kw))

@@ -7,7 +7,8 @@ epilogue replaces the three Pallas bodies of `matmul` (matmul.py:140-172):
 `kernel_accio_dual` both; `matmul_kpipe` (:311, the K loop inside the
 kernel) is the same function, and that kernel already loops over K, so
 it launches it too. csrc/matmul_naive.cu replaces `matmul_naive`'s
-kernel (:384), the naive rung of the registry's ladder. The Mosaic
+kernel (:384), the naive rung of the registry's ladder: one output tile
+a block with no K pipeline, bf16 on TMA and wgmma. The Mosaic
 knobs (block sizes, swizzle, buffer_count, lookahead, input_fusion,
 eager_store, jitter) and the v5e tile model `auto_blocks` are not
 ported: the ladder's ksliced, pipelined, swizzled and stage names are
@@ -92,10 +93,32 @@ def hgemm(a, b, *, trans_b=False, out_dtype=None):
                   acc_in_out=out_dtype == torch.float32)
 
 
+def tma_operands(a, b):
+    """(A by TMA, B by TMA): the load path the bf16 matmul_naive kernel's
+    launcher (csrc/matmul_naive.cu) takes for each operand, by its rule,
+    from the dtypes, shapes and data_ptr() alignments of the (contiguous)
+    operands; matmul_naive counts launches by it. TMA takes a 16-byte
+    aligned base and rows a multiple of 16 bytes: K % 8 == 0 for A (M, K),
+    N % 8 == 0 for B (K, N). Any other operand is copied by the block's
+    threads; the f32 tier has no TMA path."""
+    if a.dtype != torch.bfloat16:
+        return False, False
+    return (a.shape[1] % 8 == 0 and a.data_ptr() % 16 == 0,
+            b.shape[1] % 8 == 0 and b.data_ptr() % 16 == 0)
+
+
+def _path(tma):
+    return {(True, True): "tma", (False, False): "copy"}.get(tma, "mixed")
+
+
 def matmul_naive(a, b):
-    """C[M,N] = A[M,K] @ B[K,N], f32 accumulation, in A's dtype: one
-    thread per output element. A CPU tensor takes matmul_naive_ref; a
-    CUDA tensor launches the kernel (f32 or bf16, one dtype)."""
+    """C[M,N] = A[M,K] @ B[K,N], f32 accumulation, in A's dtype, with no K
+    pipeline: bf16 on wgmma, each operand loaded by TMA or by the block's
+    threads (tma_operands), f32 on CUDA-core FMAs. A CPU tensor takes
+    matmul_naive_ref; a CUDA tensor launches the kernel (f32 or bf16, one
+    dtype). Counts launches, and bf16 launches by path in
+    `path_launches` ("tma": both operands by TMA, "copy": neither,
+    "mixed")."""
     M, K = a.shape
     if b.shape[0] != K or a.dtype != b.dtype:
         raise ValueError(f"matmul_naive: a {tuple(a.shape)} {a.dtype} and b "
@@ -108,10 +131,13 @@ def matmul_naive(a, b):
     _build.launch("tk_matmul_naive", a.data_ptr(), b.data_ptr(), c.data_ptr(),
                   M, b.shape[1], K, _build.dtype_code(a), _build.stream(a))
     matmul_naive.launches += 1
+    if a.dtype == torch.bfloat16:
+        matmul_naive.path_launches[_path(tma_operands(a, b))] += 1
     return c
 
 
 matmul_naive.launches = 0
+matmul_naive.path_launches = dict.fromkeys(("tma", "copy", "mixed"), 0)
 
 
 def matmul_naive_ref(a, b):
