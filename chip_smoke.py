@@ -6,9 +6,11 @@
 1. prints the device, torch/CUDA/nvcc versions and whether triton imports;
 2. builds the kernels from tpukern_torch/csrc (one nvcc per source, in
    parallel, or loads this source hash's build) and prints the seconds,
-   and counts in the library's SASS (cuobjdump) the wgmma (HGMMA) and
-   TMA loads (UTMALDG) of #16's bf16 kernel and the matrix products of
-   #40's, which must have none;
+   and counts in the library's SASS (cuobjdump) the wgmma (HGMMA), TMA
+   loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
+   kernel and of the bf16 #2 (NN and TN) and #29 kernels on
+   csrc/hopper.cuh's pipeline, and the matrix products of #40's, which
+   must have none;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape: paged_prefill_attention
@@ -29,6 +31,7 @@
    each call twice (bit-equal); the sampling kernels #26 and #27 at the
    serving shape (4, 32768) f32 and at a 128256-token vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
+   with its bf16 launches counted by load path, each path met required,
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
    cross-entropy's forward and backward, and the featured attention:
    flash_attention with window, sinks, softcap and segments, and the
@@ -41,14 +44,17 @@
    gmm_ref/tgmm_ref in f32 and bf16 at the Mixtral expert products (8192
    routed rows: w1 4096 x 14336, w2 14336 x 4096, their dx and dW), at the
    bench shape (8192 x 2048 x 1408, E 8) under five splits and at the test
-   cases, timed at the first two (bf16 beside torch._grouped_mm);
+   cases, and #29 with NaN in the rows past the groups and last slabs of
+   1-63 rows (finite, equal to tgmm_ref), timed at the first two (bf16
+   beside torch._grouped_mm);
    [zoo]: walks the port's variant registry at bench/ops.py's shapes
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
    D 512, S 8192, the one-hot #40 at V 1024; histogram 2^20 values in
    256 bins, nms 1024 boxes), matmul_kpipe and #16 on each of its bf16
    load paths, with the eighteen zoo kernels' launch counts (and #16's
-   by load path) reset just before and read just after; holds
+   and matmul's by load path) reset just before and read just after;
+   the bf16 matmul ladder also at 4095 x 4097 (the copy path); holds
    every variant against its plain version (#30-#37, the transpose #42
    and gemv #44 also at 4095 x 4097, a tail in every tier; softmax and
    layer_norm also at the sampling logits' 64 x 131072; the gathers
@@ -263,10 +269,14 @@ def phase_build():
 
 # instructions the SASS of the redesigned kernels must (True) or must not
 # (False) hold, by a fragment of the mangled kernel name: #16's bf16
-# kernel with both operands by TMA runs wgmma (HGMMA) fed by TMA
-# (UTMALDG); #40 runs no matrix product (HMMA, HGMMA)
-SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": {"HGMMA": True,
-                                                   "UTMALDG": True},
+# kernel and the bf16 #2 (NN and TN) and #29 kernels with both operands
+# by TMA run wgmma (HGMMA) fed by TMA (UTMALDG), no mma.sync (HMMA); #40
+# runs no matrix product (HMMA, HGMMA)
+_WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
+SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
+             "hgemm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
+             "hgemm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
+             "tgmm_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
 
 
@@ -1211,6 +1221,9 @@ def phase_train_kernels(cfg, B, S):
     # every output is of unit scale
     modes = dict(out=dict(), accio=dict(acc_in_out=True),
                  dual=dict(acc_in_out=True, out_dtype=bf))
+    paths = matmul.matmul.path_launches
+    paths.update(dict.fromkeys(paths, 0))
+    met = dict.fromkeys(paths, 0)  # the mirror's count of the calls below
     for (M, N, K), dt in (((333, 517, 1000), f32), ((333, 517, 1000), bf),
                           ((B * S, ff, d), f32), ((B * S, ff, d), bf)):
         a = _randn(gen, M, K, dtype=f32).div(K ** 0.5).to(dt)
@@ -1219,9 +1232,16 @@ def phase_train_kernels(cfg, B, S):
             ref = matmul.matmul_ref(a, b, trans_b=trans_b)
             for mode, kw in modes.items():
                 out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+                if dt == bf:
+                    met[matmul.load_path(matmul.tma_operands(a, b))] += 1
                 checks.record("matmul", *_compare(
                     "matmul", f"({M},{K})x({K},{N}) {'TN' if trans_b else 'NN'}"
                     f" {dt} {mode}->{out.dtype}", out, ref.to(out.dtype)))
+    print(f"[train kernels] matmul's bf16 launches by load path: {paths} "
+          f"(the rule's: {met})")
+    require(dict(paths) == met and all(paths[p] > 0 for p in met if met[p]),
+            f"[train kernels] matmul's load paths {paths}, wanted {met}")
+    checks.results["matmul"]["path_launches"] = dict(paths)
     # the library call is cuBLAS in the input dtype (bf16 cuBLAS writes
     # bf16, the kernel the f32 accumulator, as matmul_t asks); the plain
     # version is cuBLAS in f32
@@ -3209,6 +3229,12 @@ GMM_CASES = [(256, 128, 128, [64, 64, 64, 64]),
              (256, 128, 128, [10, 20, 30, 40]),
              (192, 256, 384, [64, 0, 65, 0, 63]),
              (64, 128, 128, [8] * 8)]
+# #29 with NaN in the TGMM_NAN_ROWS rows past the groups: last slabs of
+# 37, 63, 1, 1 and 20 rows starting off a 64-row boundary (65 and 129
+# leave 1), x and dy by TMA (K 128, N 136) and copied (K 130, N 201)
+TGMM_NAN_SIZES = [37, 63, 65, 1, 129, 20]
+TGMM_NAN_ROWS = 14
+TGMM_NAN_KN = ((128, 136), (130, 201))
 GMM_LIBRARY = ("torch._grouped_mm (bf16 only: f32 has no grouped call, so "
                "the f32 rows have none; the bf16 times are in the [time] "
                "lines)")
@@ -3279,6 +3305,32 @@ def _gmm_check(checks, kind, case, x, w, dy, gs):
               "group are not zero MISS")
         ok = False
     checks.record("tgmm" if kind == "tgmm" else "gmm", ok, err)
+
+
+def _tgmm_nan_check(checks, gen, K, N, dt):
+    """#29 on TGMM_NAN_SIZES with NaN in every x and dy row past
+    sum(group_sizes): each dW finite and within the dtype's tolerance of
+    tgmm_ref; prints the bf16 slab plan (tgmm_slabs' paths)."""
+    from collections import Counter
+
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    sizes = TGMM_NAN_SIZES
+    T = sum(sizes) + TGMM_NAN_ROWS
+    x, _, dy, gs = _gmm_inputs(gen, T, K, N, sizes, dt)
+    x[-TGMM_NAN_ROWS:] = float("nan")
+    dy[-TGMM_NAN_ROWS:] = float("nan")
+    out = gm.tgmm(x, dy, gs)
+    case = f"NaN past the groups T{T} K{K} N{N} {sizes} {dt}"
+    ok, err = _compare("tgmm", case, out, gm.tgmm_ref(x, dy, gs), dtype=dt)
+    if not torch.isfinite(out).all():
+        print(f"[check] tgmm             {case}: a dW is not finite MISS")
+        ok = False
+    if dt == torch.bfloat16:
+        plan = Counter(p for slabs in gm.tgmm_slabs(x, dy, sizes)
+                       for _, _, p in slabs)
+        print(f"[tgmm] {case}: slabs by path {dict(plan)}")
+    checks.record("tgmm", ok, err)
 
 
 def phase_moe_kernels():
@@ -3353,6 +3405,8 @@ def phase_moe_kernels():
             for kind in ("gmm", "gmm trans_w", "tgmm"):
                 _gmm_check(checks, kind, f"T{T} K{K} N{N} {sizes} {tag}",
                            *inputs)
+        for K, N in TGMM_NAN_KN:
+            _tgmm_nan_check(checks, gen, K, N, dt)
     torch.cuda.synchronize()
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
@@ -3633,6 +3687,9 @@ ZOO_GATHER_ODD = (32767, 509, 8184)
 # K) of each bf16 load path, checked in both dtypes; the first (ZOO_TAIL
 # as a product: K and N no multiple of 8) also timed
 ZOO_NAIVE_PATHS = {"copy": (4095, 4095, 4097), "mixed": (4096, 4097, 4096)}
+# #2's bf16 variant timed on the copy path at ZOO_TAIL (the whole bf16
+# ladder is checked there)
+ZOO_GEMM_COPY_TIMED = "hgemm_ksliced_bf16"
 # #16's f32 tier also checked and timed at these n^3, beside the ladder's
 # 4096^3: whether the power-of-two row stride is what costs there. cuBLAS
 # sums 4104-term rows in another order than the kernel's (1.07e-3 apart
@@ -3908,6 +3965,35 @@ def _f64_check(v, args):
             f"torch.matmul {lib:.3e} from it")
 
 
+def _zoo_gemm_tail(checks, gen):
+    """The bf16 matmul ladder (#2's kernel) at ZOO_TAIL, K 4097 and N
+    4095: no row of A or B is whole 16-byte chunks, so every operand goes
+    by the producer's copy; each variant against its plain version
+    (ops_bench.check). Returns the timed call of ZOO_GEMM_COPY_TIMED."""
+    from functools import partial
+
+    from tpukern_torch.core import registry
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import matmul
+
+    tail, timed = ops_bench.Size(*ZOO_TAIL), []
+    for name, v in sorted(registry.variants("matmul").items()):
+        if not name.startswith("hgemm") or _zoo_kernels(v) != ("matmul",):
+            continue
+        args = ops_bench.inputs("matmul", name, tail, gen)
+        ok, err, rule = ops_bench.check(v, args)
+        path = matmul.load_path(matmul.tma_operands(*args))
+        print(f"[zoo] tail matmul.{name:28s} {(tail.S, tail.K)} ({path}) "
+              f"max_abs {err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
+        checks.ok &= ok
+        if name == ZOO_GEMM_COPY_TIMED:
+            timed.append((f"matmul.{name} {tail.S}x{tail.K} {path}",
+                          ("matmul",), partial(v.fn, *args),
+                          partial(v.ref, *args), _zoo_library(v, args),
+                          partial(ops_bench.work, v, args)))
+    return timed
+
+
 def _zoo_naive_paths(checks, gen):
     """#16 against its plain version (ops_bench.check, the ladder's
     variants) at ZOO_NAIVE_PATHS in f32 and bf16, against the f64 product
@@ -4001,6 +4087,8 @@ def phase_zoo():
         f.launches = 0
     paths = matmul.matmul_naive.path_launches
     paths.update(dict.fromkeys(paths, 0))
+    gemm_paths = matmul.matmul.path_launches
+    gemm_paths.update(dict.fromkeys(gemm_paths, 0))
     for fam in ZOO_FAMILIES + ZOO_REGISTERED:
         for name, v in sorted(registry.variants(fam).items()):
             args = ops_bench.inputs(fam, name, size, gen)
@@ -4035,16 +4123,23 @@ def phase_zoo():
                           2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype,
                           _nbytes(a, b) + a.shape[0] * b.shape[1]
                           * a.element_size())))
+    timed += _zoo_gemm_tail(checks, gen)
     timed += _zoo_naive_paths(checks, gen)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in fns.items()}
     print(f"[zoo] launches in the walk: {launches}; matmul_naive's bf16 "
-          f"launches by load path: {paths}")
+          f"launches by load path: {paths}; matmul's: {gemm_paths}")
     for n in ZOO_KERNELS:
         require(launches[n] > 0, f"[zoo] {n} was never launched")
     for path, n in paths.items():
         require(n > 0, f"[zoo] matmul_naive's {path} path was never taken")
+    # the ladder at 4096^3 and matmul_kpipe by TMA, the tail by the copy
+    for path in ("tma", "copy"):
+        require(gemm_paths[path] > 0,
+                f"[zoo] matmul's {path} path was never taken")
     checks.results["matmul_naive"]["path_launches"] = dict(paths)
+    checks.results["matmul_kpipe"]["zoo_matmul_path_launches"] = dict(
+        gemm_paths)
     wide = ops_bench.Size(*size.sampling)
     for fam in ZOO_TAILED:
         for name, v in sorted(registry.variants(fam).items()):
@@ -4670,13 +4765,16 @@ def main():
     for n in ZOO_KERNELS:
         modes[n] = {k: timing[n][k] for k in (
             "variant", "variant_ms", "variant_plain_ms", "variant_library_ms",
-            "path_launches", "also_timed") if k in timing[n]}
+            "path_launches", "zoo_matmul_path_launches", "also_timed")
+            if k in timing[n]}
     # the ring rows: launches in [ring-grads]'s all-reduce; times at the
     # parameter count of timed_layers; the all-reduce's beside #46's
     for n in ("ring_all_gather", "ring_reduce_scatter"):
         modes[n] = {k: v for k, v in timing[n].items() if k not in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms") and not k.endswith("device_ms")}
+    # #2's bf16 launches by load path in [train kernels]
+    modes["matmul"] = {"path_launches": timing["matmul"]["path_launches"]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -189,3 +189,57 @@ def test_shape_checks_raise():
         gm.gmm(x, w, gs.float())
     with pytest.raises(ValueError, match="tgmm"):
         gm.tgmm(x, x[:10], gs)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _view_off(shape):
+    """A contiguous bf16 view 2 bytes past its buffer's aligned base."""
+    return torch.zeros(math.prod(shape) + 1, dtype=torch.bfloat16)[1:].view(
+        shape)
+
+
+# (x, dy, sizes, the bf16 tgmm kernel's slabs of each group as (first
+# row, rows, path)): 64-row slabs from a group's first row, the last one
+# keeping the rows left (the kernel zeros the others); groups of 63, 65
+# and 1 rows off a 64-row boundary; sizes past T clamped; empty and
+# negative groups; an operand TMA cannot take (K % 8, a misaligned view)
+# copied in every slab
+SLAB_CASES = {
+    "tails": (lambda: (_bf16(330, 128), _bf16(330, 136)),
+              [37, 63, 65, 1, 129, 20],
+              [[(0, 37, "tma")], [(37, 63, "tma")],
+               [(100, 64, "tma"), (164, 1, "tma")], [(165, 1, "tma")],
+               [(166, 64, "tma"), (230, 64, "tma"), (294, 1, "tma")],
+               [(295, 20, "tma")]]),
+    "clamped at T": (lambda: (_bf16(150, 128), _bf16(150, 128)), [100, 100],
+                     [[(0, 64, "tma"), (64, 36, "tma")],
+                      [(100, 50, "tma")]]),
+    "empty": (lambda: (_bf16(64, 128), _bf16(64, 128)), [0, -3, 64, 5],
+              [[], [], [(0, 64, "tma")], []]),
+    "K % 8": (lambda: (_bf16(200, 130), _bf16(200, 136)), [128, 72],
+              [[(0, 64, "mixed"), (64, 64, "mixed")],
+               [(128, 64, "mixed"), (192, 8, "mixed")]]),
+    "misaligned": (lambda: (_view_off((128, 128)), _view_off((128, 136))),
+                   [128], [[(0, 64, "copy"), (64, 64, "copy")]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_tgmm_slab_plan(case):
+    """gm.tgmm_slabs, the mirror of the bf16 tgmm launcher's rule and its
+    slabs, from shapes, sizes and pointers; the plan's rows are exactly
+    each group's rows, in order, in slabs of 64 but the last."""
+    make, sizes, want = SLAB_CASES[case]
+    x, dy = make()
+    plan = gm.tgmm_slabs(x, dy, sizes)
+    assert plan == want
+    off, T = 0, x.shape[0]
+    for size, slabs in zip(sizes, plan):
+        s = min(off, T)
+        off += max(size, 0)
+        rows = [r for t0, n, _ in slabs for r in range(t0, t0 + n)]
+        assert rows == list(range(s, min(off, T)))
+        assert all(n == 64 for _, n, _ in slabs[:-1])

@@ -183,7 +183,8 @@ def test_batcher_on_kernels_equals_plain(cuda):
                                    (256, 128, 64)])
 def test_matmul_modes_and_tails(cuda, M, N, K, mode, trans_b, dt):
     """The three epilogues (out dtype, f32 accumulator, f32 + bf16 copy),
-    NN and TN, with M, N and K on and off the 128/128/8-32 tiles."""
+    NN and TN, with M, N and K on and off the tiles (bf16 128 x 256 x 64,
+    f32 128 x 128 x 8)."""
     g = torch.Generator(device=cuda).manual_seed(M + N + K)
     a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
     b = torch.randn((N, K) if trans_b else (K, N), generator=g,
@@ -1087,6 +1088,122 @@ def test_w8a16_and_ring_serving_on_kernels_equal_plain(cuda):
         assert after[0] > before[0] and after[1] > before[1]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("mode", ["out", "accio", "dual"])
+@pytest.mark.parametrize("M,N,K", [(130, 257, 8192), (77, 300, 64),
+                                   (77, 130, 0)])
+def test_matmul_ring_wraps_one_slab_and_none(cuda, M, N, K, mode, trans_b,
+                                             dt):
+    """The bf16 ring: K 8192 wraps the 4 stages of 64-wide slabs 32 times,
+    K 64 is one slab, K 0 has none (zeros); every epilogue, NN and TN, in
+    both dtypes. A is scaled by 1/sqrt(K) so every output is of unit
+    size, as the contraction's rounding is for f32's 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = (torch.randn((M, K), generator=g, device=cuda)
+         / max(K, 1) ** 0.5).to(DTYPES[dt])
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g,
+                    device=cuda).to(DTYPES[dt])
+    kw = dict(out=dict(), accio=dict(acc_in_out=True),
+              dual=dict(acc_in_out=True, out_dtype=torch.bfloat16))[mode]
+    before = matmul.matmul.launches
+    out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 1
+    assert out.shape == (M, N) and torch.isfinite(out).all()
+    if K == 0:
+        assert not out.any()
+    check_all_close(out.float(), matmul.matmul_ref(a, b, trans_b=trans_b),
+                    dtype=out.dtype, name=f"matmul K {K} {mode}",
+                    **(F32 if out.dtype == torch.float32 else {}))
+
+
+# (M, N, K) and the bf16 load path of matmul's kernel: NN takes A by TMA
+# where K % 8 == 0 and B where N % 8 == 0; TN takes both by K % 8 (its B
+# is (N, K)), so it is never mixed. One tile; M and N edges with a K tail
+# past the last slab; A copied; B copied; both copied.
+MATMUL_PATHS = {
+    False: [((128, 128, 64), "tma"), ((200, 264, 1000), "tma"),
+            ((96, 130, 256), "mixed"), ((70, 136, 100), "mixed"),
+            ((130, 257, 300), "copy")],
+    True: [((128, 128, 64), "tma"), ((200, 264, 1000), "tma"),
+           ((70, 136, 100), "copy"), ((130, 257, 300), "copy")]}
+
+
+def _matmul_paths():
+    return dict(matmul.matmul.path_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["out", "accio", "dual"])
+@pytest.mark.parametrize("trans_b,mnk,path", [
+    (tb, mnk, path) for tb, cases in MATMUL_PATHS.items()
+    for mnk, path in cases], ids=str)
+def test_matmul_load_paths(cuda, trans_b, mnk, path, mode):
+    """Each bf16 shape on the load path the launcher takes for each
+    operand, counted once in matmul.path_launches by tma_operands' mirror
+    of its rule, in every epilogue, against the plain version."""
+    M, N, K = mnk
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    kw = dict(out=dict(), accio=dict(acc_in_out=True),
+              dual=dict(acc_in_out=True, out_dtype=torch.bfloat16))[mode]
+    before = _matmul_paths()
+    out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[path] += 1
+    assert _matmul_paths() == want
+    check_all_close(out.float(), matmul.matmul_ref(a, b, trans_b=trans_b),
+                    dtype=out.dtype, name=f"matmul {path} {mode}",
+                    **(F32 if out.dtype == torch.float32 else {}))
+
+
+def _padded(t, rows, cols):
+    """t in the top-left corner of a (rows, cols) matrix of zeros."""
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["out", "accio"])
+@pytest.mark.parametrize("case", ["K 1001 NN", "K 1001 TN", "N 1001 NN"])
+def test_matmul_copy_path_equals_tma_bit_for_bit(cuda, case, mode):
+    """The producer's copy writes each slab in TMA's swizzled layout, with
+    zeros past the matrix where TMA fills zeros, and the same wgmmas run:
+    K 1001 (A copied, and a TN B) against the same operands padded with
+    zero columns (and rows of an NN B) to K 1008 (both by TMA), and an NN
+    B of N 1001 (copied) against it padded to N 1008, give the same bits
+    (the first 1001 columns)."""
+    M, N, K = (200, 264, 1001) if case.startswith("K") else (200, 1001, 256)
+    trans_b = case.endswith("TN")
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    a = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    if case.startswith("K"):
+        ap = _padded(a, M, 1008)
+        bp = _padded(b, N, 1008) if trans_b else _padded(b, 1008, N)
+    else:
+        ap, bp = a, _padded(b, K, 1008)
+    assert matmul.load_path(matmul.tma_operands(ap, bp)) == "tma"
+    assert matmul.load_path(matmul.tma_operands(a, b)) != "tma"
+    kw = dict(out=dict(), accio=dict(acc_in_out=True))[mode]
+    before = _matmul_paths()
+    out = matmul.matmul(a, b, trans_b=trans_b, **kw)
+    ref = matmul.matmul(ap, bp, trans_b=trans_b, **kw)[:, :N]
+    torch.cuda.synchronize()
+    assert _matmul_paths()["tma"] == before["tma"] + 1
+    assert torch.equal(out, ref)
+    check_all_close(out.float(), matmul.matmul_ref(a, b, trans_b=trans_b),
+                    dtype=out.dtype, name=f"matmul {case}",
+                    **(F32 if out.dtype == torch.float32 else {}))
+
+
 # the grouped GEMM (#28 gmm, #29 tgmm): the CASES of
 # tests/test_grouped_matmul.py:32-41 (T, K, N, sizes) and the five splits
 # of tools/gmm_tune.py:136-142 (T 8192, E 8) at K 256 and an N that is no
@@ -1182,6 +1299,38 @@ def test_grouped_matmul_grads_match_plain(cuda, case, dt):
     live = sum(sizes)
     check_all_close(out[:live], gm.gmm_ref(x, w, gs)[:live],
                     dtype=DTYPES[dt], **tol)
+
+
+# tgmm's last slab of a group (fewer than 64 rows) has its other rows
+# zeroed by the kernel: groups of 63, 65 and 1 rows starting off a
+# 64-row boundary, one of 129 (two whole slabs and one row), then 14 rows
+# past sum(group_sizes) holding NaN; x and dy by TMA (K 128, N 136) and
+# both copied in every slab (K 130, N 201)
+TGMM_TAIL_SIZES = [37, 63, 65, 1, 129, 20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("K,N", [(128, 136), (130, 201)])
+def test_tgmm_last_slabs_and_nan_rows(cuda, K, N, dt):
+    """#29 with NaN in the x and dy rows past sum(group_sizes): every dW
+    finite and equal to tgmm_ref; the next group's rows and the NaN rows
+    never enter a group's last slab."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    T = sum(TGMM_TAIL_SIZES) + 14
+    x, _, dy, gs = _gmm_case(cuda, dt, T, K, N, TGMM_TAIL_SIZES, seed=K + N)
+    x[-14:] = float("nan")
+    dy[-14:] = float("nan")
+    plan = gm.tgmm_slabs(x, dy, TGMM_TAIL_SIZES)
+    assert {n for slabs in plan for _, n, _ in slabs} == {1, 20, 37, 63, 64}
+    assert {p for slabs in plan for _, _, p in slabs} == (
+        {"tma"} if K % 8 == 0 and dt == "bf16" else {"copy"})
+    dw = gm.tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dw).all()
+    check_all_close(dw.float(), gm.tgmm_ref(x, dy, gs), dtype=DTYPES[dt],
+                    name="tgmm", **(F32 if dt == "f32" else {}))
 
 
 @pytest.mark.cuda

@@ -184,3 +184,42 @@ def test_tma_operands_picks_each_load_path(case):
     assert matmul.tma_operands(a, b) == want
     torch.testing.assert_close(matmul.matmul_naive(a, b),
                                matmul.matmul_naive_ref(a, b), rtol=0, atol=0)
+
+
+# (trans_b, a, b, the load path of matmul's bf16 kernel, csrc/matmul.cu):
+# the same rule per operand on its row-major rows, K for A and a TN B
+# (N, K), N for an NN B (K, N); a TN launch is never mixed. The wrapper
+# aligns every base first (_build.aligned), so a launch meets only the
+# shape rule; the misaligned views give the rule's pointer half.
+MATMUL_PATH_CASES = {
+    "NN whole": (False, lambda: (_ones(64, 48), _ones(48, 80)), "tma"),
+    "NN K tail": (False, lambda: (_ones(200, 1000), _ones(1000, 264)),
+                  "tma"),
+    "NN K % 8": (False, lambda: (_ones(64, 45), _ones(45, 80)), "mixed"),
+    "NN N % 8": (False, lambda: (_ones(64, 48), _ones(48, 81)), "mixed"),
+    "NN both": (False, lambda: (_ones(77, 45), _ones(45, 130)), "copy"),
+    "NN K 0": (False, lambda: (_ones(64, 0), _ones(0, 80)), "tma"),
+    "TN whole": (True, lambda: (_ones(64, 48), _ones(80, 48)), "tma"),
+    "TN N % 8": (True, lambda: (_ones(64, 48), _ones(81, 48)), "tma"),
+    "TN K % 8": (True, lambda: (_ones(64, 45), _ones(80, 45)), "copy"),
+    "TN misaligned B": (
+        True, lambda: (_ones(64, 48), _misaligned((80, 48), torch.bfloat16)),
+        "mixed"),
+    "f32": (False, lambda: (_ones(64, 48, dtype=torch.float32),
+                            _ones(48, 80, dtype=torch.float32)), "copy"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MATMUL_PATH_CASES))
+def test_matmul_load_path_rule(case):
+    """matmul.load_path(tma_operands(a, b)), the mirror by which matmul
+    counts its bf16 launches in path_launches, NN and TN; the CPU result
+    is the plain version's whatever the path, and counts no launch."""
+    trans_b, make, want = MATMUL_PATH_CASES[case]
+    a, b = make()
+    assert matmul.load_path(matmul.tma_operands(a, b)) == want
+    before = dict(matmul.matmul.path_launches)
+    torch.testing.assert_close(
+        matmul.matmul(a, b, trans_b=trans_b, out_dtype=torch.float32),
+        matmul.matmul_ref(a, b, trans_b=trans_b), rtol=0, atol=0)
+    assert matmul.matmul.path_launches == before

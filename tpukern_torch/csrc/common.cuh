@@ -422,12 +422,12 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 
 // bf16 inputs on the tensor cores with mma.sync m16n8k16 (f32
 // accumulate): 8 warps in a 2 x 4 grid, each a 64 x 32 sub-tile, K in
-// slices of 32 staged through padded shared memory (`as`: [128][H_LDK],
-// or [H_BK][H_LDN] for TRANS_A; `bs`: [128][H_LDK] for TRANS_B, else
-// [H_BK][H_LDN]) with 16-byte loads where a row is whole (vec_a, vec_b:
-// its length is a multiple of 8 and the base is 16-byte aligned). Lane
-// 4g + t of warp w holds acc[mt][nt][e] at row hgemm_row(w, mt, g, e) and
-// column hgemm_col(w, nt, t, e). TRANS_A and k_begin as in sgemm_tile.
+// slices of 32 staged through padded shared memory (`as`: [128][H_LDK];
+// `bs`: [128][H_LDK] for TRANS_B, else [H_BK][H_LDN]) with 16-byte loads
+// where a row is whole (vec_a, vec_b: its length is a multiple of 8 and
+// the base is 16-byte aligned). Lane 4g + t of warp w holds
+// acc[mt][nt][e] at row hgemm_row(w, mt, g, e) and column
+// hgemm_col(w, nt, t, e).
 constexpr int H_BM = 128, H_BN = 128, H_BK = 32, H_THREADS = 256;
 constexpr int H_LDK = H_BK + 8;   // [row][k] tiles: conflict-free pair reads
 constexpr int H_LDN = H_BN + 8;   // [k][n] tile (NN): conflict-free reads
@@ -453,14 +453,12 @@ __device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
   return v.u;
 }
 
-template <bool TRANS_B, bool TRANS_A = false>
+template <bool TRANS_B>
 __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
                                            const bf16* __restrict__ b, int M,
                                            int N, int K, int m0, int n0,
                                            bool vec_a, bool vec_b, bf16* as,
-                                           bf16* bs, float (&acc)[4][4][4],
-                                           int k_begin = 0) {
-  static_assert(!(TRANS_A && TRANS_B), "TRANS_A takes an NN B");
+                                           bf16* bs, float (&acc)[4][4][4]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
@@ -470,23 +468,16 @@ __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
-  for (int k0 = k_begin; k0 < K; k0 += H_BK) {
+  for (int k0 = 0; k0 < K; k0 += H_BK) {
     __syncthreads();  // the previous tile is consumed
     // 512 chunks of 8 per operand tile, 2 per thread
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int ch = tid + i * H_THREADS;
       const int r = ch >> 2, kc = (ch & 3) * 8;
-      if constexpr (TRANS_A) {
-        // K-major A: rows past K (the group's end) read zeros
-        const int kr = ch >> 4, mc = (ch & 15) * 8;
-        *reinterpret_cast<uint4*>(&as[kr * H_LDN + mc]) =
-            load8(a, k0 + kr, K, m0 + mc, M, vec_a);
-      } else {
-        // the K edge: a chunk straddling K is loaded element by element
-        *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
-            load8(a, m0 + r, M, k0 + kc, K, vec_a);
-      }
+      // the K edge: a chunk straddling K is loaded element by element
+      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
+          load8(a, m0 + r, M, k0 + kc, K, vec_a);
       if constexpr (TRANS_B) {
         *reinterpret_cast<uint4*>(&bs[r * H_LDK + kc]) =
             load8(b, n0 + r, N, k0 + kc, K, vec_b);
@@ -503,20 +494,11 @@ __device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
       uint32_t af[4][4];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        if constexpr (TRANS_A) {
-          // [k][m]: a k pair is two rows apart, as B's in the NN path
-          const bf16* ap = &as[(ks * 16 + 2 * t) * H_LDN + wm + mt * 16 + g];
-          af[mt][0] = pack_bf16(ap[0], ap[H_LDN]);
-          af[mt][1] = pack_bf16(ap[8], ap[H_LDN + 8]);
-          af[mt][2] = pack_bf16(ap[8 * H_LDN], ap[9 * H_LDN]);
-          af[mt][3] = pack_bf16(ap[8 * H_LDN + 8], ap[9 * H_LDN + 8]);
-        } else {
-          const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
-          af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-          af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
-          af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-          af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
-        }
+        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
+        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
+        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {

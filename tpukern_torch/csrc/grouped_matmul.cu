@@ -25,23 +25,33 @@
 //   the K loop once per group that meets it (at most tiles + E - 1 loops
 //   over the grid).
 // - tgmm: a grid of (N tiles, K tiles, E). Each block walks its own
-//   group's rows in slices, reading zeros for the rows outside them before
-//   the product (the token axis is the contraction here, so the rows are
-//   masked as JAX masks x before its dot, :242-247), and writes its
-//   (e, k, n) tile once. A hot expert's blocks walk all of its rows, so
-//   when one expert holds most rows its K x N tiles are most of the grid's
-//   work and too few to fill the card (splitting one group's rows across
-//   blocks is later work).
+//   group's rows and writes its (e, k, n) tile once; rows outside the
+//   group never enter the sum (the token axis is the contraction here, so
+//   the rows are masked as JAX masks x before its dot, :242-247). A hot
+//   expert's blocks walk all of its rows, so when one expert holds most
+//   rows its K x N tiles are most of the grid's work and too few to fill
+//   the card (splitting one group's rows across blocks is later work).
 //
 // What bounds it: at the Mixtral expert shapes (8192 routed rows, K/N 4096
 // and 14336) a tile does 128·128·K multiply-adds per 2·128·K elements
-// loaded: compute bound, as csrc/matmul.cu. The main loops are that
-// file's (common.cuh sgemm_tile / hgemm_tile): f32 on CUDA-core FMAs in
-// full f32 (never TF32), bf16 on mma.sync m16n8k16, f32 accumulation;
-// tgmm reads x and dy token-major through the tiles' TRANS_A mode.
-// Plain loads through shared memory: cp.async/TMA stages, wgmma and a
-// persistent tile scheduler are a later PR's work.
-#include "common.cuh"
+// loaded: compute bound, as csrc/matmul.cu. f32 runs common.cuh's
+// sgemm_tile on CUDA-core FMAs in full f32 (never TF32). bf16 gmm runs
+// common.cuh's hgemm_tile (mma.sync m16n8k16, K slices of 32 through
+// padded shared memory, one stage). bf16 tgmm runs hopper.cuh's
+// gemm_pipeline, as csrc/matmul.cu's bf16 GEMM: 128 x 256 tiles of
+// (K, N), a group's in runs of 8 tile rows (gemm_tile_order), a ring of
+// 4 stages of 64-row slabs, TMA and wgmma, with both operands MN-major (A
+// = x^T by the transpose-A bit, B = dy by the transpose-B bit, in
+// 64-column boxes), one tensor map over the whole of x and of dy. A
+// group's slabs start at its first row s and step by 64; where fewer
+// than 64 of its rows are left, that last slab loads as the others and
+// the consumers zero its rows >= t in both operands before the products
+// (the next group's rows, or NaN past the groups, never reach the sum).
+// x or dy whose rows are no whole 16-byte chunks (K or N % 8 != 0) is
+// copied by the producer's threads in every slab. An empty group runs no
+// slab and writes zeros. f32 accumulation throughout; gmm on the same
+// pipeline is later work.
+#include "hopper.cuh"
 
 namespace tk {
 namespace {
@@ -190,36 +200,43 @@ tgmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-__global__ void __launch_bounds__(H_THREADS)
-tgmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+template <bool TMA_X, bool TMA_DY>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+tgmm_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_dy,
+                 const bf16* __restrict__ x, const bf16* __restrict__ dy,
                  const int* __restrict__ sizes, float* __restrict__ o32,
-                 bf16* __restrict__ o16, int T, int K, int N, int vec_a,
-                 int vec_b) {
-  __shared__ __align__(16) bf16 as[H_BK * H_LDN];  // [t][k]: TRANS_A
-  __shared__ __align__(16) bf16 bs[H_BK * H_LDN];  // [t][n]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int k0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
+                 bf16* __restrict__ o16, int T, int K, int N) {
+  int tile_k, tile_n;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tile_k, tile_n);
+  const int k0 = tile_k * GP_BM, n0 = tile_n * GP_BN;
   int s, t;
   own_group(sizes, T, s, t);
-  float acc[4][4][4];
-  hgemm_tile<false, true>(x, dy, K, N, t, k0, n0, vec_a, vec_b, as, bs, acc,
-                          s);
   const int64_t base = (int64_t)blockIdx.z * K * N;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = k0 + hgemm_row(warp, mt, g, q);
-        const int c = n0 + hgemm_col(warp, nt, tq, q);
-        if (r >= K || c >= N) continue;
-        if (o32) o32[base + (int64_t)r * N + c] = acc[mt][nt][q];
-        if (o16) o16[base + (int64_t)r * N + c] = __float2bfloat16(acc[mt][nt][q]);
-      }
-    }
-  }
+  float* c32 = o32 ? o32 + base : nullptr;
+  bf16* c16 = o16 ? o16 + base : nullptr;
+  // x (T, K) and dy (T, N) MN-major, their rows the contraction; rows
+  // >= t of the last slab are zeroed
+  gemm_pipeline<true, true, TMA_X, TMA_DY, true>(
+      &map_x, &map_dy, GemmOperand{x, t, K, k0}, GemmOperand{dy, t, N, n0},
+      s, t,
+      [&](const float (&d)[128]) { gemm_store(d, c32, c16, K, N, k0, n0); });
+}
+
+template <bool TMA_X, bool TMA_DY>
+cudaError_t launch_tgmm(const CUtensorMap& mx, const CUtensorMap& md,
+                        const bf16* x, const bf16* dy, const int* sizes,
+                        float* o32, bf16* o16, int T, int K, int N,
+                        const dim3& grid, cudaStream_t stream) {
+  const auto kernel = tgmm_bf16_kernel<TMA_X, TMA_DY>;
+  constexpr int smem = gemm_smem(!(TMA_X && TMA_DY));
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, GP_THREADS, smem, stream>>>(mx, md, x, dy, sizes, o32,
+                                                o16, T, K, N);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -278,11 +295,38 @@ cudaError_t tgmm_launch(const void* x, const void* dy, const int* group_sizes,
         static_cast<const float*>(x), static_cast<const float*>(dy),
         group_sizes, f32o, b16o, T, K, N);
   } else if (dtype == kBF16) {
-    const dim3 grid((N + H_BN - 1) / H_BN, (K + H_BM - 1) / H_BM, E);
+    const dim3 grid((N + GP_BN - 1) / GP_BN, (K + GP_BM - 1) / GP_BM, E);
     if (grid.y > 65535) return cudaErrorInvalidValue;
-    tgmm_bf16_kernel<<<grid, H_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-        group_sizes, f32o, b16o, T, K, N, K % 8 == 0, N % 8 == 0);
+    const bf16* hx = static_cast<const bf16*>(x);
+    const bf16* hd = static_cast<const bf16*>(dy);
+    // each operand by TMA where its rows are whole 16-byte chunks on an
+    // aligned base, else copied in every slab (ops/grouped_matmul.py
+    // tgmm_slabs mirrors the rule and the zeroed tails)
+    const bool tma_x = K % 8 == 0 && aligned16(x);
+    const bool tma_dy = N % 8 == 0 && aligned16(dy);
+    CUtensorMap mx{}, md{};
+    // no row, no slab: no map of a zero extent
+    if (tma_x && T > 0) {
+      const cudaError_t e = tma_map_bf16(&mx, x, K, T, (uint64_t)K * 2, 64,
+                                         GP_BK);
+      if (e != cudaSuccess) return e;
+    }
+    if (tma_dy && T > 0) {
+      const cudaError_t e = tma_map_bf16(&md, dy, N, T, (uint64_t)N * 2, 64,
+                                         GP_BK);
+      if (e != cudaSuccess) return e;
+    }
+    if (tma_x && tma_dy)
+      return launch_tgmm<true, true>(mx, md, hx, hd, group_sizes, f32o, b16o,
+                                     T, K, N, grid, stream);
+    if (tma_x)
+      return launch_tgmm<true, false>(mx, md, hx, hd, group_sizes, f32o,
+                                      b16o, T, K, N, grid, stream);
+    if (tma_dy)
+      return launch_tgmm<false, true>(mx, md, hx, hd, group_sizes, f32o,
+                                      b16o, T, K, N, grid, stream);
+    return launch_tgmm<false, false>(mx, md, hx, hd, group_sizes, f32o, b16o,
+                                     T, K, N, grid, stream);
   } else {
     return cudaErrorInvalidValue;
   }

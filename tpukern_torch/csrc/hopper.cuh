@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps and tile
 // loads, mbarriers, and wgmma's shared-memory descriptors, product and
-// sync. csrc/matmul_naive.cu is their first user; the GEMM kernels are to
-// reuse them.
+// sync; and on them the GEMM main loop (gemm_pipeline) of csrc/matmul.cu
+// (#1-#3, #17) and csrc/grouped_matmul.cu's tgmm (#29).
+// csrc/matmul_naive.cu (#16) uses the blocks with one stage of its own.
 //
 // The layout they all assume is the one TMA's 128-byte swizzle writes and
 // wgmma's 128B-swizzle descriptors read. A tile is a stack of 128-byte
@@ -13,10 +14,11 @@
 //   atoms down at 1024 bytes (the descriptor's SBO; LBO is unused), and
 //   its k16 step kk starts 32 kk bytes into the rows;
 // - an MN-major operand (a row-major (K, N) B, read with wgmma's
-//   transpose-B bit) keeps 64 values of N in a row, one row per k: the
-//   next 8 rows of K lie SBO = 1024 bytes on, the next 64 columns of N
-//   LBO bytes on (a separate 64-column box), and the k16 step kk starts
-//   2048 kk bytes in.
+//   transpose-B bit, or a row-major (K, M) A, read with the transpose-A
+//   bit) keeps 64 values of N (or M) in a row, one row per k: the next 8
+//   rows of K lie SBO = 1024 bytes on, the next 64 columns of N LBO bytes
+//   on (a separate 64-column box), and the k16 step kk starts 2048 kk
+//   bytes in.
 // A tile written by threads instead of TMA uses sw128_offset and a
 // fence_proxy_async() before the barrier that precedes the wgmma.
 #pragma once
@@ -57,16 +59,50 @@ __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
       : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// A phase that has not completed after MBAR_TIMEOUT_NS is a fault (a
+// count or a byte total that can never be met): the thread traps, and
+// the launch fails with an error instead of holding the card.
+constexpr uint64_t MBAR_TIMEOUT_NS = 4000000000ull;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > MBAR_TIMEOUT_NS) __trap();
+}
+
+// arrive once (release: this thread's earlier writes are seen by whoever
+// waits on the phase)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// announce `bytes` more to land in the current phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
 // ------------------------------------------------------------------ TMA
@@ -90,6 +126,12 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
 // block synchronises
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the `count` threads (whole warps) that call it with barrier `id` (1-15;
+// 0 is __syncthreads's) wait for one another
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // host: a 2-D bf16 tensor map with the 128-byte swizzle over a row-major
@@ -159,13 +201,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x 128, f32) += A (64 x 16, K-major) . B (16 x 128, MN-major: the
-// transpose-B bit), bf16 operands from shared memory. Thread t of the
-// warpgroup (warp w = t / 32, lane 4g + q) holds d[4j + e] at row
-// 16w + g + 8 (e / 2) and column 8j + 2q + e % 2 (j = 0..15).
-__device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64],
-                                                         uint64_t da,
-                                                         uint64_t db) {
+// d (64 x 128, f32) += A (64 x 16) . B (16 x 128), bf16 operands from
+// shared memory: A K-major (TA 0) or MN-major (TA 1, the transpose-A
+// bit), B K-major (TB 0) or MN-major (TB 1, the transpose-B bit). Thread
+// t of the warpgroup (warp w = t / 32, lane 4g + q) holds d[4j + e] at
+// row 16w + g + 8 (e / 2) and column 8j + 2q + e % 2 (j = 0..15).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
+                                                      uint64_t da,
+                                                      uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -179,7 +223,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -194,7 +238,428 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 256, f32) += A (64 x 16) . B (16 x 256), as the m64n128k16
+// above with 256 columns: d[4j + e] at row 16w + g + 8 (e / 2) and column
+// 8j + 2q + e % 2 (j = 0..31).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// a warpgroup's register budget: lowered by the producer, raised by the
+// consumers, all four warps together
+template <int N>
+__device__ __forceinline__ void warpgroup_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void warpgroup_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// host: whether TMA can take p as a base (16-byte aligned)
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// ------------------------------------------------------ the GEMM main loop
+// A block of GP_THREADS computes one GP_BM x GP_BN f32 tile D = A . B,
+// walking the contraction in slabs of GP_BK through a ring of stages
+// of shared memory (A 16 KiB and B 32 KiB a stage, both in the
+// 128B-swizzled layout above). Warpgroups 0 and 1 consume, each its 64
+// rows of D: wait for a stage's `full` barrier, issue the slab's four
+// k16 wgmmas (m64n256k16), commit, wait until at most one group is in
+// flight and only then release the previous slab's stage on its `empty`
+// barrier. Warpgroup 2 produces: it waits for a stage's `empty` barrier
+// and fills the stage, each operand by one of two paths:
+// - TMA: one elected thread announces the boxes' bytes on `full` and
+//   issues them (boxes past the matrix arrive as zeros);
+// - the threads' copy: the 128 threads stage the slab's aligned 16-byte
+//   words by cp.async, shift them into the swizzled layout (zeros past
+//   rows x cols) and fence it for the async proxy. An operand whose rows
+//   TMA cannot take (not whole 16-byte chunks, or a base off 16 bytes)
+//   always goes this way; such a kernel keeps 3 stages and a staging
+//   area of 54 KiB (gemm_smem).
+// Every slab, all 128 producer threads arrive on `full` (its count), the
+// elected one after announcing the TMA bytes, whatever the paths: a count
+// that changed from slab to slab would race. Each consumer warp's lane 0
+// arrives on `empty` (count 8). A stage's barriers flip parity on each
+// wrap of the ring.
+// TAIL_ZERO (both operands MN-major, rows the contraction): a last slab
+// shorter than GP_BK (k_end - k < GP_BK) loads as any other, and the
+// consumers zero its rows at and past k_end in both operands before
+// their wgmmas (in the swizzled layout a box's rows from n on are one
+// run of bytes), then meet on a named barrier: no row at or past k_end
+// enters the sum even where the matrix goes on (the next group's rows
+// in tgmm, or NaN). The producer's threads could copy that slab with
+// zeros instead, but the copy code in the producer's branch made ptxas
+// spill the kernel and slowed every slab of tgmm (PERF.md, PR 16).
+//
+// The tile is 128 x 256, not 128 x 128: the SMs read a slab's operands
+// from L2 at (128 + 256) 64 2 bytes per 2 128 256 64 operations, 85
+// operations a byte against 64 for 128 x 128, which ran slower on an
+// H100 at every stage count tried (PERF.md, PR 16).
+constexpr int GP_BM = 128, GP_BN = 256, GP_BK = 64;
+constexpr int GP_THREADS = 384;                 // 2 consumers, 1 producer
+constexpr int GP_BOX = 64 * GP_BK * 2;          // a 64 x 64 box: 8 KiB
+constexpr int GP_A = GP_BM * GP_BK * 2;         // A of a slab: 16 KiB
+constexpr int GP_B = GP_BN * GP_BK * 2;         // B of a slab: 32 KiB
+constexpr int GP_STAGE = GP_A + GP_B;
+constexpr int GP_SEG = 9 * 16;  // a staged row segment of the copy
+// stages of the ring: 4 (192 KiB), or 3 beside the copy's staging area
+// of GP_BM + GP_BN segments; and the dynamic shared memory with them
+// (+ 1 KiB for the alignment)
+__host__ __device__ constexpr int gemm_stages(bool copy) {
+  return copy ? 3 : 4;
+}
+__host__ __device__ constexpr int gemm_smem(bool copy) {
+  return gemm_stages(copy) * GP_STAGE +
+         (copy ? (GP_BM + GP_BN) * GP_SEG : 0) + 1024;
+}
+// tile rows (of D) a group of launch-order blocks walks column by column
+constexpr int GP_GROUP = 8;
+
+// One operand as a row-major bf16 matrix p (rows, cols), its row stride
+// cols, its base 16-byte aligned. K-major (wgmma reads it without
+// transposing): rows are M (or N) and a slab is W rows from `tile` by
+// GP_BK columns from its k. MN-major (read transposed): rows are the
+// contraction and a slab is GP_BK rows from its k by W columns from
+// `tile`, as W / 64 boxes of 64 columns GP_BOX apart. rows and cols
+// bound the threads' copy.
+struct GemmOperand {
+  const bf16* p;
+  int rows, cols, tile;
+};
+
+template <bool MN, int W>
+__device__ __forceinline__ void gemm_tma_slab(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar,
+                                              const GemmOperand& o, int k) {
+  if (MN) {
+#pragma unroll
+    for (int h = 0; h < W / 64; ++h)
+      tma_load_2d(dst + h * GP_BOX, map, bar, o.tile + 64 * h, k);
+  } else {
+    tma_load_2d(dst, map, bar, k, o.tile);
+  }
+}
+
+// The threads' copy of a slab operand whose rows TMA cannot take. Its
+// 8 W 16-byte chunks form W row segments of 64 elements (K-major: row
+// tile + g from column k; MN-major: row k + g % 64 from column tile + 64
+// (g / 64)); chunk ch is chunk ch % 8 of segment ch / 8. A segment that
+// starts sh elements into an aligned 16-byte word spans 9 such words.
+// Pass 1 (gemm_stage_words): cp.async brings each segment's 9 words to
+// `stg` (144 bytes a segment), zeros for a word that holds none of the
+// row's elements (or a row past `rows`); no register holds them, so all
+// of a slab's loads are in flight together. Pass 2 (gemm_shift_slab):
+// each chunk from its two staged words, shifted by sh with funnel shifts
+// and selects (no runtime-indexed registers), masked past the row's end,
+// stored swizzled. The base is 16-byte aligned (the wrappers align it).
+
+template <bool MN>
+__device__ __forceinline__ void gemm_segment(const GemmOperand& o, int k,
+                                             int g, int& r, int& c0) {
+  r = MN ? k + (g & 63) : o.tile + g;
+  c0 = MN ? o.tile + (g >> 6) * 64 : k;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool load) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(load ? 16 : 0)
+               : "memory");
+}
+
+template <bool MN, int W>
+__device__ __forceinline__ void gemm_stage_words(uint32_t stg,
+                                                 const GemmOperand& o, int k,
+                                                 int t) {
+  for (int q = t; q < 9 * W; q += 128) {
+    const int g = q / 9, i = q - 9 * g;
+    int r, c0;
+    gemm_segment<MN>(o, k, g, r, c0);
+    const int64_t row0 = (int64_t)r * o.cols;
+    const int64_t w = ((row0 + c0) & ~int64_t{7}) + 8 * i;
+    const bool load = r < o.rows && w < row0 + o.cols;
+    cp_async16(stg + q * 16, o.p + (load ? w : 0), load);
+  }
+}
+
+template <bool MN, int W>
+__device__ __forceinline__ void gemm_shift_slab(unsigned char* dst,
+                                                const unsigned char* stg,
+                                                const GemmOperand& o, int k,
+                                                int t) {
+#pragma unroll 2
+  for (int ch = t; ch < 8 * W; ch += 128) {
+    const int g = ch >> 3, c = ch & 7;
+    int r, c0;
+    gemm_segment<MN>(o, k, g, r, c0);
+    const int sh = (int)(((int64_t)r * o.cols + c0) & 7);
+    const uint4 q0 = *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16);
+    const uint4 q1 =
+        *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16 + 16);
+    const uint32_t w[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    uint32_t v[6], u[5], out[4];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = sh & 4 ? w[i + 2] : w[i];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) u[i] = sh & 2 ? v[i + 1] : v[i];
+    const int valid = r < o.rows ? max(min(o.cols - c0 - 8 * c, 8), 0) : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[i] = sh & 1 ? __funnelshift_r(u[i], u[i + 1], 16) : u[i];
+      if (2 * i >= valid) out[i] = 0;
+      else if (2 * i + 1 >= valid) out[i] &= 0xFFFFu;
+    }
+    const int off = MN ? (ch >> 9) * GP_BOX + sw128_offset((ch >> 3) & 63, c)
+                       : sw128_offset(ch >> 3, c);
+    *reinterpret_cast<uint4*>(dst + off) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// the descriptors of consumer warpgroup wg's A (its 64 rows) and of B at
+// k16 step kk of the slab at addr
+template <bool MN>
+__device__ __forceinline__ uint64_t gemm_desc_a(uint32_t addr, int wg,
+                                                int kk) {
+  return MN ? wgmma_desc(addr + wg * GP_BOX + kk * 2048, GP_BOX, 1024)
+            : wgmma_desc(addr + wg * 64 * 128 + kk * 32, 16, 1024);
+}
+template <bool MN>
+__device__ __forceinline__ uint64_t gemm_desc_b(uint32_t addr, int kk) {
+  return MN ? wgmma_desc(addr + kk * 2048, GP_BOX, 1024)
+            : wgmma_desc(addr + kk * 32, 16, 1024);
+}
+
+// The tile (tm, tn) of the block `lin`-th in launch order over a tiles_m
+// x tiles_n grid: groups of GP_GROUP tile rows, each walked column by
+// column, so that the blocks in flight together share a few rows of A
+// and columns of B in L2 (a row of tiles at a time would read all of B
+// each wave).
+__device__ __forceinline__ void gemm_tile_order(int lin, int tiles_m,
+                                                int tiles_n, int& tm,
+                                                int& tn) {
+  const int per = GP_GROUP * tiles_n, first = lin / per * GP_GROUP;
+  const int rows = min(tiles_m - first, GP_GROUP), i = lin % per;
+  tm = first + i % rows;
+  tn = i / rows;
+}
+
+// D over the slabs k = k_begin, k_begin + GP_BK, ... < k_end of A and B
+// (A_MN, B_MN: each operand's major order; TMA_A, TMA_B: each operand
+// by TMA, its map valid; else by the threads' copy), then epi(d) in each
+// consumer thread with its 128 accumulators (wgmma's layout above, rows
+// 64 wg on). No slab (k_end <= k_begin): epi gets zeros. Every thread of
+// the block calls it, as the kernel's last statement: the warpgroups
+// split here and never meet again.
+template <bool A_MN, bool B_MN, bool TMA_A, bool TMA_B, bool TAIL_ZERO,
+          typename Epi>
+__device__ __forceinline__ void gemm_pipeline(const CUtensorMap* map_a,
+                                              const CUtensorMap* map_b,
+                                              const GemmOperand& a,
+                                              const GemmOperand& b,
+                                              int k_begin, int k_end,
+                                              Epi&& epi) {
+  static_assert(!TAIL_ZERO || (A_MN && B_MN), "tail rows are MN-major rows");
+  constexpr bool MAY_COPY = !TMA_A || !TMA_B;
+  constexpr int STAGES = gemm_stages(MAY_COPY);
+  // the producer's registers: 40 (it issues TMA, or stages and shifts a
+  // chunk at a time); the consumers take what it gives up (of the 168 a
+  // thread of a 384-thread block starts with) for their 128 accumulators
+  constexpr int P_REGS = 40, C_REGS = 232;
+  static_assert(128 * (168 - P_REGS) >= 256 * (C_REGS - 168), "budget");
+  extern __shared__ unsigned char gp_smem[];
+  __shared__ __align__(8) uint64_t gp_bar[2 * STAGES];  // full, empty
+  const uint32_t raw = smem_u32(gp_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t stg = base + STAGES * GP_STAGE;  // the copy's staging
+  const uint32_t full = smem_u32(gp_bar), empty = full + 8 * STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int slabs = k_end > k_begin ? (k_end - k_begin + GP_BK - 1) / GP_BK : 0;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 128);
+      mbar_init(empty + 8 * s, 8);
+    }
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    warpgroup_regs_dec<P_REGS>();
+    const int t = tid - 256;
+    for (int j = 0, s = 0, ph = 0; j < slabs; ++j) {
+      const int k = k_begin + j * GP_BK;
+      const uint32_t sa = base + s * GP_STAGE, sb = sa + GP_A;
+      mbar_wait(empty + 8 * s, ph ^ 1);  // the first round passes
+      constexpr bool ca = !TMA_A, cb = !TMA_B;
+      if (t == 0 && !(ca && cb)) {
+        mbar_expect_tx(full + 8 * s, (ca ? 0 : GP_A) + (cb ? 0 : GP_B));
+        if (!ca) gemm_tma_slab<A_MN, GP_BM>(sa, map_a, full + 8 * s, a, k);
+        if (!cb) gemm_tma_slab<B_MN, GP_BN>(sb, map_b, full + 8 * s, b, k);
+      }
+      if (MAY_COPY) {
+        // the staging is free (the last slab's shifts are done), then
+        // filled by every thread's cp.async, then shifted into the stage
+        named_barrier_sync(2, 128);
+        if (ca) gemm_stage_words<A_MN, GP_BM>(stg, a, k, t);
+        if (cb) gemm_stage_words<B_MN, GP_BN>(stg + (ca ? GP_BM * GP_SEG : 0),
+                                              b, k, t);
+        asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                         "memory");
+        named_barrier_sync(2, 128);
+        unsigned char* p = gp_smem + (sa - raw);
+        const unsigned char* q = gp_smem + (stg - raw);
+        if (ca) gemm_shift_slab<A_MN, GP_BM>(p, q, a, k, t);
+        if (cb)
+          gemm_shift_slab<B_MN, GP_BN>(p + GP_A, q + (ca ? GP_BM * GP_SEG : 0),
+                                       b, k, t);
+        fence_proxy_async();
+      }
+      mbar_arrive(full + 8 * s);
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  } else {
+    warpgroup_regs_inc<C_REGS>();
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    const bool signal = (tid & 31) == 0;
+    for (int j = 0, s = 0, ph = 0, prev = 0; j < slabs; ++j) {
+      const uint32_t sa = base + s * GP_STAGE, sb = sa + GP_A;
+      mbar_wait(full + 8 * s, ph);
+      if (TAIL_ZERO && k_end - k_begin - j * GP_BK < GP_BK) {
+        // the slab's A and B are 6 boxes of 64 rows of 128 bytes, one
+        // after another: zero rows n to 63 of each
+        const int n = k_end - k_begin - j * GP_BK;
+        unsigned char* p = gp_smem + (sa - raw);
+        for (int o = tid * 16; o < 6 * (GP_BOX - n * 128); o += 256 * 16) {
+          const int box = o / (GP_BOX - n * 128);
+          *reinterpret_cast<uint4*>(p + box * GP_BOX + n * 128 + o -
+                                    box * (GP_BOX - n * 128)) =
+              make_uint4(0, 0, 0, 0);
+        }
+        fence_proxy_async();
+        named_barrier_sync(1, 256);  // both consumers' zeros are in
+      }
+      wgmma_fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GP_BK / 16; ++kk)
+        wgmma_m64n256k16_bf16<A_MN, B_MN>(d, gemm_desc_a<A_MN>(sa, wg, kk),
+                                          gemm_desc_b<B_MN>(sb, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slab's products are done
+      wgmma_fence_acc(d);
+      if (j > 0 && signal) mbar_arrive(empty + 8 * prev);
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_acc(d);
+    epi(d);
+  }
+}
+
+// Consumer warpgroup wg's tile d (gemm_pipeline's layout) into rows m0 +
+// 64 wg on and columns n0 on of the row-major (M, N) outputs c32 (f32)
+// and c16 (bf16), either null: pairs of columns in one store where N is
+// even, masks at the M/N edges.
+__device__ __forceinline__ void gemm_store(const float (&d)[128], float* c32,
+                                           bf16* c16, int M, int N, int m0,
+                                           int n0) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r0 = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < GP_BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      const int64_t o = (int64_t)r * N + col;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (pairs && col < N) {
+        if (c32) *reinterpret_cast<float2*>(c32 + o) = make_float2(v0, v1);
+        if (c16)
+          *reinterpret_cast<__nv_bfloat162*>(c16 + o) =
+              __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < N) {
+          if (c32) c32[o] = v0;
+          if (c16) c16[o] = __float2bfloat16(v0);
+        }
+        if (col + 1 < N) {
+          if (c32) c32[o + 1] = v1;
+          if (c16) c16[o + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace tk

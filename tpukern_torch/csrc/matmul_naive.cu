@@ -29,7 +29,8 @@
 // At 33 KiB of shared memory and 256 threads, two blocks share an SM:
 // one block's loads overlap the other's products. The epilogue rounds
 // the f32 accumulators to bf16 and masks the M/N edges. A multi-stage
-// ring, warp specialisation and a persistent grid are the GEMM line's.
+// ring and warp specialisation are csrc/matmul.cu's (hopper.cuh
+// gemm_pipeline); #16 keeps the TPU kernel's missing pipeline.
 //
 // f32: no tensor-core route keeps the function (TF32 rounds the inputs
 // to 10 mantissa bits; the reference is exact f32), so a block of 256
@@ -117,7 +118,7 @@ matmul_naive_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NV_BK / 16; ++kk)
-      wgmma_m64n128k16_bf16_tb(
+      wgmma_m64n128k16_bf16<0, 1>(
           d, wgmma_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024),
           wgmma_desc(sb + kk * 16 * 128, NV_B_HALF, 1024));
     wgmma_commit();
@@ -177,8 +178,6 @@ void launch_bf16(const CUtensorMap& ma, const CUtensorMap& mb, const bf16* a,
   matmul_naive_bf16_kernel<TMA_A, TMA_B>
       <<<grid, NV_THREADS, NV_SMEM, stream>>>(ma, mb, a, b, c, M, N, K);
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 

@@ -4,8 +4,10 @@ The port of tpukern/ops/grouped_matmul.py. The rows of x are sorted by
 group (expert); group e owns the group_sizes[e] rows after the groups
 before it, and sum(group_sizes) <= T. Kernels: csrc/grouped_matmul.cu,
 #28 (`gmm`, with `trans_w` as a template flag) and #29 (`tgmm`), f32 on
-CUDA-core FMAs and bf16 on `mma.sync`, f32 accumulation; each block reads
-the group sizes on the card, so no wrapper syncs with the host.
+CUDA-core FMAs; bf16 #28 on `mma.sync`, bf16 #29 on TMA and `wgmma`
+through a multi-stage ring (csrc/hopper.cuh gemm_pipeline, slabs as
+tgmm_slabs mirrors); f32 accumulation; each block reads the group sizes
+on the card, so no wrapper syncs with the host.
 
 - gmm: y[rows_e] = x[rows_e] · w[e] (or · w[e]ᵀ). Rows past
   sum(group_sizes) belong to no group: the kernel and gmm_ref write zeros
@@ -24,6 +26,7 @@ import torch
 
 from tpukern_torch import _build
 from tpukern_torch.core.registry import register
+from tpukern_torch.ops.matmul import load_path, tma_operands
 
 
 def _offsets(group_sizes):
@@ -123,6 +126,28 @@ def tgmm(x, dy, group_sizes, *, block_m=None, block_k=None, block_n=None,
 
 
 tgmm.launches = 0
+
+
+def tgmm_slabs(x, dy, group_sizes):
+    """The slab plan of the bf16 tgmm kernel (csrc/grouped_matmul.cu), by
+    its launcher's rule, from the shapes and data_ptr()s of x (T, K) and
+    dy (T, N) as the kernel gets them (contiguous, aligned) and the group
+    sizes (host integers): for each group, its slabs as (first row,
+    rows, path). A slab takes 64 rows from the group's first row on (TMA
+    takes any row); the last one keeps the rows left, and the kernel
+    zeros its other rows (the next group's) before the products. Every
+    slab loads x and dy as tma_operands says: "tma", "mixed" or "copy"
+    (an operand whose rows TMA cannot take is copied in every slab). An
+    empty group has no slab."""
+    T = x.shape[0]
+    path = load_path(tma_operands(x, dy))
+    plan, off = [], 0
+    for size in [int(s) for s in group_sizes]:
+        s = min(off, T)
+        off += max(size, 0)
+        t = min(off, T)
+        plan.append([(t0, min(64, t - t0), path) for t0 in range(s, t, 64)])
+    return plan
 
 
 def gmm_ref(x, w, group_sizes, *, trans_w=False):

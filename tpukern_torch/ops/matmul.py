@@ -1,7 +1,8 @@
 """GEMM: C = A·B or A·Bᵀ with f32 accumulation.
 
 The port of tpukern/ops/matmul.py. Kernels: csrc/matmul.cu, one kernel
-per input dtype (f32 on CUDA cores, bf16 on the tensor cores) whose
+per input dtype (f32 on CUDA cores; bf16 on the tensor cores, by TMA and
+wgmma through a multi-stage ring, csrc/hopper.cuh gemm_pipeline) whose
 epilogue replaces the three Pallas bodies of `matmul` (matmul.py:140-172):
 `kernel` writes the out dtype, `kernel_accio` the f32 accumulator,
 `kernel_accio_dual` both; `matmul_kpipe` (:311, the K loop inside the
@@ -37,7 +38,9 @@ def matmul(a, b, *, trans_b=False, out_dtype=None, acc_in_out=False):
     epilogue (f32 accumulator and bf16 copy) and returns the bf16 copy,
     as the JAX function does. Inputs of two dtypes are promoted to one.
     A CPU tensor takes matmul_ref; a CUDA tensor launches the kernel
-    (f32 or bf16 inputs; f32 or bf16 output)."""
+    (f32 or bf16 inputs; f32 or bf16 output). Counts launches, and bf16
+    launches by load path in `path_launches` (tma_operands: "tma" both
+    operands by TMA, "copy" neither, "mixed")."""
     out_dtype = _out_dtype(a, out_dtype, acc_in_out)
     M, K = a.shape
     N = b.shape[0] if trans_b else b.shape[1]
@@ -60,10 +63,13 @@ def matmul(a, b, *, trans_b=False, out_dtype=None, acc_in_out=False):
                   None if c16 is None else c16.data_ptr(), M, N, K,
                   int(trans_b), _build.dtype_code(a), _build.stream(a))
     matmul.launches += 1
+    if dt == torch.bfloat16:
+        matmul.path_launches[load_path(tma_operands(a, b))] += 1
     return c16 if c16 is not None else c32
 
 
 matmul.launches = 0
+matmul.path_launches = dict.fromkeys(("tma", "copy", "mixed"), 0)
 
 
 def matmul_ref(a, b, *, trans_b=False):
@@ -94,12 +100,14 @@ def hgemm(a, b, *, trans_b=False, out_dtype=None):
 
 
 def tma_operands(a, b):
-    """(A by TMA, B by TMA): the load path the bf16 matmul_naive kernel's
-    launcher (csrc/matmul_naive.cu) takes for each operand, by its rule,
-    from the dtypes, shapes and data_ptr() alignments of the (contiguous)
-    operands; matmul_naive counts launches by it. TMA takes a 16-byte
-    aligned base and rows a multiple of 16 bytes: K % 8 == 0 for A (M, K),
-    N % 8 == 0 for B (K, N). Any other operand is copied by the block's
+    """(A by TMA, B by TMA): the load path the bf16 kernels' launchers
+    (csrc/matmul_naive.cu, csrc/matmul.cu, and csrc/grouped_matmul.cu's
+    tgmm for x and dy) take for each operand, by their one rule, from the
+    dtypes, shapes and data_ptr() alignments of the (contiguous) row-major
+    operands; matmul_naive and matmul count launches by it, tgmm_slabs
+    plans by it. TMA takes a 16-byte aligned base and rows a multiple of
+    16 bytes: shape[1] % 8 == 0 (K for A (M, K) and for a TN B (N, K), N
+    for an NN B (K, N)). Any other operand is copied by the block's
     threads; the f32 tier has no TMA path."""
     if a.dtype != torch.bfloat16:
         return False, False
@@ -107,7 +115,9 @@ def tma_operands(a, b):
             b.shape[1] % 8 == 0 and b.data_ptr() % 16 == 0)
 
 
-def _path(tma):
+def load_path(tma):
+    """The name of a launch's load paths (tma_operands' pair): "tma",
+    "copy" or "mixed"."""
     return {(True, True): "tma", (False, False): "copy"}.get(tma, "mixed")
 
 
@@ -132,7 +142,7 @@ def matmul_naive(a, b):
                   M, b.shape[1], K, _build.dtype_code(a), _build.stream(a))
     matmul_naive.launches += 1
     if a.dtype == torch.bfloat16:
-        matmul_naive.path_launches[_path(tma_operands(a, b))] += 1
+        matmul_naive.path_launches[load_path(tma_operands(a, b))] += 1
     return c
 
 
