@@ -269,13 +269,15 @@ def phase_build():
 
 # instructions the SASS of the redesigned kernels must (True) or must not
 # (False) hold, by a fragment of the mangled kernel name: #16's bf16
-# kernel and the bf16 #2 (NN and TN) and #29 kernels with both operands
-# by TMA run wgmma (HGMMA) fed by TMA (UTMALDG), no mma.sync (HMMA); #40
-# runs no matrix product (HMMA, HGMMA)
+# kernel and the bf16 #2 (NN and TN), #28 (NN and trans_w) and #29
+# kernels with both operands by TMA run wgmma (HGMMA) fed by TMA
+# (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA, HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "hgemm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
              "hgemm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
+             "gmm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
+             "gmm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
              "tgmm_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
 
@@ -531,6 +533,14 @@ def phase_kernels(cfg):
         partial(paged_attention.paged_attention, *serve_case),
         partial(paged_attention.paged_attention_ref, *serve_case),
         _paged_library(*serve_case), *_paged_work(*serve_case), bf)
+    long_case = paged_case(4, Hq, Hkv, D, 128, LONG_PAGES, [LONG_TOKENS] * 4,
+                           bf)
+    _paged_split_checks(record, paged_case, cfg, serve_case, long_case)
+    timed["paged_attention long"] = _timed_entry(
+        "paged_attention_long", [4, Hq, D, LONG_TOKENS],
+        partial(paged_attention.paged_attention, *long_case),
+        partial(paged_attention.paged_attention_ref, *long_case),
+        _paged_library(*long_case), *_paged_work(*long_case), bf)
 
     # paged prefix prefill (#24): a 256-token chunk over a 900-token
     # prefix and a gamma = 4 verification whose last length passes the
@@ -591,6 +601,84 @@ def phase_kernels(cfg):
 
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
+
+
+# #23's long timed shape: 4 sequences of 8192 tokens (64 pages of 128)
+LONG_TOKENS, LONG_PAGES = 8192, 64
+# the split lengths timed against each other (multiples of the tile)
+SPLIT_CHUNKS = (64, 128, 256)
+
+
+def _with_chunk(chunk, fn):
+    """fn with paged_attention.DECODE_CHUNK set to chunk for the call."""
+    from tpukern_torch.ops import paged_attention
+
+    def run():
+        keep = paged_attention.DECODE_CHUNK
+        paged_attention.DECODE_CHUNK = chunk
+        try:
+            return fn()
+        finally:
+            paged_attention.DECODE_CHUNK = keep
+    return run
+
+
+def _paged_split_checks(record, paged_case, cfg, serve_case, long_case):
+    """#23 split-KV: bf16 and f32 pools, FEAT off and on (window + sinks,
+    softcap, ring, ALiBi), lengths at the split edges (0, 1, chunk - 1,
+    chunk, chunk + 1, the pool's end and past it) over three splits,
+    against the split order's plain version and the final-max one; a
+    second call bit-equal to the first; the long shape against the plain
+    version. Then each split length of SPLIT_CHUNKS at the serving and
+    the long shape: checked, and timed by device time (the profiler)
+    and CUDA events, with its n_split."""
+    from functools import partial
+
+    from tpukern_torch.ops import paged_attention as pa
+    from tpukern_torch.harness import run_benchmark
+
+    c = pa.DECODE_CHUNK
+    edge = [0, 1, c - 1, c, c + 1, 3 * c, 3 * c + 9]
+    feats = {"": {}, "window 40 sinks 5": dict(window=40, sinks=5),
+             "softcap 2": dict(softcap=2.0),
+             "ring w300 sinks 4": dict(ring=True, window=300, sinks=4),
+             "alibi": dict(alibi_slopes=pa.default_alibi_slopes(
+                 cfg.n_heads))}
+    for dt, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        args = paged_case(len(edge), cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, 16, 3 * c // 16, edge, dt)
+        for tag, feat in feats.items():
+            out = pa.paged_attention(*args, **feat)
+            for name, ref in (("split", pa.paged_attention_split_ref),
+                              ("final max", pa.paged_attention_ref)):
+                record("paged_attention", *_compare(
+                    "paged_attention", f"edges {tag} {dn} vs {name}", out,
+                    ref(*args, **feat)))
+            same = torch.equal(out, pa.paged_attention(*args, **feat))
+            if not same:
+                print(f"[check] paged_attention  edges {tag} {dn}: a second "
+                      "call differs MISS")
+            record("paged_attention", same, 0.0)
+    record("paged_attention_long", *_compare(
+        "paged_attention", f"B4 H16/8 D128 {LONG_TOKENS} tokens bf16",
+        pa.paged_attention(*long_case), pa.paged_attention_ref(*long_case)))
+    S = {"serving": 8 * 128, f"4 x {LONG_TOKENS}": LONG_PAGES * 128}
+    for chunk in SPLIT_CHUNKS:
+        times = []
+        for (label, slots), args in zip(S.items(), (serve_case, long_case)):
+            fn = _with_chunk(chunk, partial(pa.paged_attention, *args))
+            record("paged_attention", *_compare(
+                "paged_attention", f"chunk {chunk} {label} vs split",
+                fn(), pa.paged_attention_split_ref(*args, chunk=chunk)))
+            dev = _device_ms(fn)
+            times.append(
+                f"{label} {'not measured' if dev is None else f'{dev:.4f}'}"
+                f" ms device, {run_benchmark(fn):.4f} ms events (n_split "
+                f"{-(-slots // chunk)})")
+        print(f"[paged split] chunk {chunk}: " + "; ".join(times))
+    print(f"[paged split] DECODE_CHUNK {c}: n_split "
+          f"{pa.decode_splits(8, 128)} at the serving shape, "
+          f"{pa.decode_splits(LONG_PAGES, 128)} at 4 x {LONG_TOKENS}")
 
 
 def _paged_bf16_p(args):
@@ -1152,16 +1240,11 @@ def _paged_case(gen, B, hq, hkv, dd, page, pps, lengths, dt, T=None):
 def _visible(lengths, T, S, window=None, sinks=None, ring=False):
     """Bool (B, T, S): whether token t of sequence b sees slot j of its
     S-slot pool: flat, positions [0, lengths[b] - T + t]; on a ring, the
-    position the slot holds (paged_attention._positions); with a window,
-    only the band and the sinks."""
-    from tpukern_torch.ops.paged_attention import _positions
+    position the slot holds; with a window, only the band and the sinks
+    (paged_attention._visible, the plain versions' mask)."""
+    from tpukern_torch.ops.paged_attention import _visible
 
-    qpos, kpos = _positions(lengths, T, S, sinks, ring, lengths.device)
-    rel = kpos[:, None, :] - qpos[..., None]
-    keep = (kpos[:, None, :] >= 0) & (rel <= 0)
-    if window is not None:
-        keep &= (rel >= 1 - window) | (kpos[:, None, :] < (sinks or 0))
-    return keep
+    return _visible(lengths, T, S, window, sinks, ring, lengths.device)[0]
 
 
 def _paged_work(q, k_pages, v_pages, lengths, page_table, **feat):
@@ -3300,6 +3383,15 @@ def _gmm_check(checks, kind, case, x, w, dy, gs):
         zero = out[live:]
         out, ref = out[:live], ref[:live]
     ok, err = _compare(kind, case, out, ref, dtype=x.dtype)
+    if kind != "tgmm" and x.dtype == torch.bfloat16:
+        from collections import Counter
+
+        items = Counter(p for _, _, _, p in gm.gmm_items(
+            a, w, gs.tolist(), trans_w=trans))
+        n_tiles = -(-out.shape[1] // 256)
+        print(f"[gmm] {kind} {case}: items by path "
+              f"{ {('zeros' if p is None else p): n for p, n in items.items()} }"
+              f" in each of {n_tiles} N tiles")
     if zero.numel() and zero.abs().max().item() != 0:
         print(f"[check] {kind:16s} {case}: rows or slabs outside every "
               "group are not zero MISS")
@@ -3331,6 +3423,43 @@ def _tgmm_nan_check(checks, gen, K, N, dt):
                        for _, _, p in slabs)
         print(f"[tgmm] {case}: slabs by path {dict(plan)}")
     checks.record("tgmm", ok, err)
+
+
+# #28's work items at their edges: groups of 1, 127, 129 and 255 rows off
+# a 128-row boundary, an empty group, GMM_NAN_ROWS rows past the groups
+# holding NaN in x and dy; (K, N) that put the operands on every load
+# path (NN: tma, mixed (x copied), mixed (W copied), copy; trans_w, whose
+# operands' rows are both N wide: tma, tma, copy, copy)
+GMM_ITEM_SIZES = [1, 127, 129, 255, 37, 0, 300]
+GMM_NAN_ROWS = 20
+GMM_EDGE_KN = ((128, 136), (130, 136), (128, 130), (130, 130))
+# NaN in every W[e + 1] after a live group e (its own group empty): no
+# element of it may enter group e's sum, at K 130 and 136 (a short last
+# slab, W by TMA from the 3-D map at N 136)
+GMM_NAN_W_SIZES = [100, 0, 160, 0]
+
+
+def _gmm_edge_checks(checks, gen, dt, tag):
+    """#28 (NN and trans_w) at GMM_ITEM_SIZES on every load path with NaN
+    past the groups (exact zeros there, the rest finite and within the
+    dtype's tolerance), then with NaN in the W[e + 1] that follow live
+    groups (GMM_NAN_W_SIZES)."""
+    nan = float("nan")
+    sizes, live = GMM_ITEM_SIZES, sum(GMM_ITEM_SIZES)
+    for K, N in GMM_EDGE_KN:
+        x, w, dy, gs = _gmm_inputs(gen, live + GMM_NAN_ROWS, K, N, sizes, dt)
+        x[live:] = nan
+        dy[live:] = nan
+        for kind in ("gmm", "gmm trans_w"):
+            _gmm_check(checks, kind, f"edges NaN past the groups K{K} N{N} "
+                       f"{tag}", x, w, dy, gs)
+    for K in (130, 136):
+        x, w, dy, gs = _gmm_inputs(gen, 300, K, 136, GMM_NAN_W_SIZES, dt)
+        w[1] = nan
+        w[3] = nan
+        for kind in ("gmm", "gmm trans_w"):
+            _gmm_check(checks, kind, f"NaN W[e + 1] K{K} N136 {tag}", x, w,
+                       dy, gs)
 
 
 def phase_moe_kernels():
@@ -3405,6 +3534,7 @@ def phase_moe_kernels():
             for kind in ("gmm", "gmm trans_w", "tgmm"):
                 _gmm_check(checks, kind, f"T{T} K{K} N{N} {sizes} {tag}",
                            *inputs)
+        _gmm_edge_checks(checks, gen, dt, tag)
         for K, N in TGMM_NAN_KN:
             _tgmm_nan_check(checks, gen, K, N, dt)
     torch.cuda.synchronize()
@@ -4773,6 +4903,16 @@ def main():
         modes[n] = {k: v for k, v in timing[n].items() if k not in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms") and not k.endswith("device_ms")}
+    # #23's split (split-KV) and its times at the long shape
+    long = timing["paged_attention_long"]
+    modes.setdefault("paged_attention", {}).update(
+        decode_chunk=paged_attention.DECODE_CHUNK,
+        n_split={"serving": paged_attention.decode_splits(8, 128),
+                 "long": paged_attention.decode_splits(LONG_PAGES, 128)},
+        long_shape=long["shape"],
+        **{f"long_{k}": long[k] for k in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")})
     # #2's bf16 launches by load path in [train kernels]
     modes["matmul"] = {"path_launches": timing["matmul"]["path_launches"]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"

@@ -243,3 +243,63 @@ def test_tgmm_slab_plan(case):
         rows = [r for t0, n, _ in slabs for r in range(t0, t0 + n)]
         assert rows == list(range(s, min(off, T)))
         assert all(n == 64 for _, n, _ in slabs[:-1])
+
+
+# (x, w, trans_w, sizes, the bf16 gmm kernel's work items of an N tile as
+# (group, first row, rows, path)): a segment's rows inside one 128-row
+# tile an item; groups of 1, 127, 129 and 255 rows off a 128-row
+# boundary; sizes past T clamped; empty and negative groups; the rows
+# past sum(group_sizes) as items of group None that load nothing; an
+# operand TMA cannot take (K % 8, N % 8 in NN, a misaligned view) copied
+ITEM_CASES = {
+    "tails": (lambda: (_bf16(540, 128), _bf16(5, 128, 136)), False,
+              [5, 1, 127, 129, 255],
+              [(0, 0, 5, "tma"), (1, 5, 1, "tma"), (2, 6, 122, "tma"),
+               (2, 128, 5, "tma"), (3, 133, 123, "tma"), (3, 256, 6, "tma"),
+               (4, 262, 122, "tma"), (4, 384, 128, "tma"),
+               (4, 512, 5, "tma"), (None, 517, 23, None)]),
+    "clamped at T": (lambda: (_bf16(150, 128), _bf16(2, 128, 128)), False,
+                     [100, 100],
+                     [(0, 0, 100, "tma"), (1, 100, 28, "tma"),
+                      (1, 128, 22, "tma")]),
+    "empty": (lambda: (_bf16(256, 128), _bf16(4, 128, 128)), False,
+              [0, -3, 200, 0],
+              [(2, 0, 128, "tma"), (2, 128, 72, "tma"),
+               (None, 200, 56, None)]),
+    "sum < T": (lambda: (_bf16(256, 128), _bf16(2, 256, 128)), True,
+                [10, 20],
+                [(0, 0, 10, "tma"), (1, 10, 20, "tma"),
+                 (None, 30, 98, None), (None, 128, 128, None)]),
+    "K % 8": (lambda: (_bf16(200, 130), _bf16(2, 130, 136)), False,
+              [128, 72], [(0, 0, 128, "mixed"), (1, 128, 72, "mixed")]),
+    "K % 8 trans_w": (lambda: (_bf16(200, 130), _bf16(2, 136, 130)), True,
+                      [128, 72], [(0, 0, 128, "copy"), (1, 128, 72, "copy")]),
+    "N % 8": (lambda: (_bf16(64, 128), _bf16(1, 128, 130)), False, [64],
+              [(0, 0, 64, "mixed")]),
+    "misaligned": (lambda: (_view_off((128, 128)), _view_off((1, 128, 136))),
+                   False, [100], [(0, 0, 100, "copy"),
+                                  (None, 100, 28, None)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITEM_CASES))
+def test_gmm_item_plan(case):
+    """gm.gmm_items, the mirror of the bf16 gmm launcher's rule and its
+    work items: every row < T of an N tile covered once, in group order,
+    each item inside one 128-row tile, at most ceil(T / 128) + E items
+    (the grid's bound)."""
+    make, trans_w, sizes, want = ITEM_CASES[case]
+    x, w = make()
+    items = gm.gmm_items(x, w, sizes, trans_w=trans_w)
+    assert items == want
+    T, E = x.shape[0], len(sizes)
+    assert [r for _, r0, n, _ in items for r in range(r0, r0 + n)] == list(
+        range(T))
+    assert all(n > 0 and r0 // 128 == (r0 + n - 1) // 128
+               for _, r0, n, _ in items)
+    assert len(items) <= -(-T // 128) + E
+    groups = [e for e, _, _, _ in items]
+    assert groups == sorted(groups, key=lambda e: E if e is None else e)
+    if w.shape[1] != w.shape[2]:  # the other orientation does not contract
+        with pytest.raises(ValueError, match="contract"):
+            gm.gmm_items(x, w, sizes, trans_w=not trans_w)

@@ -784,6 +784,77 @@ def test_paged_attention_bf16_rounds_p(cuda):
     assert (out != ref).sum() < (out != f32_p).sum()
 
 
+# #23 split-KV: lengths at the split edges (0, 1, chunk - 1, chunk, chunk +
+# 1, the pool's end and past it) over three splits of DECODE_CHUNK slots;
+# every featured option; the ring wrapped past its slots
+SPLIT_FEATURES = {"none": {}, "window+sinks": dict(window=40, sinks=5),
+                  "softcap": dict(softcap=2.0),
+                  "ring": dict(ring=True, window=300, sinks=4),
+                  "alibi": dict(alibi=True),
+                  "ring+alibi": dict(ring=True, window=200, alibi=True)}
+
+
+def _split_case(dev, dt, feat, seed):
+    c = paged_attention.DECODE_CHUNK
+    pps = 3 * c // 16
+    S = 16 * pps
+    kw = dict(SPLIT_FEATURES[feat])
+    lengths = [0, 1, c - 1, c, c + 1, S, S + 9]
+    if kw.get("ring"):
+        lengths = [3 * S + 5, 1, c - 1, c + 1, S, S + 9, 2 * S + c]
+    q, kp, vp, lens, table = _paged_case(dev, dt, len(lengths), 8, 2, 1, 64,
+                                         16, pps, lengths, seed)
+    if kw.pop("alibi", False):
+        kw["alibi_slopes"] = 2.0 ** -torch.arange(1, 9, device=dev,
+                                                  dtype=torch.float32)
+    return (q[:, :, 0], kp, vp, lens, table), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("feat", sorted(SPLIT_FEATURES))
+def test_paged_decode_split_matches_refs(cuda, feat, dt):
+    """#23 split-KV against paged_attention_split_ref (its order) and
+    paged_attention_ref (the final max), one launch a call, zeros at
+    length 0 (f32: 1e-4; bf16: the _TOLS bf16 row, P's rounding)."""
+    args, kw = _split_case(cuda, DTYPES[dt], feat, seed=len(feat))
+    assert paged_attention.decode_splits(args[4].shape[1], 16) == 3
+    before = paged_attention.paged_attention.launches
+    out = paged_attention.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_attention.launches == before + 1
+    tol = F32 if dt == "f32" else {}
+    for name, ref in (("split", paged_attention.paged_attention_split_ref),
+                      ("final max", paged_attention.paged_attention_ref)):
+        check_all_close(out.float(), ref(*args, **kw).float(),
+                        dtype=DTYPES[dt], name=f"{feat} {name}", **tol)
+    if not kw.get("ring"):
+        assert not out[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_decode_split_is_bit_stable(cuda, dt):
+    """Two calls in a row, and a call after one of another shape, give
+    the same bits: the merge's order is fixed and the ticket counters are
+    back at zero after each call."""
+    from tpukern_torch import _build
+
+    args, kw = _split_case(cuda, DTYPES[dt], "window+sinks", seed=3)
+    fn = paged_attention.paged_attention
+    first = fn(*args, **kw)
+    second = fn(*args, **kw)
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, DTYPES[dt], 4, 16, 8, 1, 128, 128, 8, [1, 129, 700, 1024],
+        seed=4)
+    fn(q[:, :, 0], kp, vp, lengths, table)
+    third = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    stream = _build.stream(args[0])
+    assert not _build.tickets(args[0].device, stream, 1).any()
+
+
 # ------------------------------------- the quantized tier (#20-#22, #23/#24)
 
 @pytest.mark.cuda
@@ -1331,6 +1402,66 @@ def test_tgmm_last_slabs_and_nan_rows(cuda, K, N, dt):
     assert torch.isfinite(dw).all()
     check_all_close(dw.float(), gm.tgmm_ref(x, dy, gs), dtype=DTYPES[dt],
                     name="tgmm", **(F32 if dt == "f32" else {}))
+
+
+# #28 bf16's work items: groups of 1, 127, 129 and 255 rows off a 128-row
+# boundary, an empty group, rows past sum(group_sizes); (K, N) that put
+# x and W on each load path, NN and trans_w (gm.gmm_items names them)
+GMM_ITEM_SIZES = [1, 127, 129, 255, 37, 0, 300]
+GMM_PATH_KN = {(128, 136): ("tma", "tma"), (130, 136): ("mixed", "copy"),
+               (128, 130): ("mixed", "tma"), (130, 130): ("copy", "copy")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", sorted(GMM_PATH_KN))
+def test_gmm_bf16_items_on_every_path(cuda, K, N):
+    """#28 bf16, NN and trans_w, against gmm_ref at boundary-heavy sizes
+    on every load path: the live rows at the bf16 tolerance, exact zeros
+    past the groups (x holds NaN there), one launch each."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    sizes = GMM_ITEM_SIZES
+    T = sum(sizes) + 20
+    x, w, _, gs = _gmm_case(cuda, "bf16", T, K, N, sizes, seed=K + N)
+    x[sum(sizes):] = float("nan")
+    wt = w.transpose(1, 2).contiguous()
+    want = GMM_PATH_KN[(K, N)]
+    for trans, ww, path in ((False, w, want[0]), (True, wt, want[1])):
+        items = gm.gmm_items(x, ww, sizes, trans_w=trans)
+        assert {p for e, _, _, p in items if e is not None} == {path}
+        assert len(items) <= -(-T // 128) + len(sizes)
+        before = gm.gmm.launches
+        y = gm.gmm(x, ww, gs, trans_w=trans)
+        torch.cuda.synchronize()
+        assert gm.gmm.launches == before + 1
+        live = sum(sizes)
+        check_all_close(y[:live].float(), gm.gmm_ref(x, w, gs)[:live],
+                        dtype=torch.bfloat16, name=f"{path} trans_w={trans}")
+        assert torch.equal(y[live:], torch.zeros_like(y[live:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("K", [130, 136])
+def test_gmm_bf16_never_reads_the_next_expert(cuda, K, trans):
+    """#28 bf16 with every W[e + 1] after a live group all NaN (its group
+    empty): no element of W[e + 1] enters group e's sum, though K % 64 !=
+    0 leaves the last slab short (W by TMA from the 3-D map at N 136,
+    x by TMA at K 136 and copied at K 130)."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    sizes = [100, 0, 160, 0]
+    N, T = 136, 300
+    x, w, _, gs = _gmm_case(cuda, "bf16", T, K, N, sizes, seed=K)
+    w[1] = float("nan")
+    w[3] = float("nan")
+    ww = w.transpose(1, 2).contiguous() if trans else w
+    y = gm.gmm(x, ww, gs, trans_w=trans)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    check_all_close(y[:260].float(), gm.gmm_ref(x, w, gs)[:260],
+                    dtype=torch.bfloat16, name=f"K {K} trans_w={trans}")
+    assert not y[260:].any()
 
 
 @pytest.mark.cuda

@@ -86,11 +86,15 @@ SIGNATURES = {
     "tk_matmul_w8a16": [_P] * 6 + [_I] * 7 + [_P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P,
     # page_size, pages_per_seq, D, sm_scale, window, sinks, softcap,
-    # ring (slots a sequence, 0: flat), ALiBi slopes (or None), dtype,
-    # stream
+    # ring (slots a sequence, 0: flat), ALiBi slopes (or None), tokens a
+    # split, split workspace (f32) and tickets (i32) (or None at one
+    # split), dtype, stream
     "tk_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _F, _I, _P, _I, _P],
-    # the same with T (new tokens per sequence) after Hkv
+                           _I, _I, _F, _I, _I, _F, _I, _P, _I, _P, _P, _I,
+                           _P],
+    # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T (new
+    # tokens per sequence), P, page_size, pages_per_seq, D, sm_scale,
+    # window, sinks, softcap, ring, ALiBi slopes (or None), dtype, stream
     "tk_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _I, _I, _F, _I, _P, _I, _P],
     # q, q_scales (or None), k_pages, k_scales, v_pages, v_scales, lengths,
@@ -260,6 +264,24 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     """t contiguous and 16-byte aligned (the kernels' vector loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# (device, stream) -> int32 counters, zero between launches: device
+# scratch kept across calls, so that a launch needs no zeroing kernel
+_TICKETS = {}
+
+
+def tickets(device, stream, n):
+    """n zeroed int32 counters on device for a kernel whose blocks merge
+    by ticket (csrc/matmul_w8a16.cu, csrc/paged_attention.cu): the last
+    block of a group to finish finds its count there and resets it to 0,
+    so every launch on the stream reuses the buffer (launches on one
+    stream run in order, one at a time; each stream has its own)."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
 
 
 def check_cuda(*tensors):

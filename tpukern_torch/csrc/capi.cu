@@ -116,11 +116,12 @@ int tk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                        int B, int Hq, int Hkv, int P, int page_size,
                        int pages_per_seq, int D, float sm_scale, int window,
                        int sinks, float softcap, int ring, const float* slopes,
-                       int dtype, void* stream) {
+                       int chunk, float* ws, int* tickets, int dtype,
+                       void* stream) {
   return checked(tk::paged_attention_launch(
       q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, P, page_size,
-      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, dtype,
-      static_cast<cudaStream_t>(stream)));
+      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, chunk,
+      ws, tickets, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 int tk_paged_prefill(const void* q, const void* k_pages, const void* v_pages,

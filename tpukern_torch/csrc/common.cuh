@@ -575,7 +575,8 @@ cudaError_t paged_attention_launch(const void* q, const void* k_pages,
                                    int Hkv, int P, int page_size,
                                    int pages_per_seq, int D, float sm_scale,
                                    int window, int sinks, float softcap,
-                                   int ring, const float* slopes, int dtype,
+                                   int ring, const float* slopes, int chunk,
+                                   float* ws, int* tickets, int dtype,
                                    cudaStream_t stream);
 cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  const void* v_pages, const int* lengths,

@@ -15,15 +15,28 @@
 // (`_tile_table`, :64-98) schedules (m-block, group) work items, and
 // consecutive grid steps merge a boundary m-block held in VMEM (:168-180).
 // Hopper runs blocks in no order, so nothing merges across blocks:
-// - gmm: a grid of (N tiles, M tiles). Each block reads the E group sizes
-//   itself and keeps their running sum (no host sync, no offsets tensor),
-//   finds the groups whose rows meet its 128-row tile and runs the K loop
-//   once for each of them with that group's W[e]. Row r of the product
-//   depends on x's row r alone, so no row of x needs masking: the block
-//   writes only the group's rows of each product. Two blocks never write
-//   one row: no atomics, no merge. A tile holding a group boundary runs
-//   the K loop once per group that meets it (at most tiles + E - 1 loops
-//   over the grid).
+// - gmm f32: a grid of (N tiles, M tiles). Each block reads the E group
+//   sizes itself and keeps their running sum (no host sync, no offsets
+//   tensor), finds the groups whose rows meet its 128-row tile and runs
+//   the K loop once for each of them with that group's W[e]. Row r of the
+//   product depends on x's row r alone, so no row of x needs masking: the
+//   block writes only the group's rows of each product.
+// - gmm bf16: work items as the TPU's table, computed on the card
+//   (gmm_item): the (segment, 128-row M tile) pairs that meet, where the
+//   segments are the E groups' rows and then the rows past the groups, at
+//   most ceil(T / 128) + E items an N tile. A grid of (N tiles, that
+//   bound); each block walks the E sizes to find its item (blocks past
+//   the real count leave before the pipeline) and runs one gemm_pipeline
+//   call: A = x's 128 rows from the tile's first, K-major; B = W[e],
+//   MN-major in NN and K-major with TRANS_W, by TMA from a 3-D map (one
+//   matrix a box: the rows past K of W[e] arrive as zeros, never W[e +
+//   1]'s first rows, which would meet x's zero-filled K tail and give
+//   0 * NaN), or copied by the producer's threads within W[e]'s own rows
+//   and columns; the epilogue stores the item's rows [r_lo, r_hi) only.
+//   The rows past the groups are an item that runs no slab and stores
+//   zeros. Two items never write one row: no atomics, no merge. Launch
+//   order runs 8 items at a time across the N tiles (gemm_tile_order),
+//   so the blocks in flight share x's rows and W's columns in L2.
 // - tgmm: a grid of (N tiles, K tiles, E). Each block walks its own
 //   group's rows and writes its (e, k, n) tile once; rows outside the
 //   group never enter the sum (the token axis is the contraction here, so
@@ -35,22 +48,22 @@
 // What bounds it: at the Mixtral expert shapes (8192 routed rows, K/N 4096
 // and 14336) a tile does 128·128·K multiply-adds per 2·128·K elements
 // loaded: compute bound, as csrc/matmul.cu. f32 runs common.cuh's
-// sgemm_tile on CUDA-core FMAs in full f32 (never TF32). bf16 gmm runs
-// common.cuh's hgemm_tile (mma.sync m16n8k16, K slices of 32 through
-// padded shared memory, one stage). bf16 tgmm runs hopper.cuh's
-// gemm_pipeline, as csrc/matmul.cu's bf16 GEMM: 128 x 256 tiles of
-// (K, N), a group's in runs of 8 tile rows (gemm_tile_order), a ring of
-// 4 stages of 64-row slabs, TMA and wgmma, with both operands MN-major (A
-// = x^T by the transpose-A bit, B = dy by the transpose-B bit, in
+// sgemm_tile on CUDA-core FMAs in full f32 (never TF32). bf16 runs
+// hopper.cuh's gemm_pipeline, as csrc/matmul.cu's bf16 GEMM: 128 x 256
+// tiles, a ring of 4 stages of 64-wide slabs, TMA and wgmma, tiles in
+// runs of 8 tile rows (gemm_tile_order). A boundary item computes all
+// 128 rows for the few it keeps: at most E - 1 such items an N tile
+// beyond the ceil(T / 128) the rows need. tgmm has both operands MN-major
+// (A = x^T by the transpose-A bit, B = dy by the transpose-B bit, in
 // 64-column boxes), one tensor map over the whole of x and of dy. A
 // group's slabs start at its first row s and step by 64; where fewer
 // than 64 of its rows are left, that last slab loads as the others and
 // the consumers zero its rows >= t in both operands before the products
 // (the next group's rows, or NaN past the groups, never reach the sum).
-// x or dy whose rows are no whole 16-byte chunks (K or N % 8 != 0) is
-// copied by the producer's threads in every slab. An empty group runs no
-// slab and writes zeros. f32 accumulation throughout; gmm on the same
-// pipeline is later work.
+// An operand whose rows are no whole 16-byte chunks (gmm: K % 8 for x and
+// a TRANS_W W, N % 8 for an NN W; tgmm: K or N % 8) is copied by the
+// producer's threads in every slab. An empty group runs no slab (tgmm:
+// writes zeros). f32 accumulation throughout.
 #include "hopper.cuh"
 
 namespace tk {
@@ -116,52 +129,109 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <bool TRANS_W>
-__global__ void __launch_bounds__(H_THREADS)
-gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const int* __restrict__ sizes, float* __restrict__ y32,
-                bf16* __restrict__ y16, int T, int N, int K, int E,
-                int vec_a, int vec_b) {
-  __shared__ __align__(16) bf16 as[H_BM * H_LDK];
-  __shared__ __align__(16) bf16 bs[TRANS_W ? H_BN * H_LDK : H_BK * H_LDN];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-  const int m1 = min(m0 + H_BM, T);
-  auto store = [&](int r, int c, float v) {
-    if (y32) y32[(int64_t)r * N + c] = v;
-    if (y16) y16[(int64_t)r * N + c] = __float2bfloat16(v);
-  };
-  int off = 0;
-  for (int e = 0; e < E; ++e) {
+// Work item `item` of an N tile, as tpukern's `_tile_table` (:64-98)
+// schedules (group, 128-row M tile) pairs, computed here from the sizes:
+// the rows [0, T) fall into E + 1 segments, group e's rows and, last,
+// the rows past sum(group_sizes); the items are the (segment, M tile)
+// pairs that meet, in segment order, at most ceil(T / 128) + E of them.
+// Returns false past the last item; else the segment e (E: the rows past
+// the groups), the tile's first row m0 and its rows [r_lo, r_hi) of the
+// segment. Every thread of a block reads the same sizes.
+__device__ __forceinline__ bool gmm_item(const int* __restrict__ sizes,
+                                         int E, int T, int item, int& e,
+                                         int& m0, int& r_lo, int& r_hi) {
+  int off = 0, before = 0;  // items of the segments before e
+  for (e = 0; e <= E; ++e) {
     int s, t;
-    group_rows(sizes, e, T, off, s, t);
-    s = max(s, m0);
-    t = min(t, m1);
-    if (s >= t) continue;
-    float acc[4][4][4];
-    hgemm_tile<TRANS_W>(x, w + (int64_t)e * K * N, T, N, K, m0, n0, vec_a,
-                        vec_b, as, bs, acc);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = m0 + hgemm_row(warp, mt, g, q);
-          const int c = n0 + hgemm_col(warp, nt, tq, q);
-          if (r >= s && r < t && c < N) store(r, c, acc[mt][nt][q]);
-        }
-      }
+    if (e < E) {
+      group_rows(sizes, e, T, off, s, t);
+    } else {
+      s = min(off, T);
+      t = T;
     }
+    if (s >= t) continue;
+    const int first = s / GP_BM, n = (t - 1) / GP_BM - first + 1;
+    if (item < before + n) {
+      m0 = (first + item - before) * GP_BM;
+      r_lo = max(s, m0);
+      r_hi = min(t, m0 + GP_BM);
+      return true;
+    }
+    before += n;
   }
-  for (int mt = 0; mt < 4; ++mt)
-    for (int nt = 0; nt < 4; ++nt)
-      for (int q = 0; q < 4; ++q) {
-        const int r = m0 + hgemm_row(warp, mt, g, q);
-        const int c = n0 + hgemm_col(warp, nt, tq, q);
-        if (r >= off && r < m1 && c < N) store(r, c, 0.f);
-      }
+  return false;
+}
+
+// One work item of one N tile a block: its 128 rows of x (K-major, as
+// #2's A, whatever group they belong to: row r of the product depends on
+// x's row r alone) times W[e] (MN-major (K, N) in NN, as #2's B; K-major
+// (N, K) with TRANS_W, as #2's TN), the item's rows of the product
+// written, the others discarded. W loads by TMA from a 3-D map of the E
+// matrices (one matrix a box: rows past K, or past N, arrive as zeros,
+// never W[e + 1]'s), or by the producer's copy bounded by W[e]'s own rows
+// and columns. The item of the rows past the groups runs no slab and
+// writes zeros.
+template <bool TRANS_W, bool TMA_X, bool TMA_W>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const bf16* __restrict__ x, const bf16* __restrict__ w,
+                 const int* __restrict__ sizes, float* __restrict__ y32,
+                 bf16* __restrict__ y16, int T, int N, int K, int E) {
+  int item, tile_n;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  item, tile_n);
+  int e, m0, r_lo, r_hi;
+  // past the last item: the whole block leaves before the pipeline
+  if (!gmm_item(sizes, E, T, item, e, m0, r_lo, r_hi)) return;
+  const int n0 = tile_n * GP_BN;
+  const bool live = e < E;
+  // W[e] starts `we` elements into w: its copy reads from the aligned
+  // word at or before it
+  const int64_t we = live ? (int64_t)e * K * N : 0;
+  const bf16* wp = w + (we & ~int64_t{7});
+  const int woff = (int)(we & 7);
+  const GemmOperand ob = TRANS_W ? GemmOperand{wp, N, K, n0, e, woff}
+                                 : GemmOperand{wp, K, N, n0, e, woff};
+  gemm_pipeline<false, !TRANS_W, TMA_X, TMA_W, false>(
+      &map_x, &map_w, GemmOperand{x, T, K, m0}, ob, 0, live ? K : 0,
+      [&](const float (&d)[128]) {
+        gemm_store(d, y32, y16, r_hi, N, m0, n0, r_lo);
+      });
+}
+
+template <bool TRANS_W, bool TMA_X, bool TMA_W>
+cudaError_t launch_gmm(const CUtensorMap& mx, const CUtensorMap& mw,
+                       const bf16* x, const bf16* w, const int* sizes,
+                       float* y32, bf16* y16, int T, int N, int K, int E,
+                       const dim3& grid, cudaStream_t stream) {
+  const auto kernel = gmm_wgmma_kernel<TRANS_W, TMA_X, TMA_W>;
+  constexpr int smem = gemm_smem(!(TMA_X && TMA_W));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, GP_THREADS, smem, stream>>>(mx, mw, x, w, sizes, y32, y16,
+                                                T, N, K, E);
+  return cudaSuccess;
+}
+
+template <bool TRANS_W>
+cudaError_t dispatch_gmm(bool tma_x, bool tma_w, const CUtensorMap& mx,
+                         const CUtensorMap& mw, const bf16* x, const bf16* w,
+                         const int* sizes, float* y32, bf16* y16, int T,
+                         int N, int K, int E, const dim3& grid,
+                         cudaStream_t stream) {
+  if (tma_x && tma_w)
+    return launch_gmm<TRANS_W, true, true>(mx, mw, x, w, sizes, y32, y16, T,
+                                           N, K, E, grid, stream);
+  if (tma_x)
+    return launch_gmm<TRANS_W, true, false>(mx, mw, x, w, sizes, y32, y16, T,
+                                            N, K, E, grid, stream);
+  if (tma_w)
+    return launch_gmm<TRANS_W, false, true>(mx, mw, x, w, sizes, y32, y16, T,
+                                            N, K, E, grid, stream);
+  return launch_gmm<TRANS_W, false, false>(mx, mw, x, w, sizes, y32, y16, T,
+                                           N, K, E, grid, stream);
 }
 
 // the rows [s, t) of group blockIdx.z
@@ -261,18 +331,37 @@ cudaError_t gmm_launch(const void* x, const void* w, const int* group_sizes,
       gmm_f32_kernel<false><<<grid, F_THREADS, 0, stream>>>(
           fx, fw, group_sizes, o32, o16, T, N, K, E);
   } else if (dtype == kBF16) {
-    const dim3 grid((N + H_BN - 1) / H_BN, (T + H_BM - 1) / H_BM);
+    // (N tiles, work items): every item an N tile can hold, ceil(T / 128)
+    // + E (gmm_item); the blocks past the real count leave at once
+    const dim3 grid((N + GP_BN - 1) / GP_BN, (T + GP_BM - 1) / GP_BM + E);
     if (grid.y > 65535) return cudaErrorInvalidValue;
     const bf16* hx = static_cast<const bf16*>(x);
     const bf16* hw = static_cast<const bf16*>(w);
-    // 16-byte loads need 16-byte aligned rows (the wrapper aligns the
-    // bases; W[e]'s base then is aligned too when its rows are)
-    if (trans_w)
-      gmm_bf16_kernel<true><<<grid, H_THREADS, 0, stream>>>(
-          hx, hw, group_sizes, o32, o16, T, N, K, E, K % 8 == 0, K % 8 == 0);
-    else
-      gmm_bf16_kernel<false><<<grid, H_THREADS, 0, stream>>>(
-          hx, hw, group_sizes, o32, o16, T, N, K, E, K % 8 == 0, N % 8 == 0);
+    // each operand by TMA where its rows are whole 16-byte chunks on an
+    // aligned base, else copied in every slab (ops/grouped_matmul.py
+    // gmm_items mirrors the rule and the items)
+    const bool tma_x = K % 8 == 0 && aligned16(x);
+    const bool tma_w = (trans_w ? K : N) % 8 == 0 && aligned16(w);
+    CUtensorMap mx{}, mw{};
+    // no slab at K = 0 (and no map of a zero extent): every row is zeros
+    if (tma_x && K > 0) {
+      const cudaError_t e = tma_map_bf16(&mx, x, K, T, (uint64_t)K * 2,
+                                         GP_BK, GP_BM);
+      if (e != cudaSuccess) return e;
+    }
+    if (tma_w && K > 0) {
+      const cudaError_t e =
+          trans_w ? tma_map_bf16(&mw, w, K, N, (uint64_t)K * 2, GP_BK, GP_BN,
+                                 E)
+                  : tma_map_bf16(&mw, w, N, K, (uint64_t)N * 2, 64, GP_BK, E);
+      if (e != cudaSuccess) return e;
+    }
+    return trans_w ? dispatch_gmm<true>(tma_x, tma_w, mx, mw, hx, hw,
+                                        group_sizes, o32, o16, T, N, K, E,
+                                        grid, stream)
+                   : dispatch_gmm<false>(tma_x, tma_w, mx, mw, hx, hw,
+                                         group_sizes, o32, o16, T, N, K, E,
+                                         grid, stream);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps and tile
 // loads, mbarriers, and wgmma's shared-memory descriptors, product and
 // sync; and on them the GEMM main loop (gemm_pipeline) of csrc/matmul.cu
-// (#1-#3, #17) and csrc/grouped_matmul.cu's tgmm (#29).
+// (#1-#3, #17) and csrc/grouped_matmul.cu's gmm (#28) and tgmm (#29).
 // csrc/matmul_naive.cu (#16) uses the blocks with one stage of its own.
 //
 // The layout they all assume is the one TMA's 128-byte swizzle writes and
@@ -121,6 +121,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// The same from a 3-D map: coordinates (c0 inner, c1, c2 outer).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // generic-proxy stores to shared memory (threads copying a tile) made
 // visible to the async proxy (wgmma, TMA); each writer fences, then the
 // block synchronises
@@ -136,13 +149,16 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 
 // host: a 2-D bf16 tensor map with the 128-byte swizzle over a row-major
 // (outer, inner) matrix at base, rows row_bytes apart (a multiple of 16,
-// base 16-byte aligned), boxes of box_inner (64: 128 bytes) x box_outer.
+// base 16-byte aligned), boxes of box_inner (64: 128 bytes) x box_outer;
+// with depth > 0, a 3-D map over `depth` such matrices one after another
+// (row_bytes * outer apart), its boxes one matrix deep, so that no box
+// reaches into the next matrix: rows past `outer` arrive as zeros.
 // cuTensorMapEncodeTiled is a driver call: it is fetched once through
 // the runtime, so the library needs no libcuda at link time.
 inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base,
                                 uint64_t inner, uint64_t outer,
                                 uint64_t row_bytes, uint32_t box_inner,
-                                uint32_t box_outer) {
+                                uint32_t box_outer, uint64_t depth = 0) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = [] {
     void* fn = nullptr;
@@ -154,12 +170,13 @@ inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base,
                : nullptr;
   }();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
+  const cuuint64_t dims[3] = {inner, outer, depth};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * outer};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2,
+      const_cast<void*>(base),
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -373,17 +390,28 @@ __host__ __device__ constexpr int gemm_smem(bool copy) {
 // tile rows (of D) a group of launch-order blocks walks column by column
 constexpr int GP_GROUP = 8;
 
-// One operand as a row-major bf16 matrix p (rows, cols), its row stride
-// cols, its base 16-byte aligned. K-major (wgmma reads it without
-// transposing): rows are M (or N) and a slab is W rows from `tile` by
-// GP_BK columns from its k. MN-major (read transposed): rows are the
-// contraction and a slab is GP_BK rows from its k by W columns from
-// `tile`, as W / 64 boxes of 64 columns GP_BOX apart. rows and cols
-// bound the threads' copy.
+// One operand as a row-major bf16 matrix (rows, cols), its row stride
+// cols, starting `off` elements (0-7) past p, which is 16-byte aligned.
+// K-major (wgmma reads it without transposing): rows are M (or N) and a
+// slab is W rows from `tile` by GP_BK columns from its k. MN-major (read
+// transposed): rows are the contraction and a slab is GP_BK rows from
+// its k by W columns from `tile`, as W / 64 boxes of 64 columns GP_BOX
+// apart. rows, cols and off bound the threads' copy; TMA loads from a
+// 2-D map, or from matrix z of a 3-D one (z >= 0).
 struct GemmOperand {
   const bf16* p;
   int rows, cols, tile;
+  int z = -1;
+  int off = 0;
 };
+
+__device__ __forceinline__ void gemm_tma_box(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int c0, int c1,
+                                             int z) {
+  if (z < 0) tma_load_2d(dst, map, bar, c0, c1);
+  else tma_load_3d(dst, map, bar, c0, c1, z);
+}
 
 template <bool MN, int W>
 __device__ __forceinline__ void gemm_tma_slab(uint32_t dst,
@@ -393,9 +421,9 @@ __device__ __forceinline__ void gemm_tma_slab(uint32_t dst,
   if (MN) {
 #pragma unroll
     for (int h = 0; h < W / 64; ++h)
-      tma_load_2d(dst + h * GP_BOX, map, bar, o.tile + 64 * h, k);
+      gemm_tma_box(dst + h * GP_BOX, map, bar, o.tile + 64 * h, k, o.z);
   } else {
-    tma_load_2d(dst, map, bar, k, o.tile);
+    gemm_tma_box(dst, map, bar, k, o.tile, o.z);
   }
 }
 
@@ -410,7 +438,8 @@ __device__ __forceinline__ void gemm_tma_slab(uint32_t dst,
 // of a slab's loads are in flight together. Pass 2 (gemm_shift_slab):
 // each chunk from its two staged words, shifted by sh with funnel shifts
 // and selects (no runtime-indexed registers), masked past the row's end,
-// stored swizzled. The base is 16-byte aligned (the wrappers align it).
+// stored swizzled. p is 16-byte aligned (the wrappers align the bases; a
+// matrix inside one, as gmm's W[e], starts off elements past its p).
 
 template <bool MN>
 __device__ __forceinline__ void gemm_segment(const GemmOperand& o, int k,
@@ -434,7 +463,7 @@ __device__ __forceinline__ void gemm_stage_words(uint32_t stg,
     const int g = q / 9, i = q - 9 * g;
     int r, c0;
     gemm_segment<MN>(o, k, g, r, c0);
-    const int64_t row0 = (int64_t)r * o.cols;
+    const int64_t row0 = o.off + (int64_t)r * o.cols;
     const int64_t w = ((row0 + c0) & ~int64_t{7}) + 8 * i;
     const bool load = r < o.rows && w < row0 + o.cols;
     cp_async16(stg + q * 16, o.p + (load ? w : 0), load);
@@ -451,7 +480,7 @@ __device__ __forceinline__ void gemm_shift_slab(unsigned char* dst,
     const int g = ch >> 3, c = ch & 7;
     int r, c0;
     gemm_segment<MN>(o, k, g, r, c0);
-    const int sh = (int)(((int64_t)r * o.cols + c0) & 7);
+    const int sh = (int)((o.off + (int64_t)r * o.cols + c0) & 7);
     const uint4 q0 = *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16);
     const uint4 q1 =
         *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16 + 16);
@@ -627,10 +656,10 @@ __device__ __forceinline__ void gemm_pipeline(const CUtensorMap* map_a,
 // Consumer warpgroup wg's tile d (gemm_pipeline's layout) into rows m0 +
 // 64 wg on and columns n0 on of the row-major (M, N) outputs c32 (f32)
 // and c16 (bf16), either null: pairs of columns in one store where N is
-// even, masks at the M/N edges.
+// even, masks at the N edge and outside the row window [r_lo, M).
 __device__ __forceinline__ void gemm_store(const float (&d)[128], float* c32,
                                            bf16* c16, int M, int N, int m0,
-                                           int n0) {
+                                           int n0, int r_lo = 0) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
   const bool pairs = N % 2 == 0;
@@ -640,7 +669,7 @@ __device__ __forceinline__ void gemm_store(const float (&d)[128], float* c32,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
-      if (r >= M) continue;
+      if (r < r_lo || r >= M) continue;
       const int64_t o = (int64_t)r * N + col;
       const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
       if (pairs && col < N) {

@@ -44,7 +44,8 @@ namespace {
 
 // The main loops are common.cuh's sgemm_tile (shared with
 // csrc/cross_entropy.cu) and hopper.cuh's gemm_pipeline (shared with
-// csrc/grouped_matmul.cu's tgmm); each kernel adds the epilogue.
+// csrc/grouped_matmul.cu's bf16 gmm and tgmm); each kernel adds the
+// epilogue.
 template <bool TRANS_B>
 __global__ void __launch_bounds__(F_THREADS)
 sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,

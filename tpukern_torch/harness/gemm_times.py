@@ -8,9 +8,11 @@ producer's copy), `tgmm` #29 at 4096^3 in 1, 4 and 16 groups (the same
 work in tiles of 64, 16 and 4 slabs), at Mixtral's dW1 and at the bench
 shape's three splits; each the median of run_benchmark's 5 runs of 10
 back-to-back calls (L2 warm), with its TFLOP/s. To compare two versions
-of the kernels on one card, run it in one command on each tree, e.g.
-`PYTHONPATH=<other checkout> python -m tpukern_torch.harness.gemm_times
-old`, the trees in turns. Needs a CUDA device.
+of the kernels on one card, run it in one command from each tree's own
+root, e.g. `(cd <other checkout> && python -m
+tpukern_torch.harness.gemm_times old)`, the trees in turns (`python -m`
+puts the working directory first on the path, before PYTHONPATH). Needs
+a CUDA device.
 """
 
 import subprocess

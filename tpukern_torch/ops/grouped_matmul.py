@@ -4,10 +4,11 @@ The port of tpukern/ops/grouped_matmul.py. The rows of x are sorted by
 group (expert); group e owns the group_sizes[e] rows after the groups
 before it, and sum(group_sizes) <= T. Kernels: csrc/grouped_matmul.cu,
 #28 (`gmm`, with `trans_w` as a template flag) and #29 (`tgmm`), f32 on
-CUDA-core FMAs; bf16 #28 on `mma.sync`, bf16 #29 on TMA and `wgmma`
-through a multi-stage ring (csrc/hopper.cuh gemm_pipeline, slabs as
-tgmm_slabs mirrors); f32 accumulation; each block reads the group sizes
-on the card, so no wrapper syncs with the host.
+CUDA-core FMAs; bf16 on TMA and `wgmma` through a multi-stage ring
+(csrc/hopper.cuh gemm_pipeline): #28 a block per (work item, N tile),
+the items as gmm_items mirrors, #29 a block per (K, N) tile of a group,
+its slabs as tgmm_slabs mirrors; f32 accumulation; each block reads the
+group sizes on the card, so no wrapper syncs with the host.
 
 - gmm: y[rows_e] = x[rows_e] · w[e] (or · w[e]ᵀ). Rows past
   sum(group_sizes) belong to no group: the kernel and gmm_ref write zeros
@@ -148,6 +149,39 @@ def tgmm_slabs(x, dy, group_sizes):
         t = min(off, T)
         plan.append([(t0, min(64, t - t0), path) for t0 in range(s, t, 64)])
     return plan
+
+
+def gmm_items(x, w, group_sizes, trans_w=False):
+    """The work items of the bf16 gmm kernel (csrc/grouped_matmul.cu
+    gmm_item), by its launcher's rule, from the shapes and data_ptr()s of
+    x (T, K) and w (E, K, N), or (E, N, K) with trans_w, as the kernel
+    gets them (contiguous, aligned), and the group sizes (host integers).
+    Every N tile runs the same items, listed once here as (group, first
+    row, rows, path): the rows [0, T) fall into the groups' rows (sizes
+    clamped at 0, ends at T) and then the rows past the groups (group
+    None); an item is such a segment's rows inside one 128-row tile, in
+    segment order. Each item loads x and W[group] as tma_operands says:
+    "tma", "mixed" or "copy"; the item of the rows past the groups loads
+    nothing and writes zeros (path None). At most ceil(T / 128) + E
+    items, the grid's bound."""
+    if x.shape[1] != w.shape[2 if trans_w else 1]:
+        raise ValueError(f"gmm_items: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} (trans_w={trans_w}) do not "
+                         "contract")
+    T = x.shape[0]
+    path = load_path(tma_operands(x, w[0]))
+    segments, off = [], 0
+    for e, size in enumerate(int(s) for s in group_sizes):
+        s = min(off, T)
+        off += max(size, 0)
+        segments.append((e, s, min(off, T)))
+    segments.append((None, min(off, T), T))
+    items = []
+    for e, s, t in segments:
+        starts = range(s // 128 * 128, t, 128) if s < t else ()
+        items += [(e, max(s, m0), min(t, m0 + 128) - max(s, m0),
+                   None if e is None else path) for m0 in starts]
+    return items
 
 
 def gmm_ref(x, w, group_sizes, *, trans_w=False):

@@ -106,23 +106,6 @@ def _splits(M, N, K, sms):
     return (-(-n_kt // per) if per else 1), per
 
 
-# (device, stream) -> int32 counters, zero between launches: a cache of
-# device scratch, so that a launch needs no zeroing kernel of its own
-_TICKETS = {}
-
-
-def _tickets(device, stream, n):
-    """n zeroed int32 counters on device, one per output tile: the last
-    block of a tile to finish finds its split count there and resets it
-    to 0, so every launch on the stream reuses the buffer (launches on
-    one stream run in order; each stream has its own)."""
-    t = _TICKETS.get((device, stream))
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[(device, stream)] = t
-    return t
-
-
 def matmul_w8a16(x, w_q, scale, *, out_dtype=None, force_kernel=False):
     """x (M, K) bf16/f32 @ dequant(w_q (K, N) int8, scale (N,) f32) ->
     (M, N) in out_dtype (default x's dtype).
@@ -153,7 +136,7 @@ def matmul_w8a16(x, w_q, scale, *, out_dtype=None, force_kernel=False):
           else None)
     tiles = -(-M // TILE_M) * -(-N // TILE_N)
     stream = _build.stream(x)
-    tickets = _tickets(x.device, stream, tiles)
+    tickets = _build.tickets(x.device, stream, tiles)
     _build.launch("tk_matmul_w8a16", x.data_ptr(), w_q.data_ptr(),
                   scale.data_ptr(), out.data_ptr(), _build.ptr(ws),
                   tickets.data_ptr(), M, N, K, splits, per, dtype,

@@ -4,8 +4,11 @@ KV pool, one token per sequence (decode) or T new tokens per sequence
 
 The port of tpukern/ops/paged_attention.py. Kernels:
 csrc/paged_attention.cu, which replaces `_decode_kernel`
-(paged_attention.py:77), and csrc/paged_prefill.cu, which replaces
-`_prefix_kernel` (:513). Both take the sliding window, attention sinks
+(paged_attention.py:77) on float pools, split-KV: a block a (KV head,
+sequence, DECODE_CHUNK slots), the splits merged in the same launch
+(paged_attention_split_ref is its order, a test aid); and
+csrc/paged_prefill.cu, which replaces `_prefix_kernel` (:513). Both
+take the sliding window, attention sinks
 and logit softcap of the JAX kernels, on float pools (bf16, f32) and on
 the quantized tier: 1-byte int8 or fp8 e4m3 pools with one f32 scale per
 token (quantize_pages, paged_attention_quantized,
@@ -31,6 +34,11 @@ from tpukern_torch.ops.quant import (quantize_fp8, quantize_fp8_ref,
 
 MAX_GROUP = 8      # csrc/paged_attention.cu PA_GMAX, csrc/paged_prefill.cu
 HEAD_DIMS = (32, 64, 128)  # launch_d of both kernels
+DECODE_TILE = 64   # csrc/paged_attention.cu PA_TILE: tokens a tile
+# slots a split of the float decode kernel (a multiple of DECODE_TILE),
+# chosen on an H100 among 64, 128 and 256 at the serving shape and at 4 x
+# 8192 tokens (PERF.md)
+DECODE_CHUNK = 128
 
 
 def _check_features(name, q, k_pages, page_table, window, sinks, softcap,
@@ -115,8 +123,9 @@ def paged_attention(q, k_pages, v_pages, lengths, page_table, *,
     pages_per_block is the TPU kernel's page-DMA batch: accepted and
     ignored, since the CUDA kernel gathers token rows, not whole pages.
     A CPU tensor takes paged_attention_ref; a CUDA tensor launches the
-    kernel (head dim 32, 64 or 128); `featured_launches` counts the
-    launches of its featured instance (window, softcap, ring or ALiBi),
+    kernel (head dim 32, 64 or 128), one launch a call whatever its
+    splits (decode_splits); `featured_launches` counts the launches of
+    its featured instance (window, softcap, ring or ALiBi),
     `ring_launches` those on ring pools."""
     del pages_per_block
     _check_features("paged_attention", q, k_pages, page_table, window, sinks,
@@ -136,12 +145,19 @@ def paged_attention(q, k_pages, v_pages, lengths, page_table, *,
     ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
                                      alibi_slopes)
     o = torch.empty_like(q)
+    stream = _build.stream(q)
+    n_split = decode_splits(page_table.shape[1], page_size)
+    ws = tickets = None
+    if n_split > 1:  # each split's (o, m, l) per head, f32
+        ws = torch.empty(B * Hq * n_split * (D + 2), device=q.device)
+        tickets = _build.tickets(q.device, stream, B * Hkv)
     _build.launch("tk_paged_attention", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), lengths.data_ptr(),
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, P,
                   page_size, page_table.shape[1], D, 1.0 / math.sqrt(D),
                   window or 0, sinks or 0, softcap or 0.0, ring_tokens,
-                  _build.ptr(slopes), _build.dtype_code(q), _build.stream(q))
+                  _build.ptr(slopes), DECODE_CHUNK, _build.ptr(ws),
+                  _build.ptr(tickets), _build.dtype_code(q), stream)
     paged_attention.launches += 1
     paged_attention.ring_launches += bool(ring)
     if window or softcap or ring or slopes is not None:  # the featured one
@@ -152,6 +168,12 @@ def paged_attention(q, k_pages, v_pages, lengths, page_table, *,
 paged_attention.launches = 0
 paged_attention.featured_launches = 0
 paged_attention.ring_launches = 0
+
+
+def decode_splits(pages_per_seq, page_size):
+    """The float decode kernel's splits a sequence: ceil(slots /
+    DECODE_CHUNK), from shapes alone."""
+    return max(1, -(-pages_per_seq * page_size // DECODE_CHUNK))
 
 
 def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
@@ -222,24 +244,39 @@ def _positions(lengths, T, S, sinks, ring, device):
                              torch.where(kpos < sinks, -1, kpos))
 
 
-def _softmax_terms(s, lengths, T, window, sinks, ring, alibi_slopes):
-    """The unnormalized weights p = exp(s - max) of scaled (and capped)
-    scores s (B, Hkv, group, T, S) and their sum over S: ALiBi added
-    first, then the masks (a live position <= the query's, and the window
-    or the sinks); a row that sees nothing has p = 0 and a sum of 0."""
-    B, Hkv, group, _, S = s.shape
-    qpos, kpos = _positions(lengths, T, S, sinks, ring, s.device)
-    rel = kpos[:, None, :] - qpos[..., None]                      # (B, T, S)
-    if alibi_slopes is not None:
-        slopes = alibi_slopes.to(s.device, torch.float32)
-        s = s + slopes.reshape(1, Hkv, group, 1, 1) * rel[:, None, None]
+def _visible(lengths, T, S, window, sinks, ring, device):
+    """(keep, rel), both (B, T, S): whether token t of sequence b sees
+    slot j (a live position <= the token's, and the window or the sinks)
+    and the slot's position less the token's."""
+    qpos, kpos = _positions(lengths, T, S, sinks, ring, device)
+    rel = kpos[:, None, :] - qpos[..., None]
     keep = (kpos[:, None, :] >= 0) & (rel <= 0)
     if window is not None:
         band = rel >= 1 - window
         if sinks:
             band |= kpos[:, None, :] < sinks
         keep &= band
-    s = s.masked_fill(~keep[:, None, None], float("-inf"))
+    return keep, rel
+
+
+def _masked_scores(s, lengths, T, window, sinks, ring, alibi_slopes):
+    """Scaled (and capped) scores s (B, Hkv, group, T, S) with ALiBi added,
+    -inf where the token does not see the slot; and keep (B, T, S)."""
+    B, Hkv, group, _, S = s.shape
+    keep, rel = _visible(lengths, T, S, window, sinks, ring, s.device)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(s.device, torch.float32)
+        s = s + slopes.reshape(1, Hkv, group, 1, 1) * rel[:, None, None]
+    return s.masked_fill(~keep[:, None, None], float("-inf")), keep
+
+
+def _softmax_terms(s, lengths, T, window, sinks, ring, alibi_slopes):
+    """The unnormalized weights p = exp(s - max) of scaled (and capped)
+    scores s (B, Hkv, group, T, S) and their sum over S: ALiBi added
+    first, then the masks (_visible); a row that sees nothing has p = 0
+    and a sum of 0."""
+    s, keep = _masked_scores(s, lengths, T, window, sinks, ring,
+                             alibi_slopes)
     empty = ~keep.any(dim=-1)[:, None, None, :, None]  # sees nothing -> 0
     s = s.masked_fill(empty, 0.0)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(empty, 0.0)
@@ -283,6 +320,65 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, page_table, **kw):
     """paged_prefill_ref with one new token per sequence."""
     return paged_prefill_ref(q[:, :, None], k_pages, v_pages, lengths,
                              page_table, **kw)[:, :, 0]
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, lengths, page_table, *,
+                              chunk=None, window=None, sinks=None,
+                              softcap=None, alibi_slopes=None, ring=False):
+    """paged_attention in the float decode kernel's order, a test aid off
+    the main path: the slots cut into splits of `chunk` (DECODE_CHUNK by
+    default), each walked in tiles of DECODE_TILE with its own running
+    max m, sum l and accumulator (on bf16 pools P = exp(s - m) rounded to
+    bf16 against the split's running max before the P V product, l
+    summing it in f32); then the splits merged in split order in f32:
+    M = max m, o = sum exp(m_z - M) o_z / sum exp(m_z - M) l_z, 0 where
+    the sum is 0 (a split that sees no position adds nothing). The masks,
+    ALiBi and ring positions are paged_prefill_ref's."""
+    chunk = chunk or DECODE_CHUNK
+    B, Hq, D = q.shape
+    Hkv, _, page_size, _ = k_pages.shape
+    group = Hq // Hkv
+    S = page_table.shape[1] * page_size
+    table = page_table.long()
+    k_seq, v_seq = (p[:, table].permute(1, 0, 2, 3, 4).reshape(B, Hkv, S, D)
+                    .float() for p in (k_pages, v_pages))
+    qf = q.reshape(B, Hkv, group, 1, D).float()
+    s = torch.einsum("bhgtd,bhkd->bhgtk", qf, k_seq) / math.sqrt(D)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s, _ = _masked_scores(s, lengths, 1, window, sinks, ring, alibi_slopes)
+    s = s[..., 0, :]                                       # (B, Hkv, g, S)
+    bf16 = v_pages.dtype == torch.bfloat16
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, S, chunk):
+        m = s.new_full(s.shape[:-1], float("-inf"))
+        l = s.new_zeros(s.shape[:-1])
+        acc = s.new_zeros(*s.shape[:-1], D)
+        for t0 in range(c0, min(c0 + chunk, S), DECODE_TILE):
+            st = s[..., t0:t0 + DECODE_TILE]
+            mn = torch.maximum(m, st.amax(dim=-1))
+            seen = torch.isfinite(mn)[..., None]   # no position yet: p = 0
+            mf = torch.where(seen[..., 0], mn, 0.0)
+            p = torch.where(seen, torch.exp(st - mf[..., None]), 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - mf), 0.0)
+            pv = p.to(torch.bfloat16).float() if bf16 else p
+            l = l * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("bhgk,bhkd->bhgd", pv,
+                                  v_seq[:, :, t0:t0 + DECODE_TILE]))
+            m = mn
+        ms.append(m)
+        ls.append(l)
+        os_.append(acc)
+    m = torch.stack(ms)                                   # (splits, ...)
+    M = m.amax(dim=0)
+    a = torch.where(torch.isfinite(m), torch.exp(m - M), 0.0)
+    L, O = s.new_zeros(M.shape), s.new_zeros(*M.shape, D)
+    for z in range(len(ms)):  # split order
+        L = L + a[z] * ls[z]
+        O = O + a[z][..., None] * os_[z]
+    o = O / torch.where(L == 0, 1.0, L)[..., None]
+    return o.reshape(B, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
