@@ -8,15 +8,20 @@
    parallel, or loads this source hash's build) and prints the seconds,
    and counts in the library's SASS (cuobjdump) the wgmma (HGMMA), TMA
    loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
-   kernel and of the bf16 #2 (NN and TN) and #29 kernels on
-   csrc/hopper.cuh's pipeline, and the matrix products of #40's, which
-   must have none;
+   kernel and of the bf16 #2 (NN and TN), #28, #29 and CE backward
+   (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's pipeline, and
+   the matrix products of #40's, which must have none;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape: paged_prefill_attention
    (#24) at a 256-token chunk over a 900-token prefix and at a gamma = 4
    verification whose last length passes the pool, small f32/bf16 cases of
-   every head dim, and the window, sinks and softcap of #24 and #23; #23's
+   every head dim, and the window, sinks and softcap of #24 and #23;
+   #24's split-KV at lengths on the split edges (bf16 and f32; window and
+   sinks, softcap, ring, ALiBi) against its split order's plain version
+   and the final-max one, twice (bit-equal), and [prefill split]: its
+   split lengths 64, 128, 256, one split and the rule's at the verify and
+   chunk shapes, device and event times with n_split; #23's
    bf16 P against the plain version that rounds it and the one that
    keeps it in f32; the quantize kernels #20 (round to nearest and
    stochastic), #21 and #22 at the K/V write and q shapes, and every
@@ -33,7 +38,9 @@
 4. checks the training slices' kernels (matmul in its three epilogues,
    with its bf16 launches counted by load path, each path met required,
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
-   cross-entropy's forward and backward, and the featured attention:
+   cross-entropy's forward and backward (the bf16 backward also at forced
+   vocab chunks, three of them on TMA and on the copy paths, and twice,
+   bit-equal), and the featured attention:
    flash_attention with window, sinks, softcap and segments, and the
    two-kernel backward flash_attention_dq / flash_attention_dkv) against
    their plain versions, and times them at the 7bish training shapes;
@@ -269,11 +276,15 @@ def phase_build():
 
 # instructions the SASS of the redesigned kernels must (True) or must not
 # (False) hold, by a fragment of the mangled kernel name: #16's bf16
-# kernel and the bf16 #2 (NN and TN), #28 (NN and trans_w) and #29
-# kernels with both operands by TMA run wgmma (HGMMA) fed by TMA
-# (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA, HGMMA)
+# kernel, the bf16 CE backward's three launches (#14/#15) and the bf16
+# #2 (NN and TN), #28 (NN and trans_w) and #29 kernels with both
+# operands by TMA run wgmma (HGMMA) fed by TMA (UTMALDG), no mma.sync
+# (HMMA); #40 runs no matrix product (HMMA, HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
+             "ce_dlog_kernelILb1ELb1E": _WGMMA_TMA,
+             "ce_dx_kernelILb1E": _WGMMA_TMA,
+             "ce_dw_kernelILb1E": _WGMMA_TMA,
              "hgemm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
              "hgemm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
              "gmm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
@@ -579,6 +590,7 @@ def phase_kernels(cfg):
                 "paged_attention", f"{tag} {case}",
                 paged_attention.paged_attention(*args, **feat),
                 paged_attention.paged_attention_ref(*args, **feat)))
+    _prefill_split_checks(record, paged_case, cfg, verify_case, chunk_case)
     for tag, args in (("chunk", chunk_case), ("verify", verify_case)):
         B, _, T, _ = args[0].shape
         timed[f"paged_prefill_attention {tag}"] = _timed_entry(
@@ -679,6 +691,87 @@ def _paged_split_checks(record, paged_case, cfg, serve_case, long_case):
     print(f"[paged split] DECODE_CHUNK {c}: n_split "
           f"{pa.decode_splits(8, 128)} at the serving shape, "
           f"{pa.decode_splits(LONG_PAGES, 128)} at 4 x {LONG_TOKENS}")
+
+
+def _with_prefill_chunk(chunk, fn):
+    """fn with paged_attention.PREFILL_CHUNK set to chunk for the call
+    (None: prefill_splits' rule)."""
+    from tpukern_torch.ops import paged_attention
+
+    def run():
+        keep = paged_attention.PREFILL_CHUNK
+        paged_attention.PREFILL_CHUNK = chunk
+        try:
+            return fn()
+        finally:
+            paged_attention.PREFILL_CHUNK = keep
+    return run
+
+
+# #24's split edges: a split length forced for the check, over three
+# splits a sequence
+PREFILL_EDGE_CHUNK = 128
+
+
+def _prefill_split_checks(record, paged_case, cfg, verify_case, chunk_case):
+    """#24 split-KV: bf16 and f32 pools, T = 5, FEAT off and on (window +
+    sinks, softcap, ring, ALiBi), lengths at the split edges (0, 1, chunk
+    - 1, chunk, chunk + 1, the pool's end and past it) over three splits
+    of PREFILL_EDGE_CHUNK, against the split order's plain version and
+    the final-max one; a second call bit-equal to the first. Then [prefill
+    split]: each split length of SPLIT_CHUNKS, one split (the pool) and
+    the rule's at the verify and the chunk shapes: checked against the
+    split order, and timed by device time (the profiler) and CUDA events,
+    with its n_split."""
+    from functools import partial
+
+    from tpukern_torch.ops import paged_attention as pa
+    from tpukern_torch.harness import run_benchmark
+
+    c = PREFILL_EDGE_CHUNK
+    edge = [0, 1, c - 1, c, c + 1, 3 * c, 3 * c + 9]
+    feats = {"": {}, "window 40 sinks 5": dict(window=40, sinks=5),
+             "softcap 2": dict(softcap=2.0),
+             "ring w300 sinks 4": dict(ring=True, window=300, sinks=4),
+             "alibi": dict(alibi_slopes=pa.default_alibi_slopes(
+                 cfg.n_heads))}
+    for dt, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        args = paged_case(len(edge), cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, 16, 3 * c // 16, edge, dt, T=5)
+        for tag, feat in feats.items():
+            fn = _with_prefill_chunk(
+                c, partial(pa.paged_prefill_attention, *args, **feat))
+            out = fn()
+            for name, ref in (("split", partial(pa.paged_prefill_split_ref,
+                                                chunk=c)),
+                              ("final max", pa.paged_prefill_ref)):
+                record("paged_prefill_attention", *_compare(
+                    "paged_prefill", f"edges {tag} {dn} vs {name}", out,
+                    ref(*args, **feat)))
+            same = torch.equal(out, fn())
+            if not same:
+                print(f"[check] paged_prefill    edges {tag} {dn}: a second "
+                      "call differs MISS")
+            record("paged_prefill_attention", same, 0.0)
+    slots = verify_case[4].shape[1] * verify_case[1].shape[2]
+    for chunk in (*SPLIT_CHUNKS, slots, None):
+        times = []
+        for label, args in (("verify", verify_case), ("chunk", chunk_case)):
+            fn = _with_prefill_chunk(
+                chunk, partial(pa.paged_prefill_attention, *args))
+            B, Hq, T, _ = args[0].shape
+            n = _with_prefill_chunk(chunk, partial(
+                pa.prefill_splits, B, Hq, args[1].shape[0], T, slots,
+                args[0].dtype))()
+            record("paged_prefill_attention", *_compare(
+                "paged_prefill", f"chunk {chunk} {label} vs split", fn(),
+                pa.paged_prefill_split_ref(*args, chunk=n[0])))
+            dev = _device_ms(fn)
+            times.append(
+                f"{label} {'not measured' if dev is None else f'{dev:.4f}'}"
+                f" ms device, {run_benchmark(fn):.4f} ms events (slots a "
+                f"split {n[0]}, n_split {n[1]})")
+        print(f"[prefill split] chunk {chunk or 'rule'}: " + "; ".join(times))
 
 
 def _paged_bf16_p(args):
@@ -1627,6 +1720,37 @@ def _ce_kernels(checks, timed, gen, cfg, N):
         checks.record("ce_bwd", bool((loss[ignored] == 0).all()
                                      and (dx[ignored] == 0).all()), 0.0)
         del rdx, rdw
+
+    # the bf16 backward at forced vocab chunks (three launches a chunk):
+    # three chunks of the training head (12288, 12288, 8192 columns, TMA)
+    # and of the odd shape (96, 96, 65: the copy paths), and the training
+    # head at its own chunk (the whole vocab), against ce_bwd_ref; a
+    # second call gives the same bits (no atomics)
+    for n, dd, v, chunk in ((N, d, V, 12288), (129, 100, 257, 96),
+                            (N, d, V, None)):
+        x, w, t = inputs(n, dd, v, bf)
+        cot = torch.rand(n, generator=gen, device="cuda")
+        _, lse = ce.ce_fwd(x, w, t, True)
+        rdx, rdw = ce.ce_bwd_ref(x, w, t, lse, cot)
+        before = ce.ce_bwd.launches
+        out = ce.ce_bwd(x, w, t, lse, cot, True, vocab_chunk=chunk)
+        n_chunks = -(-v // (chunk or ce.bwd_vocab_chunk(n, dd, v)))
+        require(ce.ce_bwd.launches == before + 3 * n_chunks,
+                f"ce_bwd bf16 made {ce.ce_bwd.launches - before} launches, "
+                f"not 3 for each of {n_chunks} chunks")
+        case = (f"({n},{dd})x({dd},{v}) bf16 {n_chunks} chunk"
+                f"{'s' if n_chunks > 1 else ''}")
+        for what, o, ref in (("dx", out[0], rdx), ("dW", out[1], rdw)):
+            checks.record("ce_bwd", *_compare(
+                "ce_bwd", f"{what} {case}", o, ref,
+                scale=ref.abs().max().item(), dtype=bf))
+        again = ce.ce_bwd(x, w, t, lse, cot, True, vocab_chunk=chunk)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        if not same:
+            print(f"[check] ce_bwd           {case}: a second call differs "
+                  "MISS")
+        checks.record("ce_bwd", same, 0.0)
+        del rdx, rdw, out, again
 
     for dt, exp2 in ((f32, False), (bf, True)):
         tag = "f32" if dt == f32 else "bf16"

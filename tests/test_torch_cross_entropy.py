@@ -147,6 +147,73 @@ def test_vocab_splits_cover_every_tile(N, V, sms):
     assert (n_split - 1) * tps < n_vt <= n_split * tps
 
 
+# (N, D, V): chip_smoke.py's training head (one chunk), a longer batch
+# (four), shapes whose budget falls below a tile (chunks of 8 columns)
+# or below 8, and V % 8 != 0
+@pytest.mark.parametrize("N,D,V", [(2048, 2048, 32768), (8192, 2048, 32768),
+                                   (200, 128, 1000), (129, 100, 257),
+                                   (100000, 8, 1000), (4096, 64, 1001),
+                                   (7, 3, 5), (1, 1, 1)])
+def test_bwd_vocab_chunk_fits_and_covers(N, D, V):
+    """The bf16 backward's chunk: its scratch (N rows of the chunk
+    rounded up to 8 values) fits in D·V values wherever a chunk of 8
+    does, a chunk below V is a multiple of 8 (its first column on a
+    16-byte boundary), and the chunks are non-empty and cover V."""
+    c = ce.bwd_vocab_chunk(N, D, V)
+    assert 1 <= c <= V
+    if N * 8 <= D * V:
+        assert N * (-(-c // 8) * 8) <= D * V
+    if c < V:
+        assert c % 8 == 0 and (c % 256 == 0 or c < 256)
+    starts = list(range(0, V, c))
+    widths = [min(c, V - v0) for v0 in starts]
+    assert min(widths) > 0 and sum(widths) == V
+
+
+@pytest.mark.parametrize("N,D,V,chunk", [(200, 64, 1001, 256),
+                                         (129, 100, 257, 96),
+                                         (256, 128, 1024, 1024)])
+def test_chunked_backward_matches_jax(N, D, V, chunk):
+    """ce_bwd_chunked_ref, the bf16 backward's order (dlog a vocab chunk
+    at a time, dx summed over the chunks in f32), in f32 against JAX's
+    fused gradients (interpret mode) and against ce_bwd_ref: V not a
+    multiple of the chunk, V % 8 != 0, a quarter of the targets
+    ignored."""
+    x, w, t = _inputs(N, D, V, seed=N + V)
+    g = torch.full((N,), 1.0 / N)
+    xt, wt, tt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t)
+    _, lse = ce.fused_cross_entropy(xt, wt, tt, return_lse=True)
+    dx, dw = ce.ce_bwd_chunked_ref(xt, wt, tt, lse, g, chunk)
+
+    def mean_loss(x, w):
+        return jnp.mean(jce.fused_cross_entropy(x, w, jnp.asarray(t)))
+
+    jdx, jdw = jax.grad(mean_loss, (0, 1))(jnp.asarray(x), jnp.asarray(w))
+    check_all_close(dx, np.asarray(jdx), name="dx", **F32)
+    check_all_close(dw, np.asarray(jdw), name="dW", **F32)
+    rdx, rdw = ce.ce_bwd_ref(xt, wt, tt, lse, g)
+    check_all_close(dx, rdx, name="dx vs ref", **F32)
+    check_all_close(dw, rdw, name="dW vs ref", **F32)
+    assert (dx[tt < 0] == 0).all()
+
+
+def test_chunked_backward_rounds_dlog_as_the_ref():
+    """With bf16 inputs the chunked order rounds dlog to bf16 as
+    ce_bwd_ref does: the two agree at the bf16 tolerance relative to
+    the largest gradient (a dlog near a rounding boundary may round the
+    other way where the scores' sums differ in order)."""
+    x, w, t = _inputs(129, 100, 257, seed=9)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    tt = torch.from_numpy(t)
+    g = torch.rand(129, generator=torch.Generator().manual_seed(0))
+    _, lse = ce.fused_cross_entropy(xb, wb, tt, return_lse=True)
+    for a, b, name in zip(ce.ce_bwd_chunked_ref(xb, wb, tt, lse, g, 96),
+                          ce.ce_bwd_ref(xb, wb, tt, lse, g), ("dx", "dW")):
+        check_all_close(a, b, rtol=2e-2, atol=2e-2 * b.abs().max().item(),
+                        name=name)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jparams = jax_init_params(JCFG, jax.random.key(0))

@@ -334,17 +334,20 @@ def test_train_loss_and_grads_on_kernels_equal_plain(cuda, dt):
 @pytest.mark.parametrize("N,D,V", [(200, 128, 1000), (256, 64, 1024),
                                    (129, 100, 257)])
 def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
-    """The forward (loss, lse: two launches) and the fused backward (dx,
-    dW: one launch) against the plain versions on the same inputs, tails
-    in N and V, D off the 8-element vector width, a quarter of the
-    targets ignored. The forward sums in f32 on both sides (bf16 inputs
-    are exact in f32), so loss and lse are held at the f32 tolerance; dx
-    and dW relative to their largest value, since the atomics and the
-    plain GEMMs sum in different orders. With bf16 inputs both sides
-    round dlog to bf16 before the products, and a dlog that lies near a
-    rounding boundary may round the other way on one side: one bf16 step
-    (at most 2**-7 of it) moves an output by up to 2**-7 of the largest,
-    hence the bf16 tolerance there."""
+    """The forward (loss, lse: two launches) and the backward (dx, dW: one
+    launch in f32, three a vocab chunk in bf16) against the plain versions
+    on the same inputs, tails in N and V, D off the 8-element vector
+    width, a quarter of the targets ignored. The forward sums in f32 on
+    both sides (bf16 inputs are exact in f32), so loss and lse are held
+    at the f32 tolerance; dx and dW relative to their largest value,
+    since the kernels and the plain GEMMs sum in different orders. With
+    bf16 inputs both sides round dlog to bf16 before the products, and a
+    dlog that lies near a rounding boundary may round the other way on
+    one side: one bf16 step (at most 2**-7 of it) moves an output by up
+    to 2**-7 of the largest, hence the bf16 tolerance there. bf16 also
+    runs at a forced chunk of 96 columns (3 to 11 chunks, against
+    ce_bwd_chunked_ref too), and a second call gives the same bits (no
+    atomics)."""
     g = torch.Generator(device=cuda).manual_seed(N + D + V)
     x = torch.randn((N, D), generator=g, device=cuda).to(DTYPES[dt])
     w = (torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
@@ -357,17 +360,30 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     loss, lse = cross_entropy.ce_fwd(x, w, t, use_exp2)
     dx, dw = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
     torch.cuda.synchronize()
+    chunk = cross_entropy.bwd_vocab_chunk(N, D, V)
+    bwd = 1 if dt == "f32" else 3 * -(-V // chunk)
     assert (cross_entropy.ce_fwd.launches,
-            cross_entropy.ce_bwd.launches) == (before[0] + 2, before[1] + 1)
+            cross_entropy.ce_bwd.launches) == (before[0] + 2,
+                                               before[1] + bwd)
     rloss, rlse = cross_entropy._ce_ref(x, w, t)
     rdx, rdw = cross_entropy.ce_bwd_ref(x, w, t, rlse, cot)
     check_all_close(loss, rloss, name="loss", **F32)
     check_all_close(lse, rlse, name="lse", **F32)
     tol = 1e-4 if dt == "f32" else 2e-2
-    for name, a, b in (("dx", dx, rdx), ("dW", dw, rdw)):
-        assert a.dtype == torch.float32 and a.shape == b.shape
-        check_all_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
-                        name=name)
+    outs = [("", dx, dw, rdx, rdw)]
+    if dt == "bf16":
+        c96 = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2,
+                                   vocab_chunk=96)
+        outs += [(" chunk 96", *c96, rdx, rdw),
+                 (" chunk 96 vs chunked", *c96,
+                  *cross_entropy.ce_bwd_chunked_ref(x, w, t, rlse, cot, 96))]
+        again = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    for tag, a_dx, a_dw, b_dx, b_dw in outs:
+        for name, a, b in (("dx", a_dx, b_dx), ("dW", a_dw, b_dw)):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            check_all_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
+                            name=name + tag)
     assert (loss[t < 0] == 0).all() and (dx[t < 0] == 0).all()
 
 
@@ -552,6 +568,9 @@ PREFIX_CASES = {
     "D32 T7": (3, 8, 1, 7, 32, 16, 4, [7, 30, 64]),
     "D64 T70": (2, 4, 2, 70, 64, 16, 8, [70, 128]),
     "D128 T1": (3, 4, 4, 1, 128, 16, 4, [1, 33, 64]),
+    # lengths on the edges of prefill_splits' 3 splits of 64 slots: 0,
+    # 1, chunk - 1, chunk, chunk + 1, the pool's end and past it
+    "split edges": (7, 8, 2, 5, 64, 16, 12, [0, 1, 63, 64, 65, 192, 201]),
 }
 PREFIX_FEATURES = {"none": {}, "window": dict(window=40),
                    "window+sinks": dict(window=40, sinks=5),
@@ -564,19 +583,27 @@ PREFIX_FEATURES = {"none": {}, "window": dict(window=40),
 @pytest.mark.parametrize("feat", sorted(PREFIX_FEATURES))
 @pytest.mark.parametrize("case", sorted(PREFIX_CASES))
 def test_paged_prefill_matches_plain(cuda, case, feat, dt):
-    """#24 against paged_prefill_ref: every head dim, groups 1 to 8, T
-    of 1, 7, 70 and 256, shuffled tables, lengths on and off the pages
-    and past the pool, with and without the window, sinks and softcap."""
+    """#24 against paged_prefill_ref and paged_prefill_split_ref (its
+    split order): every head dim, groups 1 to 8, T of 1, 5, 7, 70 and
+    256, shuffled tables, lengths on and off the pages, on the splits'
+    edges and past the pool, with and without the window, sinks and
+    softcap; one launch a call, and a second call gives the same bits."""
     args = _paged_case(cuda, DTYPES[dt], *PREFIX_CASES[case], seed=len(case))
     kw = PREFIX_FEATURES[feat]
+    if case == "split edges":
+        assert paged_attention.prefill_splits(
+            7, 8, 2, 5, 192, DTYPES[dt]) == (64, 3)
     before = paged_attention.paged_prefill_attention.launches
     out = paged_attention.paged_prefill_attention(*args, **kw)
     torch.cuda.synchronize()
     assert paged_attention.paged_prefill_attention.launches == before + 1
-    check_all_close(out.float(),
-                    paged_attention.paged_prefill_ref(*args, **kw).float(),
-                    dtype=DTYPES[dt], name=f"{case} {feat}",
-                    **(F32 if dt == "f32" else {}))
+    for name, ref in (("", paged_attention.paged_prefill_ref),
+                      (" split", paged_attention.paged_prefill_split_ref)):
+        check_all_close(out.float(), ref(*args, **kw).float(),
+                        dtype=DTYPES[dt], name=f"{case} {feat}{name}",
+                        **(F32 if dt == "f32" else {}))
+    assert torch.equal(out, paged_attention.paged_prefill_attention(*args,
+                                                                    **kw))
 
 
 @pytest.mark.cuda

@@ -94,9 +94,12 @@ SIGNATURES = {
                            _P],
     # q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T (new
     # tokens per sequence), P, page_size, pages_per_seq, D, sm_scale,
-    # window, sinks, softcap, ring, ALiBi slopes (or None), dtype, stream
+    # window, sinks, softcap, ring, ALiBi slopes (or None), slots a split,
+    # split workspace (f32) and tickets (i32) (or None at one split),
+    # dtype, stream
     "tk_paged_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _I, _I, _F, _I, _P, _I, _P],
+                         _I, _I, _F, _I, _I, _F, _I, _P, _I, _P, _P, _I,
+                         _P],
     # q, q_scales (or None), k_pages, k_scales, v_pages, v_scales, lengths,
     # page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, D,
     # block_tokens, sm_scale, window, sinks, softcap, ring, slopes (or
@@ -114,9 +117,12 @@ SIGNATURES = {
     "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # part, targets, loss, lse, N, n_split, stream
     "tk_ce_combine": [_P, _P, _P, _P, _I, _I, _P],
-    # x, w, targets, lse, g, dx (f32), dw (f32), N, D, V, log2, dtype,
-    # stream
-    "tk_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, targets, lse, g, dx (f32, zeroed), dw (f32, zeroed), N, D, V,
+    # log2, stream (f32 inputs)
+    "tk_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, targets, lse, g, dx (f32), dw (f32), dlog scratch (bf16), N,
+    # D, V, v0, vc, add, log2, stream (bf16 inputs; one vocab chunk)
+    "tk_ce_bwd_chunk": [_P] * 8 + [_I] * 7 + [_P],
     # x, thresholds (or None), noise (or None), mode, seed, inv_temp, B, V,
     # n_split, part (or None), out, dtype, stream
     "tk_sample": [_P, _P, _P, _I, _I64, _F, _I, _I, _I, _P, _P, _I, _P],

@@ -129,11 +129,12 @@ int tk_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                      int Hq, int Hkv, int T, int P, int page_size,
                      int pages_per_seq, int D, float sm_scale, int window,
                      int sinks, float softcap, int ring, const float* slopes,
-                     int dtype, void* stream) {
+                     int chunk, float* ws, int* tickets, int dtype,
+                     void* stream) {
   return checked(tk::paged_prefill_launch(
       q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size,
-      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, dtype,
-      static_cast<cudaStream_t>(stream)));
+      pages_per_seq, D, sm_scale, window, sinks, softcap, ring, slopes, chunk,
+      ws, tickets, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 int tk_paged_prefill_quantized(
@@ -176,12 +177,20 @@ int tk_ce_combine(const float* part, const int* targets, float* loss,
                                        static_cast<cudaStream_t>(stream)));
 }
 
-int tk_ce_bwd(const void* x, const void* w, const int* targets,
+int tk_ce_bwd(const float* x, const float* w, const int* targets,
               const float* lse, const float* g, float* dx, float* dw, int N,
-              int D, int V, int log2, int dtype, void* stream) {
+              int D, int V, int log2, void* stream) {
   return checked(tk::ce_bwd_launch(x, w, targets, lse, g, dx, dw, N, D, V,
-                                   log2, dtype,
-                                   static_cast<cudaStream_t>(stream)));
+                                   log2, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ce_bwd_chunk(const void* x, const void* w, const int* targets,
+                    const float* lse, const float* g, float* dx, float* dw,
+                    void* dlog, int N, int D, int V, int v0, int vc, int add,
+                    int log2, void* stream) {
+  return checked(tk::ce_bwd_chunk_launch(x, w, targets, lse, g, dx, dw, dlog,
+                                         N, D, V, v0, vc, add, log2,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 int tk_sample(const void* x, const float* thr, const float* noise, int mode,

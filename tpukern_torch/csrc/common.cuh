@@ -584,7 +584,8 @@ cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  int Hkv, int T, int P, int page_size,
                                  int pages_per_seq, int D, float sm_scale,
                                  int window, int sinks, float softcap,
-                                 int ring, const float* slopes, int dtype,
+                                 int ring, const float* slopes, int chunk,
+                                 float* ws, int* tickets, int dtype,
                                  cudaStream_t stream);
 cudaError_t paged_prefill_quantized_launch(
     const void* q, const float* q_scales, const void* k_pages,
@@ -607,10 +608,20 @@ cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
 cudaError_t ce_combine_launch(const float* part, const int* targets,
                               float* loss, float* lse, int N, int n_split,
                               cudaStream_t stream);
-cudaError_t ce_bwd_launch(const void* x, const void* w, const int* targets,
+// the f32 backward (dx and dW zeroed by the caller)
+cudaError_t ce_bwd_launch(const float* x, const float* w, const int* targets,
                           const float* lse, const float* g, float* dx,
-                          float* dw, int N, int D, int V, int log2, int dtype,
+                          float* dw, int N, int D, int V, int log2,
                           cudaStream_t stream);
+// the bf16 backward's three launches for vocab columns [v0, v0 + vc):
+// dlog (scratch, N rows of vc rounded up to 8), dx (stored, or added to
+// with add), dW[:, v0 .. v0 + vc)
+cudaError_t ce_bwd_chunk_launch(const void* x, const void* w,
+                                const int* targets, const float* lse,
+                                const float* g, float* dx, float* dw,
+                                void* dlog, int N, int D, int V, int v0,
+                                int vc, int add, int log2,
+                                cudaStream_t stream);
 cudaError_t sample_launch(const void* x, const float* thr, const float* noise,
                           int mode, long long seed, float inv_temp, int B,
                           int V, int n_split, unsigned long long* part,

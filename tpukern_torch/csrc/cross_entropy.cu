@@ -5,18 +5,19 @@
 //
 // Replaces tpukern/ops/cross_entropy.py:
 //   `_ce_fwd_kernel` (:53)  -> ce_fwd_kernel + ce_combine_kernel (#13)
-//   `_ce_dx_kernel` (:95)   -> ce_bwd_fma_kernel (f32), ce_bwd_mma_kernel
-//                              (bf16) (#14)
-//   `_ce_dw_kernel` (:132)  -> the same backward kernels (#15)
+//   `_ce_dx_kernel` (:95)   -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
+//                              then ce_dx_kernel (#14)
+//   `_ce_dw_kernel` (:132)  -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
+//                              then ce_dw_kernel (#15)
 //
-// Score tiles. Every kernel forms 128 x 128 tiles S = x[n0..] · W[:, v0..]
-// with common.cuh's GEMM main loops (f32 inputs on CUDA-core FMAs in full
-// f32, as the JAX f32 tier's Precision.HIGHEST; bf16 inputs on mma.sync
-// with f32 accumulation). The forward and the f32 backward put each tile
-// into shared memory as f32, where the reductions read it in a layout of
-// their own; the bf16 backward forms dlog from the accumulators. Columns
-// past V are set to NEG_BIG (forward) or their gradient to 0 (backward)
-// after the arithmetic, never multiplied in: 0 * garbage would be NaN.
+// Score tiles (the forward and the f32 backward): 128 x 128 tiles S =
+// x[n0..] · W[:, v0..] from common.cuh's GEMM main loops (f32 inputs on
+// CUDA-core FMAs in full f32, as the JAX f32 tier's Precision.HIGHEST;
+// bf16 inputs on mma.sync with f32 accumulation), put into shared memory
+// as f32, where the reductions read them in a layout of their own.
+// Columns past V are set to NEG_BIG (forward) or their gradient to 0
+// (backward) after the arithmetic, never multiplied in: 0 * garbage would
+// be NaN.
 //
 // Forward. The TPU kernel gives one grid row to each token block and walks
 // all of V in order; at N = 2048 that is 16 blocks for 132 SMs. Here V is
@@ -27,20 +28,44 @@
 // tpukern/ops/attention.py:1162) into its loss and natural-log lse. The
 // partials are (n_split, 3, N) floats, n_split bounded by the SM count.
 //
-// Backward, design (b): one block per (row tile, vocab tile) recomputes
-// the score tile once, forms dlog = g · (softmax - onehot) in shared
-// memory from the saved lse, and adds both of its contributions with f32
-// atomicAdd into zeroed f32 outputs: dx[n0.., :] += dlog · W[:, v0..]^T and
-// dW[:, v0..] += x[n0.., :]^T · dlog. On the TPU each output block is
-// resident in VMEM across the other axis; here a 128-row dx block is 1 MiB,
-// beyond a block's shared memory, and giving each output tile an owner
-// would recompute the score tile once per 128-wide D chunk. So #14 and
-// #15 share one recompute: 3 D-deep products per tile instead of 4, and no
-// buffer that grows with N·V. The atomics make the summation order vary
-// from run to run; the tests compare with the plain version at a
-// tolerance, never two kernel runs bit for bit. Each block starts its D
-// loop at a chunk of its own, so the blocks of one row tile (or one vocab
-// tile) that run together add into different addresses.
+// f32 backward: one block per (row tile, vocab tile) recomputes the score
+// tile once, forms dlog = g · (softmax - onehot) in shared memory from the
+// saved lse, and adds both of its contributions with f32 atomicAdd into
+// zeroed f32 outputs: dx[n0.., :] += dlog · W[:, v0..]^T and dW[:, v0..]
+// += x[n0.., :]^T · dlog. One recompute serves #14 and #15: 3 D-deep
+// products per tile, no buffer that grows with N·V. The atomics make the
+// summation order vary from run to run, so the f32 tier is held to the
+// plain version at a tolerance. Each block starts its D loop at a chunk of
+// its own, so the blocks of one row tile (or one vocab tile) that run
+// together add into different addresses. It runs at the rate of the port's
+// f32 GEMM (csrc/matmul.cu), which a scratch buffer would not raise.
+//
+// bf16 backward: three launches a vocab chunk [v0, v0 + vc), each one
+// hopper.cuh gemm_pipeline (128 x 256 tiles, a ring of TMA-fed stages,
+// wgmma, a producer warpgroup and two consumers), with a bf16 scratch of
+// dlog between them:
+//   1. ce_dlog_kernel: S = x · W[:, chunk] (x K-major, W's columns
+//      MN-major); in the consumers' registers each score becomes dlog =
+//      g · (p - onehot), p recomputed from the saved lse, 0 past the
+//      chunk's columns and on ignored rows, rounded to bf16 as JAX's
+//      kernels round it (cross_entropy.py:127, :157), and stored to the
+//      scratch (N, ld): ld is vc rounded up to 8, so that every row is
+//      whole 16-byte chunks and TMA reads it; the padding is written as 0.
+//   2. ce_dx_kernel: dx (+)= dlog · W[:, chunk]^T (the scratch K-major,
+//      W's rows K-major, as #2's TN); the first chunk stores, each later
+//      one adds its product to dx in its epilogue, chunk after chunk.
+//   3. ce_dw_kernel: dW[:, chunk] = x^T · dlog (both MN-major, the tokens
+//      the contraction, as #29 tgmm reads x); each chunk owns its columns
+//      and stores them once.
+// No atomics and no pre-zeroed outputs: each output element has one
+// writer a launch and the launches run in stream order, so a call gives
+// the same bits from run to run. The chunk (ops/cross_entropy.py
+// bwd_vocab_chunk, from N, D and V alone) is the whole vocab where the
+// scratch of N · ld values fits in D · V (half the bytes of the f32 dW the
+// call returns; 134 MB at N = D = 2048, V = 32768), else the widest
+// multiple of 256 columns that fits. An operand whose rows TMA cannot take
+// (x where D % 8, W where V % 8) goes through the pipeline's copy path,
+// with W's row stride V apart from the chunk's width (GemmOperand.ld).
 //
 // The log2 tier (use_exp2, the bf16 default) scales the f32 score by
 // log2(e) and uses exp2, as the TPU kernel does; the TPU kernel instead
@@ -49,11 +74,11 @@
 // with one rounding less, and the outputs (loss, lse, dx, dW) are in
 // natural units either way.
 //
-// What bounds it: 2·N·D·V flops per score tile pass (275 GFLOP at N = D =
-// 2048, V = 32768) against N·D + D·V elements read, so it is compute
-// bound. f32 runs on CUDA-core FMAs, bf16 on the tensor cores, the
-// backward's dx and dW products included (dlog rounded to bf16 as the TPU
-// kernels round it). cp.async/TMA/wgmma are a later PR's work.
+// What bounds it: 2·N·D·V flops a product (275 GFLOP at N = D = 2048, V =
+// 32768), one in the forward and three in the backward, against N·D + D·V
+// elements read (and in the bf16 backward the scratch, written once and
+// read twice), so it is compute bound: f32 on CUDA-core FMAs, bf16 on the
+// tensor cores.
 //
 // Registers (`-Xptxas -v`, nvcc 12.9, sm_90a; chip_smoke.py prints them
 // from the build's nvcc.log) and dynamic shared memory per block, two
@@ -63,10 +88,10 @@
 //   ce_combine_kernel  32 registers, no shared memory
 //   ce_bwd_fma_kernel  128 registers, a 360 B stack frame (448 B spill
 //                      stores, 1,288 B spill loads); 77,824 B
-//   ce_bwd_mma_kernel  128 registers, no spills; 71,168 B
+// The bf16 backward's kernels take gemm_pipeline's one block an SM.
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace tk {
 namespace {
@@ -265,19 +290,8 @@ __device__ __forceinline__ void atomic_add4(float* row, int col, int cols,
     if (col + k < cols) atomicAdd(row + col + k, e[k]);
 }
 
-// the same for two columns (cols % 2 == 0 for the 8-byte reduction)
-__device__ __forceinline__ void atomic_add2(float* row, int col, int cols,
-                                            bool vec, float a, float b) {
-  if (vec && col + 2 <= cols) {
-    atomicAdd(reinterpret_cast<float2*>(row + col), make_float2(a, b));
-    return;
-  }
-  if (col < cols) atomicAdd(row + col, a);
-  if (col + 1 < cols) atomicAdd(row + col + 1, b);
-}
-
-// Block (blockIdx.x, blockIdx.y) = (row tile, vocab tile): design (b)
-// above, f32 inputs, every product on CUDA-core FMAs. dx and dW are
+// Block (blockIdx.x, blockIdx.y) = (row tile, vocab tile): the f32
+// backward above, every product on CUDA-core FMAs. dx and dW are
 // zeroed f32 (N, D) and (D, V) accumulators.
 template <bool LOG2>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -411,165 +425,157 @@ ce_bwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Block (blockIdx.x, blockIdx.y) = (row tile, vocab tile): design (b)
-// above, bf16 inputs, every product on the tensor cores (mma.sync
-// m16n8k16, f32 accumulation, hgemm_tile's warp layout). dlog is formed
-// from the score accumulators in registers and rounded to bf16 into
-// shared memory, as JAX's kernels round it before their products
-// (cross_entropy.py:127, :157). Then, for each 128-wide D chunk, the
-// chunk of W (dx) or of x (dW) is staged whole as bf16 [128][LDB]:
-//   dx[n0 + m, d0 + j] += sum_k dlog[m][k] · W[d0 + j, v0 + k]
-//     (A = dlog, row-major; B^T = W's rows d0.., as hgemm_tile's TRANS_B)
-//   dW[d0 + m, v0 + j] += sum_k x[n0 + k, d0 + m] · dlog[k][j]
-//     (A^T = x's rows n0..; B = dlog, as hgemm_tile's NN)
-// Fragments are read with 32-bit loads along k where the layout allows
-// and packed from two 16-bit loads where it does not; both patterns are
-// free of bank conflicts at LDB = BV + 8. Results go out as 8-byte
-// atomic pairs (c0/c1 and c2/c3 of a fragment are adjacent columns).
-constexpr int LDB = BV + 8;
-constexpr int BF_TILE_BYTES = BN * LDB * 2;
+// ------------------------------------------------------- bf16 backward
+// gemm_pipeline's epilogue layout: a consumer thread's first row of the
+// tile at m0 (its second lies 8 on) and its first column of the tile at
+// n0 (pair j of its columns, j = 0..31, starts 8 j on). Pair j of row h
+// (0, 1) holds d[4 j + 2 h] and d[4 j + 2 h + 1].
+__device__ __forceinline__ int tile_row(int m0) {
+  const int tid = threadIdx.x;
+  return m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+}
+__device__ __forceinline__ int tile_col(int n0) {
+  return n0 + 2 * (threadIdx.x & 3);
+}
 
-template <bool LOG2>
-__global__ void __launch_bounds__(THREADS, 2)
-ce_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                  const int* __restrict__ targets,
-                  const float* __restrict__ lse, const float* __restrict__ g,
-                  float* __restrict__ dx, float* __restrict__ dw, int N, int D,
-                  int V) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* row_lse = reinterpret_cast<float*>(smem);
-  float* row_g = row_lse + BN;
-  int* row_tgt = reinterpret_cast<int*>(row_g + BN);
-  bf16* dl = reinterpret_cast<bf16*>(smem + 3 * BN * 4);  // [BN][LDB]
-  // the score product's main loop, then the D chunks [128][LDB]
-  bf16* stage = reinterpret_cast<bf16*>(smem + 3 * BN * 4 + BF_TILE_BYTES);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * BN, v0 = blockIdx.y * BV;
-  const bool vec_x = D % 8 == 0, vec_w = V % 8 == 0;
-  load_rows(targets, lse, g, N, n0, LOG2, row_lse, row_g, row_tgt);
-
-  float acc[4][4][4];
-  // hgemm_tile opens with a barrier, so the rows above are visible after
-  hgemm_tile<false>(x, w, N, V, D, n0, v0, vec_x, vec_w, stage,
-                    stage + H_BM * H_LDK, acc);
+// The tile d into rows m0.. < M and columns n0.. < cols of the f32 matrix
+// c (row stride ldc): stored, or added to what c holds (add). Column
+// pairs in one 8-byte access where ldc is even and c 8-byte aligned.
+__device__ __forceinline__ void store_f32(const float (&d)[128], float* c,
+                                          int64_t ldc, int M, int cols,
+                                          int m0, int n0, bool add) {
+  const int r0 = tile_row(m0), c0 = tile_col(n0);
+  const bool pairs = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < GP_BN / 8; ++j) {
+    const int col = c0 + 8 * j;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = hgemm_row(warp, mt, gq, e), c = hgemm_col(warp, nt, t, e);
-        *reinterpret_cast<__nv_bfloat162*>(&dl[r * LDB + c]) =
-            __floats2bfloat162_rn(
-                dlog_of<LOG2>(acc[mt][nt][e], r, v0 + c, V, row_lse, row_g,
-                              row_tgt),
-                dlog_of<LOG2>(acc[mt][nt][e + 1], r, v0 + c + 1, V, row_lse,
-                              row_g, row_tgt));
-      }
-
-  const int n_dc = (D + BN - 1) / BN;
-  auto u32 = [](const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); };
-  auto zero = [&] {
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  };
-
-  // dx: the chunk is W[d0 + j, v0 + k] as [j][k]
-  for (int dc = 0; dc < n_dc; ++dc) {
-    const int d0 = (dc + blockIdx.y) % n_dc * BN;
-    __syncthreads();  // dlog is complete; the previous chunk is consumed
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ch = tid + i * THREADS, r = ch >> 4, kc = (ch & 15) * 8;
-      *reinterpret_cast<uint4*>(&stage[r * LDB + kc]) =
-          load8(w, d0 + r, D, v0 + kc, V, vec_w);
-    }
-    __syncthreads();
-    zero();
-#pragma unroll
-    for (int ks = 0; ks < BV / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &dl[(wm + mt * 16 + gq) * LDB + ks * 16 + 2 * t];
-        af[mt][0] = u32(ap);
-        af[mt][1] = u32(ap + 8 * LDB);
-        af[mt][2] = u32(ap + 8);
-        af[mt][3] = u32(ap + 8 * LDB + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bp = &stage[(wn + nt * 8 + gq) * LDB + ks * 16 + 2 * t];
-        const uint32_t b0 = u32(bp), b1 = u32(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int n = n0 + hgemm_row(warp, mt, gq, e);
-          if (n < N)
-            atomic_add2(dx + (int64_t)n * D, d0 + hgemm_col(warp, nt, t, e),
-                        D, D % 2 == 0, acc[mt][nt][e], acc[mt][nt][e + 1]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M || col >= cols) continue;
+      float* p = c + r * ldc + col;
+      float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (pairs && col + 1 < cols) {
+        if (add) {
+          const float2 o = *reinterpret_cast<const float2*>(p);
+          v0 = o.x + v0;
+          v1 = o.y + v1;
         }
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        p[0] = add ? p[0] + v0 : v0;
+        if (col + 1 < cols) p[1] = add ? p[1] + v1 : v1;
+      }
+    }
   }
+}
 
-  // dW: the chunk is x[n0 + k, d0 + m] as [k][m]
-  for (int dc = 0; dc < n_dc; ++dc) {
-    const int d0 = (dc + blockIdx.x) % n_dc * BN;
-    __syncthreads();
+// Launch 1: the chunk's scores S = x · W[:, v0 .. v0 + vc), a 128 x 256
+// tile a block, turned into dlog in the epilogue and stored as bf16 to
+// dlog (N, ld), columns [vc, ld) as zeros.
+template <bool TMA_X, bool TMA_W>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dlog_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
+               const bf16* __restrict__ x, const bf16* __restrict__ w,
+               const int* __restrict__ targets,
+               const float* __restrict__ lse, const float* __restrict__ g,
+               bf16* __restrict__ dlog, int N, int D, int V, int v0, int vc,
+               int ld, int log2) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * GP_BN;
+  // x (N, D) K-major; the chunk's columns of W (D, V) MN-major, D its rows
+  gemm_pipeline<false, true, TMA_X, TMA_W, false>(
+      &map_x, &map_w, GemmOperand{x, N, D, m0},
+      GemmOperand{w + v0, D, vc, n0, -1, 0, V}, 0, D,
+      [&](const float (&d)[128]) {
+        const int r0 = tile_row(m0), c0 = tile_col(n0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ch = tid + i * THREADS, r = ch >> 4, mc = (ch & 15) * 8;
-      *reinterpret_cast<uint4*>(&stage[r * LDB + mc]) =
-          load8(x, n0 + r, N, d0 + mc, D, vec_x);
-    }
-    __syncthreads();
-    zero();
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r >= N) continue;
+          // the target's column in the chunk; an ignored row keeps no
+          // gradient
+          const int tgt = targets[r];
+          const bool keep = tgt >= 0;
+          const float gr = keep ? g[r] : 0.f;
+          const float z = log2 ? lse[r] * LOG2E : lse[r];
+          bf16* row = dlog + (int64_t)r * ld;
 #pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      const int k = ks * 16 + 2 * t;
-      uint32_t af[4][4];
+          for (int j = 0; j < GP_BN / 8; ++j) {
+            const int c = c0 + 8 * j;  // even, and ld is even
+            if (c >= ld) continue;
+            float v[2];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &stage[k * LDB + wm + mt * 16 + gq];
-        af[mt][0] = pack_bf16(ap[0], ap[LDB]);
-        af[mt][1] = pack_bf16(ap[8], ap[LDB + 8]);
-        af[mt][2] = pack_bf16(ap[8 * LDB], ap[9 * LDB]);
-        af[mt][3] = pack_bf16(ap[8 * LDB + 8], ap[9 * LDB + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* bp = &dl[k * LDB + wn + nt * 8 + gq];
-        const uint32_t b0 = pack_bf16(bp[0], bp[LDB]);
-        const uint32_t b1 = pack_bf16(bp[8 * LDB], bp[9 * LDB]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int d = d0 + hgemm_row(warp, mt, gq, e);
-          if (d < D)
-            atomic_add2(dw + (int64_t)d * V, v0 + hgemm_col(warp, nt, t, e),
-                        V, V % 2 == 0, acc[mt][nt][e], acc[mt][nt][e + 1]);
+            for (int e = 0; e < 2; ++e) {
+              const float s = d[4 * j + 2 * h + e];
+              const float p = log2 ? exp2f(s * LOG2E - z) : expf(s - z);
+              const float one = v0 + c + e == tgt ? 1.f : 0.f;
+              v[e] = keep && c + e < vc ? (p - one) * gr : 0.f;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(row + c) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          }
         }
-  }
+      });
+}
+
+// Launch 2: dx (N, D) (+)= dlog (N, vc) · W[:, v0 .. v0 + vc)^T, a 128 x
+// 256 tile of dx a block; add: this chunk's product joins the earlier
+// chunks' sum.
+template <bool TMA_W>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dx_kernel(const __grid_constant__ CUtensorMap map_s,
+             const __grid_constant__ CUtensorMap map_w,
+             const bf16* __restrict__ dlog, const bf16* __restrict__ w,
+             float* __restrict__ dx, int N, int D, int V, int v0, int vc,
+             int ld, int add) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * GP_BN;
+  // the scratch K-major (always by TMA); W's rows, the chunk's columns,
+  // K-major
+  gemm_pipeline<false, false, true, TMA_W, false>(
+      &map_s, &map_w, GemmOperand{dlog, N, vc, m0, -1, 0, ld},
+      GemmOperand{w + v0, D, vc, n0, -1, 0, V}, 0, vc,
+      [&](const float (&d)[128]) { store_f32(d, dx, D, N, D, m0, n0, add); });
+}
+
+// Launch 3: dW[:, v0 .. v0 + vc) = x^T · dlog, a 128 x 256 tile of dW a
+// block, over all N tokens.
+template <bool TMA_X>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dw_kernel(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_s,
+             const bf16* __restrict__ x, const bf16* __restrict__ dlog,
+             float* __restrict__ dw, int N, int D, int V, int v0, int vc,
+             int ld) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * GP_BN;
+  // x (N, D) and the scratch (N, vc) MN-major, the tokens their rows;
+  // the maps end at row N, so the last slab's rows past it are zeros
+  gemm_pipeline<true, true, TMA_X, true, false>(
+      &map_x, &map_s, GemmOperand{x, N, D, m0},
+      GemmOperand{dlog, N, vc, n0, -1, 0, ld}, 0, N,
+      [&](const float (&d)[128]) {
+        store_f32(d, dw + v0, V, D, vc, m0, n0, false);
+      });
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_gp(Kernel kernel, bool copy, dim3 grid, cudaStream_t stream,
+                      Args... args) {
+  const int smem = gemm_smem(copy);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, GP_THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 template <typename Kernel>
@@ -594,26 +600,18 @@ cudaError_t fwd_t(const void* x, const void* w, const int* targets,
   return cudaSuccess;
 }
 
-template <typename T, bool LOG2>
-cudaError_t bwd_t(const void* x, const void* w, const int* targets,
-                  const float* lse, const float* g, float* dx, float* dw,
-                  int N, int D, int V, cudaStream_t stream) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  static_assert(stage_bytes<bf16>() <= BF_TILE_BYTES, "stage fits a chunk");
-  // f32: the score tile, the row state and the main loop's stage; bf16:
-  // the row state, dlog, and the D chunk that reuses the stage
-  constexpr int bytes = F32 ? TILE_BYTES + 4 * BN * 4 + stage_bytes<T>()
-                            : 3 * BN * 4 + 2 * BF_TILE_BYTES;
-  void (*kernel)(const T*, const T*, const int*, const float*, const float*,
-                 float*, float*, int, int, int);
-  if constexpr (F32) kernel = ce_bwd_fma_kernel<LOG2>;
-  else kernel = ce_bwd_mma_kernel<LOG2>;
+template <bool LOG2>
+cudaError_t bwd_f32(const float* x, const float* w, const int* targets,
+                    const float* lse, const float* g, float* dx, float* dw,
+                    int N, int D, int V, cudaStream_t stream) {
+  // the score tile, the row state and the main loop's stage
+  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + stage_bytes<float>();
+  auto kernel = ce_bwd_fma_kernel<LOG2>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + BN - 1) / BN, (V + BV - 1) / BV);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), targets, lse, g, dx,
-      dw, N, D, V);
+  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, g, dx, dw, N,
+                                           D, V);
   return cudaSuccess;
 }
 
@@ -652,24 +650,81 @@ cudaError_t ce_combine_launch(const float* part, const int* targets,
   return cudaSuccess;
 }
 
-cudaError_t ce_bwd_launch(const void* x, const void* w, const int* targets,
+cudaError_t ce_bwd_launch(const float* x, const float* w, const int* targets,
                           const float* lse, const float* g, float* dx,
-                          float* dw, int N, int D, int V, int log2, int dtype,
+                          float* dw, int N, int D, int V, int log2,
                           cudaStream_t stream) {
   if (N < 0 || D <= 0 || V <= 0 || (V + BV - 1) / BV > 65535)
     return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  if (dtype == kF32)
-    return log2 ? bwd_t<float, true>(x, w, targets, lse, g, dx, dw, N, D, V,
-                                     stream)
-                : bwd_t<float, false>(x, w, targets, lse, g, dx, dw, N, D, V,
-                                      stream);
-  if (dtype == kBF16)
-    return log2 ? bwd_t<bf16, true>(x, w, targets, lse, g, dx, dw, N, D, V,
-                                    stream)
-                : bwd_t<bf16, false>(x, w, targets, lse, g, dx, dw, N, D, V,
-                                     stream);
-  return cudaErrorInvalidValue;
+  return log2 ? bwd_f32<true>(x, w, targets, lse, g, dx, dw, N, D, V, stream)
+              : bwd_f32<false>(x, w, targets, lse, g, dx, dw, N, D, V,
+                               stream);
+}
+
+cudaError_t ce_bwd_chunk_launch(const void* x, const void* w,
+                                const int* targets, const float* lse,
+                                const float* g, float* dx, float* dw,
+                                void* dlog, int N, int D, int V, int v0,
+                                int vc, int add, int log2,
+                                cudaStream_t stream) {
+  const int ld = (vc + 7) / 8 * 8;
+  const dim3 g1((vc + GP_BN - 1) / GP_BN, (N + GP_BM - 1) / GP_BM);
+  const dim3 g2((D + GP_BN - 1) / GP_BN, (N + GP_BM - 1) / GP_BM);
+  const dim3 g3((vc + GP_BN - 1) / GP_BN, (D + GP_BM - 1) / GP_BM);
+  // a chunk starts on a 16-byte boundary of W's rows
+  if (N <= 0 || D <= 0 || vc <= 0 || v0 < 0 || v0 % 8 || v0 + vc > V ||
+      g1.y > 65535 || g3.y > 65535 || !aligned16(x) || !aligned16(w) ||
+      !aligned16(dlog))
+    return cudaErrorInvalidValue;
+  const bf16* hx = static_cast<const bf16*>(x);
+  const bf16* hw = static_cast<const bf16*>(w);
+  const bf16* hc = hw + v0;  // the chunk's first column
+  const bf16* hs = static_cast<const bf16*>(dlog);
+  // x by TMA where its rows are whole 16-byte chunks, W's likewise (the
+  // chunk's base is aligned), else by the producer's copy; the scratch's
+  // rows always are
+  const bool tma_x = D % 8 == 0, tma_w = V % 8 == 0;
+  CUtensorMap xk{}, xm{}, wm{}, wk{}, sk{}, sm{};
+  cudaError_t e = cudaSuccess;
+  auto map = [&](CUtensorMap* m, const bf16* p, int inner, int outer,
+                 int64_t row, uint32_t bi, uint32_t bo) {
+    if (e == cudaSuccess) e = tma_map_bf16(m, p, inner, outer, row * 2, bi, bo);
+  };
+  if (tma_x) {
+    map(&xk, hx, D, N, D, GP_BK, GP_BM);  // K-major A of launch 1
+    map(&xm, hx, D, N, D, 64, GP_BK);     // MN-major A of launch 3
+  }
+  if (tma_w) {
+    map(&wm, hc, vc, D, V, 64, GP_BK);     // MN-major B of launch 1
+    map(&wk, hc, vc, D, V, GP_BK, GP_BN);  // K-major B of launch 2
+  }
+  map(&sk, hs, vc, N, ld, GP_BK, GP_BM);  // K-major A of launch 2
+  map(&sm, hs, vc, N, ld, 64, GP_BK);     // MN-major B of launch 3
+  if (e != cudaSuccess) return e;
+  bf16* s = static_cast<bf16*>(dlog);
+  if (tma_x && tma_w)
+    e = launch_gp(ce_dlog_kernel<true, true>, false, g1, stream, xk, wm, hx,
+                  hw, targets, lse, g, s, N, D, V, v0, vc, ld, log2);
+  else if (tma_x)
+    e = launch_gp(ce_dlog_kernel<true, false>, true, g1, stream, xk, wm, hx,
+                  hw, targets, lse, g, s, N, D, V, v0, vc, ld, log2);
+  else if (tma_w)
+    e = launch_gp(ce_dlog_kernel<false, true>, true, g1, stream, xk, wm, hx,
+                  hw, targets, lse, g, s, N, D, V, v0, vc, ld, log2);
+  else
+    e = launch_gp(ce_dlog_kernel<false, false>, true, g1, stream, xk, wm, hx,
+                  hw, targets, lse, g, s, N, D, V, v0, vc, ld, log2);
+  if (e != cudaSuccess) return e;
+  e = tma_w ? launch_gp(ce_dx_kernel<true>, false, g2, stream, sk, wk, hs,
+                        hw, dx, N, D, V, v0, vc, ld, add)
+            : launch_gp(ce_dx_kernel<false>, true, g2, stream, sk, wk, hs,
+                        hw, dx, N, D, V, v0, vc, ld, add);
+  if (e != cudaSuccess) return e;
+  return tma_x ? launch_gp(ce_dw_kernel<true>, false, g3, stream, xm, sm, hx,
+                           hs, dw, N, D, V, v0, vc, ld)
+               : launch_gp(ce_dw_kernel<false>, true, g3, stream, xm, sm, hx,
+                           hs, dw, N, D, V, v0, vc, ld);
 }
 
 }  // namespace tk

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: TMA tensor maps and tile
 // loads, mbarriers, and wgmma's shared-memory descriptors, product and
 // sync; and on them the GEMM main loop (gemm_pipeline) of csrc/matmul.cu
-// (#1-#3, #17) and csrc/grouped_matmul.cu's gmm (#28) and tgmm (#29).
+// (#1-#3, #17), csrc/grouped_matmul.cu's gmm (#28) and tgmm (#29), and
+// csrc/cross_entropy.cu's bf16 backward (#14/#15).
 // csrc/matmul_naive.cu (#16) uses the blocks with one stage of its own.
 //
 // The layout they all assume is the one TMA's 128-byte swizzle writes and
@@ -391,7 +392,8 @@ __host__ __device__ constexpr int gemm_smem(bool copy) {
 constexpr int GP_GROUP = 8;
 
 // One operand as a row-major bf16 matrix (rows, cols), its row stride
-// cols, starting `off` elements (0-7) past p, which is 16-byte aligned.
+// ld elements (0: cols), starting `off` elements (0-7) past p, which is
+// 16-byte aligned.
 // K-major (wgmma reads it without transposing): rows are M (or N) and a
 // slab is W rows from `tile` by GP_BK columns from its k. MN-major (read
 // transposed): rows are the contraction and a slab is GP_BK rows from
@@ -403,6 +405,8 @@ struct GemmOperand {
   int rows, cols, tile;
   int z = -1;
   int off = 0;
+  int ld = 0;
+  __device__ int64_t stride() const { return ld ? ld : cols; }
 };
 
 __device__ __forceinline__ void gemm_tma_box(uint32_t dst,
@@ -463,7 +467,7 @@ __device__ __forceinline__ void gemm_stage_words(uint32_t stg,
     const int g = q / 9, i = q - 9 * g;
     int r, c0;
     gemm_segment<MN>(o, k, g, r, c0);
-    const int64_t row0 = o.off + (int64_t)r * o.cols;
+    const int64_t row0 = o.off + r * o.stride();
     const int64_t w = ((row0 + c0) & ~int64_t{7}) + 8 * i;
     const bool load = r < o.rows && w < row0 + o.cols;
     cp_async16(stg + q * 16, o.p + (load ? w : 0), load);
@@ -480,7 +484,7 @@ __device__ __forceinline__ void gemm_shift_slab(unsigned char* dst,
     const int g = ch >> 3, c = ch & 7;
     int r, c0;
     gemm_segment<MN>(o, k, g, r, c0);
-    const int sh = (int)((o.off + (int64_t)r * o.cols + c0) & 7);
+    const int sh = (int)((o.off + r * o.stride() + c0) & 7);
     const uint4 q0 = *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16);
     const uint4 q1 =
         *reinterpret_cast<const uint4*>(stg + g * GP_SEG + c * 16 + 16);

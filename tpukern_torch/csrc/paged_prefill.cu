@@ -17,15 +17,28 @@
 // pools (its wrapper `paged_prefill_attention`, :681). There, one grid
 // cell owns a (sequence, KV head), flattens its GQA group's T tokens into
 // one MXU operand g-major (:714-716), and DMAs whole pages through a
-// double buffer. Here one block owns a (sequence, KV head, tile of query
-// rows) with the rows flattened t-major (row = t * group + g): one pass
-// over the KV head's pages serves the whole group, and a tile's rows span
-// a contiguous range of positions, so its KV loop stops at the last row's
-// position and, with a window, starts at the tile of the first row's band
-// (sink tiles first: KvRange). Each 64-token KV tile first turns its
-// positions into pool rows through the page table
+// double buffer. Here one block owns a (tile of query rows, KV head,
+// sequence, split) with the rows flattened t-major (row = t * group + g):
+// one pass over the KV head's pages serves the whole group, and a tile's
+// rows span a contiguous range of positions, so its KV loop stops at the
+// last row's position and, with a window, starts at the tile of the first
+// row's band (sink tiles first: KvRange). Each 64-token KV tile first
+// turns its positions into pool rows through the page table
 // ((table[pos / page] * page + pos % page) * D, as csrc/paged_attention.cu
 // does), then loads the rows with 16-byte loads (bf16) into shared memory.
+//
+// Split-KV (csrc/paged_attention.cu's design): the sequence's slots are
+// cut into n_split splits of `chunk` slots (a multiple of the 64-key
+// tile; ops/paged_attention.py prefill_splits picks it from the shapes
+// alone, never the lengths), and a block walks only the tiles of its
+// row tile's walk inside its split; a split wholly past the tile's last
+// position, or wholly older than its band, runs no tile. With one split
+// the block writes the output. With more, it writes its rows' f32
+// partials (m, l and the unnormalized o; m = NEG_BIG, l = o = 0 for a row
+// that saw no position in it) to a workspace, then takes a ticket from a
+// per-(row tile, KV head, sequence) counter that stays zero between
+// launches: the last block merges the partials in split order and resets
+// the counter. One launch a call, the same bits from run to run.
 //
 // The bf16 kernel is csrc/flash_attention.cu's split-Q mma.sync m16n8k16
 // tile (4 warps of 16 query rows, Q fragments in registers, S re-packed as
@@ -40,7 +53,12 @@
 // 4 * D flops per visible (query, key) pair and reads each K/V row once per
 // 64-row tile, so it is compute bound on the tensor cores; a verification
 // of T = 5 tokens reads every live K/V byte once for 10 rows and is memory
-// bound, with B * Hkv blocks. No cp.async, TMA or wgmma yet.
+// bound. Either way a block's tiles run one after another, each a few
+// memory latencies (its loads wait behind the previous tile's barriers):
+// at one block a (row tile, KV head, sequence), B * Hkv = 32 blocks of up
+// to 16 tiles each at the verify shape. The splits put several blocks on
+// each row tile, each walking a few tiles, at the cost of the partials
+// and the merge (PERF.md). No cp.async, TMA or wgmma yet.
 #include "common.cuh"
 
 namespace tk {
@@ -99,6 +117,150 @@ __device__ __forceinline__ void tile_rows(int64_t* row_s, const int* table,
   }
 }
 
+// A launch's split: slots a split (a multiple of MMA_BK), and with more
+// than one split the workspace and the ticket counters.
+struct Split {
+  int chunk;
+  float* ws;
+  int* tickets;
+};
+
+// The block's split of its row tile: blockIdx.x = tile * n_split + split.
+// Its KV tiles are those of KvRange's walk inside slots [c0, c0 + chunk)
+// (both ends multiples of the tile), below kv_end.
+struct SplitPart {
+  int n_split, split, first, end;
+  template <int BK>
+  __device__ SplitPart(const KvRange<BK>& kr, int kv_end, int chunk,
+                       int n_split_)
+      : n_split(n_split_) {
+    split = blockIdx.x % n_split;
+    const int c0 = split * chunk;
+    end = min(kv_end, c0 + chunk);
+    first = c0 < kr.sink_end ? c0 : max(c0, kr.lo);
+  }
+};
+
+// The workspace of a launch with n_split > 1: for each (b, hk, tile)
+// triple pt = (b Hkv + hk) n_tiles + tile, split z and row i of the tile
+// (i < tq = min(BQ, R)), the partial o (D floats) at index (pt n_split +
+// z) tq + i; then all the m, then all the l.
+struct SplitWs {
+  float* o;
+  float* m;
+  float* l;
+  int64_t pt;  // this block's triple
+  int tq;
+  __device__ SplitWs(float* ws, int n_split, int BQ, int R, int D) {
+    const int n_tiles = gridDim.x / n_split;
+    tq = min(BQ, R);
+    pt = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * n_tiles +
+         blockIdx.x / n_split;
+    const int64_t rows = (int64_t)gridDim.z * gridDim.y * n_tiles * n_split * tq;
+    o = ws;
+    m = ws + rows * D;
+    l = m + rows;
+  }
+  // the index of row i of split z
+  __device__ int64_t at(int z, int n_split, int i) const {
+    return (pt * n_split + z) * tq + i;
+  }
+};
+
+// 4 output values of row r from column d on: 16 bytes (f32) or 8 (bf16)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_f32(v.x, v.y),
+                                            pack_f32(v.z, v.w));
+}
+
+// splits whose partials a merging thread loads at once
+constexpr int MERGE_Z = 8;
+
+// After every thread has written its rows' partials: the last block of
+// the triple to take a ticket merges the n_split partials of each of its
+// rows [row0, row0 + nrows) in split order, in f32 (M = the largest m; o
+// = sum exp(m_z - M) o_z / sum exp(m_z - M) l_z, 0 where that sum is 0),
+// writes them to o and resets the counter (csrc/paged_attention.cu's
+// merge). A row's M and sum come first, a thread a row; then each thread
+// sums 4 columns of a row at a time. Both loops load MERGE_Z splits'
+// partials before they use any (a loop whose every step waits for its
+// own loads ran one L2 round trip a split and an output: 30-70 us of a
+// 64-row tile's merge, PERF.md). m_s, l_s: nrows floats of shared memory.
+template <typename T>
+__device__ void merge_splits(const PrefixRows& rows, int row0, int nrows,
+                             const SplitWs& w, int n_split, int D,
+                             int* tickets, T* o, float* m_s, float* l_s,
+                             bool* last_s) {
+  const int tid = threadIdx.x;
+  __threadfence();  // the partials are visible to every block before the ticket
+  __syncthreads();
+  if (tid == 0) *last_s = atomicAdd(&tickets[w.pt], 1) == n_split - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  // (reads through L2 only: other blocks wrote the partials)
+  for (int i = tid; i < nrows; i += PP_THREADS) {
+    float M = NEG_BIG, L = 0.f;
+    for (int z0 = 0; z0 < n_split; z0 += MERGE_Z) {
+      float mz[MERGE_Z];
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j)
+        mz[j] = z0 + j < n_split ? __ldcg(w.m + w.at(z0 + j, n_split, i))
+                                 : NEG_BIG;
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j) M = fmaxf(M, mz[j]);
+    }
+    for (int z0 = 0; z0 < n_split; z0 += MERGE_Z) {
+      float mz[MERGE_Z], lz[MERGE_Z];
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j) {
+        const bool in = z0 + j < n_split;
+        const int64_t h = w.at(in ? z0 + j : 0, n_split, i);
+        mz[j] = in ? __ldcg(w.m + h) : NEG_BIG;
+        lz[j] = in ? __ldcg(w.l + h) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j) L = fmaf(expf(mz[j] - M), lz[j], L);
+    }
+    m_s[i] = M;
+    l_s[i] = L;
+  }
+  __syncthreads();
+  const int D4 = D / 4;
+  for (int i = tid; i < nrows * D4; i += PP_THREADS) {
+    const int r = i / D4, d = (i % D4) * 4;
+    const float M = m_s[r], L = l_s[r];
+    float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z0 = 0; z0 < n_split; z0 += MERGE_Z) {
+      float mz[MERGE_Z];
+      float4 oz[MERGE_Z];
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j) {
+        const bool in = z0 + j < n_split;
+        const int64_t h = w.at(in ? z0 + j : 0, n_split, r);
+        mz[j] = in ? __ldcg(w.m + h) : NEG_BIG;
+        oz[j] = in ? __ldcg(reinterpret_cast<const float4*>(w.o + h * D + d))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < MERGE_Z; ++j) {
+        const float a = expf(mz[j] - M);
+        O.x = fmaf(a, oz[j].x, O.x);
+        O.y = fmaf(a, oz[j].y, O.y);
+        O.z = fmaf(a, oz[j].z, O.z);
+        O.w = fmaf(a, oz[j].w, O.w);
+      }
+    }
+    store4(o + rows.offset(row0 + r, D) + d,
+           L == 0.f ? make_float4(0.f, 0.f, 0.f, 0.f)
+                    : make_float4(O.x / L, O.y / L, O.z / L, O.w / L));
+  }
+  if (tid == 0) tickets[w.pt] = 0;
+}
+
 template <int D, bool FEAT>
 __global__ void __launch_bounds__(PP_THREADS)
 paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
@@ -106,7 +268,7 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
                          const int* __restrict__ lengths,
                          const int* __restrict__ page_table, bf16* __restrict__ o,
                          int Hq, int Hkv, int T, int P, int page_size,
-                         int pages_per_seq, AttnMask f) {
+                         int pages_per_seq, AttnMask f, Split sp) {
   constexpr int LDS = D + 8;      // padded smem row: conflict-free B loads of K
   constexpr int KS = D / 16;      // k-steps of Q K^T
   constexpr int NT = MMA_BK / 8;  // n-tiles of S
@@ -114,10 +276,13 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
   __shared__ __align__(16) bf16 k_s[MMA_BK * LDS];
   __shared__ __align__(16) bf16 v_s[MMA_BK * LDS];
   __shared__ int64_t row_s[MMA_BK];
+  __shared__ float m_s[MMA_BQ], l_s[MMA_BQ];
+  __shared__ bool last_s;
 
-  const int row0 = blockIdx.x * MMA_BQ;
-  const PrefixRows rows(lengths, Hq, Hkv, T, pages_per_seq * page_size, row0,
-                        MMA_BQ, f.ring > 0);
+  const int S = pages_per_seq * page_size;
+  const int n_split = max(1, (S + sp.chunk - 1) / sp.chunk);
+  const int row0 = blockIdx.x / n_split * MMA_BQ;
+  const PrefixRows rows(lengths, Hq, Hkv, T, S, row0, MMA_BQ, f.ring > 0);
   const bf16* k_h = k_pages + rows.hk * P * page_size * D;
   const bf16* v_h = v_pages + rows.hk * P * page_size * D;
   const int* table = page_table + rows.b * pages_per_seq;
@@ -149,7 +314,8 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
 
   const KvRange<MMA_BK> kr(f, max(rows.q_first, 0), FEAT);
-  for (int k0 = kr.first(); k0 < rows.kv_end; k0 = kr.next(k0)) {
+  const SplitPart part(kr, rows.kv_end, sp.chunk, n_split);
+  for (int k0 = part.first; k0 < part.end; k0 = kr.next(k0)) {
     __syncthreads();  // the previous tile is consumed
     tile_rows(row_s, table, k0, MMA_BK, rows.kv_end, page_size, D);
     __syncthreads();
@@ -251,21 +417,45 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_
     }
   }
 
-  // a row whose max stays NEG_BIG saw no position: output 0
-  const float inv0 = l0 == 0.f || m0 <= 0.5f * NEG_BIG ? 0.f : 1.f / l0;
-  const float inv1 = l1 == 0.f || m1 <= 0.5f * NEG_BIG ? 0.f : 1.f / l1;
-  bf16* o0 = o + rows.offset(min(r0, rows.R - 1), D);
-  bf16* o1 = o + rows.offset(min(r1, rows.R - 1), D);
+  // a row whose max stays NEG_BIG saw no position (in this split): it
+  // outputs 0, or its partial is m = NEG_BIG, l = o = 0
+  const bool none0 = m0 <= 0.5f * NEG_BIG, none1 = m1 <= 0.5f * NEG_BIG;
+  if (part.n_split == 1) {
+    const float inv0 = l0 == 0.f || none0 ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f || none1 ? 0.f : 1.f / l1;
+    bf16* o0 = o + rows.offset(min(r0, rows.R - 1), D);
+    bf16* o1 = o + rows.offset(min(r1, rows.R - 1), D);
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < rows.R)
-      *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
-          __floats2bfloat162_rn(of[dt][0] * inv0, of[dt][1] * inv0);
-    if (r1 < rows.R)
-      *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
-          __floats2bfloat162_rn(of[dt][2] * inv1, of[dt][3] * inv1);
+    for (int dt = 0; dt < DT; ++dt) {
+      const int c = dt * 8 + 2 * t;
+      if (r0 < rows.R)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
+            __floats2bfloat162_rn(of[dt][0] * inv0, of[dt][1] * inv0);
+      if (r1 < rows.R)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
+            __floats2bfloat162_rn(of[dt][2] * inv1, of[dt][3] * inv1);
+    }
+    return;
   }
+  const SplitWs w(sp.ws, part.n_split, MMA_BQ, rows.R, D);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0;
+    const bool none = h ? none1 : none0;
+    if (r >= rows.R) continue;
+    const int64_t at = w.at(part.split, part.n_split, r - row0);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(w.o + at * D + dt * 8 + 2 * t) =
+          none ? make_float2(0.f, 0.f)
+               : make_float2(of[dt][2 * h], of[dt][2 * h + 1]);
+    if (t == 0) {
+      w.m[at] = none ? NEG_BIG : (h ? m1 : m0);
+      w.l[at] = none ? 0.f : (h ? l1 : l0);
+    }
+  }
+  merge_splits(rows, row0, min(MMA_BQ, rows.R - row0), w, part.n_split, D,
+               sp.tickets, o, m_s, l_s, &last_s);
 }
 
 template <int D, bool FEAT>
@@ -276,16 +466,19 @@ paged_prefill_fma_kernel(const float* __restrict__ q,
                          const int* __restrict__ lengths,
                          const int* __restrict__ page_table, float* __restrict__ o,
                          int Hq, int Hkv, int T, int P, int page_size,
-                         int pages_per_seq, AttnMask f) {
+                         int pages_per_seq, AttnMask f, Split sp) {
   constexpr int DPL = D / 32;  // output columns per lane
   __shared__ float q_s[FMA_BQ][D];
   __shared__ float k_s[FMA_BK][D + 1];  // +1: lanes read distinct rows
   __shared__ float v_s[FMA_BK][D];
   __shared__ int64_t row_s[FMA_BK];
+  __shared__ float m_s[FMA_BQ], l_s[FMA_BQ];
+  __shared__ bool last_s;
 
-  const int row0 = blockIdx.x * FMA_BQ;
-  const PrefixRows rows(lengths, Hq, Hkv, T, pages_per_seq * page_size, row0,
-                        FMA_BQ, f.ring > 0);
+  const int S = pages_per_seq * page_size;
+  const int n_split = max(1, (S + sp.chunk - 1) / sp.chunk);
+  const int row0 = blockIdx.x / n_split * FMA_BQ;
+  const PrefixRows rows(lengths, Hq, Hkv, T, S, row0, FMA_BQ, f.ring > 0);
   const float* k_h = k_pages + rows.hk * P * page_size * D;
   const float* v_h = v_pages + rows.hk * P * page_size * D;
   const int* table = page_table + rows.b * pages_per_seq;
@@ -306,7 +499,8 @@ paged_prefill_fma_kernel(const float* __restrict__ q,
   }
 
   const KvRange<FMA_BK> kr(f, max(rows.q_first, 0), FEAT);
-  for (int k0 = kr.first(); k0 < rows.kv_end; k0 = kr.next(k0)) {
+  const SplitPart part(kr, rows.kv_end, sp.chunk, n_split);
+  for (int k0 = part.first; k0 < part.end; k0 = kr.next(k0)) {
     __syncthreads();
     tile_rows(row_s, table, k0, FMA_BK, rows.kv_end, page_size, D);
     __syncthreads();
@@ -348,35 +542,58 @@ paged_prefill_fma_kernel(const float* __restrict__ q,
     }
   }
 
+  if (part.n_split == 1) {
+#pragma unroll
+    for (int rr = 0; rr < FMA_RPW; ++rr) {
+      const int r = row0 + warp * FMA_RPW + rr;
+      if (r >= rows.R) continue;
+      const float inv = l[rr] == 0.f || m[rr] <= 0.5f * NEG_BIG ? 0.f : 1.f / l[rr];
+      float* orow = o + rows.offset(r, D);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[rr][i] * inv;
+    }
+    return;
+  }
+  // this split's partials (m = NEG_BIG, l = o = 0 for a row that saw no
+  // position in it), then the merge
+  const SplitWs w(sp.ws, part.n_split, FMA_BQ, rows.R, D);
 #pragma unroll
   for (int rr = 0; rr < FMA_RPW; ++rr) {
     const int r = row0 + warp * FMA_RPW + rr;
     if (r >= rows.R) continue;
-    const float inv = l[rr] == 0.f || m[rr] <= 0.5f * NEG_BIG ? 0.f : 1.f / l[rr];
-    float* orow = o + rows.offset(r, D);
+    const bool none = m[rr] <= 0.5f * NEG_BIG;
+    const int64_t at = w.at(part.split, part.n_split, r - row0);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[rr][i] * inv;
+    for (int i = 0; i < DPL; ++i) w.o[at * D + lane + 32 * i] = none ? 0.f : acc[rr][i];
+    if (lane == 0) {
+      w.m[at] = none ? NEG_BIG : m[rr];
+      w.l[at] = none ? 0.f : l[rr];
+    }
   }
+  merge_splits(rows, row0, min(FMA_BQ, rows.R - row0), w, part.n_split, D,
+               sp.tickets, o, m_s, l_s, &last_s);
 }
 
 template <int D, bool FEAT>
 void launch_df(const void* q, const void* k_pages, const void* v_pages,
                const int* lengths, const int* page_table, void* o, int B,
                int Hq, int Hkv, int T, int P, int page_size, int pages_per_seq,
-               const AttnMask& f, int dtype, cudaStream_t stream) {
+               const AttnMask& f, const Split& sp, int n_split, int dtype,
+               cudaStream_t stream) {
   const int R = T * (Hq / Hkv);
   if (dtype == kBF16) {
-    dim3 grid((R + MMA_BQ - 1) / MMA_BQ, Hkv, B);
+    dim3 grid((R + MMA_BQ - 1) / MMA_BQ * n_split, Hkv, B);
     paged_prefill_mma_kernel<D, FEAT><<<grid, PP_THREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
         static_cast<const bf16*>(v_pages), lengths, page_table,
-        static_cast<bf16*>(o), Hq, Hkv, T, P, page_size, pages_per_seq, f);
+        static_cast<bf16*>(o), Hq, Hkv, T, P, page_size, pages_per_seq, f, sp);
   } else {
-    dim3 grid((R + FMA_BQ - 1) / FMA_BQ, Hkv, B);
+    dim3 grid((R + FMA_BQ - 1) / FMA_BQ * n_split, Hkv, B);
     paged_prefill_fma_kernel<D, FEAT><<<grid, PP_THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k_pages),
         static_cast<const float*>(v_pages), lengths, page_table,
-        static_cast<float*>(o), Hq, Hkv, T, P, page_size, pages_per_seq, f);
+        static_cast<float*>(o), Hq, Hkv, T, P, page_size, pages_per_seq, f,
+        sp);
   }
 }
 
@@ -384,13 +601,16 @@ template <int D>
 void launch_d(const void* q, const void* k_pages, const void* v_pages,
               const int* lengths, const int* page_table, void* o, int B, int Hq,
               int Hkv, int T, int P, int page_size, int pages_per_seq,
-              const AttnMask& f, int dtype, cudaStream_t stream) {
+              const AttnMask& f, const Split& sp, int n_split, int dtype,
+              cudaStream_t stream) {
   if (f.window > 0 || f.softcap > 0.f || f.ring > 0 || f.slopes)
     launch_df<D, true>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv,
-                       T, P, page_size, pages_per_seq, f, dtype, stream);
+                       T, P, page_size, pages_per_seq, f, sp, n_split, dtype,
+                       stream);
   else
     launch_df<D, false>(q, k_pages, v_pages, lengths, page_table, o, B, Hq,
-                        Hkv, T, P, page_size, pages_per_seq, f, dtype, stream);
+                        Hkv, T, P, page_size, pages_per_seq, f, sp, n_split,
+                        dtype, stream);
 }
 
 }  // namespace
@@ -401,10 +621,12 @@ cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
                                  int Hkv, int T, int P, int page_size,
                                  int pages_per_seq, int D, float sm_scale,
                                  int window, int sinks, float softcap,
-                                 int ring, const float* slopes, int dtype,
+                                 int ring, const float* slopes, int chunk,
+                                 float* ws, int* tickets, int dtype,
                                  cudaStream_t stream) {
   if (B < 0 || T < 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > PP_GMAX ||
-      page_size <= 0 || pages_per_seq < 0 || P < 0 || B > 65535 || Hkv > 65535)
+      page_size <= 0 || pages_per_seq < 0 || P < 0 || B > 65535 ||
+      Hkv > 65535 || chunk <= 0 || chunk % MMA_BK)
     return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
   // a ring keeps the earliest token's window after the T wrapped writes
@@ -418,10 +640,19 @@ cudaError_t paged_prefill_launch(const void* q, const void* k_pages,
       reinterpret_cast<uintptr_t>(q) % 4)
     return cudaErrorMisalignedAddress;
   if (B == 0 || T == 0) return cudaSuccess;
+  // n_split from shapes alone; more than one needs the workspace (B Hkv
+  // row tiles n_split min(BQ, R) (D + 2) floats) and B Hkv row-tile
+  // zeroed tickets
+  const int64_t splits = ((int64_t)pages_per_seq * page_size + chunk - 1) / chunk;
+  const int64_t tiles = ((int64_t)T * (Hq / Hkv) + FMA_BQ - 1) / FMA_BQ;
+  if (tiles * splits > 0x7fffffff || (splits > 1 && (!ws || !tickets)))
+    return cudaErrorInvalidValue;
+  const int n_split = splits > 1 ? (int)splits : 1;
+  const Split sp{chunk, ws, tickets};
   switch (D) {
-    case 32: launch_d<32>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, dtype, stream); break;
-    case 64: launch_d<64>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, dtype, stream); break;
-    case 128: launch_d<128>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, dtype, stream); break;
+    case 32: launch_d<32>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, sp, n_split, dtype, stream); break;
+    case 64: launch_d<64>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, sp, n_split, dtype, stream); break;
+    case 128: launch_d<128>(q, k_pages, v_pages, lengths, page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, f, sp, n_split, dtype, stream); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

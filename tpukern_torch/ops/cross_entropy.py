@@ -3,9 +3,11 @@
 The port of tpukern/ops/cross_entropy.py. Kernels: csrc/cross_entropy.cu,
 which replaces `_ce_fwd_kernel` (cross_entropy.py:53) with a split-vocab
 forward and a combine pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
-(:132) with one backward kernel per input dtype that recomputes each
-score tile once and adds its dx and dW contributions with f32 atomics.
-The logits never reach device memory, forward or backward.
+(:132) in f32 with one kernel that recomputes each score tile once and
+adds its dx and dW contributions with f32 atomics, in bf16 with three
+GEMM launches a vocab chunk (bwd_vocab_chunk): dlog into a bf16 scratch,
+then dx and dW from it, no atomics. The logits never reach device
+memory, forward or backward.
 
 Layouts as in JAX: x (N, D) activations, w (D, V) head, logits = x @ w.
 Tokens with target < 0 get loss 0 and gradient 0. The v5e block ladder
@@ -51,6 +53,41 @@ def ce_bwd_ref(x, w, targets, lse, g):
     return dlog @ wf.T, xf.T @ dlog
 
 
+def ce_bwd_chunked_ref(x, w, targets, lse, g, chunk):
+    """ce_bwd_ref in the bf16 backward's order, a test aid off the main
+    path: for each vocab chunk of `chunk` columns in turn, dlog of its
+    columns rounded to x's dtype, dx = dlog · W_c^T (the first chunk) or
+    dx + dlog · W_c^T (the later ones, f32), and dW[:, chunk] = x^T ·
+    dlog."""
+    xf, wf = x.float(), w.float()
+    N, V = x.shape[0], w.shape[1]
+    tgt = targets.long()[:, None]
+    gk = torch.where(targets < 0, 0.0, g.float())[:, None]
+    dx, dw = None, torch.empty(wf.shape, device=x.device)
+    for v0 in range(0, V, chunk):
+        wc = wf[:, v0:v0 + chunk]
+        cols = torch.arange(v0, v0 + wc.shape[1], device=x.device)
+        dlog = torch.exp(xf @ wc - lse[:, None]) - (cols == tgt).float()
+        dlog = (dlog * gk).to(x.dtype).float()
+        part = dlog @ wc.T
+        dx = part if dx is None else dx + part
+        dw[:, v0:v0 + chunk] = xf.T @ dlog
+    return dx, dw
+
+
+def bwd_vocab_chunk(N, D, V):
+    """Vocab columns a chunk of the bf16 backward, from the shapes alone:
+    all of V where its dlog scratch (N rows of V rounded up to 8 values)
+    fits in D · V values (half the bytes of the f32 dW), else the widest
+    multiple of 256 (a tile's width; of 8 below 256) that fits, at least
+    8 (or V)."""
+    budget = D * V // max(N, 1)
+    if N == 0 or cdiv(V, 8) * 8 <= budget:
+        return V
+    step = 256 if budget >= 256 else 8
+    return min(V, max(8, budget // step * step))
+
+
 def splits(N, V, n_sms):
     """(n_split, tiles_per_split) of the forward's vocab split: about four
     blocks per SM (two resident, two waves), every split non-empty."""
@@ -89,10 +126,13 @@ def ce_fwd(x, w, targets, use_exp2=False):
 ce_fwd.launches = 0
 
 
-def ce_bwd(x, w, targets, lse, g, use_exp2=False):
+def ce_bwd(x, w, targets, lse, g, use_exp2=False, vocab_chunk=None):
     """(dx, dW) in f32 of sum(g * loss), recomputed from the forward's
-    lse. A CPU tensor takes ce_bwd_ref; a CUDA tensor launches the fused
-    backward kernel once (it serves both TPU kernels #14 and #15)."""
+    lse. A CPU tensor takes ce_bwd_ref; a CUDA tensor launches, for f32
+    inputs, the fused backward kernel once (it serves both TPU kernels #14
+    and #15), for bf16 inputs three kernels a vocab chunk of vocab_chunk
+    columns (a multiple of 8; default bwd_vocab_chunk), each launch
+    counted."""
     if x.device.type == "cpu":
         return ce_bwd_ref(x, w, targets, lse, g)
     _build.check_cuda(x, w, targets, lse, g)
@@ -100,13 +140,32 @@ def ce_bwd(x, w, targets, lse, g, use_exp2=False):
     V = w.shape[1]
     x, w = _build.aligned(x), _build.aligned(w)
     lse, g = lse.float().contiguous(), g.float().contiguous()
-    dx = torch.zeros(N, D, device=x.device)  # atomicAdd targets
-    dw = torch.zeros(D, V, device=x.device)
-    _build.launch("tk_ce_bwd", x.data_ptr(), w.data_ptr(), targets.data_ptr(),
-                  lse.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                  N, D, V, int(use_exp2), _build.dtype_code(x),
-                  _build.stream(x))
-    ce_bwd.launches += 1
+    s = _build.stream(x)
+    if x.dtype == torch.float32 or N == 0:
+        dx = torch.zeros(N, D, device=x.device)  # atomicAdd targets
+        dw = torch.zeros(D, V, device=x.device)
+        if N:
+            _build.launch("tk_ce_bwd", x.data_ptr(), w.data_ptr(),
+                          targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                          dx.data_ptr(), dw.data_ptr(), N, D, V,
+                          int(use_exp2), s)
+            ce_bwd.launches += 1
+        return dx, dw
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"ce_bwd takes f32 or bf16 inputs, got {x.dtype}")
+    chunk = min(vocab_chunk or bwd_vocab_chunk(N, D, V), V)
+    if chunk < V and chunk % 8:
+        raise ValueError(f"vocab_chunk {chunk} is not a multiple of 8")
+    dx = torch.empty(N, D, device=x.device)
+    dw = torch.empty(D, V, device=x.device)
+    dlog = torch.empty(N * cdiv(chunk, 8) * 8, dtype=x.dtype,
+                       device=x.device)
+    for v0 in range(0, V, chunk):
+        _build.launch("tk_ce_bwd_chunk", x.data_ptr(), w.data_ptr(),
+                      targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                      dx.data_ptr(), dw.data_ptr(), dlog.data_ptr(), N, D, V,
+                      v0, min(chunk, V - v0), int(v0 > 0), int(use_exp2), s)
+        ce_bwd.launches += 3
     return dx, dw
 
 

@@ -7,7 +7,9 @@ csrc/paged_attention.cu, which replaces `_decode_kernel`
 (paged_attention.py:77) on float pools, split-KV: a block a (KV head,
 sequence, DECODE_CHUNK slots), the splits merged in the same launch
 (paged_attention_split_ref is its order, a test aid); and
-csrc/paged_prefill.cu, which replaces `_prefix_kernel` (:513). Both
+csrc/paged_prefill.cu, which replaces `_prefix_kernel` (:513) on float
+pools, split-KV too: a block a (query-row tile, KV head, sequence, split
+of prefill_splits' slots), merged alike (paged_prefill_split_ref). Both
 take the sliding window, attention sinks
 and logit softcap of the JAX kernels, on float pools (bf16, f32) and on
 the quantized tier: 1-byte int8 or fp8 e4m3 pools with one f32 scale per
@@ -39,6 +41,17 @@ DECODE_TILE = 64   # csrc/paged_attention.cu PA_TILE: tokens a tile
 # chosen on an H100 among 64, 128 and 256 at the serving shape and at 4 x
 # 8192 tokens (PERF.md)
 DECODE_CHUNK = 128
+# csrc/paged_prefill.cu: query rows a block (MMA_BQ bf16, FMA_BQ f32) and
+# keys a tile (MMA_BK; a split is a multiple of it)
+PREFILL_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+PREFILL_TILE = 64
+# the blocks prefill_splits aims at: bf16 two for each of an H100's 132
+# SMs; f32, whose FMA tile takes several times as long, more (chosen on
+# an H100 among split lengths of 64, 128, 256 and one split at the verify
+# and chunk shapes of chip_smoke.py, PERF.md); and a split length that
+# overrides the rule (a multiple of PREFILL_TILE; None: the rule)
+SPLIT_BLOCKS = {torch.bfloat16: 264, torch.float32: 2048}
+PREFILL_CHUNK = None
 
 
 def _check_features(name, q, k_pages, page_table, window, sinks, softcap,
@@ -176,6 +189,24 @@ def decode_splits(pages_per_seq, page_size):
     return max(1, -(-pages_per_seq * page_size // DECODE_CHUNK))
 
 
+def prefill_splits(B, Hq, Hkv, T, S, dtype):
+    """(slots a split, n_split) of the float prefix kernel over S slots a
+    sequence, from shapes alone: PREFILL_CHUNK where set, else the fewest
+    splits that give SPLIT_BLOCKS[dtype] blocks of (query-row tile, KV
+    head, sequence, split), at most one a tile of keys, each a whole
+    number of tiles."""
+    n_tiles = -(-S // PREFILL_TILE)
+    if PREFILL_CHUNK:
+        chunk = PREFILL_CHUNK
+    else:
+        blocks = B * Hkv * -(-T * (Hq // Hkv) // PREFILL_ROWS[dtype])
+        want = min(n_tiles,
+                   max(1, -(-SPLIT_BLOCKS[dtype] // max(blocks, 1))))
+        chunk = -(-n_tiles // max(want, 1)) * PREFILL_TILE
+    chunk = max(chunk, PREFILL_TILE)
+    return chunk, max(1, -(-S // chunk))
+
+
 def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
                             pages_per_block=None, window=None, softcap=None,
                             alibi_slopes=None, ring=False, sinks=None):
@@ -192,8 +223,9 @@ def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
 
     pages_per_block is accepted and ignored, as in paged_attention. A CPU
     tensor takes paged_prefill_ref; a CUDA tensor launches the kernel
-    (bf16 or f32, head dim 32, 64 or 128, GQA group at most 8);
-    `ring_launches` counts those on ring pools."""
+    (bf16 or f32, head dim 32, 64 or 128, GQA group at most 8), one
+    launch a call whatever its splits (prefill_splits); `ring_launches`
+    counts those on ring pools."""
     del pages_per_block
     _check_features("paged_prefill_attention", q, k_pages, page_table,
                     window, sinks, softcap, alibi_slopes, ring, T=q.shape[2])
@@ -211,12 +243,24 @@ def paged_prefill_attention(q, k_pages, v_pages, lengths, page_table, *,
     ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
                                      alibi_slopes)
     o = torch.empty_like(q)
+    stream = _build.stream(q)
+    chunk, n_split = prefill_splits(B, Hq, Hkv, T,
+                                    page_table.shape[1] * page_size, q.dtype)
+    ws = tickets = None
+    if n_split > 1:  # each split's (o, m, l) per row of a tile, f32
+        rows = PREFILL_ROWS[q.dtype]
+        R = T * (Hq // Hkv)
+        tiles = B * Hkv * -(-R // rows)
+        ws = torch.empty(tiles * n_split * min(rows, R) * (D + 2),
+                         device=q.device)
+        tickets = _build.tickets(q.device, stream, tiles)
     _build.launch("tk_paged_prefill", q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), lengths.data_ptr(),
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, T, P,
                   page_size, page_table.shape[1], D, 1.0 / math.sqrt(D),
                   window or 0, sinks or 0, softcap or 0.0, ring_tokens,
-                  _build.ptr(slopes), _build.dtype_code(q), _build.stream(q))
+                  _build.ptr(slopes), chunk, _build.ptr(ws),
+                  _build.ptr(tickets), _build.dtype_code(q), stream)
     paged_prefill_attention.launches += 1
     paged_prefill_attention.ring_launches += bool(ring)
     return o
@@ -323,31 +367,51 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, page_table, **kw):
 
 
 def paged_attention_split_ref(q, k_pages, v_pages, lengths, page_table, *,
-                              chunk=None, window=None, sinks=None,
-                              softcap=None, alibi_slopes=None, ring=False):
+                              chunk=None, **feat):
     """paged_attention in the float decode kernel's order, a test aid off
-    the main path: the slots cut into splits of `chunk` (DECODE_CHUNK by
-    default), each walked in tiles of DECODE_TILE with its own running
-    max m, sum l and accumulator (on bf16 pools P = exp(s - m) rounded to
-    bf16 against the split's running max before the P V product, l
-    summing it in f32); then the splits merged in split order in f32:
-    M = max m, o = sum exp(m_z - M) o_z / sum exp(m_z - M) l_z, 0 where
-    the sum is 0 (a split that sees no position adds nothing). The masks,
-    ALiBi and ring positions are paged_prefill_ref's."""
-    chunk = chunk or DECODE_CHUNK
-    B, Hq, D = q.shape
+    the main path: _split_order with one new token a sequence and
+    `chunk` slots a split (DECODE_CHUNK by default)."""
+    return _split_order(q[:, :, None], k_pages, v_pages, lengths,
+                        page_table, chunk or DECODE_CHUNK, **feat)[:, :, 0]
+
+
+def paged_prefill_split_ref(q, k_pages, v_pages, lengths, page_table, *,
+                            chunk=None, **feat):
+    """paged_prefill_attention in the float prefix kernel's order, a test
+    aid off the main path: _split_order with `chunk` slots a split (by
+    default prefill_splits' for these shapes)."""
+    B, Hq, T, _ = q.shape
+    S = page_table.shape[1] * k_pages.shape[2]
+    chunk = chunk or prefill_splits(B, Hq, k_pages.shape[0], T, S,
+                                    q.dtype)[0]
+    return _split_order(q, k_pages, v_pages, lengths, page_table, chunk,
+                        **feat)
+
+
+def _split_order(q, k_pages, v_pages, lengths, page_table, chunk, *,
+                 window=None, sinks=None, softcap=None, alibi_slopes=None,
+                 ring=False):
+    """The float paged kernels' split-KV order for q (B, Hq, T, D): the
+    slots cut into splits of `chunk`, each walked in tiles of DECODE_TILE
+    keys with its own running max m, sum l and accumulator per query row
+    (on bf16 pools P = exp(s - m) rounded to bf16 against the split's
+    running max before the P V product, l summing it in f32); then the
+    splits merged in split order in f32: M = max m, o = sum exp(m_z - M)
+    o_z / sum exp(m_z - M) l_z, 0 where the sum is 0 (a split that sees
+    no position adds nothing). The masks, ALiBi and ring positions are
+    paged_prefill_ref's."""
+    B, Hq, T, D = q.shape
     Hkv, _, page_size, _ = k_pages.shape
     group = Hq // Hkv
     S = page_table.shape[1] * page_size
     table = page_table.long()
     k_seq, v_seq = (p[:, table].permute(1, 0, 2, 3, 4).reshape(B, Hkv, S, D)
                     .float() for p in (k_pages, v_pages))
-    qf = q.reshape(B, Hkv, group, 1, D).float()
+    qf = q.reshape(B, Hkv, group, T, D).float()
     s = torch.einsum("bhgtd,bhkd->bhgtk", qf, k_seq) / math.sqrt(D)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    s, _ = _masked_scores(s, lengths, 1, window, sinks, ring, alibi_slopes)
-    s = s[..., 0, :]                                       # (B, Hkv, g, S)
+    s, _ = _masked_scores(s, lengths, T, window, sinks, ring, alibi_slopes)
     bf16 = v_pages.dtype == torch.bfloat16
     ms, ls, os_ = [], [], []
     for c0 in range(0, S, chunk):
@@ -364,7 +428,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, lengths, page_table, *,
             pv = p.to(torch.bfloat16).float() if bf16 else p
             l = l * alpha + p.sum(dim=-1)
             acc = (acc * alpha[..., None]
-                   + torch.einsum("bhgk,bhkd->bhgd", pv,
+                   + torch.einsum("bhgtk,bhkd->bhgtd", pv,
                                   v_seq[:, :, t0:t0 + DECODE_TILE]))
             m = mn
         ms.append(m)
@@ -378,7 +442,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, lengths, page_table, *,
         L = L + a[z] * ls[z]
         O = O + a[z][..., None] * os_[z]
     o = O / torch.where(L == 0, 1.0, L)[..., None]
-    return o.reshape(B, Hq, D).to(q.dtype)
+    return o.reshape(B, Hq, T, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
