@@ -8,12 +8,15 @@
    parallel, or loads this source hash's build) and prints the seconds,
    and counts in the library's SASS (cuobjdump) the wgmma (HGMMA), TMA
    loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
-   kernel and of the bf16 #2 (NN and TN), #28, #29 and CE backward
-   (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's pipeline, and
-   the matrix products of #40's, which must have none;
+   kernel, of the bf16 #2 (NN and TN), #28, #29, CE forward (#13) and
+   CE backward (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's
+   pipeline and of every instance of the bf16 flash-attention forward
+   (#6), and the matrix products of #40's, which must have none;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
-   f32 shapes, and times both at the serving shape: paged_prefill_attention
+   f32 shapes, and times both at the serving shape (flash_attention also
+   at S 4096, and at the Gemma-2 serving masks, every bf16 call twice,
+   bit-equal): paged_prefill_attention
    (#24) at a 256-token chunk over a 900-token prefix and at a gamma = 4
    verification whose last length passes the pool, small f32/bf16 cases of
    every head dim, and the window, sinks and softcap of #24 and #23;
@@ -265,23 +268,29 @@ def phase_build():
           f"({'fresh' if seconds else 'already built'})")
     counts = sass_counts(path)
     for kernel, want in SASS_WANT.items():
-        got = counts[kernel]
-        print(f"[build] sass {kernel}: "
+        funcs = counts[kernel]
+        got = {op: sum(c[op] for c in funcs.values()) for op in want}
+        print(f"[build] sass {kernel} ({len(funcs)} instance"
+              f"{'s' if len(funcs) > 1 else ''}): "
               + ", ".join(f"{op} {n}" for op, n in got.items()))
-        for op, present in want.items():
-            require((got[op] > 0) == present,
-                    f"{kernel}'s SASS has {got[op]} {op}, wanted "
-                    f"{'some' if present else 'none'}")
+        for func, c in funcs.items():  # each instance on its own
+            for op, present in want.items():
+                require((c[op] > 0) == present,
+                        f"{func}'s SASS has {c[op]} {op}, wanted "
+                        f"{'some' if present else 'none'}")
 
 
 # instructions the SASS of the redesigned kernels must (True) or must not
-# (False) hold, by a fragment of the mangled kernel name: #16's bf16
-# kernel, the bf16 CE backward's three launches (#14/#15) and the bf16
-# #2 (NN and TN), #28 (NN and trans_w) and #29 kernels with both
-# operands by TMA run wgmma (HGMMA) fed by TMA (UTMALDG), no mma.sync
-# (HMMA); #40 runs no matrix product (HMMA, HGMMA)
+# (False) hold, in every function whose mangled name holds the fragment:
+# #16's bf16 kernel, the bf16 CE forward (#13) and backward's three
+# launches (#14/#15) and the bf16 #2 (NN and TN), #28 (NN and trans_w)
+# and #29 kernels with both operands by TMA, and every instance of the
+# bf16 flash-attention forward (#6), run wgmma (HGMMA) fed by TMA
+# (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA, HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
+             "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
+             "fa_fwd_wgmma_kernel": _WGMMA_TMA,
              "ce_dlog_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_dx_kernelILb1E": _WGMMA_TMA,
              "ce_dw_kernelILb1E": _WGMMA_TMA,
@@ -294,12 +303,12 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
 
 
 def sass_counts(lib):
-    """{SASS_WANT fragment: {instruction: count}} in cuobjdump -sass of the
-    built library, summed over the functions whose names hold the
+    """{SASS_WANT fragment: {function: {instruction: count}}} in cuobjdump
+    -sass of the built library, for each function whose name holds the
     fragment."""
     from tpukern_torch import _build
     ops = sorted({op for want in SASS_WANT.values() for op in want})
-    counts = {k: dict.fromkeys(ops, 0) for k in SASS_WANT}
+    counts = {k: {} for k in SASS_WANT}
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     proc = subprocess.Popen([str(tool), "-sass", str(lib)],
                             stdout=subprocess.PIPE, text=True)
@@ -307,13 +316,14 @@ def sass_counts(lib):
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
-            current = [k for k in SASS_WANT if k in m.group(1)]
-            seen.update(current)
+            current = [counts[k].setdefault(m.group(1), dict.fromkeys(ops, 0))
+                       for k in SASS_WANT if k in m.group(1)]
+            seen.update(k for k in SASS_WANT if k in m.group(1))
             continue
-        for k in current:
+        for c in current:
             for op in ops:
                 if re.search(rf"\b{op}\b", line):
-                    counts[k][op] += 1
+                    c[op] += 1
     require(proc.wait() == 0, f"{tool} -sass failed")
     require(seen == set(SASS_WANT), f"no SASS of {set(SASS_WANT) - seen}")
     return counts
@@ -337,6 +347,14 @@ def _compare(name, case, out, ref, scale=1.0, dtype=None, tol=None):
           f"mean_abs {d.mean().item():.3e} tol {tol} "
           f"{'ok' if ok else 'MISS'}")
     return ok, d.max().item()
+
+
+def _same_bits(name, case, out, again):
+    """(ok, 0.0): a second call gave the same bits as the first."""
+    ok = torch.equal(out, again)
+    if not ok:
+        print(f"[check] {name:16s} {case:44s} a second call differs MISS")
+    return ok, 0.0
 
 
 def _nbytes(*tensors):
@@ -502,7 +520,8 @@ def phase_kernels(cfg):
         _nbytes(*args, x), bf)
 
     # flash_attention: the 7bish prefill heads at S in {128, 300, 512},
-    # D = 64, and f32 (causal and not)
+    # D = 64, and f32 (causal and not); the bf16 kernel (TMA + wgmma)
+    # gives the same bits on a second call
     fa_cases = [(1, Hq, Hkv, S, D, bf, True) for S in (128, 300, 512)]
     fa_cases += [(1, 8, 4, 300, 64, bf, True), (2, 4, 2, 100, 64, f32, True),
                  (1, 4, 4, 77, 128, f32, False), (1, 4, 2, 130, 32, bf, False)]
@@ -510,11 +529,34 @@ def phase_kernels(cfg):
         q = _randn(gen, B, hq, S, dd, dtype=dt)
         k = _randn(gen, B, hkv, S, dd, dtype=dt)
         v = _randn(gen, B, hkv, S, dd, dtype=dt)
+        case = f"B{B} H{hq}/{hkv} S{S} D{dd} {dt} causal={causal}"
+        o = attention.flash_attention(q, k, v, causal=causal)
         record("flash_attention", *_compare(
-            "flash_attention",
-            f"B{B} H{hq}/{hkv} S{S} D{dd} {dt} causal={causal}",
-            attention.flash_attention(q, k, v, causal=causal),
+            "flash_attention", case, o,
             attention.attention_ref(q, k, v, causal=causal)))
+        if dt == bf:
+            record("flash_attention", *_same_bits(
+                "flash_attention", case, o,
+                attention.flash_attention(q, k, v, causal=causal)))
+    # the Gemma-2-style serving instance (FEAT): window 512, 4 sinks,
+    # softcap 50, at the 7bish heads and S 512 and 1024 (the band then
+    # starts past the sinks)
+    for S in (512, 1024):
+        q = _randn(gen, 1, Hq, S, D, dtype=bf)
+        k, v = (_randn(gen, 1, Hkv, S, D, dtype=bf) for _ in range(2))
+        case = f"gemma2 B1 H{Hq}/{Hkv} S{S} D{D} bf16"
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True, **GEMMA2)
+        ro, rlse = attention.attention_ref(q, k, v, causal=True,
+                                           return_stats=True, **GEMMA2)
+        record("flash_attention", *_compare("flash_attention", f"o {case}",
+                                            o, ro))
+        record("flash_attention", *_compare("flash_attention",
+                                            f"lse {case}", lse, rlse,
+                                            dtype=f32))
+        record("flash_attention", *_same_bits(
+            "flash_attention", case, o,
+            attention.flash_attention(q, k, v, causal=True, **GEMMA2)))
     q = _randn(gen, 1, Hq, 512, D, dtype=bf)
     k = _randn(gen, 1, Hkv, 512, D, dtype=bf)
     v = _randn(gen, 1, Hkv, 512, D, dtype=bf)
@@ -525,6 +567,20 @@ def phase_kernels(cfg):
         partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
                 enable_gqa=True),
         4 * D * Hq * 512 * 513 // 2, _nbytes(q, k, v, q), bf)
+    # the same heads at S 4096, where the flops bound it
+    q = _randn(gen, 1, Hq, 4096, D, dtype=bf)
+    k, v = (_randn(gen, 1, Hkv, 4096, D, dtype=bf) for _ in range(2))
+    record("flash_attention", *_compare(
+        "flash_attention", f"B1 H{Hq}/{Hkv} S4096 D{D} bf16 causal=True",
+        attention.flash_attention(q, k, v, causal=True),
+        attention.attention_ref(q, k, v, causal=True)))
+    timed["flash_attention S4096"] = _timed_entry(
+        "flash_attention", [1, Hq, 4096, D],
+        partial(attention.flash_attention, q, k, v, causal=True),
+        partial(attention.attention_ref, q, k, v, causal=True),
+        partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                enable_gqa=True),
+        4 * D * Hq * 4096 * 4097 // 2, _nbytes(q, k, v, q), bf)
 
     # paged decode: 4 sequences x 8 pages of 128 from a shuffled pool
     def paged_case(B, hq, hkv, dd, page, pps, lengths, dt, T=None):
@@ -1706,6 +1762,10 @@ def _ce_kernels(checks, timed, gen, cfg, N):
         cot = torch.rand(n, generator=gen, device="cuda")
         case = f"({n},{dd})x({dd},{v}) {dt} exp2={exp2}"
         loss, lse = ce.ce_fwd(x, w, t, exp2)
+        if dt == bf:  # one launch a 256-column tile: the same bits again
+            checks.record("ce_fwd", *_same_bits(
+                "ce_fwd", case, torch.stack([loss, lse]),
+                torch.stack(ce.ce_fwd(x, w, t, exp2))))
         dx, dw = ce.ce_bwd(x, w, t, lse, cot, exp2)
         rloss, rlse = ce._ce_ref(x, w, t)
         rdx, rdw = ce.ce_bwd_ref(x, w, t, rlse, cot)
@@ -2868,7 +2928,7 @@ def phase_w8a16_logits(cfg, qparams, prompt):
     return ok
 
 
-_CATEGORIES = (("cross_entropy", ("ce_fwd_kernel", "ce_combine_kernel",
+_CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                                   "ce_bwd_")),
                ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),

@@ -147,6 +147,45 @@ def test_vocab_splits_cover_every_tile(N, V, sms):
     assert (n_split - 1) * tps < n_vt <= n_split * tps
 
 
+@pytest.mark.parametrize("N,V", [(2048, 32768), (200, 1000), (1, 5),
+                                 (129, 257), (300, 1024), (70000, 256)])
+def test_bf16_forward_partials_cover_every_tile(N, V):
+    """The bf16 forward writes one partial for each 256-column vocab tile
+    (cdiv(V, 256) of them, a tile each), whatever the SM count; f32 keeps
+    splits()."""
+    for sms in (8, 132):
+        n_split, tps = ce.fwd_splits(N, V, torch.bfloat16, sms)
+        assert (n_split, tps) == (-(-V // 256), 1)
+        assert (n_split - 1) * ce.TILE_BF16 < V <= n_split * ce.TILE_BF16
+        assert ce.fwd_splits(N, V, torch.float32, sms) == ce.splits(N, V,
+                                                                     sms)
+
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("N,D,V", [(200, 64, 1000), (129, 100, 257),
+                                   (300, 128, 1024)])
+def test_tiled_forward_matches_jax(N, D, V, use_exp2):
+    """ce_fwd_tiled_ref, the bf16 forward's order (a partial for each
+    256-column tile, merged as ce_combine_kernel merges them), in f32
+    against JAX's fused loss and lse (interpret mode) and _ce_ref: N not a
+    multiple of the 128-row tile, V a tail tile, a quarter of the targets
+    ignored and some in the last, partial tile."""
+    x, w, t = _inputs(N, D, V, seed=N + D)
+    t[1::7] = np.arange(V - 1, V - 1 - len(t[1::7]), -1) % V
+    xt, wt, tt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t)
+    assert (tt >= V // 256 * 256).any() or V % 256 == 0
+    loss, lse = ce.ce_fwd_tiled_ref(xt, wt, tt, use_exp2=use_exp2)
+    jloss, jlse = jce.fused_cross_entropy(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(t), use_exp2=use_exp2,
+                                          return_lse=True)
+    check_all_close(loss, np.asarray(jloss), name="loss vs jax", **F32)
+    check_all_close(lse, np.asarray(jlse), name="lse vs jax", **F32)
+    rloss, rlse = ce._ce_ref(xt, wt, tt)
+    check_all_close(loss, rloss, name="loss vs ref", **F32)
+    check_all_close(lse, rlse, name="lse vs ref", **F32)
+    assert (loss[tt < 0] == 0).all()
+
+
 # (N, D, V): chip_smoke.py's training head (one chunk), a longer batch
 # (four), shapes whose budget falls below a tile (chunks of 8 columns)
 # or below 8, and V % 8 != 0

@@ -347,7 +347,9 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     to 2**-7 of the largest, hence the bf16 tolerance there. bf16 also
     runs at a forced chunk of 96 columns (3 to 11 chunks, against
     ce_bwd_chunked_ref too), and a second call gives the same bits (no
-    atomics)."""
+    atomics). The bf16 forward writes cdiv(V, 256) partials (one a vocab
+    tile), is held to ce_fwd_tiled_ref (its order) too, and repeats bit
+    for bit."""
     g = torch.Generator(device=cuda).manual_seed(N + D + V)
     x = torch.randn((N, D), generator=g, device=cuda).to(DTYPES[dt])
     w = (torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
@@ -369,6 +371,16 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     rdx, rdw = cross_entropy.ce_bwd_ref(x, w, t, rlse, cot)
     check_all_close(loss, rloss, name="loss", **F32)
     check_all_close(lse, rlse, name="lse", **F32)
+    if dt == "bf16":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert cross_entropy.fwd_splits(N, V, DTYPES[dt], sms) == (
+            -(-V // 256), 1)
+        tloss, tlse = cross_entropy.ce_fwd_tiled_ref(x, w, t,
+                                                     use_exp2=use_exp2)
+        check_all_close(loss, tloss, name="loss vs tiled", **F32)
+        check_all_close(lse, tlse, name="lse vs tiled", **F32)
+        again = cross_entropy.ce_fwd(x, w, t, use_exp2)
+        assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
     tol = 1e-4 if dt == "f32" else 2e-2
     outs = [("", dx, dw, rdx, rdw)]
     if dt == "bf16":
@@ -435,6 +447,89 @@ def test_flash_attention_features(cuda, name, S, D, dt):
     check_all_close(lse[..., seen], rlse[..., seen], rtol=1e-4, atol=1e-4,
                     name=f"{name} lse")
     assert not o[..., ~seen, :].any()
+
+
+FA_TILES = [None, *sorted(attention.FWD_CONFIGS)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", FA_TILES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [300, 512])
+def test_flash_attention_bf16_tiles(cuda, S, causal, tiles):
+    """The bf16 kernel at each tile shape (FWD_TILES; None: the rule's,
+    fwd_tiles), D 128, GQA 2: against attention_tiled_ref at the same
+    tiles (its order of work: P rounded to bf16 at the same points) and
+    attention_ref, and a second call gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(S + causal)
+    q, k, v = (torch.randn((1, h, S, 128), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (4, 2, 2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, keys, _ = tiles or attention.fwd_tiles(1, 4, S, sms)
+    old = attention.FWD_TILES
+    attention.FWD_TILES = tiles
+    try:
+        before = attention.flash_attention.launches
+        o = attention.flash_attention(q, k, v, causal=causal)
+        again = attention.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    finally:
+        attention.FWD_TILES = old
+    assert attention.flash_attention.launches == before + 2
+    assert torch.equal(o, again)
+    check_all_close(o.float(), attention.attention_tiled_ref(
+        q, k, v, causal=causal, block_q=rows, block_k=keys).float(),
+        dtype=torch.bfloat16, name="vs tiled")
+    check_all_close(o.float(), attention.attention_ref(
+        q, k, v, causal=causal).float(), dtype=torch.bfloat16, name="vs ref")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 40])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_bf16_matches_tiled_walk(cuda, D, B):
+    """Each head dim's two rule instances (B 2: 64-row blocks in one wave;
+    B 40: 128-row blocks), lse and features on and off, against the plain
+    walk of their tiles, S 200 (tails), GQA 2."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn((B, h, 200, D), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (4, 2, 2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, keys, _ = attention.fwd_tiles(B, 4, 200, sms)
+    assert (rows == 64) == (B == 2)
+    for kw in ({}, dict(window=37, sinks=5, softcap=3.0)):
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True, **kw)
+        to, tlse = attention.attention_tiled_ref(
+            q, k, v, causal=True, return_stats=True, block_q=rows,
+            block_k=keys, **kw)
+        check_all_close(o.float(), to.float(), dtype=torch.bfloat16,
+                        name=f"o {kw}")
+        check_all_close(lse, tlse, rtol=1e-4, atol=1e-4, name=f"lse {kw}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_no_keys(cuda, dt):
+    """Zero keys (non-causal): every row sees none and outputs 0."""
+    q = torch.randn((1, 4, 70, 64), device=cuda).to(DTYPES[dt])
+    k = v = torch.zeros((1, 2, 0, 64), device=cuda, dtype=DTYPES[dt])
+    o = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and not o.any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_serving_s4096(cuda):
+    """The 7bish prefill heads (H 16/8, D 128, causal) at S 4096: 64
+    query tiles, the longest walk 64 KV tiles; against attention_ref."""
+    g = torch.Generator(device=cuda).manual_seed(4096)
+    q, k, v = (torch.randn((1, h, 4096, 128), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (16, 8, 8))
+    o = attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check_all_close(o.float(), attention.attention_ref(
+        q, k, v, causal=True).float(), dtype=torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -59,9 +59,10 @@ SIGNATURES = {
     # x, y, rows, head_dim, seq_len, sign, dtype, stream
     "tk_rope_batched": [_P, _P, _I64, _I, _I, _F, _I, _P],
     # q, k, v, o, lse (or None), q_seg, kv_seg (or None), B, Hq, Hkv, Sq,
-    # Skv, D, sm_scale, causal, window, sinks, softcap, dtype, stream
+    # Skv, D, sm_scale, causal, window, sinks, softcap, dtype, tile
+    # config (0: the kernel's rule; ops/attention.py FWD_TILES), stream
     "tk_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _I, _F, _I, _P],
+                           _I, _F, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, do, lse, di, dq (f32), dk, dv, B, H, Sq, Skv, D, sm_scale,
     # causal, dtype, stream
     "tk_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -44,10 +44,11 @@ int tk_flash_attention(const void* q, const void* k, const void* v, void* o,
                        float* lse, const int* q_seg, const int* kv_seg, int B,
                        int Hq, int Hkv, int Sq, int Skv, int D, float sm_scale,
                        int causal, int window, int sinks, float softcap,
-                       int dtype, void* stream) {
+                       int dtype, int config, void* stream) {
   return checked(tk::flash_attention_launch(
       q, k, v, o, lse, q_seg, kv_seg, B, Hq, Hkv, Sq, Skv, D, sm_scale, causal,
-      window, sinks, softcap, dtype, static_cast<cudaStream_t>(stream)));
+      window, sinks, softcap, dtype, config,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int tk_flash_attention_bwd(const void* q, const void* k, const void* v,

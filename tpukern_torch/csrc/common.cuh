@@ -420,25 +420,6 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
   }
 }
 
-// bf16 inputs on the tensor cores with mma.sync m16n8k16 (f32
-// accumulate): 8 warps in a 2 x 4 grid, each a 64 x 32 sub-tile, K in
-// slices of 32 staged through padded shared memory (`as`: [128][H_LDK];
-// `bs`: [128][H_LDK] for TRANS_B, else [H_BK][H_LDN]) with 16-byte loads
-// where a row is whole (vec_a, vec_b: its length is a multiple of 8 and
-// the base is 16-byte aligned). Lane 4g + t of warp w holds
-// acc[mt][nt][e] at row hgemm_row(w, mt, g, e) and column
-// hgemm_col(w, nt, t, e).
-constexpr int H_BM = 128, H_BN = 128, H_BK = 32, H_THREADS = 256;
-constexpr int H_LDK = H_BK + 8;   // [row][k] tiles: conflict-free pair reads
-constexpr int H_LDN = H_BN + 8;   // [k][n] tile (NN): conflict-free reads
-
-__device__ __forceinline__ int hgemm_row(int warp, int mt, int g, int e) {
-  return (warp >> 2) * 64 + mt * 16 + g + (e < 2 ? 0 : 8);
-}
-__device__ __forceinline__ int hgemm_col(int warp, int nt, int t, int e) {
-  return (warp & 3) * 32 + nt * 8 + 2 * t + (e & 1);
-}
-
 // 8 consecutive bf16 of a row-major (rows, cols) matrix at (r, c), zeros
 // past either edge; one 16-byte load when the chunk is whole and aligned
 __device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
@@ -451,72 +432,6 @@ __device__ __forceinline__ uint4 load8(const bf16* p, int r, int rows, int c,
   for (int e = 0; e < 8; ++e)
     v.h[e] = c + e < cols ? __bfloat16_as_ushort(row[c + e]) : 0;
   return v.u;
-}
-
-template <bool TRANS_B>
-__device__ __forceinline__ void hgemm_tile(const bf16* __restrict__ a,
-                                           const bf16* __restrict__ b, int M,
-                                           int N, int K, int m0, int n0,
-                                           bool vec_a, bool vec_b, bf16* as,
-                                           bf16* bs, float (&acc)[4][4][4]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-    __syncthreads();  // the previous tile is consumed
-    // 512 chunks of 8 per operand tile, 2 per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ch = tid + i * H_THREADS;
-      const int r = ch >> 2, kc = (ch & 3) * 8;
-      // the K edge: a chunk straddling K is loaded element by element
-      *reinterpret_cast<uint4*>(&as[r * H_LDK + kc]) =
-          load8(a, m0 + r, M, k0 + kc, K, vec_a);
-      if constexpr (TRANS_B) {
-        *reinterpret_cast<uint4*>(&bs[r * H_LDK + kc]) =
-            load8(b, n0 + r, N, k0 + kc, K, vec_b);
-      } else {
-        const int kr = ch >> 4, nc = (ch & 15) * 8;
-        *reinterpret_cast<uint4*>(&bs[kr * H_LDN + nc]) =
-            load8(b, k0 + kr, K, n0 + nc, N, vec_b);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < H_BK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ap = &as[(wm + mt * 16 + g) * H_LDK + ks * 16 + 2 * t];
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * H_LDK + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        uint32_t b0, b1;
-        if constexpr (TRANS_B) {
-          const bf16* bp = &bs[(wn + nt * 8 + g) * H_LDK + ks * 16 + 2 * t];
-          b0 = *reinterpret_cast<const uint32_t*>(bp);
-          b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
-        } else {
-          const bf16* bp = &bs[(ks * 16 + 2 * t) * H_LDN + wn + nt * 8 + g];
-          b0 = pack_bf16(bp[0], bp[H_LDN]);
-          b1 = pack_bf16(bp[8 * H_LDN], bp[9 * H_LDN]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-  }
 }
 
 // Host launchers. Each checks its arguments, returns cudaErrorInvalidValue
@@ -537,7 +452,7 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
                                    const int* kv_seg, int B, int Hq, int Hkv,
                                    int Sq, int Skv, int D, float sm_scale,
                                    int causal, int window, int sinks,
-                                   float softcap, int dtype,
+                                   float softcap, int dtype, int config,
                                    cudaStream_t stream);
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        const void* v, const void* dout,

@@ -4,29 +4,39 @@
 // one dtype; targets < 0 are ignored (loss 0, gradient 0).
 //
 // Replaces tpukern/ops/cross_entropy.py:
-//   `_ce_fwd_kernel` (:53)  -> ce_fwd_kernel + ce_combine_kernel (#13)
+//   `_ce_fwd_kernel` (:53)  -> f32: ce_fwd_kernel; bf16: ce_fwd_wgmma_kernel;
+//                              then ce_combine_kernel (#13)
 //   `_ce_dx_kernel` (:95)   -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
 //                              then ce_dx_kernel (#14)
 //   `_ce_dw_kernel` (:132)  -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
 //                              then ce_dw_kernel (#15)
 //
-// Score tiles (the forward and the f32 backward): 128 x 128 tiles S =
-// x[n0..] · W[:, v0..] from common.cuh's GEMM main loops (f32 inputs on
-// CUDA-core FMAs in full f32, as the JAX f32 tier's Precision.HIGHEST;
-// bf16 inputs on mma.sync with f32 accumulation), put into shared memory
-// as f32, where the reductions read them in a layout of their own.
-// Columns past V are set to NEG_BIG (forward) or their gradient to 0
-// (backward) after the arithmetic, never multiplied in: 0 * garbage would
-// be NaN.
+// f32 score tiles (the f32 forward and backward): 128 x 128 tiles S =
+// x[n0..] · W[:, v0..] from common.cuh's sgemm_tile, on CUDA-core FMAs in
+// full f32 (the JAX f32 tier's Precision.HIGHEST), put into shared memory,
+// where the reductions read them in a layout of their own. Columns past V
+// are set to NEG_BIG (forward) or their gradient to 0 (backward) after the
+// arithmetic, never multiplied in: 0 * garbage would be NaN.
 //
 // Forward. The TPU kernel gives one grid row to each token block and walks
 // all of V in order; at N = 2048 that is 16 blocks for 132 SMs. Here V is
-// split too: block (row tile, split) walks `tiles_per_split` vocab tiles
-// with an online (max, sum) per row, as the TPU kernel does, plus the
-// target logit, and writes the three as a partial. ce_combine_kernel then
-// merges a row's partials (the lse merge of flash_attention_splitkv,
-// tpukern/ops/attention.py:1162) into its loss and natural-log lse. The
-// partials are (n_split, 3, N) floats, n_split bounded by the SM count.
+// split too, and each split writes its rows' (max, sum of exp, target
+// logit) as a partial; ce_combine_kernel then merges a row's partials
+// (the lse merge of flash_attention_splitkv, tpukern/ops/attention.py:1162)
+// into its loss and natural-log lse. The partials are (n_split, 3, N)
+// floats.
+// - f32 (ce_fwd_kernel): block (row tile, split) walks `tiles_per_split`
+//   vocab tiles with an online (max, sum) per row, as the TPU kernel does;
+//   n_split is bounded by the SM count (ops/cross_entropy.py splits).
+// - bf16 (ce_fwd_wgmma_kernel): one hopper.cuh gemm_pipeline launch, the
+//   operands of ce_dlog_kernel below (x K-major, W's columns MN-major with
+//   row stride V): each block computes one 128 x 256 score tile and folds
+//   it in the consumers' registers, where a quad of lanes holds a whole
+//   256-column row (64 columns a lane): each lane's max and sum of exp over
+//   its columns, merged by two quad shuffles, the target logit from the
+//   lane that holds the target's column, and lane 0 of the quad writes the
+//   row's partial. Nothing goes through shared memory; n_split = cdiv(V,
+//   256), one partial a vocab tile (128 at V = 32768: 3 MB at N = 2048).
 //
 // f32 backward: one block per (row tile, vocab tile) recomputes the score
 // tile once, forms dlog = g · (softmax - onehot) in shared memory from the
@@ -78,19 +88,24 @@
 // 32768), one in the forward and three in the backward, against N·D + D·V
 // elements read (and in the bf16 backward the scratch, written once and
 // read twice), so it is compute bound: f32 on CUDA-core FMAs, bf16 on the
-// tensor cores.
+// tensor cores (278 us at 989 TFLOP/s a product). The bf16 forward's
+// epilogue adds two passes over the 128 accumulators (max, then exp2 and
+// sum) and 12 bytes a row a vocab tile, under the next tile's loads.
 //
 // Registers (`-Xptxas -v`, nvcc 12.9, sm_90a; chip_smoke.py prints them
 // from the build's nvcc.log) and dynamic shared memory per block, two
 // blocks per SM:
-//   ce_fwd_kernel      f32 128, bf16 123 registers, no spills;
-//                      77,824 B (f32), 88,576 B (bf16)
+//   ce_fwd_kernel      f32 128 registers, no spills; 77,824 B
 //   ce_combine_kernel  32 registers, no shared memory
 //   ce_bwd_fma_kernel  128 registers, a 360 B stack frame (448 B spill
 //                      stores, 1,288 B spill loads); 77,824 B
-// The bf16 backward's kernels take gemm_pipeline's one block an SM.
-#include <type_traits>
-
+//   ce_fwd_wgmma_kernel 168 registers (the pipeline's launch bound, before
+//                      its split), no spills with both operands by TMA;
+//                      the copy-path instances spill 4-40 bytes
+// The bf16 forward and backward kernels take gemm_pipeline's one block an
+// SM (gemm_smem: 197,632 B with both operands by TMA, 203,776 B with a
+// copy) and its register split (the producer warpgroup 40, the consumers
+// 232).
 #include "hopper.cuh"
 
 namespace tk {
@@ -104,53 +119,31 @@ constexpr int THREADS = 256;
 constexpr int LDT = BV + 4;      // f32 score tile rows in shared memory
 constexpr int TILE_BYTES = BN * LDT * 4;
 
-static_assert(BN == F_BM && BV == F_BN && BN == H_BM && BV == H_BN &&
-              THREADS == F_THREADS && THREADS == H_THREADS, "tile shapes");
+static_assert(BN == F_BM && BV == F_BN && THREADS == F_THREADS,
+              "tile shapes");
 
 // shared memory of the score product's main loop
-template <typename T>
-constexpr int stage_bytes() {
-  return std::is_same<T, float>::value ? 2 * F_BK * F_BM * 4
-                                       : (H_BM * H_LDK + H_BK * H_LDN) * 2;
-}
+constexpr int STAGE_BYTES = 2 * F_BK * F_BM * 4;
 
 // tile[r][c] = x[n0 + r] · W[:, v0 + c] in f32 (0 past N or V). Returns
 // after a barrier, with the tile complete.
-template <typename T>
-__device__ __forceinline__ void score_tile(const T* __restrict__ x,
-                                           const T* __restrict__ w, int N,
+__device__ __forceinline__ void score_tile(const float* __restrict__ x,
+                                           const float* __restrict__ w, int N,
                                            int D, int V, int n0, int v0,
                                            unsigned char* stage, float* tile) {
   const int tid = threadIdx.x;
-  if constexpr (std::is_same<T, float>::value) {
-    float acc[8][8];
-    auto as = reinterpret_cast<float(*)[F_BM]>(stage);
-    auto bs = reinterpret_cast<float(*)[F_BN]>(stage + F_BK * F_BM * 4);
-    sgemm_tile<false>(x, w, N, V, D, n0, v0, as, bs, acc);
-    const int tx = tid & 15, ty = tid >> 4;
+  float acc[8][8];
+  auto as = reinterpret_cast<float(*)[F_BM]>(stage);
+  auto bs = reinterpret_cast<float(*)[F_BN]>(stage + F_BK * F_BM * 4);
+  sgemm_tile<false>(x, w, N, V, D, n0, v0, as, bs, acc);
+  const int tx = tid & 15, ty = tid >> 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float* row = tile + sgemm_pos(i, ty) * LDT;
-      *reinterpret_cast<float4*>(row + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-  } else {
-    float acc[4][4][4];
-    bf16* as = reinterpret_cast<bf16*>(stage);
-    bf16* bs = as + H_BM * H_LDK;
-    hgemm_tile<false>(x, w, N, V, D, n0, v0, D % 8 == 0, V % 8 == 0, as, bs,
-                      acc);
-    const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          tile[hgemm_row(warp, mt, lane >> 2, e) * LDT +
-               hgemm_col(warp, nt, lane & 3, e)] = acc[mt][nt][e];
+  for (int i = 0; i < 8; ++i) {
+    float* row = tile + sgemm_pos(i, ty) * LDT;
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
   __syncthreads();
 }
@@ -160,9 +153,9 @@ __device__ __forceinline__ void score_tile(const T* __restrict__ x,
 // rows, a lane reading 4 columns of a row. m and l are in the tier's units
 // (log2 for LOG2) and written as the natural max and the sum of
 // exp(s - max); t is the raw target logit.
-template <typename T, bool LOG2>
+template <bool LOG2>
 __global__ void __launch_bounds__(THREADS, 2)
-ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const int* __restrict__ targets, float* __restrict__ part, int N,
               int D, int V, int tiles_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -189,7 +182,7 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int vt = vt0; vt < vt1; ++vt) {
     const int v0 = vt * BV;
     __syncthreads();  // the previous tile is folded
-    score_tile<T>(x, w, N, D, V, n0, v0, stage, tile);
+    score_tile(x, w, N, D, V, n0, v0, stage, tile);
     for (int rr = 0; rr < BN / 8; ++rr) {
       const int r = warp * (BN / 8) + rr;
       const float4 v4 = *reinterpret_cast<const float4*>(&tile[r * LDT + c]);
@@ -310,7 +303,7 @@ ce_bwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * BN, v0 = blockIdx.y * BV;
   load_rows(targets, lse, g, N, n0, LOG2, row_lse, row_g, row_tgt);
-  score_tile<float>(x, w, N, D, V, n0, v0, stage, tile);
+  score_tile(x, w, N, D, V, n0, v0, stage, tile);
 
   for (int i = tid; i < BN * BV; i += THREADS) {
     const int r = i / BV, c = i % BV;
@@ -522,6 +515,76 @@ ce_dlog_kernel(const __grid_constant__ CUtensorMap map_x,
       });
 }
 
+// The bf16 forward: the scores S = x · W of the 128 x 256 tile (tm, tn),
+// folded in the epilogue into each row's partial (m, l, t) of vocab tile
+// tn: m the max in natural units, l the sum of exp(s - m) (exp2 of the
+// scores scaled by log2 e in the log2 tier), t the raw target logit (0 if
+// the target lies in another tile or is ignored). part is (cdiv(V, 256),
+// 3, N).
+template <bool TMA_X, bool TMA_W>
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const int* __restrict__ targets, float* __restrict__ part,
+                    int N, int D, int V, int log2) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * GP_BN;
+  // x (N, D) K-major; W (D, V) MN-major, D its rows
+  gemm_pipeline<false, true, TMA_X, TMA_W, false>(
+      &map_x, &map_w, GemmOperand{x, N, D, m0},
+      GemmOperand{w, D, V, n0, -1, 0, V}, 0, D,
+      [&](const float (&d)[128]) {
+        const int r0 = tile_row(m0), c0 = tile_col(n0);
+        const float k = log2 ? LOG2E : 1.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // every lane of the quad takes part in the shuffles, rows past
+          // N too; only the writes are masked
+          const int r = r0 + 8 * h;
+          const int tgt = r < N ? targets[r] : -1;
+          float mx = NEG_BIG, t = 0.f;
+#pragma unroll
+          for (int j = 0; j < GP_BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = c0 + 8 * j + e;
+              const float s = d[4 * j + 2 * h + e];
+              if (c == tgt) t = s;
+              mx = fmaxf(mx, c < V ? s * k : NEG_BIG);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // the tile's first column is < V, so mx is a score's
+          float l = 0.f;
+          auto fold = [&](auto ex) {
+#pragma unroll
+            for (int j = 0; j < GP_BN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float u = c0 + 8 * j + e < V
+                                    ? d[4 * j + 2 * h + e] * k : NEG_BIG;
+                l += ex(u - mx);
+              }
+          };
+          if (log2) fold([](float a) { return exp2f(a); });
+          else fold([](float a) { return expf(a); });
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+          t += __shfl_xor_sync(0xffffffffu, t, 1);
+          t += __shfl_xor_sync(0xffffffffu, t, 2);
+          if ((threadIdx.x & 3) == 0 && r < N) {
+            float* p = part + (int64_t)tn * 3 * N + r;
+            p[0] = log2 ? mx * LN2 : mx;
+            p[N] = l;
+            p[2 * N] = t;
+          }
+        }
+      });
+}
+
 // Launch 2: dx (N, D) (+)= dlog (N, vc) · W[:, v0 .. v0 + vc)^T, a 128 x
 // 256 tile of dx a block; add: this chunk's product joins the earlier
 // chunks' sum.
@@ -585,19 +648,47 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-template <typename T, bool LOG2>
-cudaError_t fwd_t(const void* x, const void* w, const int* targets,
-                  float* part, int N, int D, int V, int n_split,
-                  int tiles_per_split, cudaStream_t stream) {
-  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + stage_bytes<T>();
-  auto kernel = ce_fwd_kernel<T, LOG2>;
+template <bool LOG2>
+cudaError_t fwd_f32(const float* x, const float* w, const int* targets,
+                    float* part, int N, int D, int V, int n_split,
+                    int tiles_per_split, cudaStream_t stream) {
+  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + STAGE_BYTES;
+  auto kernel = ce_fwd_kernel<LOG2>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + BN - 1) / BN, n_split);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), targets, part, N, D,
-      V, tiles_per_split);
+  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, part, N, D, V,
+                                           tiles_per_split);
   return cudaSuccess;
+}
+
+// the bf16 forward: one partial a 256-column vocab tile
+cudaError_t fwd_bf16(const bf16* x, const bf16* w, const int* targets,
+                     float* part, int N, int D, int V, int log2,
+                     cudaStream_t stream) {
+  const dim3 grid((V + GP_BN - 1) / GP_BN, (N + GP_BM - 1) / GP_BM);
+  if (grid.y > 65535 || !aligned16(x) || !aligned16(w))
+    return cudaErrorInvalidValue;
+  // each operand by TMA where its rows are whole 16-byte chunks, else by
+  // the producer's copy
+  const bool tma_x = D % 8 == 0, tma_w = V % 8 == 0;
+  CUtensorMap xk{}, wm{};
+  cudaError_t e = cudaSuccess;
+  if (tma_x) e = tma_map_bf16(&xk, x, D, N, D * 2, GP_BK, GP_BM);
+  if (e == cudaSuccess && tma_w)
+    e = tma_map_bf16(&wm, w, V, D, (int64_t)V * 2, 64, GP_BK);
+  if (e != cudaSuccess) return e;
+  if (tma_x && tma_w)
+    return launch_gp(ce_fwd_wgmma_kernel<true, true>, false, grid, stream, xk,
+                     wm, x, w, targets, part, N, D, V, log2);
+  if (tma_x)
+    return launch_gp(ce_fwd_wgmma_kernel<true, false>, true, grid, stream, xk,
+                     wm, x, w, targets, part, N, D, V, log2);
+  if (tma_w)
+    return launch_gp(ce_fwd_wgmma_kernel<false, true>, true, grid, stream, xk,
+                     wm, x, w, targets, part, N, D, V, log2);
+  return launch_gp(ce_fwd_wgmma_kernel<false, false>, true, grid, stream, xk,
+                   wm, x, w, targets, part, N, D, V, log2);
 }
 
 template <bool LOG2>
@@ -605,7 +696,7 @@ cudaError_t bwd_f32(const float* x, const float* w, const int* targets,
                     const float* lse, const float* g, float* dx, float* dw,
                     int N, int D, int V, cudaStream_t stream) {
   // the score tile, the row state and the main loop's stage
-  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + stage_bytes<float>();
+  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + STAGE_BYTES;
   auto kernel = ce_bwd_fma_kernel<LOG2>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
@@ -621,22 +712,26 @@ cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
                           float* part, int N, int D, int V, int n_split,
                           int tiles_per_split, int log2, int dtype,
                           cudaStream_t stream) {
-  const int n_vt = (V + BV - 1) / BV;
+  // the vocab tiles of a split: f32 BV columns, bf16 GP_BN
+  const int n_vt = (V + (dtype == kBF16 ? GP_BN : BV) - 1) /
+                   (dtype == kBF16 ? GP_BN : BV);
   if (N < 0 || D <= 0 || V <= 0 || n_split <= 0 || tiles_per_split <= 0 ||
       (n_split - 1) * tiles_per_split >= n_vt ||
       n_split * tiles_per_split < n_vt || n_split > 65535)
     return cudaErrorInvalidValue;  // every split needs a tile, every tile a split
+  if (dtype == kBF16 && tiles_per_split != 1)
+    return cudaErrorInvalidValue;  // bf16: one split a vocab tile
   if (N == 0) return cudaSuccess;
+  const float* fx = static_cast<const float*>(x);
+  const float* fw = static_cast<const float*>(w);
   if (dtype == kF32)
-    return log2 ? fwd_t<float, true>(x, w, targets, part, N, D, V, n_split,
-                                     tiles_per_split, stream)
-                : fwd_t<float, false>(x, w, targets, part, N, D, V, n_split,
-                                      tiles_per_split, stream);
+    return log2 ? fwd_f32<true>(fx, fw, targets, part, N, D, V, n_split,
+                                tiles_per_split, stream)
+                : fwd_f32<false>(fx, fw, targets, part, N, D, V, n_split,
+                                 tiles_per_split, stream);
   if (dtype == kBF16)
-    return log2 ? fwd_t<bf16, true>(x, w, targets, part, N, D, V, n_split,
-                                    tiles_per_split, stream)
-                : fwd_t<bf16, false>(x, w, targets, part, N, D, V, n_split,
-                                     tiles_per_split, stream);
+    return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                    targets, part, N, D, V, log2, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,16 @@
-"""Times of the bf16 fused cross-entropy backward (#14/#15,
-csrc/cross_entropy.cu: three gemm_pipeline launches a vocab chunk).
+"""Times of the bf16 fused cross-entropy: the forward (#13,
+csrc/cross_entropy.cu: one gemm_pipeline launch and the combine) and the
+backward (#14/#15: three gemm_pipeline launches a vocab chunk).
 
     python -m tpukern_torch.harness.ce_times [label]
 
-Prints the card's name and power limit, then one line per vocab chunk
-length at chip_smoke.py's training head, x (2048, 2048) by w (2048,
-32768) in bf16 with about 5% of the targets ignored: the whole vocab
+Prints the card's name and power limit, then, at chip_smoke.py's
+training head, x (2048, 2048) by w (2048, 32768) in bf16 with about 5% of
+the targets ignored: the forward's CUDA events time of back-to-back
+calls, device time (the profiler's, 5 calls), bound (2 N D V operations
+over 989 TFLOP/s) and largest loss and lse error against _ce_ref, then
+torch.matmul and F.cross_entropy on the same inputs (the library call);
+then one line per backward vocab chunk length: the whole vocab
 (bwd_vocab_chunk's choice there), 12288 (three chunks) and 4096 (eight):
 the CUDA events time of back-to-back calls (run_benchmark), the device
 time (the profiler's, 5 calls), the bound (three products of 2 N D V
@@ -45,7 +50,24 @@ def main(label="this tree"):
                       dtype=torch.int32)
     t[torch.rand(N, generator=gen, device="cuda") < 0.05] = -1
     g = torch.full((N,), 1.0 / N, device="cuda")
-    _, lse = ce.ce_fwd(x, w, t, True)
+
+    def fwd():
+        return ce.ce_fwd(x, w, t, True)
+
+    def lib_fwd():
+        return F.cross_entropy(torch.matmul(x, w).float(), t.long(),
+                               ignore_index=-1, reduction="none")
+    loss, lse = fwd()
+    rloss, rlse = ce._ce_ref(x, w, t)
+    err = max((a - b).abs().max().item() for a, b in ((loss, rloss),
+                                                       (lse, rlse)))
+    for name, fn in (("ce_fwd bf16", fwd),
+                     ("library (matmul + cross_entropy)", lib_fwd)):
+        dev = _device_ms(fn, 5)
+        print(f"[{label}] {name}: events {run_benchmark(fn):.4f} ms, device "
+              f"{'not measured' if dev is None else f'{dev:.4f}'} ms, bound "
+              f"{2 * N * D * V / 989e12 * 1e3:.4f} ms"
+              + (f", max abs err {err:.3e}" if fn is fwd else ""))
     rdx, rdw = ce.ce_bwd_ref(x, w, t, lse, g)
     bound = 3 * 2 * N * D * V / 989e12 * 1e3
     for chunk in CHUNKS:

@@ -8,7 +8,9 @@ that are not a tile multiple, head dims 32, 64 and 128, the lse output
 featured training path: a sliding window with attention sinks, a logit
 softcap and segment ids. Kernel: csrc/flash_attention.cu, which replaces
 `_fa_kernel` (attention.py:62) and its transposed-layout twin
-`_fa_tpv_kernel` (:656).
+`_fa_tpv_kernel` (:656): in bf16 a TMA + wgmma kernel (a producer and
+consumer warpgroups of 64 query rows), in f32 CUDA-core FMAs.
+`attention_tiled_ref` is the bf16 kernel's order of work in plain torch.
 """
 
 import math
@@ -20,6 +22,25 @@ from tpukern_torch.core.registry import register
 
 HEAD_DIMS = (32, 64, 128)
 _TODO = "ROADMAP.md queue 1 item 5 (flash_attention features)"
+
+# The bf16 kernel's tile shape, (query rows a block, keys a KV tile, GQA
+# pair), or None for the rule's (fwd_tiles): the timing harness's lever
+# (tpukern_torch/harness/fa_times.py). The shapes other than the rule's
+# two are built for head dim 128 without lse or masks beyond causal
+# only. Codes as csrc/flash_attention.cu launch_bf16 reads them.
+FWD_TILES = None
+FWD_CONFIGS = {(64, 64, False): 1, (64, 128, False): 2, (128, 64, False): 3,
+               (128, 128, False): 4, (64, 64, True): 5, (64, 128, True): 6}
+
+
+def fwd_tiles(B, Hq, Sq, n_sms):
+    """The tile shape the bf16 kernel takes by default (csrc launch_bf16's
+    rule): blocks of 64 query rows walking 128-key tiles where they fit in
+    one wave of the n_sms SMs, else blocks of 128 rows walking 64-key
+    tiles."""
+    if -(-Sq // 64) * Hq * B <= n_sms:
+        return (64, 128, False)
+    return (128, 64, False)
 
 
 def _reject(**features):
@@ -130,7 +151,9 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
                   None if lse is None else lse.data_ptr(),
                   _build.ptr(q_seg), _build.ptr(kv_seg), B, Hq, Hkv, Sq,
                   Skv, D, sm_scale, int(causal), window or 0, sinks or 0,
-                  softcap or 0.0, _build.dtype_code(q), _build.stream(q))
+                  softcap or 0.0, _build.dtype_code(q),
+                  FWD_CONFIGS[FWD_TILES] if FWD_TILES else 0,
+                  _build.stream(q))
     flash_attention.launches += 1
     return (o, lse) if return_stats else o
 
@@ -162,6 +185,75 @@ def attention_ref(q, k, v, *, causal=False, sm_scale=None, window=None,
     p = p.masked_fill(all_masked, 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
     return (o, torch.logsumexp(s, dim=-1)) if return_stats else o
+
+
+NEG_BIG = -0.7 * 3.4e38  # the kernels' mask value (csrc/common.cuh)
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def kv_tiles(q0, kv_end, block_k, window=None, sinks=None):
+    """The KV tile starts a query tile whose first row is q0 walks, in
+    order (csrc/common.cuh KvRange): the sink tiles, then the band from
+    the tile holding q0 - window + 1, up to kv_end."""
+    lo = max(0, q0 - window + 1) // block_k * block_k if window else 0
+    sink_end = min(lo, -(-sinks // block_k) * block_k) if sinks else 0
+    k0 = 0 if sink_end > 0 else lo
+    while k0 < kv_end:
+        yield k0
+        k0 = lo if k0 + block_k == sink_end else k0 + block_k
+
+
+def attention_tiled_ref(q, k, v, *, causal=False, sm_scale=None,
+                        window=None, sinks=None, softcap=None,
+                        segment_ids=None, return_stats=False, block_q=64,
+                        block_k=64):
+    """flash_attention in the bf16 kernel's order of work, a test aid off
+    the main path: each tile of block_q query rows walks its KV tiles of
+    block_k keys in kv_tiles order (up to its causal frontier) with an
+    online softmax in log2 units: the f32 scores scaled by sm_scale, capped,
+    scaled by log2 e and masked with NEG_BIG; l summed from the f32 p; P
+    rounded to q's dtype before P V. A row that sees no key gives 0; with
+    return_stats also the f32 natural-log lse (LN2 m + log l)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    keep = visible(Sq, Skv, q.device, causal=causal, window=window,
+                   sinks=sinks, segment_ids=segment_ids)
+    o = torch.zeros(B, Hq, Sq, D, device=q.device)
+    lse = torch.zeros(B, Hq, Sq, device=q.device)
+    for q0 in range(0, Sq, block_q):
+        rows = slice(q0, min(Sq, q0 + block_q))
+        n = rows.stop - q0
+        m = torch.full((B, Hq, n), NEG_BIG, device=q.device)
+        l = torch.zeros(B, Hq, n, device=q.device)
+        acc = torch.zeros(B, Hq, n, D, device=q.device)
+        kv_end = min(Skv, q0 + block_q) if causal else Skv
+        for k0 in kv_tiles(q0, kv_end, block_k, window, sinks):
+            cols = slice(k0, min(Skv, k0 + block_k))
+            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows],
+                             kf[:, :, cols]) * sm_scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            s = s * LOG2E
+            if keep is not None:
+                s = s.masked_fill(~keep[..., rows, cols], NEG_BIG)
+            mn = torch.maximum(m, s.amax(-1))
+            a = torch.exp2(m - mn)
+            p = torch.exp2(s - mn[..., None])
+            l = l * a + p.sum(-1)
+            acc = acc * a[..., None] + p.to(q.dtype).float() @ vf[:, :, cols]
+            m = mn
+        none = (l == 0) | ((m <= 0.5 * NEG_BIG) if segment_ids is not None
+                           else False)
+        o[:, :, rows] = torch.where(none[..., None], 0.0,
+                                    acc * (1.0 / l)[..., None])
+        lse[:, :, rows] = LN2 * m + torch.log(l.clamp(min=1e-37))
+    o = o.to(q.dtype)
+    return (o, lse) if return_stats else o
 
 
 # ---------------------------------------------------------------- registry

@@ -2,7 +2,9 @@
 
 The port of tpukern/ops/cross_entropy.py. Kernels: csrc/cross_entropy.cu,
 which replaces `_ce_fwd_kernel` (cross_entropy.py:53) with a split-vocab
-forward and a combine pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
+forward (f32: CUDA-core tiles walking a split each; bf16: one TMA + wgmma
+GEMM launch, a partial for each 256-column vocab tile) and a combine
+pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
 (:132) in f32 with one kernel that recomputes each score tile once and
 adds its dx and dW contributions with f32 atomics, in bf16 with three
 GEMM launches a vocab chunk (bwd_vocab_chunk): dlog into a bf16 scratch,
@@ -23,7 +25,9 @@ from tpukern_torch.core import cdiv
 from tpukern_torch.core.registry import register
 
 NEG_BIG = -0.7 * 3.4e38
-TILE = 128  # token rows and vocab columns of a score tile (csrc BN, BV)
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+TILE = 128  # token rows and vocab columns of an f32 score tile (csrc BN, BV)
+TILE_BF16 = 256  # vocab columns of a bf16 forward partial (csrc GP_BN)
 
 
 def cross_entropy_ref(x, w, targets):
@@ -89,18 +93,58 @@ def bwd_vocab_chunk(N, D, V):
 
 
 def splits(N, V, n_sms):
-    """(n_split, tiles_per_split) of the forward's vocab split: about four
-    blocks per SM (two resident, two waves), every split non-empty."""
+    """(n_split, tiles_per_split) of the f32 forward's vocab split: about
+    four blocks per SM (two resident, two waves), every split
+    non-empty."""
     n_vt, row_tiles = cdiv(V, TILE), cdiv(N, TILE)
     want = min(n_vt, max(1, cdiv(4 * n_sms, row_tiles)))
     tps = cdiv(n_vt, want)
     return cdiv(n_vt, tps), tps
 
 
+def fwd_splits(N, V, dtype, n_sms):
+    """(n_split, tiles_per_split) of the forward for inputs of dtype: bf16
+    writes one partial for each TILE_BF16-column vocab tile, f32 takes
+    splits()."""
+    if dtype == torch.bfloat16:
+        return cdiv(V, TILE_BF16), 1
+    return splits(N, V, n_sms)
+
+
+def ce_fwd_tiled_ref(x, w, targets, tile=TILE_BF16, use_exp2=False):
+    """(loss, lse) of _ce_ref in the bf16 forward's order, a test aid off
+    the main path: the f32 scores of each `tile`-column vocab tile folded
+    into a partial (its max in natural units, the sum of exp over it, in
+    log2 units with use_exp2, and the target logit if the target lies in
+    it), then the partials merged as ce_combine_kernel merges them (the
+    max of the maxima, the sum of l * exp(m - max), the sum of t)."""
+    xf, wf = x.float(), w.float()
+    V = w.shape[1]
+    tgt = targets.long()[:, None]
+    parts = []
+    for v0 in range(0, V, tile):
+        s = xf @ wf[:, v0:v0 + tile]
+        cols = torch.arange(v0, v0 + s.shape[1], device=x.device)
+        t = torch.where(cols == tgt, s, 0.0).sum(-1)
+        if use_exp2:
+            u = s * LOG2E
+            m = u.amax(-1)
+            parts.append((m * LN2, torch.exp2(u - m[:, None]).sum(-1), t))
+        else:
+            m = s.amax(-1)
+            parts.append((m, torch.exp(s - m[:, None]).sum(-1), t))
+    m_all = torch.stack([p[0] for p in parts]).amax(0)
+    lse = m_all + torch.log(sum(p[1] * torch.exp(p[0] - m_all)
+                                for p in parts))
+    t = sum(p[2] for p in parts)
+    return torch.where(targets < 0, 0.0, lse - t), lse
+
+
 def ce_fwd(x, w, targets, use_exp2=False):
     """(loss, lse) f32 (N,) of logits = x @ w for int32 targets < V. A CPU
     tensor takes the plain version; a CUDA tensor launches the split
-    forward and the combine pass (two launches, both counted)."""
+    forward (fwd_splits' partials) and the combine pass (two launches,
+    both counted)."""
     if x.device.type == "cpu":
         return _ce_ref(x, w, targets)
     _build.check_cuda(x, w, targets)
@@ -108,7 +152,7 @@ def ce_fwd(x, w, targets, use_exp2=False):
     V = w.shape[1]
     x, w = _build.aligned(x), _build.aligned(w)
     n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_split, tps = splits(N, V, n_sms)
+    n_split, tps = fwd_splits(N, V, x.dtype, n_sms)
     part = torch.empty(n_split, 3, N, device=x.device)
     loss = torch.empty(N, device=x.device)
     lse = torch.empty(N, device=x.device)
