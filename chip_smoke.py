@@ -10,8 +10,9 @@
    loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
    kernel, of the bf16 #2 (NN and TN), #28, #29, CE forward (#13) and
    CE backward (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's
-   pipeline and of every instance of the bf16 flash-attention forward
-   (#6), and the matrix products of #40's, which must have none;
+   pipeline, of the f32 #2 and f32 CE backward on its split-TF32 form, and of every instance of the bf16 flash-attention
+   forward (#6), and the matrix products of #40's, which must have none;
+   ptxas may serialise the wgmmas (C7520) of no split-TF32 kernel;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape (flash_attention also
@@ -40,10 +41,17 @@
    serving shape (4, 32768) f32 and at a 128256-token vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
    with its bf16 launches counted by load path, each path met required,
+   its f32 tier (split-TF32 products) held to the accuracy gate: its
+   largest error against the f64 product at most SPLIT_GATE times cuBLAS
+   f32's (TF32 off), NN and TN at 333 x 517 x 1000, 2048 x 8192 x 2048
+   and 4096^3, and timed at both; the split-TF32 operand pass bit for bit
+   against its plain version, specials included;
    rope_batched, the flash_attention lse, flash_attention_bwd, the fused
-   cross-entropy's forward and backward (the bf16 backward also at forced
-   vocab chunks, three of them on TMA and on the copy paths, and twice,
-   bit-equal), and the featured attention:
+   cross-entropy's forward and backward (the backward also at forced
+   vocab chunks, bf16 three of them on TMA and on the copy paths, f32 at
+   its own chunk rule, launches counted with the operand passes, and
+   twice, bit-equal; the f32 backward's dx and dW held to the accuracy
+   gate), and the featured attention:
    flash_attention with window, sinks, softcap and segments, and the
    two-kernel backward flash_attention_dq / flash_attention_dkv) against
    their plain versions, and times them at the 7bish training shapes;
@@ -200,7 +208,11 @@ TRAIN_LR = 3e-4
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): HBM bytes/s, and FLOP/s of the unit a kernel's dtype runs on
 # (f32 on CUDA cores, bf16 on tensor cores). A kernel's bound is the
-# larger of its bytes and its operations over these.
+# larger of its bytes and its operations over these. The split-TF32 f32
+# kernels (#1-#3, #17, #14/#15) count their f32 operations at
+# ops_bench.PEAK_FLOP_S[SPLIT_TF32] (ops/split_tf32.py: PRODUCTS TF32
+# products a product); their bound on the CUDA cores' f32 FMAs is printed
+# beside it.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
@@ -266,6 +278,11 @@ def phase_build():
         print(f"[build] ptxas {name}: {used}; {spills}")
     print(f"[build] {path} compiled in {seconds:.1f} s "
           f"({'fresh' if seconds else 'already built'})")
+    serialized = [ln.strip() for ln in text.splitlines() if "C7520" in ln]
+    for ln in serialized:
+        print(f"[build] ptxas {ln}")
+    bad = [ln for ln in serialized if any(k in ln for k in NO_SERIALIZED)]
+    require(not bad, f"ptxas serialised the wgmmas of {bad}")
     counts = sass_counts(path)
     for kernel, want in SASS_WANT.items():
         funcs = counts[kernel]
@@ -284,9 +301,11 @@ def phase_build():
 # (False) hold, in every function whose mangled name holds the fragment:
 # #16's bf16 kernel, the bf16 CE forward (#13) and backward's three
 # launches (#14/#15) and the bf16 #2 (NN and TN), #28 (NN and trans_w)
-# and #29 kernels with both operands by TMA, and every instance of the
-# bf16 flash-attention forward (#6), run wgmma (HGMMA) fed by TMA
-# (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA, HGMMA)
+# and #29 kernels with both operands by TMA, every instance of the
+# bf16 flash-attention forward (#6), and the split-TF32 f32 #2 and f32 CE
+# backward's three launches, run wgmma (HGMMA) fed by
+# TMA (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA,
+# HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
@@ -299,7 +318,15 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "gmm_wgmma_kernelILb0ELb1ELb1E": _WGMMA_TMA,
              "gmm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
              "tgmm_bf16_kernelILb1ELb1E": _WGMMA_TMA,
+             "gemm_tf32_kernel": _WGMMA_TMA,
+             "ce_dlog_tf32_kernel": _WGMMA_TMA,
+             "ce_dx_tf32_kernel": _WGMMA_TMA,
+             "ce_dw_tf32_kernel": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
+# kernels whose wgmmas ptxas must leave asynchronous: no C7520 info line
+# ("wgmma.mma_async instructions are serialized") may name them
+NO_SERIALIZED = ("gemm_tf32_kernel", "ce_dlog_tf32_kernel",
+                 "ce_dx_tf32_kernel", "ce_dw_tf32_kernel")
 
 
 def sass_counts(lib):
@@ -371,15 +398,17 @@ LIGHT = dict(bench=dict(warmup=1, iters=2, reps=3), device_n=0)
 
 
 def _timed_entry(name, shape, kernel, plain, library, flops, nbytes, dtype,
-                 light=False):
+                 light=False, fma=None):
     """One kernel to time: its call, its plain version's, the one
     PyTorch call of the same function (or None), and the work the
     function needs on these inputs (operations, and bytes with each input
     read once and each output written once); `light` times it on the
-    LIGHT schedule."""
+    LIGHT schedule; `fma`, the f32 operations of a split-TF32 kernel,
+    whose bound on the CUDA cores' FMAs is printed and kept beside its
+    own (fma_bound_ms)."""
     return dict(name=name, shape=shape, kernel=kernel, plain=plain,
                 library=library, flops=flops, nbytes=nbytes, dtype=dtype,
-                **(LIGHT if light else dict(bench={}, device_n=20)))
+                fma=fma, **(LIGHT if light else dict(bench={}, device_n=20)))
 
 
 def _device_events(fn, n):
@@ -426,11 +455,16 @@ class _Checks:
 
 def _bound(flops, nbytes, dtype):
     """(ms, "bytes" or "operations"): the least time the card could take.
-    flops is a count at dtype's rate, or {dtype: count} for work of
+    flops is a count at dtype's rate (ops_bench.SPLIT_TF32: the f32
+    operations of a split-TF32 kernel), or {dtype: count} for work of
     several types."""
+    from tpukern_torch.harness import ops_bench
+
+    split = ops_bench.SPLIT_TF32
+    peaks = {**PEAK_FLOP_S, split: ops_bench.PEAK_FLOP_S[split]}
     if not isinstance(flops, dict):
         flops = {dtype: flops}
-    t_ops = sum(n / PEAK_FLOP_S[dt] for dt, n in flops.items())
+    t_ops = sum(n / peaks[dt] for dt, n in flops.items())
     t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -458,6 +492,11 @@ def _time_kernels(timed, results):
                  plain_device_ms=_device_ms(t["plain"], n),
                  library_device_ms=(None if lib is None
                                     else _device_ms(lib, n)))
+        fma = ""
+        if t["fma"] is not None:
+            r["fma_bound_ms"] = _bound(t["fma"], t["nbytes"],
+                                       torch.float32)[0]
+            fma = f" (split-TF32; f32 FMA bound {r['fma_bound_ms']:.4f} ms)"
         for k, v in r.items():
             results[t["name"]].setdefault(k, v)
         libs = ("none" if lib is None else
@@ -466,7 +505,8 @@ def _time_kernels(timed, results):
         print(f"[time] {key:24s} at {t['shape']}: kernel {r['ms']:.4f} ms "
               f"plain {r['plain_ms']:.4f} ms (events); device-only: kernel "
               f"{dev(r['device_ms'])} ms plain {dev(r['plain_device_ms'])} "
-              f"ms; library {libs}; bound {bound_ms:.4f} ms by {bound_by}")
+              f"ms; library {libs}; bound {bound_ms:.4f} ms by {bound_by}"
+              f"{fma}")
 
 
 def phase_kernels(cfg):
@@ -1439,8 +1479,9 @@ def phase_train_kernels(cfg, B, S):
     Returns {kernel: dict(max_abs_err, ms, plain_ms, ...)} and all-ok."""
     from functools import partial
 
+    from tpukern_torch.harness import ops_bench
     from tpukern_torch.ops import (attention, attention_bwd, matmul, rmsnorm,
-                                   rope)
+                                   rope, split_tf32)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1474,23 +1515,33 @@ def phase_train_kernels(cfg, B, S):
     require(dict(paths) == met and all(paths[p] > 0 for p in met if met[p]),
             f"[train kernels] matmul's load paths {paths}, wanted {met}")
     checks.results["matmul"]["path_launches"] = dict(paths)
+    _split_tf32_checks(checks, timed, gen, d, ff)
+    # the odd shape splits K 4 ways, 128 x 128 x 8192 32 ways (one tile)
+    _matmul_gate(checks, gen, [(333, 517, 1000), (128, 128, 8192),
+                               (B * S, ff, d), (4096, 4096, 4096)])
     # the library call is cuBLAS in the input dtype (bf16 cuBLAS writes
     # bf16, the kernel the f32 accumulator, as matmul_t asks); the plain
     # version is cuBLAS in f32
     def cublas(a, b, trans_b):
         return torch.matmul(a, b.T if trans_b else b)
 
-    for dt, tag in ((f32, "f32"), (bf, "bf16")):
-        a = _randn(gen, d, d, dtype=dt)
+    for dt, tag, (M, K, N) in ((f32, "f32", (d, d, ff)), (bf, "bf16", (d, d, ff)),
+                               (f32, "f32", (4096, 4096, 4096))):
+        a = _randn(gen, M, K, dtype=dt)
         for trans_b in (False, True):
-            b = _randn(gen, *((ff, d) if trans_b else (d, ff)), dtype=dt)
-            timed[f"matmul {tag} {'TN' if trans_b else 'NN'}"] = _timed_entry(
-                "matmul", [d, d, ff],
-                partial(matmul.matmul, a, b, trans_b=trans_b,
-                        acc_in_out=True),
-                partial(matmul.matmul_ref, a, b, trans_b=trans_b),
-                partial(cublas, a, b, trans_b), 2 * d * d * ff,
-                _nbytes(a, b) + 4 * d * ff, dt)
+            b = _randn(gen, *((N, K) if trans_b else (K, N)), dtype=dt)
+            flops = 2 * M * K * N
+            big = "" if N == ff else f" {M}x{N}x{K}"
+            timed[f"matmul {tag} {'TN' if trans_b else 'NN'}{big}"] = (
+                _timed_entry(
+                    "matmul", [M, K, N],
+                    partial(matmul.matmul, a, b, trans_b=trans_b,
+                            acc_in_out=True),
+                    partial(matmul.matmul_ref, a, b, trans_b=trans_b),
+                    partial(cublas, a, b, trans_b),
+                    {ops_bench.SPLIT_TF32: flops} if dt == f32 else flops,
+                    _nbytes(a, b) + 4 * M * N, dt,
+                    fma=flops if dt == f32 else None))
 
     # rope_batched: q rows of the training batch, sign +-1, f32 and bf16
     R = B * Hq * S
@@ -1562,6 +1613,79 @@ def phase_train_kernels(cfg, B, S):
     _featured_kernels(checks, timed, gen, cfg, B, S)
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
+
+
+def _split_tf32_checks(checks, timed, gen, d, ff):
+    """The split-TF32 operand pass bit for bit against split_planes_ref,
+    as it is and transposed, at an odd shape with st.SPECIALS in it and
+    the NN B of the training GEMM (d, ff); timed there, transposed (as
+    matmul splits an NN B). A strided source (W's vocab chunk) is the f32
+    CE backward's, checked in _ce_kernels."""
+    from functools import partial
+
+    from tpukern_torch.ops import split_tf32 as st
+
+    odd = _randn(gen, 301, 517, dtype=torch.float32) * 3
+    bits = torch.tensor(st.SPECIALS, dtype=torch.int64).to(torch.int32)
+    odd.view(-1)[:len(bits)] = bits.view(torch.float32).cuda()
+    b = _randn(gen, d, ff, dtype=torch.float32)
+    for case, x in (("301x517 with specials", odd), (f"{d}x{ff}", b)):
+        for transpose in (False, True):
+            out = st.split_tf32(x, transpose=transpose)
+            ref = st.split_planes_ref(x.contiguous(), transpose)
+            ok = out.shape == ref.shape and torch.equal(
+                out.view(torch.int32), ref.view(torch.int32))
+            print(f"[check] split_tf32       {case:28s} "
+                  f"{'transposed' if transpose else 'as it is':10s} "
+                  f"{'bit-equal' if ok else 'MISS'}")
+            checks.record("split_tf32", ok, 0.0)
+    timed["split_tf32"] = _timed_entry(
+        "split_tf32", [d, ff], partial(st.split_tf32, b, transpose=True),
+        partial(st.split_planes_ref, b, True), None, 0,
+        _nbytes(b) * 3, torch.float32)
+
+
+def _gate(name, case, err, ref_err):
+    """(ok, err): the split-TF32 kernel's error against f64 at most
+    split_tf32.SPLIT_GATE times cuBLAS f32's on the same inputs."""
+    from tpukern_torch.ops.split_tf32 import SPLIT_GATE
+
+    ok = err <= SPLIT_GATE * ref_err
+    print(f"[gate] {name:16s} {case:44s} kernel {err:.3e} cuBLAS f32 "
+          f"{ref_err:.3e} vs f64: x{err / max(ref_err, 1e-300):.3f} "
+          f"(<= {SPLIT_GATE:g}) {'ok' if ok else 'MISS'}")
+    return ok
+
+
+def _matmul_gate(checks, gen, shapes):
+    """The accuracy gate of #2's f32 tier, NN and TN: at each (M, N, K),
+    the largest error of the kernel (acc_in_out, as matmul_t calls it)
+    and of cuBLAS f32 (TF32 off) against the f64 product of the same
+    inputs (A scaled by 1/sqrt(K), every output of unit size); a second
+    call gives the same bits (the splits of K meet in a fixed order)."""
+    from tpukern_torch.ops import matmul
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the gate needs cuBLAS f32 with TF32 off")
+    gate = checks.results.setdefault("matmul", dict(max_abs_err=0.0))
+    gate = gate.setdefault("f64_gate", {})
+    for M, N, K in shapes:
+        a = _randn(gen, M, K, dtype=torch.float32) / K ** 0.5
+        for trans_b in (False, True):
+            b = _randn(gen, *((N, K) if trans_b else (K, N)),
+                       dtype=torch.float32)
+            bt = b.T if trans_b else b
+            exact = torch.matmul(a.double(), bt.double())
+            out = matmul.matmul(a, b, trans_b=trans_b, acc_in_out=True)
+            err = (out.double() - exact).abs().max().item()
+            ref = (torch.matmul(a, bt).double() - exact).abs().max().item()
+            case = f"({M},{K})x({K},{N}) {'TN' if trans_b else 'NN'} f32"
+            checks.record("matmul", _gate("matmul", case, err, ref), 0.0)
+            checks.record("matmul", *_same_bits(
+                "matmul", case, out,
+                matmul.matmul(a, b, trans_b=trans_b, acc_in_out=True)))
+            gate[case] = dict(kernel=err, cublas=ref)
+            del b, bt, exact, out
 
 
 # the featured training configuration: a sliding window of half the
@@ -1735,13 +1859,19 @@ def _ce_kernels(checks, timed, gen, cfg, N):
     (scale), since their size depends on the cotangent, at the tolerance
     of the inputs' dtype: with bf16 inputs both sides round dlog to bf16,
     and a dlog near a rounding boundary may round the other way on one
-    side. Times at the
+    side. The f32 backward (split-TF32 products) is also held to the
+    accuracy gate: its dx's and dW's largest error against the f64
+    gradients of the same inputs (ce_times.ce_bwd_f64) at most SPLIT_GATE
+    times ce_bwd_ref's in f32 on cuBLAS. Times at the
     training shape; the library call is torch.matmul then F.cross_entropy
     (two calls, JAX's dense_xla baseline), and autograd's backward of the
     two for the backward kernel."""
     from functools import partial
 
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.harness.ce_times import ce_bwd_f64
     from tpukern_torch.ops import cross_entropy as ce
+    from tpukern_torch.ops import split_tf32 as st
 
     bf, f32 = torch.bfloat16, torch.float32
     d, V = cfg.d_model, cfg.vocab
@@ -1779,32 +1909,53 @@ def _ce_kernels(checks, timed, gen, cfg, N):
         ignored = t < 0
         checks.record("ce_bwd", bool((loss[ignored] == 0).all()
                                      and (dx[ignored] == 0).all()), 0.0)
+        if dt == f32:
+            # both against the f64 gradients from the kernel's own lse
+            gate = checks.results["ce_bwd"].setdefault("f64_gate", {})
+            for what, out, ref, exact in zip(
+                    ("dx", "dW"), (dx, dw), ce.ce_bwd_ref(x, w, t, lse, cot),
+                    ce_bwd_f64(x, w, t, lse, cot)):
+                err = (out.double() - exact).abs().max().item()
+                rerr = (ref.double() - exact).abs().max().item()
+                checks.record("ce_bwd", _gate("ce_bwd", f"{what} {case}",
+                                              err, rerr), 0.0)
+                gate[f"{what} {case}"] = dict(kernel=err, cublas=rerr)
+                del exact
         del rdx, rdw
 
-    # the bf16 backward at forced vocab chunks (three launches a chunk):
-    # three chunks of the training head (12288, 12288, 8192 columns, TMA)
-    # and of the odd shape (96, 96, 65: the copy paths), and the training
-    # head at its own chunk (the whole vocab), against ce_bwd_ref; a
-    # second call gives the same bits (no atomics)
-    for n, dd, v, chunk in ((N, d, V, 12288), (129, 100, 257, 96),
-                            (N, d, V, None)):
-        x, w, t = inputs(n, dd, v, bf)
+    # the backward at forced vocab chunks (three launches a chunk): bf16
+    # at three chunks of the training head (12288, 12288, 8192 columns,
+    # TMA) and of the odd shape (96, 96, 65: the copy paths), and the
+    # training head at its own chunk (the whole vocab); f32 at the odd
+    # shape's 96 columns and at the training head's own chunk
+    # (bwd_vocab_chunk_f32: 4 of 8192), with the split-TF32 operand pass
+    # once on x and once a chunk on W; against ce_bwd_ref; a second call
+    # gives the same bits (no atomics)
+    for n, dd, v, chunk, dt in ((N, d, V, 12288, bf), (129, 100, 257, 96, bf),
+                                (N, d, V, None, bf), (129, 100, 257, 96, f32),
+                                (N, d, V, None, f32)):
+        x, w, t = inputs(n, dd, v, dt)
         cot = torch.rand(n, generator=gen, device="cuda")
-        _, lse = ce.ce_fwd(x, w, t, True)
+        exp2 = dt == bf
+        _, lse = ce.ce_fwd(x, w, t, exp2)
         rdx, rdw = ce.ce_bwd_ref(x, w, t, lse, cot)
-        before = ce.ce_bwd.launches
-        out = ce.ce_bwd(x, w, t, lse, cot, True, vocab_chunk=chunk)
-        n_chunks = -(-v // (chunk or ce.bwd_vocab_chunk(n, dd, v)))
-        require(ce.ce_bwd.launches == before + 3 * n_chunks,
-                f"ce_bwd bf16 made {ce.ce_bwd.launches - before} launches, "
-                f"not 3 for each of {n_chunks} chunks")
-        case = (f"({n},{dd})x({dd},{v}) bf16 {n_chunks} chunk"
+        before = (ce.ce_bwd.launches, st.split_tf32.launches)
+        out = ce.ce_bwd(x, w, t, lse, cot, exp2, vocab_chunk=chunk)
+        rule = ce.bwd_vocab_chunk if dt == bf else ce.bwd_vocab_chunk_f32
+        n_chunks = -(-v // (chunk or rule(n, dd, v)))
+        made = (ce.ce_bwd.launches - before[0],
+                st.split_tf32.launches - before[1])
+        want = (3 * n_chunks, 0 if dt == bf else 1 + n_chunks)
+        require(made == want, f"ce_bwd {dt} made {made} launches (kernels, "
+                f"operand passes), not {want} for {n_chunks} chunks")
+        tag = "bf16" if dt == bf else "f32"
+        case = (f"({n},{dd})x({dd},{v}) {tag} {n_chunks} chunk"
                 f"{'s' if n_chunks > 1 else ''}")
         for what, o, ref in (("dx", out[0], rdx), ("dW", out[1], rdw)):
             checks.record("ce_bwd", *_compare(
                 "ce_bwd", f"{what} {case}", o, ref,
-                scale=ref.abs().max().item(), dtype=bf))
-        again = ce.ce_bwd(x, w, t, lse, cot, True, vocab_chunk=chunk)
+                scale=ref.abs().max().item(), dtype=dt))
+        again = ce.ce_bwd(x, w, t, lse, cot, exp2, vocab_chunk=chunk)
         same = all(torch.equal(a, b) for a, b in zip(out, again))
         if not same:
             print(f"[check] ce_bwd           {case}: a second call differs "
@@ -1830,12 +1981,15 @@ def _ce_kernels(checks, timed, gen, cfg, N):
         timed[f"ce_fwd {tag}"] = _timed_entry(
             "ce_fwd", [N, d, V], partial(ce.ce_fwd, x, w, t, exp2),
             partial(ce._ce_ref, x, w, t), lib_fwd, flops, io, dt)
-        # one recompute of the score tile, then the dx and dW products
+        # the scores recomputed, then the dx and dW products; f32 on
+        # split-TF32 products
         timed[f"ce_bwd {tag}"] = _timed_entry(
             "ce_bwd", [N, d, V], partial(ce.ce_bwd, x, w, t, lse, g, exp2),
             partial(ce.ce_bwd_ref, x, w, t, lse, g),
             partial(torch.autograd.grad, ll, (xl, wl), g, retain_graph=True),
-            3 * flops, _nbytes(x, w, t, lse, g) + 4 * (N * d + d * V), dt)
+            {ops_bench.SPLIT_TF32: 3 * flops} if dt == f32 else 3 * flops,
+            _nbytes(x, w, t, lse, g) + 4 * (N * d + d * V), dt,
+            fma=3 * flops if dt == f32 else None)
 
 
 def _timed(fn, *args):
@@ -2929,7 +3083,8 @@ def phase_w8a16_logits(cfg, qparams, prompt):
 
 
 _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
-                                  "ce_bwd_")),
+                                  "ce_bwd_", "ce_dlog_", "ce_dx_", "ce_dw_")),
+               ("split-TF32 pass", "split_tf32_kernel"),
                ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
                ("fa_fwd", "fa_fwd_"),
@@ -2942,7 +3097,7 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                              "threshold_kernel")),
                ("w8a16", "w8a16_"),
                ("grouped_gemm", ("gmm_f32_kernel", "gmm_bf16_kernel")),
-               ("gemm (port)", ("sgemm_kernel", "hgemm_mma_kernel")),
+               ("gemm (port)", ("gemm_tf32_kernel", "hgemm_wgmma_kernel")),
                ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
 
@@ -3290,7 +3445,7 @@ def phase_train(cfg, B, S, steps=5):
     the launches, the losses and dict(ms, tokens_s, peak_gib)."""
     from tpukern_torch.models import init_params, make_train_step, param_leaves
     from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
-                                   matmul, rmsnorm, rope)
+                                   matmul, rmsnorm, rope, split_tf32)
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                          device="cuda")
@@ -3301,8 +3456,9 @@ def phase_train(cfg, B, S, steps=5):
     opt = torch.optim.Adam(leaves, lr=TRAIN_LR, eps=1e-8)
     step = make_train_step(cfg, opt)
     tokens, targets = _batch(cfg, B, S, SEED)
-    ops = [matmul.matmul, rope.rope_batched, attention.flash_attention,
-           attention_bwd.flash_attention_bwd, rmsnorm.rms_norm]
+    ops = [matmul.matmul, split_tf32.split_tf32, rope.rope_batched,
+           attention.flash_attention, attention_bwd.flash_attention_bwd,
+           rmsnorm.rms_norm]
     if cfg.fused_loss:
         ops += [cross_entropy.ce_fwd, cross_entropy.ce_bwd]
     featured = cfg.window is not None or cfg.softcap is not None
@@ -3768,7 +3924,7 @@ def phase_moe_train(cfg, B, S, steps=5):
     from tpukern_torch.models import init_params, make_train_step, param_leaves
     from tpukern_torch.models.moe import expert_capacity
     from tpukern_torch.ops import (attention, attention_bwd, grouped_matmul,
-                                   matmul, rmsnorm, rope)
+                                   matmul, rmsnorm, rope, split_tf32)
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED + 5), device="cuda")
@@ -3779,7 +3935,8 @@ def phase_moe_train(cfg, B, S, steps=5):
     opt = torch.optim.Adam(leaves, lr=TRAIN_LR, eps=1e-8)
     step = make_train_step(cfg, opt)
     tokens, targets = _batch(cfg, B, S, SEED + 5)
-    ops = [matmul.matmul, rope.rope_batched, attention.flash_attention,
+    ops = [matmul.matmul, split_tf32.split_tf32, rope.rope_batched,
+           attention.flash_attention,
            attention_bwd.flash_attention_bwd, rmsnorm.rms_norm,
            grouped_matmul.gmm, grouped_matmul.tgmm]
     for op in ops:
@@ -4426,15 +4583,25 @@ def phase_zoo():
         a = _randn(gen, size.S, size.K, dtype=dt)
         b = _randn(gen, size.K, size.S, dtype=dt)
         out = matmul.matmul_kpipe(a, b)
-        ok, err = _compare("matmul_kpipe", f"{size.S}x{size.K}x{size.S} "
-                           f"{dt}", out, matmul.matmul_ref(a, b).to(dt))
+        if dt == torch.bfloat16:
+            ok, err = _compare("matmul_kpipe", f"{size.S}x{size.K}x{size.S} "
+                               f"{dt}", out, matmul.matmul_ref(a, b).to(dt))
+        else:
+            # the split-TF32 tier sums in another order than cuBLAS:
+            # held to the f64 product by the accuracy gate, as the
+            # ladder's f32 variants are (ops_bench.split_gate)
+            ok, err, rule = ops_bench.split_gate(out, a, b)
+            print(f"[zoo] matmul_kpipe {size.S}x{size.K}x{size.S} {dt} "
+                  f"max_abs {err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
         checks.record("matmul_kpipe", ok, err)
         timed.append((f"kpipe {dt}", ("matmul_kpipe",),
                       partial(matmul.matmul_kpipe, a, b),
                       partial(matmul.matmul_ref, a, b),
                       partial(torch.matmul, a, b),
                       lambda _, a=a, b=b: (
-                          2 * a.shape[0] * a.shape[1] * b.shape[1], a.dtype,
+                          2 * a.shape[0] * a.shape[1] * b.shape[1],
+                          ops_bench.SPLIT_TF32 if a.dtype == torch.float32
+                          else a.dtype,
                           _nbytes(a, b) + a.shape[0] * b.shape[1]
                           * a.element_size())))
     timed += _zoo_gemm_tail(checks, gen)
@@ -4767,7 +4934,8 @@ def main():
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
     from tpukern_torch.models import Config, init_params
-    from tpukern_torch.ops import attention, paged_attention, rmsnorm, rope
+    from tpukern_torch.ops import (attention, paged_attention, rmsnorm,
+                                   rope, split_tf32)
 
     # the 7bish serving preset of bench/serving.py
     cfg = Config(vocab=32768, d_model=2048, n_layers=16, n_heads=16,
@@ -4916,6 +5084,8 @@ def main():
                                        "tpukern/ops/paged_attention.py:513"),
            "matmul": ("tpukern_torch/csrc/matmul.cu",
                       "tpukern/ops/matmul.py:140"),
+           "split_tf32": ("tpukern_torch/csrc/split_tf32.cu",
+                          "tpukern/ops/matmul.py:140"),
            "rope_batched": ("tpukern_torch/csrc/rope.cu",
                             "tpukern/ops/rope.py:81"),
            "flash_attention_bwd": ("tpukern_torch/csrc/flash_attention_bwd.cu",
@@ -4993,6 +5163,7 @@ def main():
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
+            "split_tf32": "tpukern/ops/cross_entropy.py:95",
             "flash_attention_dq": "tpukern/ops/attention_bwd.py:188",
             "flash_attention_dkv": "tpukern/ops/attention_bwd.py:261"}
     # the PyTorch call(s) behind library_ms (null where there is none)
@@ -5005,6 +5176,8 @@ def main():
                            "gather outside the timed call)",
         "paged_prefill_attention": "as paged_attention",
         "matmul": "torch.matmul (cuBLAS, input dtype)",
+        "split_tf32": "none: PyTorch has no call that splits a matrix into "
+                      "TF32 parts",
         "flash_attention_bwd": "autograd backward of "
                                "F.scaled_dot_product_attention",
         "ce_fwd": "torch.matmul + F.cross_entropy (two calls)",
@@ -5097,8 +5270,21 @@ def main():
         **{f"long_{k}": long[k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")})
-    # #2's bf16 launches by load path in [train kernels]
+    # #2's bf16 launches by load path in [train kernels]; the split-TF32
+    # f32 tier's bound on the CUDA cores' FMAs and its accuracy gate (the
+    # same for the f32 CE backward); the operand pass: the f32 #2's and
+    # #14/#15's first step, no TPU kernel of its own
     modes["matmul"] = {"path_launches": timing["matmul"]["path_launches"]}
+    for n in ("matmul", "ce_bwd"):
+        modes.setdefault(n, {}).update(
+            fma_bound_ms=timing[n]["fma_bound_ms"],
+            f64_gate=timing[n]["f64_gate"],
+            gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x "
+                 "cuBLAS f32's")
+    modes["split_tf32"] = {
+        "part_of": "the f32 tier of matmul (#1-#3, #17) and ce_bwd "
+                   "(#14/#15): their operands' hi and lo planes",
+        "fused_train_launches": fused_launches["split_tf32"]}
     modes["rope"]["launches_kernel_of"] = "rope_batched"
     modes["matmul_kpipe"]["launches_kernel_of"] = "matmul"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

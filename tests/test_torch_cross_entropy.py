@@ -29,6 +29,7 @@ from tpukern_torch.models import (Config, init_params, loss_fn,
                                   make_train_step, param_leaves,
                                   params_from_jax, serving)
 from tpukern_torch.ops import cross_entropy as ce
+from tpukern_torch.ops import split_tf32 as st
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 SHAPES = [(256, 128, 1024), (200, 128, 1000)]  # tiles and tails in N and V
@@ -233,6 +234,57 @@ def test_chunked_backward_matches_jax(N, D, V, chunk):
     rdx, rdw = ce.ce_bwd_ref(xt, wt, tt, lse, g)
     check_all_close(dx, rdx, name="dx vs ref", **F32)
     check_all_close(dw, rdw, name="dW vs ref", **F32)
+    assert (dx[tt < 0] == 0).all()
+
+
+@pytest.mark.parametrize("N,D,V", [(2048, 2048, 32768), (8192, 2048, 32768),
+                                   (200, 128, 1000), (129, 100, 257),
+                                   (100000, 8, 1000), (4096, 64, 1001),
+                                   (7, 3, 5), (1, 1, 1)])
+def test_bwd_vocab_chunk_f32_fits_and_covers(N, D, V):
+    """The f32 backward's chunk: the split-TF32 scratch of W's chunk and
+    of dlog (split_tf32.ce_scratch) fits in 2·D·V values wherever a chunk
+    of 8 does, a chunk below V is a multiple of 8 (of 256 from 256 on),
+    the chunks are non-empty and cover V, and the 7bish head takes 8192
+    columns (four chunks)."""
+    c = ce.bwd_vocab_chunk_f32(N, D, V)
+    assert 1 <= c <= V
+    if 8 * 2 * (N + D) <= D * V:
+        _, ws, ds = st.ce_scratch(N, D, c)
+        assert ws + ds <= 2 * D * V + 64 * (N + D)  # rows rounded to 4
+    if c < V:
+        assert c % 8 == 0 and (c % 256 == 0 or c < 256)
+    starts = list(range(0, V, c))
+    widths = [min(c, V - v0) for v0 in starts]
+    assert min(widths) > 0 and sum(widths) == V
+    if (N, D, V) == (2048, 2048, 32768):
+        assert c == 8192
+
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("N,D,V", [(200, 128, 1000), (129, 100, 257),
+                                   (256, 64, 1024)])
+def test_f32_chunked_backward_matches_jax_vjp(N, D, V, use_exp2):
+    """ce_bwd_chunked_ref at the f32 backward's own chunk
+    (bwd_vocab_chunk_f32: 6, 5 and 4 chunks here), the f32 kernels' order
+    (dlog a vocab chunk at a time in f32, dx summed over the chunks),
+    against the VJP of JAX's f32 _fused_ce_core (interpret mode) under a
+    random cotangent, in both of JAX's exp tiers, a quarter of the
+    targets ignored."""
+    x, w, t = _inputs(N, D, V, seed=3 * N + V)
+    g = np.random.default_rng(N).random(N).astype(np.float32)
+    xt, wt, tt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t)
+    _, lse = ce.fused_cross_entropy(xt, wt, tt, return_lse=True)
+    chunk = ce.bwd_vocab_chunk_f32(N, D, V)
+    assert chunk < V
+    dx, dw = ce.ce_bwd_chunked_ref(xt, wt, tt, lse, torch.from_numpy(g),
+                                   chunk)
+    _, vjp = jax.vjp(lambda x, w: jce.fused_cross_entropy(
+        x, w, jnp.asarray(t), use_exp2=use_exp2), jnp.asarray(x),
+        jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    check_all_close(dx, np.asarray(jdx), name="dx", **F32)
+    check_all_close(dw, np.asarray(jdw), name="dW", **F32)
     assert (dx[tt < 0] == 0).all()
 
 

@@ -25,7 +25,8 @@ from tpukern_torch.core import registry
 from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
                                dot_product, embedding, gemv, histogram,
                                layernorm, matmul, nms, paged_attention,
-                               reduce, rmsnorm, rope, softmax, transpose)
+                               reduce, rmsnorm, rope, softmax, split_tf32,
+                               transpose)
 from tpukern_torch.parallel import Mesh, ring_kernels
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -184,7 +185,7 @@ def test_batcher_on_kernels_equals_plain(cuda):
 def test_matmul_modes_and_tails(cuda, M, N, K, mode, trans_b, dt):
     """The three epilogues (out dtype, f32 accumulator, f32 + bf16 copy),
     NN and TN, with M, N and K on and off the tiles (bf16 128 x 256 x 64,
-    f32 128 x 128 x 8)."""
+    f32 128 x 128 x 32)."""
     g = torch.Generator(device=cuda).manual_seed(M + N + K)
     a = torch.randn((M, K), generator=g, device=cuda).to(DTYPES[dt])
     b = torch.randn((N, K) if trans_b else (K, N), generator=g,
@@ -334,8 +335,9 @@ def test_train_loss_and_grads_on_kernels_equal_plain(cuda, dt):
 @pytest.mark.parametrize("N,D,V", [(200, 128, 1000), (256, 64, 1024),
                                    (129, 100, 257)])
 def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
-    """The forward (loss, lse: two launches) and the backward (dx, dW: one
-    launch in f32, three a vocab chunk in bf16) against the plain versions
+    """The forward (loss, lse: two launches) and the backward (dx, dW:
+    three launches a vocab chunk, of bwd_vocab_chunk_f32 columns in f32,
+    bwd_vocab_chunk in bf16) against the plain versions
     on the same inputs, tails in N and V, D off the 8-element vector
     width, a quarter of the targets ignored. The forward sums in f32 on
     both sides (bf16 inputs are exact in f32), so loss and lse are held
@@ -347,9 +349,10 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     to 2**-7 of the largest, hence the bf16 tolerance there. bf16 also
     runs at a forced chunk of 96 columns (3 to 11 chunks, against
     ce_bwd_chunked_ref too), and a second call gives the same bits (no
-    atomics). The bf16 forward writes cdiv(V, 256) partials (one a vocab
-    tile), is held to ce_fwd_tiled_ref (its order) too, and repeats bit
-    for bit."""
+    atomics, in either dtype). f32 also launches the split-TF32 operand
+    pass on x once and on each chunk of W. The bf16 forward writes
+    cdiv(V, 256) partials (one a vocab tile), is held to ce_fwd_tiled_ref
+    (its order) too, and repeats bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(N + D + V)
     x = torch.randn((N, D), generator=g, device=cuda).to(DTYPES[dt])
     w = (torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
@@ -358,15 +361,18 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
                       dtype=torch.int32)
     t[::4] = -1
     cot = torch.rand(N, generator=g, device=cuda)
-    before = (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches)
+    before = (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches,
+              split_tf32.split_tf32.launches)
     loss, lse = cross_entropy.ce_fwd(x, w, t, use_exp2)
     dx, dw = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
     torch.cuda.synchronize()
-    chunk = cross_entropy.bwd_vocab_chunk(N, D, V)
-    bwd = 1 if dt == "f32" else 3 * -(-V // chunk)
-    assert (cross_entropy.ce_fwd.launches,
-            cross_entropy.ce_bwd.launches) == (before[0] + 2,
-                                               before[1] + bwd)
+    chunk = (cross_entropy.bwd_vocab_chunk_f32 if dt == "f32"
+             else cross_entropy.bwd_vocab_chunk)(N, D, V)
+    chunks = -(-V // chunk)
+    splits = 1 + chunks if dt == "f32" else 0
+    assert (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches,
+            split_tf32.split_tf32.launches) == (
+                before[0] + 2, before[1] + 3 * chunks, before[2] + splits)
     rloss, rlse = cross_entropy._ce_ref(x, w, t)
     rdx, rdw = cross_entropy.ce_bwd_ref(x, w, t, rlse, cot)
     check_all_close(loss, rloss, name="loss", **F32)
@@ -383,14 +389,12 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
         assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
     tol = 1e-4 if dt == "f32" else 2e-2
     outs = [("", dx, dw, rdx, rdw)]
-    if dt == "bf16":
-        c96 = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2,
-                                   vocab_chunk=96)
-        outs += [(" chunk 96", *c96, rdx, rdw),
-                 (" chunk 96 vs chunked", *c96,
-                  *cross_entropy.ce_bwd_chunked_ref(x, w, t, rlse, cot, 96))]
-        again = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
-        assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    c96 = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2, vocab_chunk=96)
+    outs += [(" chunk 96", *c96, rdx, rdw),
+             (" chunk 96 vs chunked", *c96,
+              *cross_entropy.ce_bwd_chunked_ref(x, w, t, rlse, cot, 96))]
+    again = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
     for tag, a_dx, a_dw, b_dx, b_dw in outs:
         for name, a, b in (("dx", a_dx, b_dx), ("dW", a_dw, b_dw)):
             assert a.dtype == torch.float32 and a.shape == b.shape
@@ -419,7 +423,9 @@ def test_fused_loss_on_kernels_equals_unfused(cuda):
         c = Config(**{**cfg.__dict__, "fused_loss": fused})
         loss = loss_fn(params, tok, tgt, c)
         out[fused] = [loss] + list(torch.autograd.grad(loss, leaves))
-    assert cross_entropy.ce_bwd.launches == before + 1
+    n = 2 * 64  # tokens: B 2, S 64
+    chunk = cross_entropy.bwd_vocab_chunk_f32(n, cfg.d_model, cfg.vocab)
+    assert cross_entropy.ce_bwd.launches == before + 3 * -(-cfg.vocab // chunk)
     for i, (a, b) in enumerate(zip(out[True], out[False])):
         check_all_close(a, b, name=f"leaf {i - 1}", **F32)
 
@@ -1395,6 +1401,93 @@ def test_matmul_copy_path_equals_tma_bit_for_bit(cuda, case, mode):
     check_all_close(out.float(), matmul.matmul_ref(a, b, trans_b=trans_b),
                     dtype=out.dtype, name=f"matmul {case}",
                     **(F32 if out.dtype == torch.float32 else {}))
+
+
+def _split_inputs(g, R, C, cuda):
+    """Normals times 3 with split_tf32.SPECIALS (the values on each of
+    the pass's paths) in the first elements."""
+    x = torch.randn((R, C), generator=g, device=cuda) * 3
+    bits = torch.tensor(split_tf32.SPECIALS, dtype=torch.int64).to(
+        torch.int32)
+    n = min(len(bits), x.numel())
+    x.view(-1)[:n] = bits[:n].view(torch.float32).to(cuda)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("R,C", [(1, 1), (37, 130), (256, 64), (300, 517)])
+def test_split_tf32_kernel_bit_for_bit(cuda, R, C, transpose):
+    """The operand pass (csrc/split_tf32.cu) writes split_planes_ref's
+    planes bit for bit, as they are or transposed, the padding zeros; on
+    random values and on split_tf32.SPECIALS; one launch."""
+    g = torch.Generator(device=cuda).manual_seed(R * C)
+    x = _split_inputs(g, R, C, cuda)
+    before = split_tf32.split_tf32.launches
+    out = split_tf32.split_tf32(x, transpose=transpose)
+    torch.cuda.synchronize()
+    assert split_tf32.split_tf32.launches == before + 1
+    ref = split_tf32.split_planes_ref(x, transpose)
+    assert out.shape == ref.shape
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_split_tf32_kernel_strided_source(cuda):
+    """A source whose rows lie further apart than their length (a view of
+    a wider matrix, as W's vocab chunk is) splits as its copy does."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((70, 300), generator=g, device=cuda)
+    view = w[:, 40:137]
+    for transpose in (False, True):
+        assert torch.equal(split_tf32.split_tf32(view, transpose=transpose),
+                           split_tf32.split_planes_ref(view.contiguous(),
+                                                       transpose))
+
+
+def _f64_errors(out, a, b, trans_b):
+    """max |out - exact| for the kernel's out and for cuBLAS f32 (TF32
+    off), against the f64 product of the same inputs."""
+    exact = torch.matmul(a.double(), (b.T if trans_b else b).double())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = torch.matmul(a, b.T if trans_b else b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return ((out.double() - exact).abs().max().item(),
+            (lib.double() - exact).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K", [(333, 517, 1000), (256, 512, 2048),
+                                   (130, 300, 37), (128, 128, 8192),
+                                   (64, 64, 16384)])
+def test_matmul_f32_split_tf32_accuracy(cuda, M, N, K, trans_b):
+    """The f32 tier (split-TF32 products; K split matmul_splits ways where
+    the tiles are few: 4, 1, 1, 32, 32 here on an H100) against the f64
+    product of the same inputs: at most SPLIT_GATE times cuBLAS f32's
+    error (TF32 off), and within the split's bound of its plain model
+    (matmul_split_ref: the same planes, f64 sums) plus the f32 sums'
+    rounding (K f32 ulps of Σ|a b|, a loose bound); three launches: the
+    two operand passes and the GEMM; a second call gives the same bits
+    (the splits' partials meet in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((M, K), generator=g, device=cuda) / K ** 0.5
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=cuda)
+    before = (matmul.matmul.launches, split_tf32.split_tf32.launches)
+    out = matmul.matmul(a, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert (matmul.matmul.launches,
+            split_tf32.split_tf32.launches) == (before[0] + 1, before[1] + 2)
+    err, cublas = _f64_errors(out, a, b, trans_b)
+    assert err <= split_tf32.SPLIT_GATE * cublas, (err, cublas)
+    model = split_tf32.matmul_split_ref(a, b, trans_b=trans_b)
+    terms = a.abs().double() @ (b.T if trans_b else b).abs().double()
+    slack = (split_tf32.SPLIT_REL + K * 2.0 ** -24) * terms
+    assert ((out.double() - model.double()).abs() <= 2 * slack).all()
+    assert torch.equal(matmul.matmul(a, b, trans_b=trans_b), out)
 
 
 # the grouped GEMM (#28 gmm, #29 tgmm): the CASES of

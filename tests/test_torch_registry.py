@@ -21,6 +21,7 @@ from torch_parity import assert_parity
 from tpukern.core import registry as jax_registry
 from tpukern_torch.core import registry
 from tpukern_torch.harness import ops_bench
+from tpukern_torch.ops import split_tf32
 
 
 def _names(reg):
@@ -110,5 +111,41 @@ def test_grouped_matmul_check_holds_f32_rounding_not_tf32(order, ok):
 
     other = dataclasses.replace(v, fn=fn)
     good, err, rule = ops_bench.check(other, (x, dy, gs))
+    assert good == ok, f"{order}: {rule} ({err:.3e})"
+    assert err > 0
+
+
+@pytest.mark.parametrize("order,ok", [("split-TF32 model", True),
+                                      ("torch.matmul f32", True),
+                                      ("one cross term dropped", False),
+                                      ("tf32 inputs", False)])
+def test_matmul_f32_check_holds_split_tf32_not_tf32(order, ok):
+    """ops_bench.check holds the split-TF32 f32 tier of matmul to the
+    accuracy gate (ops_bench.split_gate): its largest error against the
+    f64 product at most SPLIT_GATE times torch.matmul's in f32. The split
+    product's plain model (5x closer to f64 than torch.matmul here) and
+    torch.matmul itself pass; the split without A_lo·B_hi and a product
+    that reads its inputs as TF32 (one pass) miss; the bound counts its
+    operations as split-TF32 products."""
+    v = registry.get("matmul", "sgemm_ksliced_f32")
+    gen = torch.Generator("cpu").manual_seed(1)
+    a, b = torch.randn(24, 1024, generator=gen), torch.randn(
+        1024, 16, generator=gen)
+    assert ops_bench.runs_split_tf32(v, (a, b))
+    assert ops_bench.work(v, (a, b), v.ref(a, b))[1] == ops_bench.SPLIT_TF32
+
+    def fn(a, b):
+        if order == "tf32 inputs":
+            return v.ref(_tf32(a), _tf32(b))
+        if order == "split-TF32 model":
+            return split_tf32.matmul_split_ref(a, b)
+        if order == "one cross term dropped":
+            (ah, _), (bh, bl) = split_tf32.split_tf32_ref(
+                a), split_tf32.split_tf32_ref(b)
+            return ah @ bh + ah @ bl
+        return torch.matmul(a, b)
+
+    other = dataclasses.replace(v, fn=fn)
+    good, err, rule = ops_bench.check(other, (a, b))
     assert good == ok, f"{order}: {rule} ({err:.3e})"
     assert err > 0

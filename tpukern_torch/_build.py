@@ -74,8 +74,15 @@ SIGNATURES = {
     # the same with dk, dv in place of dq
     "tk_flash_attention_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _F, _I, _I, _F, _I, _P],
-    # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, stream
-    "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, the
+    # f32 tier's split-TF32 scratch (or None), its splits of K, tickets
+    # (or None at one split), the operand passes' host counter (or None;
+    # ops/split_tf32.py launch_counting_passes), stream
+    "tk_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # src (f32), R, C, row stride, planes (or None), their row stride,
+    # transposed planes (or None), their row stride, the host counter,
+    # stream
+    "tk_split_tf32": [_P, _I, _I, _I64, _P, _I64, _P, _I64, _P, _P],
     # x, w, group_sizes (i32), y32 (or None), y16 (or None), T, N, K, E,
     # trans_w, dtype, stream
     "tk_gmm": [_P] * 5 + [_I] * 6 + [_P],
@@ -118,9 +125,11 @@ SIGNATURES = {
     "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # part, targets, loss, lse, N, n_split, stream
     "tk_ce_combine": [_P, _P, _P, _P, _I, _I, _P],
-    # x, w, targets, lse, g, dx (f32, zeroed), dw (f32, zeroed), N, D, V,
-    # log2, stream (f32 inputs)
-    "tk_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, targets, lse, g, dx (f32), dw (f32), the split-TF32 planes of
+    # x, of W's chunk and of dlog (f32 scratch), N, D, V, v0, vc, add,
+    # split_x, log2, the host counter, stream (f32 inputs; one vocab
+    # chunk)
+    "tk_ce_bwd": [_P] * 10 + [_I] * 8 + [_P, _P],
     # x, w, targets, lse, g, dx (f32), dw (f32), dlog scratch (bf16), N,
     # D, V, v0, vc, add, log2, stream (bf16 inputs; one vocab chunk)
     "tk_ce_bwd_chunk": [_P] * 8 + [_I] * 7 + [_P],

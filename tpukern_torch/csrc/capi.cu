@@ -85,9 +85,19 @@ int tk_flash_attention_dkv(const void* q, const void* k, const void* v,
 }
 
 int tk_matmul(const void* a, const void* b, void* c32, void* c16, int M,
-              int N, int K, int trans_b, int dtype, void* stream) {
+              int N, int K, int trans_b, int dtype, void* scratch, int splits,
+              int* tickets, int* passes, void* stream) {
   return checked(tk::matmul_launch(a, b, c32, c16, M, N, K, trans_b, dtype,
+                                   scratch, splits, tickets, passes,
                                    static_cast<cudaStream_t>(stream)));
+}
+
+int tk_split_tf32(const float* src, int R, int C, int64_t ld, float* out,
+                  int64_t ldo, float* outT, int64_t ldoT, int* passes,
+                  void* stream) {
+  return checked(tk::split_tf32_launch(src, R, C, ld, out, ldo, outT, ldoT,
+                                       passes,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 int tk_gmm(const void* x, const void* w, const int* group_sizes, void* y32,
@@ -179,10 +189,13 @@ int tk_ce_combine(const float* part, const int* targets, float* loss,
 }
 
 int tk_ce_bwd(const float* x, const float* w, const int* targets,
-              const float* lse, const float* g, float* dx, float* dw, int N,
-              int D, int V, int log2, void* stream) {
-  return checked(tk::ce_bwd_launch(x, w, targets, lse, g, dx, dw, N, D, V,
-                                   log2, static_cast<cudaStream_t>(stream)));
+              const float* lse, const float* g, float* dx, float* dw,
+              float* xs, float* ws, float* ds, int N, int D, int V, int v0,
+              int vc, int add, int split_x, int log2, int* passes,
+              void* stream) {
+  return checked(tk::ce_bwd_launch(x, w, targets, lse, g, dx, dw, xs, ws, ds,
+                                   N, D, V, v0, vc, add, split_x, log2, passes,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 int tk_ce_bwd_chunk(const void* x, const void* w, const int* targets,

@@ -324,19 +324,48 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
   }
 }
 
+// The split of an f32 x into two TF32 values for the split-TF32
+// products (csrc/hopper.cuh gemm_pipeline_tf32): hi is x rounded to TF32
+// (10 mantissa bits; the low 13 bits zero) half away from zero, the
+// rounding of cvt.rna.tf32.f32, written on the bits so that the plain
+// version (ops/split_tf32.py split_tf32_ref) computes the same; lo = x -
+// hi, exact in f32 (hi is within half a TF32 ulp of x, so Sterbenz's
+// lemma holds), with x's sign where it is zero, so that hi + lo == x bit
+// for bit. A finite x within half a TF32 ulp of FLT_MAX would round to
+// inf: hi is its truncation there. inf keeps hi = x, lo = 0; a NaN gets
+// hi = its truncation with the quiet bit set (still NaN as the tensor core
+// reads it) and lo = 0, so that no inf - inf appears.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  const uint32_t u = __float_as_uint(x), mag = u & 0x7FFFFFFFu;
+  const uint32_t sign = u & 0x80000000u;
+  if (mag >= 0x7F800000u) {  // inf, NaN
+    hi = mag > 0x7F800000u ? __uint_as_float((u & 0xFFFFE000u) | 0x00400000u)
+                           : x;
+    lo = 0.f;
+    return;
+  }
+  uint32_t r = (mag + 0x1000u) & 0xFFFFE000u;
+  if (r >= 0x7F800000u) r = mag & 0xFFFFE000u;
+  hi = __uint_as_float(r | sign);
+  lo = x - hi;
+  if (lo == 0.f) lo = __uint_as_float(sign);
+}
+
 // ------------------------------------------------------------ GEMM tiles
 // One block of 256 threads accumulates the 128 x 128 tile at (m0, n0) of
 // C = A[M,K] · B[K,N] (NN) or A · B[N,K]^T (TRANS_B) in f32 registers.
 // Every global load is bounds-checked: past M, N or K it reads zeros.
-// csrc/matmul.cu writes the tile out; csrc/cross_entropy.cu reduces it;
-// csrc/grouped_matmul.cu writes one group's rows of it.
+// csrc/matmul_naive.cu writes the tile out (#16 f32); csrc/cross_entropy.cu
+// reduces it (the f32 forward #13); csrc/grouped_matmul.cu writes one
+// group's rows of it (#28/#29 f32). The f32 #1-#3 and #14/#15 run the
+// split-TF32 products of csrc/hopper.cuh instead.
 //
 // TRANS_A (with NN B only): A is stored K-major, A[m][k] = a[k * M + m],
 // and the contraction runs over [k_begin, K) alone: the token-major x and
 // dy of a weight gradient, summed over one group's rows (tgmm). Without
 // TRANS_A, k_begin is 0 and K is also A's row length.
 
-// f32 inputs on CUDA-core FMAs in full f32 (never TF32). Thread (tx, ty)
+// f32 inputs on CUDA-core FMAs in full f32 (no TF32). Thread (tx, ty)
 // = (tid % 16, tid / 16) holds acc[i][j] at row sgemm_pos(i, ty) and
 // column sgemm_pos(j, tx): an 8 x 8 register tile split in two 4-wide
 // halves, so shared-memory reads are float4 and conflict-free. `as` and
@@ -471,9 +500,21 @@ cudaError_t flash_attention_dkv_launch(
     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
     void* dk, void* dv, int B, int H, int Sq, int Skv, int D, float sm_scale,
     int causal, int window, float softcap, int dtype, cudaStream_t stream);
+// f32 inputs: scratch holds the split-TF32 planes of A (2, M, K4) and of
+// B (2, N, K4), K4 = K rounded up to 4 (null at K = 0), then, with splits
+// of K > 1, the partial tiles (tiles, splits, 128 x 128); tickets: a
+// zeroed counter a tile (splits > 1); passes: split_tf32_launch's
 cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
                           int M, int N, int K, int trans_b, int dtype,
-                          cudaStream_t stream);
+                          void* scratch, int splits, int* tickets,
+                          int* passes, cudaStream_t stream);
+// the split-TF32 operand pass: src (R, C) at row stride ld into planes
+// (hi, then lo) of (R, ldo) (out) and of its transpose (C, ldoT) (outT),
+// either null; ldo >= C and ldoT >= R, multiples of 4, their padding 0.
+// passes (host memory, or null) is raised by one when the pass launches.
+cudaError_t split_tf32_launch(const float* src, int R, int C, int64_t ld,
+                              float* out, int64_t ldo, float* outT,
+                              int64_t ldoT, int* passes, cudaStream_t stream);
 cudaError_t gmm_launch(const void* x, const void* w, const int* group_sizes,
                        void* y32, void* y16, int T, int N, int K, int E,
                        int trans_w, int dtype, cudaStream_t stream);
@@ -523,11 +564,16 @@ cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
 cudaError_t ce_combine_launch(const float* part, const int* targets,
                               float* loss, float* lse, int N, int n_split,
                               cudaStream_t stream);
-// the f32 backward (dx and dW zeroed by the caller)
+// the f32 backward's launches for vocab columns [v0, v0 + vc): with
+// split_x, x's split-TF32 planes into xs (2, N, D4) and (2, D, N4); W's
+// chunk's into ws (2, vc, D4) and (2, D, vc4); dlog's into ds (2, N, vc4)
+// and (2, vc, N4) (n4: n rounded up to 4); then dlog, dx (stored, or
+// added to with add) and dW[:, v0 .. v0 + vc); passes: split_tf32_launch's
 cudaError_t ce_bwd_launch(const float* x, const float* w, const int* targets,
                           const float* lse, const float* g, float* dx,
-                          float* dw, int N, int D, int V, int log2,
-                          cudaStream_t stream);
+                          float* dw, float* xs, float* ws, float* ds, int N,
+                          int D, int V, int v0, int vc, int add, int split_x,
+                          int log2, int* passes, cudaStream_t stream);
 // the bf16 backward's three launches for vocab columns [v0, v0 + vc):
 // dlog (scratch, N rows of vc rounded up to 8), dx (stored, or added to
 // with add), dW[:, v0 .. v0 + vc)

@@ -6,17 +6,16 @@
 // Replaces tpukern/ops/cross_entropy.py:
 //   `_ce_fwd_kernel` (:53)  -> f32: ce_fwd_kernel; bf16: ce_fwd_wgmma_kernel;
 //                              then ce_combine_kernel (#13)
-//   `_ce_dx_kernel` (:95)   -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
-//                              then ce_dx_kernel (#14)
-//   `_ce_dw_kernel` (:132)  -> f32: ce_bwd_fma_kernel; bf16: ce_dlog_kernel
-//                              then ce_dw_kernel (#15)
+//   `_ce_dx_kernel` (:95)   -> f32: ce_dlog_tf32_kernel then ce_dx_tf32_kernel;
+//                              bf16: ce_dlog_kernel then ce_dx_kernel (#14)
+//   `_ce_dw_kernel` (:132)  -> f32: ce_dlog_tf32_kernel then ce_dw_tf32_kernel;
+//                              bf16: ce_dlog_kernel then ce_dw_kernel (#15)
 //
-// f32 score tiles (the f32 forward and backward): 128 x 128 tiles S =
-// x[n0..] · W[:, v0..] from common.cuh's sgemm_tile, on CUDA-core FMAs in
-// full f32 (the JAX f32 tier's Precision.HIGHEST), put into shared memory,
-// where the reductions read them in a layout of their own. Columns past V
-// are set to NEG_BIG (forward) or their gradient to 0 (backward) after the
-// arithmetic, never multiplied in: 0 * garbage would be NaN.
+// f32 forward score tiles: 128 x 128 tiles S = x[n0..] · W[:, v0..] from
+// common.cuh's sgemm_tile, on CUDA-core FMAs in full f32 (the JAX f32
+// tier's Precision.HIGHEST), put into shared memory, where the reductions
+// read them in a layout of their own. Columns past V are set to NEG_BIG
+// after the arithmetic, never multiplied in: 0 * garbage would be NaN.
 //
 // Forward. The TPU kernel gives one grid row to each token block and walks
 // all of V in order; at N = 2048 that is 16 blocks for 132 SMs. Here V is
@@ -38,44 +37,52 @@
 //   row's partial. Nothing goes through shared memory; n_split = cdiv(V,
 //   256), one partial a vocab tile (128 at V = 32768: 3 MB at N = 2048).
 //
-// f32 backward: one block per (row tile, vocab tile) recomputes the score
-// tile once, forms dlog = g · (softmax - onehot) in shared memory from the
-// saved lse, and adds both of its contributions with f32 atomicAdd into
-// zeroed f32 outputs: dx[n0.., :] += dlog · W[:, v0..]^T and dW[:, v0..]
-// += x[n0.., :]^T · dlog. One recompute serves #14 and #15: 3 D-deep
-// products per tile, no buffer that grows with N·V. The atomics make the
-// summation order vary from run to run, so the f32 tier is held to the
-// plain version at a tolerance. Each block starts its D loop at a chunk of
-// its own, so the blocks of one row tile (or one vocab tile) that run
-// together add into different addresses. It runs at the rate of the port's
-// f32 GEMM (csrc/matmul.cu), which a scratch buffer would not raise.
-//
-// bf16 backward: three launches a vocab chunk [v0, v0 + vc), each one
-// hopper.cuh gemm_pipeline (128 x 256 tiles, a ring of TMA-fed stages,
-// wgmma, a producer warpgroup and two consumers), with a bf16 scratch of
-// dlog between them:
-//   1. ce_dlog_kernel: S = x · W[:, chunk] (x K-major, W's columns
-//      MN-major); in the consumers' registers each score becomes dlog =
-//      g · (p - onehot), p recomputed from the saved lse, 0 past the
-//      chunk's columns and on ignored rows, rounded to bf16 as JAX's
-//      kernels round it (cross_entropy.py:127, :157), and stored to the
-//      scratch (N, ld): ld is vc rounded up to 8, so that every row is
-//      whole 16-byte chunks and TMA reads it; the padding is written as 0.
-//   2. ce_dx_kernel: dx (+)= dlog · W[:, chunk]^T (the scratch K-major,
-//      W's rows K-major, as #2's TN); the first chunk stores, each later
-//      one adds its product to dx in its epilogue, chunk after chunk.
-//   3. ce_dw_kernel: dW[:, chunk] = x^T · dlog (both MN-major, the tokens
-//      the contraction, as #29 tgmm reads x); each chunk owns its columns
-//      and stores them once.
+// Backward: three launches a vocab chunk [v0, v0 + vc), each one GEMM
+// main loop of hopper.cuh (128 x 256 tiles in bf16, 128 x 128 in f32, a
+// ring of TMA-fed stages, wgmma, a producer warpgroup and two consumers),
+// with a scratch of dlog between them:
+//   1. dlog: S = x · W[:, chunk]; in the consumers' registers each score
+//      becomes dlog = g · (p - onehot), p recomputed from the saved lse, 0
+//      past the chunk's columns and on ignored rows, and is stored;
+//   2. dx: dx (+)= dlog · W[:, chunk]^T; the first chunk stores, each
+//      later one adds its product to dx in its epilogue, chunk after
+//      chunk;
+//   3. dW: dW[:, chunk] = x^T · dlog, the tokens the contraction; each
+//      chunk owns its columns and stores them once.
 // No atomics and no pre-zeroed outputs: each output element has one
 // writer a launch and the launches run in stream order, so a call gives
-// the same bits from run to run. The chunk (ops/cross_entropy.py
-// bwd_vocab_chunk, from N, D and V alone) is the whole vocab where the
-// scratch of N · ld values fits in D · V (half the bytes of the f32 dW the
-// call returns; 134 MB at N = D = 2048, V = 32768), else the widest
-// multiple of 256 columns that fits. An operand whose rows TMA cannot take
-// (x where D % 8, W where V % 8) goes through the pipeline's copy path,
-// with W's row stride V apart from the chunk's width (GemmOperand.ld).
+// the same bits from run to run.
+// - bf16 (ce_dlog_kernel, ce_dx_kernel, ce_dw_kernel, on gemm_pipeline):
+//   dlog rounded to bf16 as JAX's kernels round it (cross_entropy.py:127,
+//   :157) into a scratch (N, ld), ld = vc rounded up to 8 (the padding
+//   written as 0), which TMA reads; x and W's chunk are read where they
+//   lie, x K-major in 1 and MN-major in 3 (as #29 tgmm reads x), W's
+//   columns MN-major in 1 and its rows K-major in 2 (as #2's TN), the
+//   scratch K-major in 2 and MN-major in 3. The chunk (ops/cross_entropy.py
+//   bwd_vocab_chunk, from N, D and V alone) is the whole vocab where the
+//   scratch of N · ld values fits in D · V (half the bytes of the f32 dW
+//   the call returns; 134 MB at N = D = 2048, V = 32768), else the widest
+//   multiple of 256 columns that fits. An operand whose rows TMA cannot
+//   take (x where D % 8, W where V % 8) goes through the pipeline's copy
+//   path, with W's row stride V apart from the chunk's width
+//   (GemmOperand.ld).
+// - f32 (ce_dlog_tf32_kernel, ce_dx_tf32_kernel, ce_dw_tf32_kernel, on
+//   gemm_pipeline_tf32): split-TF32 products, three TF32 products a
+//   product, the counterpart of the TPU's Precision.HIGHEST passes.
+//   wgmma .tf32 reads both operands K-major only, so every operand comes
+//   as hi and lo planes (csrc/split_tf32.cu) in the layout its product
+//   needs: x as it is (1) and transposed (3), split once a call; W's chunk
+//   transposed (1) and as it is (2), split once a chunk; dlog, split in
+//   launch 1's epilogue, as it is (2) and transposed (3), in f32 (JAX's
+//   f32 kernels round it to f32: a no-op). The scratch is about 16 (N +
+//   D) bytes a chunk column (ops/cross_entropy.py bwd_vocab_chunk_f32: the
+//   whole vocab where it fits in 2 D V values, twice the f32 dW, else the
+//   widest multiple of 256 columns that does: 8192 columns, 537 MB, at N =
+//   D = 2048, V = 32768). Its bound is 3 x 3 TF32 products of 2 N D V
+//   (4997 µs at 495 TFLOP/s there, against 12308 on CUDA-core FMAs, above
+//   the library's 11143: no FMA design can beat it); on the card its dx
+//   and dW are held to at most twice the error of cuBLAS f32 (TF32 off)
+//   against an f64 product (chip_smoke.py [train kernels]).
 //
 // The log2 tier (use_exp2, the bf16 default) scales the f32 score by
 // log2(e) and uses exp2, as the TPU kernel does; the TPU kernel instead
@@ -86,26 +93,26 @@
 //
 // What bounds it: 2·N·D·V flops a product (275 GFLOP at N = D = 2048, V =
 // 32768), one in the forward and three in the backward, against N·D + D·V
-// elements read (and in the bf16 backward the scratch, written once and
-// read twice), so it is compute bound: f32 on CUDA-core FMAs, bf16 on the
-// tensor cores (278 us at 989 TFLOP/s a product). The bf16 forward's
-// epilogue adds two passes over the 128 accumulators (max, then exp2 and
-// sum) and 12 bytes a row a vocab tile, under the next tile's loads.
+// elements read (and in the backward the scratch, written once and read
+// twice), so it is compute bound: the f32 forward on CUDA-core FMAs, the
+// f32 backward on split-TF32 products, bf16 on the tensor cores (278 us at
+// 989 TFLOP/s a product). The bf16 forward's epilogue adds two passes over
+// the 128 accumulators (max, then exp2 and sum) and 12 bytes a row a vocab
+// tile, under the next tile's loads.
 //
 // Registers (`-Xptxas -v`, nvcc 12.9, sm_90a; chip_smoke.py prints them
 // from the build's nvcc.log) and dynamic shared memory per block, two
 // blocks per SM:
 //   ce_fwd_kernel      f32 128 registers, no spills; 77,824 B
 //   ce_combine_kernel  32 registers, no shared memory
-//   ce_bwd_fma_kernel  128 registers, a 360 B stack frame (448 B spill
-//                      stores, 1,288 B spill loads); 77,824 B
 //   ce_fwd_wgmma_kernel 168 registers (the pipeline's launch bound, before
 //                      its split), no spills with both operands by TMA;
 //                      the copy-path instances spill 4-40 bytes
 // The bf16 forward and backward kernels take gemm_pipeline's one block an
 // SM (gemm_smem: 197,632 B with both operands by TMA, 203,776 B with a
 // copy) and its register split (the producer warpgroup 40, the consumers
-// 232).
+// 232); the f32 backward's gemm_pipeline_tf32's (197,632 B: 3 stages of
+// 64 KiB).
 #include "hopper.cuh"
 
 namespace tk {
@@ -238,186 +245,6 @@ __global__ void ce_combine_kernel(const float* __restrict__ part,
   loss[n] = targets[n] < 0 ? 0.f : z - t;
 }
 
-// The backward's per-row state: the saved lse in the tier's units, the
-// cotangent (0 where the target is ignored or the row is past N), and
-// the target.
-__device__ __forceinline__ void load_rows(const int* __restrict__ targets,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ g, int N,
-                                          int n0, bool log2, float* row_lse,
-                                          float* row_g, int* row_tgt) {
-  const int tid = threadIdx.x;
-  if (tid < BN) {
-    const int n = n0 + tid;
-    const int tg = n < N ? targets[n] : -1;
-    row_tgt[tid] = tg;
-    row_lse[tid] = n < N ? (log2 ? lse[n] * LOG2E : lse[n]) : 0.f;
-    row_g[tid] = tg >= 0 ? g[n] : 0.f;
-  }
-}
-
-// dlog = g · (p - onehot) of score s at tile row r, vocab column v, p
-// recomputed from the saved lse. Padded rows have g = 0 and finite p;
-// columns past V are zeroed after the arithmetic.
-template <bool LOG2>
-__device__ __forceinline__ float dlog_of(float s, int r, int v, int V,
-                                         const float* row_lse,
-                                         const float* row_g,
-                                         const int* row_tgt) {
-  const float p = LOG2 ? exp2f(s * LOG2E - row_lse[r]) : expf(s - row_lse[r]);
-  const float d = (p - (v == row_tgt[r] ? 1.f : 0.f)) * row_g[r];
-  return v < V ? d : 0.f;
-}
-
-// row[col..col+3] += v for the columns < cols: one 16-byte reduction
-// where all four are in and `vec` (cols % 4 == 0: the address is aligned)
-__device__ __forceinline__ void atomic_add4(float* row, int col, int cols,
-                                            bool vec, float4 v) {
-  if (vec && col + 4 <= cols) {
-    atomicAdd(reinterpret_cast<float4*>(row + col), v);
-    return;
-  }
-  const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (col + k < cols) atomicAdd(row + col + k, e[k]);
-}
-
-// Block (blockIdx.x, blockIdx.y) = (row tile, vocab tile): the f32
-// backward above, every product on CUDA-core FMAs. dx and dW are
-// zeroed f32 (N, D) and (D, V) accumulators.
-template <bool LOG2>
-__global__ void __launch_bounds__(THREADS, 2)
-ce_bwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const int* __restrict__ targets,
-                  const float* __restrict__ lse, const float* __restrict__ g,
-                  float* __restrict__ dx, float* __restrict__ dw, int N, int D,
-                  int V) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tile = reinterpret_cast<float*>(smem);  // [BN][LDT]: S, then dlog
-  float* row_lse = tile + BN * LDT;              // [BN], the tier's units
-  float* row_g = row_lse + BN;                   // [BN], 0 where ignored
-  int* row_tgt = reinterpret_cast<int*>(row_g + BN);
-  unsigned char* stage = smem + TILE_BYTES + 4 * BN * 4;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * BN, v0 = blockIdx.y * BV;
-  load_rows(targets, lse, g, N, n0, LOG2, row_lse, row_g, row_tgt);
-  score_tile(x, w, N, D, V, n0, v0, stage, tile);
-
-  for (int i = tid; i < BN * BV; i += THREADS) {
-    const int r = i / BV, c = i % BV;
-    float* s = &tile[r * LDT + c];
-    *s = dlog_of<LOG2>(*s, r, v0 + c, V, row_lse, row_g, row_tgt);
-  }
-  __syncthreads();
-
-  const int n_dc = (D + F_BM - 1) / F_BM;
-  float acc[8][8];
-
-  // dx[n0 + m, d0 + j] += sum_k dlog[m][k] · W[d0 + j, v0 + k]: A from the
-  // dlog tile read down a column (scalar, conflict-free: the 8 rows a warp
-  // reads lie 4 rows apart), B = W's chunk staged [k][d]
-  {
-    float(*bs)[F_BN] = reinterpret_cast<float(*)[F_BN]>(stage);
-    const int lr = tid >> 1, lk = (tid & 1) * 4;  // d row, 4 vocab columns
-    float pb[4];
-    for (int dc = 0; dc < n_dc; ++dc) {
-      const int d0 = (dc + blockIdx.y) % n_dc * F_BM;
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int d = d0 + lr, v = v0 + k0 + lk + e;
-          pb[e] = d < D && v < V ? w[(int64_t)d * V + v] : 0.f;
-        }
-      };
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      fetch(0);
-      for (int k0 = 0; k0 < BV; k0 += F_BK) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) bs[lk + e][lr] = pb[e];
-        __syncthreads();
-        if (k0 + F_BK < BV) fetch(k0 + F_BK);
-#pragma unroll
-        for (int kk = 0; kk < F_BK; ++kk) {
-          const float* a = tile + k0 + kk;
-          fma_8x8(acc,
-                  make_float4(a[(ty * 4) * LDT], a[(ty * 4 + 1) * LDT],
-                              a[(ty * 4 + 2) * LDT], a[(ty * 4 + 3) * LDT]),
-                  make_float4(a[(64 + ty * 4) * LDT], a[(65 + ty * 4) * LDT],
-                              a[(66 + ty * 4) * LDT], a[(67 + ty * 4) * LDT]),
-                  *reinterpret_cast<const float4*>(&bs[kk][tx * 4]),
-                  *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]));
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int n = n0 + sgemm_pos(i, ty);
-        if (n >= N) continue;
-#pragma unroll
-        for (int h = 0; h < 8; h += 4)  // columns sgemm_pos(h.., tx) adjoin
-          atomic_add4(dx + (int64_t)n * D, d0 + sgemm_pos(h, tx), D,
-                      D % 4 == 0,
-                      make_float4(acc[i][h], acc[i][h + 1], acc[i][h + 2],
-                                  acc[i][h + 3]));
-      }
-    }
-  }
-
-  // dW[d0 + m, v0 + j] += sum_k x[n0 + k, d0 + m] · dlog[k][j]: A = x's
-  // chunk staged [k][d], B read from the dlog tile as float4
-  {
-    float(*as)[F_BM] = reinterpret_cast<float(*)[F_BM]>(stage);
-    const int bk = tid >> 5, bc = (tid & 31) * 4;  // token row, 4 d columns
-    float pa[4];
-    for (int dc = 0; dc < n_dc; ++dc) {
-      const int d0 = (dc + blockIdx.x) % n_dc * F_BM;
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = n0 + k0 + bk, d = d0 + bc + e;
-          pa[e] = n < N && d < D ? x[(int64_t)n * D + d] : 0.f;
-        }
-      };
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      fetch(0);
-      for (int k0 = 0; k0 < BN; k0 += F_BK) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) as[bk][bc + e] = pa[e];
-        __syncthreads();
-        if (k0 + F_BK < BN) fetch(k0 + F_BK);
-#pragma unroll
-        for (int kk = 0; kk < F_BK; ++kk) {
-          const float* b = tile + (k0 + kk) * LDT;
-          fma_8x8(acc, *reinterpret_cast<const float4*>(&as[kk][ty * 4]),
-                  *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]),
-                  *reinterpret_cast<const float4*>(b + tx * 4),
-                  *reinterpret_cast<const float4*>(b + 64 + tx * 4));
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int d = d0 + sgemm_pos(i, ty);
-        if (d >= D) continue;
-#pragma unroll
-        for (int h = 0; h < 8; h += 4)
-          atomic_add4(dw + (int64_t)d * V, v0 + sgemm_pos(h, tx), V,
-                      V % 4 == 0,
-                      make_float4(acc[i][h], acc[i][h + 1], acc[i][h + 2],
-                                  acc[i][h + 3]));
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------- bf16 backward
 // gemm_pipeline's epilogue layout: a consumer thread's first row of the
 // tile at m0 (its second lies 8 on) and its first column of the tile at
@@ -431,16 +258,18 @@ __device__ __forceinline__ int tile_col(int n0) {
   return n0 + 2 * (threadIdx.x & 3);
 }
 
-// The tile d into rows m0.. < M and columns n0.. < cols of the f32 matrix
-// c (row stride ldc): stored, or added to what c holds (add). Column
+// The tile d (NA accumulators a thread: 2 NA columns) into rows m0.. < M
+// and columns n0.. < cols of the f32 matrix c (row stride ldc): stored, or
+// added to what c holds (add). Column
 // pairs in one 8-byte access where ldc is even and c 8-byte aligned.
-__device__ __forceinline__ void store_f32(const float (&d)[128], float* c,
+template <int NA>
+__device__ __forceinline__ void store_f32(const float (&d)[NA], float* c,
                                           int64_t ldc, int M, int cols,
                                           int m0, int n0, bool add) {
   const int r0 = tile_row(m0), c0 = tile_col(n0);
   const bool pairs = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
 #pragma unroll
-  for (int j = 0; j < GP_BN / 8; ++j) {
+  for (int j = 0; j < NA / 4; ++j) {
     const int col = c0 + 8 * j;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -630,6 +459,113 @@ ce_dw_kernel(const __grid_constant__ CUtensorMap map_x,
       });
 }
 
+// ------------------------------------------------------- f32 backward
+// Launch 1 of the f32 backward: the chunk's scores S = x · W[:, v0 .. v0
+// + vc) on the split-TF32 pipeline (x's planes (N, D) and the chunk's
+// transposed planes (vc, D), both K-major), turned in the epilogue into
+// dlog = g · (p - onehot) in f32, p recomputed from the saved lse, 0 on
+// ignored rows; split, and stored as the planes of dlog (N, ldv), V
+// contiguous (launch 2's A), and of its transpose (vc, ldn), N contiguous
+// (launch 3's B). Their padding columns are never read: the maps end at
+// vc and N.
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dlog_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const int* __restrict__ targets,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    float* __restrict__ dl, float* __restrict__ dlt, int N,
+                    int D, int v0, int vc, int ldv, int ldn, int log2) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * TF_BN;
+  gemm_pipeline_tf32(
+      &map_x, &map_w, m0, n0, 0, D, [&](const float (&d)[64]) {
+        const int r0 = tile_row(m0), c0 = tile_col(n0);
+        const int64_t pv = (int64_t)N * ldv, pt = (int64_t)vc * ldn;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r >= N) continue;
+          // the target's column in the chunk; an ignored row keeps no
+          // gradient
+          const int tgt = targets[r];
+          const bool keep = tgt >= 0;
+          const float gr = keep ? g[r] : 0.f;
+          const float z = log2 ? lse[r] * LOG2E : lse[r];
+#pragma unroll
+          for (int j = 0; j < TF_BN / 8; ++j) {
+            const int c = c0 + 8 * j;  // even, and ldv is a multiple of 4
+            if (c >= vc) continue;
+            float hi[2], lo[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float s = d[4 * j + 2 * h + e];
+              const float p = log2 ? exp2f(s * LOG2E - z) : expf(s - z);
+              const float one = v0 + c + e == tgt ? 1.f : 0.f;
+              split_tf32(keep && c + e < vc ? (p - one) * gr : 0.f, hi[e],
+                         lo[e]);
+            }
+            float* row = dl + (int64_t)r * ldv + c;
+            *reinterpret_cast<float2*>(row) = make_float2(hi[0], hi[1]);
+            *reinterpret_cast<float2*>(row + pv) = make_float2(lo[0], lo[1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (c + e >= vc) break;
+              dlt[(int64_t)(c + e) * ldn + r] = hi[e];
+              dlt[pt + (int64_t)(c + e) * ldn + r] = lo[e];
+            }
+          }
+        }
+      });
+}
+
+// Launch 2: dx (N, D) (+)= dlog (N, vc) · W[:, v0 .. v0 + vc)^T, a 128 x
+// 128 tile of dx a block: dlog's planes K-major, the chunk's planes (D,
+// vc) K-major (W's rows); add: this chunk's product joins the earlier
+// chunks' sum.
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dx_tf32_kernel(const __grid_constant__ CUtensorMap map_s,
+                  const __grid_constant__ CUtensorMap map_w,
+                  float* __restrict__ dx, int N, int D, int vc, int add) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * TF_BN;
+  gemm_pipeline_tf32(
+      &map_s, &map_w, m0, n0, 0, vc, [&](const float (&d)[64]) {
+        store_f32(d, dx, D, N, D, m0, n0, add);
+      });
+}
+
+// Launch 3: dW[:, v0 .. v0 + vc) = x^T · dlog, a 128 x 128 tile of dW a
+// block, over all N tokens: x's transposed planes (D, N) and dlog's (vc,
+// N), both K-major.
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_dw_tf32_kernel(const __grid_constant__ CUtensorMap map_xt,
+                  const __grid_constant__ CUtensorMap map_st,
+                  float* __restrict__ dw, int N, int D, int V, int vc) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * TF_BN;
+  gemm_pipeline_tf32(
+      &map_xt, &map_st, m0, n0, 0, N, [&](const float (&d)[64]) {
+        store_f32(d, dw, V, D, vc, m0, n0, false);
+      });
+}
+
+// the f32 kernels' launch: gemm_pipeline_tf32's shared memory
+template <typename Kernel, typename... Args>
+cudaError_t launch_tf32(Kernel kernel, dim3 grid, cudaStream_t stream,
+                        Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, GP_THREADS, TF_SMEM, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch_gp(Kernel kernel, bool copy, dim3 grid, cudaStream_t stream,
                       Args... args) {
@@ -691,21 +627,6 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* w, const int* targets,
                    wm, x, w, targets, part, N, D, V, log2);
 }
 
-template <bool LOG2>
-cudaError_t bwd_f32(const float* x, const float* w, const int* targets,
-                    const float* lse, const float* g, float* dx, float* dw,
-                    int N, int D, int V, cudaStream_t stream) {
-  // the score tile, the row state and the main loop's stage
-  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + STAGE_BYTES;
-  auto kernel = ce_bwd_fma_kernel<LOG2>;
-  cudaError_t e = allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + BN - 1) / BN, (V + BV - 1) / BV);
-  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, g, dx, dw, N,
-                                           D, V);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
@@ -747,14 +668,47 @@ cudaError_t ce_combine_launch(const float* part, const int* targets,
 
 cudaError_t ce_bwd_launch(const float* x, const float* w, const int* targets,
                           const float* lse, const float* g, float* dx,
-                          float* dw, int N, int D, int V, int log2,
-                          cudaStream_t stream) {
-  if (N < 0 || D <= 0 || V <= 0 || (V + BV - 1) / BV > 65535)
+                          float* dw, float* xs, float* ws, float* ds, int N,
+                          int D, int V, int v0, int vc, int add, int split_x,
+                          int log2, int* passes, cudaStream_t stream) {
+  const dim3 g1((vc + TF_BN - 1) / TF_BN, (N + GP_BM - 1) / GP_BM);
+  const dim3 g2((D + TF_BN - 1) / TF_BN, (N + GP_BM - 1) / GP_BM);
+  const dim3 g3((vc + TF_BN - 1) / TF_BN, (D + GP_BM - 1) / GP_BM);
+  if (N <= 0 || D <= 0 || vc <= 0 || v0 < 0 || v0 + vc > V || g1.y > 65535 ||
+      g3.y > 65535 || !aligned16(xs) || !aligned16(ws) || !aligned16(ds))
     return cudaErrorInvalidValue;
-  if (N == 0) return cudaSuccess;
-  return log2 ? bwd_f32<true>(x, w, targets, lse, g, dx, dw, N, D, V, stream)
-              : bwd_f32<false>(x, w, targets, lse, g, dx, dw, N, D, V,
-                               stream);
+  auto r4 = [](int n) { return (int64_t)(n + 3) / 4 * 4; };
+  const int64_t d4 = r4(D), n4 = r4(N), c4 = r4(vc);
+  float* xk = xs;                 // x's planes (2, N, d4)
+  float* xt = xk + 2 * N * d4;    // x^T's (2, D, n4)
+  float* wt = ws;                 // W[:, chunk]^T's (2, vc, d4)
+  float* wk = wt + 2 * vc * d4;   // W[:, chunk]'s (2, D, c4)
+  float* dl = ds;                 // dlog's (2, N, c4)
+  float* dlt = dl + 2 * N * c4;   // dlog^T's (2, vc, n4)
+  cudaError_t e = cudaSuccess;
+  if (split_x)
+    e = split_tf32_launch(x, N, D, D, xk, d4, xt, n4, passes, stream);
+  if (e == cudaSuccess)
+    e = split_tf32_launch(w + v0, D, vc, V, wk, c4, wt, d4, passes, stream);
+  CUtensorMap mx{}, mw{}, ms{}, mwk{}, mxt{}, mst{};
+  auto map = [&](CUtensorMap* m, const float* p, int K, int rows, int64_t ld,
+                 int box) {
+    if (e == cudaSuccess) e = tma_map_planes(m, p, K, rows, ld, box);
+  };
+  map(&mx, xk, D, N, d4, GP_BM);     // launch 1's A
+  map(&mw, wt, D, vc, d4, TF_BN);    // launch 1's B
+  map(&ms, dl, vc, N, c4, GP_BM);    // launch 2's A
+  map(&mwk, wk, vc, D, c4, TF_BN);   // launch 2's B
+  map(&mxt, xt, N, D, n4, GP_BM);    // launch 3's A
+  map(&mst, dlt, N, vc, n4, TF_BN);  // launch 3's B
+  if (e != cudaSuccess) return e;
+  e = launch_tf32(ce_dlog_tf32_kernel, g1, stream, mx, mw, targets, lse, g,
+                  dl, dlt, N, D, v0, vc, (int)c4, (int)n4, log2);
+  if (e != cudaSuccess) return e;
+  e = launch_tf32(ce_dx_tf32_kernel, g2, stream, ms, mwk, dx, N, D, vc, add);
+  if (e != cudaSuccess) return e;
+  return launch_tf32(ce_dw_tf32_kernel, g3, stream, mxt, mst, dw + v0, N, D,
+                     V, vc);
 }
 
 cudaError_t ce_bwd_chunk_launch(const void* x, const void* w,

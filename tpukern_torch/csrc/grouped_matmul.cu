@@ -48,7 +48,8 @@
 // What bounds it: at the Mixtral expert shapes (8192 routed rows, K/N 4096
 // and 14336) a tile does 128·128·K multiply-adds per 2·128·K elements
 // loaded: compute bound, as csrc/matmul.cu. f32 runs common.cuh's
-// sgemm_tile on CUDA-core FMAs in full f32 (never TF32). bf16 runs
+// sgemm_tile on CUDA-core FMAs in full f32 (the split-TF32 products of
+// csrc/matmul.cu's f32 tier are later work here). bf16 runs
 // hopper.cuh's gemm_pipeline, as csrc/matmul.cu's bf16 GEMM: 128 x 256
 // tiles, a ring of 4 stages of 64-wide slabs, TMA and wgmma, tiles in
 // runs of 8 tile rows (gemm_tile_order). A boundary item computes all
@@ -80,9 +81,8 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ sizes,
   t = min(off, T);
 }
 
-// two blocks an SM, as csrc/matmul.cu's sgemm_kernel (127 registers)
-// runs: without the bound the group loop took 145-155 registers, which
-// left room for one block an SM
+// two blocks an SM (127 registers): without the bound the group loop
+// took 145-155 registers, which left room for one block an SM
 template <bool TRANS_W>
 __global__ void __launch_bounds__(F_THREADS, 2)
 gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,

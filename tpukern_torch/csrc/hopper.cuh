@@ -2,7 +2,9 @@
 // loads, mbarriers, and wgmma's shared-memory descriptors, product and
 // sync; and on them the GEMM main loop (gemm_pipeline) of csrc/matmul.cu
 // (#1-#3, #17), csrc/grouped_matmul.cu's gmm (#28) and tgmm (#29), and
-// csrc/cross_entropy.cu's bf16 forward (#13) and backward (#14/#15).
+// csrc/cross_entropy.cu's bf16 forward (#13) and backward (#14/#15); and
+// its f32 form on split-TF32 products (gemm_pipeline_tf32) of the f32
+// #1-#3, #17 and #14/#15.
 // csrc/matmul_naive.cu (#16) uses the blocks with one stage of its own,
 // csrc/flash_attention.cu's bf16 forward (#6) with a ring of its own and
 // the register-A products (P from registers).
@@ -150,7 +152,7 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// host: a 2-D bf16 tensor map with the 128-byte swizzle over a row-major
+// host: a 2-D tensor map with the 128-byte swizzle over a row-major
 // (outer, inner) matrix at base, rows row_bytes apart (a multiple of 16,
 // base 16-byte aligned), boxes of box_inner (64: 128 bytes) x box_outer;
 // with depth > 0, a 3-D map over `depth` such matrices one after another
@@ -158,10 +160,10 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 // reaches into the next matrix: rows past `outer` arrive as zeros.
 // cuTensorMapEncodeTiled is a driver call: it is fetched once through
 // the runtime, so the library needs no libcuda at link time.
-inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base,
-                                uint64_t inner, uint64_t outer,
-                                uint64_t row_bytes, uint32_t box_inner,
-                                uint32_t box_outer, uint64_t depth = 0) {
+inline cudaError_t tma_map(CUtensorMapDataType type, CUtensorMap* map,
+                           const void* base, uint64_t inner, uint64_t outer,
+                           uint64_t row_bytes, uint32_t box_inner,
+                           uint32_t box_outer, uint64_t depth) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = [] {
     void* fn = nullptr;
@@ -178,12 +180,29 @@ inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base,
   const cuuint32_t box[3] = {box_inner, box_outer, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2,
+      map, type, depth > 0 ? 3 : 2,
       const_cast<void*>(base),
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base,
+                                uint64_t inner, uint64_t outer,
+                                uint64_t row_bytes, uint32_t box_inner,
+                                uint32_t box_outer, uint64_t depth = 0) {
+  return tma_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, map, base, inner, outer,
+                 row_bytes, box_inner, box_outer, depth);
+}
+
+// the same over f32 elements (box_inner 32: 128 bytes)
+inline cudaError_t tma_map_f32(CUtensorMap* map, const void* base,
+                               uint64_t inner, uint64_t outer,
+                               uint64_t row_bytes, uint32_t box_inner,
+                               uint32_t box_outer, uint64_t depth = 0) {
+  return tma_map(CU_TENSOR_MAP_DATA_TYPE_FLOAT32, map, base, inner, outer,
+                 row_bytes, box_inner, box_outer, depth);
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -415,6 +434,45 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 8) . B (8 x 128), TF32 operands from
+// shared memory, both K-major (.tf32 has no transpose bit): each reads
+// an f32 element as its truncation to TF32 (the low 13 bits ignored).
+// scale_d 0 starts d afresh (d = A . B). d's layout is the m64n128k16
+// one above.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // a warpgroup's register budget: lowered by the producer, raised by the
@@ -756,18 +814,201 @@ __device__ __forceinline__ void gemm_pipeline(const CUtensorMap* map_a,
   }
 }
 
-// Consumer warpgroup wg's tile d (gemm_pipeline's layout) into rows m0 +
-// 64 wg on and columns n0 on of the row-major (M, N) outputs c32 (f32)
-// and c16 (bf16), either null: pairs of columns in one store where N is
-// even, masks at the N edge and outside the row window [r_lo, M).
-__device__ __forceinline__ void gemm_store(const float (&d)[128], float* c32,
+// ------------------------------------------- the split-TF32 GEMM main loop
+// f32 products on the tensor cores at f32 accuracy (CUTLASS calls it
+// 3xTF32; the TPU kernels' f32 tier is Precision.HIGHEST, bf16 passes on
+// the matrix unit): each operand x is split (common.cuh split_tf32) into
+// hi, x rounded to TF32, and lo = x - hi, and D = A_lo . B_hi + A_hi .
+// B_lo + A_hi . B_hi on wgmma .tf32, the small terms first. The tensor
+// core reads lo as its truncation (off by less than 2^-10 |lo| <= 2^-21
+// |x|) and lo . lo is dropped (at most 2^-22 |a b|): a product errs by
+// less than (1.25 + 2^-11) 2^-20 |a b| (ops/split_tf32.py SPLIT_REL),
+// against 2^-24 for one f32 rounding. It costs 3 TF32 products a
+// product: at 495 TFLOP/s, 165 of f32 work, 2.5x the 67 of the CUDA
+// cores' FMAs.
+//
+// The sums. wgmma rounds its accumulator after every product of 8 terms,
+// not to nearest: three products a k8 step chained over K = 2048 (768
+// roundings) left a result 7.5x further from the f64 product than cuBLAS
+// f32's (8.7e-5 against 1.2e-5 at 2048 x 8192 x 2048 on an H100; PERF.md
+// §6). So each slab's 12 products start a fresh wgmma accumulator d
+// (scale-d 0) and are then added, rounded to nearest, into f32 registers
+// (acc): the tensor core's roundings stay within a slab's partial sum, 32
+// terms. A slab's 8 small products go first: while d holds only them its
+// roundings are 2^-11 of the large sum's, so that sum is rounded 4 times
+// a slab, not 12. (A sum of the small terms apart took a third set of 64
+// registers, and the kernel spilled: ptxas gives a 384-thread block 168
+// registers a thread, whatever setmaxnreg grants at run time.) The two
+// sets of 64 fit only the 128 x 128 tile (a 128 x 256 tile's d alone
+// takes 128); it also ran faster than 128 x 256 before the promotion (3
+// stages against 2). A consumer waits for its slab's products before
+// it adds them, so its next slab waits too; the other consumer warpgroup's
+// products keep the tensor cores busy meanwhile.
+//
+// wgmma .tf32 is m64nNk8 and reads both operands K-major (no transpose
+// bit), so each operand arrives as the planes (hi, then lo) of a K-major
+// matrix that split_tf32_kernel wrote, rows K long at a row stride padded
+// to whole 16-byte chunks; one 3-D tensor map of depth 2 covers both
+// planes, and the maps end at K and at the rows, so TMA fills zeros past
+// them. A slab is TF_BK = 32 values of K, one 128-byte swizzled row, so
+// a k8 step starts 32 bytes into the rows: the bf16 K-major descriptors.
+// The tile is GP_BM x TF_BN = 128 x 128, a stage 2 x (16 + 16) KiB, 3
+// stages. Warpgroup 2 produces: its first thread waits for a stage's
+// `empty` barrier, announces the stage's bytes on `full` (its one
+// arrival) and issues the four boxes; the others leave. Warpgroups 0 and
+// 1 consume, each its 64 rows.
+constexpr int TF_BK = 32, TF_BN = 128;
+constexpr int TF_A = GP_BM * TF_BK * 4;  // one plane of A's slab: 16 KiB
+constexpr int TF_B = TF_BN * TF_BK * 4;  // one plane of B's slab: 16 KiB
+constexpr int TF_STAGE = 2 * (TF_A + TF_B);
+constexpr int TF_STAGES = 3;
+constexpr int TF_SMEM = TF_STAGES * TF_STAGE + 1024;  // + the alignment
+
+// host: one map over both planes (2, rows, ld) of a split operand at p,
+// rows K values long, boxes of TF_BK x box_rows
+inline cudaError_t tma_map_planes(CUtensorMap* map, const float* p, int K,
+                                  int rows, int64_t ld, int box_rows) {
+  return tma_map_f32(map, p, K, rows, (uint64_t)ld * 4, TF_BK, box_rows, 2);
+}
+
+// D of the tile (m0, n0) over the columns [k_begin, k_end) of A's and
+// B's planes (maps of tma_map_planes with boxes of GP_BM and TF_BN rows;
+// k_begin a multiple of TF_BK), then epi(acc) in each consumer thread with
+// its 64 sums (wgmma's m64n128 layout, rows 64 wg on). No column: epi
+// gets zeros. Every thread of the block calls it, as the kernel's last
+// statement.
+template <typename Epi>
+__device__ __forceinline__ void gemm_pipeline_tf32(const CUtensorMap* map_a,
+                                                   const CUtensorMap* map_b,
+                                                   int m0, int n0,
+                                                   int k_begin, int k_end,
+                                                   Epi&& epi) {
+  constexpr int P_REGS = 40, C_REGS = 232;
+  static_assert(128 * (168 - P_REGS) >= 256 * (C_REGS - 168), "budget");
+  extern __shared__ unsigned char gp_smem[];
+  __shared__ __align__(8) uint64_t tf_bar[2 * TF_STAGES];  // full, empty
+  const uint32_t base = (smem_u32(gp_smem) + 1023) & ~1023u;
+  const uint32_t full = smem_u32(tf_bar), empty = full + 8 * TF_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int slabs =
+      k_end > k_begin ? (k_end - k_begin + TF_BK - 1) / TF_BK : 0;
+  if (tid == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    warpgroup_regs_dec<P_REGS>();
+    if (tid != 256) return;
+    for (int j = 0, s = 0, ph = 0; j < slabs; ++j) {
+      const int k = k_begin + j * TF_BK;
+      const uint32_t sa = base + s * TF_STAGE, sb = sa + 2 * TF_A;
+      const uint32_t f = full + 8 * s;
+      mbar_wait(empty + 8 * s, ph ^ 1);  // the first round passes
+      mbar_arrive_tx(f, TF_STAGE);
+      tma_load_3d(sa, map_a, f, k, m0, 0);
+      tma_load_3d(sa + TF_A, map_a, f, k, m0, 1);
+      tma_load_3d(sb, map_b, f, k, n0, 0);
+      tma_load_3d(sb + TF_B, map_b, f, k, n0, 1);
+      if (++s == TF_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  } else {
+    warpgroup_regs_inc<C_REGS>();
+    float acc[64], d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+    const bool signal = (tid & 31) == 0;
+    for (int j = 0, s = 0, ph = 0; j < slabs; ++j) {
+      // this warpgroup's 64 rows of A's planes, and B's planes
+      const uint32_t a_hi = base + s * TF_STAGE + wg * 64 * 128;
+      const uint32_t a_lo = a_hi + TF_A;
+      const uint32_t b_hi = base + s * TF_STAGE + 2 * TF_A;
+      const uint32_t b_lo = b_hi + TF_B;
+      mbar_wait(full + 8 * s, ph);
+      wgmma_fence_acc(d);
+      wgmma_fence();
+      // the slab's sum afresh, its 8 small terms first, then the 4 large
+#pragma unroll
+      for (int kk = 0; kk < TF_BK / 8; ++kk) {
+        const uint64_t bh = wgmma_desc(b_hi + kk * 32, 16, 1024);
+        wgmma_m64n128k8_tf32(d, wgmma_desc(a_lo + kk * 32, 16, 1024), bh,
+                             kk > 0);
+        wgmma_m64n128k8_tf32(d, wgmma_desc(a_hi + kk * 32, 16, 1024),
+                             wgmma_desc(b_lo + kk * 32, 16, 1024), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < TF_BK / 8; ++kk)
+        wgmma_m64n128k8_tf32(d, wgmma_desc(a_hi + kk * 32, 16, 1024),
+                             wgmma_desc(b_hi + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_acc(d);
+      if (signal) mbar_arrive(empty + 8 * s);  // the stage is read
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += d[i];
+      if (++s == TF_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    epi(acc);
+  }
+}
+
+// Split-K: the 256 consumer threads of split z (of `splits`) of tile
+// `tile` post their partial sums d to ws ((tiles, splits, 64, 256) floats,
+// each thread's i-th sum 256 floats after its (i-1)-th), then thread 0
+// takes a ticket (tickets: a zeroed counter a tile). The last split of the
+// tile to arrive resets its counter to 0 for the next launch, sums every
+// split's partials in split order into d (the same bits whichever split
+// is last) and returns true; the others return false.
+__device__ __forceinline__ bool split_k_merge(float (&d)[64], float* ws,
+                                              int* tickets, int tile, int z,
+                                              int splits) {
+  __shared__ int last;
+  const int t = threadIdx.x;
+  float* part = ws + (int64_t)tile * splits * 64 * 256;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[((int64_t)z * 64 + i) * 256 + t] = d[i];
+  __threadfence();
+  named_barrier_sync(1, 256);
+  if (t == 0) {
+    last = atomicAdd(tickets + tile, 1) == splits - 1;
+    if (last) tickets[tile] = 0;
+  }
+  named_barrier_sync(1, 256);
+  if (!last) return false;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = __ldcg(part + i * 256 + t);
+  for (int s = 1; s < splits; ++s) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      d[i] += __ldcg(part + ((int64_t)s * 64 + i) * 256 + t);
+  }
+  return true;
+}
+
+// Consumer warpgroup wg's tile d (gemm_pipeline's layout, NA accumulators:
+// 2 NA columns) into rows m0 + 64 wg on and columns n0 on of the
+// row-major (M, N) outputs c32 (f32) and c16 (bf16), either null: pairs
+// of columns in one store where N is even, masks at the N edge and
+// outside the row window [r_lo, M).
+template <int NA>
+__device__ __forceinline__ void gemm_store(const float (&d)[NA], float* c32,
                                            bf16* c16, int M, int N, int m0,
                                            int n0, int r_lo = 0) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
   const bool pairs = N % 2 == 0;
 #pragma unroll
-  for (int j = 0; j < GP_BN / 8; ++j) {
+  for (int j = 0; j < NA / 4; ++j) {
     const int col = n0 + j * 8 + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

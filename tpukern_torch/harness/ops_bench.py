@@ -31,7 +31,7 @@ import torch
 import tpukern_torch.ops  # noqa: F401  (fills the registry)
 from tpukern_torch.core import registry
 from tpukern_torch.harness.bench import run_benchmark
-from tpukern_torch.ops import reduce
+from tpukern_torch.ops import reduce, split_tf32
 
 EW_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
                "hardswish", "hardshrink"]
@@ -43,10 +43,14 @@ FAMILIES = EW_FAMILIES + [
     "paged_attention", "quant"]
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# HBM bytes/s and the FLOP/s of the unit a dtype runs on
+# HBM bytes/s and the FLOP/s of the unit a dtype runs on. SPLIT_TF32: an
+# f32 product of the split-TF32 tier (#1-#3, #17, #14/#15), PRODUCTS TF32
+# products on the tensor cores (ops/split_tf32.py)
 PEAK_BYTES_S = 3.35e12
+SPLIT_TF32 = "split-tf32"
 PEAK_FLOP_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
-               torch.float16: 989e12, torch.int8: 1979e12}
+               torch.float16: 989e12, torch.int8: 1979e12,
+               SPLIT_TF32: split_tf32.TF32_PEAK_FLOP_S / split_tf32.PRODUCTS}
 # kernel-vs-plain tolerances (max |out - ref| <= atol + rtol |ref|) by the
 # lowest precision among a variant's inputs and output: the _TOLS rows of
 # core.tolerances, and f32 1e-4 (CUDA's exp/rsqrt and the kernels'
@@ -287,9 +291,10 @@ def check(v, args):
     rule). Integers equal (a stochastic rounding: within one step); the
     bf16-accumulator sum on the card equal to its plain version in the
     kernel's order (reduce.sum_bf16_in_order); softmax by
-    softmax_check; a gather (embedding) and a transpose bit-equal; floats
-    within TOLS, a grouped product's and a gemv's with their
-    contraction_slack on top (a gemv output sums K products)."""
+    softmax_check; a gather (embedding) and a transpose bit-equal; the
+    split-TF32 f32 tier of matmul by split_gate; floats within TOLS, a
+    grouped product's and a gemv's with their contraction_slack on top
+    (a gemv output sums K products)."""
     out, ref = v.fn(*args), v.ref(*args)
     pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
     ok, worst, rules = True, 0.0, []
@@ -315,6 +320,10 @@ def check(v, args):
         elif v.family in ("embedding", "transpose"):
             rules.append("bit-equal")
             ok &= torch.equal(o, r)
+        elif runs_split_tf32(v, args):
+            good, err, rule = split_gate(o, *args)
+            rules.append(rule)
+            ok &= good
         elif v.family == "softmax":
             good, err, rule = softmax_check(
                 o, r, _tol_dtype(v, args, o), whole=v.name.endswith("global"))
@@ -334,6 +343,28 @@ def check(v, args):
     return ok, worst, "; ".join(dict.fromkeys(rules))
 
 
+def split_gate(out, a, b):
+    """The accuracy gate of the split-TF32 f32 tier (ops/split_tf32.py):
+    (ok, out's largest |error| against the f64 product of a (M, K) and b
+    (K, N), the rule). ok: out is finite and that error is at most
+    SPLIT_GATE times torch.matmul's in f32 on the same inputs, TF32 off.
+    The sums run in another order than cuBLAS's, so the two f32 results
+    are held to the exact product, not to each other."""
+    exact = torch.matmul(a.double(), b.double())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = (out.double() - exact).abs().max().item()
+    lib_err = (lib.double() - exact).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and err <= (
+        split_tf32.SPLIT_GATE * lib_err)
+    return ok, err, (f"f64 product: at most {split_tf32.SPLIT_GATE:g}x "
+                     f"torch.matmul f32's {lib_err:.3e}")
+
+
 def work(v, args, out):
     """(operations, their dtype, bytes): the work the bound counts. The
     bytes are the variant's `bytes_moved` where it has one (a gather reads
@@ -351,7 +382,16 @@ def work(v, args, out):
               if isinstance(t, torch.Tensor) and t.dtype in PEAK_FLOP_S]
     dtype = (torch.bfloat16 if torch.bfloat16 in floats
              or "bf16" in v.name.split("_") else torch.float32)
-    return flops, dtype, nbytes
+    return flops, SPLIT_TF32 if runs_split_tf32(v, args) else dtype, nbytes
+
+
+def runs_split_tf32(v, args):
+    """Whether variant v takes `matmul`'s f32 tier on these arguments:
+    split-TF32 products (#1-#3, #17; ops/split_tf32.py), not #16's
+    (`naive`) or cuBLAS's (the baselines)."""
+    return (v.family == "matmul" and "naive" not in v.name
+            and "baseline" not in v.tags
+            and args[0].dtype == torch.float32)
 
 
 def bound_ms(flops, dtype, nbytes):

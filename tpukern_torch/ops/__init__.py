@@ -17,6 +17,7 @@ from tpukern_torch.ops import (  # noqa: F401
     nms,
     rmsnorm,
     rope,
+    split_tf32,
     matmul,
     matmul_w8a16,
     grouped_matmul,

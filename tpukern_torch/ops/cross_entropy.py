@@ -5,10 +5,10 @@ which replaces `_ce_fwd_kernel` (cross_entropy.py:53) with a split-vocab
 forward (f32: CUDA-core tiles walking a split each; bf16: one TMA + wgmma
 GEMM launch, a partial for each 256-column vocab tile) and a combine
 pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
-(:132) in f32 with one kernel that recomputes each score tile once and
-adds its dx and dW contributions with f32 atomics, in bf16 with three
-GEMM launches a vocab chunk (bwd_vocab_chunk): dlog into a bf16 scratch,
-then dx and dW from it, no atomics. The logits never reach device
+(:132) with three GEMM launches a vocab chunk: dlog into a scratch,
+then dx and dW from it, no atomics; bf16 on the TMA + wgmma pipeline
+(chunks of bwd_vocab_chunk), f32 on its split-TF32 form (chunks of
+bwd_vocab_chunk_f32; ops/split_tf32.py). The logits never reach device
 memory, forward or backward.
 
 Layouts as in JAX: x (N, D) activations, w (D, V) head, logits = x @ w.
@@ -23,6 +23,7 @@ import torch
 from tpukern_torch import _build
 from tpukern_torch.core import cdiv
 from tpukern_torch.core.registry import register
+from tpukern_torch.ops import split_tf32
 
 NEG_BIG = -0.7 * 3.4e38
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
@@ -58,11 +59,11 @@ def ce_bwd_ref(x, w, targets, lse, g):
 
 
 def ce_bwd_chunked_ref(x, w, targets, lse, g, chunk):
-    """ce_bwd_ref in the bf16 backward's order, a test aid off the main
-    path: for each vocab chunk of `chunk` columns in turn, dlog of its
-    columns rounded to x's dtype, dx = dlog · W_c^T (the first chunk) or
-    dx + dlog · W_c^T (the later ones, f32), and dW[:, chunk] = x^T ·
-    dlog."""
+    """ce_bwd_ref in the backward kernels' order (bf16 and f32), a test
+    aid off the main path: for each vocab chunk of `chunk` columns in
+    turn, dlog of its columns rounded to x's dtype (a no-op for f32), dx
+    = dlog · W_c^T (the first chunk) or dx + dlog · W_c^T (the later
+    ones, f32), and dW[:, chunk] = x^T · dlog."""
     xf, wf = x.float(), w.float()
     N, V = x.shape[0], w.shape[1]
     tgt = targets.long()[:, None]
@@ -87,6 +88,21 @@ def bwd_vocab_chunk(N, D, V):
     8 (or V)."""
     budget = D * V // max(N, 1)
     if N == 0 or cdiv(V, 8) * 8 <= budget:
+        return V
+    step = 256 if budget >= 256 else 8
+    return min(V, max(8, budget // step * step))
+
+
+def bwd_vocab_chunk_f32(N, D, V):
+    """Vocab columns a chunk of the f32 backward, from the shapes alone:
+    its scratch holds the split-TF32 planes of dlog and of W's chunk, each
+    in two layouts (split_tf32.ce_scratch), about 4 (N + D) values a
+    column. All of V where that fits in 2 · D · V values (twice the f32 dW
+    the call returns), else the widest multiple of 256 (a tile's width;
+    of 8 below 256) that fits, at least 8 (or V): 8192 columns at N = D =
+    2048, V = 32768."""
+    budget = D * V // max(2 * (N + D), 1)
+    if N == 0 or V <= budget:
         return V
     step = 256 if budget >= 256 else 8
     return min(V, max(8, budget // step * step))
@@ -172,11 +188,12 @@ ce_fwd.launches = 0
 
 def ce_bwd(x, w, targets, lse, g, use_exp2=False, vocab_chunk=None):
     """(dx, dW) in f32 of sum(g * loss), recomputed from the forward's
-    lse. A CPU tensor takes ce_bwd_ref; a CUDA tensor launches, for f32
-    inputs, the fused backward kernel once (it serves both TPU kernels #14
-    and #15), for bf16 inputs three kernels a vocab chunk of vocab_chunk
-    columns (a multiple of 8; default bwd_vocab_chunk), each launch
-    counted."""
+    lse. A CPU tensor takes ce_bwd_ref; a CUDA tensor launches three
+    kernels a vocab chunk of vocab_chunk columns (a multiple of 8;
+    default bwd_vocab_chunk for bf16 inputs, bwd_vocab_chunk_f32 for
+    f32), each launch counted; f32 inputs also launch the split-TF32
+    operand pass on x once a call and on W's chunk once a chunk, counted
+    in split_tf32.split_tf32.launches."""
     if x.device.type == "cpu":
         return ce_bwd_ref(x, w, targets, lse, g)
     _build.check_cuda(x, w, targets, lse, g)
@@ -185,23 +202,30 @@ def ce_bwd(x, w, targets, lse, g, use_exp2=False, vocab_chunk=None):
     x, w = _build.aligned(x), _build.aligned(w)
     lse, g = lse.float().contiguous(), g.float().contiguous()
     s = _build.stream(x)
-    if x.dtype == torch.float32 or N == 0:
-        dx = torch.zeros(N, D, device=x.device)  # atomicAdd targets
-        dw = torch.zeros(D, V, device=x.device)
-        if N:
-            _build.launch("tk_ce_bwd", x.data_ptr(), w.data_ptr(),
-                          targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                          dx.data_ptr(), dw.data_ptr(), N, D, V,
-                          int(use_exp2), s)
-            ce_bwd.launches += 1
-        return dx, dw
-    if x.dtype != torch.bfloat16:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ce_bwd takes f32 or bf16 inputs, got {x.dtype}")
-    chunk = min(vocab_chunk or bwd_vocab_chunk(N, D, V), V)
+    if N == 0:
+        return (torch.zeros(N, D, device=x.device),
+                torch.zeros(D, V, device=x.device))
+    f32 = x.dtype == torch.float32
+    rule = bwd_vocab_chunk_f32 if f32 else bwd_vocab_chunk
+    chunk = min(vocab_chunk or rule(N, D, V), V)
     if chunk < V and chunk % 8:
         raise ValueError(f"vocab_chunk {chunk} is not a multiple of 8")
     dx = torch.empty(N, D, device=x.device)
     dw = torch.empty(D, V, device=x.device)
+    if f32:
+        xs, ws, ds = (torch.empty(n, device=x.device)
+                      for n in split_tf32.ce_scratch(N, D, chunk))
+        for v0 in range(0, V, chunk):
+            split_tf32.launch_counting_passes(
+                "tk_ce_bwd", x.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                lse.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                xs.data_ptr(), ws.data_ptr(), ds.data_ptr(), N, D, V, v0,
+                min(chunk, V - v0), int(v0 > 0), int(v0 == 0),
+                int(use_exp2), s)
+            ce_bwd.launches += 3
+        return dx, dw
     dlog = torch.empty(N * cdiv(chunk, 8) * 8, dtype=x.dtype,
                        device=x.device)
     for v0 in range(0, V, chunk):

@@ -1,8 +1,10 @@
 """GEMM: C = A·B or A·Bᵀ with f32 accumulation.
 
 The port of tpukern/ops/matmul.py. Kernels: csrc/matmul.cu, one kernel
-per input dtype (f32 on CUDA cores; bf16 on the tensor cores, by TMA and
-wgmma through a multi-stage ring, csrc/hopper.cuh gemm_pipeline) whose
+per input dtype, both on the tensor cores by TMA and wgmma through a
+multi-stage ring (bf16: csrc/hopper.cuh gemm_pipeline; f32: split-TF32
+products, three TF32 products a product after csrc/split_tf32.cu's
+operand pass, gemm_pipeline_tf32, ops/split_tf32.py), whose
 epilogue replaces the three Pallas bodies of `matmul` (matmul.py:140-172):
 `kernel` writes the out dtype, `kernel_accio` the f32 accumulator,
 `kernel_accio_dual` both; `matmul_kpipe` (:311, the K loop inside the
@@ -19,7 +21,9 @@ aliases of `matmul`.
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core import cdiv
 from tpukern_torch.core.registry import register
+from tpukern_torch.ops import split_tf32
 
 
 def _out_dtype(a, out_dtype, acc_in_out):
@@ -40,7 +44,11 @@ def matmul(a, b, *, trans_b=False, out_dtype=None, acc_in_out=False):
     A CPU tensor takes matmul_ref; a CUDA tensor launches the kernel
     (f32 or bf16 inputs; f32 or bf16 output). Counts launches, and bf16
     launches by load path in `path_launches` (tma_operands: "tma" both
-    operands by TMA, "copy" neither, "mixed")."""
+    operands by TMA, "copy" neither, "mixed"); f32 inputs first launch
+    the split-TF32 operand pass on A and B (K > 0), counted in
+    split_tf32.split_tf32.launches, into a scratch of
+    split_tf32.matmul_scratch values, K split split_tf32.matmul_splits
+    ways."""
     out_dtype = _out_dtype(a, out_dtype, acc_in_out)
     M, K = a.shape
     N = b.shape[0] if trans_b else b.shape[1]
@@ -58,10 +66,20 @@ def matmul(a, b, *, trans_b=False, out_dtype=None, acc_in_out=False):
            if acc_in_out or out_dtype == torch.float32 else None)
     c16 = (torch.empty(M, N, device=a.device, dtype=torch.bfloat16)
            if out_dtype == torch.bfloat16 else None)
-    _build.launch("tk_matmul", a.data_ptr(), b.data_ptr(),
-                  None if c32 is None else c32.data_ptr(),
-                  None if c16 is None else c16.data_ptr(), M, N, K,
-                  int(trans_b), _build.dtype_code(a), _build.stream(a))
+    s = _build.stream(a)
+    splits, scratch, tickets = 1, None, None
+    if dt == torch.float32 and K:
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        splits = split_tf32.matmul_splits(M, N, K, sms)
+        scratch = torch.empty(split_tf32.matmul_scratch(M, N, K, splits),
+                              device=a.device)
+        if splits > 1:
+            tiles = cdiv(M, split_tf32.TILE) * cdiv(N, split_tf32.TILE)
+            tickets = _build.tickets(a.device, s, tiles)
+    split_tf32.launch_counting_passes(
+        "tk_matmul", a.data_ptr(), b.data_ptr(), _build.ptr(c32),
+        _build.ptr(c16), M, N, K, int(trans_b), _build.dtype_code(a),
+        _build.ptr(scratch), splits, _build.ptr(tickets), s)
     matmul.launches += 1
     if dt == torch.bfloat16:
         matmul.path_launches[load_path(tma_operands(a, b))] += 1
@@ -108,7 +126,9 @@ def tma_operands(a, b):
     plans by it. TMA takes a 16-byte aligned base and rows a multiple of
     16 bytes: shape[1] % 8 == 0 (K for A (M, K) and for a TN B (N, K), N
     for an NN B (K, N)). Any other operand is copied by the block's
-    threads; the f32 tier has no TMA path."""
+    threads. The f32 tier takes every operand by TMA from its split
+    planes (split_tf32.matmul_transposed): this mirror is the bf16
+    kernels'."""
     if a.dtype != torch.bfloat16:
         return False, False
     return (a.shape[1] % 8 == 0 and a.data_ptr() % 16 == 0,
