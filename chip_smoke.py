@@ -10,9 +10,11 @@
    loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
    kernel, of the bf16 #2 (NN and TN), #28, #29, CE forward (#13) and
    CE backward (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's
-   pipeline, of the f32 #2 and f32 CE backward on its split-TF32 form, and of every instance of the bf16 flash-attention
-   forward (#6), and the matrix products of #40's, which must have none;
-   ptxas may serialise the wgmmas (C7520) of no split-TF32 kernel;
+   pipeline, of the f32 #2 and f32 CE backward on its split-TF32 form,
+   of every instance of the bf16 flash-attention forward (#6) and of the
+   split-TF32 f32 flash-attention forward (#6) and fused backward (#8),
+   and the matrix products of #40's, which must have none; ptxas may
+   serialise the wgmmas (C7520) of no split-TF32 kernel;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape (flash_attention also
@@ -46,7 +48,14 @@
    f32's (TF32 off), NN and TN at 333 x 517 x 1000, 2048 x 8192 x 2048
    and 4096^3, and timed at both; the split-TF32 operand pass bit for bit
    against its plain version, specials included;
-   rope_batched, the flash_attention lse, flash_attention_bwd, the fused
+   rope_batched, the flash_attention lse (the f32 tier twice, bit-equal,
+   and timed at the training shape beside SDPA's f32 forward),
+   flash_attention_bwd (GQA groups 1, 2 and 4 in one launch, the f32
+   tier's dk and dv twice, bit-equal; timed at the training shape, GQA
+   16/8, f32 and bf16, beside SDPA's backward with enable_gqa), the
+   accuracy gate of both f32 tiers (o, lse, dq, dk, dv against f64 at
+   most SPLIT_GATE times the plain f32 version's error, at the training
+   shape and two tails), the fused
    cross-entropy's forward and backward (the backward also at forced
    vocab chunks, bf16 three of them on TMA and on the copy paths, f32 at
    its own chunk rule, launches counted with the operand passes, and
@@ -304,8 +313,9 @@ def phase_build():
 # and #29 kernels with both operands by TMA, every instance of the
 # bf16 flash-attention forward (#6), and the split-TF32 f32 #2 and f32 CE
 # backward's three launches, run wgmma (HGMMA) fed by
-# TMA (UTMALDG), no mma.sync (HMMA); #40 runs no matrix product (HMMA,
-# HGMMA)
+# TMA (UTMALDG), no mma.sync (HMMA), as do every instance of the f32
+# flash-attention forward (#6) and the f32 fused backward (#8) on
+# split-TF32 products; #40 runs no matrix product (HMMA, HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
@@ -322,11 +332,14 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_dlog_tf32_kernel": _WGMMA_TMA,
              "ce_dx_tf32_kernel": _WGMMA_TMA,
              "ce_dw_tf32_kernel": _WGMMA_TMA,
+             "fa_fwd_tf32_kernel": _WGMMA_TMA,
+             "fa_bwd_tf32_kernel": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
 # kernels whose wgmmas ptxas must leave asynchronous: no C7520 info line
 # ("wgmma.mma_async instructions are serialized") may name them
 NO_SERIALIZED = ("gemm_tf32_kernel", "ce_dlog_tf32_kernel",
-                 "ce_dx_tf32_kernel", "ce_dw_tf32_kernel")
+                 "ce_dx_tf32_kernel", "ce_dw_tf32_kernel",
+                 "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel")
 
 
 def sass_counts(lib):
@@ -1565,7 +1578,8 @@ def phase_train_kernels(cfg, B, S):
         "rms_norm", f"({B * S}, {d}) {f32}", rmsnorm.rms_norm(x, g),
         rmsnorm.rms_norm_ref(x, g)))
 
-    # flash_attention o and lse (return_stats) at the training shape, GQA 2
+    # flash_attention o and lse (return_stats) at the training shape, GQA
+    # 2; the f32 tier (split-TF32) twice, bit-equal
     for dt in (f32, bf):
         q = _randn(gen, B, Hq, S, D, dtype=dt)
         k, v = (_randn(gen, B, Hkv, S, D, dtype=dt) for _ in range(2))
@@ -1573,41 +1587,93 @@ def phase_train_kernels(cfg, B, S):
                                          return_stats=True)
         refs = attention.attention_ref(q, k, v, causal=True,
                                        return_stats=True)
+        case = f"B{B} H{Hq}/{Hkv} S{S} D{D} {dt}"
         for what, out, ref in zip(("o", "lse"), outs, refs):
             checks.record("flash_attention", *_compare(
-                "flash_attention", f"{what} B{B} H{Hq}/{Hkv} S{S} D{D} {dt}",
-                out, ref))
+                "flash_attention", f"{what} {case}", out, ref))
+        if dt == f32:
+            again = attention.flash_attention(q, k, v, causal=True,
+                                              return_stats=True)
+            checks.record("flash_attention_train_f32", *_same_bits(
+                "flash_attention", case, torch.cat([outs[0].flatten(),
+                                                    outs[1].flatten()]),
+                torch.cat([again[0].flatten(), again[1].flatten()])))
+            del again
+    # the f32 tier as the training step calls it, beside SDPA's forward in
+    # f32 (GQA, causal): 4 D flops a visible pair as split-TF32 products
+    pairs = B * Hq * S * (S + 1) // 2
+    q = _randn(gen, B, Hq, S, D, dtype=f32)
+    k, v = (_randn(gen, B, Hkv, S, D, dtype=f32) for _ in range(2))
+    o, lse = attention.flash_attention(q, k, v, causal=True,
+                                       return_stats=True)
+    timed["flash_attention f32 train"] = _timed_entry(
+        "flash_attention_train_f32", [B, Hq, Hkv, S, D],
+        partial(attention.flash_attention, q, k, v, causal=True,
+                return_stats=True),
+        partial(attention.attention_ref, q, k, v, causal=True,
+                return_stats=True),
+        partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                enable_gqa=True),
+        {ops_bench.SPLIT_TF32: 4 * D * pairs}, _nbytes(q, k, v, o, lse),
+        f32, fma=4 * D * pairs)
 
-    # flash_attention_bwd: dq/dk/dv, f32 and bf16, causal and not, D 64
-    # and 128, tail lengths; the training shape first
-    for Bb, H, Sb, dd, dt, causal in (
-            (B, Hq, S, D, f32, True), (1, 4, 300, 64, bf, True),
-            (1, 4, 300, 128, f32, False), (2, 2, 77, 64, f32, True),
-            (1, 4, 200, 128, bf, False), (1, 2, 130, 64, f32, False)):
-        q, k, v, do = (_randn(gen, Bb, H, Sb, dd, dtype=dt) for _ in range(4))
+    # flash_attention_bwd: dq/dk/dv, f32 and bf16, causal and not, D 32,
+    # 64 and 128, tail lengths, GQA groups 1, 2 and 4 (Hq/Hkv); the
+    # training shape first; dk and dv of the f32 tier (no atomics) twice,
+    # bit-equal
+    for Bb, H, Hk, Sb, dd, dt, causal in (
+            (B, Hq, Hkv, S, D, f32, True), (1, 4, 4, 300, 64, bf, True),
+            (1, 4, 4, 300, 128, f32, False), (2, 2, 2, 77, 64, f32, True),
+            (1, 4, 4, 200, 128, bf, False), (1, 2, 2, 130, 64, f32, False),
+            (1, 8, 2, 300, 128, f32, True), (1, 4, 2, 200, 32, f32, False),
+            (2, 8, 2, 77, 64, bf, True)):
+        q, do = (_randn(gen, Bb, H, Sb, dd, dtype=dt) for _ in range(2))
+        k, v = (_randn(gen, Bb, Hk, Sb, dd, dtype=dt) for _ in range(2))
         o, lse = attention.attention_ref(q, k, v, causal=causal,
                                          return_stats=True)
         outs = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
                                                  causal=causal)
         refs = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                      causal=causal)
+        case = f"B{Bb} H{H}/{Hk} S{Sb} D{dd} {dt} causal={causal}"
         for grad, out, ref in zip(("dq", "dk", "dv"), outs, refs):
             checks.record("flash_attention_bwd", *_compare(
-                "flash_attention_bwd", f"{grad} B{Bb} H{H} S{Sb} D{dd} {dt} "
-                f"causal={causal}", out, ref))
-    q, k, v, do = (_randn(gen, B, Hq, S, D, dtype=f32) for _ in range(4))
-    o, lse = attention.flash_attention(q, k, v, causal=True,
-                                       return_stats=True)
-    args = (q, k, v, o, lse, do)
-    # the library call: autograd's backward of SDPA on the same q, k, v
-    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    timed["flash_attention_bwd"] = _timed_entry(
-        "flash_attention_bwd", [B, Hq, S, D],
-        partial(attention_bwd.flash_attention_bwd, *args, causal=True),
-        partial(attention_bwd.flash_attention_bwd_ref, *args, causal=True),
-        partial(torch.autograd.grad, ol, (ql, kl, vl), do, retain_graph=True),
-        10 * D * B * Hq * S * (S + 1) // 2, _nbytes(*args, q, k, v), f32)
+                "flash_attention_bwd", f"{grad} {case}", out, ref))
+        if dt == f32:
+            again = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal)
+            checks.record("flash_attention_bwd", *_same_bits(
+                "flash_attention_bwd", f"dk, dv {case}",
+                torch.cat([outs[1].flatten(), outs[2].flatten()]),
+                torch.cat([again[1].flatten(), again[2].flatten()])))
+    # the training step's call: GQA 16/8 inside the kernel, beside
+    # autograd's backward of SDPA (enable_gqa) on the same q, k, v; the
+    # bf16 tier at the same shape beside SDPA's bf16 backward
+    for dt in (f32, bf):
+        q, do = (_randn(gen, B, Hq, S, D, dtype=dt) for _ in range(2))
+        k, v = (_randn(gen, B, Hkv, S, D, dtype=dt) for _ in range(2))
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True)
+        args = (q, k, v, o, lse, do)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        flops = 10 * D * pairs
+        timed[f"flash_attention_bwd {'f32' if dt == f32 else 'bf16'}"] = (
+            _timed_entry(
+                "flash_attention_bwd", [B, Hq, Hkv, S, D],
+                partial(attention_bwd.flash_attention_bwd, *args,
+                        causal=True),
+                partial(attention_bwd.flash_attention_bwd_ref, *args,
+                        causal=True),
+                partial(torch.autograd.grad, ol, (ql, kl, vl), do,
+                        retain_graph=True),
+                {ops_bench.SPLIT_TF32: flops} if dt == f32 else flops,
+                _nbytes(*args, q, k, v), dt,
+                fma=flops if dt == f32 else None))
+    _attention_gate(checks, gen, ((B, Hq, Hkv, S, D, True),
+                                  (1, 4, 2, 300, 128, True),
+                                  (1, 4, 2, 77, 64, False)))
 
     _ce_kernels(checks, timed, gen, cfg, B * S)
     _featured_kernels(checks, timed, gen, cfg, B, S)
@@ -1645,16 +1711,43 @@ def _split_tf32_checks(checks, timed, gen, d, ff):
         _nbytes(b) * 3, torch.float32)
 
 
-def _gate(name, case, err, ref_err):
+def _gate(name, case, err, ref_err, ref="cuBLAS f32"):
     """(ok, err): the split-TF32 kernel's error against f64 at most
-    split_tf32.SPLIT_GATE times cuBLAS f32's on the same inputs."""
+    split_tf32.SPLIT_GATE times that of `ref` (cuBLAS f32, or the plain
+    version on it) on the same inputs."""
     from tpukern_torch.ops.split_tf32 import SPLIT_GATE
 
     ok = err <= SPLIT_GATE * ref_err
-    print(f"[gate] {name:16s} {case:44s} kernel {err:.3e} cuBLAS f32 "
+    print(f"[gate] {name:16s} {case:44s} kernel {err:.3e} {ref} "
           f"{ref_err:.3e} vs f64: x{err / max(ref_err, 1e-300):.3f} "
           f"(<= {SPLIT_GATE:g}) {'ok' if ok else 'MISS'}")
     return ok
+
+
+# the f32 attention tiers' gate: the 7bish training heads and two tails
+# (B, Hq, Hkv, S, D, causal), from tpukern_torch/harness/fa_train_times.py
+def _attention_gate(checks, gen, shapes):
+    """The accuracy gate of the f32 flash attention (#6's forward, #8's
+    fused backward, split-TF32 products): at each shape the largest error
+    of o and lse (the forward, as the training step calls it) and of dq,
+    dk and dv (the backward, GQA inside) against an f64 evaluation of the
+    same inputs, at most SPLIT_GATE times the plain version's in f32
+    (attention_ref and flash_attention_bwd_ref on cuBLAS, TF32 off)."""
+    from tpukern_torch.harness import fa_train_times
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the gate needs cuBLAS f32 with TF32 off")
+    for shape in shapes:
+        for out, err, ref_err in fa_train_times.gate_rows(gen, shape):
+            name = ("flash_attention_train_f32" if out in ("o", "lse")
+                    else "flash_attention_bwd")
+            case = f"{out} B{shape[0]} H{shape[1]}/{shape[2]} S{shape[3]} " \
+                   f"D{shape[4]} causal={shape[5]}"
+            checks.record(name, _gate(name, case, err, ref_err,
+                                      ref="plain f32"), 0.0)
+            gate = checks.results[name].setdefault("f64_gate", {})
+            gate[case] = dict(kernel=err, plain=ref_err)
+        torch.cuda.empty_cache()
 
 
 def _matmul_gate(checks, gen, shapes):
@@ -3088,7 +3181,7 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
                ("fa_fwd", "fa_fwd_"),
-               ("fa_bwd", ("fa_bwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
+               ("fa_bwd", ("fa_bwd_tf32_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
                ("paged_quant", "paged_quant_kernel"),
                ("quantize", "quantize_kernel"),
@@ -5179,7 +5272,8 @@ def main():
         "split_tf32": "none: PyTorch has no call that splits a matrix into "
                       "TF32 parts",
         "flash_attention_bwd": "autograd backward of "
-                               "F.scaled_dot_product_attention",
+                               "F.scaled_dot_product_attention(enable_gqa="
+                               "True)",
         "ce_fwd": "torch.matmul + F.cross_entropy (two calls)",
         "ce_bwd": "autograd backward of torch.matmul + F.cross_entropy "
                   "(two calls)",
@@ -5281,6 +5375,17 @@ def main():
             f64_gate=timing[n]["f64_gate"],
             gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x "
                  "cuBLAS f32's")
+    # the f32 tier of #6 as the training step calls it and the f32 #8
+    # with GQA inside (split-TF32 products): times beside SDPA, bounds on
+    # the FMAs, the accuracy gate
+    modes.setdefault("flash_attention", {})["train_f32"] = dict(
+        timing["flash_attention_train_f32"], gate=f"max abs err vs f64 <= "
+        f"{split_tf32.SPLIT_GATE:g} x the plain f32 version's")
+    modes.setdefault("flash_attention_bwd", {}).update(
+        fma_bound_ms=timing["flash_attention_bwd"]["fma_bound_ms"],
+        f64_gate=timing["flash_attention_bwd"]["f64_gate"],
+        gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x the plain "
+             "f32 version's")
     modes["split_tf32"] = {
         "part_of": "the f32 tier of matmul (#1-#3, #17) and ce_bwd "
                    "(#14/#15): their operands' hi and lo planes",

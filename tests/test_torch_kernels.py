@@ -26,7 +26,7 @@ from tpukern_torch.ops import (_ew, attention, attention_bwd, cross_entropy,
                                dot_product, embedding, gemv, histogram,
                                layernorm, matmul, nms, paged_attention,
                                reduce, rmsnorm, rope, softmax, split_tf32,
-                               transpose)
+                               trainable, transpose)
 from tpukern_torch.parallel import Mesh, ring_kernels
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -289,6 +289,133 @@ def test_flash_attention_bwd_cross_lengths(cuda, dt):
             check_all_close(a.float(), b.float(), dtype=DTYPES[dt],
                             name=f"{name} Sq{Sq} Skv{Skv}",
                             **(F32 if dt == "f32" else {}))
+
+
+def _gqa_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dt, causal, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B, Hq, Sq, D), generator=g, device=dev)
+             .mul(scale).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Skv, D), generator=g, device=dev)
+            .mul(scale).to(dt) for _ in range(2))
+    o, lse = attention.attention_ref(q, k, v, causal=causal,
+                                     return_stats=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(64, 64), (100, 128), (130, 64),
+                                 (77, 32)])
+def test_flash_attention_bwd_gqa(cuda, S, D, causal, group, dt):
+    """GQA inside the fused backward (both tiers): 2 KV heads for 2 *
+    group query heads, one launch, against the plain version (K, V
+    repeated, dK, dV summed over each group); the f32 tier's dk and dv (no
+    atomics) bit-equal on a second call."""
+    args = _gqa_inputs(cuda, 2, 2 * group, 2, S, S, D, DTYPES[dt], causal,
+                       S + D + group)
+    before = attention_bwd.flash_attention_bwd.launches
+    out = attention_bwd.flash_attention_bwd(*args, causal=causal)
+    again = attention_bwd.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert attention_bwd.flash_attention_bwd.launches == before + 2
+    ref = attention_bwd.flash_attention_bwd_ref(*args, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == DTYPES[dt] and a.shape == b.shape
+        check_all_close(a.float(), b.float(), dtype=DTYPES[dt], name=name,
+                        **(F32 if dt == "f32" else {}))
+    if dt == "f32":
+        assert torch.equal(out[1], again[1]) and torch.equal(out[2], again[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_bwd_gqa_cross_lengths(cuda, dt):
+    """Non-causal GQA 2 with Sq != Skv (130 queries over 77 keys and 77
+    over 130)."""
+    for Sq, Skv in ((130, 77), (77, 130)):
+        args = _gqa_inputs(cuda, 1, 4, 2, Sq, Skv, 64, DTYPES[dt], False,
+                           Sq)
+        out = attention_bwd.flash_attention_bwd(*args)
+        ref = attention_bwd.flash_attention_bwd_ref(*args)
+        for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+            check_all_close(a.float(), b.float(), dtype=DTYPES[dt],
+                            name=f"{name} Sq{Sq} Skv{Skv}",
+                            **(F32 if dt == "f32" else {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_f32_tails_are_finite(cuda, D):
+    """The f32 tier's last, partial tiles (S 77: 13 of 64 query rows, 13
+    of 32 keys) with scores of size 10: the rows and keys past S load as
+    zeros and P, dS are selected to 0 there, so every output is finite and
+    equal to the plain version's."""
+    args = _gqa_inputs(cuda, 1, 4, 2, 77, 77, D, torch.float32, True, D,
+                       scale=10 ** 0.5)
+    o, lse = attention.flash_attention(*args[:3], causal=True,
+                                       return_stats=True)
+    grads = attention_bwd.flash_attention_bwd(*args, causal=True)
+    refs = attention_bwd.flash_attention_bwd_ref(*args, causal=True)
+    torch.cuda.synchronize()
+    for t in (o, lse, *grads):
+        assert torch.isfinite(t).all()
+    scale = max(r.abs().max().item() for r in refs)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        check_all_close(a / scale, b / scale, name=name, **F32)
+    check_all_close(o, args[3], name="o", **F32)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_is_deterministic(cuda):
+    """The f32 forward (no atomics) gives the same bits on a second call,
+    with lse and the featured masks, GQA 4."""
+    q, k, v = _gqa_inputs(cuda, 1, 8, 2, 300, 300, 128, torch.float32, True,
+                          7)[:3]
+    for kw in ({}, dict(window=50, sinks=4, softcap=30.0)):
+        a = attention.flash_attention(q, k, v, causal=True,
+                                      return_stats=True, **kw)
+        b = attention.flash_attention(q, k, v, causal=True,
+                                      return_stats=True, **kw)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_split_tf32_gate(cuda):
+    """The accuracy gate of the f32 tiers (split-TF32) at a tail shape (B
+    1, Hq 4, Hkv 2, S 300, D 128, causal): o, lse, dq, dk and dv against
+    an f64 evaluation, at most SPLIT_GATE times the plain f32 version's
+    error (cuBLAS, TF32 off)."""
+    from tpukern_torch.harness import fa_train_times
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(300)
+        rows = fa_train_times.gate_rows(g, (1, 4, 2, 300, 128, True))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for name, err, plain in rows:
+        assert err <= split_tf32.SPLIT_GATE * plain, (name, err, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 4])
+def test_flash_attention_trainable_gqa_on_kernels(cuda, group):
+    """dq, dk, dv through flash_attention_trainable on the card (the f32
+    forward and the fused backward with the group walked inside) against
+    the same function on the CPU (the plain versions)."""
+    args = _gqa_inputs("cpu", 1, 2 * group, 2, 150, 150, 64, torch.float32,
+                       True, group)
+    q, k, v, _, _, do = args
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        o = trainable.flash_attention_trainable(*ts, True)
+        grads[str(dev)] = torch.autograd.grad(o, ts, do.to(dev))
+    for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        check_all_close(a.cpu(), b, name=name, **F32)
 
 
 @pytest.mark.cuda

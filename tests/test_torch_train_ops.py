@@ -179,7 +179,7 @@ def test_flash_attention_bwd_cross_lengths_match_jax():
     _close_all(out, ref, "flash_attention_bwd Sq100 Skv130")
 
 
-@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("group", [1, 2, 4])
 def test_flash_attention_trainable_grads_match_jax(group):
     """dq, dk, dv through the autograd Function, GQA summed over groups."""
     rng = np.random.default_rng(17 + group)
@@ -196,11 +196,46 @@ def test_flash_attention_trainable_grads_match_jax(group):
     _close_all(grads, jgrads, f"flash_attention_trainable g{group}")
 
 
+@pytest.mark.parametrize("feat", [{}, dict(window=30)], ids=str)
+def test_flash_attention_trainable_passes_kv_heads_as_they_are(monkeypatch,
+                                                               feat):
+    """The trainable's backward hands flash_attention_bwd the 2 KV heads as
+    they are, not repeated over the group of 4: the fused kernel walks the
+    group inside (the featured path repeats them within
+    flash_attention_bwd); the gradients still match JAX's."""
+    from tpukern_torch.ops import trainable
+
+    seen = []
+
+    def spy(q, k, v, *args, **kw):
+        seen.append((q.shape[1], k.shape[1], v.shape[1]))
+        return attention_bwd.flash_attention_bwd(q, k, v, *args, **kw)
+
+    monkeypatch.setattr(trainable, "flash_attention_bwd", spy)
+    rng = np.random.default_rng(31)
+    q, cot = _randn(rng, 1, 8, 70, 32), _randn(rng, 1, 8, 70, 32)
+    k, v = _randn(rng, 1, 2, 70, 32), _randn(rng, 1, 2, 70, 32)
+    _, grads = _torch_grads(
+        lambda *t: flash_attention_trainable(*t, True, None, **feat),
+        (q, k, v), cot)
+    _, jgrads = _jax_grads(
+        lambda *t: jax_flash_attention_trainable(*t, True, None, **feat),
+        (q, k, v), cot)
+    assert seen == [(8, 2, 2)]
+    _close_all(grads, jgrads, f"trainable {feat}")
+
+
 def test_flash_attention_bwd_rejects_bad_shapes():
+    """KV heads that do not divide the query heads, and causal with Sq !=
+    Skv, raise; a GQA group (one KV head for two query heads) is taken."""
     q = torch.zeros(1, 2, 8, 32)
+    kv3 = torch.zeros(1, 3, 8, 32)
     with pytest.raises(ValueError, match="bad shapes"):
-        attention_bwd.flash_attention_bwd(q, q[:, :1], q[:, :1], q,
+        attention_bwd.flash_attention_bwd(q, kv3, kv3, q,
                                           torch.zeros(1, 2, 8), q)
+    dq, dk, dv = attention_bwd.flash_attention_bwd(
+        q, q[:, :1], q[:, :1], q, torch.zeros(1, 2, 8), q)
+    assert dq.shape == q.shape and dk.shape == dv.shape == (1, 1, 8, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention_bwd.flash_attention_bwd(q, q[:, :, :4], q[:, :, :4], q,
                                           torch.zeros(1, 2, 8), q,

@@ -63,10 +63,10 @@ SIGNATURES = {
     # config (0: the kernel's rule; ops/attention.py FWD_TILES), stream
     "tk_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _I, _F, _I, _I, _P],
-    # q, k, v, do, lse, di, dq (f32), dk, dv, B, H, Sq, Skv, D, sm_scale,
-    # causal, dtype, stream
+    # q, k, v, do, lse, di, dq (f32), dk, dv, B, Hq, Hkv, Sq, Skv, D,
+    # sm_scale, causal, dtype, stream
     "tk_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _P],
+                               _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, do, lse, di, q_seg, kv_seg (or None), dq, B, H, Sq, Skv, D,
     # sm_scale, causal, window, softcap, dtype, stream
     "tk_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

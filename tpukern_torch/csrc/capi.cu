@@ -53,12 +53,12 @@ int tk_flash_attention(const void* q, const void* k, const void* v, void* o,
 
 int tk_flash_attention_bwd(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse, const float* di,
-                           float* dq, void* dk, void* dv, int B, int H, int Sq,
-                           int Skv, int D, float sm_scale, int causal,
-                           int dtype, void* stream) {
+                           float* dq, void* dk, void* dv, int B, int Hq,
+                           int Hkv, int Sq, int Skv, int D, float sm_scale,
+                           int causal, int dtype, void* stream) {
   return checked(tk::flash_attention_bwd_launch(
-      q, k, v, dout, lse, di, dq, dk, dv, B, H, Sq, Skv, D, sm_scale, causal,
-      dtype, static_cast<cudaStream_t>(stream)));
+      q, k, v, dout, lse, di, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, sm_scale,
+      causal, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 int tk_flash_attention_dq(const void* q, const void* k, const void* v,

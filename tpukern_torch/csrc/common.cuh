@@ -297,9 +297,8 @@ __device__ __forceinline__ float soft_cap(const AttnMask& m, float s,
 }
 
 // ------------------------------------------- attention backward tiles
-// csrc/flash_attention_bwd.cu and csrc/flash_attention_featured_bwd.cu
-// stage their tiles as f32 in shared memory, rows padded to D + 4 floats,
-// and read them as float4.
+// csrc/flash_attention_featured_bwd.cu stages its tiles as f32 in shared
+// memory, rows padded to D + 4 floats, and reads them as float4.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -349,6 +348,19 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   hi = __uint_as_float(r | sign);
   lo = x - hi;
   if (lo == 0.f) lo = __uint_as_float(sign);
+}
+
+// The same split for the operands of a kernel that splits in its inner
+// loop (csrc/flash_attention_tf32.cu, csrc/flash_attention_bwd.cu),
+// in three instructions and no branch (split_tf32's cases cost each split
+// a divergence region there): for a finite x below FLT_MAX's last half
+// TF32 ulp it gives split_tf32's hi and lo, but for the sign of a zero lo
+// (a product does not see it); a non-finite x leaves a NaN in lo, so its
+// products are NaN.
+__device__ __forceinline__ void split_tf32_finite(float x, float& hi,
+                                                  float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+  lo = x - hi;
 }
 
 // ------------------------------------------------------------ GEMM tiles
@@ -483,11 +495,18 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
                                    int causal, int window, int sinks,
                                    float softcap, int dtype, int config,
                                    cudaStream_t stream);
+// f32: the split-TF32 kernel below; the masks of struct AttnMask
+cudaError_t flash_attention_tf32_launch(const float* q, const float* k,
+                                        const float* v, float* o, float* lse,
+                                        int B, int Hq, int Hkv, int Sq,
+                                        int Skv, int D, const AttnMask& f,
+                                        cudaStream_t stream);
+// f32 only; GQA: Hkv divides Hq, dk and dv summed over each group
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* di,
                                        float* dq, void* dk, void* dv, int B,
-                                       int H, int Sq, int Skv, int D,
+                                       int Hq, int Hkv, int Sq, int Skv, int D,
                                        float sm_scale, int causal, int dtype,
                                        cudaStream_t stream);
 cudaError_t flash_attention_dq_launch(

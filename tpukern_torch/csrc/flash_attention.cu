@@ -99,8 +99,8 @@
 // The harness's 128-key shapes of two warpgroups spill 200-208 bytes and
 // are still serialised by ptxas (C7520).
 //
-// f32 tier (fa_fwd_fma_kernel): full f32 precision with CUDA-core FMAs (a
-// tensor-core product would round to TF32).
+// f32 tier: csrc/flash_attention_tf32.cu, split-TF32 products on the same
+// tensor cores (launch_dlf hands it every f32 call).
 //
 // Softmax: the bf16 kernel runs in log2 space (scores scaled by
 // sm_scale * log2(e), exp2), the f32 kernel in natural log space with exp,
@@ -491,115 +491,6 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// ----------------------------------------------------------------- f32 FMA
-constexpr int FMA_BQ = 16;  // query rows per block: 4 warps x 4 rows
-constexpr int FMA_BK = 32;  // keys per tile: one per lane
-constexpr int FMA_THREADS = 128;
-constexpr int FMA_RPW = FMA_BQ / (FMA_THREADS / 32);
-
-template <typename T, int D, bool LSE, bool FEAT>
-__global__ void __launch_bounds__(FMA_THREADS)
-fa_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
-                  float sm_scale, AttnMask f) {
-  constexpr int DPL = D / 32;  // output columns per lane
-  __shared__ float q_s[FMA_BQ][D];
-  __shared__ float k_s[FMA_BK][D + 1];  // +1: lanes read distinct rows
-  __shared__ float v_s[FMA_BK][D];
-  __shared__ int kseg_s[FEAT ? FMA_BK : 1];
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const T* qb = q + (int64_t)(b * Hq + h) * Sq * D;
-  const T* kb = k + (int64_t)(b * Hkv + hk) * Skv * D;
-  const T* vb = v + (int64_t)(b * Hkv + hk) * Skv * D;
-  T* ob = o + (int64_t)(b * Hq + h) * Sq * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * FMA_BQ;
-
-  for (int i = threadIdx.x; i < FMA_BQ * D; i += FMA_THREADS) {
-    const int r = i / D, c = i % D;
-    q_s[r][c] = q0 + r < Sq ? to_f32(qb[(int64_t)(q0 + r) * D + c]) * sm_scale : 0.f;
-  }
-  const bool segs = FEAT && f.qseg;
-  int qs[FMA_RPW];
-#pragma unroll
-  for (int rr = 0; rr < FMA_RPW; ++rr) {
-    const int qi = q0 + warp * FMA_RPW + rr;
-    qs[rr] = segs && qi < Sq ? f.qseg[(int64_t)b * Sq + qi] : -1;
-  }
-
-  float m[FMA_RPW], l[FMA_RPW], acc[FMA_RPW][DPL];
-#pragma unroll
-  for (int rr = 0; rr < FMA_RPW; ++rr) {
-    m[rr] = NEG_BIG;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  const int kv_end = f.causal ? min(Skv, q0 + FMA_BQ) : Skv;
-  const KvRange<FMA_BK> kr(f, q0, FEAT);
-  for (int k0 = kr.first(); k0 < kv_end; k0 = kr.next(k0)) {
-    __syncthreads();
-    if (segs && threadIdx.x < FMA_BK) {
-      const int c = k0 + threadIdx.x;
-      kseg_s[threadIdx.x] = c < Skv ? f.kseg[(int64_t)b * Skv + c] : -2;
-    }
-    for (int i = threadIdx.x; i < FMA_BK * D; i += FMA_THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < Skv;
-      k_s[r][c] = in ? to_f32(kb[(int64_t)(k0 + r) * D + c]) : 0.f;
-      v_s[r][c] = in ? to_f32(vb[(int64_t)(k0 + r) * D + c]) : 0.f;
-    }
-    __syncthreads();
-    const int kj = k0 + lane;  // this lane's key
-#pragma unroll
-    for (int rr = 0; rr < FMA_RPW; ++rr) {
-      const int r = warp * FMA_RPW + rr;
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) s = fmaf(q_s[r][c], k_s[lane][c], s);
-      bool ok;
-      if constexpr (FEAT) {
-        float t;  // q_s holds q * sm_scale: cap the scaled score
-        s = soft_cap(f, s, t);
-        ok = kj < Skv && mask_visible(f, q0 + r, kj, qs[rr],
-                                      segs ? kseg_s[lane] : 0);
-      } else {
-        ok = kj < Skv && (!f.causal || kj <= q0 + r);
-      }
-      s = ok ? s : NEG_BIG;
-      const float mn = fmaxf(m[rr], warp_max(s));
-      const float alpha = expf(m[rr] - mn);
-      const float p = expf(s - mn);
-      l[rr] = l[rr] * alpha + warp_sum(p);
-      m[rr] = mn;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
-      for (int j = 0; j < FMA_BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[rr][i] = fmaf(pj, v_s[j][lane + 32 * i], acc[rr][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < FMA_RPW; ++rr) {
-    const int qi = q0 + warp * FMA_RPW + rr;
-    if (qi >= Sq) continue;
-    const float inv = l[rr] == 0.f || (segs && m[rr] <= 0.5f * NEG_BIG)
-                          ? 0.f : 1.f / l[rr];
-    if (LSE && lane == 0)
-      lse[(int64_t)(b * Hq + h) * Sq + qi] = m[rr] + logf(fmaxf(l[rr], 1e-37f));
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      ob[(int64_t)qi * D + lane + 32 * i] = from_f32<T>(acc[rr][i] * inv);
-  }
-}
-
 // The bf16 launch of one instance: the three tensor maps (boxes of 64
 // columns by 64 query rows, or by BK keys, one head deep) and a 1-D grid
 // of q tiles x head blocks x batch.
@@ -690,13 +581,10 @@ cudaError_t launch_dlf(const void* q, const void* k, const void* v, void* o,
     return launch_bf16<D, LSE, FEAT>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, f,
                                      config, stream);
   if (config != 0) return cudaErrorInvalidValue;
-  if (Hq > 65535 || B > 65535) return cudaErrorInvalidValue;
-  dim3 grid((Sq + FMA_BQ - 1) / FMA_BQ, Hq, B);
-  fa_fwd_fma_kernel<float, D, LSE, FEAT><<<grid, FMA_THREADS, 0, stream>>>(
+  return flash_attention_tf32_launch(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq,
-      Skv, f.scale, f);
-  return cudaSuccess;
+      static_cast<const float*>(v), static_cast<float*>(o), lse, B, Hq, Hkv,
+      Sq, Skv, D, f, stream);
 }
 
 template <int D>
@@ -729,8 +617,8 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (causal && Sq != Skv) return cudaErrorInvalidValue;
   if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
-  // TMA reads the bf16 operands: 16-byte aligned bases
-  if (dtype == kBF16 && !(aligned16(q) && aligned16(k) && aligned16(v)))
+  // TMA reads the operands: 16-byte aligned bases
+  if (!(aligned16(q) && aligned16(k) && aligned16(v)))
     return cudaErrorInvalidValue;
   AttnMask f;
   if (!make_mask(q_seg, kv_seg, causal, window, sinks, softcap, sm_scale, &f))

@@ -152,6 +152,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// arrive on barrier `id` without waiting: the writes before it are seen
+// by the threads that wait there with named_barrier_sync (count: the
+// arriving and the waiting threads together)
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // host: a 2-D tensor map with the 128-byte swizzle over a row-major
 // (outer, inner) matrix at base, rows row_bytes apart (a multiple of 16,
 // base 16-byte aligned), boxes of box_inner (64: 128 bytes) x box_outer;
@@ -473,6 +480,173 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same at 32 columns (d as the m64n32k16 layout, 16 accumulators),
+// and with A from registers (the _rs forms, widths 32, 64 and 128): a[0..3]
+// of thread 4g + q of warp w hold A[16w + g][q], A[16w + g + 8][q],
+// A[16w + g][q + 4] and A[16w + g + 8][q + 4] as TF32 bit patterns (the
+// tensor core reads each as its truncation), the layout of mma.sync
+// m16n8k8's tf32 A fragment. An accumulator holds columns 2q and 2q + 1 of
+// each 8-wide slab, not q and q + 4: a tile of scores becomes the A
+// operand of the next product with its contraction index permuted within
+// each slab of 8 (fa_tf32_frag, csrc/flash_attention_tf32.cu), and B's
+// K-major rows carry the same permutation.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------ split-TF32 attention tiles
+// csrc/flash_attention_tf32.cu and csrc/flash_attention_bwd.cu keep
+// each f32 operand a .tf32 wgmma reads from shared memory as two planes,
+// hi and lo (common.cuh split_tf32_finite), each K-major: R rows of the
+// operand's M (or N) index, its contraction in boxes of 32 values (one
+// 128-byte swizzled row), box after box R rows apart, as a 3-D tensor map
+// of boxes 32 wide lays out an f32 tile of R rows. tf_off is the byte offset of
+// element (r, c) in such a plane, tf_desc the descriptor of its k8 step kk.
+__device__ __forceinline__ int tf_off(int R, int r, int c) {
+  return (c >> 5) * R * 128 + sw128_offset(r, (c & 31) >> 2) + (c & 3) * 4;
+}
+__device__ __forceinline__ uint64_t tf_desc(uint32_t plane, int R, int kk) {
+  return wgmma_desc(plane + (kk >> 2) * R * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// the four f32 values at p (shared memory) split into hi, in place, and
+// lo at q: a plane split where TMA loaded it (the two planes alike)
+__device__ __forceinline__ void tf_split4(unsigned char* p, unsigned char* q) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  float4 h, l;
+  split_tf32_finite(x.x, h.x, l.x);
+  split_tf32_finite(x.y, h.y, l.y);
+  split_tf32_finite(x.z, h.z, l.z);
+  split_tf32_finite(x.w, h.w, l.w);
+  *reinterpret_cast<float4*>(p) = h;
+  *reinterpret_cast<float4*>(q) = l;
+}
+
+// The column that key c of a tile takes in a K-major B operand whose A
+// comes from an accumulator (tf_frag): within each slab of 8, keys 0, 2,
+// 4, 6 go to columns 0-3 and keys 1, 3, 5, 7 to columns 4-7.
+__host__ __device__ __forceinline__ int tf_perm(int c) {
+  return (c & ~7) | ((c & 7) >> 1) | ((c & 1) << 2);
+}
+
+// The register-A fragments (hi, lo) of an accumulator of N/2 values (its
+// 64 x N tile in the m64nN layout), for the k8 steps over its N columns:
+// step j takes columns 8j + 2q (as A's column q) and 8j + 2q + 1 (as
+// q + 4), so B's rows follow tf_perm.
+template <int NA>
+__device__ __forceinline__ void tf_frag(const float (&s)[NA],
+                                        uint32_t (&h)[NA / 4][4],
+                                        uint32_t (&l)[NA / 4][4]) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float hi, lo;  // A's registers: (g, q), (g + 8, q), (g, q + 4), ...
+      split_tf32_finite(s[4 * j + (i & 1) * 2 + (i >> 1)], hi, lo);
+      h[j][i] = __float_as_uint(hi);
+      l[j][i] = __float_as_uint(lo);
+    }
+  }
+}
+
+// the fragments' registers held until the products that read them
+// asynchronously are done
+template <int K>
+__device__ __forceinline__ void tf_fence_frag(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
 // a warpgroup's register budget: lowered by the producer, raised by the

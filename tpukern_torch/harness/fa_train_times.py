@@ -1,0 +1,229 @@
+"""Times and accuracy of the training path's flash attention (#6, #8).
+
+    python -m tpukern_torch.harness.fa_train_times [label]
+
+At the 7bish training heads (B 2, Hq 16, Hkv 8, S 1024, D 128, causal)
+prints the card's name and power limit, then one line per call: the
+device time (the profiler's, 10 calls), the CUDA events time of
+back-to-back calls (run_benchmark) and the bounds:
+
+- the forward in f32 as the training step calls it (return_stats=True),
+  its plain version (attention_ref) and F.scaled_dot_product_attention
+  (is_causal, enable_gqa) on the same inputs; bounds: the visible pairs'
+  4 D flops on the f32 FMAs (67 TFLOP/s) and as split-TF32 products (3
+  TF32 products a product at 495 TFLOP/s);
+- the fused backward in f32 and bf16: flash_attention_bwd on K and V
+  repeated to 16 heads (the kernel alone, as chip_smoke.py times it),
+  the trainable's backward on the 8 KV heads (what a training step runs,
+  the GQA handling included), the plain version, and the autograd
+  backward of F.scaled_dot_product_attention(enable_gqa=True); bounds:
+  10 D flops a visible pair;
+- the accuracy gate of the f32 tier: the largest |error| of o, lse, dq,
+  dk and dv against an f64 evaluation of the same inputs, for the kernel
+  and for the plain version in f32 (cuBLAS with TF32 off), and their
+  ratio (ops/split_tf32.py SPLIT_GATE is the limit), at the training
+  shape and at two tail shapes.
+
+To compare two versions on one card, run it in one command from each
+tree's own root (`python -m` puts the working directory first on the
+path), the trees in turns. Needs a CUDA device.
+"""
+
+import math
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from tpukern_torch.harness.bench import run_benchmark
+from tpukern_torch.harness.decode_times import _device_ms
+from tpukern_torch.harness.ops_bench import PEAK_FLOP_S
+from tpukern_torch.ops.split_tf32 import bound_s
+
+B, HQ, HKV, S, D = 2, 16, 8, 1024, 128
+# the gate's tail shapes: (B, Hq, Hkv, S, D, causal)
+TAILS = ((1, 4, 2, 300, 128, True), (1, 4, 2, 77, 64, False))
+
+
+def _card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _line(label, name, fn, flops):
+    dev = _device_ms(fn, 10)
+    ev = run_benchmark(fn, iters=10, reps=5)
+    fma = flops / PEAK_FLOP_S[torch.float32] * 1e3
+    split = bound_s(flops) * 1e3
+    dev_s = "not measured" if dev is None else f"{dev:.4f}"
+    share = ("" if dev is None else
+             f" ({split / dev:.1%} of the split bound by device time)")
+    print(f"[{label}] {name}: device {dev_s} ms, events {ev:.4f} ms; bounds "
+          f"FMA {fma:.4f} ms, split-TF32 {split:.4f} ms{share}")
+
+
+def f64_attention(q, k, v, causal):
+    """(o, lse, P) of q, k, v in f64, GQA by repetition."""
+    g = q.shape[1] // k.shape[1]
+    qd, kd, vd = (t.double() for t in (q, k, v))
+    kd, vd = (t.repeat_interleave(g, dim=1) for t in (kd, vd))
+    s = qd @ kd.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        n = q.shape[2]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool,
+                                     device=q.device).triu(1), -math.inf)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    return p @ vd, lse, p
+
+
+def f64_grads(q, k, v, do, causal):
+    """(dq, dk, dv) in f64, dk and dv summed over each GQA group."""
+    g = q.shape[1] // k.shape[1]
+    o, _, p = f64_attention(q, k, v, causal)
+    dod = do.double()
+    vd = v.double().repeat_interleave(g, dim=1)
+    kd = k.double().repeat_interleave(g, dim=1)
+    dp = dod @ vd.transpose(-1, -2)
+    ds = p * (dp - (o * dod).sum(-1, keepdim=True)) / math.sqrt(q.shape[-1])
+    dq = ds @ kd
+    dk = ds.transpose(-1, -2) @ q.double()
+    dv = p.transpose(-1, -2) @ dod
+    Bq, Hq, n, dd = q.shape
+    fold = (Bq, Hq // g, g, k.shape[2], dd)
+    return dq, dk.reshape(fold).sum(2), dv.reshape(fold).sum(2)
+
+
+def plain_grads(q, k, v, do, causal):
+    """(dq, dk, dv) of the plain f32 backward from the plain forward's o
+    and lse, on K and V repeated over each GQA group, dk and dv summed
+    back."""
+    from tpukern_torch.ops import attention, attention_bwd
+
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    o, lse = attention.attention_ref(q, kr, vr, causal=causal,
+                                     return_stats=True)
+    dq, dk, dv = attention_bwd.flash_attention_bwd_ref(q, kr, vr, o, lse, do,
+                                                       causal=causal)
+    fold = (q.shape[0], k.shape[1], g, k.shape[2], q.shape[3])
+    return dq, dk.reshape(fold).sum(2), dv.reshape(fold).sum(2)
+
+
+def _kernel_grads(q, k, v, do, causal):
+    from tpukern_torch.ops.trainable import flash_attention_trainable
+
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attention_trainable(qs, ks, vs, causal)
+    return torch.autograd.grad(o, (qs, ks, vs), do)
+
+
+def _err(x, exact):
+    return (x.double() - exact).abs().max().item()
+
+
+def gate_rows(gen, shape):
+    """The f32 tier's errors against f64 at one (B, Hq, Hkv, S, D,
+    causal), on inputs drawn from gen: [(output, kernel's largest |error|,
+    the plain f32 version's)] for o and lse (the forward) and dq, dk and
+    dv (the backward, from the kernel forward's o and lse)."""
+    from tpukern_torch.ops import attention
+
+    b, hq, hkv, n, dd, causal = shape
+    q, do = (torch.randn((b, hq, n, dd), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, n, dd), generator=gen, device="cuda")
+            for _ in range(2))
+    eo, else_, _ = f64_attention(q, k, v, causal)
+    o, lse = attention.flash_attention(q, k, v, causal=causal,
+                                       return_stats=True)
+    ro, rlse = attention.attention_ref(q, k, v, causal=causal,
+                                       return_stats=True)
+    rows = [("o", _err(o, eo), _err(ro, eo)),
+            ("lse", _err(lse, else_), _err(rlse, else_))]
+    del eo, else_
+    exact = f64_grads(q, k, v, do, causal)
+    got = _kernel_grads(q, k, v, do, causal)
+    plain = plain_grads(q, k, v, do, causal)
+    return rows + [(nm, _err(a, e), _err(p, e)) for nm, a, p, e in
+                   zip(("dq", "dk", "dv"), got, plain, exact)]
+
+
+def gate(label, gen, shape):
+    """Prints gate_rows at shape with their ratios; returns the largest."""
+    worst = 0.0
+    for nm, ek, ep in gate_rows(gen, shape):
+        r = ek / max(ep, 1e-300)
+        worst = max(worst, r)
+        print(f"[{label}] gate {shape} {nm}: kernel {ek:.3e} plain f32 "
+              f"{ep:.3e} vs f64: x{r:.3f}")
+    return worst
+
+
+def main(label="this tree"):
+    if not torch.cuda.is_available():
+        raise SystemExit("fa_train_times needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from tpukern_torch.ops import attention, attention_bwd
+    from tpukern_torch.ops.trainable import flash_attention_trainable
+
+    print(f"[{label}] {_card()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pairs = S * (S + 1) // 2
+    fwd_flops = 4 * D * B * HQ * pairs
+    bwd_flops = 10 * D * B * HQ * pairs
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        q, do = (torch.randn((B, HQ, S, D), generator=gen, device="cuda")
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((B, HKV, S, D), generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        if dt == torch.float32:
+            _line(label, f"#6 {tag} return_stats",
+                  lambda: attention.flash_attention(q, k, v, causal=True,
+                                                    return_stats=True),
+                  fwd_flops)
+            _line(label, f"#6 {tag} plain (attention_ref)",
+                  lambda: attention.attention_ref(q, k, v, causal=True,
+                                                  return_stats=True),
+                  fwd_flops)
+            _line(label, f"#6 {tag} library (SDPA, enable_gqa)",
+                  lambda: F.scaled_dot_product_attention(
+                      q, k, v, is_causal=True, enable_gqa=True), fwd_flops)
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True)
+        kr, vr = (t.repeat_interleave(HQ // HKV, dim=1) for t in (k, v))
+        _line(label, f"#8 {tag} flash_attention_bwd at H {HQ} (K, V "
+              "repeated outside the call)",
+              lambda: attention_bwd.flash_attention_bwd(q, kr, vr, o, lse, do,
+                                                        causal=True),
+              bwd_flops)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        ot = flash_attention_trainable(qs, ks, vs, True)
+        _line(label, f"#8 {tag} the trainable's backward, GQA {HQ}/{HKV}",
+              lambda: torch.autograd.grad(ot, (qs, ks, vs), do,
+                                          retain_graph=True), bwd_flops)
+        if dt == torch.float32:
+            _line(label, f"#8 {tag} plain (flash_attention_bwd_ref)",
+                  lambda: attention_bwd.flash_attention_bwd_ref(
+                      q, kr, vr, o, lse, do, causal=True), bwd_flops)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        _line(label, f"#8 {tag} library (SDPA backward, enable_gqa)",
+              lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                          retain_graph=True), bwd_flops)
+        del q, k, v, do, o, lse, kr, vr, ot, ol, qs, ks, vs, ql, kl, vl
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for shape in ((B, HQ, HKV, S, D, True), *TAILS):
+        worst = max(worst, gate(label, gen, shape))
+        torch.cuda.empty_cache()
+    print(f"[{label}] gate: largest kernel / plain f32 error ratio "
+          f"x{worst:.3f}")
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:2])

@@ -9,8 +9,10 @@ featured training path: a sliding window with attention sinks, a logit
 softcap and segment ids. Kernel: csrc/flash_attention.cu, which replaces
 `_fa_kernel` (attention.py:62) and its transposed-layout twin
 `_fa_tpv_kernel` (:656): in bf16 a TMA + wgmma kernel (a producer and
-consumer warpgroups of 64 query rows), in f32 CUDA-core FMAs.
-`attention_tiled_ref` is the bf16 kernel's order of work in plain torch.
+consumer warpgroups of 64 query rows), in f32 split-TF32 products on
+wgmma (csrc/flash_attention_tf32.cu). `attention_tiled_ref` is the bf16
+kernel's order of work in plain torch, `attention_tf32_ref` the f32
+kernel's.
 """
 
 import math
@@ -115,8 +117,8 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
     cap·tanh(s/cap) before masking; segment_ids = (q_seg (B, Sq), kv_seg
     (B, Skv)) ints lets a query see only keys of its own segment, and a
     query that sees no key outputs 0. A CPU tensor takes attention_ref; a
-    CUDA tensor launches the kernel (bf16 on the tensor cores, f32 on CUDA
-    cores). alibi_slopes, causal_offset and the carry raise
+    CUDA tensor launches the kernel (bf16, and f32 as split-TF32 products,
+    on the tensor cores). alibi_slopes, causal_offset and the carry raise
     NotImplementedError."""
     check_features(causal, window, sinks, softcap, alibi_slopes)
     _reject(alibi_slopes=alibi_slopes, causal_offset=causal_offset,
@@ -253,6 +255,73 @@ def attention_tiled_ref(q, k, v, *, causal=False, sm_scale=None,
                                     acc * (1.0 / l)[..., None])
         lse[:, :, rows] = LN2 * m + torch.log(l.clamp(min=1e-37))
     o = o.to(q.dtype)
+    return (o, lse) if return_stats else o
+
+
+# the f32 kernel's tiles: query rows a block, keys a KV tile, and the
+# columns of D a fresh accumulator of S = Q K^T sums
+# (csrc/flash_attention_tf32.cu FT_QW, FT_BK)
+TF32_BLOCK_Q, TF32_BLOCK_K = 64, 32
+
+
+def attention_tf32_ref(q, k, v, *, causal=False, sm_scale=None, window=None,
+                       sinks=None, softcap=None, segment_ids=None,
+                       return_stats=False):
+    """flash_attention's f32 tier in its order of work, a test aid off the
+    main path: each tile of TF32_BLOCK_Q query rows (query head h reading
+    KV head h // (Hq // Hkv)) walks its KV tiles of TF32_BLOCK_K keys in
+    kv_tiles order up to its causal frontier; S = Q K^T as split-TF32
+    products in slabs of 32 columns of D (split_tf32.split_bmm_ref),
+    scaled by sm_scale, capped, masked with NEG_BIG; the online softmax in
+    natural-log units, l summed from the f32 p; P V as split products of
+    the tile's P and V, keys in the kernel's fragment order
+    (split_tf32.key_order, P's columns and V's rows alike), a fresh sum
+    added to O = alpha O + P V. A row that sees no key gives 0; with
+    return_stats also the f32 lse (m + log l). f32 out."""
+    from tpukern_torch.ops.split_tf32 import key_order, split_bmm_ref
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    bq, bk = TF32_BLOCK_Q, TF32_BLOCK_K
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    keep = visible(Sq, Skv, q.device, causal=causal, window=window,
+                   sinks=sinks, segment_ids=segment_ids)
+    order = key_order(bk).to(q.device)
+    o = torch.zeros(B, Hq, Sq, D, device=q.device)
+    lse = torch.zeros(B, Hq, Sq, device=q.device)
+    for q0 in range(0, Sq, bq):
+        rows = slice(q0, min(Sq, q0 + bq))
+        n = rows.stop - q0
+        m = torch.full((B, Hq, n), NEG_BIG, device=q.device)
+        l = torch.zeros(B, Hq, n, device=q.device)
+        acc = torch.zeros(B, Hq, n, D, device=q.device)
+        kv_end = min(Skv, q0 + bq) if causal else Skv
+        for k0 in kv_tiles(q0, kv_end, bk, window, sinks):
+            cols = slice(k0, min(Skv, k0 + bk))
+            s = split_bmm_ref(qf[:, :, rows], kf[:, :, cols]) * sm_scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            if keep is not None:
+                s = s.masked_fill(~keep[..., rows, cols], NEG_BIG)
+            mn = torch.maximum(m, s.amax(-1))
+            a = torch.exp(m - mn)
+            p = torch.exp(s - mn[..., None])
+            l = l * a + p.sum(-1)
+            # the tile at its full width (keys past Skv: p and V zero)
+            pad = bk - (cols.stop - k0)
+            pt = torch.nn.functional.pad(p, (0, pad))[..., order]
+            vt = torch.nn.functional.pad(vf[:, :, cols], (0, 0, 0, pad))
+            acc = acc * a[..., None] + split_bmm_ref(pt, vt[..., order, :].mT)
+            m = mn
+        none = (l == 0) | ((m <= 0.5 * NEG_BIG) if segment_ids is not None
+                           else False)
+        o[:, :, rows] = torch.where(none[..., None], 0.0,
+                                    acc * (1.0 / l)[..., None])
+        lse[:, :, rows] = m + torch.log(l.clamp(min=1e-37))
     return (o, lse) if return_stats else o
 
 

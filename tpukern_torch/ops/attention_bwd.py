@@ -5,9 +5,14 @@ dispatch (attention_bwd.py:587-598, :675-676):
 
 - no window, softcap or segment_ids (and `fused` unset): the fused
   kernel, csrc/flash_attention_bwd.cu, which replaces `_bwd_fused_kernel`
-  (attention_bwd.py:339). The TPU's dQ tiers (`dq_resident`, the partials
-  tier, FUSED_BWD_DQ_BUDGET, fused_bwd_partials_budget) are not ported:
-  one CUDA design serves every S.
+  (attention_bwd.py:339): split-TF32 products on wgmma, f32 in (bf16
+  inputs as f32 copies, computed in f32 as before), GQA inside: a block
+  walks every query head of its KV head's group, so K and V are not
+  repeated and dK and dV are summed over the group in the kernel.
+  `flash_attention_bwd_tf32_ref` is its order of work in plain torch.
+  The TPU's dQ tiers (`dq_resident`, the partials tier,
+  FUSED_BWD_DQ_BUDGET, fused_bwd_partials_budget) are not ported: one
+  CUDA design serves every S.
 - any of those features, or fused=False: the two-kernel featured
   backward, csrc/flash_attention_featured_bwd.cu: `flash_attention_dq`
   replaces `_dq_kernel` (:31) and `flash_attention_dkv` replaces
@@ -29,10 +34,14 @@ from tpukern_torch.ops.attention import (HEAD_DIMS, check_features,
                                          segments_i32, visible)
 
 
-def _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o=None):
+def _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o=None,
+           gqa=False):
+    """sm_scale (1/sqrt(D) by default), after the shape checks: k and v
+    of (B, Hkv, Skv, D), Hkv == Hq unless gqa, where Hkv divides Hq."""
     B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    if (k.shape != (B, H, Skv, D) or v.shape != k.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if ((Hkv != H and not (gqa and Hkv and H % Hkv == 0))
+            or k.shape != (B, Hkv, Skv, D) or v.shape != k.shape
             or do.shape != q.shape or lse.shape != (B, H, Sq)
             or (o is not None and o.shape != q.shape)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -43,6 +52,11 @@ def _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o=None):
                                   "item 5")
     check_features(causal, window, softcap=softcap)
     return 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
+
+
+# the f32 kernel's tiles: keys a block, query rows a step
+# (csrc/flash_attention_bwd.cu TB_BKV, TB_BQ)
+TB_BLOCK_KV, TB_BLOCK_Q = 32, 64
 
 
 def _check_cuda(q, k, v, do, lse, di):
@@ -58,9 +72,10 @@ def _check_cuda(q, k, v, do, lse, di):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
                         window=None, softcap=None, segment_ids=None,
                         fused=None):
-    """q, o, do: (B, H, Sq, D); k, v: (B, H, Skv, D); lse: f32 (B, H, Sq),
-    the forward's natural-log stats. Returns (dq, dk, dv) in the dtypes of
-    q, k, v. H is the same for q and k here: the caller sums a GQA group.
+    """q, o, do: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hkv dividing Hq
+    (GQA: query head h reads KV head h // (Hq // Hkv)); lse: f32 (B, Hq,
+    Sq), the forward's natural-log stats. Returns (dq, dk, dv) in the
+    dtypes of q, k, v, dk and dv summed over each group.
 
     window, softcap and segment_ids mirror the forward's masks and run on
     the two-kernel featured backward, as does fused=False; otherwise the
@@ -68,7 +83,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
     assert does. di = rowsum(o * do) is plain torch, as it is XLA in JAX. A CPU
     tensor takes the plain versions; a CUDA tensor launches the kernels
     (f32 or bf16, head dims 32, 64 and 128, causal needs Sq == Skv)."""
-    sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o)
+    sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o,
+                      gqa=True)
     featured = (window is not None or softcap is not None
                 or segment_ids is not None)
     if featured and fused:
@@ -80,24 +96,38 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
     if fused and q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     di = (o.float() * do.float()).sum(-1)
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
     if not fused:
+        # the two-kernel backward takes one KV head a query head: K and V
+        # repeated over each group, dK and dV summed back (its kernels,
+        # written for the featured path's masks, have no group walk)
+        group = Hq // Hkv
+        kr, vr = (t.repeat_interleave(group, dim=1) if group > 1 else t
+                  for t in (k, v))
         feat = dict(kw, window=window, softcap=softcap,
                     segment_ids=segment_ids)
-        dq = flash_attention_dq(q, k, v, do, lse, di, **feat)
-        return (dq, *flash_attention_dkv(q, k, v, do, lse, di, **feat))
+        dq = flash_attention_dq(q, kr, vr, do, lse, di, **feat)
+        dk, dv = flash_attention_dkv(q, kr, vr, do, lse, di, **feat)
+        if group > 1:
+            fold = (B, Hkv, group, *k.shape[2:])
+            dk = dk.reshape(fold).sum(2, dtype=torch.float32).to(k.dtype)
+            dv = dv.reshape(fold).sum(2, dtype=torch.float32).to(v.dtype)
+        return dq, dk, dv
     _check_cuda(q, k, v, do, lse, di)
-    B, H, Sq, D = q.shape
-    q, k, v, do = (_build.aligned(t) for t in (q, k, v, do))
+    dtype = q.dtype
+    # the kernel takes f32: bf16 inputs as f32 copies (exact)
+    q32, k32, v32, do32 = (_build.aligned(t.float()) for t in (q, k, v, do))
     lse = lse.float().contiguous()
-    dq = torch.zeros(B, H, Sq, D, device=q.device)  # atomicAdd target
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _build.launch("tk_flash_attention_bwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq,
-                  k.shape[2], D, sm_scale, int(causal), _build.dtype_code(q),
-                  _build.stream(q))
+    dq = torch.zeros(B, Hq, Sq, D, device=q.device)  # atomicAdd target
+    dk, dv = torch.empty_like(k32), torch.empty_like(v32)
+    _build.launch("tk_flash_attention_bwd", q32.data_ptr(), k32.data_ptr(),
+                  v32.data_ptr(), do32.data_ptr(), lse.data_ptr(),
+                  di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  B, Hq, Hkv, Sq, k.shape[2], D, sm_scale, int(causal),
+                  _build.dtype_code(q32), _build.stream(q))
     flash_attention_bwd.launches += 1
-    return dq.to(q.dtype), dk, dv
+    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 flash_attention_bwd.launches = 0
@@ -218,8 +248,83 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=False,
                             sm_scale=None, window=None, softcap=None,
                             segment_ids=None):
     """Recompute-from-lse backward in f32 einsums, with the forward's
-    masks: (dq, dk, dv)."""
+    masks: (dq, dk, dv). GQA (Hkv dividing Hq): K and V repeated over each
+    group, dk and dv summed over it in f32."""
+    group = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
     di = (o.float() * do.float()).sum(-1)
-    p, ds = _p_ds(q, k, v, do, lse, di, causal, sm_scale, window, softcap,
+    p, ds = _p_ds(q, kr, vr, do, lse, di, causal, sm_scale, window, softcap,
                   segment_ids)
-    return (_dq_of(ds, k, q.dtype), *_dkv_of(p, ds, q, do, k, v))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    fold = (k.shape[0], k.shape[1], group, *k.shape[2:])
+    return (_dq_of(ds, kr, q.dtype),
+            dk.reshape(fold).sum(2).to(k.dtype),
+            dv.reshape(fold).sum(2).to(v.dtype))
+
+
+def flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, *, causal=False,
+                                 sm_scale=None):
+    """flash_attention_bwd's fused f32 tier in its order of work, a test
+    aid off the main path: each tile of TB_BLOCK_KV keys of each KV head
+    walks the query heads of its group, and their tiles of TB_BLOCK_Q rows
+    from the causal frontier on; S = Q K^T and dP = dO V^T as split-TF32
+    products in slabs of 32 columns of D (split_tf32.split_bmm_ref); P =
+    exp(sm_scale S - lse) and dS = P (dP - di) sm_scale, zero where a pair
+    is masked; dQ += dS K with the keys in the kernel's fragment order
+    (split_tf32.key_order, dS's columns and K's rows alike), added to an
+    f32 dq tile by tile; dV^T += dO^T P and dK^T += Q^T dS as split products
+    in slabs of 32 query rows, added in f32. (dq, dk, dv) in the dtypes of
+    q, k, v."""
+    from tpukern_torch.ops.split_tf32 import key_order, split_bmm_ref
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    bkv, bq = TB_BLOCK_KV, TB_BLOCK_Q
+    dev = q.device
+    # (B, Hkv, group, ...) views: query head h = hk * group + j
+    qg, dog = (t.float().reshape(B, Hkv, g, Sq, D) for t in (q, do))
+    lseg = lse.float().reshape(B, Hkv, g, Sq)
+    dig = (o.float() * do.float()).sum(-1).reshape(B, Hkv, g, Sq)
+    dq = torch.zeros(B, Hkv, g, Sq, D, device=dev)
+    dk = torch.zeros(B, Hkv, Skv, D, device=dev)
+    dv = torch.zeros(B, Hkv, Skv, D, device=dev)
+    order = key_order(bkv).to(dev)
+
+    def rows(t, q0, n):  # the rows q0.. of a step, zeros past the end
+        part = t[..., q0:q0 + n, :]
+        return torch.nn.functional.pad(part, (0, 0, 0, n - part.shape[-2]))
+
+    for kv0 in range(0, Skv, bkv):
+        kt = rows(k.float(), kv0, bkv)  # (B, Hkv, bkv, D)
+        vt = rows(v.float(), kv0, bkv)
+        dkt = torch.zeros(B, Hkv, D, bkv, device=dev)
+        dvt = torch.zeros(B, Hkv, D, bkv, device=dev)
+        kvi = kv0 + torch.arange(bkv, device=dev)
+        for j in range(g):
+            for q0 in range(kv0 // bq * bq if causal else 0, Sq, bq):
+                qt, dot = rows(qg[:, :, j], q0, bq), rows(dog[:, :, j], q0, bq)
+                st = rows(torch.stack((lseg[:, :, j], dig[:, :, j]), -1),
+                          q0, bq)
+                qi = q0 + torch.arange(bq, device=dev)
+                ok = (kvi[None] < Skv) & (qi[:, None] < Sq)
+                if causal:
+                    ok &= kvi[None] <= qi[:, None]
+                s = split_bmm_ref(qt, kt)
+                dp = split_bmm_ref(dot, vt)
+                p = torch.where(ok, torch.exp(s * sm_scale - st[..., :1]),
+                                0.0)
+                ds = torch.where(ok, p * (dp - st[..., 1:]) * sm_scale, 0.0)
+                part = split_bmm_ref(ds[..., order], kt.mT[..., order])
+                n = min(bq, Sq - q0)
+                dq[:, :, j, q0:q0 + n] += part[..., :n, :]
+                dvt += split_bmm_ref(dot.mT, p.mT)
+                dkt += split_bmm_ref(qt.mT, ds.mT)
+        n = min(bkv, Skv - kv0)
+        dk[:, :, kv0:kv0 + n] = dkt.mT[..., :n, :]
+        dv[:, :, kv0:kv0 + n] = dvt.mT[..., :n, :]
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -16,7 +16,8 @@ This module holds the operand pass's wrapper (`split_tf32`), the count
 of its launches by every launcher (`launch_counting_passes`) and its
 plain version (`split_tf32_ref`, the kernel's split bit for bit, and
 SPECIALS, the values on its every path), the plain model of the product
-(`split_product_ref`, `matmul_split_ref`), the bound of its error
+(`split_product_ref`, `matmul_split_ref`; `split_bmm_ref` and
+`key_order` for the f32 flash attention #6/#8), the bound of its error
 (SPLIT_REL), the tier's cost (PRODUCTS, TF32_PEAK_FLOP_S) and accuracy
 gate (SPLIT_GATE), and the mirrors of the layouts, the splits of K and
 the scratch that the launchers use (`matmul_transposed`, CE_TRANSPOSED,
@@ -152,6 +153,33 @@ def split_product_ref(a_planes, b_planes):
     ah, al = a_planes[0].double(), tf32_truncate(a_planes[1]).double()
     bh, bl = b_planes[0].double(), tf32_truncate(b_planes[1]).double()
     return (al @ bh.T + ah @ bl.T + ah @ bh.T).float()
+
+
+def split_bmm_ref(a, b, slab=32):
+    """A (..., M, K) times B (..., N, K)^T as the split-TF32 attention
+    kernels (csrc/flash_attention_tf32.cu, csrc/flash_attention_bwd.cu)
+    sum it: both operands split (split_tf32_ref), lo read as the tensor core
+    reads it (tf32_truncate), each slab of `slab` contraction values' three
+    products summed in f64 and rounded once to f32 (a fresh accumulator a
+    slab), the slabs' sums added in f32 in order."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-2], device=a.device)
+    for k0 in range(0, a.shape[-1], slab):
+        ah, al = split_tf32_ref(a[..., k0:k0 + slab])
+        bh, bl = split_tf32_ref(b[..., k0:k0 + slab])
+        ah, bh = ah.double(), bh.double()
+        al, bl = tf32_truncate(al).double(), tf32_truncate(bl).double()
+        out = out + (al @ bh.mT + ah @ bl.mT + ah @ bh.mT).float()
+    return out
+
+
+def key_order(n):
+    """Which key each column of a K-major B operand holds where A comes
+    from an accumulator (csrc/hopper.cuh tf_frag, tf_perm), for n keys:
+    within each 8, columns 0-3 hold keys 0, 2, 4, 6 and columns 4-7 keys
+    1, 3, 5, 7, the order in which A's k8 fragment takes the
+    accumulator's columns."""
+    c = torch.arange(n)
+    return (c & ~7) | ((c & 3) << 1) | ((c >> 2) & 1)
 
 
 def matmul_transposed(trans_b):

@@ -12,10 +12,11 @@ on a CPU tensor both take the plain versions:
 - rope_t: kernel forward; backward is the inverse rotation, sign=-1
   (trainable.py:77-92).
 - flash_attention_trainable: the forward saves (q, k, v, o, lse,
-  segment_ids); the backward repeats K/V over the GQA group, runs
-  flash_attention_bwd (the fused kernel, or the two-kernel featured
-  backward under a window, softcap or segment_ids) and sums dK/dV over
-  the group (attention.py:1001-1047).
+  segment_ids); the backward runs flash_attention_bwd on the KV heads as
+  they are: the fused kernel walks each GQA group inside and sums dK/dV
+  over it (JAX repeats K/V and sums in XLA, attention.py:1001-1047); the
+  two-kernel featured backward (a window, softcap or segment_ids) repeats
+  them itself.
 """
 
 import torch
@@ -99,19 +100,9 @@ class _FlashAttentionT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse, *seg = ctx.saved_tensors
-        B, Hq, _, D = q.shape
-        Hkv, Skv = k.shape[1], k.shape[2]
-        group = Hq // Hkv
         kw = dict(ctx.kw, segment_ids=tuple(seg) or None)
         none = (None,) * 5  # causal, sm_scale, window, softcap, segment_ids
-        if group == 1:
-            return (*flash_attention_bwd(q, k, v, o, lse, g, **kw), *none)
-        dq, dk_full, dv_full = flash_attention_bwd(
-            q, k.repeat_interleave(group, dim=1),
-            v.repeat_interleave(group, dim=1), o, lse, g, **kw)
-        dk = dk_full.reshape(B, Hkv, group, Skv, D).sum(2).to(k.dtype)
-        dv = dv_full.reshape(B, Hkv, group, Skv, D).sum(2).to(v.dtype)
-        return (dq, dk, dv, *none)
+        return (*flash_attention_bwd(q, k, v, o, lse, g, **kw), *none)
 
 
 def flash_attention_trainable(q, k, v, causal=False, sm_scale=None,
