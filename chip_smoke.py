@@ -315,7 +315,8 @@ def phase_build():
 # backward's three launches, run wgmma (HGMMA) fed by
 # TMA (UTMALDG), no mma.sync (HMMA), as do every instance of the f32
 # flash-attention forward (#6) and the f32 fused backward (#8) on
-# split-TF32 products; #40 runs no matrix product (HMMA, HGMMA)
+# split-TF32 products, and of the bf16 fused backward (#8 on bf16
+# wgmma); #40 runs no matrix product (HMMA, HGMMA)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
@@ -334,12 +335,14 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_dw_tf32_kernel": _WGMMA_TMA,
              "fa_fwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_tf32_kernel": _WGMMA_TMA,
+             "fa_bwd_bf16_kernel": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
 # kernels whose wgmmas ptxas must leave asynchronous: no C7520 info line
 # ("wgmma.mma_async instructions are serialized") may name them
 NO_SERIALIZED = ("gemm_tf32_kernel", "ce_dlog_tf32_kernel",
                  "ce_dx_tf32_kernel", "ce_dw_tf32_kernel",
-                 "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel")
+                 "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel",
+                 "fa_bwd_bf16_kernel")
 
 
 def sass_counts(lib):
@@ -972,7 +975,9 @@ def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
     instance of #23 and #24 against its plain version at the serving
     shapes (decode, gamma = 4 verification, a 256-token chunk) with q in
     bf16 and in f32, and with the window, sinks and softcap; the served
-    tiers timed beside SDPA on dequantized gathered copies."""
+    tiers timed beside SDPA on dequantized gathered copies. Each
+    quantized call twice: the second gives the same bits (the splits
+    merge in a fixed order)."""
     from functools import partial
 
     from tpukern_torch.ops import paged_attention as pa
@@ -1054,9 +1059,13 @@ def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
             for dt in (bf, f32) if case != "chunk" else (bf,):
                 a = (args[0].to(dt), *args[1:])
                 tol = QUANT_PV_F32_TOL if dt == f32 and kw["pv_int8"] else None
+                out = fn(*a, **kw)
                 checks.record(name, *_compare(
                     _QUANT_LABEL[case == "decode"], f"{tier} {case} {dt}",
-                    fn(*a, **kw), ref(*a, **kw), tol=tol))
+                    out, ref(*a, **kw), tol=tol))
+                checks.record(name, *_same_bits(
+                    _QUANT_LABEL[case == "decode"], f"{tier} {case} {dt}",
+                    out, fn(*a, **kw)))
             if tier in QUANT_SERVED:
                 timed[f"{_QUANT_LABEL[case == 'decode']} {tier} {case}"] = (
                     _timed_entry(
@@ -1078,9 +1087,13 @@ def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
                        else (pa.paged_prefill_attention_quantized,
                              pa.paged_prefill_quantized_ref))
             tol = QUANT_PV_F32_TOL if dt == f32 and kw["pv_int8"] else None
+            out = fn(*a, **kw, **feat)
             checks.record(fn.__name__, *_compare(
                 _QUANT_LABEL[case == "decode"], f"{tier} {tag} {case} {dt}",
-                fn(*a, **kw, **feat), ref(*a, **kw, **feat), tol=tol))
+                out, ref(*a, **kw, **feat), tol=tol))
+            checks.record(fn.__name__, *_same_bits(
+                _QUANT_LABEL[case == "decode"], f"{tier} {tag} {case} {dt}",
+                out, fn(*a, **kw, **feat)))
 
 
 # [ring] kernel cases: 4 sequences on rings of 5 pages of 128 slots (640,
@@ -1151,10 +1164,14 @@ def _ring_kernels(checks, timed, gen, cfg, serve_case, verify_case):
                     kq, ks = pa.quantize_pages(base[1].float(), qdt)
                     vq, vs = pa.quantize_pages(base[2].float(), qdt)
                     a = (base[0], kq, ks, vq, vs, base[3], base[4])
+                    label = _QUANT_LABEL[fn is pa.paged_attention_quantized]
+                    out = fn(*a, **kw, **feat)
                     checks.record(fn.__name__, *_compare(
-                        _QUANT_LABEL[fn is pa.paged_attention_quantized],
-                        f"{tier} {tag} {dt}", fn(*a, **kw, **feat),
+                        label, f"{tier} {tag} {dt}", out,
                         ref(*a, **kw, **feat), tol=tol))
+                    checks.record(fn.__name__, *_same_bits(
+                        label, f"{tier} {tag} {dt}", out,
+                        fn(*a, **kw, **feat)))
     dec, ver = cases[bf]
     for label, name, fn, ref, args, feat in (
             ("#23 ring", "paged_attention", pa.paged_attention,
@@ -1617,35 +1634,40 @@ def phase_train_kernels(cfg, B, S):
         {ops_bench.SPLIT_TF32: 4 * D * pairs}, _nbytes(q, k, v, o, lse),
         f32, fma=4 * D * pairs)
 
-    # flash_attention_bwd: dq/dk/dv, f32 and bf16, causal and not, D 32,
+    # flash_attention_bwd: dq/dk/dv, f32 (the split-TF32 kernel) and bf16
+    # (the bf16 wgmma kernel, held to its plain order of work, which
+    # rounds P and dS to bf16 as the kernel does), causal and not, D 32,
     # 64 and 128, tail lengths, GQA groups 1, 2 and 4 (Hq/Hkv); the
-    # training shape first; dk and dv of the f32 tier (no atomics) twice,
-    # bit-equal
+    # training shape first; dk and dv (no atomics) twice, bit-equal
     for Bb, H, Hk, Sb, dd, dt, causal in (
-            (B, Hq, Hkv, S, D, f32, True), (1, 4, 4, 300, 64, bf, True),
+            (B, Hq, Hkv, S, D, f32, True), (B, Hq, Hkv, S, D, bf, True),
+            (1, 4, 2, 300, 128, bf, True), (1, 4, 2, 77, 64, bf, False),
+            (1, 4, 4, 300, 64, bf, True), (1, 4, 1, 130, 32, bf, True),
             (1, 4, 4, 300, 128, f32, False), (2, 2, 2, 77, 64, f32, True),
             (1, 4, 4, 200, 128, bf, False), (1, 2, 2, 130, 64, f32, False),
             (1, 8, 2, 300, 128, f32, True), (1, 4, 2, 200, 32, f32, False),
-            (2, 8, 2, 77, 64, bf, True)):
+            (1, 8, 2, 200, 32, bf, False), (2, 8, 2, 77, 64, bf, True)):
         q, do = (_randn(gen, Bb, H, Sb, dd, dtype=dt) for _ in range(2))
         k, v = (_randn(gen, Bb, Hk, Sb, dd, dtype=dt) for _ in range(2))
         o, lse = attention.attention_ref(q, k, v, causal=causal,
                                          return_stats=True)
         outs = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
                                                  causal=causal)
-        refs = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                     causal=causal)
+        name, plain = (
+            ("flash_attention_bwd", attention_bwd.flash_attention_bwd_ref)
+            if dt == f32 else ("flash_attention_bwd_bf16",
+                               attention_bwd.flash_attention_bwd_bf16_ref))
+        refs = plain(q, k, v, o, lse, do, causal=causal)
         case = f"B{Bb} H{H}/{Hk} S{Sb} D{dd} {dt} causal={causal}"
         for grad, out, ref in zip(("dq", "dk", "dv"), outs, refs):
-            checks.record("flash_attention_bwd", *_compare(
-                "flash_attention_bwd", f"{grad} {case}", out, ref))
-        if dt == f32:
-            again = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
-                                                      causal=causal)
-            checks.record("flash_attention_bwd", *_same_bits(
-                "flash_attention_bwd", f"dk, dv {case}",
-                torch.cat([outs[1].flatten(), outs[2].flatten()]),
-                torch.cat([again[1].flatten(), again[2].flatten()])))
+            checks.record(name, *_compare(name, f"{grad} {case}", out, ref))
+        again = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal)
+        checks.record(name, *_same_bits(
+            name, f"dk, dv {case}",
+            torch.cat([outs[1].flatten(), outs[2].flatten()]),
+            torch.cat([again[1].flatten(), again[2].flatten()])))
+        del q, k, v, do, o, lse, outs, refs, again
     # the training step's call: GQA 16/8 inside the kernel, beside
     # autograd's backward of SDPA (enable_gqa) on the same q, k, v; the
     # bf16 tier at the same shape beside SDPA's bf16 backward
@@ -1661,11 +1683,13 @@ def phase_train_kernels(cfg, B, S):
         flops = 10 * D * pairs
         timed[f"flash_attention_bwd {'f32' if dt == f32 else 'bf16'}"] = (
             _timed_entry(
-                "flash_attention_bwd", [B, Hq, Hkv, S, D],
+                "flash_attention_bwd" if dt == f32
+                else "flash_attention_bwd_bf16", [B, Hq, Hkv, S, D],
                 partial(attention_bwd.flash_attention_bwd, *args,
                         causal=True),
-                partial(attention_bwd.flash_attention_bwd_ref, *args,
-                        causal=True),
+                partial(attention_bwd.flash_attention_bwd_ref if dt == f32
+                        else attention_bwd.flash_attention_bwd_bf16_ref,
+                        *args, causal=True),
                 partial(torch.autograd.grad, ol, (ql, kl, vl), do,
                         retain_graph=True),
                 {ops_bench.SPLIT_TF32: flops} if dt == f32 else flops,
@@ -1732,19 +1756,27 @@ def _attention_gate(checks, gen, shapes):
     of o and lse (the forward, as the training step calls it) and of dq,
     dk and dv (the backward, GQA inside) against an f64 evaluation of the
     same inputs, at most SPLIT_GATE times the plain version's in f32
-    (attention_ref and flash_attention_bwd_ref on cuBLAS, TF32 off)."""
+    (attention_ref and flash_attention_bwd_ref on cuBLAS, TF32 off); and
+    the bf16 #8's dq, dk and dv on bf16 inputs, at most SPLIT_GATE times
+    its plain order of work's (flash_attention_bwd_bf16_ref, P and dS
+    rounded to bf16 alike) against f64."""
     from tpukern_torch.harness import fa_train_times
 
     require(not torch.backends.cuda.matmul.allow_tf32,
             "the gate needs cuBLAS f32 with TF32 off")
     for shape in shapes:
-        for out, err, ref_err in fa_train_times.gate_rows(gen, shape):
+        rows = [(out, err, ref_err, "plain f32") for out, err, ref_err in
+                fa_train_times.gate_rows(gen, shape)]
+        rows += [(out, err, ref_err, "plain bf16") for out, err, ref_err in
+                 fa_train_times.gate_rows_bf16(gen, shape)]
+        for out, err, ref_err, ref in rows:
             name = ("flash_attention_train_f32" if out in ("o", "lse")
-                    else "flash_attention_bwd")
+                    else "flash_attention_bwd" if ref == "plain f32"
+                    else "flash_attention_bwd_bf16")
             case = f"{out} B{shape[0]} H{shape[1]}/{shape[2]} S{shape[3]} " \
                    f"D{shape[4]} causal={shape[5]}"
-            checks.record(name, _gate(name, case, err, ref_err,
-                                      ref="plain f32"), 0.0)
+            checks.record(name, _gate(name, case, err, ref_err, ref=ref),
+                          0.0)
             gate = checks.results[name].setdefault("f64_gate", {})
             gate[case] = dict(kernel=err, plain=ref_err)
         torch.cuda.empty_cache()
@@ -3523,9 +3555,10 @@ def _batch(cfg, B, S, seed):
 
 
 def _train_label(cfg):
+    dt = "" if cfg.param_dtype == torch.float32 else "bf16 parameters, "
     if cfg.window is not None:
-        return f"window {cfg.window} softcap {cfg.softcap:g}"
-    return "fused loss" if cfg.fused_loss else "unfused loss"
+        return f"{dt}window {cfg.window} softcap {cfg.softcap:g}"
+    return dt + ("fused loss" if cfg.fused_loss else "unfused loss")
 
 
 def phase_train(cfg, B, S, steps=5):
@@ -3534,8 +3567,11 @@ def phase_train(cfg, B, S, steps=5):
     the fused loss and the window and softcap); launch counts reset just
     before and read just after; then one more step under the profiler.
     With a window the backward must take the two featured kernels, one
-    launch of each per layer and step, and never the fused one. Returns
-    the launches, the losses and dict(ms, tokens_s, peak_gib)."""
+    launch of each per layer and step, and never the fused one; without,
+    the fused one once per layer and step (its f32 tier: with bf16
+    parameters too, matmul_t writes the f32 accumulator, as JAX's does,
+    so attention runs on f32 q, k, v). Returns the launches, the losses
+    and dict(ms, tokens_s, peak_gib)."""
     from tpukern_torch.models import init_params, make_train_step, param_leaves
     from tpukern_torch.ops import (attention, attention_bwd, cross_entropy,
                                    matmul, rmsnorm, rope, split_tf32)
@@ -3561,6 +3597,7 @@ def phase_train(cfg, B, S, steps=5):
     label = _train_label(cfg)
     for op in ops:
         op.launches = 0
+    attention_bwd.flash_attention_bwd.bf16_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
@@ -3572,13 +3609,15 @@ def phase_train(cfg, B, S, steps=5):
     launches = {op.__name__: op.launches for op in ops}
     med = float(np.median(ms[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[train] 7bish f32, {label}, {cfg.n_layers} layers, "
+    print(f"[train] 7bish {str(cfg.param_dtype)[6:]}, {label}, "
+          f"{cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f} B parameters, Adam lr {TRAIN_LR:g}, B={B} "
           f"S={S}; peak device memory {peak:.2f} GiB")
     print(f"[train] {label} losses {[round(x, 6) for x in losses]}")
     print(f"[train] {label} step ms {[round(x, 3) for x in ms]}; median of "
           f"steps 2-{steps} {med:.3f} ms = {B * S / med * 1e3:.1f} tokens/s")
-    print(f"[train] {label} launches {launches}")
+    print(f"[train] {label} launches {launches}; #8's bf16 tier "
+          f"{attention_bwd.flash_attention_bwd.bf16_launches}")
     require(all(np.isfinite(losses)), f"losses not finite: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     if featured:
@@ -3589,8 +3628,14 @@ def phase_train(cfg, B, S, steps=5):
         require(all(launches[n] == per_run for n in (
             "flash_attention", "flash_attention_dq", "flash_attention_dkv")),
             f"not {per_run} launches of each attention kernel: {launches}")
+    else:
+        per_run = cfg.n_layers * steps
+        require(launches["flash_attention_bwd"] == per_run,
+                f"not {per_run} launches of the fused backward: {launches}")
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the training path never launched: {launches}")
+    launches["flash_attention_bwd_bf16"] = (
+        attention_bwd.flash_attention_bwd.bf16_launches)
     _profile(f"train step ({label})",
              lambda: step(params, tokens, targets).item(), 1)
     return launches, losses, dict(ms=med, tokens_s=B * S / med * 1e3,
@@ -5096,8 +5141,12 @@ def main():
     torch.cuda.empty_cache()
     wcfg = dataclasses.replace(tcfg, window=WINDOW, softcap=SOFTCAP)
     featured_launches, _, featured_stats = phase_train(wcfg, TB, TS)
+    torch.cuda.empty_cache()
+    # the same widths with bf16 parameters (JAX's param_dtype)
+    bcfg = dataclasses.replace(tcfg, param_dtype=torch.bfloat16)
+    bf16_launches, _, bf16_stats = phase_train(bcfg, TB, TS)
     for name, st in (("featured", featured_stats),
-                     ("default", unfused_stats)):
+                     ("default", unfused_stats), ("bf16", bf16_stats)):
         print(f"[train] {name:8s} step {st['ms']:.3f} ms = "
               f"{st['tokens_s']:.1f} tokens/s, peak {st['peak_gib']:.2f} GiB")
     torch.cuda.empty_cache()
@@ -5183,6 +5232,9 @@ def main():
                             "tpukern/ops/rope.py:81"),
            "flash_attention_bwd": ("tpukern_torch/csrc/flash_attention_bwd.cu",
                                    "tpukern/ops/attention_bwd.py:339"),
+           "flash_attention_bwd_bf16": (
+               "tpukern_torch/csrc/flash_attention_bwd_bf16.cu",
+               "tpukern/ops/attention_bwd.py:339"),
            "ce_fwd": ("tpukern_torch/csrc/cross_entropy.cu",
                       "tpukern/ops/cross_entropy.py:53"),
            "ce_bwd": ("tpukern_torch/csrc/cross_entropy.cu",
@@ -5274,6 +5326,7 @@ def main():
         "flash_attention_bwd": "autograd backward of "
                                "F.scaled_dot_product_attention(enable_gqa="
                                "True)",
+        "flash_attention_bwd_bf16": "as flash_attention_bwd, in bf16",
         "ce_fwd": "torch.matmul + F.cross_entropy (two calls)",
         "ce_bwd": "autograd backward of torch.matmul + F.cross_entropy "
                   "(two calls)",
@@ -5329,6 +5382,15 @@ def main():
                     for t in ("int8", "pv_int8", "fp8")}
                 for k, n in (("#23", "paged_attention_quantized"),
                              ("#24", "paged_prefill_attention_quantized"))}}
+    # the quantized kernel's split-KV: (slots a split, n_split) by the
+    # rule at the serving shapes (a pv_int8 split holds whole page blocks)
+    for n, T, B_ in (("paged_attention_quantized", 1, 4),
+                     ("paged_prefill_attention_quantized", 5, 4),
+                     ("paged_prefill_attention_quantized", 256, 1)):
+        splits = modes[n].setdefault("slots_a_split", {})
+        for pv in (False, True):
+            splits[f"T {T}{' pv_int8 ppb8' if pv else ''}"] = list(
+                paged_attention.quant_splits(B_, 16, 8, T, 1024, 1024, pv))
     # the ring instances' launches in [ring-serve]; ALiBi has none to
     # count: no serving path passes slopes (JAX's passes none either)
     for n, v in ring_launches.items():
@@ -5386,6 +5448,21 @@ def main():
         f64_gate=timing["flash_attention_bwd"]["f64_gate"],
         gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x the plain "
              "f32 version's")
+    # the bf16 tier of #8: its own kernel, on no main path (with bf16
+    # parameters too the trainer's attention runs on f32 q, k, v:
+    # matmul_t writes the f32 accumulator, as JAX's does)
+    modes["flash_attention_bwd_bf16"] = dict(
+        f64_gate=timing["flash_attention_bwd_bf16"]["f64_gate"],
+        gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x the plain "
+             "bf16 order's (P and dS rounded to bf16 alike)",
+        device_ms=timing["flash_attention_bwd_bf16"]["device_ms"],
+        library_device_ms=timing["flash_attention_bwd_bf16"][
+            "library_device_ms"],
+        bf16_parameters_run_launches=bf16_launches[
+            "flash_attention_bwd_bf16"],
+        main_path="none: the trainer runs #8's f32 tier at either "
+                  "param_dtype (its bf16-parameter run launches #8 "
+                  f"{bf16_launches['flash_attention_bwd']} times, f32)")
     modes["split_tf32"] = {
         "part_of": "the f32 tier of matmul (#1-#3, #17) and ce_bwd "
                    "(#14/#15): their operands' hi and lo planes",

@@ -330,6 +330,32 @@ def test_flash_attention_bwd_gqa(cuda, S, D, causal, group, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(64, 64), (100, 128), (130, 64), (77, 32),
+                                 (300, 128)])
+def test_flash_attention_bwd_bf16_order(cuda, S, D, causal, group):
+    """The bf16 wgmma kernel against its plain order of work
+    (flash_attention_bwd_bf16_ref: P and dS rounded to bf16 alike), GQA
+    inside, at the bf16 tolerance; dk and dv bit-equal on a second call;
+    its own launch count; no f32 copy of q, k, v or do (dk and dv come
+    back in bf16 as the kernel wrote them)."""
+    args = _gqa_inputs(cuda, 2, 2 * group, 2, S, S, D, torch.bfloat16,
+                       causal, S + D + group)
+    before = attention_bwd.flash_attention_bwd.bf16_launches
+    out = attention_bwd.flash_attention_bwd(*args, causal=causal)
+    again = attention_bwd.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert attention_bwd.flash_attention_bwd.bf16_launches == before + 2
+    ref = attention_bwd.flash_attention_bwd_bf16_ref(*args, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        check_all_close(a.float(), b.float(), dtype=torch.bfloat16,
+                        name=name)
+    assert torch.equal(out[1], again[1]) and torch.equal(out[2], again[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_attention_bwd_gqa_cross_lengths(cuda, dt):
     """Non-causal GQA 2 with Sq != Skv (130 queries over 77 keys and 77
@@ -1232,6 +1258,35 @@ def test_paged_quantized_features(cuda, tier, feat):
              (args[0][:, :, 0], *args[1:]))):
         check_all_close(fn(*a, **kw).float(), ref(*a, **kw).float(),
                         name=f"{tier} {feat}", **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 64, 256])
+@pytest.mark.parametrize("tier", sorted(QUANT_TIERS))
+def test_paged_quantized_split_order(cuda, tier, chunk):
+    """The split-KV kernel against its plain order of work
+    (paged_prefill_quantized_split_ref and the decode one) at the rule's
+    split and at forced ones (QUANT_CHUNK; a pv_int8 split rounds up to
+    whole page blocks), on the verification shape and its decode; a
+    second call gives the same bits (the splits merge in a fixed
+    order)."""
+    args, kw = _quantized_case(cuda, torch.float32, tier, "verify", 7)
+    tol = QUANT_F32_PV if kw["pv_int8"] else QUANT_F32
+    keep = paged_attention.QUANT_CHUNK
+    try:
+        paged_attention.QUANT_CHUNK = chunk
+        for fn, ref, a in (
+                (paged_attention.paged_prefill_attention_quantized,
+                 paged_attention.paged_prefill_quantized_split_ref, args),
+                (paged_attention.paged_attention_quantized,
+                 paged_attention.paged_attention_quantized_split_ref,
+                 (args[0][:, :, -1], *args[1:]))):
+            out = fn(*a, **kw)
+            check_all_close(out, ref(*a, **kw), name=f"{tier} {chunk}",
+                            **tol)
+            assert torch.equal(out, fn(*a, **kw))
+    finally:
+        paged_attention.QUANT_CHUNK = keep
 
 
 @pytest.mark.cuda

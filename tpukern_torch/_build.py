@@ -111,10 +111,12 @@ SIGNATURES = {
     # q, q_scales (or None), k_pages, k_scales, v_pages, v_scales, lengths,
     # page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq, D,
     # block_tokens, sm_scale, window, sinks, softcap, ring, slopes (or
-    # None), dtype, kv_dtype, pv_int8, stream (decode is T = 1)
+    # None), slots a split, split workspace (f32) and tickets (i32) (or
+    # None at one split), the pv_int8 pieces' statistics (f32, or None),
+    # dtype, kv_dtype, pv_int8, stream (decode is T = 1)
     "tk_paged_prefill_quantized": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _F,
-                                                         _I, _P, _I, _I, _I,
-                                                         _P],
+                                                         _I, _P, _I, _P, _P,
+                                                         _P, _I, _I, _I, _P],
     # x, values, scales, S, K, mode (0 int8, 1 int8 stochastic, 2 fp8),
     # seed, dtype, stream
     "tk_quantize": [_P, _P, _P, _I64, _I, _I, _I64, _I, _P],

@@ -154,12 +154,13 @@ int tk_paged_prefill_quantized(
     const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
     int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
     float sm_scale, int window, int sinks, float softcap, int ring,
-    const float* slopes, int dtype, int kv_dtype, int pv_int8, void* stream) {
+    const float* slopes, int chunk, float* ws, int* tickets, float* stats,
+    int dtype, int kv_dtype, int pv_int8, void* stream) {
   return checked(tk::paged_prefill_quantized_launch(
       q, q_scales, k_pages, k_scales, v_pages, v_scales, lengths, page_table, o,
       B, Hq, Hkv, T, P, page_size, pages_per_seq, D, block_tokens, sm_scale,
-      window, sinks, softcap, ring, slopes, dtype, kv_dtype, pv_int8,
-      static_cast<cudaStream_t>(stream)));
+      window, sinks, softcap, ring, slopes, chunk, ws, tickets, stats, dtype,
+      kv_dtype, pv_int8, static_cast<cudaStream_t>(stream)));
 }
 
 int tk_quantize(const void* x, void* values, float* scales, int64_t S, int K,

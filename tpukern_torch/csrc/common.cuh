@@ -352,15 +352,18 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
 
 // The same split for the operands of a kernel that splits in its inner
 // loop (csrc/flash_attention_tf32.cu, csrc/flash_attention_bwd.cu),
-// in three instructions and no branch (split_tf32's cases cost each split
+// in five instructions and no branch (split_tf32's cases cost each split
 // a divergence region there): for a finite x below FLT_MAX's last half
-// TF32 ulp it gives split_tf32's hi and lo, but for the sign of a zero lo
-// (a product does not see it); a non-finite x leaves a NaN in lo, so its
-// products are NaN.
+// TF32 ulp it gives split_tf32's hi, and its lo rounded to TF32 the same
+// way, where the tensor core would truncate it (a truncated lo put the
+// f32 #8's dq at 2.2x the plain f32 version's error against f64 on one
+// draw, PERF.md §6: a rounded one halves that term of each
+// product's error); a non-finite x leaves a NaN in lo, so its products
+// are NaN.
 __device__ __forceinline__ void split_tf32_finite(float x, float& hi,
                                                   float& lo) {
   hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-  lo = x - hi;
+  lo = __uint_as_float((__float_as_uint(x - hi) + 0x1000u) & 0xFFFFE000u);
 }
 
 // ------------------------------------------------------------ GEMM tiles
@@ -501,7 +504,8 @@ cudaError_t flash_attention_tf32_launch(const float* q, const float* k,
                                         int B, int Hq, int Hkv, int Sq,
                                         int Skv, int D, const AttnMask& f,
                                         cudaStream_t stream);
-// f32 only; GQA: Hkv divides Hq, dk and dv summed over each group
+// f32 or bf16 (dq f32 in both, zeroed: the kernels add to it); GQA: Hkv
+// divides Hq, dk and dv summed over each group
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* di,
@@ -509,6 +513,14 @@ cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
                                        int Hq, int Hkv, int Sq, int Skv, int D,
                                        float sm_scale, int causal, int dtype,
                                        cudaStream_t stream);
+// the bf16 tier of flash_attention_bwd_launch (arguments checked there)
+cudaError_t flash_attention_bwd_bf16_launch(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const float* lse, const float* di,
+                                            float* dq, void* dk, void* dv,
+                                            int B, int Hq, int Hkv, int Sq,
+                                            int Skv, int D, float sm_scale,
+                                            int causal, cudaStream_t stream);
 cudaError_t flash_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
@@ -568,8 +580,8 @@ cudaError_t paged_prefill_quantized_launch(
     const int* lengths, const int* page_table, void* o, int B, int Hq, int Hkv,
     int T, int P, int page_size, int pages_per_seq, int D, int block_tokens,
     float sm_scale, int window, int sinks, float softcap, int ring,
-    const float* slopes, int dtype, int kv_dtype, int pv_int8,
-    cudaStream_t stream);
+    const float* slopes, int chunk, float* ws, int* tickets, float* stats,
+    int dtype, int kv_dtype, int pv_int8, cudaStream_t stream);
 cudaError_t quantize_launch(const void* x, void* values, float* scales,
                             int64_t S, int K, int mode, long long seed,
                             int dtype, cudaStream_t stream);

@@ -1,9 +1,8 @@
 // The fused FlashAttention-2 backward (#8): split-TF32 products on the
 // tensor cores, GQA inside the kernel. It replaces
-// tpukern/ops/attention_bwd.py:339 `_bwd_fused_kernel`. It takes f32; the
-// wrapper (ops/attention_bwd.py) hands it bf16 inputs as f32 copies, as
-// the CUDA-core kernel it replaced computed bf16 inputs in f32 (P and dS
-// are not rounded to bf16 as the TPU kernel rounds them).
+// tpukern/ops/attention_bwd.py:339 `_bwd_fused_kernel` for f32 inputs;
+// flash_attention_bwd_launch hands bf16 ones to the bf16 wgmma kernel of
+// csrc/flash_attention_bwd_bf16.cu.
 //
 // A block owns (batch, KV head, a tile of TB_BKV keys): it keeps the
 // tile's K and V in shared memory and walks the Q tiles (TB_BQ rows) of
@@ -527,11 +526,15 @@ cudaError_t flash_attention_bwd_launch(const void* q, const void* k,
   if (B < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq < 0 || Skv < 0)
     return cudaErrorInvalidValue;
   if (causal && Sq != Skv) return cudaErrorInvalidValue;
-  if (dtype != kF32) return cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
   if (B == 0 || Skv == 0) return cudaSuccess;
   // TMA reads the operands: 16-byte aligned bases
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
     return cudaErrorInvalidValue;
+  if (dtype == kBF16)  // csrc/flash_attention_bwd_bf16.cu
+    return flash_attention_bwd_bf16_launch(q, k, v, dout, lse, di, dq, dk, dv,
+                                           B, Hq, Hkv, Sq, Skv, D, sm_scale,
+                                           causal, stream);
   const float *q32 = static_cast<const float*>(q),
               *k32 = static_cast<const float*>(k),
               *v32 = static_cast<const float*>(v),

@@ -22,7 +22,9 @@ back-to-back calls (run_benchmark) and the bounds:
   dk and dv against an f64 evaluation of the same inputs, for the kernel
   and for the plain version in f32 (cuBLAS with TF32 off), and their
   ratio (ops/split_tf32.py SPLIT_GATE is the limit), at the training
-  shape and at two tail shapes.
+  shape and at two tail shapes; and the bf16 tier's gate (dq, dk, dv of
+  the kernel and of flash_attention_bwd_bf16_ref against f64, where the
+  tree has that plain version) at the same shapes.
 
 To compare two versions on one card, run it in one command from each
 tree's own root (`python -m` puts the working directory first on the
@@ -52,12 +54,19 @@ def _card():
                           text=True).stdout.strip()
 
 
-def _line(label, name, fn, flops):
+def _line(label, name, fn, flops, bf16=False):
     dev = _device_ms(fn, 10)
     ev = run_benchmark(fn, iters=10, reps=5)
+    dev_s = "not measured" if dev is None else f"{dev:.4f}"
+    if bf16:  # the bf16 tier: its bound on the tensor cores' bf16 rate
+        bound = flops / PEAK_FLOP_S[torch.bfloat16] * 1e3
+        share = ("" if dev is None else
+                 f" ({bound / dev:.1%} of it by device time)")
+        print(f"[{label}] {name}: device {dev_s} ms, events {ev:.4f} ms; "
+              f"bound bf16 {bound:.4f} ms{share}")
+        return
     fma = flops / PEAK_FLOP_S[torch.float32] * 1e3
     split = bound_s(flops) * 1e3
-    dev_s = "not measured" if dev is None else f"{dev:.4f}"
     share = ("" if dev is None else
              f" ({split / dev:.1%} of the split bound by device time)")
     print(f"[{label}] {name}: device {dev_s} ms, events {ev:.4f} ms; bounds "
@@ -151,6 +160,32 @@ def gate_rows(gen, shape):
                    zip(("dq", "dk", "dv"), got, plain, exact)]
 
 
+def gate_rows_bf16(gen, shape):
+    """The bf16 tier's errors against f64 at one (B, Hq, Hkv, S, D,
+    causal), on bf16 inputs drawn from gen: [(output, the kernel's
+    largest |error|, its plain version's)] for dq, dk and dv, the kernel
+    flash_attention_bwd on the KV heads as they are, the plain version
+    flash_attention_bwd_bf16_ref (P and dS rounded to bf16 alike), both
+    from the bf16 forward's o and lse; f64 from the same bf16 values."""
+    from tpukern_torch.ops import attention, attention_bwd
+
+    b, hq, hkv, n, dd, causal = shape
+    bf = torch.bfloat16
+    q, do = (torch.randn((b, hq, n, dd), generator=gen, device="cuda")
+             .to(bf) for _ in range(2))
+    k, v = (torch.randn((b, hkv, n, dd), generator=gen, device="cuda")
+            .to(bf) for _ in range(2))
+    o, lse = attention.flash_attention(q, k, v, causal=causal,
+                                       return_stats=True)
+    exact = f64_grads(q, k, v, do, causal)
+    got = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal)
+    plain = attention_bwd.flash_attention_bwd_bf16_ref(q, k, v, o, lse, do,
+                                                       causal=causal)
+    return [(nm, _err(a, e), _err(p, e)) for nm, a, p, e in
+            zip(("dq", "dk", "dv"), got, plain, exact)]
+
+
 def gate(label, gen, shape):
     """Prints gate_rows at shape with their ratios; returns the largest."""
     worst = 0.0
@@ -202,9 +237,10 @@ def main(label="this tree"):
               bwd_flops)
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
         ot = flash_attention_trainable(qs, ks, vs, True)
+        bf = dt == torch.bfloat16
         _line(label, f"#8 {tag} the trainable's backward, GQA {HQ}/{HKV}",
               lambda: torch.autograd.grad(ot, (qs, ks, vs), do,
-                                          retain_graph=True), bwd_flops)
+                                          retain_graph=True), bwd_flops, bf)
         if dt == torch.float32:
             _line(label, f"#8 {tag} plain (flash_attention_bwd_ref)",
                   lambda: attention_bwd.flash_attention_bwd_ref(
@@ -214,7 +250,7 @@ def main(label="this tree"):
                                             enable_gqa=True)
         _line(label, f"#8 {tag} library (SDPA backward, enable_gqa)",
               lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
-                                          retain_graph=True), bwd_flops)
+                                          retain_graph=True), bwd_flops, bf)
         del q, k, v, do, o, lse, kr, vr, ot, ol, qs, ks, vs, ql, kl, vl
         torch.cuda.empty_cache()
     worst = 0.0
@@ -223,6 +259,17 @@ def main(label="this tree"):
         torch.cuda.empty_cache()
     print(f"[{label}] gate: largest kernel / plain f32 error ratio "
           f"x{worst:.3f}")
+    if hasattr(attention_bwd, "flash_attention_bwd_bf16_ref"):
+        worst = 0.0
+        for shape in ((B, HQ, HKV, S, D, True), *TAILS):
+            for nm, ek, ep in gate_rows_bf16(gen, shape):
+                r = ek / max(ep, 1e-300)
+                worst = max(worst, r)
+                print(f"[{label}] bf16 gate {shape} {nm}: kernel {ek:.3e} "
+                      f"plain bf16 {ep:.3e} vs f64: x{r:.3f}")
+            torch.cuda.empty_cache()
+        print(f"[{label}] bf16 gate: largest kernel / plain bf16 error "
+              f"ratio x{worst:.3f}")
 
 
 if __name__ == "__main__":

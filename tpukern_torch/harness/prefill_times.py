@@ -1,7 +1,7 @@
 """Times of the float paged prefix prefill kernel (#24,
 csrc/paged_prefill.cu).
 
-    python -m tpukern_torch.harness.prefill_times [label]
+    python -m tpukern_torch.harness.prefill_times [label] [--quant]
 
 Prints the card's name and power limit, then one line per (shape, dtype,
 split length): chip_smoke.py's verify shape (B 4, H 16/8, T 5, D 128, 8
@@ -14,6 +14,10 @@ profiler's, 20 calls), the CUDA events time of back-to-back calls
 bound (the K/V rows some token sees, q and o, once over 3.35 TB/s) and
 the largest difference from paged_prefill_ref. A tree whose module has
 no PREFILL_CHUNK (one block a row tile, no split) gets one line a shape.
+With --quant, the quantized kernel (csrc/paged_quant.cu) at the verify
+and chunk shapes instead, in the served tiers of decode_times.py
+(decode_times.quant_lines: the rule and the split lengths, the library
+call, the bound).
 To compare two versions of the kernel on one card, run it in one command
 from each tree's own root (`cd <other checkout> && python -m
 tpukern_torch.harness.prefill_times old`), the trees in turns. Needs a
@@ -26,7 +30,7 @@ import sys
 import torch
 
 from tpukern_torch.harness.bench import run_benchmark
-from tpukern_torch.harness.decode_times import _device_ms
+from tpukern_torch.harness.decode_times import _device_ms, quant_lines
 
 # name -> (B, T, pages_per_seq, lengths); H 16/8, D 128, pages of 128
 SHAPES = {"verify": (4, 5, 8, [6, 133, 705, 1029]),
@@ -50,7 +54,7 @@ def _case(gen, B, T, pps, lengths, dt):
                                       + 2 * q.numel()) * size
 
 
-def main(label="this tree"):
+def main(label="this tree", *flags):
     if not torch.cuda.is_available():
         raise SystemExit("prefill_times needs a CUDA device")
     from tpukern_torch.ops import paged_attention as pa
@@ -60,6 +64,13 @@ def main(label="this tree"):
                           text=True).stdout.strip()
     print(f"[{label}] {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "--quant" in flags:
+        for name, (B, T, pps, lengths) in SHAPES.items():
+            args, _ = _case(gen, B, T, pps, lengths, torch.bfloat16)
+            quant_lines(label, args, f"{name} #24 quantized",
+                        pa.paged_prefill_attention_quantized,
+                        pa.paged_prefill_quantized_ref)
+        return
     split = hasattr(pa, "PREFILL_CHUNK")
     keep = pa.PREFILL_CHUNK if split else None
     try:
@@ -90,4 +101,4 @@ def main(label="this tree"):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:])

@@ -4,12 +4,14 @@ The port of tpukern/ops/attention_bwd.py `flash_attention_bwd` and its
 dispatch (attention_bwd.py:587-598, :675-676):
 
 - no window, softcap or segment_ids (and `fused` unset): the fused
-  kernel, csrc/flash_attention_bwd.cu, which replaces `_bwd_fused_kernel`
-  (attention_bwd.py:339): split-TF32 products on wgmma, f32 in (bf16
-  inputs as f32 copies, computed in f32 as before), GQA inside: a block
-  walks every query head of its KV head's group, so K and V are not
-  repeated and dK and dV are summed over the group in the kernel.
-  `flash_attention_bwd_tf32_ref` is its order of work in plain torch.
+  kernel, which replaces `_bwd_fused_kernel` (attention_bwd.py:339), GQA
+  inside: a block walks every query head of its KV head's group, so K
+  and V are not repeated and dK and dV are summed over the group in the
+  kernel. f32 inputs run csrc/flash_attention_bwd.cu (split-TF32
+  products on wgmma; `flash_attention_bwd_tf32_ref` is its order of
+  work in plain torch); bf16 inputs csrc/flash_attention_bwd_bf16.cu
+  (bf16 wgmma on the bf16 tensors as they are, P and dS rounded to bf16
+  as the TPU kernel rounds them; `flash_attention_bwd_bf16_ref`).
   The TPU's dQ tiers (`dq_resident`, the partials tier,
   FUSED_BWD_DQ_BUDGET, fused_bwd_partials_budget) are not ported: one
   CUDA design serves every S.
@@ -57,6 +59,8 @@ def _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o=None,
 # the f32 kernel's tiles: keys a block, query rows a step
 # (csrc/flash_attention_bwd.cu TB_BKV, TB_BQ)
 TB_BLOCK_KV, TB_BLOCK_Q = 32, 64
+# the bf16 kernel's (csrc/flash_attention_bwd_bf16.cu BB_BKV, BB_BQ)
+BB_BLOCK_KV, BB_BLOCK_Q = 64, 64
 
 
 def _check_cuda(q, k, v, do, lse, di):
@@ -82,7 +86,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
     fused kernel. fused=True with a feature raises ValueError, as JAX's
     assert does. di = rowsum(o * do) is plain torch, as it is XLA in JAX. A CPU
     tensor takes the plain versions; a CUDA tensor launches the kernels
-    (f32 or bf16, head dims 32, 64 and 128, causal needs Sq == Skv)."""
+    (f32 or bf16, head dims 32, 64 and 128, causal needs Sq == Skv);
+    `launches` counts the fused kernel's launches, `bf16_launches` those
+    of its bf16 tier."""
     sm_scale = _check(q, k, v, do, lse, causal, window, softcap, sm_scale, o,
                       gqa=True)
     featured = (window is not None or softcap is not None
@@ -115,22 +121,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, sm_scale=None,
             dv = dv.reshape(fold).sum(2, dtype=torch.float32).to(v.dtype)
         return dq, dk, dv
     _check_cuda(q, k, v, do, lse, di)
-    dtype = q.dtype
-    # the kernel takes f32: bf16 inputs as f32 copies (exact)
-    q32, k32, v32, do32 = (_build.aligned(t.float()) for t in (q, k, v, do))
+    # both tiers take the inputs as they are (f32 or bf16), dq an f32 sum
+    qa, ka, va, doa = (_build.aligned(t) for t in (q, k, v, do))
     lse = lse.float().contiguous()
     dq = torch.zeros(B, Hq, Sq, D, device=q.device)  # atomicAdd target
-    dk, dv = torch.empty_like(k32), torch.empty_like(v32)
-    _build.launch("tk_flash_attention_bwd", q32.data_ptr(), k32.data_ptr(),
-                  v32.data_ptr(), do32.data_ptr(), lse.data_ptr(),
+    dk, dv = torch.empty_like(ka), torch.empty_like(va)
+    _build.launch("tk_flash_attention_bwd", qa.data_ptr(), ka.data_ptr(),
+                  va.data_ptr(), doa.data_ptr(), lse.data_ptr(),
                   di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   B, Hq, Hkv, Sq, k.shape[2], D, sm_scale, int(causal),
-                  _build.dtype_code(q32), _build.stream(q))
+                  _build.dtype_code(qa), _build.stream(q))
     flash_attention_bwd.launches += 1
-    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
+    flash_attention_bwd.bf16_launches += q.dtype == torch.bfloat16
+    return dq.to(q.dtype), dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.bf16_launches = 0
 
 
 def _launch_featured(name, q, k, v, do, lse, di, outs, *, causal, sm_scale,
@@ -326,5 +333,53 @@ def flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, *, causal=False,
         n = min(bkv, Skv - kv0)
         dk[:, :, kv0:kv0 + n] = dkt.mT[..., :n, :]
         dv[:, :, kv0:kv0 + n] = dvt.mT[..., :n, :]
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_bf16_ref(q, k, v, o, lse, do, *, causal=False,
+                                 sm_scale=None):
+    """flash_attention_bwd's fused bf16 tier in its order of work, a test
+    aid off the main path: each tile of BB_BLOCK_KV keys of each KV head
+    takes every query row of its group's heads (the kernel's steps of
+    BB_BLOCK_Q rows from the causal frontier on; rows before the frontier
+    see none of the tile's keys); S = Q K^T and dP = dO V^T from the bf16
+    values in f32; P = exp(sm_scale S - lse) and dS = P (dP - di)
+    sm_scale, zero where a pair is masked; dV += P^T dO with P rounded to
+    bf16, dK += dS^T Q and dQ += dS K with dS rounded to bf16 (as the TPU
+    kernel rounds them, attention_bwd.py:426, :440, :445), dQ added to an
+    f32 dq tile by tile of keys, dK and dV summed over the group in f32.
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    bkv, dev, bf = BB_BLOCK_KV, q.device, torch.bfloat16
+    # (B, Hkv, group * Sq, D): the group's query rows, head by head
+    qg, dog = (t.float().reshape(B, Hkv, g * Sq, D) for t in (q, do))
+    lseg = lse.float().reshape(B, Hkv, g * Sq, 1)
+    dig = (o.float() * do.float()).sum(-1).reshape(B, Hkv, g * Sq, 1)
+    qi = torch.arange(Sq, device=dev).repeat(g)[:, None]  # each row's query
+    dq = torch.zeros(B, Hkv, g * Sq, D, device=dev)
+    dk = torch.zeros(B, Hkv, Skv, D, device=dev)
+    dv = torch.zeros(B, Hkv, Skv, D, device=dev)
+
+    def r16(x):  # rounded to bf16, computed on in f32
+        return x.to(bf).float()
+
+    for kv0 in range(0, Skv, bkv):
+        kt = k[:, :, kv0:kv0 + bkv].float()  # (B, Hkv, n, D)
+        vt = v[:, :, kv0:kv0 + bkv].float()
+        kvi = kv0 + torch.arange(kt.shape[2], device=dev)
+        ok = kvi[None] <= qi if causal else None
+        s = qg @ kt.mT
+        p = torch.exp(s * sm_scale - lseg)
+        ds = p * (dog @ vt.mT - dig) * sm_scale
+        if ok is not None:
+            p, ds = torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+        dq += r16(ds) @ kt
+        dv[:, :, kv0:kv0 + bkv] = r16(p).mT @ dog
+        dk[:, :, kv0:kv0 + bkv] = r16(ds).mT @ qg
     return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

@@ -16,7 +16,9 @@ the quantized tier: 1-byte int8 or fp8 e4m3 pools with one f32 scale per
 token (quantize_pages, paged_attention_quantized,
 paged_prefill_attention_quantized), with JAX's q_int8 (an int8 score
 dot) and pv_int8 (an int8 P V dot) options, whose decode and prefix
-instances are one kernel, csrc/paged_quant.cu. Every instance also
+instances are one kernel, csrc/paged_quant.cu, split-KV as the float ones
+(quant_splits; paged_prefill_quantized_split_ref is its order, a test
+aid). Every instance also
 takes JAX's ring pools (ring=True: the pool is a rolling buffer of
 pages_per_seq * page_size slots a sequence, and each slot's position is
 recovered from the length, _positions) and ALiBi (alibi_slopes: (Hq,)
@@ -413,7 +415,7 @@ def _split_order(q, k_pages, v_pages, lengths, page_table, chunk, *,
         s = softcap * torch.tanh(s / softcap)
     s, _ = _masked_scores(s, lengths, T, window, sinks, ring, alibi_slopes)
     bf16 = v_pages.dtype == torch.bfloat16
-    ms, ls, os_ = [], [], []
+    parts = []
     for c0 in range(0, S, chunk):
         m = s.new_full(s.shape[:-1], float("-inf"))
         l = s.new_zeros(s.shape[:-1])
@@ -431,18 +433,24 @@ def _split_order(q, k_pages, v_pages, lengths, page_table, chunk, *,
                    + torch.einsum("bhgtk,bhkd->bhgtd", pv,
                                   v_seq[:, :, t0:t0 + DECODE_TILE]))
             m = mn
-        ms.append(m)
-        ls.append(l)
-        os_.append(acc)
-    m = torch.stack(ms)                                   # (splits, ...)
+        parts.append((m, l, acc))
+    return _merge_splits(parts).reshape(B, Hq, T, D).to(q.dtype)
+
+
+def _merge_splits(parts):
+    """The kernels' merge of the splits' partials [(m, l, o)] in split
+    order, in f32: M = max m, o = sum exp(m_z - M) o_z / sum exp(m_z - M)
+    l_z, 0 where the sum is 0 (a split that sees no position adds
+    nothing)."""
+    m = torch.stack([p[0] for p in parts])               # (splits, ...)
     M = m.amax(dim=0)
     a = torch.where(torch.isfinite(m), torch.exp(m - M), 0.0)
-    L, O = s.new_zeros(M.shape), s.new_zeros(*M.shape, D)
-    for z in range(len(ms)):  # split order
-        L = L + a[z] * ls[z]
-        O = O + a[z][..., None] * os_[z]
-    o = O / torch.where(L == 0, 1.0, L)[..., None]
-    return o.reshape(B, Hq, T, D).to(q.dtype)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][2])
+    for z, (_, l, o) in enumerate(parts):  # split order
+        L = L + a[z] * l
+        O = O + a[z][..., None] * o
+    return O / torch.where(L == 0, 1.0, L)[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +458,15 @@ def _split_order(q, k_pages, v_pages, lengths, page_table, chunk, *,
 
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 BLOCK_TOKENS_MAX = 2048  # csrc/paged_quant.cu PQ_BK_MAX
+# csrc/paged_quant.cu: query rows a block (PQ_RB) and tokens a K/V tile
+# (PQ_TK; with pv_int8 quant_tile's)
+QUANT_ROWS = 16
+QUANT_TILE = 64
+# the blocks quant_splits aims at (two for each of an H100's 132 SMs, as
+# the float bf16 prefix kernel's SPLIT_BLOCKS), and a split length that
+# overrides the rule (rounded up to whole tiles; None: the rule)
+QUANT_SPLIT_BLOCKS = 264
+QUANT_CHUNK = None
 
 
 def quantize_pages(pages, dtype="int8"):
@@ -491,6 +508,41 @@ def _check_quantized(name, q, k_pages, k_scales, v_pages, v_scales,
                          f"{page_table.shape[1]} pages a sequence")
 
 
+def quant_tile(block_tokens, pv_int8):
+    """Slots a tile of the quantized kernel: QUANT_TILE, or with pv_int8
+    the largest power of two dividing both it and the page block (no tile
+    crosses a block; csrc/paged_quant.cu)."""
+    tile = QUANT_TILE
+    while pv_int8 and block_tokens % tile:
+        tile //= 2
+    return tile
+
+
+def quant_splits(B, Hq, Hkv, T, S, block_tokens, pv_int8):
+    """(slots a split, n_split) of the quantized kernel over S slots a
+    sequence, from shapes alone: splits of whole tiles (quant_tile);
+    QUANT_CHUNK where set, else the fewest splits that give
+    QUANT_SPLIT_BLOCKS blocks of (row tile, KV head, sequence, split), at
+    most one a tile. With pv_int8 a split then holds whole page blocks or
+    a whole share of one (the largest such share no longer than the
+    rule's split), so each of its pieces (min(chunk, block_tokens) slots)
+    lies in one block."""
+    unit = quant_tile(block_tokens, pv_int8)
+    n_units = -(-S // unit)
+    if QUANT_CHUNK:
+        chunk = -(-QUANT_CHUNK // unit) * unit
+    else:
+        blocks = B * Hkv * -(-T * (Hq // Hkv) // QUANT_ROWS)
+        want = min(n_units,
+                   max(1, -(-QUANT_SPLIT_BLOCKS // max(blocks, 1))))
+        chunk = -(-n_units // want) * unit
+    if pv_int8:
+        bk = block_tokens
+        chunk = (-(-chunk // bk) * bk if chunk >= bk else
+                 max(d for d in range(unit, chunk + 1, unit) if bk % d == 0))
+    return chunk, max(1, -(-S // chunk))
+
+
 def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                       page_table, pages_per_block, q_int8, pv_int8, window,
                       sinks, softcap, alibi_slopes, ring):
@@ -501,9 +553,11 @@ def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                       page_table)
     Hkv, P, page, D = k_pages.shape
     bk = page * pages_per_block
-    if D not in HEAD_DIMS or bk > BLOCK_TOKENS_MAX:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS} or a page block "
-                         f"of {bk} tokens > {BLOCK_TOKENS_MAX}")
+    if D not in HEAD_DIMS or bk > BLOCK_TOKENS_MAX or page % 4:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}, a page block "
+                         f"of {bk} tokens > {BLOCK_TOKENS_MAX}, or pages of "
+                         f"{page} slots (the kernel copies the scales of 4 "
+                         "slots of a page at once)")
     if lengths.dtype != torch.int32 or page_table.dtype != torch.int32:
         raise TypeError("lengths and page_table must be int32")
     q = q.contiguous()
@@ -513,12 +567,26 @@ def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
     if q_int8:
         qk, q_scales = quantize_int8(q.reshape(-1, D))
     k_pages, v_pages = _build.aligned(k_pages), _build.aligned(v_pages)
-    k_scales, v_scales = (s.float().contiguous() for s in (k_scales,
-                                                           v_scales))
+    k_scales, v_scales = (_build.aligned(s.float()) for s in (k_scales,
+                                                              v_scales))
     lengths, page_table = lengths.contiguous(), page_table.contiguous()
     ring_tokens, slopes = _ring_args(q, page_table, k_pages, ring,
                                      alibi_slopes)
     B, Hq, T = q.shape[:3]
+    stream = _build.stream(q)
+    chunk, n_split = quant_splits(B, Hq, Hkv, T, page_table.shape[1] * page,
+                                  bk, pv_int8)
+    R = T * (Hq // Hkv)
+    tiles = B * Hkv * -(-R // QUANT_ROWS)
+    ws = tickets = stats = None
+    if n_split > 1:  # each split's (o, m, l) per row of a tile, f32
+        ws = torch.empty(tiles * n_split * min(QUANT_ROWS, R) * (D + 2),
+                         device=q.device)
+        tickets = _build.tickets(q.device, stream, tiles)
+    if pv_int8:  # each piece's (m, a) per row of a tile, f32
+        pieces = -(-page_table.shape[1] * page // min(chunk, bk))
+        stats = torch.empty(2 * tiles * pieces * min(QUANT_ROWS, R),
+                            device=q.device)
     _build.launch("tk_paged_prefill_quantized", qk.data_ptr(),
                   _build.ptr(q_scales), k_pages.data_ptr(),
                   k_scales.data_ptr(), v_pages.data_ptr(),
@@ -526,8 +594,9 @@ def _launch_quantized(q, k_pages, k_scales, v_pages, v_scales, lengths,
                   page_table.data_ptr(), o.data_ptr(), B, Hq, Hkv, T, P,
                   page, page_table.shape[1], D, bk, 1.0 / math.sqrt(D),
                   window or 0, sinks or 0, softcap or 0.0, ring_tokens,
-                  _build.ptr(slopes), dtype, _build.KV_CODES[k_pages.dtype],
-                  int(pv_int8), _build.stream(q))
+                  _build.ptr(slopes), chunk, _build.ptr(ws),
+                  _build.ptr(tickets), _build.ptr(stats), dtype,
+                  _build.KV_CODES[k_pages.dtype], int(pv_int8), stream)
     return o
 
 
@@ -565,9 +634,11 @@ def paged_attention_quantized(q, k_pages, k_scales, v_pages, v_scales,
     sequence. window, sinks, softcap, alibi_slopes and ring as in
     paged_attention. A CPU tensor takes paged_attention_quantized_ref; a
     CUDA tensor launches the kernel (head dim 32, 64 or 128; blocks of at
-    most BLOCK_TOKENS_MAX tokens), and launches, int8_launches,
-    pv_int8_launches and fp8_launches count its launches by tier,
-    ring_launches those on ring pools."""
+    most BLOCK_TOKENS_MAX tokens; pages of a multiple of 4 slots), split-KV
+    by quant_splits (with pv_int8 two launches: the pieces' maxima, then
+    the splits), and launches, int8_launches, pv_int8_launches and
+    fp8_launches count its calls by tier, ring_launches those on ring
+    pools."""
     _check_features("paged_attention_quantized", q, k_pages, page_table,
                     window, sinks, softcap, alibi_slopes, ring)
     _check_quantized("paged_attention_quantized", q, k_pages, k_scales,
@@ -620,6 +691,41 @@ for _fn in (paged_attention_quantized, paged_prefill_attention_quantized):
     _fn.fp8_launches = _fn.ring_launches = 0
 
 
+def _quant_scores(q, k_pages, k_scales, v_pages, v_scales, page_table,
+                  q_int8, softcap):
+    """(s, vs, v_seq) of the quantized kernels: the scores (B, Hkv, group,
+    T, S) in the TPU kernels' order (q_int8: float(int dot) * q_scale;
+    else q . k cast to q's type; * k_scale, * 1/sqrt(D), the softcap),
+    before ALiBi and the masks; the V scales (B, Hkv, S) and the V rows
+    (B, Hkv, S, D) in slot order."""
+    B, Hq, T, D = q.shape
+    Hkv, _, page, _ = k_pages.shape
+    group = Hq // Hkv
+    S = page_table.shape[1] * page
+    table = page_table.long()
+
+    def seq(pool):  # (Hkv, P, page, ...) -> (B, Hkv, S, ...)
+        g = pool[:, table]
+        return g.permute(1, 0, *range(2, g.dim())).reshape(
+            B, Hkv, S, *pool.shape[3:])
+
+    k_seq = seq(k_pages)
+    ks, vs = seq(k_scales.float()), seq(v_scales.float())
+    q5 = q.reshape(B, Hkv, group, T, D)
+    if q_int8:
+        qi, qs = quantize_ref(q5.reshape(-1, D))
+        s32 = torch.einsum("bhgtd,bhkd->bhgtk",
+                           qi.reshape(q5.shape).double(), k_seq.double())
+        s = s32.float() * qs.reshape(B, Hkv, group, T, 1)
+    else:
+        s = torch.einsum("bhgtd,bhkd->bhgtk", q5.float(),
+                         k_seq.to(q.dtype).float())
+    s = s * ks[:, :, None, None] * (1.0 / math.sqrt(D))
+    if softcap is not None:
+        s = softcap * torch.tanh(s * (1.0 / softcap))
+    return s, vs, seq(v_pages)
+
+
 def paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
                                 lengths, page_table, *, pages_per_block=4,
                                 q_int8=False, pv_int8=False, window=None,
@@ -641,31 +747,11 @@ def paged_prefill_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
 
     o = that sum / l; a row that sees nothing gives 0."""
     B, Hq, T, D = q.shape
-    Hkv, _, page, _ = k_pages.shape
-    group = Hq // Hkv
-    pps = page_table.shape[1]
-    S = pps * page
-    table = page_table.long()
-
-    def seq(pool):  # (Hkv, P, page, ...) -> (B, Hkv, S, ...)
-        g = pool[:, table]
-        return g.permute(1, 0, *range(2, g.dim())).reshape(
-            B, Hkv, S, *pool.shape[3:])
-
-    k_seq, v_seq = seq(k_pages), seq(v_pages)
-    ks, vs = seq(k_scales.float()), seq(v_scales.float())
-    q5 = q.reshape(B, Hkv, group, T, D)
-    if q_int8:
-        qi, qs = quantize_ref(q5.reshape(-1, D))
-        s32 = torch.einsum("bhgtd,bhkd->bhgtk",
-                           qi.reshape(q5.shape).double(), k_seq.double())
-        s = s32.float() * qs.reshape(B, Hkv, group, T, 1)
-    else:
-        s = torch.einsum("bhgtd,bhkd->bhgtk", q5.float(),
-                         k_seq.to(q.dtype).float())
-    s = s * ks[:, :, None, None] * (1.0 / math.sqrt(D))
-    if softcap is not None:
-        s = softcap * torch.tanh(s * (1.0 / softcap))
+    page = k_pages.shape[2]
+    S = page_table.shape[1] * page
+    s, vs, v_seq = _quant_scores(q, k_pages, k_scales, v_pages, v_scales,
+                                 page_table, q_int8, softcap)
+    Hkv, group = s.shape[1:3]
     p, denom = _softmax_terms(s, lengths, T, window, sinks, ring,
                               alibi_slopes)
     pv = p * vs[:, :, None, None]
@@ -696,6 +782,105 @@ def paged_attention_quantized_ref(q, k_pages, k_scales, v_pages, v_scales,
     return paged_prefill_quantized_ref(q[:, :, None], k_pages, k_scales,
                                        v_pages, v_scales, lengths,
                                        page_table, **kw)[:, :, 0]
+
+
+def paged_prefill_quantized_split_ref(q, k_pages, k_scales, v_pages,
+                                      v_scales, lengths, page_table, *,
+                                      pages_per_block=4, q_int8=False,
+                                      pv_int8=False, window=None,
+                                      sinks=None, softcap=None,
+                                      alibi_slopes=None, ring=False,
+                                      chunk=None):
+    """paged_prefill_attention_quantized in the kernel's order, a test aid
+    off the main path: the scores of paged_prefill_quantized_ref, the
+    slots cut into splits of `chunk` (quant_splits' by default), merged in
+    split order in f32 (_merge_splits). Without pv_int8 each split walks
+    tiles of QUANT_TILE slots with its own running max m, sum l and
+    accumulator per query row, p' = p * v_scale rounded to q's type. With
+    pv_int8, two passes: the first takes each piece's (min(chunk,
+    page block) slots) max m_z and a_z = max exp(s - m_z) v_scale; the
+    second walks each split's share of each page block against the
+    block's running max M (the largest m_z of the pieces up to the block,
+    JAX's) and amax = max exp(m_z - M) a_z over the block's pieces (1
+    where 0): p = exp(s - M), pq = round(p v_scale 127 / amax), the
+    share's int sum pq . v (exact, in f64) times amax / 127 added to acc
+    * alpha."""
+    B, Hq, T, D = q.shape
+    Hkv, _, page, _ = k_pages.shape
+    S = page_table.shape[1] * page
+    bk = page * pages_per_block
+    if chunk is None:
+        chunk = quant_splits(B, Hq, Hkv, T, S, bk, pv_int8)[0]
+    s, vs, v_seq = _quant_scores(q, k_pages, k_scales, v_pages, v_scales,
+                                 page_table, q_int8, softcap)
+    s, _ = _masked_scores(s, lengths, T, window, sinks, ring, alibi_slopes)
+    vs = vs[:, :, None, None]  # over the group and the tokens
+    vf = v_seq.double() if pv_int8 else v_seq.to(q.dtype).float()
+
+    def exp_from(x, m):  # exp(x - m), 0 where m or x is -inf
+        ok = torch.isfinite(m)
+        return torch.where(ok, torch.exp(x - torch.where(ok, m, 0.0)), 0.0)
+
+    parts = []
+    if not pv_int8:
+        for c0 in range(0, S, chunk):
+            m = s.new_full(s.shape[:-1], float("-inf"))
+            l = s.new_zeros(s.shape[:-1])
+            acc = s.new_zeros(*s.shape[:-1], D)
+            for t0 in range(c0, min(c0 + chunk, S), QUANT_TILE):
+                u = slice(t0, t0 + QUANT_TILE)
+                mn = torch.maximum(m, s[..., u].amax(dim=-1))
+                p = exp_from(s[..., u], mn[..., None])
+                alpha = exp_from(m, mn)
+                l = l * alpha + p.sum(dim=-1)
+                pv = (p * vs[..., u]).to(q.dtype).float()
+                acc = (acc * alpha[..., None]
+                       + torch.einsum("bhgtk,bhkd->bhgtd", pv, vf[:, :, u]))
+                m = mn
+            parts.append((m, l, acc))
+        return _merge_splits(parts).reshape(B, Hq, T, D).to(q.dtype)
+
+    pz = min(chunk, bk)
+    mz, az = [], []  # the first pass: each piece's (m, a)
+    for z0 in range(0, S, pz):
+        u = slice(z0, z0 + pz)
+        m = s[..., u].amax(dim=-1)
+        mz.append(m)
+        az.append((exp_from(s[..., u], m[..., None]) * vs[..., u])
+                  .amax(dim=-1))
+    mz, az = torch.stack(mz), torch.stack(az)  # (pieces, ...)
+    for c0 in range(0, S, chunk):
+        m = s.new_full(s.shape[:-1], float("-inf"))
+        l = s.new_zeros(s.shape[:-1])
+        acc = s.new_zeros(*s.shape[:-1], D)
+        for b0 in range(c0 - c0 % bk, min(c0 + chunk, S), bk):
+            g0, g1 = max(b0, c0), min(b0 + bk, c0 + chunk, S)  # the share
+            M = mz[:(b0 + bk) // pz].amax(dim=0)
+            blk = slice(b0 // pz, (b0 + bk) // pz)
+            amax = (exp_from(mz[blk], M) * az[blk]).amax(dim=0)
+            amax = torch.where(amax <= 0, 1.0, amax)[..., None]
+            alpha = exp_from(m, M)
+            p = exp_from(s[..., g0:g1], M[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            pq = torch.round(p * vs[..., g0:g1]
+                             * (torch.full_like(amax, 127.0) / amax))
+            # JAX's cast to int8: where 127 / amax overflows, inf
+            # saturates to 127 and 0 * inf (NaN) gives 0
+            pq = torch.nan_to_num(pq, nan=0.0).clamp(max=127.0)
+            ob = torch.einsum("bhgtk,bhkd->bhgtd", pq.double(),
+                              vf[:, :, g0:g1]).float()
+            acc = acc * alpha[..., None] + ob * (amax * (1.0 / 127.0))
+            m = M
+        parts.append((m, l, acc))
+    return _merge_splits(parts).reshape(B, Hq, T, D).to(q.dtype)
+
+
+def paged_attention_quantized_split_ref(q, k_pages, k_scales, v_pages,
+                                        v_scales, lengths, page_table, **kw):
+    """paged_prefill_quantized_split_ref with one new token a sequence."""
+    return paged_prefill_quantized_split_ref(
+        q[:, :, None], k_pages, k_scales, v_pages, v_scales, lengths,
+        page_table, **kw)[:, :, 0]
 
 
 # ---------------------------------------------------------------- registry
