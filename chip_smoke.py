@@ -10,11 +10,13 @@
    loads (UTMALDG) and mma.sync products (HMMA, none) of #16's bf16
    kernel, of the bf16 #2 (NN and TN), #28, #29, CE forward (#13) and
    CE backward (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's
-   pipeline, of the f32 #2 and f32 CE backward on its split-TF32 form,
-   of every instance of the bf16 flash-attention forward (#6) and of the
-   split-TF32 f32 flash-attention forward (#6) and fused backward (#8),
-   and the matrix products of #40's, which must have none; ptxas may
-   serialise the wgmmas (C7520) of no split-TF32 kernel;
+   pipeline, of the f32 #2 and f32 CE forward and backward on its
+   split-TF32 form, of every instance of the bf16 flash-attention
+   forward (#6) and of the split-TF32 f32 flash-attention forward (#6)
+   and fused backward (#8), the matrix products of #40's, which must have
+   none, and of the bf16 w8a16 GEMM (#25: mma.sync, and no int-to-float
+   conversion); ptxas may serialise the wgmmas (C7520) of no split-TF32
+   kernel;
 3. checks every kernel of the serving path against its plain PyTorch
    version on the card, at the 7bish serving shapes in bf16 and at small
    f32 shapes, and times both at the serving shape (flash_attention also
@@ -37,9 +39,12 @@
    of 128 slots, lengths wrapped more than once, sinks 4, the window at
    its ring limit, T = 5 verification rows) and ALiBi on every instance
    of #23 and #24 (float bf16 and f32, int8 with q_int8 and pv_int8,
-   fp8); the w8a16 GEMM #25 at the 7bish weight shapes (M = 4, 20, 128;
-   forced at 256 and 2048; a K tail and an N of 1000) in bf16 and f32,
-   each call twice (bit-equal); the sampling kernels #26 and #27 at the
+   fp8); the w8a16 GEMM #25 at the 7bish weight shapes (M = 4, 20, 128,
+   and in bf16 1, 8, 9, 16, 33, 64: each token-tile instance and its
+   edges; forced at 256 and 2048; a K tail and an N of 1000) in bf16 and
+   f32, each call twice (bit-equal), timed at M = 4 on every weight, at
+   M = 1, 8, 20, 64 and 128 on w1 and at M = 20 on the head beside
+   torch.matmul on bf16 weights; the sampling kernels #26 and #27 at the
    serving shape (4, 32768) f32 and at a 128256-token vocabulary;
 4. checks the training slices' kernels (matmul in its three epilogues,
    with its bf16 launches counted by load path, each path met required,
@@ -59,8 +64,9 @@
    cross-entropy's forward and backward (the backward also at forced
    vocab chunks, bf16 three of them on TMA and on the copy paths, f32 at
    its own chunk rule, launches counted with the operand passes, and
-   twice, bit-equal; the f32 backward's dx and dW held to the accuracy
-   gate), and the featured attention:
+   twice, bit-equal; the f32 forward's loss and lse and the f32
+   backward's dx and dW held to the accuracy gate, the forward also at a
+   tail in D and V), and the featured attention:
    flash_attention with window, sinks, softcap and segments, and the
    two-kernel backward flash_attention_dq / flash_attention_dkv) against
    their plain versions, and times them at the 7bish training shapes;
@@ -122,8 +128,9 @@
    generate(ring=True). Each run resets the kernels' launch counts just
    before and reads them just after;
 6. profiles one admission, a few decode steps (greedy on bf16, int8 and
-   fp8 pools, with w8a16 weights, and sampled), a chunked admission and two speculative
-   rounds (device time by kernel);
+   fp8 pools, with w8a16 weights, and sampled), a chunked admission and
+   two speculative rounds (device time by kernel; the w8a16 decode
+   step's #25 device time on a line of its own);
 7. checks one prefill's logits against the plain functions in f32, one
    verify_step's (plain and Gemma-2-style, bf16, full depth) and one
    decode step's on each quantized tier against the plain quantized
@@ -143,7 +150,8 @@
    category; once with the unfused log-softmax loss, once with
    Config.fused_loss (the fused cross-entropy kernels) and once with
    Config.window=512 and Config.softcap=50.0 (the featured forward and
-   the two-kernel backward, and no launch of the fused backward);
+   the two-kernel backward, and no launch of the fused backward); prints
+   the fused against the unfused step's ms and peak memory;
 9. checks one loss-and-grad at the 7bish widths with 2 layers (B=1,
    S=1024, f32) against a loss built from the plain functions only,
    differentiated by torch.autograd: unfused, fused, and with the window
@@ -311,12 +319,15 @@ def phase_build():
 # #16's bf16 kernel, the bf16 CE forward (#13) and backward's three
 # launches (#14/#15) and the bf16 #2 (NN and TN), #28 (NN and trans_w)
 # and #29 kernels with both operands by TMA, every instance of the
-# bf16 flash-attention forward (#6), and the split-TF32 f32 #2 and f32 CE
-# backward's three launches, run wgmma (HGMMA) fed by
+# bf16 flash-attention forward (#6), and the split-TF32 f32 #2, f32 CE
+# forward and f32 CE backward's three launches, run wgmma (HGMMA) fed by
 # TMA (UTMALDG), no mma.sync (HMMA), as do every instance of the f32
 # flash-attention forward (#6) and the f32 fused backward (#8) on
 # split-TF32 products, and of the bf16 fused backward (#8 on bf16
-# wgmma); #40 runs no matrix product (HMMA, HGMMA)
+# wgmma); #40 runs no matrix product (HMMA, HGMMA); the bf16 w8a16 GEMM
+# (#25) runs mma.sync (HMMA) at 1, 2 and 4 token tiles and register-A
+# wgmma (HGMMA, no HMMA) at 8 and 16, and widens its int8 weights with no
+# conversion instruction (I2F, I2FP) in every instance
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
@@ -330,16 +341,24 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "gmm_wgmma_kernelILb1ELb1ELb1E": _WGMMA_TMA,
              "tgmm_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "gemm_tf32_kernel": _WGMMA_TMA,
+             "ce_fwd_tf32_kernel": _WGMMA_TMA,
              "ce_dlog_tf32_kernel": _WGMMA_TMA,
              "ce_dx_tf32_kernel": _WGMMA_TMA,
              "ce_dw_tf32_kernel": _WGMMA_TMA,
              "fa_fwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_bf16_kernel": _WGMMA_TMA,
-             "embedding_select_kernel": {"HMMA": False, "HGMMA": False}}
+             "embedding_select_kernel": {"HMMA": False, "HGMMA": False},
+             **{f"w8a16_mma_kernelILi{nt}E": {"HMMA": True, "I2F": False,
+                                               "I2FP": False}
+                for nt in (1, 2, 4)},
+             **{f"w8a16_mma_kernelILi{nt}E": {"HGMMA": True, "HMMA": False,
+                                               "I2F": False, "I2FP": False}
+                for nt in (8, 16)}}
 # kernels whose wgmmas ptxas must leave asynchronous: no C7520 info line
 # ("wgmma.mma_async instructions are serialized") may name them
-NO_SERIALIZED = ("gemm_tf32_kernel", "ce_dlog_tf32_kernel",
+NO_SERIALIZED = ("w8a16_mma_kernel", "gemm_tf32_kernel",
+                 "ce_fwd_tf32_kernel", "ce_dlog_tf32_kernel",
                  "ce_dx_tf32_kernel", "ce_dw_tf32_kernel",
                  "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel",
                  "fa_bwd_bf16_kernel")
@@ -1223,12 +1242,14 @@ def _w8a16_kernels(checks, timed, gen, cfg):
     """#25 against matmul_w8a16_ref at the 7bish weight shapes: M = 4
     (decode), 20 (a gamma = 4 verification of 4 slots) and 128 (a
     bucket-128 prefill), and forced at M = 256 and 2048, in bf16 and f32;
-    a K tail (K = 200) and an N that is no tile multiple (1000). Each call
-    twice: the split-K sum must repeat bit for bit. Times M = 4 on every
-    shape, 20 on the head, 128 on w1, and the forced kernel at 256 and
-    2048 on w1 beside the dispatch path (JAX's dequant-then-dot at
-    M > 128); library: torch.matmul over pre-dequantized bf16 weights (the
-    bf16 tier's GEMM)."""
+    in bf16 also M = 1, 8, 9, 16, 33 and 64 (the bf16 kernel's token-tile
+    instances and their edges); a K tail (K = 200) and an N that is no
+    tile multiple (1000). Each call twice: the split-K sum must repeat bit
+    for bit. Times M = 4 on every shape, 1, 8, 20, 64 and 128 on w1, 20 on
+    the head, and the forced kernel at 256 and 2048 on w1 beside the
+    dispatch path (JAX's dequant-then-dot at M > 128); library:
+    torch.matmul over pre-dequantized bf16 weights (the bf16 tier's
+    GEMM)."""
     from functools import partial
 
     from tpukern_torch.harness import run_benchmark
@@ -1257,6 +1278,9 @@ def _w8a16_kernels(checks, timed, gen, cfg):
             for dt in (bf, f32):
                 check(f"{name} {M}x{K}x{N} {dt}", _randn(gen, M, K, dtype=dt),
                       q, s)
+        for M in (1, 8, 9, 16, 33, 64):
+            check(f"{name} {M}x{K}x{N} {bf}", _randn(gen, M, K, dtype=bf),
+                  q, s)
     for name in ("wq/wo", "w1"):
         q, s = weights[name]
         for M in (256, 2048):
@@ -1278,8 +1302,9 @@ def _w8a16_kernels(checks, timed, gen, cfg):
 
     for name in ("head", "w1", "w2", "wq/wo", "wk/wv"):
         entry(name, 4)
+    for M in (1, 8, 20, 64, 128):
+        entry("w1", M)
     entry("head", 20)
-    entry("w1", 128)
     for M in (256, 2048):
         x, q, s = entry("w1", M, force=True)
         path = partial(w8._dequant_matmul, x, q, s, bf)
@@ -1984,17 +2009,19 @@ def _ce_kernels(checks, timed, gen, cfg, N):
     (scale), since their size depends on the cotangent, at the tolerance
     of the inputs' dtype: with bf16 inputs both sides round dlog to bf16,
     and a dlog near a rounding boundary may round the other way on one
-    side. The f32 backward (split-TF32 products) is also held to the
-    accuracy gate: its dx's and dW's largest error against the f64
-    gradients of the same inputs (ce_times.ce_bwd_f64) at most SPLIT_GATE
-    times ce_bwd_ref's in f32 on cuBLAS. Times at the
+    side. The f32 forward and backward (split-TF32 products) are also
+    held to the accuracy gate: the loss's and lse's largest error against
+    an f64 product and log-sum-exp of the same inputs (ce_times.ce_fwd_f64;
+    also at a tail, D % 8 and V % 128 not 0), and dx's and dW's against
+    the f64 gradients (ce_times.ce_bwd_f64), at most SPLIT_GATE times the
+    plain version's in f32 on cuBLAS. Times at the
     training shape; the library call is torch.matmul then F.cross_entropy
     (two calls, JAX's dense_xla baseline), and autograd's backward of the
     two for the backward kernel."""
     from functools import partial
 
     from tpukern_torch.harness import ops_bench
-    from tpukern_torch.harness.ce_times import ce_bwd_f64
+    from tpukern_torch.harness.ce_times import ce_bwd_f64, ce_fwd_f64
     from tpukern_torch.ops import cross_entropy as ce
     from tpukern_torch.ops import split_tf32 as st
 
@@ -2011,18 +2038,29 @@ def _ce_kernels(checks, timed, gen, cfg, N):
 
     for n, dd, v, dt, exp2 in ((200, 128, 1000, f32, False),
                                (200, 128, 1000, f32, True),
+                               (300, 203, 1000, f32, True),
                                (129, 100, 257, bf, True),
                                (N, d, V, f32, False), (N, d, V, bf, True)):
         x, w, t = inputs(n, dd, v, dt)
         cot = torch.rand(n, generator=gen, device="cuda")
         case = f"({n},{dd})x({dd},{v}) {dt} exp2={exp2}"
         loss, lse = ce.ce_fwd(x, w, t, exp2)
-        if dt == bf:  # one launch a 256-column tile: the same bits again
-            checks.record("ce_fwd", *_same_bits(
-                "ce_fwd", case, torch.stack([loss, lse]),
-                torch.stack(ce.ce_fwd(x, w, t, exp2))))
+        # a partial a vocab tile, merged in order: the same bits again
+        checks.record("ce_fwd", *_same_bits(
+            "ce_fwd", case, torch.stack([loss, lse]),
+            torch.stack(ce.ce_fwd(x, w, t, exp2))))
         dx, dw = ce.ce_bwd(x, w, t, lse, cot, exp2)
         rloss, rlse = ce._ce_ref(x, w, t)
+        if dt == f32:
+            gate = checks.results["ce_fwd"].setdefault("f64_gate", {})
+            for what, out, ref, exact in zip(("loss", "lse"), (loss, lse),
+                                             (rloss, rlse),
+                                             ce_fwd_f64(x, w, t)):
+                err = (out.double() - exact).abs().max().item()
+                rerr = (ref.double() - exact).abs().max().item()
+                checks.record("ce_fwd", _gate("ce_fwd", f"{what} {case}",
+                                              err, rerr), 0.0)
+                gate[f"{what} {case}"] = dict(kernel=err, cublas=rerr)
         rdx, rdw = ce.ce_bwd_ref(x, w, t, rlse, cot)
         for what, out, ref in (("loss", loss, rloss), ("lse", lse, rlse)):
             checks.record("ce_fwd", *_compare("ce_fwd", f"{what} {case}",
@@ -2103,9 +2141,12 @@ def _ce_kernels(checks, timed, gen, cfg, N):
         ll = F.cross_entropy(torch.matmul(xl, wl).float(), t64,
                              ignore_index=-1, reduction="none")
         flops, io = 2 * N * d * V, _nbytes(x, w, t) + 8 * N
+        # f32 on split-TF32 products
         timed[f"ce_fwd {tag}"] = _timed_entry(
             "ce_fwd", [N, d, V], partial(ce.ce_fwd, x, w, t, exp2),
-            partial(ce._ce_ref, x, w, t), lib_fwd, flops, io, dt)
+            partial(ce._ce_ref, x, w, t), lib_fwd,
+            {ops_bench.SPLIT_TF32: flops} if dt == f32 else flops, io, dt,
+            fma=flops if dt == f32 else None)
         # the scores recomputed, then the dx and dW products; f32 on
         # split-TF32 products
         timed[f"ce_bwd {tag}"] = _timed_entry(
@@ -3238,12 +3279,13 @@ def _category(name):
 def _profile(label, fn, n):
     """Device time of n calls of fn by kernel category (torch.profiler),
     and the device's busy share of the span from first kernel start to
-    last kernel end (the profiler's own host cost lowers it)."""
+    last kernel end (the profiler's own host cost lowers it). Returns
+    (busy ms, {category: ms}) per call, or None without device events."""
     ev = _device_events(fn, n)
     if not ev:
         print(f"[profile] {label}: no device events; device time not "
               "measured")
-        return
+        return None
     busy, cur_s, cur_e = 0.0, ev[0][0], ev[0][1]
     for s, e, _ in ev[1:]:
         if s > cur_e:
@@ -3263,6 +3305,7 @@ def _profile(label, fn, n):
         sorted(cats.items(), key=lambda kv: -kv[1])))
     for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
         print(f"[profile] {label}   {t / n / 1e3:.4f} ms  {name[:90]}")
+    return busy / n / 1e3, {c: t / n / 1e3 for c, t in cats.items()}
 
 
 def phase_profile(cfg, params, requests, qparams):
@@ -3295,7 +3338,11 @@ def phase_profile(cfg, params, requests, qparams):
     for r, p in requests[:4]:
         cw.add_request(r, p)
     cw.step()
-    _profile("w8a16 decode step (4 slots)", cw.step, 8)
+    prof = _profile("w8a16 decode step (4 slots)", cw.step, 8)
+    print("[w8a16] decode step (4 slots), device time from the profiler: "
+          + ("not measured" if prof is None else
+             f"#25 {prof[1].get('w8a16', 0.0):.4f} ms of {prof[0]:.4f} ms "
+             "busy a step"))
     del cw
     for tag, kw in (("top_p 0.9", dict(top_p=0.9)),
                     ("top_k 50", dict(top_k=50))):
@@ -5133,9 +5180,14 @@ def main():
     train_launches, unfused_losses, unfused_stats = phase_train(tcfg, TB, TS)
     torch.cuda.empty_cache()
     fcfg = dataclasses.replace(tcfg, fused_loss=True)
-    fused_launches, fused_losses, _ = phase_train(fcfg, TB, TS)
+    fused_launches, fused_losses, fused_stats = phase_train(fcfg, TB, TS)
     require(fused_launches["ce_fwd"] > 0 and fused_launches["ce_bwd"] > 0,
             f"the fused loss never launched its kernels: {fused_launches}")
+    print(f"[train] fused against unfused loss: step "
+          f"{fused_stats['ms']:.3f} ms against {unfused_stats['ms']:.3f} "
+          f"ms ({fused_stats['ms'] / unfused_stats['ms']:.4f}x), peak "
+          f"{fused_stats['peak_gib']:.2f} GiB against "
+          f"{unfused_stats['peak_gib']:.2f}")
     print(f"[train] fused - unfused loss per step "
           f"{[f'{a - b:.2e}' for a, b in zip(fused_losses, unfused_losses)]}")
     torch.cuda.empty_cache()

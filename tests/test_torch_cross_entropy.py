@@ -139,27 +139,38 @@ def test_bad_targets_raise():
         ce.fused_cross_entropy(x, w.T.contiguous(), torch.zeros(8))
 
 
-@pytest.mark.parametrize("N,V,sms", [(2048, 32768, 132), (200, 1000, 132),
-                                     (1, 5, 132), (70000, 129, 8)])
-def test_vocab_splits_cover_every_tile(N, V, sms):
-    """The forward's split: every split has a tile, every tile a split."""
-    n_split, tps = ce.splits(N, V, sms)
-    n_vt = -(-V // ce.TILE)
-    assert (n_split - 1) * tps < n_vt <= n_split * tps
+@pytest.mark.parametrize("N,D,V", [(2048, 2048, 32768), (200, 128, 1000),
+                                   (1, 1, 5), (70000, 64, 129)])
+def test_vocab_splits_cover_every_tile(N, D, V):
+    """The f32 forward's split: one launch a chunk of bwd_vocab_chunk_f32
+    columns, one partial a 128-column tile of a chunk (the last tile of a
+    chunk narrower where the chunk is no multiple of 128): every column
+    in exactly one partial's tile, every partial's tile non-empty."""
+    n_split, chunk = ce.fwd_splits(N, D, V, torch.float32)
+    assert chunk == ce.bwd_vocab_chunk_f32(N, D, V)
+    tiles = [(c0 + v0, min(c0 + v0 + ce.TILE, c0 + chunk, V))
+             for c0 in range(0, V, chunk)
+             for v0 in range(0, min(chunk, V - c0), ce.TILE)]
+    assert len(tiles) == n_split and all(a < b for a, b in tiles)
+    assert [a for a, _ in tiles[1:]] == [b for _, b in tiles[:-1]]
+    assert tiles[0][0] == 0 and tiles[-1][1] == V
+    if (N, D, V) == (2048, 2048, 32768):
+        assert (n_split, chunk) == (256, 8192)
 
 
 @pytest.mark.parametrize("N,V", [(2048, 32768), (200, 1000), (1, 5),
                                  (129, 257), (300, 1024), (70000, 256)])
 def test_bf16_forward_partials_cover_every_tile(N, V):
     """The bf16 forward writes one partial for each 256-column vocab tile
-    (cdiv(V, 256) of them, a tile each), whatever the SM count; f32 keeps
-    splits()."""
-    for sms in (8, 132):
-        n_split, tps = ce.fwd_splits(N, V, torch.bfloat16, sms)
-        assert (n_split, tps) == (-(-V // 256), 1)
+    (cdiv(V, 256) of them, a tile each) in one launch, whatever D; f32
+    one a 128-column tile of each bwd_vocab_chunk_f32 chunk."""
+    for D in (8, 2048):
+        n_split, chunk = ce.fwd_splits(N, D, V, torch.bfloat16)
+        assert (n_split, chunk) == (-(-V // 256), V)
         assert (n_split - 1) * ce.TILE_BF16 < V <= n_split * ce.TILE_BF16
-        assert ce.fwd_splits(N, V, torch.float32, sms) == ce.splits(N, V,
-                                                                     sms)
+        f32_split, f32_chunk = ce.fwd_splits(N, D, V, torch.float32)
+        assert f32_chunk == ce.bwd_vocab_chunk_f32(N, D, V)
+        assert f32_split >= -(-V // ce.TILE)
 
 
 @pytest.mark.parametrize("use_exp2", [False, True])
@@ -176,6 +187,34 @@ def test_tiled_forward_matches_jax(N, D, V, use_exp2):
     xt, wt, tt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t)
     assert (tt >= V // 256 * 256).any() or V % 256 == 0
     loss, lse = ce.ce_fwd_tiled_ref(xt, wt, tt, use_exp2=use_exp2)
+    jloss, jlse = jce.fused_cross_entropy(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(t), use_exp2=use_exp2,
+                                          return_lse=True)
+    check_all_close(loss, np.asarray(jloss), name="loss vs jax", **F32)
+    check_all_close(lse, np.asarray(jlse), name="lse vs jax", **F32)
+    rloss, rlse = ce._ce_ref(xt, wt, tt)
+    check_all_close(loss, rloss, name="loss vs ref", **F32)
+    check_all_close(lse, rlse, name="lse vs ref", **F32)
+    assert (loss[tt < 0] == 0).all()
+
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("N,D,V", [(200, 128, 1000), (129, 100, 257),
+                                   (256, 64, 1024)])
+def test_f32_forward_order_matches_jax(N, D, V, use_exp2):
+    """ce_fwd_tiled_ref in the f32 forward's order: a partial for each
+    128-column tile of each bwd_vocab_chunk_f32 chunk (6, 5 and 11 chunks
+    here, of 192, 56 and 96 columns: tiles that end at a chunk's edge),
+    merged as ce_combine_kernel merges them, in f32 against JAX's f32
+    fused loss and lse (interpret mode) and _ce_ref at 2e-5: a V tail, a
+    quarter of the targets ignored, some in the last tile of a chunk."""
+    x, w, t = _inputs(N, D, V, seed=2 * N + D)
+    n_split, chunk = ce.fwd_splits(N, D, V, torch.float32)
+    assert chunk < V
+    t[1::5] = (np.arange(len(t[1::5])) * chunk + chunk - 1) % V
+    xt, wt, tt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(t)
+    loss, lse = ce.ce_fwd_tiled_ref(xt, wt, tt, tile=ce.TILE,
+                                    use_exp2=use_exp2, chunk=chunk)
     jloss, jlse = jce.fused_cross_entropy(jnp.asarray(x), jnp.asarray(w),
                                           jnp.asarray(t), use_exp2=use_exp2,
                                           return_lse=True)

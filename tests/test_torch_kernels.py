@@ -503,9 +503,11 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     runs at a forced chunk of 96 columns (3 to 11 chunks, against
     ce_bwd_chunked_ref too), and a second call gives the same bits (no
     atomics, in either dtype). f32 also launches the split-TF32 operand
-    pass on x once and on each chunk of W. The bf16 forward writes
-    cdiv(V, 256) partials (one a vocab tile), is held to ce_fwd_tiled_ref
-    (its order) too, and repeats bit for bit."""
+    pass on x once and on each chunk of W, in the backward and in the
+    forward (one launch a chunk of bwd_vocab_chunk_f32). The forward
+    writes fwd_splits' partials (bf16: one a 256-column vocab tile; f32:
+    one a 128-column tile of each chunk), is held to ce_fwd_tiled_ref (its
+    order) too, and repeats bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(N + D + V)
     x = torch.randn((N, D), generator=g, device=cuda).to(DTYPES[dt])
     w = (torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
@@ -522,24 +524,29 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
     chunk = (cross_entropy.bwd_vocab_chunk_f32 if dt == "f32"
              else cross_entropy.bwd_vocab_chunk)(N, D, V)
     chunks = -(-V // chunk)
-    splits = 1 + chunks if dt == "f32" else 0
+    # the f32 forward runs on the backward's chunks: a launch and an
+    # operand pass each, one more pass on x, in each direction
+    fwd = chunks if dt == "f32" else 1
+    splits = 2 * (1 + chunks) if dt == "f32" else 0
     assert (cross_entropy.ce_fwd.launches, cross_entropy.ce_bwd.launches,
             split_tf32.split_tf32.launches) == (
-                before[0] + 2, before[1] + 3 * chunks, before[2] + splits)
+                before[0] + fwd + 1, before[1] + 3 * chunks,
+                before[2] + splits)
     rloss, rlse = cross_entropy._ce_ref(x, w, t)
     rdx, rdw = cross_entropy.ce_bwd_ref(x, w, t, rlse, cot)
     check_all_close(loss, rloss, name="loss", **F32)
     check_all_close(lse, rlse, name="lse", **F32)
-    if dt == "bf16":
-        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-        assert cross_entropy.fwd_splits(N, V, DTYPES[dt], sms) == (
-            -(-V // 256), 1)
-        tloss, tlse = cross_entropy.ce_fwd_tiled_ref(x, w, t,
-                                                     use_exp2=use_exp2)
-        check_all_close(loss, tloss, name="loss vs tiled", **F32)
-        check_all_close(lse, tlse, name="lse vs tiled", **F32)
-        again = cross_entropy.ce_fwd(x, w, t, use_exp2)
-        assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
+    n_split, fchunk = cross_entropy.fwd_splits(N, D, V, DTYPES[dt])
+    assert fchunk == (V if dt == "bf16" else chunk)
+    tile = 256 if dt == "bf16" else 128
+    assert n_split == sum(-(-min(fchunk, V - v0) // tile)
+                          for v0 in range(0, V, fchunk))
+    tloss, tlse = cross_entropy.ce_fwd_tiled_ref(
+        x, w, t, tile=tile, use_exp2=use_exp2, chunk=fchunk)
+    check_all_close(loss, tloss, name="loss vs tiled", **F32)
+    check_all_close(lse, tlse, name="lse vs tiled", **F32)
+    again = cross_entropy.ce_fwd(x, w, t, use_exp2)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
     tol = 1e-4 if dt == "f32" else 2e-2
     outs = [("", dx, dw, rdx, rdw)]
     c96 = cross_entropy.ce_bwd(x, w, t, lse, cot, use_exp2, vocab_chunk=96)
@@ -554,6 +561,43 @@ def test_cross_entropy_kernels(cuda, N, D, V, use_exp2, dt):
             check_all_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
                             name=name + tag)
     assert (loss[t < 0] == 0).all() and (dx[t < 0] == 0).all()
+
+
+def _ce_fwd_f64(x, w, t):
+    """(loss, lse) in f64 from the same inputs (the function both f32
+    sides round)."""
+    logits = x.double() @ w.double()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, t.long().clamp(min=0)[:, None])[:, 0]
+    return torch.where(t < 0, 0.0, lse - tl), lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_exp2", [False, True])
+@pytest.mark.parametrize("N,D,V", [(2048, 2048, 32768), (300, 203, 1000)])
+def test_cross_entropy_f32_forward_gate(cuda, N, D, V, use_exp2):
+    """The f32 forward on split-TF32 products against an f64 product and
+    log-sum-exp: loss and lse at most SPLIT_GATE (2) times the error of
+    the plain f32 version (torch.matmul in f32, TF32 off), at the 7bish
+    training head (4 chunks of 8192 columns) and at a tail (D % 8 and
+    V % 128 not 0, N no tile multiple), 5% of the targets ignored."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(N + D + V)
+    x = torch.randn((N, D), generator=g, device=cuda)
+    w = torch.randn((D, V), generator=g, device=cuda) / D ** 0.5
+    t = torch.randint(0, V, (N,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    t[torch.rand(N, generator=g, device=cuda) < 0.05] = -1
+    out = cross_entropy.ce_fwd(x, w, t, use_exp2)
+    ref = cross_entropy._ce_ref(x, w, t)
+    exact = _ce_fwd_f64(x, w, t)
+    for name, o, r, e in zip(("loss", "lse"), out, ref, exact):
+        err = (o.double() - e).abs().max().item()
+        rerr = (r.double() - e).abs().max().item()
+        assert torch.isfinite(o).all() and o.shape == (N,)
+        assert err <= split_tf32.SPLIT_GATE * rerr, (
+            f"{name}: {err:.3e} against the plain f32 version's {rerr:.3e}")
+    assert (out[0][t < 0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -1330,11 +1374,15 @@ def test_quantized_serving_on_kernels_equals_plain(cuda):
 
 # (M, N, K): the 7bish decode shapes (wk/wv, wq/wo, w1, w2, the head), a
 # verification, a whole 128-token prefill, forced prefill sizes, a K tail
-# and an N that is no tile (nor 16-byte) multiple
+# and an N that is no tile (nor 16-byte) multiple; then M at the edges of
+# the bf16 kernel's token tiles (1, 2, 4, 8, 16 tiles of 8)
 W8A16_SHAPES = [(4, 1024, 2048), (4, 2048, 2048), (4, 8192, 2048),
                 (4, 2048, 8192), (1, 32768, 2048), (20, 2048, 2048),
                 (128, 8192, 2048), (256, 2048, 2048), (2048, 1024, 512),
-                (7, 1000, 200), (3, 136, 8192)]
+                (7, 1000, 200), (3, 136, 8192),
+                # each token-tile instance and its edges at the 7bish widths
+                (1, 1024, 2048), (8, 2048, 2048), (9, 8192, 2048),
+                (16, 2048, 8192), (33, 2048, 2048), (64, 8192, 2048)]
 
 
 @pytest.mark.cuda

@@ -57,7 +57,7 @@ def test_quantize_weights_bit_equal(dt):
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("M", [1, 4, 20, 100, 128, 129, 256])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 20, 64, 100, 128, 129, 256])
 def test_matmul_w8a16_matches_jax(M, dt):
     """M <= 128: the kernel's function on both sides (JAX forced to its
     kernel); M > 128: both dispatch to the dequant-then-dot path."""
@@ -122,15 +122,83 @@ def test_out_dtype_and_bad_inputs():
         w8.matmul_w8a16(tx, q, s[:-1])
 
 
-def test_splits_cover_k():
-    """The kernel's K split: every slice of TILE_K rows in exactly one
-    split, at least one a split, about two waves of 132 SMs."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_splits_cover_k(dtype):
+    """The kernel's K split: every slice of TILE_K rows (64 in bf16, 32 in
+    f32) in exactly one split, at least one a split, about two waves of
+    132 SMs over the dtype's tiles (bf16: 128 tokens by 128 columns; f32:
+    64 by 128); in bf16 at most two waves (rounded down, at least one
+    split) and 16 splits (8 from 4 token tiles on)."""
     for M, n, k in [(4, 1024, 2048), (4, 32768, 2048), (4, 2048, 8192),
                     (20, 8192, 2048), (2048, 2048, 2048), (1, 136, 200),
-                    (4, 64, 0)]:
-        splits, per = w8._splits(M, n, k, 132)
-        n_kt = -(-k // w8.TILE_K)
+                    (4, 64, 0), (128, 8192, 2048), (64, 2048, 2048)]:
+        splits, per = w8._splits(M, n, k, 132, dtype)
+        n_kt = -(-k // w8.TILE_K[dtype])
         assert splits >= 1 and splits * per >= n_kt
         assert splits == 1 or (splits - 1) * per < n_kt
-        tiles = -(-M // w8.TILE_M) * -(-n // w8.TILE_N)
-        assert tiles * splits >= min(2 * 132, tiles * max(n_kt, 1)) // 2
+        tiles = -(-M // w8.TILE_M[dtype]) * -(-n // w8.TILE_N)
+        if dtype == torch.bfloat16:
+            want = min(2 * 132 // tiles, 16 if w8.token_tiles(M) <= 2 else 8)
+            assert splits <= max(1, want)
+            assert 2 * splits > min(n_kt, want)
+        else:
+            assert tiles * splits >= min(2 * 132,
+                                         tiles * max(n_kt, 1)) // 2
+    # the 7bish shapes in bf16: the head's 256 column tiles unsplit; wk's
+    # 8 tiles in 16 splits at decode, in 8 at M = 128; w1's 64 in 4
+    assert w8._splits(4, 32768, 2048, 132) == (1, 32)
+    assert w8._splits(4, 1024, 2048, 132) == (16, 2)
+    assert w8._splits(128, 1024, 2048, 132) == (8, 4)
+    assert w8._splits(4, 8192, 2048, 132) == (4, 8)
+
+
+def test_splits_lever():
+    """SPLITS forces the bf16 kernel's count (clamped to the K slices,
+    every split non-empty) and leaves f32's rule alone."""
+    try:
+        w8.SPLITS = 8
+        assert w8._splits(4, 1024, 2048, 132) == (8, 4)
+        assert w8._splits(4, 1024, 200, 132) == (4, 1)
+        assert w8._splits(4, 1024, 2048, 132, torch.float32) == (
+            w8._rule(4, 1024, 2048, 132, torch.float32))
+    finally:
+        w8.SPLITS = None
+
+
+@pytest.mark.parametrize("M,tiles", [(1, 1), (4, 1), (8, 1), (9, 2),
+                                     (16, 2), (17, 4), (20, 4), (32, 4),
+                                     (33, 8), (64, 8), (65, 16), (128, 16),
+                                     (129, 16), (2048, 16)])
+def test_token_tiles_by_m(M, tiles):
+    """The bf16 kernel's instance: n8 token tiles a block, M's first 128
+    rows in tiles of 8 rounded up to a power of two (a block takes 128
+    tokens at most; a forced M above that launches more blocks)."""
+    assert w8.token_tiles(M) == tiles
+    assert tiles * 8 >= min(M, 128) > tiles * 4 or M <= 8
+
+
+def test_workspace_is_reused():
+    """The split-K workspace is kept per (device, stream): a call of the
+    same or a smaller size gets the same storage, a larger one a new
+    buffer that later calls then share; another stream its own."""
+    dev = torch.device("cpu")
+    w8._WORKSPACE.clear()
+    a = w8._workspace(dev, 1, 4096)
+    assert w8._workspace(dev, 1, 4096).data_ptr() == a.data_ptr()
+    assert w8._workspace(dev, 1, 100).data_ptr() == a.data_ptr()
+    b = w8._workspace(dev, 1, 8192)
+    assert b.numel() >= 8192 and w8._workspace(dev, 1, 4096).data_ptr() == (
+        b.data_ptr())
+    assert w8._workspace(dev, 2, 4096).data_ptr() != b.data_ptr()
+    w8._WORKSPACE.clear()
+
+
+def test_widening_is_exact():
+    """widen_int8_ref, the bf16 kernel's widening (a byte into bf16's
+    mantissa and one bf16x2 subtraction), equals int8 -> bf16 for all 256
+    byte values, bit for bit."""
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    out = w8.widen_int8_ref(q)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), q.to(torch.bfloat16).view(
+        torch.int16))

@@ -122,9 +122,13 @@ SIGNATURES = {
     "tk_quantize": [_P, _P, _P, _I64, _I, _I, _I64, _I, _P],
     # values, scales, out, S, K, out dtype, stream
     "tk_dequantize": [_P, _P, _P, _I64, _I, _I, _P],
-    # x, w, targets (i32), part (f32), N, D, V, n_split, tiles_per_split,
-    # log2, dtype, stream
-    "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, targets (i32), part (f32), N, D, V, log2, stream (bf16 inputs)
+    "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, targets, part (f32), the split-TF32 planes of x and of W's
+    # chunk (f32 scratch), N, D, V, v0, vc, the chunk's first partial,
+    # split_x, log2, the host counter, stream (f32 inputs; one vocab
+    # chunk)
+    "tk_ce_fwd_f32": [_P] * 6 + [_I] * 8 + [_P, _P],
     # part, targets, loss, lse, N, n_split, stream
     "tk_ce_combine": [_P, _P, _P, _P, _I, _I, _P],
     # x, w, targets, lse, g, dx (f32), dw (f32), the split-TF32 planes of

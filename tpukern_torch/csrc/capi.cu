@@ -176,11 +176,18 @@ int tk_dequantize(const void* values, const float* scales, void* out,
 }
 
 int tk_ce_fwd(const void* x, const void* w, const int* targets, float* part,
-              int N, int D, int V, int n_split, int tiles_per_split, int log2,
-              int dtype, void* stream) {
-  return checked(tk::ce_fwd_launch(x, w, targets, part, N, D, V, n_split,
-                                   tiles_per_split, log2, dtype,
+              int N, int D, int V, int log2, void* stream) {
+  return checked(tk::ce_fwd_launch(x, w, targets, part, N, D, V, log2,
                                    static_cast<cudaStream_t>(stream)));
+}
+
+int tk_ce_fwd_f32(const float* x, const float* w, const int* targets,
+                  float* part, float* xs, float* ws, int N, int D, int V,
+                  int v0, int vc, int tile0, int split_x, int log2,
+                  int* passes, void* stream) {
+  return checked(tk::ce_fwd_f32_launch(x, w, targets, part, xs, ws, N, D, V,
+                                       v0, vc, tile0, split_x, log2, passes,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 int tk_ce_combine(const float* part, const int* targets, float* loss,

@@ -588,10 +588,20 @@ cudaError_t quantize_launch(const void* x, void* values, float* scales,
 cudaError_t dequantize_launch(const void* values, const float* scales,
                               void* out, int64_t S, int K, int dtype,
                               cudaStream_t stream);
+// the bf16 forward: one partial a 256-column vocab tile into part
+// (cdiv(V, 256), 3, N)
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
-                          float* part, int N, int D, int V, int n_split,
-                          int tiles_per_split, int log2, int dtype,
+                          float* part, int N, int D, int V, int log2,
                           cudaStream_t stream);
+// the f32 forward's launch for vocab columns [v0, v0 + vc): with split_x,
+// x's split-TF32 planes into xs (2, N, D4); the chunk's transposed planes
+// into ws (2, vc, D4); one partial a 128-column tile of the chunk into
+// part, from partial tile0 on
+cudaError_t ce_fwd_f32_launch(const float* x, const float* w,
+                              const int* targets, float* part, float* xs,
+                              float* ws, int N, int D, int V, int v0, int vc,
+                              int tile0, int split_x, int log2, int* passes,
+                              cudaStream_t stream);
 cudaError_t ce_combine_launch(const float* part, const int* targets,
                               float* loss, float* lse, int N, int n_split,
                               cudaStream_t stream);

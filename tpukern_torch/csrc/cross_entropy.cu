@@ -4,29 +4,32 @@
 // one dtype; targets < 0 are ignored (loss 0, gradient 0).
 //
 // Replaces tpukern/ops/cross_entropy.py:
-//   `_ce_fwd_kernel` (:53)  -> f32: ce_fwd_kernel; bf16: ce_fwd_wgmma_kernel;
-//                              then ce_combine_kernel (#13)
+//   `_ce_fwd_kernel` (:53)  -> f32: ce_fwd_tf32_kernel; bf16:
+//                              ce_fwd_wgmma_kernel; then ce_combine_kernel
+//                              (#13)
 //   `_ce_dx_kernel` (:95)   -> f32: ce_dlog_tf32_kernel then ce_dx_tf32_kernel;
 //                              bf16: ce_dlog_kernel then ce_dx_kernel (#14)
 //   `_ce_dw_kernel` (:132)  -> f32: ce_dlog_tf32_kernel then ce_dw_tf32_kernel;
 //                              bf16: ce_dlog_kernel then ce_dw_kernel (#15)
 //
-// f32 forward score tiles: 128 x 128 tiles S = x[n0..] · W[:, v0..] from
-// common.cuh's sgemm_tile, on CUDA-core FMAs in full f32 (the JAX f32
-// tier's Precision.HIGHEST), put into shared memory, where the reductions
-// read them in a layout of their own. Columns past V are set to NEG_BIG
-// after the arithmetic, never multiplied in: 0 * garbage would be NaN.
-//
 // Forward. The TPU kernel gives one grid row to each token block and walks
-// all of V in order; at N = 2048 that is 16 blocks for 132 SMs. Here V is
-// split too, and each split writes its rows' (max, sum of exp, target
-// logit) as a partial; ce_combine_kernel then merges a row's partials
-// (the lse merge of flash_attention_splitkv, tpukern/ops/attention.py:1162)
-// into its loss and natural-log lse. The partials are (n_split, 3, N)
-// floats.
-// - f32 (ce_fwd_kernel): block (row tile, split) walks `tiles_per_split`
-//   vocab tiles with an online (max, sum) per row, as the TPU kernel does;
-//   n_split is bounded by the SM count (ops/cross_entropy.py splits).
+// all of V in order; at N = 2048 that is 16 blocks for 132 SMs. Here each
+// block computes one score tile and folds it in the consumers' registers
+// into a partial of its rows: (max, sum of exp, target logit) over the
+// tile's columns. Columns past V (or the chunk) are NEG_BIG after the
+// arithmetic, never multiplied in: 0 * garbage would be NaN.
+// ce_combine_kernel then merges a row's partials (the lse merge of
+// flash_attention_splitkv, tpukern/ops/attention.py:1162) into its loss
+// and natural-log lse. The partials are (n_split, 3, N) floats.
+// - f32 (ce_fwd_tf32_kernel): one hopper.cuh gemm_pipeline_tf32 launch a
+//   vocab chunk, on the split-TF32 products of the f32 backward's launch
+//   1 (x's planes K-major, split once a call; the chunk's transposed
+//   planes, split once a chunk); the chunks are the backward's
+//   (bwd_vocab_chunk_f32: 4 of 8192 columns at N = D = 2048, V = 32768),
+//   so the forward's scratch (x's planes and one chunk's, 160 MB there)
+//   stays below the backward's. A quad of lanes holds two whole rows of a
+//   128 x 128 tile (64 columns a lane): one partial a 128-column tile of
+//   each chunk (ops/cross_entropy.py fwd_splits).
 // - bf16 (ce_fwd_wgmma_kernel): one hopper.cuh gemm_pipeline launch, the
 //   operands of ce_dlog_kernel below (x K-major, W's columns MN-major with
 //   row stride V): each block computes one 128 x 256 score tile and folds
@@ -94,16 +97,16 @@
 // What bounds it: 2·N·D·V flops a product (275 GFLOP at N = D = 2048, V =
 // 32768), one in the forward and three in the backward, against N·D + D·V
 // elements read (and in the backward the scratch, written once and read
-// twice), so it is compute bound: the f32 forward on CUDA-core FMAs, the
-// f32 backward on split-TF32 products, bf16 on the tensor cores (278 us at
-// 989 TFLOP/s a product). The bf16 forward's epilogue adds two passes over
-// the 128 accumulators (max, then exp2 and sum) and 12 bytes a row a vocab
-// tile, under the next tile's loads.
+// twice), so it is compute bound: f32 on split-TF32 products (three TF32
+// products a product: 1667 us for the forward at 495 TFLOP/s, against
+// 4103 on CUDA-core FMAs), bf16 on the tensor cores (278 us at 989
+// TFLOP/s a product). The forward's epilogue adds two passes over the
+// accumulators (max, then exp or exp2 and sum) and 12 bytes a row a vocab
+// tile.
 //
 // Registers (`-Xptxas -v`, nvcc 12.9, sm_90a; chip_smoke.py prints them
 // from the build's nvcc.log) and dynamic shared memory per block, two
 // blocks per SM:
-//   ce_fwd_kernel      f32 128 registers, no spills; 77,824 B
 //   ce_combine_kernel  32 registers, no shared memory
 //   ce_fwd_wgmma_kernel 168 registers (the pipeline's launch bound, before
 //                      its split), no spills with both operands by TMA;
@@ -111,8 +114,8 @@
 // The bf16 forward and backward kernels take gemm_pipeline's one block an
 // SM (gemm_smem: 197,632 B with both operands by TMA, 203,776 B with a
 // copy) and its register split (the producer warpgroup 40, the consumers
-// 232); the f32 backward's gemm_pipeline_tf32's (197,632 B: 3 stages of
-// 64 KiB).
+// 232); the f32 forward's and backward's gemm_pipeline_tf32's (197,632 B:
+// 3 stages of 64 KiB).
 #include "hopper.cuh"
 
 namespace tk {
@@ -120,112 +123,10 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int BN = 128;          // token rows of a score tile
-constexpr int BV = 128;          // vocab columns of a score tile
-constexpr int THREADS = 256;
-constexpr int LDT = BV + 4;      // f32 score tile rows in shared memory
-constexpr int TILE_BYTES = BN * LDT * 4;
-
-static_assert(BN == F_BM && BV == F_BN && THREADS == F_THREADS,
-              "tile shapes");
-
-// shared memory of the score product's main loop
-constexpr int STAGE_BYTES = 2 * F_BK * F_BM * 4;
-
-// tile[r][c] = x[n0 + r] · W[:, v0 + c] in f32 (0 past N or V). Returns
-// after a barrier, with the tile complete.
-__device__ __forceinline__ void score_tile(const float* __restrict__ x,
-                                           const float* __restrict__ w, int N,
-                                           int D, int V, int n0, int v0,
-                                           unsigned char* stage, float* tile) {
-  const int tid = threadIdx.x;
-  float acc[8][8];
-  auto as = reinterpret_cast<float(*)[F_BM]>(stage);
-  auto bs = reinterpret_cast<float(*)[F_BN]>(stage + F_BK * F_BM * 4);
-  sgemm_tile<false>(x, w, N, V, D, n0, v0, as, bs, acc);
-  const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* row = tile + sgemm_pos(i, ty) * LDT;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  __syncthreads();
-}
-
-// Block (blockIdx.x, blockIdx.y) = (row tile, vocab split). Each warp
-// folds 16 rows of every score tile into the running (m, l, t) of those
-// rows, a lane reading 4 columns of a row. m and l are in the tier's units
-// (log2 for LOG2) and written as the natural max and the sum of
-// exp(s - max); t is the raw target logit.
-template <bool LOG2>
-__global__ void __launch_bounds__(THREADS, 2)
-ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              const int* __restrict__ targets, float* __restrict__ part, int N,
-              int D, int V, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tile = reinterpret_cast<float*>(smem);   // [BN][LDT]
-  float* row_m = tile + BN * LDT;                 // [BN] running max
-  float* row_l = row_m + BN;                      // [BN] running sum
-  float* row_t = row_l + BN;                      // [BN] target logit
-  int* row_tgt = reinterpret_cast<int*>(row_t + BN);
-  unsigned char* stage = smem + TILE_BYTES + 4 * BN * 4;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, split = blockIdx.y;
-  const int n_vt = (V + BV - 1) / BV;
-  const int vt0 = split * tiles_per_split;
-  const int vt1 = min(vt0 + tiles_per_split, n_vt);
-  if (tid < BN) {
-    row_m[tid] = NEG_BIG;
-    row_l[tid] = 0.f;
-    row_t[tid] = 0.f;
-    row_tgt[tid] = n0 + tid < N ? targets[n0 + tid] : -1;
-  }
-
-  const int c = lane * 4;
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int v0 = vt * BV;
-    __syncthreads();  // the previous tile is folded
-    score_tile(x, w, N, D, V, n0, v0, stage, tile);
-    for (int rr = 0; rr < BN / 8; ++rr) {
-      const int r = warp * (BN / 8) + rr;
-      const float4 v4 = *reinterpret_cast<const float4*>(&tile[r * LDT + c]);
-      float s[4] = {v4.x, v4.y, v4.z, v4.w};
-      const int tcol = row_tgt[r] - v0;
-      float mx = NEG_BIG;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (c + e == tcol) row_t[r] += s[e];  // one lane of one tile
-        s[e] = v0 + c + e < V ? (LOG2 ? s[e] * LOG2E : s[e]) : NEG_BIG;
-        mx = fmaxf(mx, s[e]);
-      }
-      mx = warp_max(mx);
-      const float m_old = row_m[r], m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sum += LOG2 ? exp2f(s[e] - m_new) : expf(s[e] - m_new);
-      sum = warp_sum(sum);  // every lane has read row_m[r] by now
-      if (lane == 0) {
-        const float alpha = LOG2 ? exp2f(m_old - m_new) : expf(m_old - m_new);
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < BN && n0 + tid < N) {
-    float* p = part + (int64_t)split * 3 * N + n0 + tid;
-    p[0] = LOG2 ? row_m[tid] * LN2 : row_m[tid];
-    p[N] = row_l[tid];
-    p[2 * N] = row_t[tid];
-  }
-}
-
-// One thread per token: merge the row's n_split partials.
+// One thread per token: merge the row's n_split partials. The sum of the
+// rescaled partial sums, its log and the final additions run in f64 and
+// round once to f32: the f32 forward has 256 partials a row at the 7bish
+// head, and an f32 sum over them moved lse by more than its last bit.
 __global__ void ce_combine_kernel(const float* __restrict__ part,
                                   const int* __restrict__ targets,
                                   float* __restrict__ loss,
@@ -234,15 +135,16 @@ __global__ void ce_combine_kernel(const float* __restrict__ part,
   if (n >= N) return;
   float m = NEG_BIG;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, part[(int64_t)s * 3 * N + n]);
-  float l = 0.f, t = 0.f;
+  double l = 0.0;
+  float t = 0.f;
   for (int s = 0; s < n_split; ++s) {
     const float* p = part + (int64_t)s * 3 * N + n;
-    l += p[N] * expf(p[0] - m);
+    l += (double)p[N] * exp((double)(p[0] - m));
     t += p[2 * N];
   }
-  const float z = m + logf(l);
-  lse[n] = z;
-  loss[n] = targets[n] < 0 ? 0.f : z - t;
+  const double z = (double)m + log(l);
+  lse[n] = (float)z;
+  loss[n] = targets[n] < 0 ? 0.f : (float)(z - t);
 }
 
 // ------------------------------------------------------- bf16 backward
@@ -344,12 +246,69 @@ ce_dlog_kernel(const __grid_constant__ CUtensorMap map_x,
       });
 }
 
+// A forward epilogue: the tile d of a consumer thread (NA accumulators, 2
+// NA columns from n0; gemm_pipeline's layout) folded into each row's
+// partial (m, l, t) over the tile's columns c < cols: m the max in natural
+// units, l the sum of exp(s - m) (exp2 of the scores scaled by log2 e in
+// the log2 tier), t the raw target logit (0 if the target, at column
+// targets[r] - v0, lies in another tile or is ignored), written to p (3,
+// N): the tile's partial.
+template <int NA>
+__device__ __forceinline__ void fold_tile(const float (&d)[NA],
+                                          const int* __restrict__ targets,
+                                          float* __restrict__ p, int N,
+                                          int m0, int n0, int cols, int v0,
+                                          int log2) {
+  const int r0 = tile_row(m0), c0 = tile_col(n0);
+  const float k = log2 ? LOG2E : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // every lane of the quad takes part in the shuffles, rows past N too;
+    // only the writes are masked
+    const int r = r0 + 8 * h;
+    const int tc = r < N ? targets[r] - v0 : -1;
+    const int tgt = tc < cols ? tc : -1;
+    float mx = NEG_BIG, t = 0.f;
+#pragma unroll
+    for (int j = 0; j < NA / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + e;
+        const float s = d[4 * j + 2 * h + e];
+        if (c == tgt) t = s;
+        mx = fmaxf(mx, c < cols ? s * k : NEG_BIG);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // the tile's first column is < cols, so mx is a score's
+    float l = 0.f;
+    auto fold = [&](auto ex) {
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float u =
+              c0 + 8 * j + e < cols ? d[4 * j + 2 * h + e] * k : NEG_BIG;
+          l += ex(u - mx);
+        }
+    };
+    if (log2) fold([](float a) { return exp2f(a); });
+    else fold([](float a) { return expf(a); });
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    if ((threadIdx.x & 3) == 0 && r < N) {
+      p[r] = log2 ? mx * LN2 : mx;
+      p[N + r] = l;
+      p[2 * N + r] = t;
+    }
+  }
+}
+
 // The bf16 forward: the scores S = x · W of the 128 x 256 tile (tm, tn),
-// folded in the epilogue into each row's partial (m, l, t) of vocab tile
-// tn: m the max in natural units, l the sum of exp(s - m) (exp2 of the
-// scores scaled by log2 e in the log2 tier), t the raw target logit (0 if
-// the target lies in another tile or is ignored). part is (cdiv(V, 256),
-// 3, N).
+// folded in the epilogue into the partial of vocab tile tn. part is
+// (cdiv(V, 256), 3, N).
 template <bool TMA_X, bool TMA_W>
 __global__ void __launch_bounds__(GP_THREADS, 1)
 ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -366,52 +325,29 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       &map_x, &map_w, GemmOperand{x, N, D, m0},
       GemmOperand{w, D, V, n0, -1, 0, V}, 0, D,
       [&](const float (&d)[128]) {
-        const int r0 = tile_row(m0), c0 = tile_col(n0);
-        const float k = log2 ? LOG2E : 1.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // every lane of the quad takes part in the shuffles, rows past
-          // N too; only the writes are masked
-          const int r = r0 + 8 * h;
-          const int tgt = r < N ? targets[r] : -1;
-          float mx = NEG_BIG, t = 0.f;
-#pragma unroll
-          for (int j = 0; j < GP_BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = c0 + 8 * j + e;
-              const float s = d[4 * j + 2 * h + e];
-              if (c == tgt) t = s;
-              mx = fmaxf(mx, c < V ? s * k : NEG_BIG);
-            }
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          // the tile's first column is < V, so mx is a score's
-          float l = 0.f;
-          auto fold = [&](auto ex) {
-#pragma unroll
-            for (int j = 0; j < GP_BN / 8; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float u = c0 + 8 * j + e < V
-                                    ? d[4 * j + 2 * h + e] * k : NEG_BIG;
-                l += ex(u - mx);
-              }
-          };
-          if (log2) fold([](float a) { return exp2f(a); });
-          else fold([](float a) { return expf(a); });
-          l += __shfl_xor_sync(0xffffffffu, l, 1);
-          l += __shfl_xor_sync(0xffffffffu, l, 2);
-          t += __shfl_xor_sync(0xffffffffu, t, 1);
-          t += __shfl_xor_sync(0xffffffffu, t, 2);
-          if ((threadIdx.x & 3) == 0 && r < N) {
-            float* p = part + (int64_t)tn * 3 * N + r;
-            p[0] = log2 ? mx * LN2 : mx;
-            p[N] = l;
-            p[2 * N] = t;
-          }
-        }
+        fold_tile(d, targets, part + (int64_t)tn * 3 * N, N, m0, n0, V, 0,
+                  log2);
       });
+}
+
+// The f32 forward of vocab columns [v0, v0 + vc): the scores of the 128 x
+// 128 tile (tm, tn) of the chunk on the split-TF32 pipeline (x's planes (N,
+// D) and the chunk's transposed planes (vc, D), both K-major, as the f32
+// backward's launch 1 reads them), folded in the epilogue into partial
+// tile0 + tn of part.
+__global__ void __launch_bounds__(GP_THREADS, 1)
+ce_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const int* __restrict__ targets, float* __restrict__ part,
+                   int N, int D, int v0, int vc, int tile0, int log2) {
+  int tm, tn;
+  gemm_tile_order(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y, gridDim.x,
+                  tm, tn);
+  const int m0 = tm * GP_BM, n0 = tn * TF_BN;
+  gemm_pipeline_tf32(&map_x, &map_w, m0, n0, 0, D, [&](const float (&d)[64]) {
+    fold_tile(d, targets, part + (int64_t)(tile0 + tn) * 3 * N, N, m0, n0, vc,
+              v0, log2);
+  });
 }
 
 // Launch 2: dx (N, D) (+)= dlog (N, vc) · W[:, v0 .. v0 + vc)^T, a 128 x
@@ -577,27 +513,6 @@ cudaError_t launch_gp(Kernel kernel, bool copy, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-template <bool LOG2>
-cudaError_t fwd_f32(const float* x, const float* w, const int* targets,
-                    float* part, int N, int D, int V, int n_split,
-                    int tiles_per_split, cudaStream_t stream) {
-  constexpr int bytes = TILE_BYTES + 4 * BN * 4 + STAGE_BYTES;
-  auto kernel = ce_fwd_kernel<LOG2>;
-  cudaError_t e = allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + BN - 1) / BN, n_split);
-  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, part, N, D, V,
-                                           tiles_per_split);
-  return cudaSuccess;
-}
-
 // the bf16 forward: one partial a 256-column vocab tile
 cudaError_t fwd_bf16(const bf16* x, const bf16* w, const int* targets,
                      float* part, int N, int D, int V, int log2,
@@ -630,30 +545,39 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* w, const int* targets,
 }  // namespace
 
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
-                          float* part, int N, int D, int V, int n_split,
-                          int tiles_per_split, int log2, int dtype,
+                          float* part, int N, int D, int V, int log2,
                           cudaStream_t stream) {
-  // the vocab tiles of a split: f32 BV columns, bf16 GP_BN
-  const int n_vt = (V + (dtype == kBF16 ? GP_BN : BV) - 1) /
-                   (dtype == kBF16 ? GP_BN : BV);
-  if (N < 0 || D <= 0 || V <= 0 || n_split <= 0 || tiles_per_split <= 0 ||
-      (n_split - 1) * tiles_per_split >= n_vt ||
-      n_split * tiles_per_split < n_vt || n_split > 65535)
-    return cudaErrorInvalidValue;  // every split needs a tile, every tile a split
-  if (dtype == kBF16 && tiles_per_split != 1)
-    return cudaErrorInvalidValue;  // bf16: one split a vocab tile
+  if (N < 0 || D <= 0 || V <= 0 || (V + GP_BN - 1) / GP_BN > 65535)
+    return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  const float* fx = static_cast<const float*>(x);
-  const float* fw = static_cast<const float*>(w);
-  if (dtype == kF32)
-    return log2 ? fwd_f32<true>(fx, fw, targets, part, N, D, V, n_split,
-                                tiles_per_split, stream)
-                : fwd_f32<false>(fx, fw, targets, part, N, D, V, n_split,
-                                 tiles_per_split, stream);
-  if (dtype == kBF16)
-    return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                    targets, part, N, D, V, log2, stream);
-  return cudaErrorInvalidValue;
+  return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                  targets, part, N, D, V, log2, stream);
+}
+
+cudaError_t ce_fwd_f32_launch(const float* x, const float* w,
+                              const int* targets, float* part, float* xs,
+                              float* ws, int N, int D, int V, int v0, int vc,
+                              int tile0, int split_x, int log2, int* passes,
+                              cudaStream_t stream) {
+  const dim3 grid((vc + TF_BN - 1) / TF_BN, (N + GP_BM - 1) / GP_BM);
+  if (N <= 0 || D <= 0 || vc <= 0 || v0 < 0 || v0 + vc > V || tile0 < 0 ||
+      grid.y > 65535 || !aligned16(xs) || !aligned16(ws))
+    return cudaErrorInvalidValue;
+  const int64_t d4 = (D + 3) / 4 * 4;
+  // x's planes (2, N, d4), split once a call; the chunk's transposed
+  // planes (2, vc, d4), split once a chunk
+  cudaError_t e = cudaSuccess;
+  if (split_x)
+    e = split_tf32_launch(x, N, D, D, xs, d4, nullptr, 0, passes, stream);
+  if (e == cudaSuccess)
+    e = split_tf32_launch(w + v0, D, vc, V, nullptr, 0, ws, d4, passes,
+                          stream);
+  CUtensorMap mx{}, mw{};
+  if (e == cudaSuccess) e = tma_map_planes(&mx, xs, D, N, d4, GP_BM);
+  if (e == cudaSuccess) e = tma_map_planes(&mw, ws, D, vc, d4, TF_BN);
+  if (e != cudaSuccess) return e;
+  return launch_tf32(ce_fwd_tf32_kernel, grid, stream, mx, mw, targets, part,
+                     N, D, v0, vc, tile0, log2);
 }
 
 cudaError_t ce_combine_launch(const float* part, const int* targets,

@@ -19,8 +19,14 @@ time (the profiler's, 5 calls), the bound (three products of 2 N D V
 operations over 989 TFLOP/s) and the largest error of dx and dW against
 ce_bwd_ref relative to their largest value; then autograd's backward of
 torch.matmul and F.cross_entropy on the same inputs (the library call).
-Then the f32 backward at the same shape in f32 (natural-log tier, the f32
-default): one line per chunk length, bwd_vocab_chunk_f32's (8192), the
+Then the f32 forward at the same shape in f32 (natural-log tier, the f32
+default): its launches (and the operand passes'), the events and device
+times, the bounds (as the backward's, of one product), the device memory
+a call adds at its peak, and the largest error of loss and lse against
+an f64 product and log-sum-exp of the same inputs (ce_fwd_f64) beside
+_ce_ref's in f32 on cuBLAS (TF32 off); then torch.matmul and
+F.cross_entropy in f32. Then the f32 backward: one line per chunk length,
+bwd_vocab_chunk_f32's (8192), the
 whole vocab and 4096, with its launches (and the operand passes'), the
 events and device times, the bounds (3 products of 2 N D V as split-TF32
 products, ops/split_tf32.py bound_s, where the tree has that tier, and
@@ -56,6 +62,56 @@ def ce_bwd_f64(x, w, targets, lse, g):
     return dlog @ wd.T, xd.T @ dlog
 
 
+def ce_fwd_f64(x, w, targets):
+    """(loss, lse) in f64 from the same inputs: the exact function the
+    f32 forward and _ce_ref round."""
+    logits = x.double() @ w.double()
+    lse = torch.logsumexp(logits, dim=-1)
+    t = logits.gather(-1, targets.long().clamp(min=0)[:, None])[:, 0]
+    return torch.where(targets < 0, 0.0, lse - t), lse
+
+
+def _f32_fwd_lines(label, x, w, t, bounds, st):
+    from tpukern_torch.ops import cross_entropy as ce
+    exact = ce_fwd_f64(x, w, t)
+
+    def errs(out):
+        return ", ".join(f"{n} {(o.double() - e).abs().max().item():.3e}"
+                         for n, o, e in zip(("loss", "lse"), out, exact))
+
+    def fwd():
+        return ce.ce_fwd(x, w, t, False)
+    before = (ce.ce_fwd.launches, st.split_tf32.launches if st else 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fwd()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    counts = (ce.ce_fwd.launches - before[0],
+              (st.split_tf32.launches if st else 0) - before[1])
+    err = errs(out)
+    del out
+    dev = _device_ms(fwd, 3)
+    print(f"[{label}] ce_fwd f32: launches {counts[0]} (+{counts[1]} "
+          f"operand passes), events "
+          f"{run_benchmark(fwd, warmup=1, iters=3, reps=3):.4f} ms, device "
+          f"{'not measured' if dev is None else f'{dev:.4f}'} ms, bound "
+          f"{bounds}, peak {peak:.1f} MiB above its inputs, max abs err vs "
+          f"f64: {err}", flush=True)
+    print(f"[{label}] _ce_ref f32 (cuBLAS, TF32 off): max abs err vs f64: "
+          f"{errs(ce._ce_ref(x, w, t))}", flush=True)
+
+    def lib():
+        return F.cross_entropy(torch.matmul(x, w), t.long(), ignore_index=-1,
+                               reduction="none")
+    dev = _device_ms(lib, 3)
+    print(f"[{label}] library f32 (matmul + cross_entropy): events "
+          f"{run_benchmark(lib, warmup=1, iters=3, reps=3):.4f} ms, device "
+          f"{'not measured' if dev is None else f'{dev:.4f}'} ms",
+          flush=True)
+
+
 def _f32_lines(label, gen):
     from tpukern_torch.ops import cross_entropy as ce
     try:
@@ -69,6 +125,12 @@ def _f32_lines(label, gen):
                       dtype=torch.int32)
     t[torch.rand(N, generator=gen, device="cuda") < 0.05] = -1
     g = torch.full((N,), 1.0 / N, device="cuda")
+    fwd_flops = 2 * N * D * V
+    fwd_bounds = f"{fwd_flops / 67e12 * 1e3:.4f} ms f32 FMA"
+    if st is not None:
+        fwd_bounds = (f"{st.bound_s(fwd_flops) * 1e3:.4f} ms split-TF32, "
+                      + fwd_bounds)
+    _f32_fwd_lines(label, x, w, t, fwd_bounds, st)
     _, lse = ce.ce_fwd(x, w, t, False)
     exact = ce_bwd_f64(x, w, t, lse, g)
 

@@ -14,16 +14,22 @@ profiler's, 20 calls), the CUDA events time of back-to-back calls
 bound (the larger of q, k, v and o moved once over 3.35 TB/s and the
 visible pairs' 4 D flops over 989 TFLOP/s), the share of it reached, and
 the largest error against attention_ref; then
-F.scaled_dot_product_attention on the same inputs (the library call; none
-for the masks with a softcap, which SDPA cannot express). A tree without
+F.scaled_dot_product_attention on the same inputs (the library call). SDPA
+cannot express a softcap: the Gemma-2 masks' library call is
+torch.compile of flex_attention in bf16, the softcap as its score_mod and
+the window plus the sinks as its block mask, timed the same way (its
+compile caches under tpukern_torch/build/, as chip_smoke.py keeps
+them). A tree without
 the tile option (the redesign's parent) times its one kernel. To compare
 two versions on one card, run it in one command from each tree's own
 root (`python -m` puts the working directory first on the path), the
 trees in turns. Needs a CUDA device.
 """
 
+import os
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +67,9 @@ def _line(label, name, fn, ref, bound):
 def main(label="this tree"):
     if not torch.cuda.is_available():
         raise SystemExit("fa_times needs a CUDA device")
+    build = Path(__file__).resolve().parents[1] / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
     from tpukern_torch.ops import attention
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,10 +107,39 @@ def main(label="this tree"):
                 .to(torch.bfloat16) for _ in range(2))
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         ref = attention.attention_ref(q, k, v, causal=True, **GEMMA2)
-        _line(label, f"S {S} gemma2 masks, default tiles (library: none)",
+        bound = _bound_ms(S, nbytes, **GEMMA2)
+        _line(label, f"S {S} gemma2 masks, default tiles",
               lambda: attention.flash_attention(q, k, v, causal=True,
                                                 **GEMMA2),
-              ref, _bound_ms(S, nbytes, **GEMMA2))
+              ref, bound)
+        flex = _flex_gemma2(S)
+        _line(label, f"S {S} gemma2 masks library (compiled flex_attention)",
+              lambda: flex(q, k, v), ref, bound)
+        del ref
+
+
+def _flex_gemma2(S):
+    """torch.compile of flex_attention with the Gemma-2 masks: softcap
+    as cap·tanh(s/cap) of the scaled score, the causal band of `window`
+    keys plus the first `sinks` as the block mask, GQA inside."""
+    from functools import partial
+
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    cap, window, sinks = (GEMMA2[k] for k in ("softcap", "window", "sinks"))
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask(b, h, qi, ki):
+        return (ki <= qi) & ((ki > qi - window) | (ki < sinks))
+
+    torch._inductor.config.compile_threads = 1  # no worker processes
+    return partial(torch.compile(flex_attention), score_mod=score_mod,
+                   block_mask=create_block_mask(mask, None, None, S, S,
+                                                device="cuda"),
+                   enable_gqa=True)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 
 The port of tpukern/ops/cross_entropy.py. Kernels: csrc/cross_entropy.cu,
 which replaces `_ce_fwd_kernel` (cross_entropy.py:53) with a split-vocab
-forward (f32: CUDA-core tiles walking a split each; bf16: one TMA + wgmma
-GEMM launch, a partial for each 256-column vocab tile) and a combine
-pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
+forward (bf16: one TMA + wgmma GEMM launch, a partial for each 256-column
+vocab tile; f32: one split-TF32 GEMM launch a vocab chunk of
+bwd_vocab_chunk_f32, a partial for each 128-column tile of a chunk) and a
+combine pass, and `_ce_dx_kernel` (:95) and `_ce_dw_kernel`
 (:132) with three GEMM launches a vocab chunk: dlog into a scratch,
 then dx and dW from it, no atomics; bf16 on the TMA + wgmma pipeline
 (chunks of bwd_vocab_chunk), f32 on its split-TF32 form (chunks of
@@ -27,7 +28,7 @@ from tpukern_torch.ops import split_tf32
 
 NEG_BIG = -0.7 * 3.4e38
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
-TILE = 128  # token rows and vocab columns of an f32 score tile (csrc BN, BV)
+TILE = 128  # vocab columns of an f32 forward partial (csrc TF_BN)
 TILE_BF16 = 256  # vocab columns of a bf16 forward partial (csrc GP_BN)
 
 
@@ -108,39 +109,40 @@ def bwd_vocab_chunk_f32(N, D, V):
     return min(V, max(8, budget // step * step))
 
 
-def splits(N, V, n_sms):
-    """(n_split, tiles_per_split) of the f32 forward's vocab split: about
-    four blocks per SM (two resident, two waves), every split
-    non-empty."""
-    n_vt, row_tiles = cdiv(V, TILE), cdiv(N, TILE)
-    want = min(n_vt, max(1, cdiv(4 * n_sms, row_tiles)))
-    tps = cdiv(n_vt, want)
-    return cdiv(n_vt, tps), tps
-
-
-def fwd_splits(N, V, dtype, n_sms):
-    """(n_split, tiles_per_split) of the forward for inputs of dtype: bf16
-    writes one partial for each TILE_BF16-column vocab tile, f32 takes
-    splits()."""
+def fwd_splits(N, D, V, dtype):
+    """(partials, vocab chunk) of the forward for inputs of dtype: bf16
+    writes one partial for each TILE_BF16-column vocab tile in one launch
+    (the chunk is V); f32 launches once a chunk of bwd_vocab_chunk_f32
+    columns and writes one partial for each TILE-column tile of a chunk
+    (the last tile of a chunk may be narrower)."""
     if dtype == torch.bfloat16:
-        return cdiv(V, TILE_BF16), 1
-    return splits(N, V, n_sms)
+        return cdiv(V, TILE_BF16), V
+    chunk = bwd_vocab_chunk_f32(N, D, V)
+    return (V // chunk) * cdiv(chunk, TILE) + cdiv(V % chunk, TILE), chunk
 
 
-def ce_fwd_tiled_ref(x, w, targets, tile=TILE_BF16, use_exp2=False):
-    """(loss, lse) of _ce_ref in the bf16 forward's order, a test aid off
-    the main path: the f32 scores of each `tile`-column vocab tile folded
-    into a partial (its max in natural units, the sum of exp over it, in
-    log2 units with use_exp2, and the target logit if the target lies in
-    it), then the partials merged as ce_combine_kernel merges them (the
-    max of the maxima, the sum of l * exp(m - max), the sum of t)."""
+def ce_fwd_tiled_ref(x, w, targets, tile=TILE_BF16, use_exp2=False,
+                     chunk=None):
+    """(loss, lse) of _ce_ref in the forward kernels' order, a test aid
+    off the main path: for each vocab chunk of `chunk` columns (default
+    all of V) in turn, the f32 scores of each `tile`-column tile of the
+    chunk folded into a partial (its max in natural units, the sum of exp
+    over it, in log2 units with use_exp2, and the target logit if the
+    target lies in it), then the partials merged as ce_combine_kernel
+    merges them (the max of the maxima, the sum of l * exp(m - max) and
+    its log in f64, rounded once, the sum of t). The bf16 forward's order
+    at the defaults; the f32 forward's at tile=TILE and chunk from
+    fwd_splits."""
     xf, wf = x.float(), w.float()
     V = w.shape[1]
     tgt = targets.long()[:, None]
     parts = []
-    for v0 in range(0, V, tile):
-        s = xf @ wf[:, v0:v0 + tile]
-        cols = torch.arange(v0, v0 + s.shape[1], device=x.device)
+    starts = [(c0 + v0, min(c0 + v0 + tile, c0 + (chunk or V), V))
+              for c0 in range(0, V, chunk or V)
+              for v0 in range(0, min(chunk or V, V - c0), tile)]
+    for v0, v1 in starts:
+        s = xf @ wf[:, v0:v1]
+        cols = torch.arange(v0, v1, device=x.device)
         t = torch.where(cols == tgt, s, 0.0).sum(-1)
         if use_exp2:
             u = s * LOG2E
@@ -150,33 +152,47 @@ def ce_fwd_tiled_ref(x, w, targets, tile=TILE_BF16, use_exp2=False):
             m = s.amax(-1)
             parts.append((m, torch.exp(s - m[:, None]).sum(-1), t))
     m_all = torch.stack([p[0] for p in parts]).amax(0)
-    lse = m_all + torch.log(sum(p[1] * torch.exp(p[0] - m_all)
-                                for p in parts))
+    z = m_all.double() + torch.log(sum(
+        p[1].double() * torch.exp((p[0] - m_all).double()) for p in parts))
     t = sum(p[2] for p in parts)
-    return torch.where(targets < 0, 0.0, lse - t), lse
+    return (torch.where(targets < 0, 0.0, z - t).float(), z.float())
 
 
 def ce_fwd(x, w, targets, use_exp2=False):
     """(loss, lse) f32 (N,) of logits = x @ w for int32 targets < V. A CPU
     tensor takes the plain version; a CUDA tensor launches the split
-    forward (fwd_splits' partials) and the combine pass (two launches,
-    both counted)."""
+    forward (fwd_splits' partials: one launch in bf16, one a vocab chunk
+    in f32, after the split-TF32 operand pass on x once a call and on W's
+    chunk once a chunk, counted in split_tf32.split_tf32.launches) and
+    the combine pass, each launch counted."""
     if x.device.type == "cpu":
         return _ce_ref(x, w, targets)
     _build.check_cuda(x, w, targets)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ce_fwd takes f32 or bf16 inputs, got {x.dtype}")
     N, D = x.shape
     V = w.shape[1]
     x, w = _build.aligned(x), _build.aligned(w)
-    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_split, tps = fwd_splits(N, V, x.dtype, n_sms)
+    n_split, chunk = fwd_splits(N, D, V, x.dtype)
     part = torch.empty(n_split, 3, N, device=x.device)
     loss = torch.empty(N, device=x.device)
     lse = torch.empty(N, device=x.device)
     s = _build.stream(x)
-    _build.launch("tk_ce_fwd", x.data_ptr(), w.data_ptr(), targets.data_ptr(),
-                  part.data_ptr(), N, D, V, n_split, tps, int(use_exp2),
-                  _build.dtype_code(x), s)
-    ce_fwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        _build.launch("tk_ce_fwd", x.data_ptr(), w.data_ptr(),
+                      targets.data_ptr(), part.data_ptr(), N, D, V,
+                      int(use_exp2), s)
+        ce_fwd.launches += 1
+    elif N:
+        xs, ws = (torch.empty(n, device=x.device)
+                  for n in split_tf32.ce_fwd_scratch(N, D, chunk))
+        for i, v0 in enumerate(range(0, V, chunk)):
+            split_tf32.launch_counting_passes(
+                "tk_ce_fwd_f32", x.data_ptr(), w.data_ptr(),
+                targets.data_ptr(), part.data_ptr(), xs.data_ptr(),
+                ws.data_ptr(), N, D, V, v0, min(chunk, V - v0),
+                i * cdiv(chunk, TILE), int(v0 == 0), int(use_exp2), s)
+            ce_fwd.launches += 1
     _build.launch("tk_ce_combine", part.data_ptr(), targets.data_ptr(),
                   loss.data_ptr(), lse.data_ptr(), N, n_split, s)
     ce_fwd.launches += 1

@@ -10,7 +10,9 @@ which replaces `kernel` (matmul_w8a16.py:106), the Pallas body of
 accumulated in f32 and written in out_dtype (default: x's). The int8
 weights are read as int8 (half the bytes of bf16 weights: the point of
 the tier at decode, where the product is bound by the weight read) and
-widened in shared memory; the scale multiplies each output once.
+widened in registers (bf16: tokens are the MMA's N, so a decode call pads
+its few rows to 8, not 64; widen_int8_ref is the widening's arithmetic);
+the scale multiplies each output once.
 
 JAX's dispatch is kept: at M > 128 rows, unless force_kernel is set,
 the product is jnp.dot over weights dequantized in the compute dtype
@@ -34,11 +36,16 @@ import functools
 import torch
 
 from tpukern_torch import _build
+from tpukern_torch.core import cdiv
 from tpukern_torch.core.registry import register
 
 KERNEL_MAX_M = 128  # JAX's dispatch: above this M the dequant-dot path
-# csrc/matmul_w8a16.cu W_BM, W_BN, W_BK: the output tile and K slice
-TILE_M, TILE_N, TILE_K = 64, 128, 32
+# csrc/matmul_w8a16.cu: the weight columns of a block (W_BN, Q_BN); the
+# tokens of a block and the K rows of a slice (bf16: Q_TOKENS, Q_BK; f32:
+# W_BM, W_BK)
+TILE_N = 128
+TILE_M = {torch.bfloat16: 128, torch.float32: 64}
+TILE_K = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def quantize_weights(w):
@@ -89,21 +96,81 @@ def matmul_w8a16_ref(x, w_q, scale, *, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
+def widen_int8_ref(q):
+    """int8 q as the bf16 kernel widens it, bit for bit: b & 0x7F in the
+    mantissa of bf16 128 (bits 0x4300 | (b & 0x7F)) minus 128 or 256
+    (0x4300 | (b & 0x80)), exact for every int8 (csrc/matmul_w8a16.cu
+    widen_int8)."""
+    b = q.to(torch.int32) & 0xFF
+
+    def bf16(bits):
+        return (bits << 16).view(torch.float32)
+    return (bf16(0x4300 | (b & 0x7F)) - bf16(0x4300 | (b & 0x80))).to(
+        torch.bfloat16)
+
+
+def token_tiles(M):
+    """n8 token tiles a block of the bf16 kernel takes (its instance):
+    M's first 128 rows in tiles of 8, rounded up to a power of two."""
+    n = cdiv(min(M, TILE_M[torch.bfloat16]), 8)
+    return 1 << max(n - 1, 0).bit_length()
+
+
 @functools.cache
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(M, N, K, sms):
-    """K slices per output tile: enough blocks for two waves of the
-    card's SMs (the decode shapes have a few dozen output tiles), at
-    least one K slice of TILE_K each. Returns (splits, K slices a
-    split)."""
-    n_kt = -(-K // TILE_K)
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    splits = max(1, min(n_kt, -(-2 * sms // tiles)))
-    per = -(-n_kt // splits) if n_kt else 0
-    return (-(-n_kt // per) if per else 1), per
+# a lever for timing: splits of K forced on the bf16 kernel (None: the
+# rule of _splits)
+SPLITS = None
+
+
+@functools.cache
+def _rule(M, N, K, sms, dtype):
+    n_kt = cdiv(K, TILE_K[dtype])
+    tiles = cdiv(M, TILE_M[dtype]) * cdiv(N, TILE_N)
+    if dtype == torch.bfloat16:
+        # at most two waves of blocks, rounded down, and 16 splits (8 from
+        # 4 token tiles on: the last block's merge waits on more round
+        # trips to L2 a split); the best of 1-32 splits on an H100 at the
+        # 7bish shapes, M = 4, 20 and 128 (harness/w8a16_times.py --sweep)
+        want = min(2 * sms // tiles, 16 if token_tiles(M) <= 2 else 8)
+    else:
+        want = cdiv(2 * sms, tiles)
+    splits = max(1, min(n_kt, want))
+    per = cdiv(n_kt, splits) if n_kt else 0
+    return (cdiv(n_kt, per) if per else 1), per
+
+
+def _splits(M, N, K, sms, dtype=torch.bfloat16):
+    """K slices per output tile of the kernel for x of dtype, at least
+    one K slice of TILE_K[dtype] rows each: bf16 at most two waves of
+    blocks and 16 splits (8 from 4 token tiles on), f32 two waves (the
+    decode shapes have a few dozen output tiles). Returns (splits, K
+    slices a split); one answer a shape, kept. SPLITS, where set, forces
+    the bf16 kernel's count."""
+    if SPLITS is None or dtype != torch.bfloat16:
+        return _rule(M, N, K, sms, dtype)
+    n_kt = cdiv(K, TILE_K[dtype])
+    per = cdiv(n_kt, max(1, min(SPLITS, n_kt))) if n_kt else 0
+    return (cdiv(n_kt, per) if per else 1), per
+
+
+# (device, stream) -> f32 workspace of the split-K partials, grown to the
+# largest call's and kept: a call on the stream finishes with it before
+# the next one starts
+_WORKSPACE = {}
+
+
+def _workspace(device, stream, n):
+    """n f32 values of split-K workspace on device for a launch on
+    stream, reused across calls."""
+    ws = _WORKSPACE.get((device, stream))
+    if ws is None or ws.numel() < n:
+        ws = torch.empty(n, device=device)
+        _WORKSPACE[(device, stream)] = ws
+    return ws
 
 
 def matmul_w8a16(x, w_q, scale, *, out_dtype=None, force_kernel=False):
@@ -129,13 +196,13 @@ def matmul_w8a16(x, w_q, scale, *, out_dtype=None, force_kernel=False):
     x, w_q = _build.aligned(x), _build.aligned(w_q)
     scale = scale.float().contiguous()
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    splits, per = _splits(M, N, K, _sm_count(x.device.index or 0))
+    splits, per = _splits(M, N, K, _sm_count(x.device.index or 0), x.dtype)
+    stream = _build.stream(x)
     # f32 partials of every K slice of every tile, summed in slice order
     # by the last block of the tile to finish
-    ws = (torch.empty(splits, M, N, device=x.device) if splits > 1
+    ws = (_workspace(x.device, stream, splits * M * N) if splits > 1
           else None)
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    stream = _build.stream(x)
+    tiles = cdiv(M, TILE_M[x.dtype]) * cdiv(N, TILE_N)
     tickets = _build.tickets(x.device, stream, tiles)
     _build.launch("tk_matmul_w8a16", x.data_ptr(), w_q.data_ptr(),
                   scale.data_ptr(), out.data_ptr(), _build.ptr(ws),

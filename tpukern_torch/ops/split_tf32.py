@@ -237,6 +237,13 @@ def matmul_scratch(M, N, K, splits=1):
             + (splits * tiles * TILE * TILE if splits > 1 else 0))
 
 
+def ce_fwd_scratch(N, D, vc):
+    """(x's, W's chunk's) f32 values of scratch of the f32 CE forward at a
+    chunk of vc columns: x's planes (2, N, D4) and the chunk's transposed
+    planes (2, vc, D4), D4 = D rounded up to 4."""
+    return 2 * N * round_up(D, 4), 2 * vc * round_up(D, 4)
+
+
 def ce_scratch(N, D, vc):
     """(x's, W's chunk's, dlog's) f32 values of scratch of the f32 CE
     backward at a chunk of vc columns: each split into two layouts
