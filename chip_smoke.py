@@ -84,9 +84,12 @@
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
    D 512, S 8192, the one-hot #40 at V 1024; histogram 2^20 values in
-   256 bins, nms 1024 boxes), matmul_kpipe and #16 on each of its bf16
-   load paths, with the eighteen zoo kernels' launch counts (and #16's
-   and matmul's by load path) reset just before and read just after;
+   256 bins, nms 1024 boxes), matmul_kpipe, #16 on each of its bf16
+   load paths and the grid softmax at 64 x 131072, with the nineteen zoo
+   kernels' launch counts (and #16's and matmul's by load path) reset
+   just before and read just after, each grid softmax call held to one
+   launch of the cluster kernel (at 4096 x 4096) or of #35 and of #36
+   (at 64 x 131072) and no other;
    the bf16 matmul ladder also at 4095 x 4097 (the copy path); holds
    every variant against its plain version (#30-#37, the transpose #42
    and gemv #44 also at 4095 x 4097, a tail in every tier; softmax and
@@ -97,8 +100,14 @@
    TMA; histogram #41 also at 2^20 - 1 values in 1000
    bins from -5 to 1005, at 2^26 values and with every value in one bin;
    nms #43 also at 1000 and 4000 boxes with pairs at an IoU of exactly
-   0.5), runs softmax_global under sync debug mode "error", and times the
-   zoo's variants, #35, #36 and #43 alone, #41 at 2^26 values and in
+   0.5; #30's tiers bit for bit against each other at 4095 x 4097,
+   aligned and 2 elements off, add, mul and relu also against the plain
+   version; the cluster softmax kernel at 1-16 tiles a row, odd columns
+   and rows of -inf, twice bit for bit, its
+   cudaOccupancyMaxActiveClusters printed), runs softmax_global under
+   sync debug mode "error", and times the zoo's variants (all six tiers
+   of add and of gelu beside torch.add and F.gelu), the grid variant at
+   64 x 131072, #35, #36 and #43 alone, #41 at 2^26 values and in
    one bin, #16 at 4095 x 4097 and #40 at V 32768, with the L2 flushed
    before each call, beside the plain version, the library call and the
    bound;
@@ -327,7 +336,11 @@ def phase_build():
 # wgmma); #40 runs no matrix product (HMMA, HGMMA); the bf16 w8a16 GEMM
 # (#25) runs mma.sync (HMMA) at 1, 2 and 4 token tiles and register-A
 # wgmma (HGMMA, no HMMA) at 8 and 16, and widens its int8 weights with no
-# conversion instruction (I2F, I2FP) in every instance
+# conversion instruction (I2F, I2FP) in every instance; every instance of
+# #30's ew_kernel loads its tier's width (16-bit LDG16 at bf16 x1, 32-bit
+# LDG32 at f32 x1 and bf16 x2, LDG64 at f32 x2, LDG128 at the 16-byte
+# tiers) and nothing wider; the cluster softmax kernel (#35 + #36) passes
+# the cluster barrier (UCGABAR_ARV, UCGABAR_WAIT)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_fwd_wgmma_kernelILb1ELb1E": _WGMMA_TMA,
@@ -354,7 +367,22 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
                 for nt in (1, 2, 4)},
              **{f"w8a16_mma_kernelILi{nt}E": {"HGMMA": True, "HMMA": False,
                                                "I2F": False, "I2FP": False}
-                for nt in (8, 16)}}
+                for nt in (8, 16)},
+             **{f"ew_kernelI{t}Li{vec}E": {
+                 f"LDG{bits}": True,
+                 **{f"LDG{w}": False for w in (64, 128) if w > bits}}
+                for t, vec, bits in (
+                    ("f", 1, 32), ("f", 2, 64), ("f", 4, 128),
+                    ("13__nv_bfloat16", 1, 16), ("13__nv_bfloat16", 2, 32),
+                    ("13__nv_bfloat16", 8, 128))},
+             "softmax_grid_fused_kernel": {"UCGABAR_ARV": True,
+                                           "UCGABAR_WAIT": True}}
+# SASS_WANT's names for instructions that a plain word does not pick out:
+# the global loads by width (LDG.E is 32 bits, with or without the
+# read-only .CONSTANT; the others name their width)
+SASS_PATTERNS = {"LDG16": r"\bLDG\.E\.(U|S)16\b",
+                 "LDG32": r"\bLDG\.E(\.CONSTANT)?\s",
+                 "LDG64": r"\bLDG\.E\.64\b", "LDG128": r"\bLDG\.E\.128\b"}
 # kernels whose wgmmas ptxas must leave asynchronous: no C7520 info line
 # ("wgmma.mma_async instructions are serialized") may name them
 NO_SERIALIZED = ("w8a16_mma_kernel", "gemm_tf32_kernel",
@@ -384,7 +412,7 @@ def sass_counts(lib):
             continue
         for c in current:
             for op in ops:
-                if re.search(rf"\b{op}\b", line):
+                if re.search(SASS_PATTERNS.get(op, rf"\b{op}\b"), line):
                     c[op] += 1
     require(proc.wait() == 0, f"{tool} -sass failed")
     require(seen == set(SASS_WANT), f"no SASS of {set(SASS_WANT) - seen}")
@@ -4301,7 +4329,8 @@ ZOO_REGISTERED = ["attention", "paged_attention", "quant", "cross_entropy",
                   "sampling", "grouped_matmul", "matmul_w8a16"]
 ZOO_KERNELS = ("ew_call", "reduce_all", "dot_prod", "matmul_naive", "rope",
                "matmul_kpipe", "softmax_per_token", "online_softmax_per_token",
-               "softmax_grid_stats", "softmax_grid_norm", "layer_norm",
+               "softmax_grid_stats", "softmax_grid_norm", "softmax_grid_fused",
+               "layer_norm",
                "embedding_prefetch", "embedding_dma", "embedding_onehot",
                "histogram", "transpose", "nms_keep", "gemv")
 # the variant (or the call) whose times each zoo kernel's row of the
@@ -4315,6 +4344,7 @@ ZOO_ROW = {"ew_call": "elementwise.add_f32_r256",
            "online_softmax_per_token": "softmax.softmax_online_f32_per_token",
            "softmax_grid_stats": "softmax_grid_stats torch.float32",
            "softmax_grid_norm": "softmax_grid_norm torch.float32",
+           "softmax_grid_fused": "softmax.softmax_online_f32_grid",
            "layer_norm": "layer_norm.layer_norm_f32_r8",
            "embedding_prefetch": "embedding.embedding_prefetch_f32",
            "embedding_dma": "embedding.embedding_dma_f32",
@@ -4365,6 +4395,15 @@ ZOO_HIST_LARGE = 2 ** 26
 # IoU of exactly 0.5, kept only by the strict >), and its kernel timed
 # alone at the bench size on boxes sorted by score
 ZOO_NMS_CHECKED = (1000, 4000)
+# the grid softmax variant timed on #35 then #36 (the wide rows)
+ZOO_GRID_WIDE = "softmax.softmax_online_f32_grid 64x131072 (#35, #36)"
+# the cluster kernel (#35 + #36 in one launch) against its plain version:
+# (rows, cols, block_cols), ncb 1, 3, 8, 9 and 16 tiles a row, odd
+# columns (no whole 16-byte packs in bf16 at 1300, in either dtype at
+# 4001 and 4097) and the bench shape; each also with a row of -inf and a
+# row whose last tile (of several) is -inf
+ZOO_FUSED_SHAPES = ((300, 500, 512), (1000, 1300, 512), (129, 4001, 512),
+                    (129, 4097, 512), (100, 8192, 512), (4096, 4096, 512))
 
 
 def _zoo_fns():
@@ -4380,6 +4419,7 @@ def _zoo_fns():
             "online_softmax_per_token": sm.online_softmax_per_token,
             "softmax_grid_stats": sm.grid_stats,
             "softmax_grid_norm": sm.grid_norm,
+            "softmax_grid_fused": sm.grid_fused,
             "layer_norm": layernorm.layer_norm,
             "embedding_prefetch": embedding.embedding_prefetch,
             "embedding_dma": embedding.embedding_dma,
@@ -4389,9 +4429,11 @@ def _zoo_fns():
             "gemv": gemv.gemv}
 
 
-def _zoo_kernels(v):
+def _zoo_kernels(v, shape=None):
     """The kernels (ZOO_KERNELS names or an earlier slice's) that variant v
-    launches: none for a torch baseline."""
+    launches at shape (default: ops_bench.Size()'s S x K): none for a
+    torch baseline; the grid softmax one cluster launch or #35 then #36,
+    by softmax.grid_plan."""
     if "baseline" in v.tags:
         return ()
     if v.family in ZOO_FAMILIES[:8]:
@@ -4406,6 +4448,12 @@ def _zoo_kernels(v):
         if v.name.endswith("_global"):
             return ("reduce_all", "ew_call")
         if v.name.endswith("_grid"):
+            from tpukern_torch.harness import ops_bench
+            from tpukern_torch.ops import softmax as sm
+            size = ops_bench.Size()
+            rows, cols = shape or (size.S, size.K)
+            if sm.grid_plan(rows, cols).path == "cluster":
+                return ("softmax_grid_fused",)
             return ("softmax_grid_stats", "softmax_grid_norm")
         return (("online_softmax_per_token",) if "_online_" in v.name
                 else ("softmax_per_token",))
@@ -4414,6 +4462,13 @@ def _zoo_kernels(v):
     if v.family == "nms":
         return ("nms_keep",)
     return (v.family,)
+
+
+def _zoo_made(fns, before):
+    """{kernel: launches} of the zoo kernels launched since the counts were
+    `before`."""
+    return {n: f.launches - before[n] for n, f in fns.items()
+            if f.launches != before[n]}
 
 
 def _zoo_library(v, args):
@@ -4604,6 +4659,83 @@ def _zoo_memory_ops(checks, gen, timed):
                              _nbytes(ordered) + 4 * n_boxes)))
 
 
+def _zoo_ew_tiers(checks, gen):
+    """#30's every op at ZOO_TAIL elements, aligned and in a view 2
+    elements off: the tiers of a dtype compute each element by one f32
+    formula, so all give the same bits;
+    add, mul and relu also equal the plain version bit for bit, the
+    others within TOLS of it."""
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import _ew
+
+    n = ZOO_TAIL[0] * ZOO_TAIL[1]
+    base = _randn(gen, 2, n + 2, dtype=torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        b = base.to(dt)
+        for view, xs in (("aligned", [b[0, :n], b[1, :n]]),
+                         ("2 elements off", [b[0, 2:], b[1, 2:]])):
+            for op, (_, nargs, _) in _ew.OPS.items():
+                args, sc = xs[:nargs], ()
+                if op in ("exp_sub", "div"):  # softmax_global's scalar
+                    args, sc = xs[:1], (b[0, :7].float().abs().sum() + 1,)
+                ref = _ew.ew_ref(op, *args, scalars=sc)
+                outs = [_ew.ew_call(op, *args, scalars=sc, vec=vec)
+                        for vec in _ew._VECS[dt]]
+                same = all(torch.equal(o, outs[0]) for o in outs)
+                err = (outs[0].double() - ref.double()).abs().max().item()
+                exact = op in ("add", "mul", "relu")
+                rtol, atol = ops_bench.TOLS[dt]
+                close = bool((outs[0].double() - ref.double()).abs().le(
+                    atol + rtol * ref.double().abs()).all())
+                ok = same and (torch.equal(outs[0], ref) if exact else close)
+                print(f"[zoo] ew {op:10s} {str(dt):15s} {view:14s} "
+                      f"{len(outs)} tier calls bit-equal {same}; against "
+                      f"the plain version max_abs {err:.3e} "
+                      f"({'bit-equal' if exact else f'rtol {rtol:g}'}) "
+                      f"{'ok' if ok else 'MISS'}")
+                checks.record("ew_call", ok, err)
+
+
+def _zoo_grid_fused(checks, gen):
+    """The cluster kernel (softmax.grid_fused) against its plain version
+    grid_fused_ref at ZOO_FUSED_SHAPES in f32 and bf16
+    (ops_bench.softmax_check on the finite rows, the NaN rows of an all
+    -inf row where the plain version has them), called twice (bit for
+    bit); prints its plan and cudaOccupancyMaxActiveClusters at the bench
+    shape."""
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import softmax as sm
+
+    for dt in (torch.float32, torch.bfloat16):
+        R, smem, active, launched = sm.fused_plan(4096, 4096, dt)
+        print(f"[zoo] cluster kernel {dt} 4096x4096: {R} rows a block of "
+              f"{sm.grid_plan(4096, 4096).ncb} "
+              f"tiles, {smem} shared bytes a block, "
+              f"cudaOccupancyMaxActiveClusters {active}, {launched} "
+              f"clusters launched")
+        require(active > 0, f"[zoo] no cluster of the {dt} kernel fits")
+        for rows, cols, bc in ZOO_FUSED_SHAPES:
+            x = 3 * torch.randn(rows, cols, generator=gen, device="cuda")
+            x[rows // 2] = -torch.inf
+            if cols > bc:
+                x[rows // 3, (cols - 1) // bc * bc:] = -torch.inf
+            x = x.to(dt)
+            out, again = sm.grid_fused(x, block_cols=bc), sm.grid_fused(
+                x, block_cols=bc)
+            ref = sm.grid_fused_ref(x, bc)
+            nan = ref.float().isnan().any(-1)
+            ok, err, rule = ops_bench.softmax_check(out[~nan], ref[~nan], dt)
+            ok &= torch.equal(out.isnan(), ref.isnan())
+            same = torch.equal(out.isnan(), again.isnan()) and torch.equal(
+                out.nan_to_num(), again.nan_to_num())
+            print(f"[zoo] cluster kernel {dt} {rows}x{cols} block_cols {bc} "
+                  f"({sm.grid_plan(rows, cols).ncb} "
+                  f"tiles, {int(nan.sum())} NaN rows as the plain version's) "
+                  f"max_abs {err:.3e} ({rule}); repeats bit for bit {same} "
+                  f"{'ok' if ok and same else 'MISS'}")
+            checks.record("softmax_grid_fused", ok and same, err)
+
+
 def _f64_check(v, args):
     """ops_bench.check's (ok, largest |difference|, rule) for an f32
     product against the f64 product, within TOLS plus the contraction
@@ -4709,21 +4841,27 @@ def phase_zoo():
     """[zoo]: walks the port registry's variants of ZOO_FAMILIES and
     ZOO_REGISTERED on the card at bench/ops.py's shapes (ops_bench.Size:
     4096 x 4096; 16.8 M elements for reduce and dot; 4096^3 for the matmul
-    ladder), then matmul_kpipe at 4096^3 in f32 and bf16 and #16 at
-    ZOO_NAIVE_PATHS, with the launch counts of the zoo kernels (and #16's
-    by bf16 load path, each of which must be taken) set to 0 just before
-    and read just after; holds every variant against its plain version
-    (ops_bench.check), those of ZOO_TAILED also at ZOO_TAIL, whose element
-    count leaves a tail in every tier, and the softmax and layer_norm
-    variants also at the sampling logits' 64 x 131072 (rows wider than
-    #33's and #37's shared memory); checks the gathers (_zoo_gathers);
+    ladder), then matmul_kpipe at 4096^3 in f32 and bf16, #16 at
+    ZOO_NAIVE_PATHS and the grid softmax at 64 x 131072, with the launch
+    counts of the zoo kernels (and #16's by bf16 load path, each of which
+    must be taken) set to 0 just before and read just after, each grid
+    softmax call held to one launch of each kernel softmax.grid_plan
+    gives its shape and no other; after the read, holds every variant
+    against its plain version (ops_bench.check), those of ZOO_TAILED also
+    at ZOO_TAIL, whose element count leaves a tail in every tier, and the
+    softmax and layer_norm variants also at the sampling logits' 64 x
+    131072 (rows wider than #33's and #37's shared memory); #30's tiers against each other and
+    the plain version (_zoo_ew_tiers) and the cluster kernel against its
+    plain version (_zoo_grid_fused); checks the gathers (_zoo_gathers);
     runs softmax_global once under sync debug mode "error" (a host read
     of its max or sum fails the run); prints every sum's error against
-    the f64 sum; then times each variant of ZOO_FAMILIES, and #35 and #36
-    alone, with the L2 flushed before every call beside its plain
-    version, its library call and its bound (a gather's counts the
-    distinct rows it reads), and #16 at ZOO_NAIVE_PATHS' first shape, at
-    ZOO_NAIVE_STRIDES and on the threads' copy, and #40 at V 32768 too.
+    the f64 sum; then times each variant of ZOO_FAMILIES (the grid
+    softmax on the cluster kernel), the grid variant at 64 x 131072 (on
+    #35 then #36), and #35 and #36 alone, with the L2 flushed before
+    every call beside its plain version, its library call and its bound
+    (a gather's counts the distinct rows it reads), and #16 at
+    ZOO_NAIVE_PATHS' first shape, at ZOO_NAIVE_STRIDES and on the
+    threads' copy, and #40 at V 32768 too.
     Returns ({kernel: dict(max_abs_err, ms, ...)}, {kernel: launches},
     all-ok)."""
     from functools import partial
@@ -4741,6 +4879,9 @@ def phase_zoo():
     fns = _zoo_fns()
     for f in fns.values():
         f.launches = 0
+    # the grid softmax calls of the walk: (name, the kernels grid_plan
+    # gives it, the launches it made)
+    grid_calls = []
     paths = matmul.matmul_naive.path_launches
     paths.update(dict.fromkeys(paths, 0))
     gemm_paths = matmul.matmul.path_launches
@@ -4748,8 +4889,12 @@ def phase_zoo():
     for fam in ZOO_FAMILIES + ZOO_REGISTERED:
         for name, v in sorted(registry.variants(fam).items()):
             args = ops_bench.inputs(fam, name, size, gen)
+            before = {n: f.launches for n, f in fns.items()}
             ok, err, rule = ops_bench.check(v, args)
             kernels = _zoo_kernels(v)
+            if fam == "softmax" and name.endswith("_grid"):
+                grid_calls.append((f"{fam}.{name}", kernels,
+                                   _zoo_made(fns, before)))
             shape = [list(t.shape) if isinstance(t, torch.Tensor) else t
                      for t in args]
             print(f"[zoo] {fam + '.' + name:40s} {str(shape)[:40]:40s} "
@@ -4791,12 +4936,37 @@ def phase_zoo():
                           * a.element_size())))
     timed += _zoo_gemm_tail(checks, gen)
     timed += _zoo_naive_paths(checks, gen)
+    # the grid variant at the sampling logits' 64 x 131072: 256 column
+    # tiles, more than a cluster holds, so #35 then #36
+    wide = ops_bench.Size(*size.sampling)
+    grid_wide = registry.get("softmax", "softmax_online_f32_grid")
+    wide_args = ops_bench.inputs("softmax", grid_wide.name, wide, gen)
+    before = {n: f.launches for n, f in fns.items()}
+    ok, err, rule = ops_bench.check(grid_wide, wide_args)
+    grid_calls.append((ZOO_GRID_WIDE, _zoo_kernels(grid_wide,
+                                                   (wide.S, wide.K)),
+                       _zoo_made(fns, before)))
+    print(f"[zoo] {ZOO_GRID_WIDE} max_abs {err:.3e} ({rule}) "
+          f"{'ok' if ok else 'MISS'}")
+    checks.ok &= ok
+    for k in grid_calls[-1][1]:
+        checks.record(k, ok, err)
+    # the walk: the registry at the bench shapes (the grid softmax's
+    # 4096^2 on the cluster kernel), kpipe, #16's paths and the grid
+    # variant at 64 x 131072 (on #35 then #36)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in fns.items()}
     print(f"[zoo] launches in the walk: {launches}; matmul_naive's bf16 "
           f"launches by load path: {paths}; matmul's: {gemm_paths}")
     for n in ZOO_KERNELS:
         require(launches[n] > 0, f"[zoo] {n} was never launched")
+    # each grid softmax call made one launch of each kernel grid_plan gives
+    # its shape and no other: the cluster kernel alone at 4096^2, #35
+    # then #36 at 64 x 131072
+    for name, kernels, made in grid_calls:
+        print(f"[zoo] {name}: launches {made}")
+        require(made == dict.fromkeys(kernels, 1),
+                f"[zoo] {name} launched {made}, not one each of {kernels}")
     for path, n in paths.items():
         require(n > 0, f"[zoo] matmul_naive's {path} path was never taken")
     # the ladder at 4096^3 and matmul_kpipe by TMA, the tail by the copy
@@ -4806,7 +4976,6 @@ def phase_zoo():
     checks.results["matmul_naive"]["path_launches"] = dict(paths)
     checks.results["matmul_kpipe"]["zoo_matmul_path_launches"] = dict(
         gemm_paths)
-    wide = ops_bench.Size(*size.sampling)
     for fam in ZOO_TAILED:
         for name, v in sorted(registry.variants(fam).items()):
             for sz in (ops_bench.Size(*ZOO_TAIL),) + (
@@ -4817,8 +4986,10 @@ def phase_zoo():
                       f"{fam + '.' + name:35s} {(sz.S, sz.K)} max_abs "
                       f"{err:.3e} ({rule}) {'ok' if ok else 'MISS'}")
                 checks.ok &= ok
-                for k in _zoo_kernels(v):
+                for k in _zoo_kernels(v, (sz.S, sz.K)):
                     checks.record(k, ok, err)
+    _zoo_ew_tiers(checks, gen)
+    _zoo_grid_fused(checks, gen)
     timed += _zoo_gathers(checks, gen)
     _zoo_memory_ops(checks, gen, timed)
     # softmax_global keeps its max and sum on the card: any host read of
@@ -4861,6 +5032,12 @@ def phase_zoo():
         timed.append((f"{name} {args[0].dtype}", (name,), partial(kern, *args),
                       partial(plain, *args), None,
                       lambda _, n=nbytes: (0, torch.float32, n)))
+    # the grid variant on #35 then #36: the sampling logits' 64 x 131072
+    # (256 column tiles, more than a cluster holds)
+    v, args = grid_wide, wide_args
+    timed.append((ZOO_GRID_WIDE, _zoo_kernels(v, (wide.S, wide.K)),
+                  partial(v.fn, *args), partial(v.ref, *args),
+                  _zoo_library(v, args), partial(ops_bench.work, v, args)))
 
     results = checks.results
     for name, kernels, kern, plain, lib, work in timed:
@@ -4886,10 +5063,16 @@ def phase_zoo():
                 results[k].setdefault("also_timed", {})[name] = dict(
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound, bound_by=by)
-        if name == "softmax.softmax_online_f32_grid":
+        if name == ZOO_GRID_WIDE:
             # the variant's two kernels together, beside torch.softmax
             for k in kernels:
-                results[k].update(variant_ms=ms, variant_library_ms=lib_ms)
+                results[k].update(variant_shape=f"{wide.S}x{wide.K}",
+                                  variant_ms=ms, variant_plain_ms=plain_ms,
+                                  variant_library_ms=lib_ms)
+        if name.split("_")[0] in ("elementwise.add", "gelu.gelu"):
+            # #30's six tiers of add and of gelu beside their library calls
+            results["ew_call"].setdefault("tiers", {})[name] = dict(
+                ms=ms, library_ms=lib_ms, bound_ms=bound)
         if name == "nms.nms_f32":
             # the sort, #43 and the compaction together
             results["nms_keep"].update(variant_ms=ms,
@@ -5338,6 +5521,8 @@ def main():
                                   "tpukern/ops/softmax.py:134"),
            "softmax_grid_norm": ("tpukern_torch/csrc/softmax.cu",
                                  "tpukern/ops/softmax.py:172"),
+           "softmax_grid_fused": ("tpukern_torch/csrc/softmax.cu",
+                                  "tpukern/ops/softmax.py:134"),
            "layer_norm": ("tpukern_torch/csrc/layernorm.cu",
                           "tpukern/ops/layernorm.py:52"),
            "embedding_prefetch": ("tpukern_torch/csrc/embedding.cu",
@@ -5362,7 +5547,8 @@ def main():
     also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
             "split_tf32": "tpukern/ops/cross_entropy.py:95",
             "flash_attention_dq": "tpukern/ops/attention_bwd.py:188",
-            "flash_attention_dkv": "tpukern/ops/attention_bwd.py:261"}
+            "flash_attention_dkv": "tpukern/ops/attention_bwd.py:261",
+            "softmax_grid_fused": "tpukern/ops/softmax.py:172"}
     # the PyTorch call(s) behind library_ms (null where there is none)
     library = {
         "rms_norm": "F.rms_norm",
@@ -5408,10 +5594,12 @@ def main():
         "softmax_per_token": "torch.softmax(x, -1)",
         "online_softmax_per_token": "torch.softmax(x, -1)",
         "softmax_grid_stats": "none for the kernel alone (no PyTorch call "
-                              "gives per-tile partials); the variant "
-                              "(#35 + #36) beside torch.softmax(x, -1): "
-                              "variant_ms, variant_library_ms",
+                              "gives per-tile partials); the variant on "
+                              "#35 then #36 (64 x 131072) beside "
+                              "torch.softmax(x, -1): variant_ms, "
+                              "variant_library_ms",
         "softmax_grid_norm": "as softmax_grid_stats",
+        "softmax_grid_fused": "torch.softmax(x, -1)",
         "layer_norm": "F.layer_norm(x, (K,), eps=1e-5) in x's dtype",
         "embedding_prefetch": "F.embedding(idx, w) (int32 indices)",
         "embedding_dma": "F.embedding(idx, w) (int32 indices)",
@@ -5459,7 +5647,8 @@ def main():
     # matmul_kpipe launch the kernels of rope_batched and matmul
     for n in ZOO_KERNELS:
         modes[n] = {k: timing[n][k] for k in (
-            "variant", "variant_ms", "variant_plain_ms", "variant_library_ms",
+            "variant", "variant_shape", "variant_ms", "variant_plain_ms",
+            "variant_library_ms", "tiers",
             "path_launches", "zoo_matmul_path_launches", "also_timed")
             if k in timing[n]}
     # the ring rows: launches in [ring-grads]'s all-reduce; times at the

@@ -21,7 +21,7 @@ from torch_parity import assert_parity
 from tpukern.core import registry as jax_registry
 from tpukern.ops._ew import ew_call as jax_ew_call
 from tpukern_torch.core import registry
-from tpukern_torch.ops import activations, elementwise
+from tpukern_torch.ops import _ew, activations, elementwise
 from tpukern_torch.ops._ew import ew_call, ew_ref
 
 EW_FAMILIES = ["elementwise", "relu", "elu", "gelu", "swish", "sigmoid",
@@ -91,3 +91,26 @@ def test_public_functions_and_errors():
         ew_call("add", x, y[:, :3])
     with pytest.raises(ValueError, match="unknown op"):
         ew_call("tanh", x)
+
+
+# n: empty, one element, a bf16 x1 block's span (256 threads x 8 packs)
+# and f32 x1's (256 x 4), each +- 1, and the zoo's tail 4095 x 4097
+PLAN_NS = [0, 1, 2047, 2048, 2049, 1023, 1025, 4095 * 4097]
+
+
+@pytest.mark.parametrize("tier", [t[0] for t in _ew.EW_TIERS])
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_ew_plan_covers_every_element_once(n, tier):
+    """ew_elements, the mirror of csrc/elementwise.cu's thread-to-pack map
+    (U packs a thread EW_THREADS * vec apart, one block a span, the
+    straddling pack's tail element by element), writes every element of
+    [0, n) exactly once, with 16 bytes of each operand a thread."""
+    _, dt, vec = next(t for t in _ew.EW_TIERS if t[0] == tier)
+    item = torch.empty((), dtype=dt).element_size()
+    el = _ew.ew_elements(n, vec, item)
+    u, span, blocks = _ew.ew_plan(n, vec, item)
+    assert u * vec * item == max(16, vec * item)
+    assert span == _ew.EW_THREADS * vec * u
+    assert blocks * span >= n > (blocks - 1) * span or n == blocks == 0
+    counts = torch.bincount(el, minlength=n)
+    assert counts.numel() == n and bool((counts == 1).all())

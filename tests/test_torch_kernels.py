@@ -1964,6 +1964,35 @@ def test_ew_kernel_matches_plain(cuda, op, tier, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("view", ["aligned", "misaligned"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", sorted(_ew.OPS))
+def test_ew_tiers_agree_bit_for_bit(cuda, op, dt, view):
+    """Every tier of a dtype computes each element by the same f32 formula,
+    whatever its load width and packs a thread: all give the same bits, on
+    2^18 + 5 elements (a tail in every tier) and on a view 2 elements off
+    a 16-byte boundary; add, mul and relu also equal the plain version bit
+    for bit, the others within the zoo's tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n = 2 ** 18 + 5
+    xs = [torch.randn(n + 2, generator=g, device=cuda).to(dt)
+          for _ in range(_ew.OPS[op][1])]
+    xs = [x[2:] if view == "misaligned" else x[:n] for x in xs]
+    scalars = ()
+    if op in ("exp_sub", "div"):  # softmax_global's scalar operand
+        xs, scalars = xs[:1], (xs[0][:7].float().abs().sum() + 1,)
+    ref = _ew.ew_ref(op, *xs, scalars=scalars)
+    outs = [_ew.ew_call(op, *xs, scalars=scalars, vec=vec)
+            for vec in _ew._VECS[dt]]
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        assert torch.equal(out, outs[0]), f"{op} {dt} call {k}"
+    _zoo_close(outs[0], ref, dt, op)
+    if op in ("add", "mul", "relu"):
+        assert torch.equal(outs[0], ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_ew_misaligned_views_and_device_scalar(cuda, dt):
     """Views 4 bytes off a 16-byte boundary (copied before the 16-byte
@@ -2254,21 +2283,140 @@ def test_softmax_per_token_matches_plain(cuda, fn, dt, shape):
 @pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
 def test_softmax_grid_matches_plain(cuda, dt, shape, block_cols):
     """#35's partials (m exactly: a max; d within f32's tolerance), #36 on
-    the kernel's partials, and online_softmax_grid against softmax_ref."""
+    the kernel's partials, and online_softmax_grid against softmax_ref:
+    one cluster launch (grid_fused, against grid_fused_ref too) where
+    grid_plan gives the shape the cluster path, else #35 then #36 (bit
+    for bit the two calls above)."""
     x = _sm_input(shape, dt, cuda)
-    s0, n0 = softmax.grid_stats.launches, softmax.grid_norm.launches
     m, d = softmax.grid_stats(x, 64, block_cols)
     m_ref, d_ref = softmax.grid_stats_ref(x, block_cols)
     assert torch.equal(m, m_ref)
     _zoo_close(d, d_ref, torch.float32, "grid_stats d")
     y = softmax.grid_norm(x, m, d, 64, block_cols)
     _sm_close(y, softmax.grid_norm_ref(x, m, d), dt, "grid_norm")
+    plan = softmax.grid_plan(*shape, 64, block_cols)
+    n0 = (softmax.grid_fused.launches, softmax.grid_stats.launches,
+          softmax.grid_norm.launches)
     out = softmax.online_softmax_grid(x, 64, block_cols)
     torch.cuda.synchronize()
-    assert (softmax.grid_stats.launches, softmax.grid_norm.launches) == (
-        s0 + 2, n0 + 2)
-    assert torch.equal(out, y)
+    fused = plan.path == "cluster"
+    assert (softmax.grid_fused.launches - n0[0],
+            softmax.grid_stats.launches - n0[1],
+            softmax.grid_norm.launches - n0[2]) == (
+        (1, 0, 0) if fused else (0, 1, 1))
+    if fused:
+        _sm_close(out, softmax.grid_fused_ref(x, block_cols), dt,
+                  "grid_fused")
+    else:
+        assert torch.equal(out, y)
     _sm_close(out, softmax.softmax_ref(x), dt, "online_softmax_grid")
+
+
+# the cluster path: (rows, cols, block_cols) at 1, 3, 8, 9 and 16 tiles a
+# row (above 8 the non-portable cluster size), odd columns (no whole
+# 16-byte packs: 4001 and 4097 in any dtype, 1300 in 2-byte ones), a last
+# row block of 1 row, and the bench shape
+FUSED_SHAPES = [(300, 500, 512), (1000, 1300, 512), (129, 4001, 512),
+                (33, 1536, 512), (129, 4097, 512), (100, 8192, 512),
+                (4096, 4096, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+def test_softmax_cluster_kernel(cuda, dt, shape):
+    """grid_fused (#35 + #36 in one cluster launch) against its plain
+    version grid_fused_ref, with a row of -inf (NaN where the plain
+    version has NaN) and a row whose last tile (of several) is -inf; one
+    launch a call, and a second call equal bit for bit."""
+    rows, cols, bc = shape
+    x = _sm_input((rows, cols), torch.float32, cuda)
+    x[rows // 2] = -torch.inf
+    if cols > bc:
+        x[rows // 3, (cols - 1) // bc * bc:] = -torch.inf
+    x = x.to(dt)
+    assert softmax.grid_plan(rows, cols, 64, bc).path == "cluster"
+    n0 = softmax.grid_fused.launches
+    out, again = (softmax.online_softmax_grid(x, block_cols=bc)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert softmax.grid_fused.launches == n0 + 2
+    ref = softmax.grid_fused_ref(x, bc)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert int(out.isnan().any(-1).sum()) == 1
+    keep = ~ref.isnan().any(-1)
+    _sm_close(out[keep], ref[keep], dt, "grid_fused")
+    assert torch.equal(out.nan_to_num(), again.nan_to_num())
+
+
+# the cluster kernel's rows a block by the rule (8 KiB of x a tile, at
+# most 32 rows), a warp a row up to 8: (cols, block_cols, dtype, rows a
+# block), from 1 row (one warp) to 32 (8 warps of 4 rows), at 8 and 16
+# tiles a row
+CLUSTER_ROWS = [(16384, 2048, torch.float32, 1),
+                (16384, 2048, torch.bfloat16, 2),
+                (8192, 512, torch.float32, 4),
+                (8192, 512, torch.bfloat16, 8),
+                (2048, 128, torch.float32, 16),
+                (2048, 128, torch.bfloat16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_ROWS, ids=str)
+def test_softmax_cluster_rows_a_block(cuda, case):
+    """At each rows a block of the rule (so blocks of 1 to 8 warps) over
+    100 rows (a partial last row block): grid_plan's rows a block is the
+    C launcher's own (fused_plan), a block holds two tiles, a launch runs
+    as many clusters as fit (at most one a row block), and the one launch
+    is within the tolerance of grid_fused_ref and repeats bit for bit."""
+    cols, bc, dt, R = case
+    plan = softmax.grid_plan(100, cols, block_cols=bc, itemsize=dt.itemsize)
+    assert (plan.path, plan.rows_a_block) == ("cluster", R)
+    r, smem, active, launched = softmax.fused_plan(100, cols, dt, bc)
+    assert r == R and active > 0 and smem >= 2 * R * bc * dt.itemsize
+    assert launched == min(active, -(-100 // R))
+    x = _sm_input((100, cols), dt, cuda)
+    n0 = softmax.grid_fused.launches
+    out, again = (softmax.online_softmax_grid(x, block_cols=bc)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert softmax.grid_fused.launches == n0 + 2
+    _sm_close(out, softmax.grid_fused_ref(x, bc), dt, f"grid_fused {R}")
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", SM_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(4096, 4096), (100, 130), (129, 4001),
+                                   (3, 1)], ids=str)
+def test_softmax_cluster_plan_matches_launcher(cuda, dt, shape):
+    """grid_plan's rows a block equals the C launcher's own (fused_plan),
+    the cluster fits (cudaOccupancyMaxActiveClusters > 0), and a launch
+    runs as many clusters as fit, at most one a row block."""
+    plan = softmax.grid_plan(*shape, itemsize=dt.itemsize)
+    R, smem, active, launched = softmax.fused_plan(*shape, dt)
+    assert plan.path == "cluster" and R == plan.rows_a_block
+    assert active > 0 and smem >= 2 * R * plan.block_cols * dt.itemsize
+    assert launched == min(active, plan.blocks // plan.ncb)
+
+
+@pytest.mark.cuda
+def test_softmax_two_launch_path_above_the_cluster(cuda):
+    """64 x 131072 at block_cols 512 is 256 tiles a row: #35 then #36, one
+    launch each; grid_fused refuses the shape; the C launcher plans no
+    cluster for it."""
+    x = _sm_input((64, 131072), torch.float32, cuda)
+    n0 = (softmax.grid_fused.launches, softmax.grid_stats.launches,
+          softmax.grid_norm.launches)
+    out = softmax.online_softmax_grid(x)
+    torch.cuda.synchronize()
+    assert (softmax.grid_fused.launches - n0[0],
+            softmax.grid_stats.launches - n0[1],
+            softmax.grid_norm.launches - n0[2]) == (0, 1, 1)
+    _sm_close(out, softmax.softmax_ref(x), torch.float32, "two launches")
+    with pytest.raises(ValueError, match="more than a cluster"):
+        softmax.grid_fused(x)
+    assert softmax.fused_plan(64, 131072, torch.float32)[0] == 0
 
 
 @pytest.mark.cuda

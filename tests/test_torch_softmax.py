@@ -212,3 +212,180 @@ def test_errors_and_cpu_dispatch():
     assert launches == (sm.softmax_per_token.launches,
                         sm.online_softmax_per_token.launches,
                         sm.grid_stats.launches, sm.grid_norm.launches)
+
+
+# (rows, cols, block_cols, itemsize, path, ncb): one tile, 3, the
+# portable cluster's 8, 9 and the largest cluster's 16, one more than it
+# holds, the sampling logits (256 tiles), tile rows of f32 past
+# FUSED_ROW_BYTES_MAX and, in a cluster above 8, past
+# FUSED_ROW_BYTES_WIDE, bf16 at the bench shape, fewer rows than a block
+# holds
+PLAN_CASES = [(300, 500, 512, 4, "cluster", 1),
+              (1000, 1300, 512, 4, "cluster", 3),
+              (129, 4001, 512, 4, "cluster", 8),
+              (4095, 4097, 512, 4, "cluster", 9),
+              (100, 8192, 512, 2, "cluster", 16),
+              (100, 8193, 512, 4, "two", 17),
+              (64, 131072, 512, 4, "two", 256),
+              (8, 65536, 32768, 2, "two", 2),
+              (8, 32768, 8192, 4, "cluster", 4),
+              (8, 73728, 8192, 4, "two", 9),
+              (4096, 4096, 512, 2, "cluster", 8),
+              (7, 3, 512, 4, "cluster", 1)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_grid_plan_mirrors_the_rule(case):
+    """grid_plan, csrc/softmax.cu fused_rows' mirror: the cluster kernel
+    where a row's ncb tiles fit a cluster of 16 and a tile row of f32 (its
+    exp(x - m)) fits 64 KiB (16 KiB in a cluster above 8), with
+    FUSED_TILE_BYTES of x a tile (4 f32 rows of 512, 8 bf16 rows); else
+    #35 then #36. Every tile of every row
+    is owned by exactly one block of the launch, at one cluster a row
+    block and with fewer clusters walking the row blocks."""
+    rows, cols, bc, item, path, ncb = case
+    plan = sm.grid_plan(rows, cols, block_cols=bc, itemsize=item)
+    assert (plan.path, plan.ncb) == (path, ncb)
+    if path == "cluster":
+        assert plan.rows_a_block == min(
+            max(sm.FUSED_TILE_BYTES // (plan.block_cols * item), 1),
+            sm.FUSED_ROWS_MAX, rows)
+    else:
+        assert plan.rows_a_block == min(64, rows)
+    for clusters in (None, 1, 5):
+        owned = torch.zeros(rows, ncb, dtype=torch.int64)
+        cols_seen = torch.zeros(cols, dtype=torch.int64)
+        blocks = set()
+        for b, r0, r1, c0, c1 in sm.grid_tiles(plan, rows, cols, clusters):
+            assert c0 % plan.block_cols == 0 and c1 - c0 <= plan.block_cols
+            assert r1 - r0 <= plan.rows_a_block and b % ncb == c0 // (
+                plan.block_cols)
+            owned[r0:r1, c0 // plan.block_cols] += 1
+            blocks.add(b)
+            if r0 == 0:
+                cols_seen[c0:c1] += 1
+        assert bool((owned == 1).all()) and bool((cols_seen == 1).all())
+        n = plan.blocks // ncb
+        if path == "cluster" and clusters:
+            n = min(n, clusters)
+        assert blocks == set(range(n * ncb))
+
+
+def test_grid_plan_at_the_rules_edges():
+    """The cluster path's edges, each way: 16 tiles of a row (a
+    non-portable cluster) and not 17; a tile row of f32 of 16 KiB in a
+    cluster above 8 and of 64 KiB in one of 8, not a byte more; 8 KiB of
+    x a tile (4 f32 rows or 8 bf16 rows of 512), at most FUSED_ROWS_MAX
+    rows and at most the array's."""
+    def plan(rows, cols, bc=512, item=4):
+        p = sm.grid_plan(rows, cols, block_cols=bc, itemsize=item)
+        return p.path, p.ncb, p.rows_a_block
+    assert sm.CLUSTER_LIMIT == 16 and sm.CLUSTER_PORTABLE == 8
+    assert plan(64, 16 * 512) == ("cluster", 16, 4)
+    assert plan(64, 16 * 512, item=2) == ("cluster", 16, 8)
+    assert plan(64, 16 * 512 + 1) == ("two", 17, 64)
+    assert plan(64, 9 * 4096, 4096) == ("cluster", 9, 1)
+    assert plan(64, 9 * 4097, 4097) == ("two", 9, 64)
+    assert plan(64, 8 * 16384, 16384) == ("cluster", 8, 1)
+    assert plan(64, 8 * 16385, 16385) == ("two", 8, 64)
+    assert plan(64, 1024, 64, 2) == ("cluster", 16, sm.FUSED_ROWS_MAX)
+    assert plan(3, 4096) == ("cluster", 8, 3)
+
+
+def _nan_rows_equal(a, b):
+    """Equal NaN positions; the rest returned for a tolerance check."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    keep = ~np.isnan(b).any(-1)
+    return a[keep], b[keep]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols,bc", [(40, 1000, 256), (24, 1000, 128),
+                                          (16, 384, 384), (33, 1024, 128)])
+def test_grid_fused_ref_matches_jax(rows, cols, bc, dt):
+    """The cluster kernel's plain version (its partials merged in the
+    order k = 0 ... ncb - 1) against JAX's online_softmax_grid (its tiles
+    walked in order in interpret mode) at the same block_cols: columns no
+    multiple of block_cols (JAX pads them to 128 lanes with NEG_BIG), one
+    tile, and rows whose last tile (of several) or whose later half is
+    -inf."""
+    x = _x((rows, cols), seed=5)
+    if cols > bc:
+        x[3, (cols - 1) // bc * bc:] = -np.inf
+    x[7, cols // 2:] = -np.inf
+    jdt, tdt = getattr(jnp, dt), getattr(torch, dt)
+    assert_parity(
+        lambda a: jax_sm.online_softmax_grid(a.astype(jdt), block_rows=8,
+                                             block_cols=bc),
+        lambda a: sm.grid_fused_ref(a.to(tdt), bc), x, dtype=dt,
+        name="grid_fused_ref")
+
+
+def test_grid_fused_ref_rows_of_minus_inf():
+    """A row of -inf: the plain version gives NaN (its tiles' partials
+    (NEG_BIG, 0), then 0 / 0), as torch.softmax does and as JAX's
+    online_softmax_grid does where cols is a multiple of 128 and of
+    block_cols; the other rows agree. Where the padded width is no
+    multiple of block_cols JAX gives NaN in every row, and where cols is
+    no multiple of 128 it gives the -inf row 0 (its NEG_BIG padding
+    counts exp(0) each): ROADMAP.md §3 open fault 4."""
+    x = _x((16, 1536), seed=6)
+    x[2] = -np.inf
+    x[9, 1024:] = -np.inf
+    xt = torch.from_numpy(x)
+    ref = sm.grid_fused_ref(xt, 512)
+    assert bool(ref[2].isnan().all()) and int(ref.isnan().sum()) == 1536
+    assert torch.equal(ref.isnan(), torch.softmax(xt, -1).isnan())
+    j = np.asarray(jax_sm.online_softmax_grid(jnp.asarray(x), block_rows=8,
+                                              block_cols=512))
+    a, b = _nan_rows_equal(ref.numpy(), j)
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    # the reference's faults, recorded
+    ragged = np.asarray(jax_sm.online_softmax_grid(
+        jnp.asarray(x[:, :1152]), block_rows=8, block_cols=512))
+    assert np.isnan(ragged).all()
+    assert not sm.grid_fused_ref(xt[:, :1152], 512)[0].isnan().any()
+    padded = np.asarray(jax_sm.online_softmax_grid(
+        jnp.asarray(x[:, :1000]), block_rows=8, block_cols=256))
+    assert (padded[2] == 0).all()
+    assert bool(sm.grid_fused_ref(xt[:, :1000], 256)[2].isnan().all())
+
+
+def test_grid_fused_ref_merge_order():
+    """The cluster kernel's order, written out in f32: each tile's m_k
+    (#35's) and e = exp(x - m_k), M the largest m_k, D the sum of d_k
+    exp(m_k - M) in the order k = 0, 1, 2, the output e exp(m_k - M) / D:
+    grid_fused_ref equals it bit for bit, and is within f32 rounding of
+    grid_norm_ref's (all partials at once) and of torch.softmax."""
+    x = torch.from_numpy(_x((9, 1300), seed=7))
+    m, d = sm.grid_stats_ref(x, 512)
+    M = m.amax(-1, keepdim=True)
+    D = d[:, 0:1] * torch.exp(m[:, 0:1] - M)
+    for k in (1, 2):
+        D = D + d[:, k:k + 1] * torch.exp(m[:, k:k + 1] - M)
+    out = sm.grid_fused_ref(x, 512)
+    want = torch.cat([torch.exp(x[:, k * 512:(k + 1) * 512] - m[:, k:k + 1])
+                      * (torch.exp(m[:, k:k + 1] - M) / D)
+                      for k in range(3)], -1)
+    assert torch.equal(out, want)
+    torch.testing.assert_close(out, sm.grid_norm_ref(x, m, d), rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(out, torch.softmax(x, -1), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_grid_fused_cpu_dispatch_and_errors():
+    x = torch.from_numpy(_x((6, 700), seed=8))
+    n = (sm.grid_fused.launches, sm.grid_stats.launches,
+         sm.grid_norm.launches)
+    assert torch.equal(sm.grid_fused(x, block_cols=256),
+                       sm.grid_fused_ref(x, 256))
+    assert torch.equal(sm.online_softmax_grid(x, block_cols=256),
+                       sm.softmax_ref(x))
+    assert n == (sm.grid_fused.launches, sm.grid_stats.launches,
+                 sm.grid_norm.launches)
+    with pytest.raises(ValueError, match="block_cols"):
+        sm.grid_fused(x, block_cols=0)
+    with pytest.raises(ValueError, match="2-D"):
+        sm.grid_fused(x.reshape(-1))

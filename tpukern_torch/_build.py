@@ -160,6 +160,11 @@ SIGNATURES = {
     "tk_softmax_grid_stats": [_P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
     # x, m, d, y, rows, cols, block_rows, block_cols, ncb, dtype, stream
     "tk_softmax_grid_norm": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    # x, y, rows, cols, block_cols, ncb, dtype, stream
+    "tk_softmax_grid_fused": [_P, _P, _I64, _I64, _I, _I, _I, _P],
+    # rows, cols, block_cols, ncb, dtype, out (int32 x 4: rows a block,
+    # shared bytes, most active clusters, clusters launched)
+    "tk_softmax_grid_fused_plan": [_I64, _I64, _I, _I, _I, _P],
     # x, g (or None), scalar g, b (or None), scalar b, y, rows, cols, eps,
     # acc_bf16, x_dtype, g/b dtype, stream
     "tk_layer_norm": [_P, _P, _F, _P, _F, _P, _I64, _I64, _F, _I, _I, _I,

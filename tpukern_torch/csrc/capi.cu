@@ -270,6 +270,18 @@ int tk_softmax_grid_norm(const void* x, const float* pm, const float* pd,
       static_cast<cudaStream_t>(stream)));
 }
 
+int tk_softmax_grid_fused(const void* x, void* y, int64_t rows, int64_t cols,
+                          int bc, int ncb, int dtype, void* stream) {
+  return checked(tk::softmax_grid_fused_launch(
+      x, y, rows, cols, bc, ncb, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_softmax_grid_fused_plan(int64_t rows, int64_t cols, int bc, int ncb,
+                               int dtype, int* out) {
+  return checked(
+      tk::softmax_grid_fused_plan(rows, cols, bc, ncb, dtype, out));
+}
+
 int tk_layer_norm(const void* x, const void* g, float g_scalar, const void* b,
                   float b_scalar, void* y, int64_t rows, int64_t cols,
                   float eps, int acc_bf16, int x_dtype, int gb_dtype,

@@ -650,6 +650,12 @@ cudaError_t softmax_grid_norm_launch(const void* x, const float* pm,
                                      const float* pd, void* y, int64_t rows,
                                      int64_t cols, int br, int bc, int ncb,
                                      int dtype, cudaStream_t stream);
+// #35 + #36 as one cluster launch
+cudaError_t softmax_grid_fused_launch(const void* x, void* y, int64_t rows,
+                                      int64_t cols, int bc, int ncb,
+                                      int dtype, cudaStream_t stream);
+cudaError_t softmax_grid_fused_plan(int64_t rows, int64_t cols, int bc,
+                                    int ncb, int dtype, int* out);
 // g and b (cols,) of gb_dtype each, or null for g_scalar / b_scalar
 cudaError_t layer_norm_launch(const void* x, const void* g, float g_scalar,
                               const void* b, float b_scalar, void* y,

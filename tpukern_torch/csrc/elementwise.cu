@@ -23,11 +23,20 @@
 // elements one thread loads and stores at once (the reference's f32 /
 // f32x4 / f16 / f16x2 / f16x8_pack ladder): f32 1, 2, 4 and bf16 1, 2, 8,
 // the widest on 128-bit loads and stores. The wrapper hands 16-byte
-// aligned arrays; the thread whose VEC elements pass n does the tail
-// element by element.
+// aligned arrays.
 //
 // Bound by memory bandwidth: each input element is read once and each
-// output written once; the f32 math is a few instructions a byte.
+// output written once; the f32 math is a few instructions a byte. Holding
+// 3.35 TB/s across a load latency near 0.7 us needs about 18 KiB in
+// flight an SM, so a thread keeps several packs in flight: it owns U
+// packs of its tier, EW_THREADS * VEC elements apart inside its block's
+// span of EW_THREADS * VEC * U elements (each warp instruction still
+// covers one contiguous segment), issues the U loads of every operand
+// before its first operation, then its U stores. U is 16 bytes over the
+// pack's bytes (8 at bf16 x1, 4 at f32 x1 and bf16 x2, 2 at f32 x2, 1 at
+// the 16-byte tiers), and the grid is one block a span. In the last span
+// the packs that pass n are skipped and the thread whose pack straddles n
+// does the tail element by element. ops/_ew.py ew_plan mirrors this map.
 #include "common.cuh"
 
 namespace tk {
@@ -68,32 +77,68 @@ __host__ __device__ constexpr bool binary(int op) {
 }
 
 template <typename T, int VEC, int OP>
+__device__ __forceinline__ Pack<T, VEC> ew_pack(const Pack<T, VEC>& a,
+                                                const Pack<T, VEC>& b,
+                                                bool two, float sv) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    o.v[j] = from_f32<T>(ew_apply<OP>(to_f32(a.v[j]),
+                                      two ? to_f32(b.v[j]) : sv));
+  return o;
+}
+
+template <typename T, int VEC, int U, int OP>
 __global__ void __launch_bounds__(EW_THREADS)
 ew_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
           const float* __restrict__ s, T* __restrict__ y, int64_t n) {
-  const float sv = binary(OP) && x1 == nullptr ? *s : 0.f;
-  const int64_t i = (blockIdx.x * (int64_t)EW_THREADS + threadIdx.x) * VEC;
-  if (i + VEC <= n) {
-    const Pack<T, VEC> a = *reinterpret_cast<const Pack<T, VEC>*>(x0 + i);
-    Pack<T, VEC> b;
-    if (binary(OP) && x1) b = *reinterpret_cast<const Pack<T, VEC>*>(x1 + i);
-    Pack<T, VEC> o;
+  using P = Pack<T, VEC>;
+  constexpr int64_t STEP = (int64_t)EW_THREADS * VEC;  // a thread's packs apart
+  constexpr int64_t SPAN = STEP * U;
+  const bool two = binary(OP) && x1 != nullptr;
+  const float sv = binary(OP) && !x1 ? *s : 0.f;
+  const int64_t b = blockIdx.x;
+  const int64_t i0 = b * SPAN + (int64_t)threadIdx.x * VEC;
+  if ((b + 1) * SPAN <= n) {
+    P a[U], c[U];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      o.v[j] = from_f32<T>(ew_apply<OP>(
-          to_f32(a.v[j]), binary(OP) && x1 ? to_f32(b.v[j]) : sv));
-    *reinterpret_cast<Pack<T, VEC>*>(y + i) = o;
+    for (int u = 0; u < U; ++u)
+      a[u] = *reinterpret_cast<const P*>(x0 + i0 + u * STEP);
+    if (two) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        c[u] = *reinterpret_cast<const P*>(x1 + i0 + u * STEP);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      *reinterpret_cast<P*>(y + i0 + u * STEP) =
+          ew_pack<T, VEC, OP>(a[u], c[u], two, sv);
   } else {
-    for (int64_t k = i; k < n; ++k)
-      y[k] = from_f32<T>(ew_apply<OP>(
-          to_f32(x0[k]), binary(OP) && x1 ? to_f32(x1[k]) : sv));
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = i0 + u * STEP;
+      if (i + VEC <= n) {
+        const P a = *reinterpret_cast<const P*>(x0 + i);
+        P c;
+        if (two) c = *reinterpret_cast<const P*>(x1 + i);
+        *reinterpret_cast<P*>(y + i) = ew_pack<T, VEC, OP>(a, c, two, sv);
+      } else {
+        for (int64_t k = i; k < n; ++k)
+          y[k] = from_f32<T>(ew_apply<OP>(
+              to_f32(x0[k]), two ? to_f32(x1[k]) : sv));
+      }
+    }
   }
 }
 
 template <typename T, int VEC, int OP>
 void go(const void* x0, const void* x1, const float* s, void* y, int64_t n,
-        int64_t blocks, cudaStream_t stream) {
-  ew_kernel<T, VEC, OP><<<(unsigned)blocks, EW_THREADS, 0, stream>>>(
+        cudaStream_t stream) {
+  // the packs a thread keeps in flight: 16 bytes of each operand
+  constexpr int U = 16 / (VEC * (int)sizeof(T)) > 1
+                        ? 16 / (VEC * (int)sizeof(T)) : 1;
+  constexpr int64_t span = (int64_t)EW_THREADS * VEC * U;
+  ew_kernel<T, VEC, U, OP><<<(unsigned)((n + span - 1) / span), EW_THREADS,
+                             0, stream>>>(
       static_cast<const T*>(x0), static_cast<const T*>(x1), s,
       static_cast<T*>(y), n);
 }
@@ -101,21 +146,17 @@ void go(const void* x0, const void* x1, const float* s, void* y, int64_t n,
 template <typename T, int VEC>
 void dispatch_op(int op, const void* x0, const void* x1, const float* s,
                  void* y, int64_t n, cudaStream_t stream) {
-  const int64_t blocks = (n + (int64_t)VEC * EW_THREADS - 1) /
-                         ((int64_t)VEC * EW_THREADS);
+#define TK_EW_OP(code)                                                     \
+  case code:                                                               \
+    go<T, VEC, code>(x0, x1, s, y, n, stream);                             \
+    break;
   switch (op) {
-    case kAdd: go<T, VEC, kAdd>(x0, x1, s, y, n, blocks, stream); break;
-    case kMul: go<T, VEC, kMul>(x0, x1, s, y, n, blocks, stream); break;
-    case kRelu: go<T, VEC, kRelu>(x0, x1, s, y, n, blocks, stream); break;
-    case kElu: go<T, VEC, kElu>(x0, x1, s, y, n, blocks, stream); break;
-    case kGelu: go<T, VEC, kGelu>(x0, x1, s, y, n, blocks, stream); break;
-    case kSigmoid: go<T, VEC, kSigmoid>(x0, x1, s, y, n, blocks, stream); break;
-    case kSwish: go<T, VEC, kSwish>(x0, x1, s, y, n, blocks, stream); break;
-    case kHardswish: go<T, VEC, kHardswish>(x0, x1, s, y, n, blocks, stream); break;
-    case kExpSub: go<T, VEC, kExpSub>(x0, x1, s, y, n, blocks, stream); break;
-    case kDiv: go<T, VEC, kDiv>(x0, x1, s, y, n, blocks, stream); break;
-    default: go<T, VEC, kHardshrink>(x0, x1, s, y, n, blocks, stream); break;
+    TK_EW_OP(kAdd) TK_EW_OP(kMul) TK_EW_OP(kRelu) TK_EW_OP(kElu)
+    TK_EW_OP(kGelu) TK_EW_OP(kSigmoid) TK_EW_OP(kSwish) TK_EW_OP(kHardswish)
+    TK_EW_OP(kExpSub) TK_EW_OP(kDiv)
+    default: go<T, VEC, kHardshrink>(x0, x1, s, y, n, stream);
   }
+#undef TK_EW_OP
 }
 
 }  // namespace
@@ -134,8 +175,8 @@ cudaError_t ew_launch(int op, const void* x0, const void* x1, const float* s,
   if (((uintptr_t)x0 | (uintptr_t)x1 | (uintptr_t)y) % bytes)
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  if ((n + (int64_t)vec * EW_THREADS - 1) / ((int64_t)vec * EW_THREADS) >
-      0x7fffffff)
+  // a grid of one block a span (at least one element a thread)
+  if ((n + EW_THREADS - 1) / EW_THREADS > 0x7fffffff)
     return cudaErrorInvalidValue;
   if (dtype == kF32) {
     if (vec == 1) dispatch_op<float, 1>(op, x0, x1, s, y, n, stream);

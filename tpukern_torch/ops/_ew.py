@@ -19,6 +19,11 @@ f32 / f32x4 / f16 / f16x2 / f16x8_pack ladder:
     f32_r64  -> 2 f32 (8 bytes)            bf16_r128 -> 2 bf16 (4 bytes)
     f32_r256 -> 4 f32 (16 bytes)           bf16_r512 -> 8 bf16 (16 bytes)
 
+Each thread keeps several packs of its tier in flight (csrc/elementwise.cu):
+U packs, EW_THREADS * vec elements apart inside its block's span, U = 16
+bytes over the pack's bytes, one block a span; `ew_plan` and
+`ew_elements` mirror that map.
+
 Inputs keep their natural shape; the (rows, 128) lane padding of
 `as_rows` is a Mosaic workaround that is not ported.
 """
@@ -71,6 +76,32 @@ EW_TIERS = (
     ("bf16_r512", torch.bfloat16, 8),
 )
 _VECS = {torch.float32: (1, 2, 4), torch.bfloat16: (1, 2, 8)}
+
+EW_THREADS = 256  # csrc/elementwise.cu EW_THREADS
+
+
+def ew_plan(n, vec, itemsize):
+    """(packs a thread, span of a block in elements, blocks) of ew_kernel
+    over n elements: the launcher's rule (csrc/elementwise.cu go), 16
+    bytes of each operand a thread and one block a span."""
+    u = max(1, 16 // (vec * itemsize))
+    span = EW_THREADS * vec * u
+    return u, span, -(-n // span)
+
+
+def ew_elements(n, vec, itemsize):
+    """The flat index of every element each thread of ew_kernel writes,
+    in the kernel's order (block, pack u, thread, element), as a 1-D
+    int64 tensor: a pack that starts before n writes its elements below
+    n (a whole pack, or the straddling pack's tail element by element).
+    Each index in [0, n) must appear once."""
+    u, span, blocks = ew_plan(n, vec, itemsize)
+    step = EW_THREADS * vec
+    start = (torch.arange(blocks).reshape(-1, 1, 1) * span
+             + (torch.arange(u) * step).reshape(1, -1, 1)
+             + (torch.arange(EW_THREADS) * vec).reshape(1, 1, -1))
+    elems = (start.reshape(-1, 1) + torch.arange(vec)).reshape(-1)
+    return elems[elems < n]
 
 
 def _check(op, xs, scalars):

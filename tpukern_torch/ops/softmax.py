@@ -19,6 +19,25 @@ Kernels: csrc/softmax.cu.
   max(ma, mb), d = da exp(ma - m) + db exp(mb - m) and writes exp(x - m)
   / d for its tile. The merged pair is JAX's final (m, d) up to rounding,
   the row's max and its sum of exp(x - m), so the function is the same.
+- `grid_fused` (#35 + #36 in one cluster launch, replaces :134 and
+  :172): where a row's ncb column tiles fit one thread-block cluster
+  (ncb <= CLUSTER_LIMIT, 16, and a tile row of f32 of at most 64 KiB,
+  16 KiB in a cluster of more than 8),
+  `online_softmax_grid` launches one kernel instead of the two: a
+  cluster of ncb blocks of a warp a row spans a block of R rows, block k
+  holds tile k in shared memory, posts its rows' partials, reads the
+  cluster's ncb partials through distributed shared memory after a
+  cluster barrier,
+  merges them in the fixed order k = 0 ... ncb - 1 (`grid_fused_ref`
+  models it) and writes its tile as exp(x - m_k) (kept from the partial)
+  times exp(m_k - M) / D: x is read once, one exp an element. As many
+  clusters as fit on the card walk the row blocks, the next tile's
+  copies in flight while one is used. `grid_plan` mirrors the launcher's
+  shape rule (which path, the rows a block), `grid_tiles` the tiles each
+  block owns; a shape with more tiles keeps #35 then #36. The rule is
+  never a retry: a refused cluster launch raises. `fused_plan` reads the
+  launcher's configuration (rows a block, shared memory, the clusters
+  that fit) from the C rule itself.
 - `softmax_global` composes #31 and #30: max_all, ew_call("exp_sub"),
   sum_all, ew_call("div"); the max and the sum stay 0-d CUDA tensors, so
   nothing is read back on the host.
@@ -53,8 +72,11 @@ inside the same kernel, so every width gives the right result.
 On a CPU tensor each function returns its plain version: `softmax_ref`
 (JAX's `_ref_per_token`), and `softmax_global_ref` (`_ref_global`) for
 `softmax_global`'s parts; #35 and #36 have plain versions of their own,
-`grid_stats_ref` and `grid_norm_ref`.
+`grid_stats_ref` and `grid_norm_ref`, and the cluster kernel
+`grid_fused_ref`.
 """
+
+import collections
 
 import torch
 
@@ -68,6 +90,17 @@ from tpukern_torch.ops import _ew, reduce
 NEG_BIG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MODES = {"safe": 0, "online": 1}
+
+# the cluster kernel's rule (csrc/softmax.cu SM_FUSED_*, SM_CLUSTER_*)
+FUSED_TILE_BYTES = 8 * 1024  # of x a tile
+FUSED_ROWS_MAX = 32
+FUSED_ROW_BYTES_MAX = 64 * 1024
+FUSED_ROW_BYTES_WIDE = 16 * 1024  # in a cluster of more than 8
+CLUSTER_PORTABLE = 8
+CLUSTER_LIMIT = 16  # non-portable above CLUSTER_PORTABLE
+
+GridPlan = collections.namedtuple(
+    "GridPlan", "path rows_a_block block_cols ncb blocks")
 
 
 def _check(x, fn, **sizes):
@@ -132,6 +165,46 @@ def _tiles(x, block_rows, block_cols):
     return br, bc, cdiv(H, bc)
 
 
+def grid_plan(rows, cols, block_rows=64, block_cols=512, itemsize=4):
+    """The path online_softmax_grid takes on a (rows, cols) array of
+    itemsize-byte elements, by csrc/softmax.cu fused_rows: "cluster" (one
+    launch, rows_a_block R rows a row block, FUSED_TILE_BYTES of x a tile;
+    blocks the row blocks times ncb: the tiles) where the row's ncb tiles
+    of block_cols fit one cluster and a tile row of f32 (the kernel keeps
+    exp(x - m) in f32, whatever the dtype) fits FUSED_ROW_BYTES_MAX
+    (FUSED_ROW_BYTES_WIDE in a cluster of more than 8); else "two" (#35
+    then #36, each a block a tile of block_rows rows)."""
+    br, bc = min(block_rows, max(rows, 1)), min(block_cols, max(cols, 1))
+    ncb = cdiv(cols, bc)
+    row_max = (FUSED_ROW_BYTES_WIDE if ncb > CLUSTER_PORTABLE
+               else FUSED_ROW_BYTES_MAX)
+    if ncb <= CLUSTER_LIMIT and bc * 4 <= row_max:
+        R = FUSED_TILE_BYTES // (bc * itemsize)
+        R = min(max(R, 1), FUSED_ROWS_MAX, max(rows, 1))
+        return GridPlan("cluster", R, bc, ncb, cdiv(rows, R) * ncb)
+    return GridPlan("two", br, bc, ncb, cdiv(rows, br) * ncb)
+
+
+def grid_tiles(plan, rows, cols, clusters=None):
+    """[(block, first row, end row, first column, end column)] of every
+    tile of plan's launch (each launch of the two-launch path), in the
+    order each block takes them: the cluster kernel's clusters (clusters
+    of them, default one a row block) walk the row blocks c, c +
+    clusters, ..., and the block of rank k takes column tile k, so row
+    block i's tile j is block (i % clusters) * ncb + j's; #35's and #36's
+    block (x = j, y = i) is tile j of row block i."""
+    R, bc, ncb = plan.rows_a_block, plan.block_cols, plan.ncb
+    row_blocks = plan.blocks // ncb
+    n = clusters if plan.path == "cluster" and clusters else row_blocks
+    out = []
+    for c in range(min(n, row_blocks)):
+        for i in range(c, row_blocks, n):
+            for j in range(ncb):
+                out.append((c * ncb + j, i * R, min(i * R + R, rows),
+                            j * bc, min(j * bc + bc, cols)))
+    return out
+
+
 def grid_stats(x, block_rows=64, block_cols=512):
     """#35: each row's partial (m, d) over each column block of block_cols,
     two f32 (rows, n_col_blocks) tensors. CPU: grid_stats_ref."""
@@ -179,13 +252,59 @@ def grid_norm(x, m, d, block_rows=64, block_cols=512):
 grid_norm.launches = 0
 
 
+def grid_fused(x, block_rows=64, block_cols=512):
+    """#35 + #36 in one cluster launch: exp(x - M) / D with (M, D) each
+    row's partials over column blocks of block_cols merged in the order
+    k = 0 ... ncb - 1, rounded once to x's dtype. Only for a shape that
+    grid_plan gives the cluster path (ValueError else). CPU:
+    grid_fused_ref."""
+    _check(x, "grid_fused", block_rows=block_rows, block_cols=block_cols)
+    if x.device.type == "cpu":
+        return grid_fused_ref(x, block_cols)
+    x = _cuda_input(x, "grid_fused")
+    plan = grid_plan(*x.shape, block_rows, block_cols, x.element_size())
+    if plan.path != "cluster":
+        raise ValueError(f"grid_fused: {tuple(x.shape)} at block_cols "
+                         f"{block_cols} has {plan.ncb} column tiles, more "
+                         f"than a cluster of {CLUSTER_LIMIT} holds (or a "
+                         f"tile row past {FUSED_ROW_BYTES_MAX} bytes): "
+                         f"#35 then #36 take it")
+    y = torch.empty_like(x)
+    _build.launch("tk_softmax_grid_fused", x.data_ptr(), y.data_ptr(),
+                  x.shape[0], x.shape[1], plan.block_cols, plan.ncb,
+                  _build.CODES[x.dtype], _build.stream(x))
+    grid_fused.launches += 1
+    return y
+
+
+grid_fused.launches = 0
+
+
+def fused_plan(rows, cols, dtype, block_cols=512, device="cuda"):
+    """The cluster kernel's (rows a block, shared bytes a block, most
+    active clusters by cudaOccupancyMaxActiveClusters, clusters a launch
+    runs) for the shape, from the C launcher's own rule: rows a block 0
+    where the shape takes #35 then #36."""
+    bc = min(block_cols, max(cols, 1))
+    out = torch.zeros(4, dtype=torch.int32)
+    with torch.cuda.device(device):
+        _build.launch("tk_softmax_grid_fused_plan", rows, cols, bc,
+                      cdiv(cols, bc), _build.CODES[dtype], out.data_ptr())
+    return tuple(out.tolist())
+
+
 def online_softmax_grid(x, block_rows=64, block_cols=512):
-    """Grid-streamed online softmax (#35 then #36): tiles of block_rows x
-    block_cols, for rows too wide to hold on chip. CPU: softmax_ref."""
+    """Grid-streamed online softmax: tiles of block_rows x block_cols, for
+    rows too wide to hold on chip. One cluster launch (grid_fused) where
+    grid_plan gives the shape the cluster path, else #35 then #36. CPU:
+    softmax_ref."""
     _check(x, "online_softmax_grid", block_rows=block_rows,
            block_cols=block_cols)
     if x.device.type == "cpu":
         return softmax_ref(x)
+    if grid_plan(*x.shape, block_rows, block_cols,
+                 x.element_size()).path == "cluster":
+        return grid_fused(x, block_rows, block_cols)
     m, d = grid_stats(x, block_rows, block_cols)
     return grid_norm(x, m, d, block_rows, block_cols)
 
@@ -233,6 +352,28 @@ def grid_norm_ref(x, m, d):
     M = m.amax(-1, keepdim=True)
     D = (d * torch.exp(m - M)).sum(-1, keepdim=True)
     return (torch.exp(x.float() - M) / D).to(x.dtype)
+
+
+def grid_fused_ref(x, block_cols=512):
+    """The cluster kernel's plain version: each column block's partial m_k
+    = max(NEG_BIG, its max), e = exp(x - m_k) in f32 and d_k = sum(e)
+    (#35's); M = max_k m_k, D = the sum of d_k exp(m_k - M) over k = 0 ...
+    ncb - 1 in that order; then e s_k with s_k = exp(m_k - M) / D, rounded
+    to x's dtype."""
+    S, H = x.shape
+    bc = min(block_cols, max(H, 1))
+    ncb = cdiv(H, bc)
+    xf = torch.nn.functional.pad(x.float(), (0, ncb * bc - H),
+                                 value=-torch.inf).reshape(S, ncb, bc)
+    m = xf.amax(-1).clamp_min(NEG_BIG)
+    e = torch.exp(xf - m[..., None])
+    M = m.amax(-1, keepdim=True)
+    t = e.sum(-1) * torch.exp(m - M)
+    D = t[:, :1]
+    for k in range(1, ncb):
+        D = D + t[:, k:k + 1]
+    s = torch.exp(m - M) / D
+    return (e * s[..., None]).reshape(S, ncb * bc)[:, :H].to(x.dtype)
 
 
 _F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
