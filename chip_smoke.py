@@ -11,7 +11,8 @@
    kernel, of the bf16 #2 (NN and TN), #28, #29, CE forward (#13) and
    CE backward (#14/#15: dlog, dx, dW) kernels on csrc/hopper.cuh's
    pipeline, of the f32 #2 and f32 CE forward and backward on its
-   split-TF32 form, of every instance of the bf16 flash-attention
+   split-TF32 form, of the f32 #28 (NN and trans_w, one instance) and
+   #29 on it, of every instance of the bf16 flash-attention
    forward (#6) and of the split-TF32 f32 flash-attention forward (#6)
    and fused backward (#8), the matrix products of #40's, which must have
    none, and of the bf16 w8a16 GEMM (#25: mma.sync, and no int-to-float
@@ -79,7 +80,12 @@
    bench shape (8192 x 2048 x 1408, E 8) under five splits and at the test
    cases, and #29 with NaN in the rows past the groups and last slabs of
    1-63 rows (finite, equal to tgmm_ref), timed at the first two (bf16
-   beside torch._grouped_mm);
+   beside torch._grouped_mm, f32 against its split-TF32 bound); the f32
+   tier (split-TF32 products) also held to the accuracy gate: its largest
+   error against the f64 grouped product at most SPLIT_GATE times the
+   plain loop's (cuBLAS f32 a group), at the Mixtral products, the bench
+   shape's balanced and one_hot splits and two test cases, each call
+   twice (bit-equal);
    [zoo]: walks the port's variant registry at bench/ops.py's shapes
    (tpukern_torch/harness/ops_bench.py: 4096 x 4096, 16.8 M elements for
    reduce and dot, 4096^3 for the matmul ladder; the gathers at V 32768,
@@ -329,7 +335,8 @@ def phase_build():
 # launches (#14/#15) and the bf16 #2 (NN and TN), #28 (NN and trans_w)
 # and #29 kernels with both operands by TMA, every instance of the
 # bf16 flash-attention forward (#6), and the split-TF32 f32 #2, f32 CE
-# forward and f32 CE backward's three launches, run wgmma (HGMMA) fed by
+# forward and f32 CE backward's three launches and the split-TF32 f32
+# #28 (one kernel, NN and trans_w) and #29, run wgmma (HGMMA) fed by
 # TMA (UTMALDG), no mma.sync (HMMA), as do every instance of the f32
 # flash-attention forward (#6) and the f32 fused backward (#8) on
 # split-TF32 products, and of the bf16 fused backward (#8 on bf16
@@ -358,6 +365,9 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "ce_dlog_tf32_kernel": _WGMMA_TMA,
              "ce_dx_tf32_kernel": _WGMMA_TMA,
              "ce_dw_tf32_kernel": _WGMMA_TMA,
+             # the mangled names' lengths keep the two apart
+             "15gmm_tf32_kernel": _WGMMA_TMA,
+             "16tgmm_tf32_kernel": _WGMMA_TMA,
              "fa_fwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_bf16_kernel": _WGMMA_TMA,
@@ -388,6 +398,7 @@ SASS_PATTERNS = {"LDG16": r"\bLDG\.E\.(U|S)16\b",
 NO_SERIALIZED = ("w8a16_mma_kernel", "gemm_tf32_kernel",
                  "ce_fwd_tf32_kernel", "ce_dlog_tf32_kernel",
                  "ce_dx_tf32_kernel", "ce_dw_tf32_kernel",
+                 "gmm_tf32_kernel", "tgmm_tf32_kernel",
                  "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel",
                  "fa_bwd_bf16_kernel")
 
@@ -3290,7 +3301,8 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                ("sampling", ("sample_kernel", "sample_combine_kernel",
                              "threshold_kernel")),
                ("w8a16", "w8a16_"),
-               ("grouped_gemm", ("gmm_f32_kernel", "gmm_bf16_kernel")),
+               ("grouped_gemm", ("gmm_tf32_kernel", "tgmm_tf32_kernel",
+                                 "gmm_wgmma_kernel", "tgmm_bf16_kernel")),
                ("gemm (port)", ("gemm_tf32_kernel", "hgemm_wgmma_kernel")),
                ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
                ("memcpy/memset", ("Memcpy", "Memset")))
@@ -3936,12 +3948,14 @@ def _gmm_check(checks, kind, case, x, w, dy, gs):
         zero = out[live:]
         out, ref = out[:live], ref[:live]
     ok, err = _compare(kind, case, out, ref, dtype=x.dtype)
-    if kind != "tgmm" and x.dtype == torch.bfloat16:
+    if kind != "tgmm":
         from collections import Counter
 
         items = Counter(p for _, _, _, p in gm.gmm_items(
             a, w, gs.tolist(), trans_w=trans))
-        n_tiles = -(-out.shape[1] // 256)
+        # N tiles of 256 columns in bf16, 128 in f32
+        n_tiles = -(-out.shape[1] // (256 if x.dtype == torch.bfloat16
+                                      else 128))
         print(f"[gmm] {kind} {case}: items by path "
               f"{ {('zeros' if p is None else p): n for p, n in items.items()} }"
               f" in each of {n_tiles} N tiles")
@@ -4015,15 +4029,63 @@ def _gmm_edge_checks(checks, gen, dt, tag):
                        dy, gs)
 
 
+def _gmm_gate(checks, gen, cases):
+    """The accuracy gate of #28/#29's f32 tier (split-TF32 products): at
+    each (label, T, K, N, sizes), for the forward (gmm NN), dx (gmm
+    trans_w) and dW (tgmm), the largest error of the kernel and of the
+    plain loop (gmm_ref/tgmm_ref: cuBLAS f32 a group, TF32 off) against
+    the f64 grouped product of the same inputs (the live rows), the
+    kernel's at most SPLIT_GATE times the plain loop's; a second call
+    gives the same bits."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the gate needs cuBLAS f32 with TF32 off")
+    f64 = torch.float64
+    for label, T, K, N, sizes in cases:
+        x, w, dy, gs = _gmm_inputs(gen, T, K, N, sizes, torch.float32)
+        live = sum(sizes)
+        calls = {
+            "forward": (lambda: gm.gmm(x, w, gs), gm.gmm_ref, x, w),
+            "dx": (lambda: gm.gmm(dy, w, gs, trans_w=True), gm.gmm_ref, dy,
+                   w.transpose(1, 2)),
+            "dW": (lambda: gm.tgmm(x, dy, gs), gm.tgmm_ref, x, dy)}
+        for what, (fn, ref, a, b) in calls.items():
+            name = "tgmm" if what == "dW" else "gmm"
+            out = fn()
+            exact = ref(a.double(), b.double(), gs, dtype=f64)
+            plain = ref(a, b, gs)
+            if name == "gmm":
+                out, exact, plain = out[:live], exact[:live], plain[:live]
+            err = (out.double() - exact).abs().max().item()
+            ref_err = (plain.double() - exact).abs().max().item()
+            del exact, plain
+            case = f"{label} {what} {T}x{K}x{N} f32"
+            checks.record(name, _gate(name, case, err, ref_err,
+                                      ref="plain f32"), 0.0)
+            again = fn()
+            checks.record(name, *_same_bits(
+                name, case, out, again[:live] if name == "gmm" else again))
+            gate = checks.results[name].setdefault("f64_gate", {})
+            gate[case] = dict(kernel=err, plain=ref_err)
+            del out, again
+        del x, w, dy
+        torch.cuda.empty_cache()
+
+
 def phase_moe_kernels():
     """[gmm]/[tgmm]: #28 (NN and trans_w) and #29 against gmm_ref/tgmm_ref
     in f32 and bf16 at the Mixtral expert products (T·k = 8192 balanced
     rows: w1 K 4096 N 14336, w2 K 14336 N 4096, their dx and dW), at the
-    bench shape under the five splits and at the test CASES; times at the
-    first two beside the plain version, the bound and torch._grouped_mm
-    (bf16). Returns {kernel: dict(max_abs_err, ms, ...)} and all-ok."""
+    bench shape under the five splits and at the test CASES; the f32
+    tier's accuracy gate (_gmm_gate) at the Mixtral products, the bench
+    shape's balanced and one_hot splits and two CASES; times at the
+    first two beside the plain version, the bound (f32: split-TF32
+    products, the f32 FMAs' beside it) and torch._grouped_mm (bf16).
+    Returns {kernel: dict(max_abs_err, ms, ...)} and all-ok."""
     from functools import partial
 
+    from tpukern_torch.harness import ops_bench
     from tpukern_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -4047,10 +4109,12 @@ def phase_moe_kernels():
                else None)
         if kind == "gmm trans_w":  # x is dy here: (T, N) · W[e]ᵀ -> (T, K)
             K, N = N, K
+        flops, nbytes = _gmm_work(sizes, T, K, N, dt, kind.split()[0])
+        f32 = dt == torch.float32
         timed[key] = _timed_entry(
             "tgmm" if kind == "tgmm" else "gmm", [T, K, N, len(sizes)],
-            kernel, plain, lib, *_gmm_work(sizes, T, K, N, dt, kind.split()[0]),
-            dt, light=light)
+            kernel, plain, lib, {ops_bench.SPLIT_TF32: flops} if f32
+            else flops, nbytes, dt, light=light, fma=flops if f32 else None)
         if lib is not None:
             ref = plain()
             got = lib()
@@ -4090,6 +4154,14 @@ def phase_moe_kernels():
         _gmm_edge_checks(checks, gen, dt, tag)
         for K, N in TGMM_NAN_KN:
             _tgmm_nan_check(checks, gen, K, N, dt)
+    T, K, N = GMM_BENCH
+    _gmm_gate(checks, gen, [
+        ("Mixtral w1", rows, d, ff, [rows // E] * E),
+        ("Mixtral w2", rows, ff, d, [rows // E] * E),
+        *((f"bench {split}", T, K, N, GMM_SPLITS[split])
+          for split in ("balanced", "one_hot")),
+        *((f"case {sizes}", T_, K_, N_, sizes)
+          for T_, K_, N_, sizes in (GMM_CASES[1], GMM_CASES[6]))])
     torch.cuda.synchronize()
     _time_kernels(timed, checks.results)
     return checks.results, checks.ok
@@ -4211,7 +4283,8 @@ def phase_moe_dropless(mp, cfg, T):
     """[moe-dropless]: moe_block_dropless(use_kernel=True) on layer 0's moe
     weights of [moe-train], T tokens of d, k = cfg.moe_top_k: forward and
     the grads of mean(out²), with #28's 2 forward, 2 trans_w and #29's 2
-    launches a call; out and the grads of x, router, w1, w2 against
+    launches a call (and, f32, the split-TF32 operand passes' 2 a
+    launch, printed); out and the grads of x, router, w1, w2 against
     use_kernel=False (plain ragged products) on the same input; ms
     forward and forward plus backward of both; 3 Adam steps of the layer;
     then once with a router biased so that one expert takes half the
@@ -4220,6 +4293,7 @@ def phase_moe_dropless(mp, cfg, T):
     from tpukern_torch.harness import run_benchmark
     from tpukern_torch.models.moe import moe_block_dropless
     from tpukern_torch.ops import grouped_matmul as gm
+    from tpukern_torch.ops import split_tf32
 
     k, d, E = cfg.moe_top_k, cfg.d_model, cfg.n_experts
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -4233,14 +4307,15 @@ def phase_moe_dropless(mp, cfg, T):
     router = mp["router"].detach().clone()
     router[:, 0] += 100.0 * u / u.norm()
     hot = dict(mp, router=router.requires_grad_())
-    for op in (gm.gmm, gm.tgmm):
+    for op in (gm.gmm, gm.tgmm, split_tf32.split_tf32):
         op.launches = 0
     gm.gmm.trans_w_launches = 0
     ok = True
 
     def counts():
         return (gm.gmm.launches - gm.gmm.trans_w_launches,
-                gm.gmm.trans_w_launches, gm.tgmm.launches)
+                gm.gmm.trans_w_launches, gm.tgmm.launches,
+                split_tf32.split_tf32.launches)
 
     for label, params in (("router as trained", mp), ("hot expert", hot)):
         probs = torch.softmax((x.detach() @ params["router"].detach()
@@ -4248,14 +4323,19 @@ def phase_moe_dropless(mp, cfg, T):
         sizes = torch.bincount(torch.topk(probs, k).indices.reshape(-1),
                                minlength=E).tolist()
         before = counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         out, grads = _dropless_run(x, params, k, True)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
         per_call = tuple(a - b for a, b in zip(counts(), before))
-        good = per_call == (2, 2, 2)
+        good = per_call[:3] == (2, 2, 2)
         print(f"[moe-dropless] {label}: T={T} d={d} k={k}, group sizes "
               f"{sizes}; launches a forward plus backward: gmm {per_call[0]},"
               f" gmm trans_w {per_call[1]}, tgmm {per_call[2]} "
-              f"{'ok' if good else 'MISS (want 2, 2, 2)'}")
+              f"{'ok' if good else 'MISS (want 2, 2, 2)'}; split-TF32 "
+              f"operand passes {per_call[3]}; peak device memory "
+              f"{peak:.2f} GiB")
         ok &= good
         rout, rgrads = _dropless_run(x, params, k, False)
         good, err = _compare("moe_dropless", f"{label} out vs plain", out,
@@ -4296,7 +4376,8 @@ def phase_moe_dropless(mp, cfg, T):
           f"mean(out²) {[f'{v:.6e}' for v in losses]} "
           f"{'ok' if good else 'MISS'}")
     launches = dict(gmm=gm.gmm.launches, tgmm=gm.tgmm.launches,
-                    trans_w=gm.gmm.trans_w_launches)
+                    trans_w=gm.gmm.trans_w_launches,
+                    split_tf32=split_tf32.split_tf32.launches)
     print(f"[moe-dropless] launches over the phase {launches}")
     require(launches["gmm"] > 0 and launches["tgmm"] > 0,
             f"the dropless path never launched #28/#29: {launches}")

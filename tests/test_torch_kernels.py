@@ -1839,14 +1839,113 @@ def test_tgmm_last_slabs_and_nan_rows(cuda, K, N, dt):
     x[-14:] = float("nan")
     dy[-14:] = float("nan")
     plan = gm.tgmm_slabs(x, dy, TGMM_TAIL_SIZES)
-    assert {n for slabs in plan for _, n, _ in slabs} == {1, 20, 37, 63, 64}
-    assert {p for slabs in plan for _, _, p in slabs} == (
-        {"tma"} if K % 8 == 0 and dt == "bf16" else {"copy"})
+    if dt == "f32":  # 32-column slabs of the split planes from 16-byte
+        # aligned columns, all by TMA
+        assert {n for slabs in plan for _, n, _ in slabs} == {1, 3, 5, 20,
+                                                              30, 31, 32}
+        assert {p for slabs in plan for _, _, p in slabs} == {"tma"}
+    else:
+        assert {n for slabs in plan for _, n, _ in slabs} == {1, 20, 37, 63,
+                                                              64}
+        assert {p for slabs in plan for _, _, p in slabs} == (
+            {"tma"} if K % 8 == 0 else {"copy"})
     dw = gm.tgmm(x, dy, gs)
     torch.cuda.synchronize()
     assert torch.isfinite(dw).all()
     check_all_close(dw.float(), gm.tgmm_ref(x, dy, gs), dtype=DTYPES[dt],
                     name="tgmm", **(F32 if dt == "f32" else {}))
+
+
+def _grouped_f32_call(kind, x, w, dy, gs):
+    """(#28/#29 f32 output, the gate's (a, b, tgmm) operands, its split
+    model): kind "gmm", "gmm trans_w" (dy (T, N) times W[e]^T) or
+    "tgmm"."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    if kind == "tgmm":
+        return (gm.tgmm(x, dy, gs), (x, dy, True),
+                gm.tgmm_split_ref(x, dy, gs))
+    if kind == "gmm trans_w":
+        return (gm.gmm(dy, w, gs, trans_w=True),
+                (dy, w.transpose(1, 2), False),
+                gm.gmm_split_ref(dy, w, gs, trans_w=True))
+    return gm.gmm(x, w, gs), (x, w, False), gm.gmm_split_ref(x, w, gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gmm", "gmm trans_w", "tgmm"])
+@pytest.mark.parametrize("case", ["mid_block", "empty_interleaved",
+                                  "split hot_expert", "split one_hot"])
+def test_grouped_f32_gate(cuda, case, kind):
+    """#28 (NN, trans_w) and #29 f32 on split-TF32 products: the largest
+    error against the f64 grouped product at most SPLIT_GATE times the
+    plain loop's (cuBLAS f32 a group, TF32 off); within the split's bound
+    of the plain model (gmm_split_ref, tgmm_split_ref) plus the f32 sums'
+    rounding (a slab's ulps of Σ|a b|, a loose bound); two operand passes
+    and one kernel launch a call; a second call gives the same bits."""
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import grouped_matmul as gm
+    from tpukern_torch.ops import split_tf32
+
+    T, K, N, sizes = GMM_CASES[case]
+    x, w, dy, gs = _gmm_case(cuda, "f32", T, K, N, sizes, seed=len(case))
+    before = (gm.gmm.launches + gm.tgmm.launches,
+              split_tf32.split_tf32.launches)
+    out, (a, b, tg), model = _grouped_f32_call(kind, x, w, dy, gs)
+    torch.cuda.synchronize()
+    assert (gm.gmm.launches + gm.tgmm.launches,
+            split_tf32.split_tf32.launches) == (before[0] + 1, before[1] + 2)
+    ok, err, rule = ops_bench.split_gate(out, a, b, gs, tgmm=tg)
+    assert ok, (err, rule)
+    ref = gm.tgmm_ref if tg else gm.gmm_ref
+    terms = ref(a.abs(), b.abs(), gs, dtype=torch.float64)
+    depth = max(sizes) if tg else a.shape[1]
+    slack = (split_tf32.SPLIT_REL + depth * 2.0 ** -24) * terms
+    assert ((out.double() - model.double()).abs() <= 2 * slack).all()
+    assert torch.equal(_grouped_f32_call(kind, x, w, dy, gs)[0], out)
+
+
+# #28/#29 f32 at the edges, x and dy NaN past the groups: groups of 1,
+# 127, 129 and 255 rows off a 128-row boundary and an empty one (gmm),
+# last slabs of 5, 31, 1 and 20 tokens starting off a 32-token boundary
+# (tgmm), K and N that leave every plane's rows padded (K 130, N 201) or
+# not; W[e + 1] all NaN after a live group e (its own group empty)
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(128, 136), (130, 201)])
+def test_grouped_f32_nan_edges(cuda, K, N):
+    """#28 f32 (NN and trans_w): exact zeros past the groups, the live
+    rows finite and held to the gate; no element of W[e + 1] enters group
+    e's rows. #29 f32: every dW finite (the last slab's columns past the
+    group, the next group's tokens or NaN, zeroed in all four planes) and
+    held to the gate, an empty group's slab zero."""
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    nan = float("nan")
+    sizes, live = GMM_ITEM_SIZES, sum(GMM_ITEM_SIZES)
+    x, w, dy, gs = _gmm_case(cuda, "f32", live + 20, K, N, sizes, seed=K)
+    x[live:], dy[live:] = nan, nan
+    for kind in ("gmm", "gmm trans_w"):
+        out, (a, b, _), _ = _grouped_f32_call(kind, x, w, dy, gs)
+        torch.cuda.synchronize()
+        assert torch.equal(out[live:], torch.zeros_like(out[live:])), kind
+        assert torch.isfinite(out).all(), kind
+        assert ops_bench.split_gate(out[:live], a[:live], b, gs)[0], kind
+    x, w, dy, gs = _gmm_case(cuda, "f32", 300, K, N, [100, 0, 160, 0],
+                             seed=K + 1)
+    w[1], w[3] = nan, nan
+    for kind in ("gmm", "gmm trans_w"):
+        out, (a, b, _), _ = _grouped_f32_call(kind, x, w, dy, gs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), kind
+    sizes = TGMM_TAIL_SIZES
+    T = sum(sizes) + 14
+    x, _, dy, gs = _gmm_case(cuda, "f32", T, K, N, sizes + [0], seed=N)
+    x[-14:], dy[-14:] = nan, nan
+    dw = gm.tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dw).all() and not dw[-1].any()
+    assert ops_bench.split_gate(dw, x, dy, gs, tgmm=True)[0]
 
 
 # #28 bf16's work items: groups of 1, 127, 129 and 255 rows off a 128-row

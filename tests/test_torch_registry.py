@@ -91,28 +91,91 @@ def _tf32(t):
 @pytest.mark.parametrize("order,ok", [("rows in sequence", True),
                                       ("tf32 inputs", False)])
 def test_grouped_matmul_check_holds_f32_rounding_not_tf32(order, ok):
-    """ops_bench.check holds tgmm_f32 within TOLS plus its contraction
-    slack: a product summing a 1024-row group in another f32 order
-    passes, one that reads its inputs as TF32 misses."""
-    v = registry.get("grouped_matmul", "tgmm_f32")
+    """ops_bench.check holds an f32 grouped variant off the split-TF32
+    tier (the ragged-dot baseline, torch.matmul a group) within TOLS plus
+    its contraction slack: a product summing each row's 1024 terms in
+    sequence, another f32 order, passes; one that reads its inputs as
+    TF32 misses. (The f32 gmm and tgmm, on split-TF32 products, are held
+    to the accuracy gate: the next tests.)"""
+    v = registry.get("grouped_matmul", "gmm_ragged_dot_xla")
     gen = torch.Generator("cpu").manual_seed(0)
-    x = torch.randn(2048, 24, generator=gen)
-    dy = torch.randn(2048, 16, generator=gen)
-    gs = torch.tensor([1024, 1024], dtype=torch.int32)
+    x = torch.randn(48, 1024, generator=gen)
+    w = torch.randn(2, 1024, 16, generator=gen)
+    gs = torch.tensor([24, 24], dtype=torch.int32)
+    assert not ops_bench.runs_split_tf32(v, (x, w, gs))
 
-    def fn(x, dy, gs):
+    def fn(x, w, gs):
         if order == "tf32 inputs":
-            return v.ref(_tf32(x), _tf32(dy), gs)
-        out = torch.zeros(2, 24, 16)
+            return v.ref(_tf32(x), _tf32(w), gs)
+        out = torch.zeros(48, 16)
         for e in range(2):
-            for t in range(1024 * e, 1024 * (e + 1)):
-                out[e] += torch.outer(x[t], dy[t])
+            for k in range(1024):
+                out[24 * e:24 * (e + 1)] += torch.outer(
+                    x[24 * e:24 * (e + 1), k], w[e, k])
         return out
 
     other = dataclasses.replace(v, fn=fn)
-    good, err, rule = ops_bench.check(other, (x, dy, gs))
+    good, err, rule = ops_bench.check(other, (x, w, gs))
     assert good == ok, f"{order}: {rule} ({err:.3e})"
     assert err > 0
+
+
+def _dropped_cross_term(a, b):
+    """a @ b with A_lo·B_hi left out of the split product."""
+    (ah, _), (bh, bl) = split_tf32.split_tf32_ref(a), split_tf32.split_tf32_ref(
+        b)
+    return ah @ bh + ah @ bl
+
+
+@pytest.mark.parametrize("order,ok", [("split-TF32 model", True),
+                                      ("torch.matmul f32", True),
+                                      ("one cross term dropped", False),
+                                      ("tf32 inputs", False)])
+@pytest.mark.parametrize("name", ["gmm_f32", "tgmm_f32"])
+def test_grouped_f32_check_holds_split_tf32_not_tf32(name, order, ok):
+    """ops_bench.check holds the f32 grouped products (#28/#29 on
+    split-TF32 products) to the accuracy gate as matmul's: the largest
+    error against the f64 grouped product at most SPLIT_GATE times the
+    plain loop's (torch.matmul f32 a group). The f32 tier's plain model
+    (gmm_split_ref, tgmm_split_ref) and the plain loop pass; the split
+    without A_lo·B_hi and a product of TF32 inputs miss; the bound counts
+    the operations as split-TF32 products."""
+    from tpukern_torch.ops import grouped_matmul as gm
+
+    v = registry.get("grouped_matmul", name)
+    gen = torch.Generator("cpu").manual_seed(2)
+    tg = name.startswith("tgmm")
+    if tg:  # two groups of 1024 tokens: the contraction
+        a, b = torch.randn(2048, 24, generator=gen), torch.randn(
+            2048, 16, generator=gen)
+        gs = torch.tensor([1024, 1000], dtype=torch.int32)
+    else:  # rows of K = 1024 in two groups, 8 rows past them
+        a, b = torch.randn(56, 1024, generator=gen), torch.randn(
+            2, 1024, 16, generator=gen)
+        gs = torch.tensor([24, 24], dtype=torch.int32)
+    args = (a, b, gs)
+    assert ops_bench.runs_split_tf32(v, args)
+    assert ops_bench.work(v, args, v.ref(*args))[1] == ops_bench.SPLIT_TF32
+
+    def fn(a, b, gs):
+        if order == "tf32 inputs":
+            return v.ref(_tf32(a), _tf32(b), gs)
+        if order == "split-TF32 model":
+            return (gm.tgmm_split_ref if tg else gm.gmm_split_ref)(a, b, gs)
+        if order == "one cross term dropped":
+            if tg:
+                return torch.stack([_dropped_cross_term(a[s:s + n].T,
+                                                        b[s:s + n])
+                                    for s, n in ((0, 1024), (1024, 1000))])
+            return torch.cat([_dropped_cross_term(a[24 * e:24 * (e + 1)],
+                                                  b[e]) for e in range(2)]
+                             + [torch.zeros(8, 16)])
+        return v.ref(a, b, gs)
+
+    other = dataclasses.replace(v, fn=fn)
+    good, err, rule = ops_bench.check(other, args)
+    assert good == ok, f"{name} {order}: {rule} ({err:.3e})"
+    assert err > 0 or order == "torch.matmul f32"
 
 
 @pytest.mark.parametrize("order,ok", [("split-TF32 model", True),
@@ -132,6 +195,14 @@ def test_matmul_f32_check_holds_split_tf32_not_tf32(order, ok):
     a, b = torch.randn(24, 1024, generator=gen), torch.randn(
         1024, 16, generator=gen)
     assert ops_bench.runs_split_tf32(v, (a, b))
+    # the rule's other members: the f32 grouped products, not their bf16
+    # variants (on the same f32 arguments) or the ragged-dot baseline
+    g = (a, torch.randn(2, 1024, 16, generator=gen),
+         torch.tensor([12, 12], dtype=torch.int32))
+    runs = {n: ops_bench.runs_split_tf32(registry.get("grouped_matmul", n), g)
+            for n in registry.variants("grouped_matmul")}
+    assert runs == {"gmm_f32": True, "tgmm_f32": True, "gmm_bf16": False,
+                    "gmm_ragged_dot_xla": False}
     assert ops_bench.work(v, (a, b), v.ref(a, b))[1] == ops_bench.SPLIT_TF32
 
     def fn(a, b):

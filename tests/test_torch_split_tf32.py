@@ -202,7 +202,8 @@ def test_c_entry_points_match_their_ctypes_signatures():
                                   re.M)}
     assert {n: len(a) for n, a in _build.SIGNATURES.items()} == {
         n: arity.get(n) for n in _build.SIGNATURES}
-    for name in ("tk_matmul", "tk_ce_bwd", "tk_split_tf32"):
+    for name in ("tk_matmul", "tk_ce_bwd", "tk_split_tf32", "tk_gmm",
+                 "tk_tgmm"):
         assert re.search(
             rf"int {name}\([^)]*int\* passes,\s*void\* stream\)", src)
 

@@ -84,11 +84,13 @@ SIGNATURES = {
     # stream
     "tk_split_tf32": [_P, _I, _I, _I64, _P, _I64, _P, _I64, _P, _P],
     # x, w, group_sizes (i32), y32 (or None), y16 (or None), T, N, K, E,
-    # trans_w, dtype, stream
-    "tk_gmm": [_P] * 5 + [_I] * 6 + [_P],
+    # trans_w, dtype, the f32 tier's split-TF32 scratch (or None), the
+    # host counter, stream
+    "tk_gmm": [_P] * 5 + [_I] * 6 + [_P, _P, _P],
     # x, dy, group_sizes (i32), o32 (or None), o16 (or None), T, K, N, E,
-    # dtype, stream
-    "tk_tgmm": [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, the f32 tier's split-TF32 scratch (or None), the host
+    # counter, stream
+    "tk_tgmm": [_P] * 5 + [_I] * 5 + [_P, _P, _P],
     # x, w (int8), s (f32), out, ws (or None), tickets, M, N, K, splits,
     # K slices a split, dtype, out dtype, stream
     "tk_matmul_w8a16": [_P] * 6 + [_I] * 7 + [_P],

@@ -102,16 +102,18 @@ int tk_split_tf32(const float* src, int R, int C, int64_t ld, float* out,
 
 int tk_gmm(const void* x, const void* w, const int* group_sizes, void* y32,
            void* y16, int T, int N, int K, int E, int trans_w, int dtype,
-           void* stream) {
+           void* scratch, int* passes, void* stream) {
   return checked(tk::gmm_launch(x, w, group_sizes, y32, y16, T, N, K, E,
-                                trans_w, dtype,
+                                trans_w, dtype, scratch, passes,
                                 static_cast<cudaStream_t>(stream)));
 }
 
 int tk_tgmm(const void* x, const void* dy, const int* group_sizes, void* o32,
-            void* o16, int T, int K, int N, int E, int dtype, void* stream) {
+            void* o16, int T, int K, int N, int E, int dtype, void* scratch,
+            int* passes, void* stream) {
   return checked(tk::tgmm_launch(x, dy, group_sizes, o32, o16, T, K, N, E,
-                                 dtype, static_cast<cudaStream_t>(stream)));
+                                 dtype, scratch, passes,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 int tk_matmul_w8a16(const void* x, const void* w, const float* s, void* out,

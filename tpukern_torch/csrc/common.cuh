@@ -368,17 +368,10 @@ __device__ __forceinline__ void split_tf32_finite(float x, float& hi,
 
 // ------------------------------------------------------------ GEMM tiles
 // One block of 256 threads accumulates the 128 x 128 tile at (m0, n0) of
-// C = A[M,K] · B[K,N] (NN) or A · B[N,K]^T (TRANS_B) in f32 registers.
-// Every global load is bounds-checked: past M, N or K it reads zeros.
-// csrc/matmul_naive.cu writes the tile out (#16 f32); csrc/cross_entropy.cu
-// reduces it (the f32 forward #13); csrc/grouped_matmul.cu writes one
-// group's rows of it (#28/#29 f32). The f32 #1-#3 and #14/#15 run the
-// split-TF32 products of csrc/hopper.cuh instead.
-//
-// TRANS_A (with NN B only): A is stored K-major, A[m][k] = a[k * M + m],
-// and the contraction runs over [k_begin, K) alone: the token-major x and
-// dy of a weight gradient, summed over one group's rows (tgmm). Without
-// TRANS_A, k_begin is 0 and K is also A's row length.
+// C = A[M,K] · B[K,N] in f32 registers. Every global load is
+// bounds-checked: past M, N or K it reads zeros. csrc/matmul_naive.cu
+// writes the tile out (#16 f32); the f32 #1-#3, #13-#15, #17, #28 and #29
+// run the split-TF32 products of csrc/hopper.cuh instead.
 
 // f32 inputs on CUDA-core FMAs in full f32 (no TF32). Thread (tx, ty)
 // = (tid % 16, tid / 16) holds acc[i][j] at row sgemm_pos(i, ty) and
@@ -403,38 +396,24 @@ __device__ __forceinline__ void fma_8x8(float (&acc)[8][8], float4 a0,
     for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
 }
 
-template <bool TRANS_B, bool TRANS_A = false>
 __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
                                            const float* __restrict__ b, int M,
                                            int N, int K, int m0, int n0,
                                            float (*as)[F_BM], float (*bs)[F_BN],
-                                           float (&acc)[8][8],
-                                           int k_begin = 0) {
-  static_assert(!(TRANS_A && TRANS_B), "TRANS_A takes an NN B");
+                                           float (&acc)[8][8]) {
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  // loader: A (and B^T) rows tid/2, k (tid%2)*4..+3; B (NN) and A
-  // (TRANS_A) k tid/32, n (or m) (tid%32)*4..+3
+  // loader: A rows tid/2, k (tid%2)*4..+3; B k tid/32, n (tid%32)*4..+3
   const int lr = tid >> 1, lk = (tid & 1) * 4;
   const int bk_ = tid >> 5, bn_ = (tid & 31) * 4;
   float pa[4], pb[4];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (TRANS_A) {
-        const int ka = k0 + bk_, m = m0 + bn_ + i;
-        pa[i] = ka < K && m < M ? a[(int64_t)ka * M + m] : 0.f;
-      } else {
-        const int r = m0 + lr, kk = k0 + lk + i;
-        pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
-      }
-      if constexpr (TRANS_B) {
-        const int n = n0 + lr, kk = k0 + lk + i;
-        pb[i] = n < N && kk < K ? b[(int64_t)n * K + kk] : 0.f;
-      } else {
-        const int kb = k0 + bk_, n = n0 + bn_ + i;
-        pb[i] = kb < K && n < N ? b[(int64_t)kb * N + n] : 0.f;
-      }
+      const int r = m0 + lr, kk = k0 + lk + i;
+      pa[i] = r < M && kk < K ? a[(int64_t)r * K + kk] : 0.f;
+      const int kb = k0 + bk_, n = n0 + bn_ + i;
+      pb[i] = kb < K && n < N ? b[(int64_t)kb * N + n] : 0.f;
     }
   };
 
@@ -443,14 +422,12 @@ __device__ __forceinline__ void sgemm_tile(const float* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  fetch(k_begin);
-  for (int k0 = k_begin; k0 < K; k0 += F_BK) {
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += F_BK) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (TRANS_A) as[bk_][bn_ + i] = pa[i];
-      else as[lk + i][lr] = pa[i];
-      if constexpr (TRANS_B) bs[lk + i][lr] = pb[i];
-      else bs[bk_][bn_ + i] = pb[i];
+      as[lk + i][lr] = pa[i];
+      bs[bk_][bn_ + i] = pb[i];
     }
     __syncthreads();
     if (k0 + F_BK < K) fetch(k0 + F_BK);  // in flight during the FMAs
@@ -543,15 +520,24 @@ cudaError_t matmul_launch(const void* a, const void* b, void* c32, void* c16,
 // (hi, then lo) of (R, ldo) (out) and of its transpose (C, ldoT) (outT),
 // either null; ldo >= C and ldoT >= R, multiples of 4, their padding 0.
 // passes (host memory, or null) is raised by one when the pass launches.
+// batch matrices, sbatch floats apart, in one launch: each one's planes
+// after the previous one's, (batch, 2, rows, ld).
 cudaError_t split_tf32_launch(const float* src, int R, int C, int64_t ld,
                               float* out, int64_t ldo, float* outT,
-                              int64_t ldoT, int* passes, cudaStream_t stream);
+                              int64_t ldoT, int* passes, cudaStream_t stream,
+                              int batch = 1, int64_t sbatch = 0);
+// f32 inputs: scratch holds the split-TF32 planes, gmm_launch's x's (2, T,
+// K4) then W's (E, 2, N, K4), tgmm_launch's x^T's (2, K, T4) then dy^T's
+// (2, N, T4), K4 and T4 rounded up to 4 (null without a product); passes:
+// split_tf32_launch's
 cudaError_t gmm_launch(const void* x, const void* w, const int* group_sizes,
                        void* y32, void* y16, int T, int N, int K, int E,
-                       int trans_w, int dtype, cudaStream_t stream);
+                       int trans_w, int dtype, void* scratch, int* passes,
+                       cudaStream_t stream);
 cudaError_t tgmm_launch(const void* x, const void* dy, const int* group_sizes,
                         void* o32, void* o16, int T, int K, int N, int E,
-                        int dtype, cudaStream_t stream);
+                        int dtype, void* scratch, int* passes,
+                        cudaStream_t stream);
 cudaError_t matmul_w8a16_launch(const void* x, const void* w, const float* s,
                                 void* out, float* ws, int* tickets, int M,
                                 int N, int K, int splits, int kt_per,

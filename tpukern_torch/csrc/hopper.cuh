@@ -4,7 +4,7 @@
 // (#1-#3, #17), csrc/grouped_matmul.cu's gmm (#28) and tgmm (#29), and
 // csrc/cross_entropy.cu's bf16 forward (#13) and backward (#14/#15); and
 // its f32 form on split-TF32 products (gemm_pipeline_tf32) of the f32
-// #1-#3, #17 and #14/#15.
+// #1-#3, #17, #13-#15, #28 and #29.
 // csrc/matmul_naive.cu (#16) uses the blocks with one stage of its own,
 // csrc/flash_attention.cu's bf16 forward (#6) with a ring of its own and
 // the register-A products (P from registers).
@@ -1030,13 +1030,24 @@ __device__ __forceinline__ void gemm_pipeline(const CUtensorMap* map_a,
 // stages. Warpgroup 2 produces: its first thread waits for a stage's
 // `empty` barrier, announces the stage's bytes on `full` (its one
 // arrival) and issues the four boxes; the others leave. Warpgroups 0 and
-// 1 consume, each its 64 rows.
+// 1 consume, each its 64 rows. B's map may hold several operands' planes
+// one after another (csrc/grouped_matmul.cu: (E, 2, N, K4), depth 2E):
+// plane_b names the hi plane of the one to read, its lo plane follows.
+// With TAIL_ZERO, k_begin may be any column: the slabs start at k_begin
+// rounded down to a multiple of 4 (a box's inner coordinate must fall on
+// 16 bytes: at 37 the card raised an illegal instruction), and a slab
+// that holds columns outside [k_begin, k_end) (the first one's up to 3
+// before k_begin, the last one's past k_end: another group's values, or
+// NaN) has them zeroed in all four planes by the consumers before the
+// products, as gemm_pipeline's TAIL_ZERO does for rows.
 constexpr int TF_BK = 32, TF_BN = 128;
 constexpr int TF_A = GP_BM * TF_BK * 4;  // one plane of A's slab: 16 KiB
 constexpr int TF_B = TF_BN * TF_BK * 4;  // one plane of B's slab: 16 KiB
 constexpr int TF_STAGE = 2 * (TF_A + TF_B);
 constexpr int TF_STAGES = 3;
 constexpr int TF_SMEM = TF_STAGES * TF_STAGE + 1024;  // + the alignment
+// a stage: the four planes, 4 GP_BM rows of 128 bytes (TAIL_ZERO's walk)
+static_assert(TF_A == TF_B && TF_STAGE == 4 * GP_BM * 128, "stage");
 
 // host: one map over both planes (2, rows, ld) of a split operand at p,
 // rows K values long, boxes of TF_BK x box_rows
@@ -1046,17 +1057,19 @@ inline cudaError_t tma_map_planes(CUtensorMap* map, const float* p, int K,
 }
 
 // D of the tile (m0, n0) over the columns [k_begin, k_end) of A's and
-// B's planes (maps of tma_map_planes with boxes of GP_BM and TF_BN rows;
-// k_begin a multiple of TF_BK), then epi(acc) in each consumer thread with
-// its 64 sums (wgmma's m64n128 layout, rows 64 wg on). No column: epi
-// gets zeros. Every thread of the block calls it, as the kernel's last
-// statement.
-template <typename Epi>
+// B's planes (maps over K-major planes with boxes of TF_BK x GP_BM and
+// TF_BK x TF_BN, B's hi plane at depth plane_b, A's at 0), then epi(acc)
+// in each consumer thread with its 64 sums (wgmma's m64n128 layout, rows
+// 64 wg on). No column: epi gets zeros. Without TAIL_ZERO, k_begin is a
+// multiple of TF_BK and the columns past k_end are zeros. Every thread of
+// the block calls it, as the kernel's last statement.
+template <bool TAIL_ZERO = false, typename Epi>
 __device__ __forceinline__ void gemm_pipeline_tf32(const CUtensorMap* map_a,
                                                    const CUtensorMap* map_b,
                                                    int m0, int n0,
                                                    int k_begin, int k_end,
-                                                   Epi&& epi) {
+                                                   Epi&& epi,
+                                                   int plane_b = 0) {
   constexpr int P_REGS = 40, C_REGS = 232;
   static_assert(128 * (168 - P_REGS) >= 256 * (C_REGS - 168), "budget");
   extern __shared__ unsigned char gp_smem[];
@@ -1064,8 +1077,8 @@ __device__ __forceinline__ void gemm_pipeline_tf32(const CUtensorMap* map_a,
   const uint32_t base = (smem_u32(gp_smem) + 1023) & ~1023u;
   const uint32_t full = smem_u32(tf_bar), empty = full + 8 * TF_STAGES;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int slabs =
-      k_end > k_begin ? (k_end - k_begin + TF_BK - 1) / TF_BK : 0;
+  const int k0 = TAIL_ZERO ? k_begin & ~3 : k_begin;  // the first slab's
+  const int slabs = k_end > k_begin ? (k_end - k0 + TF_BK - 1) / TF_BK : 0;
   if (tid == 0) {
     for (int s = 0; s < TF_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -1078,15 +1091,15 @@ __device__ __forceinline__ void gemm_pipeline_tf32(const CUtensorMap* map_a,
     warpgroup_regs_dec<P_REGS>();
     if (tid != 256) return;
     for (int j = 0, s = 0, ph = 0; j < slabs; ++j) {
-      const int k = k_begin + j * TF_BK;
+      const int k = k0 + j * TF_BK;
       const uint32_t sa = base + s * TF_STAGE, sb = sa + 2 * TF_A;
       const uint32_t f = full + 8 * s;
       mbar_wait(empty + 8 * s, ph ^ 1);  // the first round passes
       mbar_arrive_tx(f, TF_STAGE);
       tma_load_3d(sa, map_a, f, k, m0, 0);
       tma_load_3d(sa + TF_A, map_a, f, k, m0, 1);
-      tma_load_3d(sb, map_b, f, k, n0, 0);
-      tma_load_3d(sb + TF_B, map_b, f, k, n0, 1);
+      tma_load_3d(sb, map_b, f, k, n0, plane_b);
+      tma_load_3d(sb + TF_B, map_b, f, k, n0, plane_b + 1);
       if (++s == TF_STAGES) {
         s = 0;
         ph ^= 1;
@@ -1105,6 +1118,26 @@ __device__ __forceinline__ void gemm_pipeline_tf32(const CUtensorMap* map_a,
       const uint32_t b_hi = base + s * TF_STAGE + 2 * TF_A;
       const uint32_t b_lo = b_hi + TF_B;
       mbar_wait(full + 8 * s, ph);
+      // the slab's columns [lo, hi) lie in [k_begin, k_end)
+      const int lo = k_begin - k0 - j * TF_BK, hi = k_end - k0 - j * TF_BK;
+      if (TAIL_ZERO && (lo > 0 || hi < TF_BK)) {
+        // the stage's four planes are 512 rows of 128 bytes, 128B-swizzled:
+        // value c of row r at word 4 ((c / 4) ^ (r % 8)) + c % 4; zero
+        // every value c outside [lo, hi) of each row, a 16-byte chunk a
+        // step
+        float* p = reinterpret_cast<float*>(
+            gp_smem + (base + s * TF_STAGE - smem_u32(gp_smem)));
+        for (int i = tid; i < 4 * GP_BM * 8; i += 256) {
+          const int r = i >> 3, c = i & 7;
+          if (4 * c >= lo && 4 * c + 4 <= hi) continue;
+          float* q = p + r * 32 + 4 * (c ^ (r & 7));
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            if (4 * c + v < lo || 4 * c + v >= hi) q[v] = 0.f;
+        }
+        fence_proxy_async();
+        named_barrier_sync(1, 256);  // both consumers' zeros are in
+      }
       wgmma_fence_acc(d);
       wgmma_fence();
       // the slab's sum afresh, its 8 small terms first, then the 4 large

@@ -63,8 +63,8 @@ namespace {
 
 // The main loops are hopper.cuh's gemm_pipeline (shared with
 // csrc/grouped_matmul.cu's bf16 gmm and tgmm and csrc/cross_entropy.cu's
-// bf16 kernels) and gemm_pipeline_tf32 (shared with the f32 CE backward);
-// each kernel adds the epilogue.
+// bf16 kernels) and gemm_pipeline_tf32 (shared with the f32 CE and the
+// f32 gmm and tgmm); each kernel adds the epilogue.
 // Block (x, y, z): the tile of launch-order block (x, y) over split z of
 // the slabs, `per` slabs a split; with more than one split the partial
 // sums meet in split_k_merge and the last split of the tile stores it.

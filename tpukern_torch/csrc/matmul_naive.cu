@@ -158,7 +158,7 @@ matmul_naive_f32_kernel(const float* __restrict__ a,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
   float acc[8][8];
-  sgemm_tile<false>(a, b, M, N, K, m0, n0, as, bs, acc);
+  sgemm_tile(a, b, M, N, K, m0, n0, as, bs, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + sgemm_pos(i, ty);

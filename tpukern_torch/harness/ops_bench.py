@@ -292,9 +292,10 @@ def check(v, args):
     bf16-accumulator sum on the card equal to its plain version in the
     kernel's order (reduce.sum_bf16_in_order); softmax by
     softmax_check; a gather (embedding) and a transpose bit-equal; the
-    split-TF32 f32 tier of matmul by split_gate; floats within TOLS, a
-    grouped product's and a gemv's with their contraction_slack on top
-    (a gemv output sums K products)."""
+    split-TF32 f32 tier of matmul and of the grouped products by
+    split_gate; floats within TOLS, a bf16 grouped product's and a gemv's
+    with their contraction_slack on top (a gemv output sums K
+    products)."""
     out, ref = v.fn(*args), v.ref(*args)
     pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
     ok, worst, rules = True, 0.0, []
@@ -321,7 +322,8 @@ def check(v, args):
             rules.append("bit-equal")
             ok &= torch.equal(o, r)
         elif runs_split_tf32(v, args):
-            good, err, rule = split_gate(o, *args)
+            good, err, rule = split_gate(o, *args,
+                                         tgmm=v.name.startswith("tgmm"))
             rules.append(rule)
             ok &= good
         elif v.family == "softmax":
@@ -343,18 +345,31 @@ def check(v, args):
     return ok, worst, "; ".join(dict.fromkeys(rules))
 
 
-def split_gate(out, a, b):
+def split_gate(out, a, b, group_sizes=None, *, tgmm=False):
     """The accuracy gate of the split-TF32 f32 tier (ops/split_tf32.py):
-    (ok, out's largest |error| against the f64 product of a (M, K) and b
-    (K, N), the rule). ok: out is finite and that error is at most
-    SPLIT_GATE times torch.matmul's in f32 on the same inputs, TF32 off.
-    The sums run in another order than cuBLAS's, so the two f32 results
-    are held to the exact product, not to each other."""
-    exact = torch.matmul(a.double(), b.double())
+    (ok, out's largest |error| against the f64 product, the rule): of a
+    (M, K) and b (K, N), or with group_sizes the grouped product, gmm(a,
+    b, group_sizes) or with tgmm tgmm(a, b, group_sizes). ok: out is
+    finite and that error is at most SPLIT_GATE times that of torch.matmul
+    in f32 on the same inputs (gmm_ref/tgmm_ref: torch.matmul a group),
+    TF32 off. The sums run in another order than cuBLAS's, so the two f32
+    results are held to the exact product, not to each other."""
+    if group_sizes is None:
+        def product(a, b):
+            return torch.matmul(a, b)
+        what = "torch.matmul"
+    else:
+        from tpukern_torch.ops import grouped_matmul as gm
+        ref = gm.tgmm_ref if tgmm else gm.gmm_ref
+
+        def product(a, b):
+            return ref(a, b, group_sizes, dtype=a.dtype)
+        what = f"{ref.__name__} (torch.matmul a group)"
+    exact = product(a.double(), b.double())
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        lib = torch.matmul(a, b)
+        lib = product(a.float(), b.float())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     err = (out.double() - exact).abs().max().item()
@@ -362,7 +377,7 @@ def split_gate(out, a, b):
     ok = bool(torch.isfinite(out).all()) and err <= (
         split_tf32.SPLIT_GATE * lib_err)
     return ok, err, (f"f64 product: at most {split_tf32.SPLIT_GATE:g}x "
-                     f"torch.matmul f32's {lib_err:.3e}")
+                     f"{what} f32's {lib_err:.3e}")
 
 
 def work(v, args, out):
@@ -386,11 +401,13 @@ def work(v, args, out):
 
 
 def runs_split_tf32(v, args):
-    """Whether variant v takes `matmul`'s f32 tier on these arguments:
-    split-TF32 products (#1-#3, #17; ops/split_tf32.py), not #16's
-    (`naive`) or cuBLAS's (the baselines)."""
-    return (v.family == "matmul" and "naive" not in v.name
-            and "baseline" not in v.tags
+    """Whether variant v takes the f32 tier of `matmul` or of the grouped
+    products on these arguments: split-TF32 products (#1-#3, #17, #28,
+    #29; ops/split_tf32.py), not #16's (`naive`), cuBLAS's or the ragged
+    dot's (the baselines), nor a bf16 variant on f32 arguments."""
+    return (v.family in ("matmul", "grouped_matmul")
+            and "naive" not in v.name and "baseline" not in v.tags
+            and _in_dtype(v.family, v.name) == torch.float32
             and args[0].dtype == torch.float32)
 
 

@@ -1,4 +1,5 @@
-"""The split-TF32 products of the f32 GEMM tier (#1-#3, #17, #14/#15).
+"""The split-TF32 products of the f32 GEMM tier (#1-#3, #17, #13-#15,
+#28, #29).
 
 The tensor cores run f32 products only as TF32 (10 mantissa bits). To
 keep f32's accuracy the f32 tier splits each operand x into hi, x rounded
@@ -8,9 +9,11 @@ three TF32 products in f32 accumulators (CUTLASS calls it 3xTF32; the JAX
 f32 tier's Precision.HIGHEST is the TPU's bf16 passes of the same idea,
 tpukern/ops/cross_entropy.py:65-68). Kernels: csrc/split_tf32.cu (the
 operand pass) and csrc/hopper.cuh `gemm_pipeline_tf32` (the products),
-launched by csrc/matmul.cu and csrc/cross_entropy.cu. `wgmma .tf32` reads
-both operands K-major only, so an operand whose contraction is not along
-its rows is split transposed.
+launched by csrc/matmul.cu, csrc/cross_entropy.cu and
+csrc/grouped_matmul.cu (whose layouts, scratch and plain models are in
+ops/grouped_matmul.py). `wgmma .tf32` reads both operands K-major only,
+so an operand whose contraction is not along its rows is split
+transposed.
 
 This module holds the operand pass's wrapper (`split_tf32`), the count
 of its launches by every launcher (`launch_counting_passes`) and its
