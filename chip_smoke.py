@@ -69,8 +69,10 @@
    backward's dx and dW held to the accuracy gate, the forward also at a
    tail in D and V), and the featured attention:
    flash_attention with window, sinks, softcap and segments, and the
-   two-kernel backward flash_attention_dq / flash_attention_dkv) against
-   their plain versions, and times them at the 7bish training shapes;
+   two-kernel backward flash_attention_dq / flash_attention_dkv (GQA
+   inside both; each call twice, bit-equal; the f32 tier on split-TF32
+   products held to the accuracy gate against f64) against their plain
+   versions, and times them at the 7bish training shapes;
    every timed kernel also gets its bound (bytes or operations over the
    H100's peak) and, where one PyTorch call computes the same function,
    that call's time (for the paged kernels, SDPA on a gathered copy);
@@ -340,13 +342,14 @@ def phase_build():
 # TMA (UTMALDG), no mma.sync (HMMA), as do every instance of the f32
 # flash-attention forward (#6) and the f32 fused backward (#8) on
 # split-TF32 products, and of the bf16 fused backward (#8 on bf16
-# wgmma); #40 runs no matrix product (HMMA, HGMMA); the bf16 w8a16 GEMM
-# (#25) runs mma.sync (HMMA) at 1, 2 and 4 token tiles and register-A
-# wgmma (HGMMA, no HMMA) at 8 and 16, and widens its int8 weights with no
-# conversion instruction (I2F, I2FP) in every instance; every instance of
-# #30's ew_kernel loads its tier's width (16-bit LDG16 at bf16 x1, 32-bit
-# LDG32 at f32 x1 and bf16 x2, LDG64 at f32 x2, LDG128 at the 16-byte
-# tiers) and nothing wider; the cluster softmax kernel (#35 + #36) passes
+# wgmma), and the f32 featured backward (#9 fa_dq_tf32_kernel, #10
+# fa_dkv_tf32_kernel); #40 runs no matrix product (HMMA, HGMMA); the
+# bf16 w8a16 GEMM (#25) runs mma.sync (HMMA) at 1, 2 and 4 token tiles
+# and register-A wgmma (HGMMA, no HMMA) at 8 and 16, and widens its int8
+# weights with no conversion instruction (I2F, I2FP) in every instance;
+# every instance of #30's ew_kernel loads its tier's width (16-bit LDG16
+# at bf16 x1, 32-bit LDG32 at f32 x1 and bf16 x2, LDG64 at f32 x2, LDG128
+# at the 16-byte tiers) and nothing wider; the cluster softmax kernel (#35 + #36) passes
 # the cluster barrier (UCGABAR_ARV, UCGABAR_WAIT)
 _WGMMA_TMA = {"HGMMA": True, "UTMALDG": True, "HMMA": False}
 SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
@@ -370,6 +373,8 @@ SASS_WANT = {"matmul_naive_bf16_kernelILb1ELb1E": _WGMMA_TMA,
              "16tgmm_tf32_kernel": _WGMMA_TMA,
              "fa_fwd_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_tf32_kernel": _WGMMA_TMA,
+             "fa_dq_tf32_kernel": _WGMMA_TMA,
+             "fa_dkv_tf32_kernel": _WGMMA_TMA,
              "fa_bwd_bf16_kernel": _WGMMA_TMA,
              "embedding_select_kernel": {"HMMA": False, "HGMMA": False},
              **{f"w8a16_mma_kernelILi{nt}E": {"HMMA": True, "I2F": False,
@@ -400,6 +405,7 @@ NO_SERIALIZED = ("w8a16_mma_kernel", "gemm_tf32_kernel",
                  "ce_dx_tf32_kernel", "ce_dw_tf32_kernel",
                  "gmm_tf32_kernel", "tgmm_tf32_kernel",
                  "fa_fwd_tf32_kernel", "fa_bwd_tf32_kernel",
+                 "fa_dq_tf32_kernel", "fa_dkv_tf32_kernel",
                  "fa_bwd_bf16_kernel")
 
 
@@ -1882,50 +1888,38 @@ def _matmul_gate(checks, gen, shapes):
 WINDOW, SOFTCAP = 512, 50.0
 
 
-def _band_pairs(S, window):
-    """Visible (q, kv) pairs of one causal head under a window."""
-    return sum(min(r + 1, window) for r in range(S))
-
-
-def _flex_attention(window, softcap, S):
-    """The one PyTorch call of the featured attention, timed as the
-    library call only: torch.compile of flex_attention with cap·tanh(s/cap)
-    as its score_mod (applied to the scaled score, before the mask) and
-    the causal band of `window` keys as its block mask. Returns a function
-    (q, k, v, enable_gqa=False) -> (o, natural-log lse)."""
-    from functools import partial
-
-    import torch._inductor.config
-    from torch.nn.attention.flex_attention import (create_block_mask,
-                                                   flex_attention)
-
-    def score_mod(score, b, h, qi, ki):
-        return softcap * torch.tanh(score / softcap)
-
-    def band(b, h, qi, ki):
-        return (ki <= qi) & (ki > qi - window)
-
-    torch._inductor.config.compile_threads = 1  # no worker processes
-    return partial(torch.compile(flex_attention), score_mod=score_mod,
-                   block_mask=create_block_mask(band, None, None, S, S,
-                                                device="cuda"),
-                   return_lse=True)
-
-
 def _featured_kernels(checks, timed, gen, cfg, B, S):
     """The featured forward (#6 with window, sinks, softcap, segments) and
     the two-kernel backward (#9 flash_attention_dq, #10
     flash_attention_dkv) against their plain versions: each feature set
-    at small odd shapes (GQA 2, S off the tiles) in f32 and bf16, fused=
-    False with no feature, and the slice shape with window and softcap.
-    Times at the slice shape (B, Hq, S, D) with WINDOW and SOFTCAP, f32,
-    where the library call is flex_attention (_flex_attention) and its
-    autograd backward (for #9 and #10 together), first checked against
-    the plain versions; and at the window-only shape, where it is SDPA
-    with a boolean band mask and its autograd backward."""
+    at small odd shapes (S off the tiles) in f32 and bf16, the backward on
+    K and V at 2 KV heads (GQA inside the kernels) and repeated to the 4
+    query heads (group 1), fused=False with no feature, and the slice
+    shape with window and softcap on its KV heads. Each backward call
+    twice, bit-equal (one owner an output, no atomics), and the f32 tier
+    (split-TF32 products) held to the accuracy gate: dq's, dk's and dv's
+    largest error against an f64 evaluation of the same function on the
+    same lse and di (fa_train_times.featured_f64) at most SPLIT_GATE times
+    the plain version's in f32, at the D 128 odd shape for every feature
+    set and at the slice shape with window + softcap and window only; at
+    D 32 the ratio is printed ([gate-info]) and the TOLS check holds the
+    kernels. There the plain version sums 32 terms over D and at most 37
+    over the window, 1-4 ulps off f64, and three TF32 products with
+    wgmma's rounding of its accumulator each k8 step come within 2x of
+    that only on some draws (PERF.md §6). Times at the slice shape (B,
+    Hq, S, D) with WINDOW and SOFTCAP, f32, K and V at the KV heads the
+    step uses, where the library call is compiled flex_attention
+    (fa_train_times.flex_band_attention) and its autograd backward (for
+    #9 and #10 together), first checked against the plain versions; and
+    at the window-only shape, where it is SDPA with a boolean band mask
+    and its autograd backward."""
     from functools import partial
 
     from tpukern_torch.core.feature_sets import FEATURE_SETS, feature_kwargs
+    from tpukern_torch.harness import ops_bench
+    from tpukern_torch.harness.fa_train_times import (band_pairs,
+                                                      featured_f64,
+                                                      flex_band_attention)
     from tpukern_torch.ops import attention, attention_bwd
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -1934,17 +1928,36 @@ def _featured_kernels(checks, timed, gen, cfg, B, S):
     dq, dkv = attention_bwd.flash_attention_dq, attention_bwd.flash_attention_dkv
     dq_ref = attention_bwd.flash_attention_dq_ref
     dkv_ref = attention_bwd.flash_attention_dkv_ref
+    names = ("flash_attention_dq",) + ("flash_attention_dkv",) * 2
 
     def bwd_checks(case, q, k, v, do, kw):
         o, lse = ref(q, k, v, causal=True, return_stats=True, **kw)
         di = (o.float() * do.float()).sum(-1)
         args = (q, k, v, do, lse, di)
         out = (dq(*args, causal=True, **kw), *dkv(*args, causal=True, **kw))
+        again = (dq(*args, causal=True, **kw),
+                 *dkv(*args, causal=True, **kw))
         refs = (dq_ref(*args, causal=True, **kw),
                 *dkv_ref(*args, causal=True, **kw))
-        for name, grad, a, b in zip(("flash_attention_dq",) + (
-                "flash_attention_dkv",) * 2, ("dq", "dk", "dv"), out, refs):
+        exact = featured_f64(*args, **kw) if q.dtype == f32 else refs
+        for name, grad, a, a2, b, e in zip(names, ("dq", "dk", "dv"), out,
+                                           again, refs, exact):
             checks.record(name, *_compare(name, f"{grad} {case}", a, b))
+            checks.record(name, *_same_bits(name, f"{grad} {case}", a, a2))
+            if q.dtype == f32:
+                err, ref_err = ((x.double() - e).abs().max().item()
+                                for x in (a, b))
+                if q.shape[-1] >= 64:
+                    checks.record(name, _gate(name, f"{grad} {case}", err,
+                                              ref_err, ref="plain f32"), 0.0)
+                    gate = checks.results[name].setdefault("f64_gate", {})
+                else:
+                    print(f"[gate-info] {name:16s} {grad} {case:40s} kernel "
+                          f"{err:.3e} plain f32 {ref_err:.3e} vs f64: "
+                          f"x{err / max(ref_err, 1e-300):.3f}")
+                    gate = checks.results[name].setdefault("f64_ratio_d32",
+                                                           {})
+                gate[f"{grad} {case}"] = dict(kernel=err, plain=ref_err)
 
     for (Bb, S_, dd), dt in (((2, 333, 128), f32), ((1, 200, 64), bf),
                              ((2, 333, 128), bf), ((1, 77, 32), f32)):
@@ -1965,18 +1978,27 @@ def _featured_kernels(checks, timed, gen, cfg, B, S):
             checks.record("flash_attention", bool(
                 (o[..., ~seen, :] == 0).all()), 0.0)
             if "sinks" not in name:  # sinks are forward-only
-                bwd_checks(f"{name} B{Bb} H4 S{S_} D{dd} {dt}", q, k4, v4,
+                bwd_checks(case, q, k, v, do, kw)
+                bwd_checks(f"{name} B{Bb} H4/4 S{S_} D{dd} {dt}", q, k4, v4,
                            do, kw)
-        bwd_checks(f"fused=False B{Bb} H4 S{S_} D{dd} {dt}", q, k4, v4, do,
+                if "segments" in name:  # rows that see no key: zero dq
+                    o, lse = ref(q, k, v, causal=True, return_stats=True,
+                                 **kw)
+                    di = (o.float() * do.float()).sum(-1)
+                    g = dq(q, k, v, do, lse, di, causal=True, **kw)
+                    checks.record("flash_attention_dq", bool(
+                        (g[..., ~seen, :] == 0).all()), 0.0)
+        bwd_checks(f"fused=False B{Bb} H4/2 S{S_} D{dd} {dt}", q, k, v, do,
+                   {})
+        bwd_checks(f"fused=False B{Bb} H4/4 S{S_} D{dd} {dt}", q, k4, v4, do,
                    {})
 
     # the slice shape: window and softcap, f32, as the training step runs
-    # them (forward GQA 16/8; the backward on K, V repeated to 16 heads)
+    # them (GQA 16/8 in the forward and in both backward kernels)
     feat = dict(window=WINDOW, softcap=SOFTCAP)
     q = _randn(gen, B, Hq, S, D, dtype=f32)
     k, v = (_randn(gen, B, Hkv, S, D, dtype=f32) for _ in range(2))
     do = _randn(gen, B, Hq, S, D, dtype=f32)
-    k16, v16 = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
     case = f"window {WINDOW} softcap {SOFTCAP:g} B{B} H{Hq}/{Hkv} S{S} D{D}"
     for what, a, b in zip(("o", "lse"),
                           fa(q, k, v, causal=True, return_stats=True, **feat),
@@ -1984,30 +2006,34 @@ def _featured_kernels(checks, timed, gen, cfg, B, S):
                               **feat)):
         checks.record("flash_attention", *_compare(
             "flash_attention", f"{what} {case}", a, b))
-    bwd_checks(case, q, k16, v16, do, feat)
+    bwd_checks(case, q, k, v, do, feat)
+    bwd_checks(f"window {WINDOW} B{B} H{Hq}/{Hkv} S{S} D{D}", q, k, v, do,
+               dict(window=WINDOW))
+    torch.cuda.empty_cache()
 
-    pairs = B * Hq * _band_pairs(S, WINDOW)
+    pairs = B * Hq * band_pairs(S, WINDOW)
     product = 2 * D * pairs  # flops of one D-deep product over the band
     band = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
     band &= ~torch.ones(S, S, dtype=torch.bool, device="cuda").tril(
         -WINDOW)
-    flex = _flex_attention(WINDOW, SOFTCAP, S)
+    flex = flex_band_attention(WINDOW, SOFTCAP, S)
     for tag, kw in ((f"window {WINDOW} softcap {SOFTCAP:g}", feat),
                     (f"window-only {WINDOW}", dict(window=WINDOW))):
         o, lse = fa(q, k, v, causal=True, return_stats=True, **kw)
         di = (o * do).sum(-1)
-        args = (q, k16, v16, do, lse, di)
+        args = (q, k, v, do, lse, di)
         # the library call and autograd's backward of it (dq, dk and dv
         # together) on the backward kernels' inputs
-        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k16, v16))
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         if "softcap" in kw:
             t0 = time.perf_counter()  # the first calls compile
             lib_fwd = partial(flex, q, k, v, enable_gqa=True)
-            ol = flex(ql, kl, vl)[0]
+            ol = flex(ql, kl, vl, enable_gqa=True)[0]
         else:
             lib_fwd = partial(F.scaled_dot_product_attention, q, k, v,
                               attn_mask=band, enable_gqa=True)
-            ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band)
+            ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band,
+                                                enable_gqa=True)
         lib_bwd = partial(torch.autograd.grad, ol, (ql, kl, vl), do,
                           retain_graph=True)
         if "softcap" in kw:  # flex computes this function: o, lse, grads
@@ -2028,15 +2054,17 @@ def _featured_kernels(checks, timed, gen, cfg, B, S):
             lib_fwd, 2 * product, _nbytes(q, k, v, o, lse), f32)
         io = _nbytes(*args)
         timed[f"flash_attention_dq {tag}"] = _timed_entry(
-            "flash_attention_dq", [B, Hq, S, D],
+            "flash_attention_dq", [B, Hq, Hkv, S, D],
             partial(dq, *args, causal=True, **kw),
             partial(dq_ref, *args, causal=True, **kw), lib_bwd,
-            3 * product, io + _nbytes(q), f32)
+            {ops_bench.SPLIT_TF32: 3 * product}, io + _nbytes(q), f32,
+            fma=3 * product)
         timed[f"flash_attention_dkv {tag}"] = _timed_entry(
-            "flash_attention_dkv", [B, Hq, S, D],
+            "flash_attention_dkv", [B, Hq, Hkv, S, D],
             partial(dkv, *args, causal=True, **kw),
             partial(dkv_ref, *args, causal=True, **kw), lib_bwd,
-            4 * product, io + _nbytes(k16, v16), f32)
+            {ops_bench.SPLIT_TF32: 4 * product}, io + _nbytes(k, v), f32,
+            fma=4 * product)
 
 
 def _ce_kernels(checks, timed, gen, cfg, N):
@@ -3293,7 +3321,9 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                ("rms_norm", "rms_norm_kernel"),
                ("rope", ("rope_cached_kernel", "rope_batched_kernel")),
                ("fa_fwd", "fa_fwd_"),
-               ("fa_bwd", ("fa_bwd_tf32_kernel", "fa_dq_kernel", "fa_dkv_kernel")),
+               ("fa_bwd", ("fa_bwd_tf32_kernel", "fa_dq_tf32_kernel",
+                           "fa_dkv_tf32_kernel", "fa_dq_kernel",
+                           "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
                ("paged_quant", "paged_quant_kernel"),
                ("quantize", "quantize_kernel"),
@@ -5556,10 +5586,10 @@ def main():
            "ce_bwd": ("tpukern_torch/csrc/cross_entropy.cu",
                       "tpukern/ops/cross_entropy.py:95"),
            "flash_attention_dq": (
-               "tpukern_torch/csrc/flash_attention_featured_bwd.cu",
+               "tpukern_torch/csrc/flash_attention_featured_tf32.cu",
                "tpukern/ops/attention_bwd.py:31"),
            "flash_attention_dkv": (
-               "tpukern_torch/csrc/flash_attention_featured_bwd.cu",
+               "tpukern_torch/csrc/flash_attention_featured_tf32.cu",
                "tpukern/ops/attention_bwd.py:110"),
            "sample": ("tpukern_torch/csrc/sampling.cu",
                       "tpukern/ops/sampling.py:45"),
@@ -5770,6 +5800,16 @@ def main():
         f64_gate=timing["flash_attention_bwd"]["f64_gate"],
         gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x the plain "
              "f32 version's")
+    # the f32 featured backward (#9, #10: split-TF32 products, GQA
+    # inside): bounds on the FMAs, the accuracy gate (D 128) and the
+    # ratios at D 32 (printed, not gated)
+    for n in ("flash_attention_dq", "flash_attention_dkv"):
+        modes.setdefault(n, {}).update(
+            fma_bound_ms=timing[n]["fma_bound_ms"],
+            f64_gate=timing[n]["f64_gate"],
+            f64_ratio_d32=timing[n]["f64_ratio_d32"],
+            gate=f"max abs err vs f64 <= {split_tf32.SPLIT_GATE:g} x the "
+                 "plain f32 version's, at D 128")
     # the bf16 tier of #8: its own kernel, on no main path (with bf16
     # parameters too the trainer's attention runs on f32 q, k, v:
     # matmul_t writes the f32 accumulator, as JAX's does)

@@ -751,17 +751,22 @@ def test_flash_attention_wide_window_is_causal(cuda, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("S,D", [(100, 64), (200, 128), (77, 32)])
+@pytest.mark.parametrize("S,D,Hkv", [(100, 64, 3), (200, 128, 1),
+                                     (77, 32, 3), (130, 64, 1)])
 @pytest.mark.parametrize("name", ["window", "softcap", "segments",
                                   "window+softcap+segments", "none"])
-def test_flash_attention_featured_bwd(cuda, name, S, D, dt):
+def test_flash_attention_featured_bwd(cuda, name, S, D, Hkv, dt):
     """flash_attention_dq and flash_attention_dkv (one launch each, no
     fused launch) against the plain backward with the same masks, on the
-    forward's own o and lse; "none" is fused=False with no feature."""
+    forward's own o and lse, 3 query heads on Hkv KV heads (GQA inside the
+    kernels at Hkv 1); "none" is fused=False with no feature. A second
+    call gives the same bits."""
     kw = dict() if name == "none" else feature_kwargs(name, 2, S, cuda)[0]
     g = torch.Generator(device=cuda).manual_seed(S * D)
-    q, k, v, do = (torch.randn((2, 3, S, D), generator=g, device=cuda)
-                   .to(DTYPES[dt]) for _ in range(4))
+    q, do = (torch.randn((2, 3, S, D), generator=g, device=cuda)
+             .to(DTYPES[dt]) for _ in range(2))
+    k, v = (torch.randn((2, Hkv, S, D), generator=g, device=cuda)
+            .to(DTYPES[dt]) for _ in range(2))
     o, lse = attention.attention_ref(q, k, v, causal=True, return_stats=True,
                                      **kw)
     counts = (attention_bwd.flash_attention_dq.launches,
@@ -776,8 +781,11 @@ def test_flash_attention_featured_bwd(cuda, name, S, D, dt):
                 counts[0] + 1, counts[1] + 1, counts[2])
     ref = attention_bwd.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 causal=True, **kw)
-    for grad, a, b in zip(("dq", "dk", "dv"), out, ref):
-        assert a.dtype == DTYPES[dt]
+    again = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=True, fused=False, **kw)
+    for grad, a, b, c in zip(("dq", "dk", "dv"), out, ref, again):
+        assert a.dtype == DTYPES[dt] and a.shape == b.shape
+        assert torch.equal(a, c), f"{name} {grad}: a second call differs"
         check_all_close(a.float(), b.float(), dtype=DTYPES[dt],
                         name=f"{name} {grad}", **(F32 if dt == "f32" else {}))
 

@@ -195,7 +195,8 @@ def test_c_entry_points_match_their_ctypes_signatures():
     """Every entry of _build.SIGNATURES has as many arguments as its C
     definition in csrc/capi.cu (ctypes would pass a call with one too few
     or too many without a word), those that count operand passes among
-    them."""
+    them; the attention backward's entries take the KV heads (GQA inside
+    the kernels) after the query heads."""
     src = (Path(_build.__file__).parent / "csrc" / "capi.cu").read_text()
     arity = {m[1]: len([p for p in m[2].split(",") if p.strip()])
              for m in re.finditer(r"^int (tk_\w+)\(([^)]*)\)\s*\{", src,
@@ -206,6 +207,10 @@ def test_c_entry_points_match_their_ctypes_signatures():
                  "tk_tgmm"):
         assert re.search(
             rf"int {name}\([^)]*int\* passes,\s*void\* stream\)", src)
+    for name in ("tk_flash_attention_bwd", "tk_flash_attention_dq",
+                 "tk_flash_attention_dkv"):
+        assert re.search(rf"int {name}\([^)]*int B,\s*int Hq,\s*int Hkv,",
+                         src)
 
 
 def test_split_bound_is_the_derived_one():

@@ -67,13 +67,12 @@ SIGNATURES = {
     # sm_scale, causal, dtype, stream
     "tk_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _F, _I, _I, _P],
-    # q, k, v, do, lse, di, q_seg, kv_seg (or None), dq, B, H, Sq, Skv, D,
-    # sm_scale, causal, window, softcap, dtype, stream
-    "tk_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _F, _I, _I, _F, _I, _P],
+    # q, k, v, do, lse, di, q_seg, kv_seg (or None), dq, B, Hq, Hkv, Sq,
+    # Skv, D, sm_scale, causal, window, softcap, dtype, stream
+    "tk_flash_attention_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _F, _I, _P],
     # the same with dk, dv in place of dq
-    "tk_flash_attention_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _F, _I, _I, _F, _I, _P],
+    "tk_flash_attention_dkv": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _I,
+                                                       _P],
     # a, b, c32 (or None), c16 (or None), M, N, K, trans_b, dtype, the
     # f32 tier's split-TF32 scratch (or None), its splits of K, tickets
     # (or None at one split), the operand passes' host counter (or None;

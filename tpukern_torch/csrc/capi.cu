@@ -64,22 +64,23 @@ int tk_flash_attention_bwd(const void* q, const void* k, const void* v,
 int tk_flash_attention_dq(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse, const float* di,
                           const int* q_seg, const int* kv_seg, void* dq, int B,
-                          int H, int Sq, int Skv, int D, float sm_scale,
-                          int causal, int window, float softcap, int dtype,
-                          void* stream) {
+                          int Hq, int Hkv, int Sq, int Skv, int D,
+                          float sm_scale, int causal, int window,
+                          float softcap, int dtype, void* stream) {
   return checked(tk::flash_attention_dq_launch(
-      q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Sq, Skv, D, sm_scale,
-      causal, window, softcap, dtype, static_cast<cudaStream_t>(stream)));
+      q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, Hq, Hkv, Sq, Skv, D,
+      sm_scale, causal, window, softcap, dtype,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int tk_flash_attention_dkv(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse, const float* di,
                            const int* q_seg, const int* kv_seg, void* dk,
-                           void* dv, int B, int H, int Sq, int Skv, int D,
-                           float sm_scale, int causal, int window,
+                           void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                           int D, float sm_scale, int causal, int window,
                            float softcap, int dtype, void* stream) {
   return checked(tk::flash_attention_dkv_launch(
-      q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Sq, Skv, D,
+      q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, Hq, Hkv, Sq, Skv, D,
       sm_scale, causal, window, softcap, dtype,
       static_cast<cudaStream_t>(stream)));
 }

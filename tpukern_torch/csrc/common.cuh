@@ -498,16 +498,26 @@ cudaError_t flash_attention_bwd_bf16_launch(const void* q, const void* k,
                                             int B, int Hq, int Hkv, int Sq,
                                             int Skv, int D, float sm_scale,
                                             int causal, cudaStream_t stream);
+// the two-kernel featured backward, f32 or bf16; GQA: Hkv divides Hq,
+// dk and dv summed over each group
 cudaError_t flash_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
-    void* dq, int B, int H, int Sq, int Skv, int D, float sm_scale, int causal,
-    int window, float softcap, int dtype, cudaStream_t stream);
+    void* dq, int B, int Hq, int Hkv, int Sq, int Skv, int D, float sm_scale,
+    int causal, int window, float softcap, int dtype, cudaStream_t stream);
 cudaError_t flash_attention_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
-    void* dk, void* dv, int B, int H, int Sq, int Skv, int D, float sm_scale,
-    int causal, int window, float softcap, int dtype, cudaStream_t stream);
+    void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+    float sm_scale, int causal, int window, float softcap, int dtype,
+    cudaStream_t stream);
+// their f32 tier on split-TF32 wgmma (csrc/flash_attention_featured_tf32.cu;
+// arguments checked there): dq (dk, dv null) or dk and dv (dq null)
+cudaError_t flash_attention_featured_tf32_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, void* dq, void* dk, void* dv, int B,
+    int Hq, int Hkv, int Sq, int Skv, int D, const AttnMask& m,
+    cudaStream_t stream);
 // f32 inputs: scratch holds the split-TF32 planes of A (2, M, K4) and of
 // B (2, N, K4), K4 = K rounded up to 4 (null at K = 0), then, with splits
 // of K > 1, the partial tiles (tiles, splits, 128 x 128); tickets: a

@@ -87,87 +87,6 @@ struct TbShape {
   static_assert(SMEM <= 227 * 1024, "shared memory");
 };
 
-// d (+)= A B at width N, A from registers
-template <int N>
-__device__ __forceinline__ void tb_mma(float (&d)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d) {
-  if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, db, scale_d);
-  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, db, scale_d);
-  else wgmma_m64n128k8_tf32_rs(d, a, db, scale_d);
-}
-
-// One slab (4 k8 steps from kk0) of a split product into a fresh d: A's
-// fragments by frag(kk, hi, lo), B's planes b_hi and b_lo of b_rows rows;
-// the 8 small products first; committed, not waited for.
-template <int N, typename Frag>
-__device__ __forceinline__ void tb_slab(float (&d)[N / 2],
-                                        uint32_t (&h)[4][4],
-                                        uint32_t (&l)[4][4], int kk0,
-                                        Frag& frag, uint32_t b_hi,
-                                        uint32_t b_lo, int b_rows) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) frag(kk0 + i, h[i], l[i]);
-  wgmma_fence_acc(d);
-  wgmma_fence();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    tb_mma<N>(d, l[i], tf_desc(b_hi, b_rows, kk0 + i), i > 0);
-    tb_mma<N>(d, h[i], tf_desc(b_lo, b_rows, kk0 + i), 1);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    tb_mma<N>(d, h[i], tf_desc(b_hi, b_rows, kk0 + i), 1);
-  wgmma_commit();
-}
-
-template <int N>
-__device__ __forceinline__ void tb_add(float (&s)[N], float (&d)[N],
-                                       bool first) {
-  wgmma_fence_acc(d);
-#pragma unroll
-  for (int i = 0; i < N; ++i) s[i] = first ? d[i] : s[i] + d[i];
-}
-
-// out = A B (first) or out += A B over K contraction values (a multiple
-// of 32): slab after slab, each into a fresh accumulator, two in turns,
-// added in f32 into out. Every thread of the warpgroup calls it.
-template <int N, int K, typename Frag>
-__device__ __forceinline__ void tb_product(float (&out)[N / 2], bool first,
-                                           Frag&& frag, uint32_t b_hi,
-                                           uint32_t b_lo, int b_rows) {
-  constexpr int NS = K / 32;
-  float d0[N / 2], d1[N / 2];
-  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
-  tb_slab<N>(d0, h0, l0, 0, frag, b_hi, b_lo, b_rows);
-#pragma unroll
-  for (int sb = 1; sb < NS; ++sb) {
-    if (sb & 1) {
-      tb_slab<N>(d1, h1, l1, 4 * sb, frag, b_hi, b_lo, b_rows);
-      wgmma_wait<1>();
-      tf_fence_frag(h0);
-      tf_fence_frag(l0);
-      tb_add(out, d0, first && sb == 1);
-    } else {
-      tb_slab<N>(d0, h0, l0, 4 * sb, frag, b_hi, b_lo, b_rows);
-      wgmma_wait<1>();
-      tf_fence_frag(h1);
-      tf_fence_frag(l1);
-      tb_add(out, d1, false);
-    }
-  }
-  wgmma_wait<0>();
-  if constexpr ((NS - 1) & 1) {
-    tf_fence_frag(h1);
-    tf_fence_frag(l1);
-    tb_add(out, d1, false);
-  } else {
-    tf_fence_frag(h0);
-    tf_fence_frag(l0);
-    tb_add(out, d0, first && NS == 1);
-  }
-}
-
 // acc = dS K over the block's 32 keys at NQ columns of dQ: A (dS) as the
 // k8 fragments h, l (keys in tf_frag's order), B K^T's rows from kt
 // (its hi plane; lo TbShape::KP on), the small products first
@@ -214,25 +133,6 @@ __device__ __forceinline__ void tb_dq_add(const float (&acc)[NQ / 2],
         odd ? make_float4(got0, got1, acc[4 * j + 2], acc[4 * j + 3])
             : make_float4(acc[4 * j], acc[4 * j + 1], got0, got1);
     if (r < Sq) atomicAdd(reinterpret_cast<float4*>(dqr + 8 * j), add);
-  }
-}
-
-// A's k8 fragment at (rows r, r + 8; columns c, c + 4) of an f32 tile in
-// shared memory, split: at(row, col) is the tile's byte offset of an
-// element, `in` whether the row holds data (else zeros)
-template <typename At>
-__device__ __forceinline__ void tb_frag(const unsigned char* tile, At&& at,
-                                        int r, int c, bool in,
-                                        uint32_t (&h)[4], uint32_t (&l)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = in ? *reinterpret_cast<const float*>(
-                             tile + at(r + 8 * (i & 1), c + 4 * (i >> 1)))
-                       : 0.f;
-    float hi, lo;
-    split_tf32_finite(x, hi, lo);
-    h[i] = __float_as_uint(hi);
-    l[i] = __float_as_uint(lo);
   }
 }
 

@@ -649,6 +649,115 @@ __device__ __forceinline__ void tf_fence_frag(uint32_t (&a)[K][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
+// The split-TF32 products of the attention backward kernels
+// (csrc/flash_attention_bwd.cu's #8, csrc/flash_attention_featured_tf32.cu's
+// #9 and #10): a warpgroup's 64 x N
+// product with A's k8 fragments (hi, lo) in registers and B's hi and lo
+// planes in shared memory, each 32 values of the contraction into a
+// fresh accumulator, its small products first, added in f32.
+
+// d (+)= A B at width N, A from registers
+template <int N>
+__device__ __forceinline__ void tb_mma(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, db, scale_d);
+  else wgmma_m64n128k8_tf32_rs(d, a, db, scale_d);
+}
+
+// One slab (KS k8 steps from kk0) of a split product into a fresh d: A's
+// fragments by frag(kk, hi, lo), B's planes b_hi and b_lo of b_rows rows;
+// the 2 KS small products first; committed, not waited for.
+template <int N, int KS, typename Frag>
+__device__ __forceinline__ void tb_slab(float (&d)[N / 2],
+                                        uint32_t (&h)[KS][4],
+                                        uint32_t (&l)[KS][4], int kk0,
+                                        Frag& frag, uint32_t b_hi,
+                                        uint32_t b_lo, int b_rows) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i) frag(kk0 + i, h[i], l[i]);
+  wgmma_fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    tb_mma<N>(d, l[i], tf_desc(b_hi, b_rows, kk0 + i), i > 0);
+    tb_mma<N>(d, h[i], tf_desc(b_lo, b_rows, kk0 + i), 1);
+  }
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+    tb_mma<N>(d, h[i], tf_desc(b_hi, b_rows, kk0 + i), 1);
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void tb_add(float (&s)[N], float (&d)[N],
+                                       bool first) {
+  wgmma_fence_acc(d);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = first ? d[i] : s[i] + d[i];
+}
+
+// out = A B (first) or out += A B over K contraction values: slab after
+// slab of SK values (32, 16 or 8; K a multiple of SK), each into a fresh
+// accumulator, two in turns, added in f32 into out. Every thread of the
+// warpgroup calls it. wgmma rounds its accumulator after every k8
+// product, and not to nearest: a narrower slab chains fewer roundings.
+template <int N, int K, int SK = 32, typename Frag>
+__device__ __forceinline__ void tb_product(float (&out)[N / 2], bool first,
+                                           Frag&& frag, uint32_t b_hi,
+                                           uint32_t b_lo, int b_rows) {
+  constexpr int KS = SK / 8, NS = K / SK;
+  float d0[N / 2], d1[N / 2];
+  uint32_t h0[KS][4], l0[KS][4], h1[KS][4], l1[KS][4];
+  tb_slab<N, KS>(d0, h0, l0, 0, frag, b_hi, b_lo, b_rows);
+#pragma unroll
+  for (int sb = 1; sb < NS; ++sb) {
+    if (sb & 1) {
+      tb_slab<N, KS>(d1, h1, l1, KS * sb, frag, b_hi, b_lo, b_rows);
+      wgmma_wait<1>();
+      tf_fence_frag(h0);
+      tf_fence_frag(l0);
+      tb_add(out, d0, first && sb == 1);
+    } else {
+      tb_slab<N, KS>(d0, h0, l0, KS * sb, frag, b_hi, b_lo, b_rows);
+      wgmma_wait<1>();
+      tf_fence_frag(h1);
+      tf_fence_frag(l1);
+      tb_add(out, d1, false);
+    }
+  }
+  wgmma_wait<0>();
+  if constexpr ((NS - 1) & 1) {
+    tf_fence_frag(h1);
+    tf_fence_frag(l1);
+    tb_add(out, d1, false);
+  } else {
+    tf_fence_frag(h0);
+    tf_fence_frag(l0);
+    tb_add(out, d0, first && NS == 1);
+  }
+}
+
+// A's k8 fragment at (rows r, r + 8; columns c, c + 4) of an f32 tile in
+// shared memory, split: at(row, col) is the tile's byte offset of an
+// element, `in` whether the row holds data (else zeros)
+template <typename At>
+__device__ __forceinline__ void tb_frag(const unsigned char* tile, At&& at,
+                                        int r, int c, bool in,
+                                        uint32_t (&h)[4], uint32_t (&l)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = in ? *reinterpret_cast<const float*>(
+                             tile + at(r + 8 * (i & 1), c + 4 * (i >> 1)))
+                       : 0.f;
+    float hi, lo;
+    split_tf32_finite(x, hi, lo);
+    h[i] = __float_as_uint(hi);
+    l[i] = __float_as_uint(lo);
+  }
+}
+
 // a warpgroup's register budget: lowered by the producer, raised by the
 // consumers, all four warps together
 template <int N>

@@ -1,6 +1,9 @@
-"""Times and accuracy of the training path's flash attention (#6, #8).
+"""Times and accuracy of the training path's flash attention (#6, #8,
+and with --featured the two-kernel backward #9/#10).
 
     python -m tpukern_torch.harness.fa_train_times [label]
+    python -m tpukern_torch.harness.fa_train_times [label] --featured
+    python -m tpukern_torch.harness.fa_train_times [label] --digests
 
 At the 7bish training heads (B 2, Hq 16, Hkv 8, S 1024, D 128, causal)
 prints the card's name and power limit, then one line per call: the
@@ -26,14 +29,32 @@ back-to-back calls (run_benchmark) and the bounds:
   the kernel and of flash_attention_bwd_bf16_ref against f64, where the
   tree has that plain version) at the same shapes.
 
+--featured: at the same heads with the featured training masks (window
+512, with and without softcap 50), one line per call as above: #9
+(flash_attention_dq) and #10 (flash_attention_dkv) alone on the KV heads
+the step uses (on a tree without GQA in them, K and V repeated to 16
+heads outside the call, as its step does), the trainable's featured
+backward on the 8 KV heads (the GQA handling counted), the plain
+versions, and the library call (the autograd backward of compiled
+flex_attention with the softcap, of SDPA with a boolean band mask
+without); bounds: 3 and 4 D-deep products over the band's visible pairs;
+then the f64 gate of the f32 tier (featured_gate_rows) at the training
+shape with and without the softcap and at FEATURED_TAILS for every
+feature set, with a second call's bits.
+
+--digests: sha256 of the fused backward #8's dk and dv (f32 and bf16) at
+DIGEST_SHAPES on seeded inputs, to hold two trees' bits equal.
+
 To compare two versions on one card, run it in one command from each
 tree's own root (`python -m` puts the working directory first on the
 path), the trees in turns. Needs a CUDA device.
 """
 
+import hashlib
 import math
 import subprocess
 import sys
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +67,20 @@ from tpukern_torch.ops.split_tf32 import bound_s
 B, HQ, HKV, S, D = 2, 16, 8, 1024, 128
 # the gate's tail shapes: (B, Hq, Hkv, S, D, causal)
 TAILS = ((1, 4, 2, 300, 128, True), (1, 4, 2, 77, 64, False))
+# the featured training masks (chip_smoke.py WINDOW, SOFTCAP), and the
+# featured gate's odd shapes (B, Hq, Hkv, S, D), GQA 2, 4 and 1
+WINDOW, SOFTCAP = 512, 50.0
+FEATURED_TAILS = ((2, 4, 2, 333, 128), (1, 4, 1, 200, 64), (1, 4, 4, 77, 32))
+# #8's digest shapes, chip_smoke.py's [train kernels] backward cases
+# (B, Hq, Hkv, S, D, f32?, causal)
+DIGEST_SHAPES = ((2, 16, 8, 1024, 128, True, True),
+                 (2, 16, 8, 1024, 128, False, True),
+                 (1, 4, 4, 300, 128, True, False),
+                 (2, 2, 2, 77, 64, True, True),
+                 (1, 8, 2, 300, 128, True, True),
+                 (1, 4, 2, 200, 32, True, False),
+                 (1, 4, 2, 300, 128, False, True),
+                 (2, 8, 2, 77, 64, False, True))
 
 
 def _card():
@@ -197,7 +232,218 @@ def gate(label, gen, shape):
     return worst
 
 
-def main(label="this tree"):
+def band_pairs(S, window):
+    """Visible (q, kv) pairs of one causal head under a window."""
+    return sum(min(r + 1, window) for r in range(S))
+
+
+def featured_f64(q, k, v, do, lse, di, *, window=None, softcap=None,
+                 segment_ids=None):
+    """(dq, dk, dv) of the causal featured backward in f64 from the same
+    inputs (lse and di included), K and V repeated over each GQA group, dk
+    and dv summed over it."""
+    from tpukern_torch.ops.attention import visible
+
+    g = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qd, dod = q.double(), do.double()
+    kd, vd = (t.double().repeat_interleave(g, dim=1) for t in (k, v))
+    s = qd @ kd.transpose(-1, -2) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    p = torch.exp(s - lse.double()[..., None])
+    keep = visible(q.shape[2], k.shape[2], q.device, causal=True,
+                   window=window, segment_ids=segment_ids)
+    p = torch.where(keep, p, 0.0)
+    ds = p * (dod @ vd.transpose(-1, -2) - di.double()[..., None]) * scale
+    if softcap is not None:
+        ds = ds * (1 - t * t)
+    fold = (k.shape[0], k.shape[1], g, k.shape[2], q.shape[3])
+    return (ds @ kd, (ds.transpose(-1, -2) @ qd).reshape(fold).sum(2),
+            (p.transpose(-1, -2) @ dod).reshape(fold).sum(2))
+
+
+def _gqa_featured():
+    """Whether this tree's featured backward takes K and V at their own
+    heads (GQA inside #9/#10; the tree that added the split-TF32 #9 did)."""
+    from tpukern_torch.ops import attention_bwd
+
+    return hasattr(attention_bwd, "flash_attention_dq_tf32_ref")
+
+
+def featured_grads(q, k, v, do, lse, di, kw, plain=False):
+    """(dq, dk, dv) of the featured backward (the kernels, or with plain the
+    plain versions) on the KV heads as they are; on a tree without GQA in
+    them, on K and V repeated, dk and dv summed over each group."""
+    from tpukern_torch.ops import attention_bwd as ab
+
+    dq_fn, dkv_fn = ((ab.flash_attention_dq_ref, ab.flash_attention_dkv_ref)
+                     if plain else (ab.flash_attention_dq,
+                                    ab.flash_attention_dkv))
+    g = q.shape[1] // k.shape[1]
+    if _gqa_featured() or g == 1:
+        return (dq_fn(q, k, v, do, lse, di, causal=True, **kw),
+                *dkv_fn(q, k, v, do, lse, di, causal=True, **kw))
+    kr, vr = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    dk, dv = dkv_fn(q, kr, vr, do, lse, di, causal=True, **kw)
+    fold = (k.shape[0], k.shape[1], g, *k.shape[2:])
+    return (dq_fn(q, kr, vr, do, lse, di, causal=True, **kw),
+            dk.reshape(fold).sum(2), dv.reshape(fold).sum(2))
+
+
+def featured_gate_rows(gen, shape, kw):
+    """The featured f32 tier's errors against f64 at one (B, Hq, Hkv, S,
+    D) with the masks kw (feature_sets.feature_kwargs'), on inputs drawn
+    from gen, lse and di from the plain forward: [(output, the kernels'
+    largest |error|, the plain f32 version's, a second call bit-equal)]
+    for dq, dk and dv; f64 from the same lse and di."""
+    from tpukern_torch.ops import attention
+
+    b, hq, hkv, n, dd = shape
+    q, do = (torch.randn((b, hq, n, dd), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, n, dd), generator=gen, device="cuda")
+            for _ in range(2))
+    o, lse = attention.attention_ref(q, k, v, causal=True, return_stats=True,
+                                     **kw)
+    di = (o * do).sum(-1)
+    args = (q, k, v, do, lse, di)
+    exact = featured_f64(*args, **kw)
+    got = featured_grads(*args, kw)
+    again = featured_grads(*args, kw)
+    plain = featured_grads(*args, kw, plain=True)
+    return [(nm, _err(a, e), _err(p, e), torch.equal(a, a2)) for
+            nm, a, a2, p, e in zip(("dq", "dk", "dv"), got, again, plain,
+                                   exact)]
+
+
+def flex_band_attention(window, softcap, S):
+    """The one PyTorch call of the featured attention, timed as the
+    library call only (the port never calls it): torch.compile of
+    flex_attention with cap·tanh(s/cap) as its score_mod (applied to the
+    scaled score, before the mask) and the causal band of `window` keys
+    as its block mask. Returns a function (q, k, v, enable_gqa=False) ->
+    (o, natural-log lse)."""
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def band(b, h, qi, ki):
+        return (ki <= qi) & (ki > qi - window)
+
+    torch._inductor.config.compile_threads = 1  # no worker processes
+    return partial(torch.compile(flex_attention), score_mod=score_mod,
+                   block_mask=create_block_mask(band, None, None, S, S,
+                                                device="cuda"),
+                   return_lse=True)
+
+
+def featured(label, gen):
+    """The --featured lines: times at the training heads, then the gate."""
+    from tpukern_torch.core.feature_sets import FEATURE_SETS, feature_kwargs
+    from tpukern_torch.ops import attention
+    from tpukern_torch.ops import attention_bwd as ab
+    from tpukern_torch.ops.trainable import flash_attention_trainable
+
+    product = 2 * D * B * HQ * band_pairs(S, WINDOW)
+    q, do = (torch.randn((B, HQ, S, D), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((B, HKV, S, D), generator=gen, device="cuda")
+            for _ in range(2))
+    band = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    band &= ~torch.ones(S, S, dtype=torch.bool, device="cuda").tril(-WINDOW)
+    gqa = _gqa_featured()
+    heads = f"K, V at {HKV} heads" if gqa else f"K, V repeated to {HQ}"
+    for tag, kw in ((f"window {WINDOW} softcap {SOFTCAP:g}",
+                     dict(window=WINDOW, softcap=SOFTCAP)),
+                    (f"window {WINDOW}", dict(window=WINDOW))):
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True, **kw)
+        di = (o * do).sum(-1)
+        kk, vv = ((k, v) if gqa else
+                  (t.repeat_interleave(HQ // HKV, dim=1) for t in (k, v)))
+        args = (q, kk, vv, do, lse, di)
+        _line(label, f"#9 f32 {tag} ({heads})",
+              lambda: ab.flash_attention_dq(*args, causal=True, **kw),
+              3 * product)
+        _line(label, f"#10 f32 {tag} ({heads})",
+              lambda: ab.flash_attention_dkv(*args, causal=True, **kw),
+              4 * product)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        ot = flash_attention_trainable(qs, ks, vs, True, None, kw["window"],
+                                       kw.get("softcap"))
+        _line(label, f"#9 + #10 f32 {tag}: the trainable's backward, GQA "
+              f"{HQ}/{HKV}", lambda: torch.autograd.grad(
+                  ot, (qs, ks, vs), do, retain_graph=True), 7 * product)
+        _line(label, f"#9 plain {tag} (flash_attention_dq_ref)",
+              lambda: ab.flash_attention_dq_ref(*args, causal=True, **kw),
+              3 * product)
+        _line(label, f"#10 plain {tag} (flash_attention_dkv_ref)",
+              lambda: ab.flash_attention_dkv_ref(*args, causal=True, **kw),
+              4 * product)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        if "softcap" in kw:
+            lib = "autograd backward of compiled flex_attention"
+            ol = flex_band_attention(WINDOW, SOFTCAP, S)(
+                ql, kl, vl, enable_gqa=True)[0]
+        else:
+            lib = "autograd backward of SDPA with a band mask"
+            ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band,
+                                                enable_gqa=True)
+        torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+        _line(label, f"#9 + #10 library {tag} ({lib}, dq, dk, dv)",
+              lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                          retain_graph=True), 7 * product)
+        del o, lse, di, args, ot, qs, ks, vs, ol, ql, kl, vl
+        torch.cuda.empty_cache()
+    worst = 0.0
+    cases = [((B, HQ, HKV, S, D), "window+softcap 50",
+              dict(window=WINDOW, softcap=SOFTCAP)),
+             ((B, HQ, HKV, S, D), "window", dict(window=WINDOW))]
+    for shape in FEATURED_TAILS:
+        for name in FEATURE_SETS:
+            if "sinks" not in name:  # sinks are forward-only
+                cases.append((shape, name,
+                              feature_kwargs(name, shape[0], shape[3],
+                                             "cuda")[0]))
+    for shape, name, kw in cases:
+        for nm, ek, ep, same in featured_gate_rows(gen, shape, kw):
+            r = ek / max(ep, 1e-300)
+            worst = max(worst, r)
+            print(f"[{label}] featured gate {shape} {name} {nm}: kernel "
+                  f"{ek:.3e} plain f32 {ep:.3e} vs f64: x{r:.3f}; second "
+                  f"call {'bit-equal' if same else 'DIFFERS'}")
+        torch.cuda.empty_cache()
+    print(f"[{label}] featured gate: largest kernel / plain f32 error "
+          f"ratio x{worst:.3f}")
+
+
+def digests(label, gen):
+    """The --digests lines: #8's dk and dv bits at DIGEST_SHAPES."""
+    from tpukern_torch.ops import attention, attention_bwd
+
+    for b, hq, hkv, n, dd, f32, causal in DIGEST_SHAPES:
+        dt = torch.float32 if f32 else torch.bfloat16
+        q, do = (torch.randn((b, hq, n, dd), generator=gen, device="cuda")
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((b, hkv, n, dd), generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        o, lse = attention.attention_ref(q, k, v, causal=causal,
+                                         return_stats=True)
+        _, dk, dv = attention_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal)
+        for nm, t in (("dk", dk), ("dv", dv)):
+            h = hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                               .numpy().tobytes()).hexdigest()[:16]
+            print(f"[{label}] digest #8 {nm} B{b} H{hq}/{hkv} S{n} D{dd} "
+                  f"{str(dt)[6:]} causal={causal}: {h}")
+
+
+def main(label="this tree", mode=None):
     if not torch.cuda.is_available():
         raise SystemExit("fa_train_times needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -206,6 +452,9 @@ def main(label="this tree"):
 
     print(f"[{label}] {_card()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if mode in ("--featured", "--digests"):
+        (featured if mode == "--featured" else digests)(label, gen)
+        return
     pairs = S * (S + 1) // 2
     fwd_flops = 4 * D * B * HQ * pairs
     bwd_flops = 10 * D * B * HQ * pairs
@@ -273,4 +522,6 @@ def main(label="this tree"):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    words = [a for a in sys.argv[1:] if not a.startswith("--")]
+    flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    main(*words[:1], mode=flags[0] if flags else None)
