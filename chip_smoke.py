@@ -33,7 +33,11 @@
    chunk shapes, device and event times with n_split; #23's
    bf16 P against the plain version that rounds it and the one that
    keeps it in f32; the quantize kernels #20 (round to nearest and
-   stochastic), #21 and #22 at the K/V write and q shapes, and every
+   stochastic), #21 and #22 at the K/V write and q shapes, the fused
+   quantized K/V write (#20/#22 as serving runs them, one launch a layer)
+   bit for bit against its plain twin at decode, verify, a 512-token
+   prefill, a write clamped at the pool's end and a ring write that wraps
+   (int8 and fp8 pools, bf16 and f32 K/V, V a transposed view), and every
    quantized instance of #23 and #24 (int8 with and without q_int8 and
    pv_int8, pv_int8 at two pages_per_block, fp8) at the serving shapes in
    bf16 and f32, with the window, sinks and softcap; ring pools (5 pages
@@ -135,7 +139,10 @@
    than the window; [int8-serve] and [fp8-serve] the serve requests on
    the quantized KV tier (int8, int8 with Config.pv_int8, fp8; each twice
    in turns with two bf16 runs), chunked, with the prefix cache, and
-   SpeculativeBatcher on int8 caches; [w8a16-serve] the serve requests
+   SpeculativeBatcher on int8 caches, every run launching the fused
+   write and neither quantize kernel, and one decode step on each tier
+   launching the write exactly n_layers times with no index_put;
+   [w8a16-serve] the serve requests
    with quantize_model_weights's tree (#25's launches per step checked
    against the dispatch rule; twice in turns with two bf16 runs, on int8
    pools, chunked, and SpeculativeBatcher with a w8a16 agreeing draft);
@@ -972,6 +979,62 @@ def _paged_bf16_p(args):
           f"against P in f32 ({errs[1][1]} differ)")
 
 
+def _write_kv_kernels(checks, timed):
+    """The fused quantized K/V write (#20/#22 on the serving path, one
+    launch a layer) against its plain twin (quantize_ref or
+    quantize_fp8_ref, then the scatters) at every case of
+    harness/quant_sample_times.py WRITE_CASES (decode B 4 T 1, verify T 5,
+    prefill T 512, a write clamped at the pool's end, a ring write of more
+    tokens than the ring holds), int8 and fp8 pools, bf16 and f32 K/V with
+    V a transposed view: pool bytes and scales bit for bit, and a second
+    call bit-equal. Timed at decode and prefill (bf16, int8) beside the
+    twin; no PyTorch call quantizes and scatters in one."""
+    from functools import partial
+
+    from tpukern_torch.harness.quant_sample_times import (POOLS, WRITE_CASES,
+                                                          write_case)
+    from tpukern_torch.ops import quant
+
+    for case in WRITE_CASES:
+        for tier, pdt in POOLS.items():
+            for dt in (torch.bfloat16, torch.float32):
+                k, v, pools, layer, slots = write_case(case, pdt, dt)
+                ref = tuple(t.clone() for t in pools)
+                again = tuple(torch.zeros_like(t) for t in pools)
+                quant.write_kv_quantized(k, v, *pools, layer, slots)
+                quant.write_kv_quantized(k, v, *again, layer, slots)
+                quant.write_kv_quantized_ref(k, v, *ref, layer, slots)
+                n = sum(int((a.view(torch.uint8) != b.view(torch.uint8))
+                            .sum()) for a, b in zip(pools, ref))
+                same = all(torch.equal(a.view(torch.uint8),
+                                       b.view(torch.uint8))
+                           for a, b in zip(pools, again))
+                ok = n == 0 and same
+                print(f"[check] write_kv_quantized "
+                      f"{f'{case} {tier} {str(dt)[6:]}':38s} {n} pool bytes "
+                      f"differ (bit-equal), second call bit-equal {same} "
+                      f"{'ok' if ok else 'MISS'}")
+                checks.record("write_kv_quantized", ok, float(n))
+                if case == "prefill":  # its times' row
+                    checks.record("write_kv_quantized_prefill", ok, float(n))
+    for case in ("decode", "prefill"):
+        k, v, pools, layer, slots = write_case(case, torch.int8)
+        ref = tuple(t.clone() for t in pools)
+        B, H, T, D = k.shape
+        rows = 2 * B * H * T
+        # bytes: K and V read once, the values and scales written once,
+        # the slots (phys, row, src) read; operations: |x|, the max, the
+        # division and the rounding a value
+        nbytes = (_nbytes(k, v) + rows * (D + 4)
+                  + sum(_nbytes(t) for t in slots if t is not None))
+        timed[f"write_kv_quantized {case}"] = _timed_entry(
+            "write_kv_quantized" + ("_prefill" if case == "prefill" else ""),
+            [2, B, H, T, D],
+            partial(quant.write_kv_quantized, k, v, *pools, layer, slots),
+            partial(quant.write_kv_quantized_ref, k, v, *ref, layer, slots),
+            None, 4 * rows * D, nbytes, torch.float32)
+
+
 # the quantized instances of #23/#24: tier -> (pool dtype, q_int8, pv_int8,
 # pages_per_block); pv_int8 quantizes p per block of page * pages_per_block
 # tokens, so it runs at two
@@ -1110,6 +1173,7 @@ def _quant_kernels(checks, timed, gen, serve_case, verify_case, chunk_case):
         # operations: |x|, the max, the division and the rounding a value
         timed[f"{name} ({rows}, 128)"] = _timed_entry(
             name, [rows, 128], fn, ref, None, 4 * rows * 128, nbytes, f32)
+    _write_kv_kernels(checks, timed)
 
     cases = {"decode": serve_case, "verify": verify_case, "chunk": chunk_case}
     for tier in QUANT_KERNEL_TIERS:
@@ -1448,11 +1512,20 @@ def _sampling_kernels(checks, timed, gen):
             out = sp.topk_threshold(x, k)
             err = (out - sp._bisect_threshold_ref(x, mode="count", kk=k)
                    ).abs().max().item()
-            ok = err == 0 and bool((out == torch.topk(x, k).values[:, -1])
-                                   .all())
+            again = torch.equal(out, sp.topk_threshold(x, k))
+            ok = err == 0 and again and bool(
+                (out == torch.topk(x, k).values[:, -1]).all())
             print(f"[check] sample_threshold {f'count k={k} ' + tag:44s} "
-                  f"max_abs {err:.3e} (bit-equal) {'ok' if ok else 'MISS'}")
+                  f"max_abs {err:.3e} (bit-equal), second call bit-equal "
+                  f"{again} {'ok' if ok else 'MISS'}")
             checks.record("sample_threshold", ok, err)
+        for m in ("count", "mass"):  # the shape rule's mirror
+            plan = sp.threshold_plan(4, V, m)
+            ok = plan == sp.threshold_plan_launcher(4, V, m)
+            print(f"[check] sample_threshold {f'plan {m} ' + tag:44s} "
+                  f"{plan} (blocks a row, values a block, staged, shared "
+                  f"bytes) as the launcher's {'ok' if ok else 'MISS'}")
+            checks.record("sample_threshold", ok, 0.0)
         for p in (0.5, 0.9, 0.99):
             for T in (1.0, SAMPLE_T):
                 out = sp.topp_threshold(x, p, T)
@@ -2732,7 +2805,8 @@ def _quant_ops():
             paged_attention.paged_prefill_attention,
             paged_attention.paged_attention_quantized,
             paged_attention.paged_prefill_attention_quantized,
-            quant.quantize_int8, quant.quantize_fp8, quant.dequantize_int8]
+            quant.quantize_int8, quant.quantize_fp8, quant.dequantize_int8,
+            quant.write_kv_quantized]
 
 
 def _tier_counts(reset=False):
@@ -2770,17 +2844,22 @@ def _pool_bytes(cache):
 
 def _drive_quant(cb, requests, tag, need):
     """_drive with the quantized tier's counts: the float paged kernels
-    must not launch, every count named in `need` must. Returns the run
-    with its tier counts under run["tiers"]."""
+    must not launch, nor quantize_fp8 (the fused write stores every token;
+    quantize_int8 stays for q on int8 pools, the int8 score dot, and must
+    not launch on fp8 pools), every count named in `need` must. Returns
+    the run with its tier counts under run["tiers"]."""
     _tier_counts(reset=True)
     run = _drive(cb, requests, _quant_ops())
     run["tiers"] = _tier_counts()
     counts = {**run["launches"], **run["tiers"]}
+    q_int8 = cb.cache.k_pages.dtype == torch.int8
     require(counts["paged_attention"] == 0
             and counts["paged_prefill_attention"] == 0
+            and counts["quantize_fp8"] == 0
+            and (q_int8 or counts["quantize_int8"] == 0)
             and all(counts[n] > 0 for n in need),
-            f"{tag}: the float paged kernels launched, or one of {need} did "
-            f"not: {counts}")
+            f"{tag}: the float paged kernels or a quantize kernel of the "
+            f"write launched, or one of {need} did not: {counts}")
     return run
 
 
@@ -2815,8 +2894,8 @@ def phase_quant_serve(cfg, params, requests):
     def need(tier, prefix=False):
         dt, pv = QUANT_SERVE[tier]
         t = "fp8" if dt != torch.int8 else "pv_int8" if pv else "int8"
-        q = "quantize_int8" if dt == torch.int8 else "quantize_fp8"
-        return [q, f"#23 {t}"] + ([f"#24 {t}"] if prefix else [])
+        return (["write_kv_quantized", f"#23 {t}"]
+                + ([f"#24 {t}"] if prefix else []))
 
     for tier in QUANT_SERVE:  # warm-up outside the counted runs
         warm = ContinuousBatcher(
@@ -2906,8 +2985,49 @@ def phase_quant_serve(cfg, params, requests):
           f"ContinuousBatcher's {_ms_per_token(base):.3f} (int8, agreeing "
           f"target); by tier {run['tiers']}")
     require(st.acceptance_rate >= 0.5, f"int8 spec accepted only {st}")
+    _quant_step_writes(cfg, params, requests)
     print(f"[quant-serve] launches over these runs {total}")
     return total
+
+
+def _quant_step_writes(cfg, params, requests):
+    """One decode step of 4 slots on int8 and on fp8 pools, under the
+    profiler: the fused write launches exactly n_layers times, quantize_fp8
+    never and quantize_int8 only for q on int8 pools (once a layer: the
+    int8 score dot; 3 a layer before the fused write), and the host calls
+    no aten::index_put_ (the write scatters nothing through PyTorch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukern_torch.models import serving
+    from tpukern_torch.models.batcher import ContinuousBatcher
+    from tpukern_torch.ops import quant
+
+    for tier in ("int8", "fp8"):
+        cb = ContinuousBatcher(params, cfg, cache_dtype=QUANT_SERVE[tier][0],
+                               **SERVE_KW)
+        for rid, prompt in requests[:4]:
+            cb.add_request(rid, prompt)
+        cb.step()
+        tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+        fns = (quant.write_kv_quantized, quant.quantize_int8,
+               quant.quantize_fp8)
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            serving.decode_step(params, cfg, tok, cb.cache)
+            torch.cuda.synchronize()
+        puts = sum(e.name == "aten::index_put_" for e in prof.events()
+                   if e.device_type == DeviceType.CPU)
+        n = [fn.launches for fn in fns]
+        want = [cfg.n_layers, cfg.n_layers if tier == "int8" else 0, 0]
+        print(f"[{tier}-serve] one decode step ({cfg.n_layers} layers): "
+              f"write_kv_quantized {n[0]} launches, quantize_int8 {n[1]} "
+              f"(q), quantize_fp8 {n[2]}, aten::index_put_ {puts}")
+        require(n == want and puts == 0,
+                f"{tier}: a decode step launched (write, quantize_int8, "
+                f"quantize_fp8) {n} times, want {want}; index_put {puts}")
 
 
 def _weight_bytes(params):
@@ -3220,8 +3340,9 @@ def phase_ring_serve(cfg, params):
 def _plain_serving():
     """models/serving.py with every kernel it calls swapped for its plain
     version (norms, RoPE, attention, the float and quantized paged
-    kernels, the quantizers, #25: at M <= 128 its plain version, above it
-    the dequant-then-dot path, which runs no kernel of the port)."""
+    kernels, the fused quantized K/V write, #25: at M <= 128 its plain
+    version, above it the dequant-then-dot path, which runs no kernel of
+    the port)."""
     from tpukern_torch.models import serving
     from tpukern_torch.ops import attention
     from tpukern_torch.ops import matmul_w8a16 as w8
@@ -3241,8 +3362,7 @@ def _plain_serving():
                 paged_attention_quantized=pa.paged_attention_quantized_ref,
                 paged_prefill_attention_quantized=(
                     pa.paged_prefill_quantized_ref),
-                quantize_int8=quant.quantize_ref,
-                quantize_fp8=quant.quantize_fp8_ref)
+                write_kv_quantized=quant.write_kv_quantized_ref)
     saved = {k: getattr(serving, k) for k in swap}
     for k, v in swap.items():
         setattr(serving, k, v)
@@ -3326,10 +3446,10 @@ _CATEGORIES = (("cross_entropy", ("ce_fwd_", "ce_combine_kernel",
                            "fa_dkv_kernel")),
                ("paged_attention", "paged_decode_kernel"),
                ("paged_quant", "paged_quant_kernel"),
-               ("quantize", "quantize_kernel"),
+               ("quantize", ("quantize_kernel", "write_kv_quant_kernel")),
                ("paged_prefill", "paged_prefill_"),
                ("sampling", ("sample_kernel", "sample_combine_kernel",
-                             "threshold_kernel")),
+                             "threshold_cluster_kernel")),
                ("w8a16", "w8a16_"),
                ("grouped_gemm", ("gmm_tf32_kernel", "tgmm_tf32_kernel",
                                  "gmm_wgmma_kernel", "tgmm_bf16_kernel")),
@@ -5544,8 +5664,8 @@ def main():
     # grouped GEMMs
     launches = {**train_launches, **launches,
                 **{n: quant_launches[n] for n in (
-                    "quantize_int8", "quantize_fp8", "dequantize_int8",
-                    "paged_attention_quantized",
+                    "write_kv_quantized", "quantize_int8", "quantize_fp8",
+                    "dequantize_int8", "paged_attention_quantized",
                     "paged_prefill_attention_quantized")},
                 "paged_prefill_attention": prefix_launches,
                 "sample": sample_launches["sample"],
@@ -5595,6 +5715,8 @@ def main():
                       "tpukern/ops/sampling.py:45"),
            "sample_threshold": ("tpukern_torch/csrc/sampling.cu",
                                 "tpukern/ops/sampling.py:182"),
+           "write_kv_quantized": ("tpukern_torch/csrc/quant.cu",
+                                  "tpukern/ops/quant.py:36"),
            "quantize_int8": ("tpukern_torch/csrc/quant.cu",
                              "tpukern/ops/quant.py:36"),
            "dequantize_int8": ("tpukern_torch/csrc/quant.cu",
@@ -5655,7 +5777,8 @@ def main():
                                    "tpukern/parallel/ring_kernels.py:73")}
     # one backward kernel serves both of the TPU's backward kernels; the
     # two-kernel backward also stands for its transposed-layout twins
-    also = {"ce_bwd": "tpukern/ops/cross_entropy.py:132",
+    also = {"write_kv_quantized": "tpukern/ops/quant.py:128",
+            "ce_bwd": "tpukern/ops/cross_entropy.py:132",
             "split_tf32": "tpukern/ops/cross_entropy.py:95",
             "flash_attention_dq": "tpukern/ops/attention_bwd.py:188",
             "flash_attention_dkv": "tpukern/ops/attention_bwd.py:261",
@@ -5686,6 +5809,8 @@ def main():
         "sample": "torch.argmax (greedy mode, one call)",
         "sample_threshold": "torch.topk(x, 50) (count mode, one call); the "
                             "mass mode has none (sort, softmax and cumsum)",
+        "write_kv_quantized": "none: no PyTorch call quantizes rows and "
+                              "scatters them into pages in one",
         "paged_attention_quantized": "as paged_attention, on pools "
                                      "dequantized outside the timed call",
         "paged_prefill_attention_quantized": "as paged_attention_quantized",
@@ -5726,13 +5851,42 @@ def main():
                            "copies, no NVLink or NCCL)",
         "ring_reduce_scatter": "x.sum(0) (torch's own order; one card, no "
                                "NVLink or NCCL)"}
-    # #27's launches by mode, the quantized #23's and #24's by tier
-    modes = {"sample_threshold": {"count_launches": sample_launches["count"],
-                                  "mass_launches": sample_launches["mass"]},
+    # #27's launches by mode and its cluster plan at the timed shapes; the
+    # quantized #23's and #24's launches by tier
+    from tpukern_torch.ops import sampling
+
+    modes = {"sample_threshold": {
+                 "count_launches": sample_launches["count"],
+                 "mass_launches": sample_launches["mass"],
+                 "cluster_plan": {
+                     f"({B_}, {V_}) {m}": dict(zip(
+                         ("blocks_a_row", "values_a_block", "staged",
+                          "smem_bytes"),
+                         sampling.threshold_plan_launcher(B_, V_, m)))
+                     for B_, V_ in ((4, SAMPLE_VOCABS[0]),
+                                    (4, SAMPLE_VOCABS[1]))
+                     for m in ("count", "mass")}},
              **{n: {f"{t}_launches": quant_launches[f"{k} {t}"]
                     for t in ("int8", "pv_int8", "fp8")}
                 for k, n in (("#23", "paged_attention_quantized"),
                              ("#24", "paged_prefill_attention_quantized"))}}
+    # the fused write: #20 (int8 pools) and #22 (fp8) as the quantized
+    # serving runs launch them, once a layer a step; the two quantize
+    # kernels stay for the zoo, the stochastic mode and the registry
+    pre = timing["write_kv_quantized_prefill"]
+    modes["write_kv_quantized"] = dict(
+        decode_step_launches=cfg.n_layers,
+        shape_of_times="[tensors, B, Hkv, T, D] of a decode step's layer",
+        device_ms=timing["write_kv_quantized"]["device_ms"],
+        **{f"prefill_{k}": pre[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    modes["quantize_int8"] = {
+        "main_path": "q of the int8 score dot on int8 pools (once a "
+                     "quantized paged call); K and V go through "
+                     "write_kv_quantized"}
+    modes["quantize_fp8"] = {
+        "main_path": "none since the fused write: the quantized serving "
+                     "runs launch write_kv_quantized"}
     # the quantized kernel's split-KV: (slots a split, n_split) by the
     # rule at the serving shapes (a pv_int8 split holds whole page blocks)
     for n, T, B_ in (("paged_attention_quantized", 1, 4),

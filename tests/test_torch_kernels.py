@@ -1239,6 +1239,151 @@ def test_quantize_stochastic_kernel(cuda):
 
 
 # tier -> (pool dtype, q_int8, pv_int8, pages_per_block)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["int8", "fp8"])
+@pytest.mark.parametrize("case", ["decode", "verify", "prefill",
+                                  "clamped tail", "ring wrap"])
+def test_write_kv_quantized_equals_plain(cuda, case, tier, dt):
+    """The fused quantized K/V write (#20/#22 on the serving path) against
+    its plain twin at the serving cache's write cases (V a transposed
+    view): pool bytes and scales bit for bit, one launch a call, and a
+    second call the same bits."""
+    from tpukern_torch.harness.quant_sample_times import POOLS, write_case
+    from tpukern_torch.ops import quant
+
+    k, v, pools, layer, slots = write_case(case, POOLS[tier], DTYPES[dt])
+    ref = tuple(t.clone() for t in pools)
+    before = quant.write_kv_quantized.launches
+    quant.write_kv_quantized(k, v, *pools, layer, slots)
+    quant.write_kv_quantized_ref(k, v, *ref, layer, slots)
+    for a, b in zip(pools, ref):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    again = tuple(torch.zeros_like(t) for t in pools)
+    quant.write_kv_quantized(k, v, *again, layer, slots)
+    for a, b in zip(pools, again):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert quant.write_kv_quantized.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "fp8"])
+@pytest.mark.parametrize("D,offset", [(24, 0), (128, 1), (40, 3)])
+def test_write_kv_quantized_element_path(cuda, tier, D, offset):
+    """Widths that are not whole 16-value chunks and tokens 1-3 elements
+    off a 16-byte boundary take the element path: bit for bit again."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.ops import quant
+
+    g = torch.Generator(device=cuda).manual_seed(D + offset)
+    B, H, T, pps, page = 2, 2, 3, 2, 4
+    base = 3 * torch.randn(B * H * T * D + offset, generator=g, device=cuda)
+    k = base[offset:].reshape(B, H, T, D)
+    v = 3 * torch.randn((B, T, H, D), generator=g,
+                        device=cuda).transpose(1, 2)
+    pdt = torch.int8 if tier == "int8" else torch.float8_e4m3fn
+    shape = (1, H, B * pps, page, D)
+    pools = (torch.zeros(shape, dtype=pdt, device=cuda),
+             torch.zeros(shape[:4], device=cuda),
+             torch.zeros(shape, dtype=pdt, device=cuda),
+             torch.zeros(shape[:4], device=cuda))
+    ref = tuple(t.clone() for t in pools)
+    table = torch.arange(B * pps, dtype=torch.int32,
+                         device=cuda).reshape(B, pps)
+    slots = serving._slots(table, torch.tensor([0, 6], device=cuda), T,
+                           page)
+    quant.write_kv_quantized(k, v, *pools, 0, slots)
+    quant.write_kv_quantized_ref(k, v, *ref, 0, slots)
+    for a, b in zip(pools, ref):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "fp8"])
+def test_quantized_decode_step_writes_once_a_layer(cuda, tier):
+    """A decode step on a quantized cache launches the fused write once a
+    layer, quantize_fp8 never and quantize_int8 only for q on int8 pools
+    (the int8 score dot: once a layer)."""
+    from tpukern_torch.models import serving
+    from tpukern_torch.ops import quant
+
+    cfg = Config(vocab=256, d_model=128, n_layers=3, n_heads=4,
+                 n_kv_heads=2, d_ff=256, max_seq=256)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    pdt = torch.int8 if tier == "int8" else torch.float8_e4m3fn
+    cache = serving.init_cache(cfg, 2, 4, 16, dtype=pdt, device=cuda)
+    prompt = torch.randint(0, 256, (2, 21), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    logits, cache = serving.prefill(params, cfg, prompt, cache)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    counts = (quant.write_kv_quantized.launches,
+              quant.quantize_int8.launches, quant.quantize_fp8.launches)
+    _, cache = serving.decode_step(params, cfg, tok, cache)
+    torch.cuda.synchronize()
+    assert (quant.write_kv_quantized.launches, quant.quantize_int8.launches,
+            quant.quantize_fp8.launches) == (
+                counts[0] + cfg.n_layers,
+                counts[1] + (cfg.n_layers if tier == "int8" else 0),
+                counts[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["count", "mass"])
+@pytest.mark.parametrize("B,V", [(4, 32768), (1, 128256), (4, 1000),
+                                 (9, 32768), (64, 32768), (200, 4096),
+                                 (1, 1 << 20), (1, 4099), (3, 40000)])
+def test_threshold_plan_mirrors_launcher(cuda, B, V, mode):
+    """ops/sampling.py threshold_plan gives the C launcher's shape."""
+    from tpukern_torch.ops import sampling
+
+    assert (sampling.threshold_plan(B, V, mode)
+            == sampling.threshold_plan_launcher(B, V, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(4, 1000), (9, 32768), (64, 32768),
+                                 (200, 4096), (1, 1 << 20), (1, 4099),
+                                 (3, 40001)])
+def test_threshold_cluster_shapes(cuda, B, V):
+    """#27 at every cluster size, staged and re-read shares, a share
+    that is not whole 16-byte packs (V odd): count mode bit-equal to the
+    twin, mass mode by the kept-set rule; a second call bit-equal."""
+    from tpukern_torch.ops import sampling
+
+    x = _sample_logits(cuda, B, V, torch.float32, B * V)
+    if B > 1:
+        x[1, :20] = x[1].max()
+    for k in (1, 21, 50):
+        out = sampling.topk_threshold(x, k)
+        assert torch.equal(out, sampling.topk_threshold(x, k))
+        np.testing.assert_array_equal(
+            out.cpu().numpy(),
+            sampling._bisect_threshold_ref(x, mode="count", kk=k).cpu().numpy())
+    for p, T in ((0.5, 1.0), (0.9, 0.8)):
+        out = sampling.topp_threshold(x, p, T)
+        assert torch.equal(out, sampling.topp_threshold(x, p, T))
+        ref = sampling._bisect_threshold_ref(x, mode="mass", pp=p,
+                                             inv_temp=1 / T)
+        probs = torch.softmax(x.double() / T, -1)
+        differ = (x >= out[:, None]) ^ (x >= ref[:, None])
+        assert (differ.sum(-1) <= 1).all()
+        assert ((probs * differ).sum(-1) < 1e-4).all()
+        assert (x == out[:, None]).any(-1).all()
+
+
+@pytest.mark.cuda
+def test_threshold_no_value_qualifies(cuda):
+    """A mass target of 0 keeps nothing: NaN, as the TPU kernel's
+    bisection gives; every block of the cluster stops alike."""
+    from tpukern_torch.ops import sampling
+
+    x = _sample_logits(cuda, 4, 32768, torch.float32, 5)
+    out = sampling.topp_threshold(x, 0.0)
+    assert torch.isnan(out).all()
+
+
 QUANT_TIERS = {"int8": ("int8", False, False, 8),
                "int8 q_int8": ("int8", True, False, 8),
                "int8 pv_int8 ppb1": ("int8", False, True, 1),
@@ -1346,7 +1491,8 @@ def test_quantized_serving_on_kernels_equals_plain(cuda):
     """ContinuousBatcher (chunked admission) and SpeculativeBatcher on int8,
     int8 + pv_int8 and fp8 pools through the kernels (f32 weights): the
     greedy streams of the plain path on the CPU; the quantized instances
-    and #20/#22 launch, the float instances do not."""
+    and the fused K/V write (#20/#22) launch, the float instances do not,
+    nor quantize_fp8; quantize_int8 launches for q on int8 pools only."""
     from tpukern_torch.models import SpeculativeBatcher
     from tpukern_torch.ops import quant
 
@@ -1369,13 +1515,14 @@ def test_quantized_serving_on_kernels_equals_plain(cuda):
                    paged_attention.paged_prefill_attention,
                    paged_attention.paged_attention_quantized,
                    paged_attention.paged_prefill_attention_quantized,
-                   quant.quantize_int8, quant.quantize_fp8)
+                   quant.quantize_int8, quant.quantize_fp8,
+                   quant.write_kv_quantized)
             before = [op.launches for op in ops]
             out = make(params_to(params, cuda)).run(list(enumerate(prompts)))
             grew = [op.launches > b for op, b in zip(ops, before)]
             assert out == ref
             assert grew[:4] == [False, False, True, True]
-            assert grew[4] == (dt == torch.int8) and grew[5] != grew[4]
+            assert grew[4:] == [dt == torch.int8, False, True]
 
 
 # ------------------------------------------------ w8a16 GEMM (#25)

@@ -206,3 +206,37 @@ def test_temp_probs_and_rejection_accept_bit_equal_jax(rng):
         assert (spec.rejection_accept(drafts, q, p, r1)
                 == jax_spec.rejection_accept(drafts, q, p, r2))
         assert r1.random() == r2.random()
+
+
+# #27's cluster shape: (B, V) -> (blocks a row, values a block, staged)
+THRESHOLD_PLANS = [
+    (4, 32768, "mass", (16, 2048, True)),     # the 7bish serving batch
+    (4, 32768, "count", (16, 2048, True)),
+    (1, 128256, "mass", (16, 8016, True)),    # Llama-3's vocabulary
+    (1, 32000, "count", (8, 4000, True)),     # a block keeps >= 2048 values
+    (4, 1000, "mass", (1, 1000, True)),       # one block a row
+    (9, 32768, "count", (8, 4096, True)),     # B C stays within 132 blocks
+    (64, 32768, "mass", (2, 16384, False)),   # 256 KiB: re-read
+    (64, 32768, "count", (2, 16384, True)),   # 128 KiB
+    (200, 4096, "count", (1, 4096, True)),
+    (1, 1 << 20, "count", (16, 65536, False)),  # re-read from L2 each pass
+    (1, 327680, "count", (16, 20480, True)),    # 8 bytes a value: 160 KiB
+    (1, 327681, "count", (16, 20484, False)),
+    (1, 163840, "mass", (16, 10240, True)),     # 16 bytes a value
+    (1, 163841, "mass", (16, 10244, False)),
+    (1, 4099, "count", (2, 2052, True)),        # n rounded up to 4
+]
+
+
+@pytest.mark.parametrize("B,V,mode,want", THRESHOLD_PLANS)
+def test_threshold_plan_shape_rule(B, V, mode, want):
+    """csrc/sampling.cu threshold_plan's rule, as its Python mirror gives
+    it: the cluster's size, a block's share and whether it is staged; the
+    shares cover the row, and a staged share fits the block's budget."""
+    C, n, staged, smem = sp.threshold_plan(B, V, mode)
+    assert (C, n, staged) == want
+    assert C in (1, 2, 4, 8, 16) and n % 4 == 0 and C * n >= V > (C - 1) * n
+    per = 16 if mode == "mass" else 8
+    assert smem == sp.th_head_bytes(mode) + (n * per if staged else 0)
+    assert staged == (n * per <= sp.TH_STAGE_MAX)
+    assert smem <= 227 * 1024  # an H100 block's shared memory

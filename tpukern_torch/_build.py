@@ -123,6 +123,11 @@ SIGNATURES = {
     "tk_quantize": [_P, _P, _P, _I64, _I, _I, _I64, _I, _P],
     # values, scales, out, S, K, out dtype, stream
     "tk_dequantize": [_P, _P, _P, _I64, _I, _I, _P],
+    # k, v, the (b, h, t) strides of k and of v, phys, row, src (or None;
+    # int64 (B, T)), k_pages, k_scales, v_pages, v_scales (the layer's),
+    # B, H, T, D, P, page, mode (0 int8, 2 fp8), dtype, stream
+    "tk_write_kv_quantized": [_P, _P] + [_I64] * 6 + [_P] * 7 + [_I] * 8
+                             + [_P],
     # x, w, targets (i32), part (f32), N, D, V, log2, stream (bf16 inputs)
     "tk_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, targets, part (f32), the split-TF32 planes of x and of W's
@@ -146,6 +151,9 @@ SIGNATURES = {
     # x (f32), thresholds, B, V, mode (0 count, 1 mass), k, p, inv_temp,
     # stream
     "tk_sample_threshold": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # B, V, mode, out (int32 x 4: blocks a row, values a block, staged,
+    # shared bytes a block)
+    "tk_sample_threshold_plan": [_I, _I, _I, _P],
     # op, x0, x1 (or None), scalar s (f32, or None), y, n, vec, dtype,
     # stream
     "tk_ew": [_I, _P, _P, _P, _P, _I64, _I, _I, _P],

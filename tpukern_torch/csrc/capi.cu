@@ -172,6 +172,19 @@ int tk_quantize(const void* x, void* values, float* scales, int64_t S, int K,
                                      static_cast<cudaStream_t>(stream)));
 }
 
+int tk_write_kv_quantized(const void* k, const void* v, int64_t kb,
+                          int64_t kh, int64_t kt, int64_t vb, int64_t vh,
+                          int64_t vt, const int64_t* phys, const int64_t* row,
+                          const int64_t* src, void* k_pages, float* k_scales,
+                          void* v_pages, float* v_scales, int B, int H, int T,
+                          int D, int P, int page, int mode, int dtype,
+                          void* stream) {
+  const int64_t ks[3] = {kb, kh, kt}, vs[3] = {vb, vh, vt};
+  return checked(tk::write_kv_quantized_launch(
+      k, v, ks, vs, phys, row, src, k_pages, k_scales, v_pages, v_scales, B,
+      H, T, D, P, page, mode, dtype, static_cast<cudaStream_t>(stream)));
+}
+
 int tk_dequantize(const void* values, const float* scales, void* out,
                   int64_t S, int K, int dtype, void* stream) {
   return checked(tk::dequantize_launch(values, scales, out, S, K, dtype,
@@ -230,6 +243,10 @@ int tk_sample_threshold(const float* x, float* thr, int B, int V, int mode,
                         int kk, float pp, float inv_temp, void* stream) {
   return checked(tk::sample_threshold_launch(
       x, thr, B, V, mode, kk, pp, inv_temp, static_cast<cudaStream_t>(stream)));
+}
+
+int tk_sample_threshold_plan(int B, int V, int mode, int* out) {
+  return static_cast<int>(tk::sample_threshold_plan(B, V, mode, out));
 }
 
 int tk_ew(int op, const void* x0, const void* x1, const float* s, void* y,

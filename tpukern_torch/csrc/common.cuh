@@ -584,6 +584,16 @@ cudaError_t quantize_launch(const void* x, void* values, float* scales,
 cudaError_t dequantize_launch(const void* values, const float* scales,
                               void* out, int64_t S, int K, int dtype,
                               cudaStream_t stream);
+// #20 / #22 on the serving path: a layer's new K and V tokens (B, H, T, D)
+// quantized and stored at the step's slots, one launch; k_strides and
+// v_strides: host arrays of the (b, h, t) element strides; src null for
+// token t; mode 0 int8, 2 fp8
+cudaError_t write_kv_quantized_launch(
+    const void* k, const void* v, const int64_t* k_strides,
+    const int64_t* v_strides, const int64_t* phys, const int64_t* row,
+    const int64_t* src, void* k_pages, float* k_scales, void* v_pages,
+    float* v_scales, int B, int H, int T, int D, int P, int page, int mode,
+    int dtype, cudaStream_t stream);
 // the bf16 forward: one partial a 256-column vocab tile into part
 // (cdiv(V, 256), 3, N)
 cudaError_t ce_fwd_launch(const void* x, const void* w, const int* targets,
@@ -635,6 +645,9 @@ cudaError_t matmul_naive_launch(const void* a, const void* b, void* c, int M,
 cudaError_t sample_threshold_launch(const float* x, float* thr, int B, int V,
                                     int mode, int kk, float pp,
                                     float inv_temp, cudaStream_t stream);
+// #27's cluster shape for B rows of V values: out[0] blocks a row, out[1]
+// values a block, out[2] 1 if staged in shared memory, out[3] its bytes
+cudaError_t sample_threshold_plan(int B, int V, int mode, int* out);
 // mode 0: safe softmax (#33), 1: online (#34)
 cudaError_t softmax_launch(const void* x, void* y, int64_t rows, int64_t cols,
                            int mode, int dtype, cudaStream_t stream);

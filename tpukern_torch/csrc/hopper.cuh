@@ -43,6 +43,58 @@ __device__ __forceinline__ int sw128_offset(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
+// ------------------------------------------------ thread-block clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier: arrive (.release, or .relaxed: no memory order),
+// then wait (.acquire)
+template <bool RELEASE>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (RELEASE)
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  else
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// p (this block's shared memory) as the address of the same bytes in the
+// cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// loads from another block's shared memory (a cluster address)
+__device__ __forceinline__ uint32_t dsmem_ld_u32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+// atomic adds into another block's shared memory (a cluster address);
+// seen by that block after a cluster barrier
+__device__ __forceinline__ void dsmem_add_u32(uint32_t a, uint32_t v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], %1;\n"
+               ::"r"(a), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void dsmem_add_u64(uint32_t a,
+                                              unsigned long long v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.u64 [%0], %1;\n"
+               ::"r"(a), "l"(v)
+               : "memory");
+}
+
 // ------------------------------------------------------------- mbarrier
 // One thread inits the barrier with its arrival count; the init fence
 // and a __syncthreads() publish it. A phase completes when every arrival

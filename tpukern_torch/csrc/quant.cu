@@ -26,6 +26,27 @@
 // bytes a row (dequantize: reads 1, writes 2 or 4), so they are bound by
 // memory bandwidth; at the serving shapes (32 to 4096 rows of 128) the
 // launch takes longer than the bytes.
+//
+// write_kv_quant_kernel is #20 (round to nearest) or #22 as the serving
+// path runs them: one launch a layer quantizes the step's new K and V
+// tokens and stores them into the paged pools (unfused, the write takes a
+// quantize_kernel launch for K and one for V, then four index_put
+// scatters of values and scales, and their host ops). A group of D / 16
+// lanes (8 at D 128; a whole warp for other widths) owns a (tensor, b, h,
+// t) row: it reads the token new[b, h, src[b, t]] through the tensor's
+// strides (V is a transposed view of the projection; no copy), each lane
+// 16 values into registers, reduces |x| with shuffles, computes the scale
+// and the values as quantize_kernel does (quant_round: the same divisions
+// and roundings, so the bytes are those of quantize_ref /
+// quantize_fp8_ref), and stores its 16 bytes straight into pages[h, phys,
+// row], the group's first lane the scale into scales[h, phys, row].
+// (phys, row, src) are the step's slots (models/serving.py _slots): rows
+// that share a slot carry the same src, so they store the same bytes. A
+// block holds 1-8 warps, fewer while the blocks would not fill every SM
+// once (a decode step's 2 x 32 rows take 16 blocks of one warp, a
+// 512-token prefill's 2 x 16384 take 1024 of 8). A decode step's layer
+// moves 16 KiB of bf16 in and 8.3 KiB out, nanoseconds of HBM: latency
+// sets its time (4.1 µs on an H100, #20 alone on half the rows 1.7).
 #include <cuda_fp8.h>
 
 #include "common.cuh"
@@ -56,6 +77,17 @@ __device__ __forceinline__ float row_absmax(const T* x, int K, bool vec) {
   return warp_max(m);
 }
 
+// x / scale as one int8 (round half to even) or e4m3 (saturating) byte:
+// the rounding of #20 and #22, shared by both of their kernels
+template <int MODE>
+__device__ __forceinline__ uint8_t quant_round(float xv, float scale) {
+  const float v = __fdiv_rn(xv, scale);
+  if constexpr (MODE == kFp8)
+    return __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+  else
+    return (uint8_t)(int8_t)__float2int_rn(v);
+}
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(Q_THREADS)
 quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ values,
@@ -73,16 +105,14 @@ quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ values,
   if (lane == 0) scales[row] = scale;
 
   auto convert = [&](float xv, int c) -> uint8_t {
-    const float v = __fdiv_rn(xv, scale);
-    if constexpr (MODE == kFp8) {
-      return __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
-    } else if constexpr (MODE == kStochasticInt8) {
+    if constexpr (MODE == kStochasticInt8) {
+      const float v = __fdiv_rn(xv, scale);
       const uint32_t bits = philox_word0(c, (uint32_t)row, k0, k1);
       const float u = (float)(bits & 0x7FFFFFu) * (1.f / 8388608.f);
       const float f = fminf(fmaxf(floorf(__fadd_rn(v, u)), -128.f), 127.f);
       return (uint8_t)(int8_t)f;
     } else {
-      return (uint8_t)(int8_t)__float2int_rn(v);
+      return quant_round<MODE>(xv, scale);
     }
   };
 
@@ -100,6 +130,123 @@ quantize_kernel(const T* __restrict__ x, uint8_t* __restrict__ values,
     }
   } else {
     for (int c = lane; c < K; c += 32) out[c] = convert(to_f32(xr[c]), c);
+  }
+}
+
+// the fused K/V write's operands: the two tensors (0 K, 1 V) of (B, H, T,
+// D) new tokens with their element strides of b, h and t (D's is 1), the
+// step's slots (B, T) (src null: token t), and the layer's pools (H, P,
+// page, D) bytes and (H, P, page) f32 scales
+struct WriteKV {
+  const void* x[2];
+  int64_t stride[2][3];
+  const int64_t* phys;
+  const int64_t* row;
+  const int64_t* src;
+  uint8_t* pages[2];
+  float* scales[2];
+  int B, H, T, D, P, page;
+};
+
+constexpr int WQ_LANE = 16;  // values a lane converts at a time: 16 bytes out
+
+// 16 values of T from p (16-byte aligned) as f32
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&f)[WQ_LANE]) {
+  constexpr int VEC = 16 / sizeof(T);
+#pragma unroll
+  for (int j = 0; j < WQ_LANE; j += VEC) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p + j);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[j + i] = to_f32(e[i]);
+  }
+}
+
+// A group of G lanes a (tensor, b, h, t) row (blockIdx.y: 0 K, 1 V; i in
+// [0, B H T) row-major over (b, h, t)), 32 / G rows a warp. vec (16-byte
+// loads and stores) with D = 16 G, G a power of two up to 32: each lane
+// holds its 16 values in registers between the row's max and the
+// conversion. Else (G = 32) the warp walks the row 16 values (or, without
+// vec, one value) a lane at a time and reads it twice.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(Q_THREADS)
+write_kv_quant_kernel(const WriteKV a, int rows, int G, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int per_warp = 32 / G;
+  const int i = ((int)blockIdx.x * (int)(blockDim.x >> 5) +
+                 (int)(threadIdx.x >> 5)) * per_warp + lane / G;
+  const int gl = lane % G;  // the lane's place in its group
+  const bool live = i < rows;
+  const int which = blockIdx.y;
+  const int t = live ? i % a.T : 0;
+  const int h = live ? (i / a.T) % a.H : 0;
+  const int b = live ? i / (a.T * a.H) : 0;
+  const int bt = b * a.T + t;
+  const int64_t ts = live && a.src ? a.src[bt] : t;
+  // the tensor's operands by selects (a dynamic index into the parameter
+  // block would copy it to local memory)
+  const int64_t sb = which ? a.stride[1][0] : a.stride[0][0];
+  const int64_t sh = which ? a.stride[1][1] : a.stride[0][1];
+  const int64_t stt = which ? a.stride[1][2] : a.stride[0][2];
+  const T* x = static_cast<const T*>(which ? a.x[1] : a.x[0]) + b * sb +
+               h * sh + ts * stt;
+  const int64_t slot =
+      live ? ((int64_t)h * a.P + a.phys[bt]) * a.page + a.row[bt] : 0;
+  uint8_t* out = (which ? a.pages[1] : a.pages[0]) + slot * a.D;
+  float* scales = which ? a.scales[1] : a.scales[0];
+  const int D = a.D;
+  constexpr float QMAX = MODE == kFp8 ? 448.f : 127.f;
+
+  if (vec && G * WQ_LANE == D) {
+    float f[WQ_LANE];
+    float m = 0.f;
+    if (live) {
+      load16(x + gl * WQ_LANE, f);
+#pragma unroll
+      for (int j = 0; j < WQ_LANE; ++j) m = fmaxf(m, fabsf(f[j]));
+    }
+    for (int o = G >> 1; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float scale = m == 0.f ? 1.f : __fdiv_rn(m, QMAX);
+    if (!live) return;
+    if (gl == 0) scales[slot] = scale;
+    union { uint8_t b[WQ_LANE]; uint4 u; } o;
+#pragma unroll
+    for (int j = 0; j < WQ_LANE; ++j) o.b[j] = quant_round<MODE>(f[j], scale);
+    *reinterpret_cast<uint4*>(out + gl * WQ_LANE) = o.u;
+    return;
+  }
+  // a warp a row (G = 32, one row a warp: every lane shares live)
+  float m = 0.f;
+  if (live) {
+    if (vec) {
+      for (int c = lane * WQ_LANE; c < D; c += 32 * WQ_LANE) {
+        float f[WQ_LANE];
+        load16(x + c, f);
+#pragma unroll
+        for (int j = 0; j < WQ_LANE; ++j) m = fmaxf(m, fabsf(f[j]));
+      }
+    } else {
+      for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(to_f32(x[c])));
+    }
+  }
+  m = warp_max(m);
+  const float scale = m == 0.f ? 1.f : __fdiv_rn(m, QMAX);
+  if (!live) return;
+  if (lane == 0) scales[slot] = scale;
+  if (vec) {
+    for (int c = lane * WQ_LANE; c < D; c += 32 * WQ_LANE) {
+      float f[WQ_LANE];
+      load16(x + c, f);
+      union { uint8_t b[WQ_LANE]; uint4 u; } o;
+#pragma unroll
+      for (int j = 0; j < WQ_LANE; ++j) o.b[j] = quant_round<MODE>(f[j], scale);
+      *reinterpret_cast<uint4*>(out + c) = o.u;
+    }
+  } else {
+    for (int c = lane; c < D; c += 32)
+      out[c] = quant_round<MODE>(to_f32(x[c]), scale);
   }
 }
 
@@ -173,7 +320,85 @@ void launch_dequantize(const int8_t* values, const float* scales, void* out,
       values, scales, static_cast<T*>(out), S, K, vec);
 }
 
+template <typename T>
+void launch_write_kv(const WriteKV& a, int mode, cudaStream_t stream) {
+  static int sms = 0;  // the current device's SMs, read once
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  constexpr int VEC = 16 / sizeof(T);
+  bool vec = a.D % WQ_LANE == 0;
+  for (int w = 0; w < 2; ++w) {
+    vec &= reinterpret_cast<uintptr_t>(a.x[w]) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(a.pages[w]) % 16 == 0;
+    for (int d = 0; d < 3; ++d) vec &= a.stride[w][d] % VEC == 0;
+  }
+  // lanes a row: D / 16 where that is a power of two up to 32, else 32
+  int G = 32;
+  if (vec && a.D <= 32 * WQ_LANE) {
+    const int g = a.D / WQ_LANE;
+    if ((g & (g - 1)) == 0) G = g;
+  }
+  const int rows = a.B * a.H * a.T;
+  const int per_warp = 32 / G;
+  int warps = Q_ROWS;  // halved while the blocks would not fill every SM
+  auto blocks = [&](int w) {
+    return (rows + (int64_t)w * per_warp - 1) / ((int64_t)w * per_warp);
+  };
+  while (warps > 1 && 2 * blocks(warps) < sms) warps >>= 1;
+  const dim3 grid((unsigned)blocks(warps), 2);
+  if (mode == kFp8)
+    write_kv_quant_kernel<T, kFp8><<<grid, warps * 32, 0, stream>>>(
+        a, rows, G, vec);
+  else
+    write_kv_quant_kernel<T, kRoundInt8><<<grid, warps * 32, 0, stream>>>(
+        a, rows, G, vec);
+}
+
 }  // namespace
+
+cudaError_t write_kv_quantized_launch(
+    const void* k, const void* v, const int64_t* k_strides,
+    const int64_t* v_strides, const int64_t* phys, const int64_t* row,
+    const int64_t* src, void* k_pages, float* k_scales, void* v_pages,
+    float* v_scales, int B, int H, int T, int D, int P, int page, int mode,
+    int dtype, cudaStream_t stream) {
+  if (!k || !v || !k_strides || !v_strides || !phys || !row || !k_pages ||
+      !k_scales || !v_pages || !v_scales || B < 0 || H <= 0 || T < 0 ||
+      D <= 0 || P <= 0 || page <= 0 || (mode != kRoundInt8 && mode != kFp8) ||
+      (dtype != kBF16 && dtype != kF32) ||
+      (int64_t)B * H * T > 0x7FFFFFFFLL || (int64_t)B * T > 0x7FFFFFFFLL)
+    return cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return cudaSuccess;
+  WriteKV a;
+  a.x[0] = k;
+  a.x[1] = v;
+  for (int d = 0; d < 3; ++d) {
+    a.stride[0][d] = k_strides[d];
+    a.stride[1][d] = v_strides[d];
+  }
+  a.phys = phys;
+  a.row = row;
+  a.src = src;
+  a.pages[0] = static_cast<uint8_t*>(k_pages);
+  a.pages[1] = static_cast<uint8_t*>(v_pages);
+  a.scales[0] = k_scales;
+  a.scales[1] = v_scales;
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.D = D;
+  a.P = P;
+  a.page = page;
+  if (dtype == kBF16)
+    launch_write_kv<bf16>(a, mode, stream);
+  else
+    launch_write_kv<float>(a, mode, stream);
+  return cudaSuccess;
+}
 
 cudaError_t quantize_launch(const void* x, void* values, float* scales,
                             int64_t S, int K, int mode, long long seed,

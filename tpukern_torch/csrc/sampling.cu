@@ -22,30 +22,67 @@
 // by one (__fmul_rn, __fadd_rn: no fused multiply-add), so with the same
 // noise the index equals the plain version's bit for bit.
 //
-// threshold_kernel replaces sampling.py:182 `_threshold_kernel`: the k-th
-// largest logit of a row (count mode), or the smallest kept logit of the
-// top-p nucleus (mass mode): the smallest data value d with
+// threshold_cluster_kernel replaces sampling.py:182 `_threshold_kernel`:
+// the k-th largest logit of a row (count mode), or the smallest kept logit
+// of the top-p nucleus (mass mode): the smallest data value d with
 //   sum of w over the values strictly above d  <  target,
 // where w = exp((x - max) * inv_temp) and target = k (count: w = 1) or
 // p * sum(w) (mass). The TPU kernel bisects that predicate in 33 steps
 // over monotone int32 keys of the values, its 8 rows resident in VMEM.
-// Here one block owns one row and runs a radix select over the same keys
-// (as unsigned, the sign bit flipped): 4 passes of 8 bits, each a 256-bin
-// histogram of the values whose key matches the digits chosen so far (one
-// histogram per warp, folded afterwards), then a warp scans the bins from
-// the top for the lowest non-empty bin whose mass above stays below the
-// target. Masses are fixed point (w * 2^40 in 64-bit integers), so the
-// sums do not depend on the order of the atomics and the threshold is the
-// same from run to run; the result is always a data value. A row of up to
-// TH_SMEM_MAX values is staged in shared memory once; a longer one is
-// re-read from global memory (L2) in each pass.
+// Here a thread-block cluster of C blocks (up to 16, the non-portable
+// size above 8) owns a row and runs a radix select over the same keys (as
+// unsigned, the sign bit flipped): 4 passes of 8 bits. Block r of the
+// cluster owns n columns of the row (n = C's share rounded up to 4) and
+//   1. stages them in shared memory, once (16-byte loads where the row
+//      allows); in mass mode the row's max is merged over the cluster
+//      through distributed shared memory (after a cluster barrier lane r
+//      of warp 0 reads block r's max) and w is computed once a value, in
+//      pass 0, and kept beside it;
+//   2. in each pass builds a 256-bin histogram (count, and the mass as
+//      w * 2^40 in 64-bit fixed point) of its values that match the
+//      digits chosen so far, one histogram a warp with warp-aggregated
+//      adds: the lanes of a warp whose values fall in one bin
+//      (__match_any_sync) add their count once, by their first lane, and
+//      their masses in rounds by their rank in the group, so that in a
+//      round each bin of the warp's own histogram has one writer and the
+//      adds need no atomics (summing a group's masses by
+//      __reduce_add_sync under the group's mask instead ran mass mode at
+//      35.2 µs against count mode's 11.8 on an H100 at (4, 32768); the
+//      rounds take it to 21.9);
+//   3. merges the cluster's histograms: each block folds its warps'
+//      histograms and adds its non-empty bins into every block's merged
+//      histogram (red.shared::cluster, integers, so in any order; two
+//      alternating merged histograms, so a block that runs ahead never
+//      adds into one still being read), then after a cluster barrier
+//      every block picks the same digit from its merged bins: warp 0
+//      scans the bins from the top for the lowest non-empty bin whose
+//      mass above stays below the target; no broadcast is needed;
+//   4. compacts the values that still match the chosen digits into a
+//      list in shared memory (with their w), which the next pass walks
+//      instead of the whole share; where the chosen bin holds a single
+//      value of the row, the block that holds it writes it and the
+//      passes stop (the later ones would only spell out its key).
+// Masses are integers, so their sums depend on neither the order of the
+// adds nor the split over blocks, and with the same order key, the same
+// expf((v - m) * inv_temp) and the same __double2ull_rn the threshold
+// equals a one-block radix select's over the whole row bit for bit; the
+// result is always a data value. The cluster's size follows from B and V
+// (threshold_plan, mirrored by ops/sampling.py threshold_plan): 16 blocks
+// a row, halved while a block would get fewer than TH_BLOCK_MIN values or
+// B C would pass the card's 132 SMs. A share too large to stage
+// (TH_STAGE_MAX bytes) is re-read from global memory (L2) in each pass,
+// with w recomputed, and no compaction. A launch the card refuses (no
+// cluster of the size fits) fails with an error; no other kernel stands
+// in for it.
 //
 // What bounds them: each reads B * V logits once (sample also the noise);
 // at the serving shape, (4, 32768) f32, that is 512 KB, 0.16 us at 3.35
-// TB/s, so launch latency and, for the threshold, one block per row
-// bound them. A cluster per row would spread the threshold's passes over
-// more SMs; that is left to a later PR.
-#include "common.cuh"
+// TB/s, so launch latency and, for the threshold, its cluster barriers
+// (one before the first pass, one a pass, one at the end) bound them.
+#include <map>
+#include <tuple>
+
+#include "hopper.cuh"
 
 namespace tk {
 namespace {
@@ -55,8 +92,19 @@ constexpr int SA_CHUNK = 2048;  // columns per block (8 per thread)
 constexpr int TH_THREADS = 512;
 constexpr int TH_WARPS = TH_THREADS / 32;
 constexpr int TH_BINS = 256;
-constexpr int TH_SMEM_MAX = 40960;  // values of a row staged in shared memory
 constexpr double TH_FIX = 1099511627776.0;  // 2^40: fixed-point scale of w
+// the cluster's shape rule (threshold_plan): blocks a row, at most
+constexpr int TH_CLUSTER_MAX = 16;
+constexpr int TH_CLUSTER_PORTABLE = 8;
+constexpr int TH_BLOCK_MIN = 2048;  // values a block at least
+constexpr int TH_SMS = 132;         // an H100 SXM's SMs: B C at most this
+constexpr int TH_STAGE_MAX = 160 * 1024;  // staged bytes a block at most
+// the histograms ahead of the staged values: [2][256] merged masses (u64)
+// and counts (u32), [TH_WARPS][256] the warps' counts, and in mass mode
+// [TH_WARPS][256] the warps' masses
+__host__ __device__ constexpr int th_head_bytes(bool mass) {
+  return 2 * TH_BINS * 12 + TH_WARPS * TH_BINS * (mass ? 12 : 4);
+}
 
 __device__ __forceinline__ float gumbel(uint32_t bits) {
   const float u = (static_cast<float>(bits & 0x7FFFFFu) + 0.5f) *
@@ -147,77 +195,186 @@ sample_combine_kernel(const unsigned long long* __restrict__ part, int B,
   if (lane == 0) out[b] = column_of(best);
 }
 
-template <bool SMEM>
+// the fixed-point mass of a weight, as the one-block kernel computed it
+__device__ __forceinline__ unsigned long long fixed_mass(float w) {
+  return __double2ull_rn(static_cast<double>(w) * TH_FIX);
+}
+
+// One cluster of C blocks a row (blockIdx.x / C), block r on columns
+// [r n, r n + n) of it. STAGED: those columns (and in mass mode their
+// weights) in shared memory, compacted after each pass; else re-read from
+// global memory every pass. vec: 16-byte loads (V a multiple of 4, x
+// aligned).
+template <bool MASS, bool STAGED>
 __global__ void __launch_bounds__(TH_THREADS)
-threshold_kernel(const float* __restrict__ x, float* __restrict__ thr, int V,
-                 int mass_mode, int kk, float pp, float inv_temp) {
-  // dynamic shared memory: per-warp histograms (mass, then count), then
-  // the row when SMEM
+threshold_cluster_kernel(const float* __restrict__ x, float* __restrict__ thr,
+                         int V, int C, int n, bool vec, int kk, float pp,
+                         float inv_temp) {
   extern __shared__ __align__(16) unsigned char th_smem[];
-  auto* hm = reinterpret_cast<unsigned long long*>(th_smem);
-  auto* hc = reinterpret_cast<unsigned int*>(hm + TH_WARPS * TH_BINS);
-  auto* xs = reinterpret_cast<float*>(hc + TH_WARPS * TH_BINS);
+  auto* mm = reinterpret_cast<unsigned long long*>(th_smem);  // [2][256]
+  auto* mc = reinterpret_cast<unsigned int*>(mm + 2 * TH_BINS);  // [2][256]
+  auto* hcw = mc + 2 * TH_BINS;                     // [TH_WARPS][256]
+  auto* hmw = reinterpret_cast<unsigned long long*>(
+      hcw + TH_WARPS * TH_BINS);                    // MASS: [TH_WARPS][256]
+  // STAGED: the share (xa, wa) and a list (xb, wb); wa, wb in mass mode
+  float* xa = reinterpret_cast<float*>(th_smem + th_head_bytes(MASS));
+  float* wa = xa + n;
+  float* xb = xa + (MASS ? 2 : 1) * n;
+  float* wb = xb + n;
   __shared__ float max_s[TH_WARPS];
+  __shared__ float cmax_s;  // this block's max, read by the cluster
+  __shared__ float m_s;     // the row's
   __shared__ uint32_t prefix_s;
   __shared__ unsigned long long above_s;
-  __shared__ int found_s;
+  __shared__ int found_s, len_s, single_s;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* xr = x + static_cast<int64_t>(blockIdx.x) * V;
-  if constexpr (SMEM) {
-    for (int i = tid; i < V; i += TH_THREADS) xs[i] = xr[i];
+  const uint32_t rank = cluster_rank();
+  const int row = blockIdx.x / C;
+  const float* xr = x + static_cast<int64_t>(row) * V;
+  const int c0 = min(V, static_cast<int>(rank) * n);
+  const int len0 = min(V, c0 + n) - c0;  // this block's columns
+  const float* xs = xr + c0;
+
+  // both merged histograms zeroed before any block adds into them (the
+  // first cluster barrier, below)
+  for (int i = tid; i < 2 * TH_BINS; i += TH_THREADS) {
+    mm[i] = 0;
+    mc[i] = 0;
   }
-  const float* row = SMEM ? xs : xr;
+  // 1. the share into shared memory; in mass mode the row's max
+  float lmax = -__uint_as_float(0x7F800000u);  // -inf
+  if constexpr (STAGED) {
+    if (vec) {
+      for (int i = tid * 4; i < len0; i += TH_THREADS * 4) {
+        const float4 q = *reinterpret_cast<const float4*>(xs + i);
+        *reinterpret_cast<float4*>(xa + i) = q;
+        if (MASS) lmax = fmaxf(fmaxf(lmax, q.x), fmaxf(fmaxf(q.y, q.z), q.w));
+      }
+    } else {
+      for (int i = tid; i < len0; i += TH_THREADS) {
+        xa[i] = xs[i];
+        if (MASS) lmax = fmaxf(lmax, xa[i]);
+      }
+    }
+  } else if (MASS) {
+    for (int i = tid; i < len0; i += TH_THREADS) lmax = fmaxf(lmax, xs[i]);
+  }
   float m = 0.f;
-  if (mass_mode) {
-    __syncthreads();  // the staged row
-    float v = -__uint_as_float(0x7F800000u);  // -inf
-    for (int i = tid; i < V; i += TH_THREADS) v = fmaxf(v, row[i]);
-    v = warp_max(v);
-    if (lane == 0) max_s[warp] = v;
+  if constexpr (MASS) {
+    lmax = warp_max(lmax);
+    if (lane == 0) max_s[warp] = lmax;
     __syncthreads();
-    m = max_s[0];
+    if (tid == 0) {
+      float b = max_s[0];
 #pragma unroll
-    for (int w = 1; w < TH_WARPS; ++w) m = fmaxf(m, max_s[w]);
+      for (int w = 1; w < TH_WARPS; ++w) b = fmaxf(b, max_s[w]);
+      cmax_s = b;
+    }
+  }
+  cluster_sync<true>();  // every block's max posted, merged bins zeroed
+  if constexpr (MASS) {
+    if (warp == 0) {
+      float b = -__uint_as_float(0x7F800000u);
+      if (lane < C)
+        b = __uint_as_float(dsmem_ld_u32(cluster_addr(&cmax_s, lane)));
+      b = warp_max(b);
+      if (lane == 0) m_s = b;
+    }
+    __syncthreads();
+    m = m_s;
   }
 
-  uint32_t prefix = 0;         // the key digits chosen so far
-  unsigned long long above = 0;  // the weight of the values above them
-  double target = 0.0;         // warp 0's, from the first pass
+  const float* lx = xa;  // the values (and weights) the pass walks
+  const float* lw = wa;
+  float* ox = xb;        // where the values that stay go
+  float* ow = wb;
+  int len = len0;
+  uint32_t prefix = 0;             // the key digits chosen so far
+  unsigned long long above = 0;    // the weight of the values above them
+  double target = 0.0;             // warp 0's, from the first pass
+  bool found = true, written = false;
   for (int pass = 0; pass < 4; ++pass) {
     const int shift = 24 - 8 * pass;
     const uint32_t high = pass == 0 ? 0u : 0xFFFFFFFFu << (shift + 8);
-    for (int i = tid; i < TH_WARPS * TH_BINS; i += TH_THREADS) {
-      hm[i] = 0;
-      hc[i] = 0;
+    unsigned long long* mm_p = mm + (pass & 1) * TH_BINS;
+    unsigned int* mc_p = mc + (pass & 1) * TH_BINS;
+    unsigned int* my_c = hcw + warp * TH_BINS;  // this warp's histogram
+    unsigned long long* my_m = hmw + warp * TH_BINS;
+    for (int i = lane; i < TH_BINS; i += 32) {
+      my_c[i] = 0;
+      if (MASS) my_m[i] = 0;
     }
-    __syncthreads();
-    unsigned long long* my_m = hm + warp * TH_BINS;
-    unsigned int* my_c = hc + warp * TH_BINS;
-    for (int i = tid; i < V; i += TH_THREADS) {
-      const float v = row[i];
+    __syncwarp();
+    // 2. the histogram of the values matching the prefix (every value of
+    // a staged list does); all lanes of a warp take each step
+    for (int base = warp * 32; base < len; base += TH_THREADS) {
+      const int i = base + lane;
+      bool live = i < len;
+      float v = 0.f, w = 0.f;
+      if (live) {
+        if constexpr (STAGED) {
+          v = lx[i];
+          if (MASS) {
+            if (pass == 0) {
+              w = expf((v - m) * inv_temp);
+              wa[i] = w;
+            } else {
+              w = lw[i];
+            }
+          }
+        } else {
+          v = xs[i];
+          live = (order_key(v) & high) == prefix;
+          if (MASS && live) w = expf((v - m) * inv_temp);
+        }
+      }
       const uint32_t u = order_key(v);
-      if ((u & high) == prefix) {
-        const int bin = (u >> shift) & (TH_BINS - 1);
-        atomicAdd(&my_c[bin], 1u);
-        if (mass_mode)
-          atomicAdd(&my_m[bin], __double2ull_rn(
-                                    static_cast<double>(expf((v - m) * inv_temp)) *
-                                    TH_FIX));
+      const int bin = live ? static_cast<int>((u >> shift) & (TH_BINS - 1))
+                           : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      const int rank = __popc(peers & ((1u << lane) - 1));  // in the group
+      if (live && rank == 0) my_c[bin] += static_cast<unsigned>(__popc(peers));
+      if (MASS) {
+        // the lanes of rank r add their masses in round r: one lane a bin
+        // a round, so plain adds; as many rounds as the largest group
+        const unsigned long long fm = live ? fixed_mass(w) : 0ull;
+        int rounds = live ? __popc(peers) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          rounds = max(rounds, __shfl_xor_sync(0xffffffffu, rounds, o));
+        for (int r = 0; r < rounds; ++r) {
+          if (live && rank == r) my_m[bin] += fm;
+          __syncwarp();
+        }
       }
+      __syncwarp();
     }
     __syncthreads();
+    // 3. this block's non-empty bins (its warps' histograms folded) into
+    // every block's merged histogram (block rank + j first, so the blocks
+    // spread their adds); the other merged histogram zeroed for the next
+    // pass
+    for (int i = tid; i < TH_BINS; i += TH_THREADS) {
+      mm[((pass + 1) & 1) * TH_BINS + i] = 0;
+      mc[((pass + 1) & 1) * TH_BINS + i] = 0;
+    }
     for (int bin = tid; bin < TH_BINS; bin += TH_THREADS) {
-      unsigned long long s = 0;
       unsigned int c = 0;
+      unsigned long long s = 0;
+#pragma unroll
       for (int w = 0; w < TH_WARPS; ++w) {
-        s += hm[w * TH_BINS + bin];
-        c += hc[w * TH_BINS + bin];
+        c += hcw[w * TH_BINS + bin];
+        if (MASS) s += hmw[w * TH_BINS + bin];
       }
-      hm[bin] = s;
-      hc[bin] = c;
+      if (c == 0) continue;
+      for (int j = 0; j < C; ++j) {
+        const uint32_t r = (rank + j) % C;
+        dsmem_add_u32(cluster_addr(&mc_p[bin], r), c);
+        if (MASS) dsmem_add_u64(cluster_addr(&mm_p[bin], r), s);
+      }
     }
-    __syncthreads();
+    cluster_sync<true>();  // every block's adds in
     if (warp == 0) {
       // lane l owns bins 255 - 8l - j, j = 0..7 (lane 0 the top ones)
       unsigned int cnt[8];
@@ -225,8 +382,8 @@ threshold_kernel(const float* __restrict__ x, float* __restrict__ thr, int V,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int bin = TH_BINS - 1 - 8 * lane - j;
-        cnt[j] = hc[bin];
-        wt[j] = mass_mode ? hm[bin] : cnt[j];
+        cnt[j] = mc_p[bin];
+        wt[j] = MASS ? mm_p[bin] : cnt[j];
         seg += wt[j];
       }
       unsigned long long incl = seg;
@@ -237,40 +394,147 @@ threshold_kernel(const float* __restrict__ x, float* __restrict__ thr, int V,
       }
       if (pass == 0) {
         const unsigned long long total = __shfl_sync(0xffffffffu, incl, 31);
-        target = mass_mode ? static_cast<double>(pp) * static_cast<double>(total)
-                           : static_cast<double>(kk);
+        target = MASS ? static_cast<double>(pp) * static_cast<double>(total)
+                      : static_cast<double>(kk);
       }
       // the lowest non-empty bin whose weight above stays below the target
       unsigned long long run = above + incl - seg, cand_above = 0;
       int cand = -1;
+      unsigned int cand_cnt = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (cnt[j] > 0 && static_cast<double>(run) < target) {
           cand = TH_BINS - 1 - 8 * lane - j;
           cand_above = run;
+          cand_cnt = cnt[j];
         }
         run += wt[j];
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, cand >= 0);
+      // every thread read the last pass's list length before this
+      // pass's barriers: the count restarts for this pass's list
+      if (lane == 0) len_s = 0;
       if (ballot == 0) {
         if (lane == 0) found_s = 0;
       } else if (lane == 31 - __clz(static_cast<int>(ballot))) {
         prefix_s = prefix | (static_cast<uint32_t>(cand) << shift);
         above_s = cand_above;
         found_s = 1;
+        single_s = cand_cnt == 1;
       }
     }
     __syncthreads();
     if (!found_s) {
-      // no value qualifies (a target <= 0): NaN keeps nothing, as the
-      // TPU kernel's bisection then returns the key 0x7fffffff
-      if (tid == 0) thr[blockIdx.x] = __uint_as_float(0x7FFFFFFFu);
-      return;
+      found = false;  // every block of the cluster alike
+      break;
     }
     prefix = prefix_s;
     above = above_s;
+    if constexpr (STAGED) {
+      if (pass < 3) {
+        // 4. the values that keep matching, into the list
+        const uint32_t keep_high = 0xFFFFFFFFu << shift;
+        for (int base = warp * 32; base < len; base += TH_THREADS) {
+          const int i = base + lane;
+          const bool keep =
+              i < len && (order_key(lx[i]) & keep_high) == prefix;
+          const unsigned bal = __ballot_sync(0xffffffffu, keep);
+          int at = 0;
+          if (lane == 0 && bal) at = atomicAdd(&len_s, __popc(bal));
+          at = __shfl_sync(0xffffffffu, at, 0);
+          if (keep) {
+            const int j = at + __popc(bal & ((1u << lane) - 1));
+            ox[j] = lx[i];
+            if (MASS) ow[j] = lw[i];
+          }
+        }
+        __syncthreads();
+        len = len_s;
+        const float* tx = lx;
+        const float* tw = lw;
+        lx = ox;
+        lw = ow;
+        ox = const_cast<float*>(tx);
+        ow = const_cast<float*>(tw);
+        if (single_s) {
+          // the chosen bin holds one value of the row: the later passes
+          // would only spell out its key, so the block that holds it
+          // writes it (the value is its key's float, bit for bit)
+          if (tid == 0 && len == 1) thr[row] = lx[0];
+          written = true;  // in every block of the cluster alike
+          break;
+        }
+      }
+    }
   }
-  if (tid == 0) thr[blockIdx.x] = from_order_key(prefix);
+  if (rank == 0 && tid == 0 && !written)
+    // no value qualifies (a target <= 0): NaN keeps nothing, as the TPU
+    // kernel's bisection then returns the key 0x7fffffff
+    thr[row] = found ? from_order_key(prefix) : __uint_as_float(0x7FFFFFFFu);
+  cluster_sync<false>();  // no block leaves while others read or add
+}
+
+// The cluster's shape for B rows of V values: C blocks a row, n values a
+// block (a multiple of 4), whether the share is staged, and the dynamic
+// shared bytes a block (ops/sampling.py threshold_plan mirrors it)
+struct ThPlan {
+  int C, n, staged, smem;
+};
+
+ThPlan threshold_plan(int B, int V, bool mass) {
+  ThPlan p;
+  p.C = TH_CLUSTER_MAX;
+  while (p.C > 1 && (static_cast<int64_t>(p.C) * TH_BLOCK_MIN > V ||
+                     static_cast<int64_t>(B) * p.C > TH_SMS))
+    p.C >>= 1;
+  p.n = ((V + p.C - 1) / p.C + 3) / 4 * 4;
+  const int64_t stage = static_cast<int64_t>(p.n) * (mass ? 16 : 8);
+  p.staged = stage <= TH_STAGE_MAX;
+  p.smem = th_head_bytes(mass) + (p.staged ? static_cast<int>(stage) : 0);
+  return p;
+}
+
+template <bool MASS, bool STAGED>
+cudaError_t launch_threshold(const float* x, float* thr, int B, int V,
+                             const ThPlan& p, int kk, float pp,
+                             float inv_temp, cudaStream_t stream) {
+  auto kernel = threshold_cluster_kernel<MASS, STAGED>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * p.C);
+  cfg.blockDim = dim3(TH_THREADS);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = static_cast<unsigned>(p.C);
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  // each configuration's limits raised and its fit asked once
+  static std::map<std::tuple<int, int>, int> fit;  // (C, smem) -> clusters
+  static int smem_limit = 48 * 1024;
+  const auto key = std::make_tuple(p.C, p.smem);
+  auto it = fit.find(key);
+  if (it == fit.end()) {
+    cudaError_t e = cudaSuccess;
+    if (p.smem > smem_limit) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+      if (e == cudaSuccess) smem_limit = p.smem;
+    }
+    if (e == cudaSuccess && p.C > TH_CLUSTER_PORTABLE)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int n = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    it = fit.emplace(key, n).first;
+  }
+  if (it->second == 0) return cudaErrorInvalidConfiguration;
+  const bool vec = V % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return cudaLaunchKernelEx(&cfg, kernel, x, thr, V, p.C, p.n, vec, kk, pp,
+                            inv_temp);
 }
 
 }  // namespace
@@ -311,27 +575,30 @@ cudaError_t sample_threshold_launch(const float* x, float* thr, int B, int V,
                                     int mode, int kk, float pp,
                                     float inv_temp, cudaStream_t stream) {
   if (B < 0 || V <= 0 || V > (1 << 20) || (mode != 0 && mode != 1) ||
-      (mode == 0 && kk < 1) || !(inv_temp > 0.f))
+      (mode == 0 && kk < 1) || !(inv_temp > 0.f) || B > 65535)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const size_t hist = static_cast<size_t>(TH_WARPS) * TH_BINS *
-                      (sizeof(unsigned long long) + sizeof(unsigned int));
-  if (V <= TH_SMEM_MAX) {
-    const size_t bytes = hist + static_cast<size_t>(V) * sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        threshold_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    threshold_kernel<true><<<B, TH_THREADS, bytes, stream>>>(
-        x, thr, V, mode, kk, pp, inv_temp);
-  } else {
-    const cudaError_t e = cudaFuncSetAttribute(
-        threshold_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(hist));
-    if (e != cudaSuccess) return e;
-    threshold_kernel<false><<<B, TH_THREADS, hist, stream>>>(
-        x, thr, V, mode, kk, pp, inv_temp);
-  }
+  const ThPlan p = threshold_plan(B, V, mode == 1);
+  if (mode == 1)
+    return p.staged ? launch_threshold<true, true>(x, thr, B, V, p, kk, pp,
+                                                    inv_temp, stream)
+                    : launch_threshold<true, false>(x, thr, B, V, p, kk, pp,
+                                                     inv_temp, stream);
+  return p.staged ? launch_threshold<false, true>(x, thr, B, V, p, kk, pp,
+                                                   inv_temp, stream)
+                  : launch_threshold<false, false>(x, thr, B, V, p, kk, pp,
+                                                    inv_temp, stream);
+}
+
+// #27's plan for B rows of V values (out: C, n, staged, shared bytes)
+cudaError_t sample_threshold_plan(int B, int V, int mode, int* out) {
+  if (!out || B <= 0 || V <= 0 || (mode != 0 && mode != 1))
+    return cudaErrorInvalidValue;
+  const ThPlan p = threshold_plan(B, V, mode == 1);
+  out[0] = p.C;
+  out[1] = p.n;
+  out[2] = p.staged;
+  out[3] = p.smem;
   return cudaSuccess;
 }
 

@@ -345,34 +345,6 @@ softmax_norm_kernel(const T* __restrict__ x, const float* __restrict__ pm,
 }
 
 // ------------------------------------------------ the cluster kernel
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// the cluster barrier: arrive (.release, or .relaxed: no memory order),
-// then wait (.acquire)
-template <bool RELEASE>
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (RELEASE)
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  else
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// p (this block's shared memory) as the address of the same bytes in the
-// cluster's block `rank`
-__device__ __forceinline__ uint32_t cluster_addr(const void* p,
-                                                 uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
 // (m, d) into another block's shared memory at dst, its 8 bytes counted on
 // that block's mbarrier bar (both cluster addresses)
 __device__ __forceinline__ void st_async_md(uint32_t dst, float m, float d,

@@ -43,8 +43,9 @@ QUANT_TIERS = {"int8 q_int8": ("int8", True, False, 8),
 QUANT_CHUNKS = (None, 64, 256, 1024)  # None: the module's rule
 
 
-def _device_ms(fn, n=20):
-    """Device ms per call: the sum of the profiled kernels' durations."""
+def device_events(fn, n=20):
+    """The profiler's events of n calls of fn: (start_us, end_us, name) of
+    every device op, sorted, and the host's top-level aten ops (names)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -54,8 +55,17 @@ def _device_ms(fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA)
+    host = [e.name for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::") and e.cpu_parent is None]
+    return dev, host
+
+
+def _device_ms(fn, n=20):
+    """Device ms per call: the sum of the profiled kernels' durations."""
+    us = sum(e - s for s, e, _ in device_events(fn, n)[0])
     return us / n / 1e3 if us else None
 
 

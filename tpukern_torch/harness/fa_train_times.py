@@ -4,6 +4,7 @@ and with --featured the two-kernel backward #9/#10).
     python -m tpukern_torch.harness.fa_train_times [label]
     python -m tpukern_torch.harness.fa_train_times [label] --featured
     python -m tpukern_torch.harness.fa_train_times [label] --digests
+    python -m tpukern_torch.harness.fa_train_times [label] --featured-bf16
 
 At the 7bish training heads (B 2, Hq 16, Hkv 8, S 1024, D 128, causal)
 prints the card's name and power limit, then one line per call: the
@@ -44,6 +45,14 @@ feature set, with a second call's bits.
 
 --digests: sha256 of the fused backward #8's dk and dv (f32 and bf16) at
 DIGEST_SHAPES on seeded inputs, to hold two trees' bits equal.
+
+--featured-bf16: #9 and #10 in bf16 (their CUDA-core FMA kernels, GQA
+inside) at the --featured heads and masks, the plain versions and the
+library call (the autograd backward of SDPA in bf16 with a boolean band
+mask and enable_gqa: dq, dk, dv; the softcap has no SDPA form, so the
+same call stands beside both mask sets); bounds: the same products at
+the tensor cores' bf16 rate; then each kernel's largest error against
+the f64 backward beside its plain version's.
 
 To compare two versions on one card, run it in one command from each
 tree's own root (`python -m` puts the working directory first on the
@@ -422,6 +431,61 @@ def featured(label, gen):
           f"ratio x{worst:.3f}")
 
 
+def featured_bf16(label, gen):
+    """The --featured-bf16 lines: #9 and #10 in bf16 at the training
+    heads, the plain versions, SDPA's bf16 band-mask backward; the f64
+    errors."""
+    from tpukern_torch.ops import attention
+    from tpukern_torch.ops import attention_bwd as ab
+
+    bf = torch.bfloat16
+    product = 2 * D * B * HQ * band_pairs(S, WINDOW)
+    q, do = (torch.randn((B, HQ, S, D), generator=gen, device="cuda").to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((B, HKV, S, D), generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    band = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    band &= ~torch.ones(S, S, dtype=torch.bool, device="cuda").tril(-WINDOW)
+    for tag, kw in ((f"window {WINDOW} softcap {SOFTCAP:g}",
+                     dict(window=WINDOW, softcap=SOFTCAP)),
+                    (f"window {WINDOW}", dict(window=WINDOW))):
+        o, lse = attention.flash_attention(q, k, v, causal=True,
+                                           return_stats=True, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, di)
+        _line(label, f"#9 bf16 {tag} (K, V at {HKV} heads)",
+              lambda: ab.flash_attention_dq(*args, causal=True, **kw),
+              3 * product, bf16=True)
+        _line(label, f"#10 bf16 {tag} (K, V at {HKV} heads)",
+              lambda: ab.flash_attention_dkv(*args, causal=True, **kw),
+              4 * product, bf16=True)
+        _line(label, f"#9 bf16 plain {tag} (flash_attention_dq_ref)",
+              lambda: ab.flash_attention_dq_ref(*args, causal=True, **kw),
+              3 * product, bf16=True)
+        _line(label, f"#10 bf16 plain {tag} (flash_attention_dkv_ref)",
+              lambda: ab.flash_attention_dkv_ref(*args, causal=True, **kw),
+              4 * product, bf16=True)
+        exact = featured_f64(*args, **kw)
+        got = (ab.flash_attention_dq(*args, causal=True, **kw),
+               *ab.flash_attention_dkv(*args, causal=True, **kw))
+        plain = (ab.flash_attention_dq_ref(*args, causal=True, **kw),
+                 *ab.flash_attention_dkv_ref(*args, causal=True, **kw))
+        for nm, g_, p_, e_ in zip(("dq", "dk", "dv"), got, plain, exact):
+            print(f"[{label}] bf16 featured {tag} {nm}: kernel "
+                  f"{_err(g_, e_):.3e} plain bf16 {_err(p_, e_):.3e} vs "
+                  f"f64")
+        del o, lse, di, args, exact, got, plain
+        torch.cuda.empty_cache()
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=band,
+                                        enable_gqa=True)
+    _line(label, f"#9 + #10 bf16 library (autograd backward of SDPA, band "
+          f"mask of {WINDOW}, enable_gqa; dq, dk, dv)",
+          lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                      retain_graph=True), 7 * product,
+          bf16=True)
+
+
 def digests(label, gen):
     """The --digests lines: #8's dk and dv bits at DIGEST_SHAPES."""
     from tpukern_torch.ops import attention, attention_bwd
@@ -452,8 +516,10 @@ def main(label="this tree", mode=None):
 
     print(f"[{label}] {_card()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if mode in ("--featured", "--digests"):
-        (featured if mode == "--featured" else digests)(label, gen)
+    modes = {"--featured": featured, "--digests": digests,
+             "--featured-bf16": featured_bf16}
+    if mode in modes:
+        modes[mode](label, gen)
         return
     pairs = S * (S + 1) // 2
     fwd_flops = 4 * D * B * HQ * pairs

@@ -16,8 +16,9 @@ them to XLA.
 
 The quantized tier: init_cache(dtype=torch.int8 or torch.float8_e4m3fn)
 builds 1-byte pools with per-token f32 scale pools; every new K/V token
-is row-quantized as it is written (quantize_int8 / quantize_fp8, #20 /
-#22 on the card: JAX's quantize_ref / quantize_fp8_ref), and decode_step
+is row-quantized as it is written (ops/quant.py write_kv_quantized: #20
+/ #22 on the card, one launch a layer for K and V: JAX's quantize_ref /
+quantize_fp8_ref and scatter), and decode_step
 and verify_step attend with the quantized paged kernels: on int8 pools
 always with the int8 score dot (q_int8), and with Config.pv_int8 also
 the int8 P V dot. Prefill attends over the unquantized K/V, so the first
@@ -60,7 +61,11 @@ from tpukern_torch.ops.matmul_w8a16 import matmul_w8a16, quantize_weights
 from tpukern_torch.ops.paged_attention import (
     QUANT_DTYPES, paged_attention, paged_attention_quantized,
     paged_prefill_attention, paged_prefill_attention_quantized)
-from tpukern_torch.ops.quant import quantize_fp8, quantize_int8
+from tpukern_torch.ops.quant import scatter_slots as _scatter
+from tpukern_torch.ops.quant import write_kv_quantized
+# the plain quantized write under the name of JAX's function
+from tpukern_torch.ops.quant import (  # noqa: F401
+    write_tokens_quantized_ref as _write_tokens_quantized)
 from tpukern_torch.ops.rmsnorm import rms_norm
 from tpukern_torch.ops.rope import make_cos_sin, rope_cached
 from tpukern_torch.ops.sampling import sample
@@ -199,16 +204,6 @@ def _slots(table, start, T, page_size, ring=False, sinks=0):
     return phys, pos % page_size, src
 
 
-def _scatter(pool, layer, new, slots):
-    """pool[layer][h, phys, row] = new[b, h, src] for the (B, T) slots of
-    _slots; new is (B, Hkv, T, ...)."""
-    phys, row, src = slots
-    if src is not None:
-        b = torch.arange(new.shape[0], device=new.device)[:, None]
-        new = new[b, :, src].movedim(1, 2)
-    pool[layer][:, phys, row] = new.movedim(1, 0).to(pool.dtype)
-
-
 def _write_tokens(pages, layer, new, table, start, ring=False, sinks=0):
     """Write new (B, Hkv, T, D) tokens into pages[layer] in place, at
     positions start[b] .. start[b]+T-1 of each sequence (_slots)."""
@@ -216,25 +211,12 @@ def _write_tokens(pages, layer, new, table, start, ring=False, sinks=0):
                                        pages.shape[3], ring, sinks))
 
 
-def _write_tokens_quantized(pages, scales, layer, new, slots):
-    """Row-quantize new (B, Hkv, T, D) tokens to the pool's 1-byte dtype
-    (quantize_int8 or quantize_fp8 over all B * Hkv * T rows, before the
-    scatter) and write the values and per-token scales into pages[layer]
-    and scales[layer] in place, at the step's _slots."""
-    B, Hkv, T, D = new.shape
-    qfn = quantize_int8 if pages.dtype == torch.int8 else quantize_fp8
-    vals, s = qfn(new.reshape(B * Hkv * T, D))
-    _scatter(pages, layer, vals.reshape(B, Hkv, T, D), slots)
-    _scatter(scales, layer, s.reshape(B, Hkv, T), slots)
-
-
 def _write_kv(cache: KVCache, layer, k, v, slots):
     """Write one layer's new K/V tokens through the cache's tier, at the
-    step's _slots."""
+    step's _slots: on the quantized tier one write_kv_quantized for both."""
     if cache.quantized:
-        for pages, scales, new in ((cache.k_pages, cache.k_scales, k),
-                                   (cache.v_pages, cache.v_scales, v)):
-            _write_tokens_quantized(pages, scales, layer, new, slots)
+        write_kv_quantized(k, v, cache.k_pages, cache.k_scales,
+                           cache.v_pages, cache.v_scales, layer, slots)
     else:
         _scatter(cache.k_pages, layer, k, slots)
         _scatter(cache.v_pages, layer, v, slots)

@@ -18,6 +18,13 @@ are not ported.
   `seed`. JAX draws u from the TPU's own PRNG, so only the distribution
   is shared.
 
+write_kv_quantized is #20 / #22 as the serving path runs them
+(csrc/quant.cu `write_kv_quant_kernel`): a layer's new K and V tokens
+quantized per token and stored into the paged pools at the step's slots,
+one launch for both; its plain twin write_kv_quantized_ref quantizes with
+quantize_ref / quantize_fp8_ref and scatters (scatter_slots), as JAX's
+_write_tokens_quantized does, and the two store the same bytes.
+
 A CPU tensor takes the plain version and a CUDA tensor launches the
 kernel; `launches` on each wrapper counts its launches.
 """
@@ -147,6 +154,95 @@ def dequantize_int8(values, scales, out_dtype=torch.float32):
 
 
 dequantize_int8.launches = 0
+
+
+# ------------------------------------------------ the serving path's write
+
+def scatter_slots(pool, layer, new, slots):
+    """pool[layer][h, phys, row] = new[b, h, src] for the (B, T) slots of
+    models/serving.py _slots (phys, row, src; src None for token t); new
+    is (B, Hkv, T, ...)."""
+    phys, row, src = slots
+    if src is not None:
+        b = torch.arange(new.shape[0], device=new.device)[:, None]
+        new = new[b, :, src].movedim(1, 2)
+    pool[layer][:, phys, row] = new.movedim(1, 0).to(pool.dtype)
+
+
+def write_tokens_quantized_ref(pages, scales, layer, new, slots):
+    """Row-quantize new (B, Hkv, T, D) tokens to the pool's 1-byte dtype
+    (quantize_ref or quantize_fp8_ref over all B * Hkv * T rows, before the
+    scatter) and write the values and per-token scales into pages[layer]
+    and scales[layer] in place, at the step's slots (JAX's
+    _write_tokens_quantized)."""
+    B, Hkv, T, D = new.shape
+    qfn = quantize_ref if pages.dtype == torch.int8 else quantize_fp8_ref
+    vals, s = qfn(new.reshape(B * Hkv * T, D))
+    scatter_slots(pages, layer, vals.reshape(B, Hkv, T, D), slots)
+    scatter_slots(scales, layer, s.reshape(B, Hkv, T), slots)
+
+
+def write_kv_quantized_ref(k, v, k_pages, k_scales, v_pages, v_scales,
+                           layer, slots):
+    """write_kv_quantized's plain twin: write_tokens_quantized_ref for K,
+    then for V."""
+    write_tokens_quantized_ref(k_pages, k_scales, layer, k, slots)
+    write_tokens_quantized_ref(v_pages, v_scales, layer, v, slots)
+
+
+def write_kv_quantized(k, v, k_pages, k_scales, v_pages, v_scales, layer,
+                       slots):
+    """Quantize one layer's new K and V tokens k, v (B, Hkv, T, D), f32 or
+    bf16, any strides) per token and write values and scales into the
+    1-byte pools (L, Hkv, P, page, D) (int8 or float8_e4m3fn) and their f32
+    scale pools (L, Hkv, P, page) at `layer`, in place, at the step's
+    slots (phys, row, src) of models/serving.py _slots. On the card one
+    launch of csrc/quant.cu write_kv_quant_kernel; on the CPU the plain
+    twin."""
+    if k.shape != v.shape or k.dim() != 4 or k.dtype != v.dtype:
+        raise ValueError(f"k {tuple(k.shape)} {k.dtype} and v "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in (
+            torch.int8, torch.float8_e4m3fn):
+        raise TypeError(f"pools of {k_pages.dtype} and {v_pages.dtype}")
+    if k_pages.device.type == "cpu":
+        write_kv_quantized_ref(k, v, k_pages, k_scales, v_pages, v_scales,
+                               layer, slots)
+        return
+    phys, row, src = slots
+    B, H, T, D = k.shape
+    L, Hp, P, page, Dp = k_pages.shape
+    if ((Hp, Dp) != (H, D) or v_pages.shape != k_pages.shape
+            or k_scales.shape != k_pages.shape[:4]
+            or v_scales.shape != k_scales.shape or not 0 <= layer < L):
+        raise ValueError(f"pools {tuple(k_pages.shape)} for tokens "
+                         f"{tuple(k.shape)} at layer {layer}")
+    _build.check_cuda(k, v, k_pages, k_scales, v_pages, v_scales, phys)
+    if k.stride(3) != 1:
+        k = k.contiguous()
+    if v.stride(3) != 1:
+        v = v.contiguous()
+    for t in (phys, row) + (() if src is None else (src,)):
+        if t.dtype != torch.int64 or t.shape != (B, T) or not t.is_contiguous():
+            raise ValueError(f"slots of {t.dtype} {tuple(t.shape)}: "
+                             f"_slots gives contiguous int64 ({B}, {T})")
+    for t in (k_pages, k_scales, v_pages, v_scales):
+        if not t.is_contiguous():
+            raise ValueError("the pools must be contiguous")
+    sk, ss = k_pages.stride(0), k_scales.stride(0) * 4
+    _build.launch("tk_write_kv_quantized", k.data_ptr(), v.data_ptr(),
+                  *k.stride()[:3], *v.stride()[:3], phys.data_ptr(),
+                  row.data_ptr(), _build.ptr(src),
+                  k_pages.data_ptr() + layer * sk,
+                  k_scales.data_ptr() + layer * ss,
+                  v_pages.data_ptr() + layer * sk,
+                  v_scales.data_ptr() + layer * ss, B, H, T, D, P, page,
+                  _FP8 if k_pages.dtype == torch.float8_e4m3fn else _ROUND,
+                  _build.dtype_code(k), _build.stream(k))
+    write_kv_quantized.launches += 1
+
+
+write_kv_quantized.launches = 0
 
 
 # ---------------------------------------------------------------- registry

@@ -3,7 +3,8 @@ top-k / top-p / min-p logit thresholds.
 
 The port of tpukern/ops/sampling.py. Kernels: csrc/sampling.cu
 `sample_kernel` (#26, replaces `_sample_kernel`, sampling.py:45) and
-`threshold_kernel` (#27, replaces `_threshold_kernel`, :182). Semantics
+`threshold_cluster_kernel` (#27, replaces `_threshold_kernel`, :182: a
+cluster of up to 16 blocks a row by threshold_plan's rule). Semantics
 are JAX's:
 
 - sampling is argmax(logits * (1/T) + g), g ~ Gumbel(0, 1), over the
@@ -44,6 +45,42 @@ _I32_MIN, _I32_MAX = -2**31, 2**31 - 1
 # kernel holds 8 such rows in VMEM); longer rows take torch.topk / sort
 _BISECT_MAX_V = 1 << 20
 SAMPLE_CHUNK = 2048  # csrc/sampling.cu SA_CHUNK: columns per block of #26
+# #27's cluster rule (csrc/sampling.cu threshold_plan): 16 blocks a row,
+# halved while a block would hold fewer than TH_BLOCK_MIN values or B
+# clusters would need more than TH_SMS blocks; a block's share staged in
+# shared memory (4 bytes a value and 4 for its place in the list, and in
+# mass mode as many again for the weights) up to TH_STAGE_MAX bytes,
+# re-read every pass above; th_head_bytes of histograms ahead of it (two
+# merged ones of 256 bins, and one a warp of its 16)
+TH_CLUSTER_MAX, TH_BLOCK_MIN, TH_SMS, TH_WARPS = 16, 2048, 132, 16
+TH_STAGE_MAX = 160 * 1024
+
+
+def th_head_bytes(mode):
+    return 2 * 256 * 12 + TH_WARPS * 256 * (12 if mode == "mass" else 4)
+
+
+def threshold_plan(B, V, mode):
+    """#27's launch shape for B rows of V values in `mode` ("count" or
+    "mass"): (blocks a row, values a block, staged in shared memory,
+    shared bytes a block), as csrc/sampling.cu threshold_plan gives it."""
+    C = TH_CLUSTER_MAX
+    while C > 1 and (C * TH_BLOCK_MIN > V or B * C > TH_SMS):
+        C //= 2
+    n = (cdiv(V, C) + 3) // 4 * 4
+    stage = n * (16 if mode == "mass" else 8)
+    staged = stage <= TH_STAGE_MAX
+    return C, n, staged, th_head_bytes(mode) + (stage if staged else 0)
+
+
+def threshold_plan_launcher(B, V, mode):
+    """threshold_plan as the C launcher computes it (the built library;
+    needs the card's toolkit): the mirror's check."""
+    out = torch.zeros(4, dtype=torch.int32)
+    _build.launch("tk_sample_threshold_plan", B, V, int(mode == "mass"),
+                  out.data_ptr())
+    C, n, staged, smem = out.tolist()
+    return C, n, bool(staged), smem
 
 
 def _keys_of(x):
